@@ -1,0 +1,552 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py                 # every phase, as the gate runs it
+    python3 chip_smoke.py --phases build,kernels   # a quicker kernel check
+
+Phases, each printing JSON lines:
+
+1. ``card``: the card's name and power limit (``nvidia-smi``), torch and
+   CUDA versions.
+2. ``build``: every kernel built from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, started together), with its time.
+3. ``kernels``: each kernel held against its plain PyTorch version on the
+   card, at the full-width qwen3-1.7b shapes of the serving path, in bf16,
+   with the tolerance stated per kernel; then each timed by CUDA events
+   beside its plain version, the one PyTorch library call that computes
+   the same function (where there is one; timed for the record, never on
+   the port's path) and its bound on an H100.
+4. ``serve``: full-width qwen3-1.7b (random bf16 weights from a seed, depth
+   cut to ``--layers``) served through ``Engine.submit``/``drain``:
+   every request DONE, no demotion, every kernel launched, mixed-length
+   batch tokens == each request served alone; prefill tokens/s and decode
+   ms/step; then a ``torch.profiler`` trace of 6 decode steps at batch 4:
+   device busy ms/step, idle share, kernel ms/step by name.
+
+The last lines are the ``{"kernels": [...]}`` record, the card line, and
+``{"ok": true, "device": {...}}``.  Any failure raises, so the script
+exits non-zero and prints no ``ok`` line; it also exits non-zero when no
+CUDA device is visible or the port's sources are not beside it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+ALL_PHASES = ("card", "build", "kernels", "serve")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Timing and bounds.
+# ---------------------------------------------------------------------------
+class Timer:
+    """Median per-launch time by CUDA events, each launch preceded by a
+    write of 256 MiB so operands come from device memory, not the 50 MB
+    L2 (the serving path streams each layer's weights cold)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                                 device="cuda")
+
+    def ms(self, fn, iters: int = 15) -> float:
+        torch = self.torch
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        times = sorted(s.elapsed_time(e) for s, e in pairs)
+        return times[len(times) // 2]
+
+
+def bound(bytes_moved: float, flops: float):
+    """Least time (ms) the card could take: bytes over HBM bandwidth or
+    operations over the bf16 tensor-core peak, whichever is larger."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def check(name: str, got, want, atol: float, rtol: float, row_rtol: float,
+          shape: str):
+    """Element-wise |got - want| <= atol + rtol*|want|, and per output row
+    (the last axis) ||got - want|| <= row_rtol*||want||: a row whose
+    every element sits inside the element limit but is shifted as a
+    whole (a skipped KV block, a page read from the wrong id) fails the
+    row check.  A row whose reference is all zeros must be all zeros."""
+    diff = got.float() - want.float()
+    err = float(diff.abs().max())
+    limit = float((atol + rtol * want.float().abs()).min())
+    ok = bool((diff.abs() <= atol + rtol * want.float().abs()).all())
+    d = diff.reshape(-1, diff.shape[-1]).norm(dim=-1)
+    w = want.float().reshape(-1, diff.shape[-1]).norm(dim=-1)
+    row_err = float((d / w.clamp_min(1e-30)).max())
+    row_ok = bool((d <= row_rtol * w).all())
+    emit({"check": name, "shape": shape, "max_abs_err": err,
+          "max_row_rel_err": row_err, "atol": atol, "rtol": rtol,
+          "row_rtol": row_rtol, "ok": ok and row_ok})
+    if not ok:
+        raise AssertionError(f"{name} {shape}: max |err| {err} exceeds "
+                             f"atol {atol} + rtol {rtol}*|ref| "
+                             f"(tightest {limit})")
+    if not row_ok:
+        raise AssertionError(f"{name} {shape}: a row's error norm is "
+                             f"{row_err} of its reference's, over "
+                             f"{row_rtol}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions.
+# ---------------------------------------------------------------------------
+def kernel_phase(torch, cfg, timer: Timer):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention_df, matmul_df, ref
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+
+    records = {}
+    d, dff = cfg.d_model, cfg.d_ff
+
+    # B1: f32 output of bf16 operands accumulated in f32 by both sides;
+    # only the order of the k sums differs.
+    b1_tol = dict(atol=1e-3, rtol=1e-3, row_rtol=1e-4)
+    errs = []
+    head = None
+    for m in (1, 4, 137, 512):
+        for k, n, act in ((d, dff, "silu"), (dff, d, None)):
+            a = randn(m, k)
+            w = randn(k, n, std=(2.0 / (k + n)) ** 0.5)
+            res = torch.randn((m, n), generator=gen, device=dev)
+            for residual in (None, res):
+                got = matmul_df.matmul_os(a, w, activation=act,
+                                          residual=residual)
+                want = ref.matmul_fused_ref(a, w, activation=act,
+                                            residual=residual)
+                shape = (f"M={m} K={k} N={n} act={act} "
+                         f"residual={residual is not None}")
+                errs.append(check("matmul_os", got, want, shape=shape,
+                                  **b1_tol))
+            if m == 512 and act is None:
+                head = (a, w, shape.replace(" residual=True", ""))
+    # Odd widths take the kernel's element-wise loads, float32 inputs its
+    # other instantiation; every epilogue stage at once.
+    for dt, (m, k, n) in ((bf16, (37, 100, 50)), (torch.float32, (37, 100, 50)),
+                          (torch.float32, (64, 256, 128))):
+        a = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dt)
+        epi = dict(scale=torch.rand((1, n), generator=gen, device=dev) + 0.5,
+                   bias=torch.randn((1, n), generator=gen, device=dev),
+                   residual=torch.randn((m, n), generator=gen, device=dev),
+                   activation="gelu")
+        errs.append(check("matmul_os", matmul_df.matmul_os(a, w, **epi),
+                          ref.matmul_fused_ref(a, w, **epi), **b1_tol,
+                          shape=f"{dt} M={m} K={k} N={n} scale+bias+gelu+res"))
+    # The decode shapes (M = batch 4), where the weight stream bounds B1.
+    for k, n, act in ((d, dff, "silu"), (dff, d, None)):
+        a = randn(4, k)
+        w = randn(k, n, std=(2.0 / (k + n)) ** 0.5)
+        bnd = bound((4 * k + k * n) * 2 + 4 * n * 4, 2.0 * 4 * k * n)
+        emit({"kernel_timing_detail": "matmul_os",
+              "shape": f"decode M=4 K={k} N={n} act={act}",
+              "ms": timer.ms(lambda: matmul_df.matmul_os(a, w,
+                                                         activation=act)),
+              "library_ms": timer.ms(lambda: torch.matmul(a, w)),
+              "bound_ms": bnd[0], "bound_by": bnd[1]})
+    a, w, shape = head
+    m, k = a.shape
+    n = w.shape[1]
+    bnd = bound((m * k + k * n) * 2 + m * n * 4, 2.0 * m * k * n)
+    records["matmul_os"] = dict(
+        shape=shape, max_abs_err=max(errs),
+        ms=timer.ms(lambda: matmul_df.matmul_os(a, w)),
+        plain_ms=timer.ms(lambda: ref.matmul_fused_ref(a, w)),
+        library_ms=timer.ms(lambda: torch.matmul(a, w)),
+        library_call="torch.matmul (bf16 out)",
+        bound_ms=bnd[0], bound_by=bnd[1], tolerance=b1_tol)
+
+    # B2: bf16 outputs of f32 softmax math on both sides, which may round
+    # one bf16 ulp apart (2^-8 to 2^-7 of the value); long rows average to
+    # |x| ~ 0.05, where atol 4e-3 is still under a tenth of the value.
+    # Row norms of the error stay under 1e-2 of the reference's: a skipped
+    # KV block or page moves a row by far more.
+    att_tol = dict(atol=4e-3, rtol=8e-3, row_rtol=1e-2)
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    errs = []
+    cases = ((512, 512, None), (17, 1024, 65), (512, 1024, 600))
+    for sq, skv, kv_len in cases:
+        q, kk, vv = randn(1, hq, sq, dh), randn(1, hkv, skv, dh), \
+            randn(1, hkv, skv, dh)
+        got = attention_df.flash_attention(q, kk, vv, kv_len=kv_len)
+        want = ref.attention_ref(q, kk, vv, kv_len=kv_len)
+        errs.append(check("flash_attention", got, want, **att_tol,
+                          shape=f"Sq={sq} Skv={skv} kv_len={kv_len}"))
+    # ragged (B,) kv_len with a window: the band's other edges
+    kvb = torch.tensor([0, 5, 40, 64], device=dev, dtype=torch.int32)
+    q, kk, vv = randn(4, hq, 3, dh), randn(4, hkv, 64, dh), \
+        randn(4, hkv, 64, dh)
+    got = attention_df.flash_attention(q, kk, vv, kv_len=kvb, window=24)
+    want = ref.attention_ref(q, kk, vv, kv_len=kvb, window=24)
+    errs.append(check("flash_attention", got, want, **att_tol,
+                      shape="B=4 Sq=3 Skv=64 kv_len=[0,5,40,64] window=24"))
+    # float32 instantiation at D=64 (f32 math on both sides)
+    f32_tol = dict(atol=1e-4, rtol=1e-4, row_rtol=1e-4)
+    q, kk, vv = (torch.randn(s, generator=gen, device=dev) for s in (
+        (2, 4, 40, 64), (2, 2, 40, 64), (2, 2, 40, 64)))
+    check("flash_attention", attention_df.flash_attention(
+        q, kk, vv, window=9), ref.attention_ref(q, kk, vv, window=9),
+        shape="float32 B=2 Sq=Skv=40 D=64 window=9", **f32_tol)
+    sq = 512
+    q, kk, vv = randn(1, hq, sq, dh), randn(1, hkv, sq, dh), \
+        randn(1, hkv, sq, dh)
+    pairs = sq * (sq + 1) // 2
+    bnd = bound((hq + 2 * hkv) * sq * dh * 2 + hq * sq * dh * 2,
+                4.0 * dh * pairs * hq)
+    records["flash_attention"] = dict(
+        shape=f"prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} D={dh} causal",
+        max_abs_err=max(errs),
+        ms=timer.ms(lambda: attention_df.flash_attention(q, kk, vv)),
+        plain_ms=timer.ms(lambda: ref.attention_ref(q, kk, vv)),
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+            q, kk, vv, is_causal=True, enable_gqa=True)),
+        library_call="F.scaled_dot_product_attention(is_causal, enable_gqa)",
+        bound_ms=bnd[0], bound_by=bnd[1], tolerance=att_tol)
+
+    # B3: 4 rows, ragged lengths including 0, shuffled page ids.
+    page, max_pages = 16, 64
+    rows = 4
+    n_pages = rows * max_pages
+    kp = randn(hkv, n_pages + 1, page, dh)
+    vp = randn(hkv, n_pages + 1, page, dh)
+    perm = torch.randperm(n_pages, generator=gen, device=dev)
+    tables = perm.reshape(rows, max_pages).to(torch.int32).contiguous()
+    lens = torch.tensor([0, 17, 200, 527], device=dev, dtype=torch.int32)
+    q = randn(rows, hq, 1, dh)
+    errs = []
+    for window in (None, 100):
+        got = attention_df.paged_flash_attention(q, kp, vp, tables, lens,
+                                                 window=window)
+        want = ref.paged_attention_ref(q, kp, vp, tables, lens,
+                                       window=window)
+        errs.append(check("paged_attention", got, want, **att_tol,
+                          shape=f"R={rows} page={page} kv_lens=[0,17,200,"
+                                f"527] shuffled window={window}"))
+    kp32, vp32, q32 = (t[..., :64].float().contiguous() for t in (kp, vp, q))
+    check("paged_attention",
+          attention_df.paged_flash_attention(q32, kp32, vp32, tables, lens),
+          ref.paged_attention_ref(q32, kp32, vp32, tables, lens),
+          shape="float32 D=64 kv_lens=[0,17,200,527]", **f32_tol)
+    keys = int(lens.sum())
+    bnd = bound(2 * keys * hkv * dh * 2 + 2 * rows * hq * dh * 2
+                + tables.numel() * 4, 4.0 * dh * keys * hq)
+    records["paged_attention"] = dict(
+        shape=f"decode R={rows} Hq={hq} Hkv={hkv} D={dh} page={page} "
+              f"kv_lens=[0,17,200,527]",
+        max_abs_err=max(errs),
+        ms=timer.ms(lambda: attention_df.paged_flash_attention(
+            q, kp, vp, tables, lens)),
+        plain_ms=timer.ms(lambda: ref.paged_attention_ref(
+            q, kp, vp, tables, lens)),
+        library_ms=None, library_call=None,
+        bound_ms=bnd[0], bound_by=bnd[1], tolerance=att_tol)
+    for name, rec in records.items():
+        emit({"kernel_timing": name, **rec})
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serve full-width qwen3-1.7b.
+# ---------------------------------------------------------------------------
+def _cosine(a, b) -> float:
+    a, b = a.float().flatten(), b.float().flatten()
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+def serve_phase(torch, cfg, args):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers, lm
+    from repro_torch.serve.engine import Engine, RequestState
+
+    cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    max_len, new_tokens, lens = 1024, 16, (17, 64, 200, 511)
+    t0 = time.monotonic()
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "serve", "event": "init_model", "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params_gib": sum(
+              t.numel() * t.element_size() for t in _leaves(params)) / 2 ** 30,
+          "seconds": time.monotonic() - t0})
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+
+    # The model on the kernels against its plain PyTorch path on a small
+    # input (a 17-token prompt), at full width and two layers: bf16 rounds
+    # at other places in the two paths, and random weights amplify that
+    # with depth, so the check is a cosine >= 0.999 of the logits at two
+    # layers; the full depth's cosine is reported beside it.
+    toks = torch.as_tensor(prompts[0][None], device="cuda")
+    for depth in (2, cfg.n_layers):
+        sub = dataclasses.replace(cfg, n_layers=depth)
+        sub_params = dict(params, layers=_map(lambda t: t[:depth],
+                                              params["layers"]))
+        logits_k, _ = lm.prefill(sub_params, toks, sub, max_len=max_len)
+        with layers.forced_backend("torch"):
+            logits_p, _ = lm.prefill(sub_params, toks, sub, max_len=max_len)
+        cos = _cosine(logits_k, logits_p)
+        finite = bool(torch.isfinite(logits_k).all())
+        emit({"phase": "serve", "event": "prefill_vs_plain", "layers": depth,
+              "shape": list(logits_k.shape), "finite": finite, "cosine": cos,
+              "max_abs_err": max_err(logits_k, logits_p),
+              "argmax_equal": int(logits_k.argmax()) == int(
+                  logits_p.argmax())})
+        if not finite or tuple(logits_k.shape) != (1, cfg.padded_vocab) \
+                or (depth == 2 and cos < 0.999):
+            raise AssertionError(f"{depth}-layer prefill logits disagree "
+                                 f"with the plain path (cosine {cos})")
+
+    # The main path: counts zeroed just before, read just after.
+    _build.reset_launches()
+    eng = Engine(cfg, params, max_len=max_len, device="cuda")
+    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(_build.LAUNCHES)
+    stats = eng.stats()
+    bad = [(r.rid, r.state.value, r.error) for r in reqs
+           if r.state != RequestState.DONE]
+    step_ms = sorted(rec.seconds * 1e3 for rec in eng.monitor.records)
+    emit({"phase": "serve", "event": "drain", "prompt_lens": list(lens),
+          "new_tokens": new_tokens, "wall_s": wall,
+          "decode_steps": len(step_ms),
+          "decode_ms_per_step_median": step_ms[len(step_ms) // 2],
+          "demotions": stats["demotions"],
+          "degraded_steps": stats["degraded_steps"],
+          "not_done": bad, "launches": launches,
+          "tokens": [r.out_tokens for r in reqs]})
+    if bad or stats["demotions"] or stats["degraded_steps"]:
+        raise AssertionError(f"serve run unhealthy: {bad}, {stats}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+
+    # Mixed-length batch == each request served alone.
+    for p, r in zip(prompts, reqs):
+        alone = Engine(cfg, params, max_len=max_len, device="cuda")
+        h = alone.submit(p, new_tokens)
+        alone.drain()
+        if h.state != RequestState.DONE or h.out_tokens != r.out_tokens:
+            raise AssertionError(
+                f"prompt of {len(p)}: alone {h.out_tokens} != batched "
+                f"{r.out_tokens}")
+    emit({"phase": "serve", "event": "mixed_equals_sequential", "ok": True})
+
+    # Prefill throughput: the longest prompt, whole, by CUDA events.
+    toks = torch.as_tensor(prompts[-1][None], device="cuda")
+    lm.prefill(params, toks, cfg, max_len=max_len)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    lm.prefill(params, toks, cfg, max_len=max_len)
+    end.record()
+    torch.cuda.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    emit({"phase": "serve", "event": "throughput", "card": card_line(),
+          "prefill_tokens": len(prompts[-1]), "prefill_ms": prefill_ms,
+          "prefill_tokens_per_s": len(prompts[-1]) / prefill_ms * 1e3,
+          "decode_batch": len(prompts),
+          "decode_ms_per_step": step_ms[len(step_ms) // 2]})
+    trace_decode(torch, cfg, params, prompts, max_len)
+    return launches
+
+
+# Device kernels of the port, by the name of their __global__ function.
+KERNEL_FUNCTIONS = {"matmul_os_kernel": "matmul_os",
+                    "flash_kernel": "flash_attention",
+                    "paged_kernel": "paged_attention"}
+
+
+def trace_decode(torch, cfg, params, prompts, max_len, steps: int = 6):
+    """Where a decode step's time goes: a ``torch.profiler`` trace of
+    ``steps`` decode steps at batch ``len(prompts)`` (after every prompt
+    is admitted).  The device is busy for the union of its kernel and copy
+    intervals; the rest of the steps' host-clock time it is idle.  Kernel
+    time is summed by the port's kernels and by the other kernels' names.
+    The trace's own host cost is in the traced ms/step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Engine
+
+    eng = Engine(cfg, params, max_len=max_len, device="cuda")
+    for p in prompts:
+        eng.submit(p, 2 * steps + len(prompts) + 2)
+    for _ in prompts:        # one admission per tick
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + (end - start)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    port, other = {}, {}
+    for name, us in by_name.items():
+        key = next((k for f, k in KERNEL_FUNCTIONS.items() if f in name),
+                   None)
+        bucket, key = (port, key) if key else (other, name[:80])
+        bucket[key] = bucket.get(key, 0.0) + us / steps / 1e3
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:8])
+    emit({"phase": "serve", "event": "decode_trace", "card": card_line(),
+          "decode_batch": len(prompts), "steps": steps,
+          "device_events": len(spans),
+          "traced_ms_per_step": wall_us / steps / 1e3,
+          "device_busy_ms_per_step": busy_us / steps / 1e3,
+          "device_idle_share": (1.0 - busy_us / wall_us) if spans else None,
+          "port_kernels_ms_per_step": port,
+          "other_device_ms_per_step": sum(other.values()),
+          "top_other_ms_per_step": top})
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated subset of " + ",".join(ALL_PHASES))
+    ap.add_argument("--layers", type=int, default=28,
+                    help="decoder depth (qwen3-1.7b has 28)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; the port's "
+              "smoke test needs a CUDA card", file=sys.stderr)
+        return 2
+    # float32 references run in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.core.dataflow import registered_kernels
+
+    t_start = time.monotonic()
+    card = card_line()
+    emit({"phase": "card", "nvidia_smi": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0)})
+    cfg = configs.get("qwen3-1.7b")
+
+    if "build" in phases:
+        t0 = time.monotonic()
+        built = _build.build_all()
+        emit({"phase": "build", "seconds": time.monotonic() - t0,
+              "per_kernel_seconds": built})
+        for name, log in _build.BUILD_LOGS.items():
+            emit({"ptxas": name, "log": log.strip().splitlines()[-12:]})
+
+    records = {}
+    if "kernels" in phases:
+        records = kernel_phase(torch, cfg, Timer(torch))
+
+    launches = {}
+    if "serve" in phases:
+        launches = serve_phase(torch, cfg, args)
+
+    kernels = []
+    for name, reg in registered_kernels().items():
+        rec = records.get(name, {})
+        kernels.append({   # every kernel of the port is CUDA C++ so far
+            "name": name, "route": "cuda", "source": reg.source,
+            "replaces": reg.replaces, "launches": launches.get(name),
+            "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
+            "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
+            "bound_by": rec.get("bound_by"),
+            "library_ms": rec.get("library_ms"), "shape": rec.get("shape"),
+        })
+    emit({"kernels": kernels})
+    emit({"phase": "done", "seconds": time.monotonic() - t_start})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

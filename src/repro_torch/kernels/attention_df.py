@@ -1,0 +1,148 @@
+"""B2 and B3: banded flash attention and paged decode attention, as CUDA
+kernels.
+
+Ports of ``repro/kernels/attention_df.py``:
+
+* ``flash_attention`` (``csrc/flash_attention.cu``) replaces
+  ``_flash_kernel``: output-stationary GQA attention with an online
+  softmax, one CTA per (batch*head, 16-row q tile), visiting only the KV
+  tiles inside the tile's band — the valid length (scalar, or one per
+  batch row read from device memory, q rows right-aligned against it),
+  the causal diagonal and the sliding window.
+* ``paged_flash_attention`` (``csrc/paged_attention.cu``) replaces
+  ``_paged_kernel``: decode attention (Sq == 1) off a page pool through
+  an ``(R, max_pages)`` block table, one CTA per (row, kv head).
+
+Each wrapper launches its kernel for CUDA tensors and raises for what it
+does not take; for CPU tensors it computes the kernel's plain version
+(``ref.attention_ref`` / ``ref.paged_attention_ref``).  The kernels mask
+the ragged q and KV edges themselves, so nothing is padded.  int8 K/V
+and the kv-stationary (WS) anchor are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.dataflow import (DataflowSpec, KernelRegistration, OS,
+                                       register_kernel)
+from repro_torch.kernels import _build, ref
+
+HEAD_DIMS = (32, 64, 128)          # d_head values the kernels are built for
+FLASH_BLOCK = (16, 32)             # (bq, bkv) of csrc/flash_attention.cu
+MAX_PAGE = 32                      # csrc/paged_attention.cu: keys per page
+MAX_GROUP = 8                      # csrc/paged_attention.cu: q heads per kv head
+
+FLASH = register_kernel(KernelRegistration(
+    name="flash_attention",
+    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+    replaces="src/repro/kernels/attention_df.py:328",
+    spec=DataflowSpec(anchor=OS, block=FLASH_BLOCK + (1,)),
+))
+PAGED = register_kernel(KernelRegistration(
+    name="paged_attention",
+    source="src/repro_torch/kernels/csrc/paged_attention.cu",
+    replaces="src/repro/kernels/attention_df.py:714",
+    spec=DataflowSpec(anchor=OS, block=(1, MAX_PAGE, 1)),
+))
+
+
+def _check_head_dim(d: int) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"attention kernels take d_head in {HEAD_DIMS}, "
+                         f"got {d}")
+
+
+def flash_attention(
+    q: torch.Tensor,                 # (B, Hq, Sq, D)
+    k: torch.Tensor,                 # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    kv_len: ref.KvLen = None,        # int, 0-d or (B,) int tensor
+) -> torch.Tensor:
+    """Banded GQA attention in one kernel launch.  Returns (B, Hq, Sq, D)."""
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale, kv_len=kv_len)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    _check_head_dim(d)
+    if k.shape != (b, hkv, skv, d) or v.shape != k.shape or hq % hkv:
+        raise ValueError(f"bad attention shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one float dtype")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    kv_lens, kv_scalar, heads_per_row = None, skv, 0
+    if torch.is_tensor(kv_len) and kv_len.ndim == 1:
+        if kv_len.shape[0] != b:
+            raise ValueError(f"per-row kv_len needs one entry per batch row "
+                             f"({b}), got shape {tuple(kv_len.shape)}")
+        kv_lens = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+        heads_per_row = hq
+    elif kv_len is not None:
+        kv_scalar = int(kv_len)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _build.require_cuda(q, k, v, kv_lens)
+    _build.require_aligned(q, k, v)
+    out = torch.empty_like(q)
+    _build.launch(
+        "flash_attention", _build.ptr(q), _build.ptr(k), _build.ptr(v),
+        _build.ptr(out), _build.dtype_code(q), d, b * hq, sq, skv, hq // hkv,
+        heads_per_row, _build.ptr(kv_lens), kv_scalar,
+        0 if window is None else int(window), int(causal),
+        float(scale if scale is not None else d ** -0.5))
+    return out
+
+
+def paged_flash_attention(
+    q: torch.Tensor,                 # (B, Hq, 1, D)
+    k_pages: torch.Tensor,           # (Hkv, P, page, D)
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,      # (B, max_pages) int32 page ids
+    kv_lens: torch.Tensor,           # (B,) int32 valid lengths
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Decode attention off a page pool in one kernel launch.
+    Returns (B, Hq, 1, D)."""
+    if q.device.type == "cpu":
+        return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                       kv_lens, scale=scale, window=window)
+    b, hq, sq, d = q.shape
+    hkv, n_pages, page, _ = k_pages.shape
+    _check_head_dim(d)
+    if sq != 1:
+        raise ValueError(f"paged attention is decode-only (Sq == 1), "
+                         f"got {sq}")
+    if v_pages.shape != k_pages.shape or k_pages.shape[3] != d or hq % hkv:
+        raise ValueError(f"bad paged shapes q {tuple(q.shape)} pools "
+                         f"{tuple(k_pages.shape)}")
+    if hq // hkv > MAX_GROUP or page > MAX_PAGE:
+        raise ValueError(f"paged kernel takes at most {MAX_GROUP} q heads "
+                         f"per kv head and {MAX_PAGE} positions per page")
+    if block_tables.ndim != 2 or block_tables.shape[0] != b \
+            or tuple(kv_lens.shape) != (b,):
+        raise ValueError(f"need a (B, max_pages) table and (B,) kv_lens for "
+                         f"B={b}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError("q and the page pools must share one float dtype")
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = kv_lens.to(torch.int32).contiguous()
+    q = q.contiguous()
+    _build.require_cuda(q, k_pages, v_pages, tables, lens)
+    _build.require_aligned(q, k_pages, v_pages)
+    out = torch.empty_like(q)
+    _build.launch(
+        "paged_attention", _build.ptr(q), _build.ptr(k_pages),
+        _build.ptr(v_pages), _build.ptr(tables), _build.ptr(lens),
+        _build.ptr(out), _build.dtype_code(q), d, b, hq, hkv, n_pages, page,
+        tables.shape[1], float(scale if scale is not None else d ** -0.5),
+        0 if window is None else int(window))
+    return out
