@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # every phase, as the gate runs it
-    python3 chip_smoke.py --phases build,kernels   # a quicker kernel check
+    python3 chip_smoke.py --phases card,build,kernels   # a quicker kernel check
+    python3 chip_smoke.py --phases card,build,kernels,dataflows
 
 Phases, each printing JSON lines:
 
@@ -15,35 +16,44 @@ Phases, each printing JSON lines:
    with the tolerance stated per kernel; then each timed by CUDA events
    beside its plain version, the one PyTorch library call that computes
    the same function (where there is one; timed for the record, never on
-   the port's path) and its bound on an H100.
-4. ``serve``: full-width qwen3-1.7b (random bf16 weights from a seed, depth
+   the port's path) and its bound on an H100.  The GEMM dataflows (B1's
+   residencies, B4, B5a, B5b) run each of the nine canonical specs at
+   qwen3-1.7b's MLP shapes, the paper's layer grid and small odd shapes: each
+   runs through the kernel ``matmul_df.plan`` names, matches the plain
+   version and equals B1's output bit for bit, or raises ``ValueError``
+   naming the shared memory it needs.  B7 is held against the plain
+   version with B2's tolerances.
+4. ``dataflows``: the bench twins (``repro_torch.bench``): Fig. 2 (basic
+   OS/WS/IS), Fig. 7 (auxiliary residencies) on the paper's layer grid
+   and qwen3-1.7b's MLP GEMMs, and attention's OS vs WS anchor at prefill
+   512 and 2048; every row printed, every dataflow kernel launched.
+5. ``serve``: full-width qwen3-1.7b (random bf16 weights from a seed, depth
    cut to ``--layers``) served through ``Engine.submit``/``drain``:
    every request DONE, no demotion, every kernel launched, mixed-length
    batch tokens == each request served alone; prefill tokens/s and decode
    ms/step; then a ``torch.profiler`` trace of 6 decode steps at batch 4:
    device busy ms/step, idle share, kernel ms/step by name.
 
-The last lines are the ``{"kernels": [...]}`` record, the card line, and
-``{"ok": true, "device": {...}}``.  Any failure raises, so the script
-exits non-zero and prints no ``ok`` line; it also exits non-zero when no
-CUDA device is visible or the port's sources are not beside it.
+The ``kernels`` record gives each kernel's launches on its path (serve:
+B1, B2, B3; dataflows: B1, B2, B4, B5a, B5b, B7), counted from 0 just
+before the path runs. The last lines are the ``{"kernels": [...]}``
+record, the card line, and ``{"ok": true, "device": {...}}``. Any
+failure raises, so the script exits non-zero and prints no ``ok`` line;
+it also exits non-zero when no CUDA device is visible or the port's
+sources are not beside it.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
-ALL_PHASES = ("card", "build", "kernels", "serve")
+ALL_PHASES = ("card", "build", "kernels", "dataflows", "serve")
 
 
 def emit(obj) -> None:
@@ -51,51 +61,8 @@ def emit(obj) -> None:
 
 
 def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
-# ---------------------------------------------------------------------------
-# Timing and bounds.
-# ---------------------------------------------------------------------------
-class Timer:
-    """Median per-launch time by CUDA events, each launch preceded by a
-    write of 256 MiB so operands come from device memory, not the 50 MB
-    L2 (the serving path streams each layer's weights cold)."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
-                                 device="cuda")
-
-    def ms(self, fn, iters: int = 15) -> float:
-        torch = self.torch
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        pairs = []
-        for _ in range(iters):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            pairs.append((start, end))
-        torch.cuda.synchronize()
-        times = sorted(s.elapsed_time(e) for s, e in pairs)
-        return times[len(times) // 2]
-
-
-def bound(bytes_moved: float, flops: float):
-    """Least time (ms) the card could take: bytes over HBM bandwidth or
-    operations over the bf16 tensor-core peak, whichever is larger."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    from repro_torch.bench.common import card_line as line
+    return line()
 
 
 def max_err(got, want) -> float:
@@ -134,9 +101,10 @@ def check(name: str, got, want, atol: float, rtol: float, row_rtol: float,
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions.
 # ---------------------------------------------------------------------------
-def kernel_phase(torch, cfg, timer: Timer):
+def kernel_phase(torch, cfg, timer):
     import torch.nn.functional as F
 
+    from repro_torch.bench.common import bound
     from repro_torch.kernels import attention_df, matmul_df, ref
 
     dev = "cuda"
@@ -290,9 +258,226 @@ def kernel_phase(torch, cfg, timer: Timer):
             q, kp, vp, tables, lens)),
         library_ms=None, library_call=None,
         bound_ms=bnd[0], bound_by=bnd[1], tolerance=att_tol)
+    records.update(gemm_dataflow_checks(torch, cfg, timer, gen, b1_tol))
+    records.update(kv_stationary_checks(torch, cfg, timer, gen, att_tol,
+                                        f32_tol))
     for name, rec in records.items():
         emit({"kernel_timing": name, **rec})
     return records
+
+
+def gemm_dataflow_checks(torch, cfg, timer, gen, tol):
+    """B1's residencies, B4, B5a and B5b: each of the nine canonical specs
+    at the shapes the dataflows phase gives them (qwen3-1.7b's MLP GEMMs
+    and the paper's layer grid) and at small odd shapes.  A
+    spec whose resident operands fit runs through the kernel
+    ``matmul_df.plan`` names (one launch of it), matches the plain version
+    within B1's tolerance and equals B1's basic output bit for bit (every
+    kernel sums k in the same order, one fmaf per step, in f32); a spec
+    that does not fit raises ``ValueError`` naming the bytes."""
+    from repro_torch.bench import common
+    from repro_torch.kernels import _build, matmul_df, ops, ref
+
+    dev = "cuda"
+    bf16 = torch.bfloat16
+    d, dff = cfg.d_model, cfg.d_ff
+    errs = {}
+    feasibility = []
+
+    def run_all(label, a, w, out_dtype=torch.float32, **epi):
+        m, k = a.shape
+        n = w.shape[1]
+        base = matmul_df.matmul_os(a, w, out_dtype=out_dtype, **epi)
+        want = ref.matmul_fused_ref(a, w, out_dtype=out_dtype, **epi)
+        ran = []
+        for name, spec in common.NINE_SPECS.items():
+            try:
+                p = matmul_df.plan(spec, m, k, n, a.dtype)
+            except ValueError as err:
+                try:
+                    ops.matmul_fused(a, w, spec=spec, out_dtype=out_dtype,
+                                     **epi)
+                except ValueError as again:
+                    if "bytes of shared memory" not in str(again):
+                        raise
+                else:
+                    raise AssertionError(f"{name} at {label} ran though "
+                                         f"its plan is infeasible: {err}")
+                feasibility.append({"shape": label, "spec": name,
+                                    "feasible": False, "why": str(err)})
+                continue
+            before = _build.LAUNCHES[p.kernel]
+            got = ops.matmul_fused(a, w, spec=spec, out_dtype=out_dtype,
+                                   **epi)
+            if _build.LAUNCHES[p.kernel] != before + 1:
+                raise AssertionError(f"{name} at {label} did not launch "
+                                     f"{p.kernel} once")
+            err = check(f"{p.kernel}[{name}]", got, want,
+                        shape=label, **tol)
+            errs.setdefault(p.kernel, []).append(err)
+            bitwise = torch.equal(got, base)
+            if not bitwise:
+                diff = float((got.float() - base.float()).abs().max())
+                raise AssertionError(f"{name} at {label} differs from B1's "
+                                     f"output (max |diff| {diff})")
+            ran.append(name)
+            feasibility.append({"shape": label, "spec": name,
+                                "feasible": True, "kernel": p.kernel,
+                                "walk": p.walk, "ctas": p.ctas,
+                                "smem_bytes": p.smem_bytes,
+                                "demoted": p.demoted})
+        emit({"check": "dataflows_equal_b1", "shape": label, "ran": ran,
+              "bitwise_equal": True})
+
+    for m, k, n in common.QWEN_MLP:
+        a = (torch.randn((m, k), generator=gen, device=dev)).to(bf16)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * (2.0 / (k + n)) ** 0.5).to(bf16)
+        if n == dff:
+            run_all(f"qwen3 up M={m} K={k} N={n} silu", a, w,
+                    activation="silu")
+        else:
+            res = torch.randn((m, n), generator=gen, device=dev)
+            run_all(f"qwen3 down M={m} K={k} N={n} residual", a, w,
+                    residual=res)
+    for layer in common.PAPER_LAYERS:
+        g = common.paper_gemm(layer)
+        a, w = common.gemm_operands(g.m, g.k, g.n, dev, seed=sum(layer))
+        run_all(f"paper layer {layer} M={g.m} K={g.k} N={g.n}", a, w)
+    # Small odd shapes: every spec fits, the element-wise loads, float32
+    # inputs, bf16 outputs and every epilogue stage (per-column and per-row
+    # scales).
+    for dt, (m, k, n), out_dtype, scale_rows in (
+            (bf16, (37, 100, 50), torch.float32, False),
+            (torch.float32, (37, 100, 50), torch.float32, True),
+            (torch.float32, (64, 256, 128), torch.float32, False),
+            (bf16, (137, 256, 192), bf16, True)):
+        a = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * k ** -0.5).to(dt)
+        scale = torch.rand((m, 1) if scale_rows else (1, n), generator=gen,
+                           device=dev) + 0.5
+        run_all(f"{dt} M={m} K={k} N={n} out={out_dtype} "
+                f"scale({'row' if scale_rows else 'col'})+bias+gelu+res",
+                a, w, out_dtype=out_dtype, scale=scale,
+                bias=torch.randn((1, n), generator=gen, device=dev),
+                residual=torch.randn((m, n), generator=gen, device=dev),
+                activation="gelu")
+    emit({"dataflow_feasibility": feasibility})
+
+    # Timed shapes: each kernel where its dataflow fits at full size.
+    records = {}
+    timed = (("matmul_rmw", "ws_basic", (56, 3, 1, 128)),
+             ("matmul_ws_stripe", "ws_o_stripe", (512, dff, d)),
+             ("matmul_is_stripe", "is_o_stripe", (56, 3, 1, 128)))
+    for kernel, spec_name, shape in timed:
+        if len(shape) == 4:
+            g = common.paper_gemm(shape)
+            m, k, n = g.m, g.k, g.n
+            label = f"paper layer {shape} M={m} K={k} N={n} {spec_name}"
+        else:
+            m, k, n = shape
+            label = f"M={m} K={k} N={n} {spec_name}"
+        a, w = common.gemm_operands(m, k, n, dev, seed=m + n)
+        spec = common.NINE_SPECS[spec_name]
+        bnd = common.gemm_bound(m, k, n)
+        records[kernel] = dict(
+            shape=label, max_abs_err=max(errs[kernel]),
+            ms=timer.ms(lambda: matmul_df.matmul_df(a, w, spec)),
+            plain_ms=timer.ms(lambda: ref.matmul_fused_ref(a, w)),
+            library_ms=timer.ms(lambda: torch.matmul(a, w)),
+            library_call="torch.matmul (bf16 out)",
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
+    return records
+
+
+def kv_stationary_checks(torch, cfg, timer, gen, tol, f32_tol):
+    """B7 against the plain version at qwen3-1.7b prefill widths (the
+    attention-anchor bench's 512 and 2048 among them), with B2's
+    tolerances; whether it also equals B2 bit for bit (the same online
+    softmax step over the same KV blocks, the state kept in f32) is
+    reported, not required."""
+    import torch.nn.functional as F
+
+    from repro_torch.bench.common import bound
+    from repro_torch.kernels import attention_df, ref
+
+    dev = "cuda"
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    errs, same_as_b2 = [], []
+    for b, sq, skv, kv_len, window in (
+            (1, 512, 512, None, None), (1, 2048, 2048, None, None),
+            (1, 17, 1024, 65, None),
+            (1, 512, 1024, 600, None), (1, 200, 200, None, 64),
+            (4, 3, 64, [0, 5, 40, 64], 24)):
+        q, kk, vv = randn(b, hq, sq, dh), randn(b, hkv, skv, dh), \
+            randn(b, hkv, skv, dh)
+        lens = kv_len
+        if isinstance(kv_len, list):
+            lens = torch.tensor(kv_len, device=dev, dtype=torch.int32)
+        got = attention_df.kv_stationary_attention(q, kk, vv, kv_len=lens,
+                                                   window=window)
+        want = ref.attention_ref(q, kk, vv, kv_len=lens, window=window)
+        errs.append(check("kv_stationary", got, want, **tol,
+                          shape=f"B={b} Sq={sq} Skv={skv} kv_len={kv_len} "
+                                f"window={window}"))
+        same_as_b2.append(torch.equal(got, attention_df.flash_attention(
+            q, kk, vv, kv_len=lens, window=window)))
+    q, kk, vv = (torch.randn(s, generator=gen, device=dev) for s in (
+        (2, 4, 40, 64), (2, 2, 40, 64), (2, 2, 40, 64)))
+    check("kv_stationary", attention_df.kv_stationary_attention(
+        q, kk, vv, window=9), ref.attention_ref(q, kk, vv, window=9),
+        shape="float32 B=2 Sq=Skv=40 D=64 window=9", **f32_tol)
+    emit({"check": "kv_stationary_equals_flash_bitwise",
+          "cases": same_as_b2})
+    sq = 512
+    q, kk, vv = randn(1, hq, sq, dh), randn(1, hkv, sq, dh), \
+        randn(1, hkv, sq, dh)
+    pairs = sq * (sq + 1) // 2
+    bnd = bound((hq + 2 * hkv) * sq * dh * 2 + hq * sq * dh * 2,
+                4.0 * dh * pairs * hq)
+    return {"kv_stationary": dict(
+        shape=f"prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} D={dh} causal",
+        max_abs_err=max(errs),
+        ms=timer.ms(lambda: attention_df.kv_stationary_attention(q, kk, vv)),
+        plain_ms=timer.ms(lambda: ref.attention_ref(q, kk, vv)),
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+            q, kk, vv, is_causal=True, enable_gqa=True)),
+        library_call="F.scaled_dot_product_attention(is_causal, enable_gqa)",
+        bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol,
+        equals_flash_bitwise=all(same_as_b2))}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the bench twins of the paper's dataflow comparison.
+# ---------------------------------------------------------------------------
+DATAFLOW_PATH = ("matmul_os", "matmul_rmw", "matmul_ws_stripe",
+                 "matmul_is_stripe", "flash_attention", "kv_stationary")
+
+
+def dataflows_phase(torch):
+    from repro_torch.bench import (attention_anchors, basic_dataflows,
+                                   extended_dataflows)
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    t0 = time.monotonic()
+    for bench in (basic_dataflows, extended_dataflows, attention_anchors):
+        for row in bench.run("cuda"):
+            emit({"phase": "dataflows", **row})
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    emit({"phase": "dataflows", "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t0, "launches": launches})
+    missing = [k for k in DATAFLOW_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the dataflows "
+                             f"path: {missing}")
+    return {k: launches[k] for k in DATAFLOW_PATH}
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +486,9 @@ def kernel_phase(torch, cfg, timer: Timer):
 def _cosine(a, b) -> float:
     a, b = a.float().flatten(), b.float().flatten()
     return float((a @ b) / (a.norm() * b.norm()))
+
+
+SERVE_PATH = ("matmul_os", "flash_attention", "paged_attention")
 
 
 def serve_phase(torch, cfg, args):
@@ -374,7 +562,7 @@ def serve_phase(torch, cfg, args):
           "tokens": [r.out_tokens for r in reqs]})
     if bad or stats["demotions"] or stats["degraded_steps"]:
         raise AssertionError(f"serve run unhealthy: {bad}, {stats}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in SERVE_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -406,11 +594,12 @@ def serve_phase(torch, cfg, args):
           "decode_batch": len(prompts),
           "decode_ms_per_step": step_ms[len(step_ms) // 2]})
     trace_decode(torch, cfg, params, prompts, max_len)
-    return launches
+    return {k: launches[k] for k in SERVE_PATH}
 
 
-# Device kernels of the port, by the name of their __global__ function.
-KERNEL_FUNCTIONS = {"matmul_os_kernel": "matmul_os",
+# Device kernels of the serving path, by the name of their __global__
+# function (B1's basic OS is gemm_common.cuh's walk_kernel).
+KERNEL_FUNCTIONS = {"walk_kernel": "matmul_os",
                     "flash_kernel": "flash_attention",
                     "paged_kernel": "paged_attention"}
 
@@ -502,6 +691,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import configs
+    from repro_torch.bench.common import Timer
     from repro_torch.kernels import _build
     from repro_torch.core.dataflow import registered_kernels
 
@@ -522,18 +712,24 @@ def main(argv=None) -> int:
 
     records = {}
     if "kernels" in phases:
-        records = kernel_phase(torch, cfg, Timer(torch))
+        records = kernel_phase(torch, cfg, Timer("cuda"))
 
-    launches = {}
+    paths = {}
+    if "dataflows" in phases:
+        paths["dataflows"] = dataflows_phase(torch)
     if "serve" in phases:
-        launches = serve_phase(torch, cfg, args)
+        paths["serve"] = serve_phase(torch, cfg, args)
 
     kernels = []
     for name, reg in registered_kernels().items():
         rec = records.get(name, {})
+        by_path = {p: n[name] for p, n in paths.items() if name in n}
+        own = "serve" if name in paths.get("serve", {}) else "dataflows"
         kernels.append({   # every kernel of the port is CUDA C++ so far
             "name": name, "route": "cuda", "source": reg.source,
-            "replaces": reg.replaces, "launches": launches.get(name),
+            "replaces": reg.replaces,
+            "launches": paths.get(own, {}).get(name),
+            "launches_by_path": by_path,
             "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"),

@@ -1,8 +1,10 @@
 """Dataflow specifications, as far as the port's kernels use them.
 
 A copy of the part of ``repro/core/dataflow.py`` that the port's
-``kernels.ops`` reads: the stationarity names and anchor constants, the
-``Epilogue`` a GEMM fuses into its output write, and ``DataflowSpec``.
+``kernels`` and ``bench`` read: the stationarity names and anchor
+constants, the ``Epilogue`` a GEMM fuses into its output write,
+``DataflowSpec`` (with its residency queries and canonical dataflows)
+and the ``GemmProblem``/``ConvProblem`` shape records.
 The port keeps its own kernel registry here (``register_kernel``): one
 row per hand-written CUDA kernel, saying which TPU kernel it replaces,
 where its source lives and which dataflow and block it is compiled for.
@@ -79,6 +81,7 @@ class DataflowSpec:
 
     anchor: Stationarity
     aux: Tuple[Tuple[Stationarity, Residency], ...] = ()
+    aux_priority: Tuple[Stationarity, ...] = ()
     block: Tuple[int, int, int] = (128, 128, 128)
 
     def __post_init__(self) -> None:
@@ -94,6 +97,71 @@ class DataflowSpec:
             sorted(aux.items(), key=lambda kv: kv[0].value)))
         if min(self.block) <= 0:
             raise ValueError(f"non-positive block {self.block}")
+
+    def residency(self, operand: Stationarity) -> Residency:
+        """The anchored operand is held across the inner loop (STRIPE);
+        the others are as ``aux`` says, STREAMED when absent."""
+        if operand == self.anchor:
+            return Residency.STRIPE
+        return dict(self.aux).get(operand, Residency.STREAMED)
+
+    @property
+    def name(self) -> str:
+        parts = [f"{self.anchor.value[0].upper()}S"]
+        for st, res in self.aux:
+            if res != Residency.STREAMED:
+                parts.append(f"{st.value[0]}:{res.value}")
+        return "+".join(parts)
+
+    @classmethod
+    def basic(cls, anchor: Stationarity, **kw) -> "DataflowSpec":
+        """A basic dataflow: the anchoring stationarity only (paper §II)."""
+        return cls(anchor=anchor, aux=(), aux_priority=(), **kw)
+
+    @classmethod
+    def optimized(cls, **kw) -> "DataflowSpec":
+        """Paper Alg. 8: OS anchor, aux priority weight-then-input."""
+        return cls(anchor=OS,
+                   aux={WS: Residency.STRIPE, IS: Residency.STREAMED},
+                   aux_priority=(WS, IS), **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmProblem:
+    """A GEMM-like workload: (M, K) x (K, N) -> (M, N)."""
+
+    m: int
+    k: int
+    n: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvProblem:
+    """A direct convolution in the paper's notation (Fig. 3): ih/iw the
+    input, fh/fw the filter, s the stride, cin/cout the channels, n the
+    batch."""
+
+    ih: int
+    iw: int
+    fh: int
+    fw: int
+    s: int
+    cin: int
+    cout: int
+    n: int = 1
+
+    @property
+    def oh(self) -> int:
+        return (self.ih - self.fh) // self.s + 1
+
+    @property
+    def ow(self) -> int:
+        return (self.iw - self.fw) // self.s + 1
+
+    def as_gemm(self) -> GemmProblem:
+        """Implicit-GEMM view: M = n*oh*ow, K = fh*fw*cin, N = cout."""
+        return GemmProblem(m=self.n * self.oh * self.ow,
+                           k=self.fh * self.fw * self.cin, n=self.cout)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` compiled by ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface and loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
-Libraries are built at first use into ``kernels/_build/`` (listed in
-``.gitignore``), named by a digest of their sources and flags, so an
-edited source is never served from a stale build.  ``build_all`` starts
-one ``nvcc`` per source at once.  A build or launch that fails raises
+Each kernel is one ``csrc/<name>.cu`` compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface and loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds, not
+minutes). Libraries are built at first use into ``kernels/_build/``
+(listed in ``.gitignore``), named by a digest of their sources and
+flags, so an edited source is never served from a stale build.
+``build_all`` starts one ``nvcc`` per source at once; a GEMM library
+with many template instantiations (``PARTS``) is compiled as several
+translation units at once, its entry point and each part of its
+instantiations, and linked. A build or launch that fails raises
 ``KernelError``, which the serving engine never absorbs: nothing falls
 back to the plain PyTorch versions.
 
@@ -29,19 +32,31 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-HEADERS = ("common.cuh", "attention_common.cuh")
+HEADERS = ("common.cuh", "attention_common.cuh", "gemm_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# The GEMM kernels contract no multiply-add but their explicit fmaf, so
+# every dataflow rounds each output element the same (csrc/gemm_common.cuh).
+GEMM_FLAGS = ("-fmad=false",)
+# Libraries compiled as PARTS[name] units with -DREPRO_PART=p (each defines
+# some of the library's instantiations) plus one unit with its entry point.
+PARTS = {"matmul_os": 4, "matmul_rmw": 4}
 
 # Element-type codes of the C interfaces (csrc/common.cuh).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel library's entry point (csrc/<name>.cu).
+_GEMM = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P)
 SIGNATURES = {
-    "matmul_os": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P),
+    "matmul_os": _GEMM + (_I, _I, _P),
+    "matmul_rmw": _GEMM + (_I, _I, _I, _P),
+    "matmul_ws_stripe": _GEMM + (_P,),
+    "matmul_is_stripe": _GEMM + (_I, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                         _I, _I, _F, _P),
+    "kv_stationary": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                      _I, _I, _I, _F, _P),
     "paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _P),
 }
@@ -74,16 +89,40 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + (GEMM_FLAGS if name.startswith("matmul_") else ())
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
+    digest.update(str(PARTS.get(name, 0)).encode())
     for src in (f"{name}.cu",) + HEADERS:
         digest.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def _compile_jobs(name: str, out: Path):
+    """(command, output) of each nvcc run that builds library ``name``:
+    one straight to the library, or one object per part and the entry
+    point's object (linked afterwards)."""
+    src = str(CSRC / f"{name}.cu")
+    flags = nvcc_flags(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if name not in PARTS:
+        return [([*flags, "-o", str(tmp), src], tmp)]
+    obj_flags = [f for f in flags if f != "-shared"] + ["-c"]
+    jobs = []
+    for part in [None, *range(PARTS[name])]:
+        obj = out.with_suffix(f".{'main' if part is None else part}."
+                              f"{os.getpid()}.o")
+        define = [] if part is None else [f"-DREPRO_PART={part}"]
+        jobs.append(([*obj_flags, *define, "-o", str(obj), src], obj))
+    return jobs
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile every missing library, one ``nvcc`` per source, all
-    started together.  Returns seconds spent per library built."""
+    """Compile every missing library, every translation unit of all of
+    them started together.  Returns seconds spent per library built."""
     names = list(SIGNATURES if names is None else names)
     todo = {n: library_path(n) for n in names if not library_path(n).exists()}
     if not todo:
@@ -93,20 +132,36 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     t0 = time.monotonic()
     procs = {}
     for name, out in todo.items():
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        procs[name] = [
+            (subprocess.Popen([nvcc, *cmd], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True), target)
+            for cmd, target in _compile_jobs(name, out)]
     seconds, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for name, jobs in procs.items():
+        out = todo[name]
+        logs, ok = [], True
+        for proc, _ in jobs:
+            log, _ = proc.communicate()
+            logs.append(log)
+            ok = ok and proc.returncode == 0
+        targets = [target for _, target in jobs]
+        if ok and name in PARTS:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            link = subprocess.run(
+                [nvcc, *[f for f in nvcc_flags(name) if f != "-Xptxas=-v"],
+                 "-o", str(tmp), *map(str, targets)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            ok = link.returncode == 0
+            for obj in targets:
+                obj.unlink(missing_ok=True)
+            targets = [tmp]
         seconds[name] = time.monotonic() - t0
-        BUILD_LOGS[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+        BUILD_LOGS[name] = "".join(logs)
+        if not ok:
+            failed.append(f"{name}:\n{BUILD_LOGS[name]}")
             continue
-        os.replace(tmp, out)
+        os.replace(targets[0], out)
     if failed:
         raise KernelError("nvcc failed for " + "\n".join(failed))
     return seconds

@@ -1,5 +1,5 @@
-"""B2 and B3: banded flash attention and paged decode attention, as CUDA
-kernels.
+"""B2, B3 and B7: banded flash attention, paged decode attention and
+KV-stationary attention, as CUDA kernels.
 
 Ports of ``repro/kernels/attention_df.py``:
 
@@ -12,12 +12,17 @@ Ports of ``repro/kernels/attention_df.py``:
 * ``paged_flash_attention`` (``csrc/paged_attention.cu``) replaces
   ``_paged_kernel``: decode attention (Sq == 1) off a page pool through
   an ``(R, max_pages)`` block table, one CTA per (row, kv head).
+* ``kv_stationary_attention`` (``csrc/kv_stationary.cu``) replaces
+  ``_kv_stationary_kernel`` / ``_kv_single_kernel``: the WS anchor, one
+  CTA per (batch*head) walking the KV blocks outer (each fetched once)
+  and the q tiles inner, the running state through device memory once
+  per visible (KV block, q tile) pair; the same band and mask as B2.
 
 Each wrapper launches its kernel for CUDA tensors and raises for what it
 does not take; for CPU tensors it computes the kernel's plain version
-(``ref.attention_ref`` / ``ref.paged_attention_ref``).  The kernels mask
-the ragged q and KV edges themselves, so nothing is padded.  int8 K/V
-and the kv-stationary (WS) anchor are not ported yet.
+(``ref.attention_ref`` / ``ref.paged_attention_ref``; B7's is
+``attention_ref`` too).  The kernels mask the ragged q and KV edges
+themselves, so nothing is padded.  int8 K/V is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,11 +31,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.dataflow import (DataflowSpec, KernelRegistration, OS,
-                                       register_kernel)
+                                       WS, register_kernel)
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (32, 64, 128)          # d_head values the kernels are built for
 FLASH_BLOCK = (16, 32)             # (bq, bkv) of csrc/flash_attention.cu
+KV_BLOCK = (16, 32)                # (bq, bkv) of csrc/kv_stationary.cu
 MAX_PAGE = 32                      # csrc/paged_attention.cu: keys per page
 MAX_GROUP = 8                      # csrc/paged_attention.cu: q heads per kv head
 
@@ -39,6 +45,12 @@ FLASH = register_kernel(KernelRegistration(
     source="src/repro_torch/kernels/csrc/flash_attention.cu",
     replaces="src/repro/kernels/attention_df.py:328",
     spec=DataflowSpec(anchor=OS, block=FLASH_BLOCK + (1,)),
+))
+KV_STATIONARY = register_kernel(KernelRegistration(
+    name="kv_stationary",
+    source="src/repro_torch/kernels/csrc/kv_stationary.cu",
+    replaces="src/repro/kernels/attention_df.py:538",
+    spec=DataflowSpec(anchor=WS, block=KV_BLOCK + (1,)),
 ))
 PAGED = register_kernel(KernelRegistration(
     name="paged_attention",
@@ -52,6 +64,29 @@ def _check_head_dim(d: int) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"attention kernels take d_head in {HEAD_DIMS}, "
                          f"got {d}")
+
+
+def _banded_args(q, k, v, window, kv_len):
+    """Checks shared by the banded kernels (B2, B7); returns the per-row
+    lengths on the device (or None), the shared length, and the heads per
+    batch row."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    _check_head_dim(d)
+    if k.shape != (b, hkv, skv, d) or v.shape != k.shape or hq % hkv:
+        raise ValueError(f"bad attention shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one float dtype")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if torch.is_tensor(kv_len) and kv_len.ndim == 1:
+        if kv_len.shape[0] != b:
+            raise ValueError(f"per-row kv_len needs one entry per batch row "
+                             f"({b}), got shape {tuple(kv_len.shape)}")
+        return (kv_len.to(device=q.device, dtype=torch.int32).contiguous(),
+                skv, hq)
+    return None, (skv if kv_len is None else int(kv_len)), 0
 
 
 def flash_attention(
@@ -69,23 +104,7 @@ def flash_attention(
                                  scale=scale, kv_len=kv_len)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    _check_head_dim(d)
-    if k.shape != (b, hkv, skv, d) or v.shape != k.shape or hq % hkv:
-        raise ValueError(f"bad attention shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k and v must share one float dtype")
-    if window is not None and window <= 0:
-        raise ValueError(f"window must be positive, got {window}")
-    kv_lens, kv_scalar, heads_per_row = None, skv, 0
-    if torch.is_tensor(kv_len) and kv_len.ndim == 1:
-        if kv_len.shape[0] != b:
-            raise ValueError(f"per-row kv_len needs one entry per batch row "
-                             f"({b}), got shape {tuple(kv_len.shape)}")
-        kv_lens = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
-        heads_per_row = hq
-    elif kv_len is not None:
-        kv_scalar = int(kv_len)
+    kv_lens, kv_scalar, heads_per_row = _banded_args(q, k, v, window, kv_len)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _build.require_cuda(q, k, v, kv_lens)
     _build.require_aligned(q, k, v)
@@ -96,6 +115,39 @@ def flash_attention(
         heads_per_row, _build.ptr(kv_lens), kv_scalar,
         0 if window is None else int(window), int(causal),
         float(scale if scale is not None else d ** -0.5))
+    return out
+
+
+def kv_stationary_attention(
+    q: torch.Tensor,                 # (B, Hq, Sq, D)
+    k: torch.Tensor,                 # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    kv_len: ref.KvLen = None,        # int, 0-d or (B,) int tensor
+) -> torch.Tensor:
+    """KV-stationary (WS) GQA attention in one kernel launch: each KV
+    block fetched once per head, the (acc, m, l) state through device
+    memory once per visible KV block.  Returns (B, Hq, Sq, D)."""
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale, kv_len=kv_len)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kv_lens, kv_scalar, heads_per_row = _banded_args(q, k, v, window, kv_len)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _build.require_cuda(q, k, v, kv_lens)
+    _build.require_aligned(q, k, v)
+    out = torch.empty_like(q)
+    acc = torch.empty((b * hq, sq, d), dtype=torch.float32, device=q.device)
+    ml = torch.empty((b * hq, sq, 2), dtype=torch.float32, device=q.device)
+    _build.launch(
+        "kv_stationary", _build.ptr(q), _build.ptr(k), _build.ptr(v),
+        _build.ptr(out), _build.ptr(acc), _build.ptr(ml),
+        _build.dtype_code(q), d, b * hq, sq, skv, hq // hkv, heads_per_row,
+        _build.ptr(kv_lens), kv_scalar, 0 if window is None else int(window),
+        int(causal), float(scale if scale is not None else d ** -0.5))
     return out
 
 

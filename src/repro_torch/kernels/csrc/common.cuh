@@ -118,7 +118,11 @@ __device__ __forceinline__ void load_tiles(float* dst0, const T* src0,
 
 static inline int launch_status() { return (int)cudaGetLastError(); }
 
+// Defined once per library: in the unit with its entry point, not in the
+// units that only hold instantiations (-DREPRO_PART, kernels/_build.py).
+#if !defined(REPRO_PART)
 extern "C" const char* repro_error_string(int code) {
   if (code == REPRO_BAD_ARGUMENT) return "argument not supported by this kernel";
   return cudaGetErrorString((cudaError_t)code);
 }
+#endif

@@ -1,0 +1,441 @@
+// The tiles, loads, k loop and epilogue shared by the port's GEMM kernels:
+// B1 (matmul_os.cu), B4 (matmul_rmw.cu), B5a (matmul_ws_stripe.cu) and B5b
+// (matmul_is_stripe.cu).
+//
+// Every kernel computes C = act(scale * (A @ B) + bias) + residual with A
+// (M, K) and B (K, N) row-major, f32 or bf16, converted to f32 at the load.
+// Each output element is one f32 accumulator that starts at 0 and takes one
+// fmaf per k in ascending order, k padded with zeros to a multiple of BK, and
+// then the one epilogue below: whatever the dataflow, the grid or the other
+// rows, an output element gets the same bits. The libraries are built with
+// -fmad=false, so nothing outside the explicit fmaf is contracted and the
+// epilogue rounds the same in every kernel.
+//
+// A dataflow differs only in which operand a CTA holds in shared memory
+// across its walk (resident) and which it streams through 64x32 / 32x64 f32
+// tiles, the next tile's 16-byte loads in flight while the current one is
+// consumed. Resident operands are kept in their own type (bf16 stays bf16),
+// zero-padded to whole BK steps, and converted at each use.
+#pragma once
+
+#include "common.cuh"
+
+namespace gemm {
+
+constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int TM = 4, TN = 4;
+constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+constexpr int TILE_LD = BM + 4;                 // BM == BN: one stride for both
+constexpr int TILE_FLOATS = BK * TILE_LD;
+// Shared memory a block can use on Hopper (cudaFuncAttribute opt-in limit).
+constexpr size_t MAX_SMEM = 232448;
+
+// Residency of the B operand in the walk kernels.
+enum BRes { B_STREAMED = 0, B_STRIPE = 1, B_WHOLE = 2 };
+// Which grid index a walk kernel's CTA owns: one tile (NONE), the column
+// stripe j, walking i (M: the WS order), or the row stripe i, walking j (N).
+enum Walk { WALK_NONE = 0, WALK_M = 1, WALK_N = 2 };
+
+// Epilogue codes, as repro_torch/kernels/matmul_df.py encodes them.
+enum ScaleMode { SCALE_NONE = 0, SCALE_TENSOR = 1, SCALE_COL = 2, SCALE_ROW = 3 };
+enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3 };
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int round_up(int a, int b) { return cdiv(a, b) * b; }
+
+__device__ __forceinline__ float activate(float x, int act) {
+  switch (act) {
+    case ACT_RELU:
+      return fmaxf(x, 0.f);
+    case ACT_GELU: {  // tanh approximation (jax.nn.gelu's default)
+      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+      return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
+    }
+    case ACT_SILU:
+      return x / (1.f + expf(-x));
+    default:
+      return x;
+  }
+}
+
+struct Epi {
+  const float* scale;
+  int scale_mode;
+  const float* bias;
+  int act;
+  const float* residual;
+  int out_bf16;  // the output's element type: 0 f32, 1 bf16
+};
+
+__device__ __forceinline__ float epilogue(float x, int r, int c, int n,
+                                          const Epi& e) {
+  if (e.scale_mode == SCALE_TENSOR) x *= e.scale[0];
+  else if (e.scale_mode == SCALE_COL) x *= e.scale[c];
+  else if (e.scale_mode == SCALE_ROW) x *= e.scale[r];
+  if (e.bias) x += e.bias[c];
+  x = activate(x, e.act);
+  if (e.residual) x += e.residual[(size_t)r * n + c];
+  return x;
+}
+
+// Thread (ty, tx) of a CTA owns rows ty*TM.. and columns tx*TN.. of a tile.
+__device__ __forceinline__ int ty() { return threadIdx.x / (BN / TN); }
+__device__ __forceinline__ int tx() { return threadIdx.x % (BN / TN); }
+
+// Runs the epilogue on a thread's accumulators and writes the ones inside
+// the (m, n) output, in the element type e.out_bf16 names.
+__device__ __forceinline__ void store_tile(void* c, const float acc[TM][TN],
+                                           int row0, int col0, int m, int n,
+                                           const Epi& e) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + ty() * TM + i;
+    if (r >= m) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int cc = col0 + tx() * TN + j;
+      if (cc >= n) continue;
+      const size_t at = (size_t)r * n + cc;
+      const float x = epilogue(acc[i][j], r, cc, n, e);
+      if (e.out_bf16) store_f32(static_cast<__nv_bfloat16*>(c) + at, x);
+      else store_f32(static_cast<float*>(c) + at, x);
+    }
+  }
+}
+
+// Global -> register -> shared staging of one operand element group:
+// 16-byte vectors when the rows allow it (VEC), single elements otherwise.
+template <typename T, bool VEC>
+struct TileIO;
+
+template <typename T>
+struct TileIO<T, true> {
+  static constexpr int V = Vec16<T>::N;
+  using Reg = uint4;
+  __device__ static __forceinline__ Reg load(const T* p, bool in) {
+    return in ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  __device__ static __forceinline__ void unpack(const Reg& r, float* o) {
+    Vec16<T>::unpack(r, o);
+  }
+};
+
+template <typename T>
+struct TileIO<T, false> {
+  static constexpr int V = 1;
+  using Reg = float;
+  __device__ static __forceinline__ Reg load(const T* p, bool in) {
+    return in ? load_f32(p) : 0.f;
+  }
+  __device__ static __forceinline__ void unpack(const Reg& r, float* o) {
+    o[0] = r;
+  }
+};
+
+// A streamed BM x BK tile of A, stored k-major in shared memory.
+template <typename T, bool VEC>
+struct ATile {
+  using IO = TileIO<T, VEC>;
+  static constexpr int V = IO::V, VPR = BK / V, IT = BM * VPR / THREADS;
+  typename IO::Reg r[IT];
+
+  __device__ __forceinline__ void fetch(const T* a, int m, int k, int row0,
+                                        int k0) {
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      const int gr = row0 + i / VPR, gk = k0 + (i % VPR) * V;
+      r[it] = IO::load(a + (size_t)gr * k + gk, gr < m && gk < k);
+    }
+  }
+  __device__ __forceinline__ void stash(float* as) const {
+    float v[V];
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      IO::unpack(r[it], v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) as[((i % VPR) * V + j) * TILE_LD + i / VPR] = v[j];
+    }
+  }
+};
+
+// A streamed BK x BN tile of B.
+template <typename T, bool VEC>
+struct BTile {
+  using IO = TileIO<T, VEC>;
+  static constexpr int V = IO::V, VPR = BN / V, IT = BK * VPR / THREADS;
+  typename IO::Reg r[IT];
+
+  __device__ __forceinline__ void fetch(const T* b, int k, int n, int k0,
+                                        int col0) {
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      const int gk = k0 + i / VPR, gc = col0 + (i % VPR) * V;
+      r[it] = IO::load(b + (size_t)gk * n + gc, gk < k && gc < n);
+    }
+  }
+  __device__ __forceinline__ void stash(float* bs) const {
+    float v[V];
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      IO::unpack(r[it], v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) bs[(i / VPR) * TILE_LD + (i % VPR) * V + j] = v[j];
+    }
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T tzero();
+template <>
+__device__ __forceinline__ float tzero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 tzero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// A resident A row stripe: rows row0.. (ra of them) x all kp (>= k) columns,
+// stored k-major (ares[kk * ra + r]), zero past m and k.
+template <typename T>
+__device__ __forceinline__ void load_a_stripe(T* ares, const T* a, int m,
+                                              int k, int kp, int row0, int ra) {
+  for (int i = threadIdx.x; i < ra * kp; i += THREADS) {
+    const int r = i / kp, kk = i % kp;
+    ares[kk * ra + r] =
+        (row0 + r < m && kk < k) ? a[(size_t)(row0 + r) * k + kk] : tzero<T>();
+  }
+}
+
+// A resident B panel: kp rows x width columns starting at col0, row-major
+// with stride width, zero past k and n.
+template <typename T>
+__device__ __forceinline__ void load_b_panel(T* bres, const T* b, int k, int n,
+                                             int kp, int col0, int width) {
+  for (int i = threadIdx.x; i < kp * width; i += THREADS) {
+    const int kk = i / width, c = i % width;
+    bres[i] = (kk < k && col0 + c < n) ? b[(size_t)kk * n + col0 + c] : tzero<T>();
+  }
+}
+
+// One BK step of a thread's TM x TN accumulators: a_at(kk, i) and b_at(kk, j)
+// give its A row i and B column j at depth kk of the step.
+template <class AAt, class BAt>
+__device__ __forceinline__ void mma_step(float acc[TM][TN], AAt a_at, BAt b_at) {
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    float av[TM], bv[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) av[i] = a_at(kk, i);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) bv[j] = b_at(kk, j);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// The whole k loop of the output tile at (row0, col0), into acc. A comes from
+// the streamed tile `as` or, when A_RES, from the resident stripe ares (ra
+// rows, k-major); B from the streamed tile `bs` or, when B_RES, from the
+// resident panel bres (row stride ldb, the tile's columns at bcol). Ends with
+// a barrier, so the caller may refill the tiles right after.
+template <typename T, bool VEC, bool A_RES, bool B_RES>
+__device__ __forceinline__ void tile_kloop(float acc[TM][TN], const T* a,
+                                           const T* b, int m, int n, int k,
+                                           int row0, int col0, float* as,
+                                           float* bs, const T* ares, int ra,
+                                           const T* bres, int ldb, int bcol) {
+  ATile<T, VEC> at;
+  BTile<T, VEC> bt;
+  const int kp = round_up(k, BK);
+  const int ar = ty() * TM;
+  const bool a_rows = ar < ra;  // ra is a multiple of TM
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  if (!A_RES) at.fetch(a, m, k, row0, 0);
+  if (!B_RES) bt.fetch(b, k, n, 0, col0);
+  if (!A_RES) at.stash(as);
+  if (!B_RES) bt.stash(bs);
+  __syncthreads();
+  for (int k0 = 0; k0 < kp; k0 += BK) {
+    const bool more = k0 + BK < kp;
+    if (more) {  // in flight while this step is consumed
+      if (!A_RES) at.fetch(a, m, k, row0, k0 + BK);
+      if (!B_RES) bt.fetch(b, k, n, k0 + BK, col0);
+    }
+    auto a_at = [&](int kk, int i) -> float {
+      if (A_RES) return a_rows ? load_f32(ares + (k0 + kk) * ra + ar + i) : 0.f;
+      return as[kk * TILE_LD + ar + i];
+    };
+    auto b_at = [&](int kk, int j) -> float {
+      if (B_RES) return load_f32(bres + (size_t)(k0 + kk) * ldb + bcol + tx() * TN + j);
+      return bs[kk * TILE_LD + tx() * TN + j];
+    };
+    mma_step(acc, a_at, b_at);
+    __syncthreads();
+    if (more && !(A_RES && B_RES)) {
+      if (!A_RES) at.stash(as);
+      if (!B_RES) bt.stash(bs);
+      __syncthreads();
+    }
+  }
+}
+
+// Shared memory of a walk kernel, in bytes: the streamed tiles it needs and
+// its resident A stripe (ra rows) and B panel. The Python planner
+// (matmul_df.plan) computes the same sum.
+__host__ __device__ constexpr size_t walk_smem(bool a_res, int b_res, int kp,
+                                               int ra, int np, size_t elt) {
+  return (a_res ? 0 : TILE_FLOATS * 4) + (b_res ? 0 : TILE_FLOATS * 4) +
+         (a_res ? (size_t)kp * ra * elt : 0) +
+         (b_res == B_STRIPE ? (size_t)kp * BN * elt
+                            : b_res == B_WHOLE ? (size_t)kp * np * elt : 0);
+}
+
+// The walk kernel behind B1 and B4. WALK_NONE: one output tile per CTA,
+// nothing resident (basic OS). WALK_M: CTA j holds B's column stripe (K, BN)
+// (B_STRIPE) and walks the row tiles i in order, loading A's row stripe per
+// i when A_RES (the WS order, grid (gn, gm, gk)). WALK_N: CTA i holds A's row
+// stripe when A_RES, and B whole when B_WHOLE, and walks the column tiles j
+// (the IS order, grid (gm, gn, gk)). Each output tile's accumulators stay in
+// registers across its whole k loop and are written once, after the epilogue.
+template <typename T, bool VEC, int WALK, bool A_RES, int B_RES>
+__global__ void __launch_bounds__(THREADS)
+walk_kernel(const T* __restrict__ a, const T* __restrict__ b, void* __restrict__ c,
+            int m, int n, int k, Epi e) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // The basic walk's tiles are static shared memory: the same kernel with
+  // them in dynamic shared memory measured 3% slower at M = 512 (PERF.md).
+  __shared__ float basic_as[WALK == WALK_NONE ? TILE_FLOATS : 1];
+  __shared__ float basic_bs[WALK == WALK_NONE ? TILE_FLOATS : 1];
+  float* as = WALK == WALK_NONE ? basic_as : reinterpret_cast<float*>(smem);
+  float* bs = WALK == WALK_NONE ? basic_bs : as + (A_RES ? 0 : TILE_FLOATS);
+  T* ares = reinterpret_cast<T*>(bs + (B_RES ? 0 : TILE_FLOATS));
+  const int kp = round_up(k, BK), gm = cdiv(m, BM), gn = cdiv(n, BN);
+  const int ra = min(BM, round_up(m, TM)), np = gn * BN;
+  T* bres = ares + (A_RES ? kp * ra : 0);
+  const int ldb = B_RES == B_WHOLE ? np : BN;
+  float acc[TM][TN];
+
+  if (B_RES == B_WHOLE) {
+    load_b_panel(bres, b, k, n, kp, 0, np);
+    __syncthreads();
+  }
+  if (WALK == WALK_NONE) {
+    const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+    tile_kloop<T, VEC, A_RES, B_RES != B_STREAMED>(
+        acc, a, b, m, n, k, row0, col0, as, bs, ares, ra, bres, ldb, col0);
+    store_tile(c, acc, row0, col0, m, n, e);
+  } else if (WALK == WALK_M) {
+    const int col0 = blockIdx.x * BN;
+    if (B_RES == B_STRIPE) {
+      load_b_panel(bres, b, k, n, kp, col0, BN);
+      __syncthreads();
+    }
+    for (int i = 0; i < gm; ++i) {
+      if (A_RES) {
+        load_a_stripe(ares, a, m, k, kp, i * BM, ra);
+        __syncthreads();
+      }
+      tile_kloop<T, VEC, A_RES, B_RES != B_STREAMED>(
+          acc, a, b, m, n, k, i * BM, col0, as, bs, ares, ra, bres, ldb,
+          B_RES == B_WHOLE ? col0 : 0);
+      store_tile(c, acc, i * BM, col0, m, n, e);
+    }
+  } else {
+    const int row0 = blockIdx.x * BM;
+    if (A_RES) {
+      load_a_stripe(ares, a, m, k, kp, row0, ra);
+      __syncthreads();
+    }
+    for (int j = 0; j < gn; ++j) {
+      tile_kloop<T, VEC, A_RES, B_RES != B_STREAMED>(
+          acc, a, b, m, n, k, row0, j * BN, as, bs, ares, ra, bres, ldb, j * BN);
+      store_tile(c, acc, row0, j * BN, m, n, e);
+    }
+  }
+}
+
+// Whether the streamed loads may take 16-byte vectors.
+template <typename T>
+bool vec_ok(const void* a, const void* b, int n, int k) {
+  constexpr int V = Vec16<T>::N;
+  return k % V == 0 && n % V == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+// Launches `kernel` with `smem` bytes of dynamic shared memory, opting in
+// above the 48 KB default; refuses what no Hopper block can hold.
+template <typename T, typename K>
+int launch_with_smem(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
+                     const void* a, const void* b, void* c, int m, int n, int k,
+                     const Epi& e) {
+  if (smem > MAX_SMEM) return REPRO_BAD_ARGUMENT;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(a),
+                                          static_cast<const T*>(b), c, m, n,
+                                          k, e);
+  return launch_status();
+}
+
+// Launches the walk kernel of one dataflow: grid (gn, gm) of single tiles
+// for WALK_NONE, gn column-stripe CTAs for WALK_M, gm row-stripe CTAs for
+// WALK_N. Each library compiles its instantiations in several translation
+// units at once (-DREPRO_PART, kernels/_build.py): the entry point's unit
+// declares them with GEMM_WALK_EXTERN, each part defines some with
+// GEMM_WALK_DEFINE.
+template <typename T, int WALK, bool A_RES, int B_RES>
+int launch_walk(const void* a, const void* b, void* c, int m, int n, int k,
+                const Epi& e, cudaStream_t stream) {
+  const int kp = round_up(k, BK), gm = cdiv(m, BM), gn = cdiv(n, BN);
+  const int ra = min(BM, round_up(m, TM));
+  const size_t smem =
+      WALK == WALK_NONE ? 0 : walk_smem(A_RES, B_RES, kp, ra, gn * BN, sizeof(T));
+  const dim3 grid = WALK == WALK_NONE ? dim3(gn, gm)
+                    : WALK == WALK_M  ? dim3(gn)
+                                      : dim3(gm);
+  if (vec_ok<T>(a, b, n, k))
+    return launch_with_smem<T>(walk_kernel<T, true, WALK, A_RES, B_RES>, grid,
+                               smem, stream, a, b, c, m, n, k, e);
+  return launch_with_smem<T>(walk_kernel<T, false, WALK, A_RES, B_RES>, grid,
+                             smem, stream, a, b, c, m, n, k, e);
+}
+
+#define GEMM_WALK_SIGNATURE(T, WALK, A_RES, B_RES)                       \
+  int launch_walk<T, WALK, A_RES, B_RES>(const void*, const void*, void*, \
+                                         int, int, int, const Epi&,       \
+                                         cudaStream_t)
+#define GEMM_WALK_EXTERN(T, WALK, A_RES, B_RES) \
+  extern template GEMM_WALK_SIGNATURE(T, WALK, A_RES, B_RES);
+#define GEMM_WALK_DEFINE(T, WALK, A_RES, B_RES) \
+  template GEMM_WALK_SIGNATURE(T, WALK, A_RES, B_RES);
+
+// The argument checks every GEMM entry point shares.
+inline bool bad_args(int m, int n, int k, int in_dtype, int out_dtype,
+                     int scale_mode, const float* scale, int act) {
+  return m <= 0 || n <= 0 || k <= 0 || cdiv(m, BM) > 65535 ||
+         cdiv(n, BN) > 65535 || (in_dtype != REPRO_F32 && in_dtype != REPRO_BF16) ||
+         (out_dtype != REPRO_F32 && out_dtype != REPRO_BF16) ||
+         scale_mode < SCALE_NONE || scale_mode > SCALE_ROW || act < ACT_NONE ||
+         act > ACT_SILU || (scale_mode != SCALE_NONE && scale == nullptr);
+}
+
+}  // namespace gemm
+
+// Expands to the body of an entry point that calls LAUNCH<T>(args...) for
+// the input element type in_dtype (checked by bad_args).
+#define GEMM_DISPATCH_DTYPES(LAUNCH, ...)                 \
+  do {                                                    \
+    if (in_dtype == REPRO_F32) return LAUNCH<float>(__VA_ARGS__); \
+    return LAUNCH<__nv_bfloat16>(__VA_ARGS__);            \
+  } while (0)

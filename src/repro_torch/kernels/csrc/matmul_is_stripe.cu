@@ -1,0 +1,141 @@
+// B5b: input-stationary GEMM with a resident output stripe.
+//
+// Replaces the TPU kernel repro/kernels/matmul_df.py `_is_stripe_kernel`
+// (built by `_build_is` for an IS anchor with an OS STRIPE/WHOLE aux): grid
+// (gm, gk, gn), so each (bm, bk) input block is fetched once and the (bm, N)
+// output stripe stays resident across the whole reduction and is written
+// once. With b_whole (WS WHOLE aux) all of B is resident too.
+//
+// CTA i owns the output row stripe i: its f32 partial sums, (rows, N) with
+// rows = min(64, M), live in shared memory. The CTA walks k steps outer and
+// column tiles j inner: each 64x32 A tile is loaded once, the 32x64 B tiles
+// stream past it (or are read from the resident B), and the thread that owns
+// a 4x4 block of the stripe reads it, adds one fmaf per k of the step and
+// writes it back. After the last k step the epilogue runs on the stripe and
+// each element is written once. What does not fit in a block's 227 KB (N
+// above ~800 columns at 64 rows) is refused (the Python planner says so
+// first, naming the bytes), never run as another dataflow.
+//
+// Arithmetic: the loads, per-element k order and epilogue of B1
+// (gemm_common.cuh); the partial sums pass through shared memory in f32,
+// which is exact, so every output element equals B1's bit for bit. The
+// reference accumulates a float stripe in the output dtype; this kernel
+// always accumulates in f32 (ROADMAP C).
+//
+// Bound on H100: as B1. The walk gives gm CTAs.
+#include "gemm_common.cuh"
+
+namespace {
+
+using namespace gemm;
+
+template <typename T, bool VEC, bool B_WHOLE_RES>
+__global__ void __launch_bounds__(THREADS)
+is_stripe_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                 void* __restrict__ c, int m, int n, int k, Epi e) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ra = min(BM, round_up(m, TM)), gn = cdiv(n, BN), np = gn * BN;
+  const int gk = cdiv(k, BK), kp = gk * BK;
+  float* as = reinterpret_cast<float*>(smem);
+  float* bs = as + TILE_FLOATS;  // unused with B whole
+  float* st = bs + (B_WHOLE_RES ? 0 : TILE_FLOATS);  // the stripe, (ra, np)
+  T* bw = reinterpret_cast<T*>(st + (size_t)ra * np);  // B whole, (kp, np)
+  const int row0 = blockIdx.x * BM, steps = gk * gn;
+  const int r_own = ty() * TM, c_own = tx() * TN;
+  const bool own = r_own < ra;  // ra is a multiple of TM
+  ATile<T, VEC> at;
+  BTile<T, VEC> bt;
+
+  if (B_WHOLE_RES) load_b_panel(bw, b, k, n, kp, 0, np);
+  // Step s is (k step s / gn, column tile s % gn); a new A tile at column 0.
+  auto fetch = [&](int s) {
+    const int kb = s / gn, j = s % gn;
+    if (j == 0) at.fetch(a, m, k, row0, kb * BK);
+    if (!B_WHOLE_RES) bt.fetch(b, k, n, kb * BK, j * BN);
+  };
+  auto stash = [&](int s) {
+    if (s % gn == 0) at.stash(as);
+    if (!B_WHOLE_RES) bt.stash(bs);
+  };
+
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const bool more = s + 1 < steps;
+    if (more) fetch(s + 1);
+    const int kb = s / gn, col = (s % gn) * BN + c_own;
+    if (own) {
+      float acc[TM][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = kb == 0 ? 0.f : st[(size_t)(r_own + i) * np + col + j];
+      mma_step(acc, [&](int kk, int i) { return as[kk * TILE_LD + r_own + i]; },
+               [&](int kk, int j) -> float {
+                 if (B_WHOLE_RES)
+                   return load_f32(bw + (size_t)(kb * BK + kk) * np + col + j);
+                 return bs[kk * TILE_LD + c_own + j];
+               });
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) st[(size_t)(r_own + i) * np + col + j] = acc[i][j];
+    }
+    __syncthreads();
+    if (more) {
+      stash(s + 1);
+      __syncthreads();
+    }
+  }
+
+  // The flush: each thread's own stripe elements, epilogue, one write.
+  if (!own) return;
+  for (int j0 = 0; j0 < gn; ++j0) {
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        acc[i][j] = st[(size_t)(r_own + i) * np + j0 * BN + c_own + j];
+    store_tile(c, acc, row0, j0 * BN, m, n, e);
+  }
+}
+
+template <typename T>
+int launch(int b_whole, const void* a, const void* b, void* c, int m, int n,
+           int k, const Epi& e, cudaStream_t s) {
+  const int ra = min(BM, round_up(m, TM)), np = round_up(n, BN);
+  const int kp = round_up(k, BK);
+  const size_t smem = TILE_FLOATS * 4 * (b_whole ? 1 : 2) + (size_t)ra * np * 4 +
+                      (b_whole ? (size_t)kp * np * sizeof(T) : 0);
+  const dim3 grid(cdiv(m, BM));
+  const bool vec = vec_ok<T>(a, b, n, k);
+  if (b_whole)
+    return vec ? launch_with_smem<T>(is_stripe_kernel<T, true, true>, grid,
+                                        smem, s, a, b, c, m, n, k, e)
+               : launch_with_smem<T>(is_stripe_kernel<T, false, true>, grid,
+                                        smem, s, a, b, c, m, n, k, e);
+  return vec ? launch_with_smem<T>(is_stripe_kernel<T, true, false>, grid,
+                                      smem, s, a, b, c, m, n, k, e)
+             : launch_with_smem<T>(is_stripe_kernel<T, false, false>, grid,
+                                      smem, s, a, b, c, m, n, k, e);
+}
+
+}  // namespace
+
+// b_whole: 0 streams B, 1 holds all of B in shared memory.
+extern "C" int matmul_is_stripe(const void* a, const void* b, void* c, int m,
+                                int n, int k, int in_dtype, int out_dtype,
+                                const float* scale, int scale_mode,
+                                const float* bias, int act,
+                                const float* residual, int b_whole,
+                                void* stream) {
+  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, act))
+    return REPRO_BAD_ARGUMENT;
+  const gemm::Epi e{scale, scale_mode, bias, act, residual,
+                    out_dtype == REPRO_BF16};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  GEMM_DISPATCH_DTYPES(launch, b_whole, a, b, c, m, n, k, e, s);
+}

@@ -1,0 +1,88 @@
+// B4: the basic weight-stationary (WS) and input-stationary (IS) GEMMs.
+//
+// Replaces the TPU kernel repro/kernels/matmul_df.py `_rmw_kernel` (built by
+// `_build_rmw`): the paper's basic WS and IS dataflows, lowered as one
+// dispatch with the reduction innermost and each output tile revisited in
+// place, the epilogue applied at its last k step. The anchored operand stays
+// resident while the other grid dimension is swept:
+//   m_minor (WS, grid (gn, gm, gk)): CTA j holds B's column stripe (K, 64) in
+//     shared memory, fetched once, and walks the row tiles i; with a_stripe
+//     (IS STRIPE aux) it also holds A's row stripe (64, K), loaded per i.
+//   IS (grid (gm, gn, gk)): CTA i holds A's row stripe (64, K), fetched once,
+//     and walks the column tiles j, streaming B or, with b_res = whole (WS
+//     WHOLE aux), holding all of B (K, N), loaded once per CTA. A WS STRIPE
+//     aux cannot survive the m sweep and is streamed (the reference demotes it
+//     the same way; the Python planner reports it).
+// The output tile's accumulators stay in registers across its k loop, so the
+// TPU's in-place revisits become one write after the epilogue.
+//
+// Arithmetic: the loads, k loop and epilogue of B1 (gemm_common.cuh), so for
+// the same inputs every output element equals B1's bit for bit.
+//
+// Bound on H100: as B1 (operations at prefill M, bytes at decode M). The
+// walk gives gn (WS) or gm (IS) CTAs where B1 has gm * gn, which is what
+// this kernel pays for fetching its anchored operand once.
+#include "gemm_common.cuh"
+
+// The walks this library instantiates, one translation unit per input type
+// and walk order (-DREPRO_PART=0..3).
+#define RMW_WALKS_0(X, T) X(T, WALK_M, false, B_STRIPE) X(T, WALK_M, true, B_STRIPE)
+#define RMW_WALKS_1(X, T) X(T, WALK_N, true, B_STREAMED) X(T, WALK_N, true, B_WHOLE)
+
+namespace gemm {
+#if defined(REPRO_PART)
+#if REPRO_PART == 0
+RMW_WALKS_0(GEMM_WALK_DEFINE, float)
+#elif REPRO_PART == 1
+RMW_WALKS_1(GEMM_WALK_DEFINE, float)
+#elif REPRO_PART == 2
+RMW_WALKS_0(GEMM_WALK_DEFINE, __nv_bfloat16)
+#else
+RMW_WALKS_1(GEMM_WALK_DEFINE, __nv_bfloat16)
+#endif
+#else
+RMW_WALKS_0(GEMM_WALK_EXTERN, float)
+RMW_WALKS_1(GEMM_WALK_EXTERN, float)
+RMW_WALKS_0(GEMM_WALK_EXTERN, __nv_bfloat16)
+RMW_WALKS_1(GEMM_WALK_EXTERN, __nv_bfloat16)
+#endif
+}  // namespace gemm
+
+#if !defined(REPRO_PART)
+namespace {
+
+using namespace gemm;
+
+template <typename T>
+int launch(int m_minor, int a_stripe, int b_res, const void* a, const void* b,
+           void* c, int m, int n, int k, const Epi& e, cudaStream_t s) {
+  if (m_minor) {
+    if (b_res != B_STRIPE) return REPRO_BAD_ARGUMENT;
+    return a_stripe ? launch_walk<T, WALK_M, true, B_STRIPE>(a, b, c, m, n, k, e, s)
+                    : launch_walk<T, WALK_M, false, B_STRIPE>(a, b, c, m, n, k, e, s);
+  }
+  if (!a_stripe) return REPRO_BAD_ARGUMENT;
+  if (b_res == B_WHOLE)
+    return launch_walk<T, WALK_N, true, B_WHOLE>(a, b, c, m, n, k, e, s);
+  if (b_res == B_STREAMED)
+    return launch_walk<T, WALK_N, true, B_STREAMED>(a, b, c, m, n, k, e, s);
+  return REPRO_BAD_ARGUMENT;
+}
+
+}  // namespace
+
+// m_minor: 1 WS, 0 IS; a_stripe: 0/1 (1 for IS); b_res: 0 streamed,
+// 1 stripe (WS), 2 whole (IS).
+extern "C" int matmul_rmw(const void* a, const void* b, void* c, int m, int n,
+                          int k, int in_dtype, int out_dtype,
+                          const float* scale, int scale_mode,
+                          const float* bias, int act, const float* residual,
+                          int m_minor, int a_stripe, int b_res, void* stream) {
+  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, act))
+    return REPRO_BAD_ARGUMENT;
+  const gemm::Epi e{scale, scale_mode, bias, act, residual,
+                    out_dtype == REPRO_BF16};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  GEMM_DISPATCH_DTYPES(launch, m_minor, a_stripe, b_res, a, b, c, m, n, k, e, s);
+}
+#endif

@@ -1,0 +1,126 @@
+// B5a: weight-stationary GEMM with a resident output stripe.
+//
+// Replaces the TPU kernel repro/kernels/matmul_df.py `_ws_stripe_kernel`
+// (built by `_build_ws` for a WS anchor with an OS STRIPE/WHOLE aux): grid
+// (gn, gk, gm), so each (bk, bn) weight block is fetched once and the (M, bn)
+// output stripe stays resident across the whole reduction and is written once.
+//
+// CTA j owns the output column stripe j: its f32 partial sums, (M, 64), live
+// in shared memory. The CTA walks k steps outer and row tiles i inner: each
+// 32x64 B tile is loaded once, each 64x32 A tile streams past it, and the
+// thread that owns a 4x4 block of the stripe reads it, adds one fmaf per k of
+// the step and writes it back. After the last k step the epilogue runs on the
+// stripe and each element is written once. A stripe that does not fit in a
+// block's 227 KB (M above ~860 rows) is refused (the Python planner says so
+// first, naming the bytes), never run as another dataflow.
+//
+// Arithmetic: the loads, per-element k order and epilogue of B1
+// (gemm_common.cuh); the partial sums pass through shared memory in f32,
+// which is exact, so every output element equals B1's bit for bit. The
+// reference accumulates a float stripe in the output dtype (bf16 for a bf16
+// output); this kernel always accumulates in f32 (ROADMAP C).
+//
+// Bound on H100: as B1. The walk gives gn CTAs, and every k step re-reads
+// and re-writes the stripe in shared memory.
+#include "gemm_common.cuh"
+
+namespace {
+
+using namespace gemm;
+
+__host__ __device__ constexpr size_t ws_stripe_smem(int m) {
+  return 2 * TILE_FLOATS * 4 + (size_t)round_up(m, TM) * BN * 4;
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+ws_stripe_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                 void* __restrict__ c, int m, int n, int k, Epi e) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* as = reinterpret_cast<float*>(smem);
+  float* bs = as + TILE_FLOATS;
+  float* st = bs + TILE_FLOATS;  // the stripe, (mr, BN) row-major
+  const int mr = round_up(m, TM), gm = cdiv(m, BM), gk = cdiv(k, BK);
+  const int col0 = blockIdx.x * BN, steps = gk * gm;
+  const int r_own = ty() * TM, c_own = tx() * TN;
+  ATile<T, VEC> at;
+  BTile<T, VEC> bt;
+
+  // Step s is (k step s / gm, row tile s % gm); a new B tile at row tile 0.
+  auto fetch = [&](int s) {
+    const int kb = s / gm, i = s % gm;
+    at.fetch(a, m, k, i * BM, kb * BK);
+    if (i == 0) bt.fetch(b, k, n, kb * BK, col0);
+  };
+  auto stash = [&](int s) {
+    at.stash(as);
+    if (s % gm == 0) bt.stash(bs);
+  };
+
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const bool more = s + 1 < steps;
+    if (more) fetch(s + 1);
+    const int kb = s / gm, row0 = (s % gm) * BM + r_own;
+    if (row0 < mr) {  // mr is a multiple of TM: all TM rows are in the stripe
+      float acc[TM][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = kb == 0 ? 0.f : st[(row0 + i) * BN + c_own + j];
+      mma_step(acc, [&](int kk, int i) { return as[kk * TILE_LD + r_own + i]; },
+               [&](int kk, int j) { return bs[kk * TILE_LD + c_own + j]; });
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) st[(row0 + i) * BN + c_own + j] = acc[i][j];
+    }
+    __syncthreads();
+    if (more) {
+      stash(s + 1);
+      __syncthreads();
+    }
+  }
+
+  // The flush: each thread's own stripe elements, epilogue, one write.
+  for (int i0 = 0; i0 < gm; ++i0) {
+    const int row0 = i0 * BM + r_own;
+    if (row0 >= mr) continue;
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = st[(row0 + i) * BN + c_own + j];
+    store_tile(c, acc, i0 * BM, col0, m, n, e);
+  }
+}
+
+template <typename T>
+int launch(const void* a, const void* b, void* c, int m, int n, int k,
+           const Epi& e, cudaStream_t s) {
+  const dim3 grid(cdiv(n, BN));
+  const size_t smem = ws_stripe_smem(m);
+  if (vec_ok<T>(a, b, n, k))
+    return launch_with_smem<T>(ws_stripe_kernel<T, true>, grid, smem, s,
+                                  a, b, c, m, n, k, e);
+  return launch_with_smem<T>(ws_stripe_kernel<T, false>, grid, smem, s,
+                                a, b, c, m, n, k, e);
+}
+
+}  // namespace
+
+extern "C" int matmul_ws_stripe(const void* a, const void* b, void* c, int m,
+                                int n, int k, int in_dtype, int out_dtype,
+                                const float* scale, int scale_mode,
+                                const float* bias, int act,
+                                const float* residual, void* stream) {
+  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, act))
+    return REPRO_BAD_ARGUMENT;
+  const gemm::Epi e{scale, scale_mode, bias, act, residual,
+                    out_dtype == REPRO_BF16};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  GEMM_DISPATCH_DTYPES(launch, a, b, c, m, n, k, e, s);
+}

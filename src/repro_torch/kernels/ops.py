@@ -1,8 +1,8 @@
 """Public entry points of the port's kernels.
 
-The twins of ``repro/kernels/ops.py``'s ``matmul_fused``, ``attention``
-and ``paged_attention``, with the same signatures.  ``backend`` picks the
-path:
+The twins of ``repro/kernels/ops.py``'s ``matmul``, ``matmul_fused``,
+``attention`` and ``paged_attention``, with the same signatures.
+``backend`` picks the path:
 
 * ``"cuda"`` — the hand-written kernel (``matmul_df`` /
   ``attention_df``), the port's counterpart of ``"pallas"``; on a CPU
@@ -11,11 +11,14 @@ path:
   counterpart of ``"xla"`` and the path a CPU serving engine demotes to;
 * ``None`` — ``"cuda"``.
 
-``spec=None`` takes the kernel's one compiled block; nothing is
-autotuned.  Where the JAX ops pad operands to the block, the CUDA
-kernels mask the ragged edges themselves, so nothing is padded here.
-Each op carries the same fault-injection site as its JAX twin
-(``kernel.matmul`` / ``kernel.attention``), fired on every call.
+``spec=None`` takes B1's basic OS dataflow (attention: B2's flash
+anchor); nothing is autotuned yet (ROADMAP A4). An explicit GEMM spec
+runs, at the kernels' one compiled block, the kernel ``matmul_df.plan``
+names for its anchor and residencies, or raises ``ValueError`` where
+they do not fit in shared memory. Where the JAX ops pad operands to the
+block, the CUDA kernels mask the ragged edges themselves, so nothing is
+padded here. Each op carries the same fault-injection site as its JAX
+twin (``kernel.matmul`` / ``kernel.attention``), fired on every call.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.dataflow import DataflowSpec, OS
+from repro_torch.core.dataflow import DataflowSpec, OS, WS
 from repro_torch.kernels import attention_df, matmul_df, ref
 from repro_torch.runtime import health
 
@@ -45,17 +48,23 @@ def _poison(out: torch.Tensor, fault: Optional[str]) -> torch.Tensor:
     return out
 
 
-def _check_gemm_spec(spec: Optional[DataflowSpec]) -> None:
-    if spec is None:
-        return
-    if spec.anchor != OS:
-        raise NotImplementedError(
-            f"only the OS anchor is ported (ROADMAP B4/B5 queue the "
-            f"WS/IS kernels), got {spec.anchor!r}")
-    built = matmul_df.REGISTRATION.spec.block
-    if tuple(spec.block) != built:
-        raise ValueError(f"the OS kernel is compiled for block {built}, "
-                         f"got {spec.block}")
+def matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    spec: Optional[DataflowSpec] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """(M, K) @ (K, N) under a dataflow spec; float32 output by default."""
+    fault = health.maybe_inject("kernel.matmul")
+    matmul_df.check_operands(a, b)
+    out_dtype = out_dtype or torch.float32
+    if _backend(backend) == "torch":
+        out = ref.matmul_ref(a, b, out_dtype)
+    else:
+        out = matmul_df.matmul_df(a, b, spec or matmul_df.BASIC_OS,
+                                  out_dtype=out_dtype)
+    return _poison(out, fault)
 
 
 def matmul_fused(
@@ -76,6 +85,7 @@ def matmul_fused(
     per-row ((M, 1)); a 1-D vector is per-column when M == N.
     """
     fault = health.maybe_inject("kernel.matmul")
+    matmul_df.check_operands(a, b)
     m, _ = a.shape
     n = b.shape[1]
     backend = _backend(backend)
@@ -104,10 +114,9 @@ def matmul_fused(
                                    residual=residual, activation=activation,
                                    out_dtype=out_dtype)
     else:
-        _check_gemm_spec(spec)
-        out = matmul_df.matmul_os(a, b, scale=scale, bias=bias,
-                                  residual=residual, activation=activation,
-                                  out_dtype=out_dtype)
+        out = matmul_df.matmul_df(a, b, spec or matmul_df.BASIC_OS,
+                                  scale=scale, bias=bias, residual=residual,
+                                  activation=activation, out_dtype=out_dtype)
     return _poison(out, fault)
 
 
@@ -122,14 +131,15 @@ def attention(
     bq: Optional[int] = None,
     bkv: Optional[int] = None,
     backend: Optional[str] = None,
-    anchor: Optional[str] = None,          # "os" (flash); "ws" not ported
+    anchor: Optional[str] = None,          # "os" flash | "ws" kv-stationary
     group: Optional[int] = None,
     kv_len: ref.KvLen = None,              # valid KV prefix: int or (B,)
     window_dyn: Optional[int] = None,      # run-time sliding window
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """GQA attention under the OS (flash) anchor.  Returns (B, Hq, Sq, D).
+    """GQA attention under the OS (flash, B2) or WS (kv-stationary, B7)
+    anchor.  Returns (B, Hq, Sq, D).
 
     ``kv_len`` is the filled prefix of a padded KV buffer; q rows
     right-align against it and the kernel visits only the KV tiles in
@@ -146,13 +156,16 @@ def attention(
         raise NotImplementedError(
             "int8 K/V is not ported yet (ROADMAP A6)")
     if spec is not None:
+        if spec.anchor not in (OS, WS):
+            raise ValueError(f"attention admits OS/WS anchors, not "
+                             f"{spec.anchor!r}")
         anchor = anchor or ("os" if spec.anchor == OS else "ws")
         bq = bq if bq is not None else spec.block[0]
         bkv = bkv if bkv is not None else spec.block[1]
-    if anchor not in (None, "os"):
-        raise NotImplementedError(
-            f"anchor {anchor!r}: the kv-stationary kernel is not ported yet "
-            f"(ROADMAP B7)")
+    anchor = anchor or "os"
+    if anchor not in ("os", "ws"):
+        raise ValueError(f"attention anchor must be 'os' or 'ws', got "
+                         f"{anchor!r}")
     win = window if window is not None else window_dyn
     if torch.is_tensor(win):
         win = int(win)
@@ -165,14 +178,17 @@ def attention(
         out = ref.attention_ref(q, k, v, causal=causal, window=win,
                                 scale=scale, kv_len=kv_len)
     else:
-        built = attention_df.FLASH.spec.block[:2]
+        reg = attention_df.FLASH if anchor == "os" \
+            else attention_df.KV_STATIONARY
+        built = reg.spec.block[:2]
         if any(got is not None and got != want
                for got, want in zip((bq, bkv), built)):
-            raise ValueError(f"the flash kernel is compiled for (bq, bkv) "
-                             f"= {built}, got ({bq}, {bkv})")
-        out = attention_df.flash_attention(q, k, v, causal=causal,
-                                           window=win, scale=scale,
-                                           kv_len=kv_len)
+            raise ValueError(f"the {reg.name} kernel is compiled for (bq, "
+                             f"bkv) = {built}, got ({bq}, {bkv})")
+        fn = attention_df.flash_attention if anchor == "os" \
+            else attention_df.kv_stationary_attention
+        out = fn(q, k, v, causal=causal, window=win, scale=scale,
+                 kv_len=kv_len)
     return _poison(out, fault)
 
 

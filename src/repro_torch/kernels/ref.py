@@ -22,6 +22,12 @@ ACTIVATION_FNS = {
 assert set(ACTIVATION_FNS) == set(EPILOGUE_ACTIVATIONS)
 
 
+def matmul_ref(a: torch.Tensor, b: torch.Tensor,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain GEMM oracle, accumulated in float32."""
+    return (a.float() @ b.float()).to(out_dtype or torch.float32)
+
+
 def matmul_fused_ref(
     a: torch.Tensor,
     b: torch.Tensor,

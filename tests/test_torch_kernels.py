@@ -15,7 +15,7 @@ import torch
 from repro.core.dataflow import DataflowSpec, OS
 from repro.kernels import ops as jops
 from repro_torch.core import dataflow as tdataflow
-from repro_torch.kernels import ops
+from repro_torch.kernels import matmul_df, ops
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 JAX_OS_SPEC = DataflowSpec(anchor=OS, block=(32, 32, 32))
@@ -130,14 +130,34 @@ def test_torch_backend_is_the_plain_twin():
 
 
 def test_unported_dataflows_raise():
+    """What stays unported raises, naming its ROADMAP entry: int8 K/V
+    (A6) and int8 GEMM operands (A8); a block other than the compiled one
+    raises; and an OS spec with a residency is planned as that residency,
+    never silently streamed."""
     q = torch.zeros(1, 2, 4, 32)
-    with pytest.raises(NotImplementedError, match="B7"):
-        ops.attention(q, q, q, anchor="ws")
     with pytest.raises(NotImplementedError, match="A6"):
         ops.attention(q, q.to(torch.int8), q.to(torch.int8))
+    with pytest.raises(NotImplementedError, match="A6"):
+        ops.attention(q, q.to(torch.int8), q.to(torch.int8), anchor="ws")
+    a8 = torch.zeros(2, 3, dtype=torch.int8)
+    b8 = torch.zeros(3, 4, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ops.matmul_fused(a8, b8)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ops.matmul(a8, b8)
     spec = tdataflow.DataflowSpec(anchor=tdataflow.OS, block=(32, 32, 32))
     with pytest.raises(ValueError, match="compiled for block"):
         ops.matmul_fused(torch.zeros(2, 3), torch.zeros(3, 4), spec=spec)
     with pytest.raises(ValueError, match="compiled for"):
         ops.attention(q, q, q, bq=8)
+    with pytest.raises(ValueError, match="compiled for"):
+        ops.attention(q, q, q, bq=8, anchor="ws")
     assert ops.attention(q, q, q, bq=16).shape == q.shape
+    assert ops.attention(q, q, q, anchor="ws").shape == q.shape
+    optimized = tdataflow.DataflowSpec.optimized(block=matmul_df.BLOCK)
+    plan = matmul_df.plan(optimized, 2, 3, 4)
+    assert plan.kernel == "matmul_os" and plan.args == (0, 1)
+    assert plan.grid_order == "(gn, gm, gk)"
+    assert list(plan.resident) == ["B column stripe (32, 64)"]
+    assert ops.matmul_fused(torch.zeros(2, 3), torch.zeros(3, 4),
+                            spec=optimized).shape == (2, 4)
