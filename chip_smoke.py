@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as the gate runs it
     python3 chip_smoke.py --phases card,build,kernels   # a quicker kernel check
     python3 chip_smoke.py --phases card,build,kernels,dataflows
+    python3 chip_smoke.py --phases card,build,kernels,quantized
 
 Phases, each printing JSON lines:
 
@@ -22,21 +23,35 @@ Phases, each printing JSON lines:
    runs through the kernel ``matmul_df.plan`` names, matches the plain
    version and equals B1's output bit for bit, or raises ``ValueError``
    naming the shared memory it needs.  B7 is held against the plain
-   version with B2's tolerances.
+   version with B2's tolerances.  B9 is held bit for bit at every anchor
+   and epilogue stage at the served binary-MLP shapes; B8 at int8 bit for
+   bit, and at f32/bf16 within B1's tolerance, on the ResNet-18 layers,
+   every anchor equal to OS; each infeasible anchor raises naming its
+   bytes.
 4. ``dataflows``: the bench twins (``repro_torch.bench``): Fig. 2 (basic
    OS/WS/IS), Fig. 7 (auxiliary residencies) on the paper's layer grid
    and qwen3-1.7b's MLP GEMMs, and attention's OS vs WS anchor at prefill
    512 and 2048; every row printed, every dataflow kernel launched.
-5. ``serve``: full-width qwen3-1.7b (random bf16 weights from a seed, depth
+5. ``quantized``: the bench twins of the paper's quantized datapaths
+   (``repro_torch.bench.conv``, ``repro_torch.bench.binary``): fused
+   against unfused conv epilogue per anchor, the ResNet-18 conv body at
+   int8 per anchor, and Fig. 9 (binary against int8 and bf16 conv on the
+   VGG layers); every row printed, B8 and B9 launched.
+6. ``serve``: full-width qwen3-1.7b (random bf16 weights from a seed, depth
    cut to ``--layers``) served through ``Engine.submit``/``drain``:
    every request DONE, no demotion, every kernel launched, mixed-length
    batch tokens == each request served alone; prefill tokens/s and decode
    ms/step; then a ``torch.profiler`` trace of 6 decode steps at batch 4:
    device busy ms/step, idle share, kernel ms/step by name.
+7. ``serve_binary``: the same, for qwen3-1.7b with its binary MLP
+   (``binary_mlp=True``: +-1 weights bit-packed, the two projections
+   through B9); besides, at every layer of a two-layer prefill the
+   binary MLP on the kernels equals its plain version bit for bit.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
-B1, B2, B3; dataflows: B1, B2, B4, B5a, B5b, B7), counted from 0 just
-before the path runs. The last lines are the ``{"kernels": [...]}``
+B1, B2, B3; serve_binary: B9, B2, B3; dataflows: B1, B2, B4, B5a, B5b,
+B7; quantized: B8, B9), counted from 0 just before the path runs. The
+last lines are the ``{"kernels": [...]}``
 record, the card line, and ``{"ok": true, "device": {...}}``. Any
 failure raises, so the script exits non-zero and prints no ``ok`` line;
 it also exits non-zero when no CUDA device is visible or the port's
@@ -45,6 +60,7 @@ sources are not beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -53,7 +69,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-ALL_PHASES = ("card", "build", "kernels", "dataflows", "serve")
+ALL_PHASES = ("card", "build", "kernels", "dataflows", "quantized", "serve",
+              "serve_binary")
 
 
 def emit(obj) -> None:
@@ -261,6 +278,8 @@ def kernel_phase(torch, cfg, timer):
     records.update(gemm_dataflow_checks(torch, cfg, timer, gen, b1_tol))
     records.update(kv_stationary_checks(torch, cfg, timer, gen, att_tol,
                                         f32_tol))
+    records.update(binary_checks(torch, cfg, timer, gen))
+    records.update(conv_checks(torch, timer, gen, b1_tol))
     for name, rec in records.items():
         emit({"kernel_timing": name, **rec})
     return records
@@ -452,6 +471,309 @@ def kv_stationary_checks(torch, cfg, timer, gen, tol, f32_tol):
         equals_flash_bitwise=all(same_as_b2))}
 
 
+def _bitwise(name: str, got, want, shape: str) -> float:
+    """Integer paths and exact epilogues: equal bit for bit.  Returns the
+    max |got - want| it measured (0.0 when equal)."""
+    same = (got.dtype == want.dtype and got.shape == want.shape
+            and bool((got == want).all()))
+    diff = (float((got.double() - want.double()).abs().max())
+            if got.shape == want.shape and got.numel() else float("inf"))
+    emit({"check": name, "shape": shape, "bitwise_equal": same,
+          "max_abs_err": diff})
+    if not same:
+        raise AssertionError(f"{name} {shape}: differs from its plain "
+                             f"version (max |diff| {diff})")
+    return diff
+
+
+def _refuses(name: str, fn, label: str) -> dict:
+    """An anchor whose resident operand does not fit raises ValueError
+    naming its bytes."""
+    try:
+        fn()
+    except ValueError as err:
+        if "bytes of shared memory" not in str(err):
+            raise
+        emit({"check": f"{name}_infeasible_raises", "shape": label,
+              "why": str(err), "ok": True})
+        return {"shape": label, "why": str(err)}
+    raise AssertionError(f"{name} at {label} ran though it cannot fit")
+
+
+def binary_checks(torch, cfg, timer, gen):
+    """B9 against its plain version at every anchor and epilogue stage, at
+    the served binary-MLP shapes (up: M x d_model/32 words -> d_ff,
+    binarized; down: M x d_ff/32 -> d_model, float) at decode M = 4 and
+    prefill M = 511, and at a ragged shape: exact integer dots and an
+    epilogue rounded stage by stage on both sides, so equal bit for bit,
+    every anchor equal to OS."""
+    from repro_torch.bench import common
+    from repro_torch.core.dataflow import BinaryEpilogue, DataflowSpec, IS, OS, WS
+    from repro_torch.kernels import binary_mm, ref
+
+    dev = "cuda"
+    d, dff = cfg.d_model, cfg.d_ff
+    specs = {name: DataflowSpec.basic(a, block=binary_mm.BLOCK)
+             for name, a in (("os", OS), ("ws", WS), ("is", IS))}
+
+    def signs(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def operands(m, k, n):
+        return (ref.pack_binary(signs(m, k), axis=1),
+                ref.pack_binary(signs(k, n), axis=0))
+
+    stages = {
+        "raw": {},
+        "scale(col)": dict(scale="col"),
+        "scale(tensor)+bias": dict(scale="tensor", bias=True),
+        "scale+bias+residual": dict(scale="col", bias=True, residual=True),
+        "scale+bias+sign": dict(scale="col", bias=True, binarize=True),
+        "residual+sign": dict(residual=True, binarize=True),
+    }
+    shapes = [(f"up M={m}", m, d, dff) for m in (4, 511)]
+    shapes += [(f"down M={m}", m, dff, d) for m in (4, 511)]
+    shapes += [("ragged", 37, 160, 50)]
+    other_outs = {"raw": (torch.float32, torch.bfloat16),
+                  "scale(tensor)+bias": (torch.bfloat16,),
+                  "scale+bias+sign": (torch.int32, torch.float32,
+                                      torch.bfloat16)}
+    errs = []
+    for label, m, k, n in shapes:
+        a, b = operands(m, k, n)
+        kp = a.shape[1]
+        dot = ref.binary_matmul_ref(a, b, k)
+        arrays = dict(scale=torch.rand((1, n), generator=gen, device=dev)
+                      + 0.5,
+                      bias=torch.randn((1, n), generator=gen, device=dev),
+                      residual=torch.randn((m, n), generator=gen,
+                                           device=dev))
+        for stage, flags in stages.items():
+            kw = {}
+            if flags.get("scale") == "col":
+                kw["scale"] = arrays["scale"] * k ** -0.5
+            elif flags.get("scale") == "tensor":
+                kw["scale"] = torch.full((1, 1), k ** -0.5, device=dev)
+            for name in ("bias", "residual"):
+                if flags.get(name):
+                    kw[name] = arrays[name]
+            binarize = flags.get("binarize", False)
+            epi = BinaryEpilogue(scale="scale" in kw, bias="bias" in kw,
+                                 residual="residual" in kw,
+                                 binarize=binarize)
+            # The ragged shape also takes every other output type the
+            # kernel writes for this stage.
+            outs = [None] + list(other_outs.get(stage, ())
+                                 if label == "ragged" else ())
+            for out_dtype in outs:
+                if epi.is_noop:
+                    want = dot if out_dtype is None else dot.to(out_dtype)
+                else:
+                    want = ref.binary_epilogue_ref(
+                        dot, binarize=binarize, out_dtype=out_dtype, **kw)
+                base = None
+                for anchor, spec in specs.items():
+                    got = binary_mm.binary_mm_df(a, b, k, spec,
+                                                 out_dtype=out_dtype,
+                                                 epilogue=epi, **kw)
+                    errs.append(_bitwise(
+                        f"binary_mm[{anchor}]", got, want,
+                        f"{label} Kp={kp} N={n} {stage} -> {got.dtype}"))
+                    if base is not None and not torch.equal(got, base):
+                        raise AssertionError(f"binary {anchor} {label} "
+                                             f"{stage} differs from OS")
+                    base = got
+    feasibility = [_refuses(
+        "binary_mm", lambda spec=spec: binary_mm.binary_mm_df(
+            torch.zeros((64, 1024), dtype=torch.int32, device=dev),
+            torch.zeros((1024, 64), dtype=torch.int32, device=dev), 32768,
+            spec), f"{anchor} M=64 Kp=1024 N=64")
+        for anchor, spec in specs.items() if anchor != "os"]
+    emit({"check": "binary_mm_all", "bitwise_checks": len(errs),
+          "infeasible": len(feasibility)})
+
+    # Timed: the served up projection at prefill M = 511, binarized.
+    m, k, n = 511, d, dff
+    a, b = operands(m, k, n)
+    kp = a.shape[1]
+    scale = torch.full((1, n), k ** -0.5, device=dev)
+    bias = torch.zeros((1, n), device=dev)
+    epi = BinaryEpilogue(scale=True, bias=True, binarize=True)
+    a_pm = ref.unpack_binary(a, axis=1, dtype=torch.bfloat16)
+    b_pm = ref.unpack_binary(b, axis=0, dtype=torch.bfloat16)
+    # The card's fastest rate for a +-1 product is the int8 tensor cores'
+    # (2*M*K*N operations on the unpacked values), against the packed
+    # bytes; the CUDA cores' xor+popc word rate, which this kernel runs
+    # at, is reported beside it.
+    moved = (m * kp + kp * n) * 4 + m * n + 2 * n * 4
+    bnd = common.bound(moved, 2.0 * m * k * n, common.INT8_OPS_PER_S)
+    popc = common.bound(moved, float(m * kp * n), common.POPC_WORDS_PER_S)
+    for anchor in ("ws", "is"):
+        emit({"kernel_timing_detail": "binary_mm",
+              "shape": f"up M={m} Kp={kp} N={n} {anchor}",
+              "ms": timer.ms(lambda: binary_mm.binary_mm_df(
+                  a, b, k, specs[anchor], epilogue=epi, scale=scale,
+                  bias=bias))})
+    a4, b4 = operands(4, dff, d)
+    emit({"kernel_timing_detail": "binary_mm",
+          "shape": f"decode down M=4 Kp={dff // 32} N={d} float",
+          "ms": timer.ms(lambda: binary_mm.binary_mm_df(
+              a4, b4, dff, specs["os"], epilogue=BinaryEpilogue(
+                  scale=True, bias=True), scale=scale[:, :d],
+              bias=bias[:, :d]))})
+    return {"binary_mm": dict(
+        shape=f"served up M={m} Kp={kp} N={n} scale+bias+sign -> int8",
+        max_abs_err=max(errs),
+        ms=timer.ms(lambda: binary_mm.binary_mm_df(
+            a, b, k, specs["os"], epilogue=epi, scale=scale, bias=bias)),
+        plain_ms=timer.ms(lambda: ref.binary_matmul_fused_ref(
+            a, b, k, scale=scale, bias=bias, binarize=True)),
+        library_ms=timer.ms(lambda: torch.matmul(a_pm, b_pm)),
+        library_call="torch.matmul on the unpacked +-1 bf16 operands",
+        bound_ms=bnd[0], bound_by=bnd[1],
+        rate_for_bound="int8 tensor cores, 1979 TOP/s dense, on the "
+                       "unpacked +-1 values",
+        popc_bound_ms=popc[0], popc_bound_by=popc[1],
+        popc_rate="xor+popc word pairs at 16 popc/SM/clock, 132 SMs, "
+                  "1.98 GHz", tolerance="bit for bit")}
+
+
+def conv_checks(torch, timer, gen, tol):
+    """B8 against its plain version on the ResNet-18 conv body (stride 1
+    and 2) and a ragged-channel case: int8 with the fused dequant
+    epilogue (scale, bias, relu, residual: exact on both sides) bit for
+    bit at every anchor that fits; f32 and bf16 within B1's tolerance,
+    every anchor equal to OS bit for bit; infeasible anchors raise."""
+    from repro_torch.bench import common
+    from repro_torch.bench.conv import ANCHORS, RESNET18
+    from repro_torch.core.dataflow import ConvProblem
+    from repro_torch.kernels import conv2d_df, ops, ref
+
+    dev = "cuda"
+
+    def operands(n, ih, iw, f, cin, cout, dtype):
+        if dtype == torch.int8:
+            x = torch.randint(-127, 128, (n, ih, iw, cin), generator=gen,
+                              device=dev, dtype=torch.int8)
+            w = torch.randint(-127, 128, (f, f, cin, cout), generator=gen,
+                              device=dev, dtype=torch.int8)
+            return x, w
+        x = torch.randn((n, ih, iw, cin), generator=gen, device=dev)
+        w = torch.randn((f, f, cin, cout), generator=gen,
+                        device=dev) * (f * f * cin) ** -0.5
+        return x.to(dtype), w.to(dtype)
+
+    cases = [((1,) + (ih, iw, f, s, cin, cout), f"resnet18 {ih}x{iw}x{cin} "
+              f"f{f} s{s} -> {cout}") for ih, iw, f, s, cin, cout, _ in
+             RESNET18]
+    cases.append(((2, 13, 12, 3, 2, 9, 70), "ragged 2x13x12x9 f3 s2 -> 70"))
+    errs, feasibility = [], []
+    for (n, ih, iw, f, s, cin, cout), label in cases:
+        conv = ConvProblem(ih=ih, iw=iw, fh=f, fw=f, s=s, cin=cin,
+                           cout=cout, n=n)
+        residual = torch.randn((n, conv.oh, conv.ow, cout), generator=gen,
+                               device=dev)
+        bias = torch.randn((cout,), generator=gen, device=dev)
+        for dtype in (torch.int8, torch.bfloat16, torch.float32):
+            x, w = operands(n, ih, iw, f, cin, cout, dtype)
+            if dtype == torch.int8:
+                scale = torch.rand((cout,), generator=gen, device=dev) * 1e-4
+                epi = dict(scale=scale, bias=bias, residual=residual,
+                           activation="relu")
+                runs = {"int8 dequant+bias+relu+res": (
+                    lambda spec, out=None: ops.conv2d_fused(
+                        x, w, s, spec=spec, out_dtype=out, **epi),
+                    ref.conv2d_fused_ref(x, w, s, scale=scale.reshape(1, -1),
+                                         bias=bias.reshape(1, -1),
+                                         residual=residual,
+                                         activation="relu"))}
+                if label.startswith(("resnet18 56x56x64 f3 s1", "ragged")):
+                    runs["int8 raw int32"] = (
+                        lambda spec: ops.conv2d(x, w, s, spec=spec),
+                        ref.conv2d_ref(x, w, s))
+            else:
+                epi = dict(scale=0.5, bias=bias, residual=residual,
+                           activation="gelu")
+                runs = {f"{dtype} scale+bias+gelu+res": (
+                    lambda spec, out=None: ops.conv2d_fused(
+                        x, w, s, spec=spec, out_dtype=out, **epi),
+                    ref.conv2d_fused_ref(x, w, s,
+                                         scale=torch.full((1, 1), 0.5,
+                                                          device=dev),
+                                         bias=bias.reshape(1, -1),
+                                         residual=residual,
+                                         activation="gelu"))}
+            for what, (call, want) in runs.items():
+                base = None
+                for anchor, spec in ANCHORS.items():
+                    shape = f"{label} {what} {anchor}"
+                    try:
+                        p = conv2d_df.plan(spec, conv, dtype)
+                    except ValueError:
+                        feasibility.append(_refuses(
+                            "conv2d", lambda: call(spec), shape))
+                        continue
+                    got = call(spec)
+                    if dtype == torch.int8:
+                        errs.append(_bitwise(f"conv2d[{anchor}]", got, want,
+                                             shape))
+                    else:
+                        errs.append(check(f"conv2d[{anchor}]", got, want,
+                                          shape=shape, **tol))
+                    if base is not None and not torch.equal(got, base):
+                        raise AssertionError(f"conv {shape} differs from "
+                                             f"OS ({p.walk})")
+                    base = got
+                if label.startswith("ragged") and base.is_floating_point():
+                    # A bf16 output is the f32 result rounded once.
+                    _bitwise("conv2d[os] bf16 out", call(
+                        ANCHORS["os"], torch.bfloat16), base.to(
+                        torch.bfloat16), f"{label} {what} -> bf16")
+    xb, wb = operands(1, 56, 56, 3, 64, 64, torch.bfloat16)
+    feasibility.append(_refuses(
+        "conv2d", lambda: ops.conv2d(xb, wb, spec=ANCHORS["is"]),
+        "resnet18 56x56x64 bf16 is (the image needs 401408 B)"))
+    emit({"check": "conv2d_all", "checks": len(errs),
+          "infeasible": len(feasibility),
+          "infeasible_shapes": [f["shape"] for f in feasibility]})
+
+    # Timed: ResNet-18 (56, 3, 1, 64 -> 64) at int8 with the fused dequant.
+    ih, f, s, cin, cout = 56, 3, 1, 64, 64
+    conv = ConvProblem(ih=ih, iw=ih, fh=f, fw=f, s=s, cin=cin, cout=cout)
+    xq, wq = operands(1, ih, ih, f, cin, cout, torch.int8)
+    scale = torch.rand((1, cout), generator=gen, device=dev) * 1e-4
+    bias = torch.randn((1, cout), generator=gen, device=dev)
+    bnd = common.conv_bound(conv, 1, 4, common.INT8_OPS_PER_S)
+    for anchor in ("ws", "is"):
+        emit({"kernel_timing_detail": "conv2d",
+              "shape": f"resnet18 (56,3,1,64->64) int8 dequant {anchor}",
+              "ms": timer.ms(lambda: ops.conv2d_fused(
+                  xq, wq, s, scale=scale, bias=bias, spec=ANCHORS[anchor]))})
+    x_nchw = xb.permute(0, 3, 1, 2)
+    w_lib = wb.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    bnd_bf16 = common.conv_bound(conv, 2, 4, common.BF16_FLOPS_PER_S)
+    emit({"kernel_timing_detail": "conv2d",
+          "shape": "resnet18 (56,3,1,64->64) bf16 -> f32, OS",
+          "ms": timer.ms(lambda: ops.conv2d(xb, wb, s)),
+          "plain_ms": timer.ms(lambda: ref.conv2d_ref(xb, wb, s)),
+          "library_ms": timer.ms(lambda: torch.nn.functional.conv2d(
+              x_nchw, w_lib, stride=s)),
+          "library_call": "F.conv2d (cuDNN, bf16, channels_last)",
+          "bound_ms": bnd_bf16[0], "bound_by": bnd_bf16[1]})
+    return {"conv2d": dict(
+        shape="resnet18 (56,3,1,64->64) int8, fused dequant (scale, bias), "
+              "f32 out, OS",
+        max_abs_err=max(errs),
+        ms=timer.ms(lambda: ops.conv2d_fused(xq, wq, s, scale=scale,
+                                             bias=bias)),
+        plain_ms=timer.ms(lambda: ref.conv2d_fused_ref(
+            xq, wq, s, scale=scale, bias=bias)),
+        library_ms=None, library_call=None,
+        bound_ms=bnd[0], bound_by=bnd[1], tolerance=dict(
+            int8="bit for bit", float=tol))}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the bench twins of the paper's dataflow comparison.
 # ---------------------------------------------------------------------------
@@ -481,7 +803,33 @@ def dataflows_phase(torch):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: serve full-width qwen3-1.7b.
+# Phase 5: the bench twins of the quantized datapaths.
+# ---------------------------------------------------------------------------
+QUANTIZED_PATH = ("conv2d", "binary_mm")
+
+
+def quantized_phase(torch):
+    from repro_torch.bench import binary, conv
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    t0 = time.monotonic()
+    for bench in (conv, binary):
+        for row in bench.run("cuda"):
+            emit({"phase": "quantized", **row})
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    emit({"phase": "quantized", "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t0, "launches": launches})
+    missing = [k for k in QUANTIZED_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the quantized "
+                             f"path: {missing}")
+    return {k: launches[k] for k in QUANTIZED_PATH}
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: serve full-width qwen3-1.7b, dense and binary MLP.
 # ---------------------------------------------------------------------------
 def _cosine(a, b) -> float:
     a, b = a.float().flatten(), b.float().flatten()
@@ -489,29 +837,69 @@ def _cosine(a, b) -> float:
 
 
 SERVE_PATH = ("matmul_os", "flash_attention", "paged_attention")
+SERVE_BINARY_PATH = ("binary_mm", "flash_attention", "paged_attention")
 
 
-def serve_phase(torch, cfg, args):
-    import dataclasses
+def binary_mlp_bitwise(cfg, params, toks, max_len, phase):
+    """At every layer of a two-layer prefill on the kernels, the binary
+    MLP's input is recorded, and the MLP on the kernels (B9) must equal
+    its plain version on that input bit for bit: the hidden +-1 int8
+    activations and the float output."""
+    from repro_torch.models import layers, lm
 
+    sub = dataclasses.replace(cfg, n_layers=2)
+    sub_params = dict(params, layers=_map(lambda t: t[:2], params["layers"]))
+    seen = []
+    plain_mlp = layers.mlp_apply
+
+    def recording(p, x, cfg=None):
+        seen.append((p, x))
+        return plain_mlp(p, x, cfg)
+
+    layers.mlp_apply = recording
+    try:
+        lm.prefill(sub_params, toks, sub, max_len=max_len)
+    finally:
+        layers.mlp_apply = plain_mlp
+    for i, (p, x) in enumerate(seen):
+        hidden = layers.binary_dense(p["up"], x)
+        out = layers.binary_mlp_apply(p, x)
+        with layers.forced_backend("torch"):
+            hidden_plain = layers.binary_dense(p["up"], x)
+            out_plain = layers.binary_mlp_apply(p, x)
+        shape = f"layer {i} M={x.shape[0] * x.shape[1]} d={x.shape[-1]}"
+        _bitwise(f"{phase} binary_mlp hidden (int8)", hidden, hidden_plain,
+                 shape)
+        _bitwise(f"{phase} binary_mlp out (f32)", out, out_plain, shape)
+    if len(seen) != 2:
+        raise AssertionError(f"recorded {len(seen)} MLP calls, want 2")
+
+
+def serve_path(torch, cfg, args, phase, path):
+    """Serve ``cfg`` (full width, random weights from ``--seed``) through
+    ``Engine``: the gates of the ``serve`` phase, then throughput and the
+    decode trace; returns the launches of ``path``'s kernels."""
     import numpy as np
 
     from repro_torch.kernels import _build
     from repro_torch.models import layers, lm
     from repro_torch.serve.engine import Engine, RequestState
 
-    cfg = dataclasses.replace(cfg, n_layers=args.layers)
     max_len, new_tokens, lens = 1024, 16, (17, 64, 200, 511)
     t0 = time.monotonic()
     params = lm.init_model(cfg, seed=args.seed, device="cuda")
     torch.cuda.synchronize()
-    emit({"phase": "serve", "event": "init_model", "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "params_gib": sum(
-              t.numel() * t.element_size() for t in _leaves(params)) / 2 ** 30,
+    emit({"phase": phase, "event": "init_model", "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "binary_mlp": cfg.binary_mlp,
+          "params_gib": sum(t.numel() * t.element_size()
+                            for t in _leaves(params)) / 2 ** 30,
           "seconds": time.monotonic() - t0})
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
+    if cfg.binary_mlp:
+        binary_mlp_bitwise(cfg, params, torch.as_tensor(
+            prompts[0][None], device="cuda"), max_len, phase)
 
     # The model on the kernels against its plain PyTorch path on a small
     # input (a 17-token prompt), at full width and two layers: bf16 rounds
@@ -528,7 +916,7 @@ def serve_phase(torch, cfg, args):
             logits_p, _ = lm.prefill(sub_params, toks, sub, max_len=max_len)
         cos = _cosine(logits_k, logits_p)
         finite = bool(torch.isfinite(logits_k).all())
-        emit({"phase": "serve", "event": "prefill_vs_plain", "layers": depth,
+        emit({"phase": phase, "event": "prefill_vs_plain", "layers": depth,
               "shape": list(logits_k.shape), "finite": finite, "cosine": cos,
               "max_abs_err": max_err(logits_k, logits_p),
               "argmax_equal": int(logits_k.argmax()) == int(
@@ -552,7 +940,7 @@ def serve_phase(torch, cfg, args):
     bad = [(r.rid, r.state.value, r.error) for r in reqs
            if r.state != RequestState.DONE]
     step_ms = sorted(rec.seconds * 1e3 for rec in eng.monitor.records)
-    emit({"phase": "serve", "event": "drain", "prompt_lens": list(lens),
+    emit({"phase": phase, "event": "drain", "prompt_lens": list(lens),
           "new_tokens": new_tokens, "wall_s": wall,
           "decode_steps": len(step_ms),
           "decode_ms_per_step_median": step_ms[len(step_ms) // 2],
@@ -562,7 +950,7 @@ def serve_phase(torch, cfg, args):
           "tokens": [r.out_tokens for r in reqs]})
     if bad or stats["demotions"] or stats["degraded_steps"]:
         raise AssertionError(f"serve run unhealthy: {bad}, {stats}")
-    missing = [k for k in SERVE_PATH if launches[k] <= 0]
+    missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -576,7 +964,7 @@ def serve_phase(torch, cfg, args):
             raise AssertionError(
                 f"prompt of {len(p)}: alone {h.out_tokens} != batched "
                 f"{r.out_tokens}")
-    emit({"phase": "serve", "event": "mixed_equals_sequential", "ok": True})
+    emit({"phase": phase, "event": "mixed_equals_sequential", "ok": True})
 
     # Prefill throughput: the longest prompt, whole, by CUDA events.
     toks = torch.as_tensor(prompts[-1][None], device="cuda")
@@ -588,23 +976,25 @@ def serve_phase(torch, cfg, args):
     end.record()
     torch.cuda.synchronize()
     prefill_ms = start.elapsed_time(end)
-    emit({"phase": "serve", "event": "throughput", "card": card_line(),
+    emit({"phase": phase, "event": "throughput", "card": card_line(),
           "prefill_tokens": len(prompts[-1]), "prefill_ms": prefill_ms,
           "prefill_tokens_per_s": len(prompts[-1]) / prefill_ms * 1e3,
           "decode_batch": len(prompts),
           "decode_ms_per_step": step_ms[len(step_ms) // 2]})
-    trace_decode(torch, cfg, params, prompts, max_len)
-    return {k: launches[k] for k in SERVE_PATH}
+    trace_decode(torch, cfg, params, prompts, max_len, phase)
+    return {k: launches[k] for k in path}
 
 
-# Device kernels of the serving path, by the name of their __global__
+# Device kernels of the serving paths, by the name of their __global__
 # function (B1's basic OS is gemm_common.cuh's walk_kernel).
 KERNEL_FUNCTIONS = {"walk_kernel": "matmul_os",
+                    "binary_kernel": "binary_mm",
                     "flash_kernel": "flash_attention",
                     "paged_kernel": "paged_attention"}
 
 
-def trace_decode(torch, cfg, params, prompts, max_len, steps: int = 6):
+def trace_decode(torch, cfg, params, prompts, max_len, phase: str,
+                 steps: int = 6):
     """Where a decode step's time goes: a ``torch.profiler`` trace of
     ``steps`` decode steps at batch ``len(prompts)`` (after every prompt
     is admitted).  The device is busy for the union of its kernel and copy
@@ -647,7 +1037,7 @@ def trace_decode(torch, cfg, params, prompts, max_len, steps: int = 6):
         bucket, key = (port, key) if key else (other, name[:80])
         bucket[key] = bucket.get(key, 0.0) + us / steps / 1e3
     top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:8])
-    emit({"phase": "serve", "event": "decode_trace", "card": card_line(),
+    emit({"phase": phase, "event": "decode_trace", "card": card_line(),
           "decode_batch": len(prompts), "steps": steps,
           "device_events": len(spans),
           "traced_ms_per_step": wall_us / steps / 1e3,
@@ -717,18 +1107,27 @@ def main(argv=None) -> int:
     paths = {}
     if "dataflows" in phases:
         paths["dataflows"] = dataflows_phase(torch)
-    if "serve" in phases:
-        paths["serve"] = serve_phase(torch, cfg, args)
+    if "quantized" in phases:
+        paths["quantized"] = quantized_phase(torch)
+    for phase, path, binary in (("serve", SERVE_PATH, False),
+                                ("serve_binary", SERVE_BINARY_PATH, True)):
+        if phase in phases:
+            paths[phase] = serve_path(torch, dataclasses.replace(
+                cfg, n_layers=args.layers, binary_mlp=binary), args, phase,
+                path)
 
     kernels = []
     for name, reg in registered_kernels().items():
         rec = records.get(name, {})
         by_path = {p: n[name] for p, n in paths.items() if name in n}
-        own = "serve" if name in paths.get("serve", {}) else "dataflows"
+        # A kernel's own path: the first of these that runs it.
+        own = next((p for p in ("serve", "serve_binary", "dataflows",
+                                "quantized") if name in paths.get(p, {})),
+                   None)
         kernels.append({   # every kernel of the port is CUDA C++ so far
             "name": name, "route": "cuda", "source": reg.source,
             "replaces": reg.replaces,
-            "launches": paths.get(own, {}).get(name),
+            "launches": paths.get(own, {}).get(name), "path": own,
             "launches_by_path": by_path,
             "max_abs_err": rec.get("max_abs_err"), "ms": rec.get("ms"),
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),

@@ -1,9 +1,11 @@
 """What the bench twins share: the paper's layer grid, qwen3-1.7b's MLP
 GEMMs, the nine canonical dataflow specs, CUDA-event timing and the
-H100's bound.
+H100's bound (bf16, int8 and the CUDA cores' popcount rate).
 
 Times are CUDA-event medians on the card, each launch preceded by a
-256 MiB write so operands come from device memory, not the 50 MB L2.
+256 MiB write so operands come from device memory, not the 50 MB L2,
+and by a ~1 ms spin on the card, so the host's Python in a wrapper runs
+while the card is busy and no host time falls between the events.
 On the CPU nothing is timed: a bench's rows there only check shapes and
 plans, and every time is ``None`` ("not measured").
 """
@@ -21,6 +23,12 @@ from repro_torch.kernels import matmul_df
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
+# xor+popcount word pairs per second on the CUDA cores: 16 popc per SM per
+# clock (the CUDA C++ documentation's arithmetic instruction throughput,
+# compute capability 9.0) on 132 SMs at 1.98 GHz, the clock the data
+# sheet's 67 TFLOP/s float32 (128 FMA lanes per SM) implies.
+POPC_WORDS_PER_S = 132 * 16 * 1.98e9
 
 # The paper's conv layer grid (Sec. V), as the reference's benches take it
 # (benchmarks/common.py): (input hw, filter hw, stride, n_filters), cin 128.
@@ -72,11 +80,13 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def bound(bytes_moved: float, flops: float) -> Tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          ops_per_s: float = BF16_FLOPS_PER_S) -> Tuple[float, str]:
     """Least time (ms) the card could take: bytes over HBM bandwidth or
-    operations over the bf16 tensor-core peak, whichever is larger."""
+    operations over their peak rate (the bf16 tensor cores by default),
+    whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -90,6 +100,9 @@ def gemm_bound(m: int, k: int, n: int, in_bytes: int = 2,
 class Timer:
     """Median per-launch ms by CUDA events after an L2 flush; on a CPU
     device, runs the function once and measures nothing."""
+
+    # ~1 ms at the H100's 1.98 GHz: longer than any wrapper's host work.
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self, device: str):
         self.device = torch.device(device)
@@ -107,6 +120,7 @@ class Timer:
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -160,3 +174,15 @@ def median(xs: List[float]) -> Optional[float]:
 
 def ratio(x: Optional[float], y: Optional[float]) -> Optional[float]:
     return None if x is None or y is None else x / y
+
+
+def conv_bound(layer: ConvProblem, in_bytes: float, out_bytes: int,
+               ops_per_s: float) -> Tuple[float, str]:
+    """A conv's input, weights and output moved once (``in_bytes`` per
+    element of each operand, fractional for packed bits); 2*M*K*N
+    operations of its implicit GEMM at ``ops_per_s``."""
+    g = layer.as_gemm()
+    moved = ((layer.n * layer.ih * layer.iw * layer.cin
+              + layer.fh * layer.fw * layer.cin * layer.cout) * in_bytes
+             + g.m * g.n * out_bytes)
+    return bound(moved, 2.0 * g.m * g.k * g.n, ops_per_s)

@@ -3,8 +3,9 @@
 A copy of the part of ``repro/core/dataflow.py`` that the port's
 ``kernels`` and ``bench`` read: the stationarity names and anchor
 constants, the ``Epilogue`` a GEMM fuses into its output write,
-``DataflowSpec`` (with its residency queries and canonical dataflows)
-and the ``GemmProblem``/``ConvProblem`` shape records.
+``DataflowSpec`` (with its residency queries and canonical dataflows),
+the ``BinaryEpilogue`` a binary GEMM fuses into its flush, and the
+``GemmProblem``/``ConvProblem``/``BinaryProblem`` shape records.
 The port keeps its own kernel registry here (``register_kernel``): one
 row per hand-written CUDA kernel, saying which TPU kernel it replaces,
 where its source lives and which dataflow and block it is compiled for.
@@ -162,6 +163,55 @@ class ConvProblem:
         """Implicit-GEMM view: M = n*oh*ow, K = fh*fw*cin, N = cout."""
         return GemmProblem(m=self.n * self.oh * self.ow,
                            k=self.fh * self.fw * self.cin, n=self.cout)
+
+
+@dataclasses.dataclass(frozen=True)
+class BinaryProblem:
+    """A binary (+-1, xnor-popcount) GEMM on bit-packed operands:
+    ``(M, Kp) x (Kp, N)`` over 32-bit words (32 binary channels each),
+    with ``n_bits`` the true pre-packing reduction depth K
+    (``n_bits <= 32 * kp``; slack bits are zero padding that cancels out
+    of the ``K - 2*popcount(xor)`` identity)."""
+
+    m: int
+    kp: int
+    n: int
+    n_bits: int
+    out_dtype: str = "int32"
+
+    def __post_init__(self) -> None:
+        if self.n_bits > 32 * self.kp:
+            raise ValueError(
+                f"n_bits={self.n_bits} exceeds packed depth 32*{self.kp}")
+
+    @property
+    def bit_ops(self) -> int:
+        """xnor + popcount-accumulate pairs, in scalar-bit-op units."""
+        return 2 * self.m * self.n_bits * self.n
+
+    def as_gemm(self) -> GemmProblem:
+        """The packed-word GEMM view."""
+        return GemmProblem(m=self.m, k=self.kp, n=self.n)
+
+
+@dataclasses.dataclass(frozen=True)
+class BinaryEpilogue:
+    """Element-wise tail fused into a binary kernel's accumulator flush:
+    ``y = scale * dot + bias + residual`` in float32, each stage rounded
+    on its own, then ``sign(y)`` (``y >= 0`` -> +1) when ``binarize``.
+    ``scale``/``bias`` carry a folded batchnorm; ``binarize`` lets
+    chained binary layers pass +-1 int8 activations instead of the int32
+    accumulator."""
+
+    scale: bool = False
+    bias: bool = False
+    residual: bool = False
+    binarize: bool = False
+
+    @property
+    def is_noop(self) -> bool:
+        return not (self.scale or self.bias or self.residual
+                    or self.binarize)
 
 
 # ---------------------------------------------------------------------------

@@ -35,15 +35,18 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 HEADERS = ("common.cuh", "attention_common.cuh", "gemm_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# The GEMM kernels contract no multiply-add but their explicit fmaf, so
-# every dataflow rounds each output element the same (csrc/gemm_common.cuh).
+# The GEMM, conv and binary kernels contract no multiply-add but their
+# explicit fmaf, so every dataflow rounds each output element the same
+# (csrc/gemm_common.cuh) and the epilogues round as eager PyTorch does.
 GEMM_FLAGS = ("-fmad=false",)
+NO_FMAD = ("matmul_", "conv2d", "binary_mm")
 # Libraries compiled as PARTS[name] units with -DREPRO_PART=p (each defines
 # some of the library's instantiations) plus one unit with its entry point.
-PARTS = {"matmul_os": 4, "matmul_rmw": 4}
+PARTS = {"matmul_os": 4, "matmul_rmw": 4, "conv2d": 3}
 
 # Element-type codes of the C interfaces (csrc/common.cuh).
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.int32: 3}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel library's entry point (csrc/<name>.cu).
@@ -59,6 +62,9 @@ SIGNATURES = {
                       _I, _I, _I, _F, _P),
     "paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _P),
+    "conv2d": (_P, _P, _P) + (_I,) * 10 + (_P, _I, _P, _I, _P, _I, _P),
+    "binary_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I,
+                  _P),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
@@ -90,7 +96,7 @@ def _nvcc() -> str:
 
 
 def nvcc_flags(name: str) -> tuple:
-    return NVCC_FLAGS + (GEMM_FLAGS if name.startswith("matmul_") else ())
+    return NVCC_FLAGS + (GEMM_FLAGS if name.startswith(NO_FMAD) else ())
 
 
 def library_path(name: str) -> Path:
@@ -203,8 +209,8 @@ def dtype_code(t: torch.Tensor) -> int:
     try:
         return DTYPE_CODES[t.dtype]
     except KeyError:
-        raise TypeError(f"CUDA kernels take float32 or bfloat16, got "
-                        f"{t.dtype}") from None
+        raise TypeError(f"CUDA kernels take float32, bfloat16, int8 or "
+                        f"int32 tensors, got {t.dtype}") from None
 
 
 def require_cuda(*tensors: Optional[torch.Tensor]) -> None:

@@ -14,6 +14,8 @@
 // Element types as the Python wrappers encode them.
 #define REPRO_F32 0
 #define REPRO_BF16 1
+#define REPRO_I8 2
+#define REPRO_I32 3
 
 // Returned for an argument the kernel does not take (never a CUDA error).
 #define REPRO_BAD_ARGUMENT 10000

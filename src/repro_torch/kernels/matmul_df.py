@@ -82,7 +82,8 @@ BASIC_OS = DataflowSpec.basic(OS, block=BLOCK)
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one spec runs at one shape on the card."""
+    """How one spec runs at one shape on the card (the GEMM, conv and
+    binary planners all return one)."""
 
     kernel: str                   # key of _build.LAUNCHES
     grid_order: str               # the TPU grid order the walk keeps
@@ -207,7 +208,7 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
                 demoted=demoted)
 
 
-def _scale_mode(scale: Optional[torch.Tensor]) -> int:
+def scale_mode(scale: Optional[torch.Tensor]) -> int:
     """0 none, 1 per-tensor (1, 1), 2 per-column (1, N), 3 per-row (M, 1)."""
     if scale is None:
         return 0
@@ -271,7 +272,7 @@ def matmul_df(
     _build.launch(
         p.kernel, _build.ptr(a), _build.ptr(b), _build.ptr(out), m, n, k,
         _build.dtype_code(a), _build.dtype_code(out), _build.ptr(scale),
-        _scale_mode(scale), _build.ptr(bias),
+        scale_mode(scale), _build.ptr(bias),
         ACTIVATION_CODES[epi.activation], _build.ptr(residual), *p.args)
     return out
 

@@ -1,24 +1,31 @@
 """Public entry points of the port's kernels.
 
 The twins of ``repro/kernels/ops.py``'s ``matmul``, ``matmul_fused``,
-``attention`` and ``paged_attention``, with the same signatures.
-``backend`` picks the path:
+``conv2d``, ``conv2d_fused``, ``int8_conv2d_fused``, ``attention``,
+``paged_attention``, ``binary_matmul``, ``binary_matmul_fused`` and
+``binary_conv2d``, with the same signatures.  ``backend`` picks the
+path:
 
-* ``"cuda"`` — the hand-written kernel (``matmul_df`` /
-  ``attention_df``), the port's counterpart of ``"pallas"``; on a CPU
-  tensor the wrapper computes the kernel's plain version;
+* ``"cuda"`` — the hand-written kernel (``matmul_df``, ``conv2d_df``,
+  ``attention_df``, ``binary_mm``), the port's counterpart of
+  ``"pallas"``; on a CPU tensor the wrapper computes the kernel's plain
+  version;
 * ``"torch"`` — the plain PyTorch oracle (``ref``), the port's
   counterpart of ``"xla"`` and the path a CPU serving engine demotes to;
 * ``None`` — ``"cuda"``.
 
-``spec=None`` takes B1's basic OS dataflow (attention: B2's flash
+``spec=None`` takes the basic OS dataflow (attention: B2's flash
 anchor); nothing is autotuned yet (ROADMAP A4). An explicit GEMM spec
 runs, at the kernels' one compiled block, the kernel ``matmul_df.plan``
 names for its anchor and residencies, or raises ``ValueError`` where
-they do not fit in shared memory. Where the JAX ops pad operands to the
-block, the CUDA kernels mask the ragged edges themselves, so nothing is
-padded here. Each op carries the same fault-injection site as its JAX
-twin (``kernel.matmul`` / ``kernel.attention``), fired on every call.
+they do not fit in shared memory; a conv or binary spec runs its
+anchor's walk (``conv2d_df.plan``, ``binary_mm.plan``) the same way.
+Where the JAX ops pad operands to the block, the CUDA kernels mask the
+ragged edges themselves, so nothing is padded here. Each op carries the
+same fault-injection site as its JAX twin (``kernel.matmul``,
+``kernel.conv2d``, ``kernel.binary_matmul``, ``kernel.attention``),
+fired on every call.  Packed binary operands are int32 words holding the
+JAX package's uint32 words bit for bit.
 """
 from __future__ import annotations
 
@@ -26,8 +33,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.dataflow import DataflowSpec, OS, WS
-from repro_torch.kernels import attention_df, matmul_df, ref
+from repro_torch.core.dataflow import (BinaryEpilogue, DataflowSpec,
+                                       Epilogue, OS, WS)
+from repro_torch.kernels import (attention_df, binary_mm, conv2d_df,
+                                 matmul_df, ref)
 from repro_torch.runtime import health
 
 BACKENDS = ("cuda", "torch")
@@ -220,3 +229,219 @@ def paged_attention(
             q, k_pages, v_pages, block_tables, kv_lens, scale=scale,
             window=window)
     return _poison(out, fault)
+
+
+# ---------------------------------------------------------------------------
+# Convolution (B8).
+# ---------------------------------------------------------------------------
+def conv2d(
+    x: torch.Tensor,           # (N, H, W, Cin)
+    w: torch.Tensor,           # (fh, fw, Cin, Cout)
+    stride: int = 1,
+    spec: Optional[DataflowSpec] = None,
+    b_oh: int = 8,
+    bc: int = 128,
+    bk: int = 128,
+    out_dtype: Optional[torch.dtype] = None,
+    backend: Optional[str] = None,
+    weight_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """Direct NHWC conv (VALID padding) under a dataflow spec; int32 for
+    int8 inputs, float32 otherwise, by default.  ``b_oh``/``bc``/``bk``
+    are the TPU kernel's blocking, kept for the signature: the CUDA
+    kernel has one compiled tile (``conv2d_df.BLOCK``) and masks every
+    edge.  ``weight_bits`` (packed weights) waits for ROADMAP A8."""
+    fault = health.maybe_inject("kernel.conv2d")
+    conv2d_df._not_packed(weight_bits)
+    conv2d_df.problem(x, w, stride)
+    if _backend(backend) == "torch":
+        out = ref.conv2d_ref(x, w, stride, out_dtype)
+    else:
+        out = conv2d_df.conv2d_df(x, w, stride, spec or conv2d_df.BASIC_OS,
+                                  out_dtype=out_dtype)
+    return _poison(out, fault)
+
+
+def conv2d_fused(
+    x: torch.Tensor,           # (N, H, W, Cin)
+    w: torch.Tensor,           # (fh, fw, Cin, Cout)
+    stride: int = 1,
+    bias: Optional[torch.Tensor] = None,       # (Cout,) or (1, Cout) float
+    scale: Optional[torch.Tensor] = None,      # scalar or (Cout,)
+    residual: Optional[torch.Tensor] = None,   # (N, oh, ow, Cout)
+    activation: Optional[str] = None,          # relu | gelu | silu
+    spec: Optional[DataflowSpec] = None,
+    b_oh: int = 8,
+    bc: int = 128,
+    bk: int = 128,
+    out_dtype: Optional[torch.dtype] = None,
+    backend: Optional[str] = None,
+    weight_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """Fused-epilogue conv ``act(scale * conv(x, w) + bias) + residual``
+    in one kernel launch; float32 epilogue and output by default."""
+    fault = health.maybe_inject("kernel.conv2d")
+    conv2d_df._not_packed(weight_bits)
+    cout = conv2d_df.problem(x, w, stride).cout
+    if bias is not None:
+        bias = torch.as_tensor(bias, dtype=torch.float32,
+                               device=x.device).reshape(1, cout)
+    if scale is not None:
+        scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+        if scale.numel() == 1:
+            scale = scale.reshape(1, 1)
+        elif scale.numel() == cout:
+            scale = scale.reshape(1, cout)
+        else:
+            raise ValueError(
+                f"scale must be scalar or per-output-channel (Cout={cout}), "
+                f"got {tuple(scale.shape)}")
+    if _backend(backend) == "torch":
+        out = ref.conv2d_fused_ref(x, w, stride, bias=bias, scale=scale,
+                                   residual=residual, activation=activation,
+                                   out_dtype=out_dtype)
+    else:
+        epi = Epilogue(bias=bias is not None, activation=activation,
+                       scale=scale is not None,
+                       residual=residual is not None)
+        out = conv2d_df.conv2d_df(
+            x, w, stride, spec or conv2d_df.BASIC_OS,
+            out_dtype=out_dtype or torch.float32, epilogue=epi, scale=scale,
+            bias=bias, residual=residual)
+    return _poison(out, fault)
+
+
+def int8_conv2d_fused(
+    xq: torch.Tensor,
+    wq: torch.Tensor,
+    x_scale: torch.Tensor,
+    w_scale: torch.Tensor,
+    stride: int = 1,
+    bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+    spec: Optional[DataflowSpec] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Quantized conv with the dequant and the epilogue fused into the
+    kernel: ``act((x_scale * w_scale) * conv(xq, wq) + bias) + residual``
+    -> float32.  The scales must combine to per-tensor or
+    per-output-channel."""
+    scale = (torch.as_tensor(x_scale, dtype=torch.float32, device=xq.device)
+             * torch.as_tensor(w_scale, dtype=torch.float32,
+                               device=xq.device))
+    cout = wq.shape[3]
+    if scale.numel() not in (1, cout):
+        raise ValueError(
+            f"fused conv dequant needs scalar or per-output-channel scales, "
+            f"got combined shape {tuple(scale.shape)}")
+    return conv2d_fused(xq, wq, stride=stride, bias=bias,
+                        scale=scale.reshape(1, -1), residual=residual,
+                        activation=activation, spec=spec, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Binary (+-1, xnor-popcount) datapath (B9).
+# ---------------------------------------------------------------------------
+def binary_matmul(
+    a_packed: torch.Tensor,    # (M, Kp) int32 words
+    b_packed: torch.Tensor,    # (Kp, N) int32 words
+    n_bits: int,               # true pre-packing reduction depth K
+    spec: Optional[DataflowSpec] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Packed +-1 GEMM: (M, N) int32 dots ``n_bits - 2*popcount(a ^ b)``."""
+    fault = health.maybe_inject("kernel.binary_matmul")
+    binary_mm.check_operands(a_packed, b_packed, n_bits)
+    if _backend(backend) == "torch":
+        out = ref.binary_matmul_ref(a_packed, b_packed, n_bits)
+    else:
+        out = binary_mm.binary_mm_df(a_packed, b_packed, n_bits,
+                                     spec or binary_mm.BASIC_OS,
+                                     out_dtype=torch.int32)
+    return _poison(out, fault)
+
+
+def binary_matmul_fused(
+    a_packed: torch.Tensor,
+    b_packed: torch.Tensor,
+    n_bits: int,
+    scale: Optional[torch.Tensor] = None,      # scalar or (N,) folded-BN gamma
+    bias: Optional[torch.Tensor] = None,       # (N,) folded-BN beta
+    residual: Optional[torch.Tensor] = None,   # (M, N)
+    binarize: bool = False,
+    spec: Optional[DataflowSpec] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Fused-epilogue binary GEMM: ``y = scale * dot + bias + residual``,
+    then ``sign(y)`` when ``binarize``, in one kernel launch.  Output
+    int8 (+-1) when ``binarize``, else float32, by default."""
+    fault = health.maybe_inject("kernel.binary_matmul")
+    binary_mm.check_operands(a_packed, b_packed, n_bits)
+    n = b_packed.shape[1]
+    if scale is not None:
+        scale = torch.as_tensor(scale, dtype=torch.float32,
+                                device=a_packed.device)
+        if scale.numel() == 1:
+            scale = scale.reshape(1, 1)
+        elif scale.numel() == n:
+            scale = scale.reshape(1, n)
+        else:
+            raise ValueError(
+                f"scale must be scalar or per-output-column (N={n}), "
+                f"got {tuple(scale.shape)}")
+    if bias is not None:
+        bias = torch.as_tensor(bias, dtype=torch.float32,
+                               device=a_packed.device).reshape(1, n)
+    if _backend(backend) == "torch":
+        out = ref.binary_matmul_fused_ref(
+            a_packed, b_packed, n_bits, scale=scale, bias=bias,
+            residual=residual, binarize=binarize, out_dtype=out_dtype)
+    else:
+        epi = BinaryEpilogue(scale=scale is not None, bias=bias is not None,
+                             residual=residual is not None,
+                             binarize=binarize)
+        out = binary_mm.binary_mm_df(
+            a_packed, b_packed, n_bits, spec or binary_mm.BASIC_OS,
+            out_dtype=out_dtype or (torch.int8 if binarize
+                                    else torch.float32),
+            epilogue=epi, scale=scale, bias=bias, residual=residual)
+    return _poison(out, fault)
+
+
+def binary_conv2d(
+    x_packed: torch.Tensor,    # (N, H, W, Cp) int32 channel-packed image
+    w_packed: torch.Tensor,    # (fh, fw, Cp, Cout) int32 words
+    stride: int = 1,
+    n_bits: Optional[int] = None,   # true reduction depth fh*fw*cin
+    scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,   # (N, oh, ow, Cout)
+    binarize: bool = False,
+    spec: Optional[DataflowSpec] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Binary NHWC conv (VALID padding) on the implicit-GEMM view: the
+    packed image is patch-extracted in PyTorch (as the JAX op leaves it to
+    XLA) to (N*oh*ow, fh*fw*Cp) words, and one binary GEMM launch runs
+    it, with the fused folded-BN/sign epilogue when any is given (int32
+    dots when none is).  ``n_bits`` defaults to every packed bit
+    (fh*fw*32*Cp)."""
+    nb, _, _, cp = x_packed.shape
+    fh, fw, _, cout = w_packed.shape
+    cols = ref.binary_im2col(x_packed, fh, fw, stride)
+    _, oh, ow, _ = cols.shape
+    raw = (scale is None and bias is None and residual is None
+           and not binarize)
+    out = binary_matmul_fused(
+        cols.reshape(nb * oh * ow, fh * fw * cp),
+        w_packed.reshape(fh * fw * cp, cout),
+        fh * fw * 32 * cp if n_bits is None else n_bits, scale=scale,
+        bias=bias,
+        residual=None if residual is None else residual.reshape(-1, cout),
+        binarize=binarize, spec=spec,
+        out_dtype=out_dtype or (torch.int32 if raw else None),
+        backend=backend)
+    return out.reshape(nb, oh, ow, cout)

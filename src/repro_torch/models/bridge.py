@@ -3,11 +3,15 @@
 ``repro.models.lm.init_model`` builds a tree of per-layer leaves stacked
 on a leading ``L`` axis (``embed.table`` (padded_vocab, d);
 ``layers.{ln1, ln2}``, ``layers.attn.{wq, wk, wv, wo, q_norm, k_norm}``,
-``layers.mlp.{w1, w3, w2}``; ``final_norm``; ``lm_head.table`` when the
-embeddings are untied).  ``params_from_numpy`` takes that tree with
-numpy leaves (``jax.tree.map(numpy.asarray, params)``) and returns the
-port's parameters, the same layout as ``lm.init_model`` builds.  It
-checks every path and shape against ``cfg`` and raises on a mismatch.
+``layers.mlp.{w1, w3, w2}``, or with ``cfg.binary_mlp``
+``layers.mlp.{up, down}.{w_packed, scale, bias}``; ``final_norm``;
+``lm_head.table`` when the embeddings are untied).  ``params_from_numpy``
+takes that tree with numpy leaves (``jax.tree.map(numpy.asarray,
+params)``) and returns the port's parameters, the same layout as
+``lm.init_model`` builds.  It checks every path and shape against
+``cfg`` and raises on a mismatch.  Packed uint32 words cross over bit for
+bit as int32 (the port's word type: torch cannot shift uint32 tensors on
+the CPU).
 Loading a checkpoint from disk is queued in ROADMAP A5.
 """
 from __future__ import annotations
@@ -31,11 +35,18 @@ def expected_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
         ("layers", "attn", "wk"): (n, d, cfg.kv_dim),
         ("layers", "attn", "wv"): (n, d, cfg.kv_dim),
         ("layers", "attn", "wo"): (n, cfg.q_dim, d),
-        ("layers", "mlp", "w1"): (n, d, ff),
-        ("layers", "mlp", "w3"): (n, d, ff),
-        ("layers", "mlp", "w2"): (n, ff, d),
         ("final_norm",): (d,),
     }
+    if cfg.binary_mlp:
+        for name, d_in, d_out in (("up", d, ff), ("down", ff, d)):
+            shapes[("layers", "mlp", name, "w_packed")] = (n, d_in // 32,
+                                                           d_out)
+            shapes[("layers", "mlp", name, "scale")] = (n, d_out)
+            shapes[("layers", "mlp", name, "bias")] = (n, d_out)
+    else:
+        shapes[("layers", "mlp", "w1")] = (n, d, ff)
+        shapes[("layers", "mlp", "w3")] = (n, d, ff)
+        shapes[("layers", "mlp", "w2")] = (n, ff, d)
     if cfg.qk_norm:
         shapes[("layers", "attn", "q_norm")] = (n, dh)
         shapes[("layers", "attn", "k_norm")] = (n, dh)
@@ -57,6 +68,8 @@ def _to_tensor(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":      # ml_dtypes: no numpy<->torch path
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)
                              .copy()).view(torch.bfloat16)
+    elif arr.dtype == np.uint32:          # packed words, bit for bit
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32).copy())
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr).copy())
     return t.to(dev)

@@ -2,13 +2,14 @@
 
 Twins of ``repro/models/layers.py`` for the dense decoder: RMSNorm,
 RoPE, embedding, GQA attention (prefill and cached), paged decode
-attention and the SwiGLU MLP, with parameters as dictionaries of tensors
-in the JAX package's layout.
+attention, the SwiGLU MLP and the binary MLP, with parameters as
+dictionaries of tensors in the JAX package's layout.
 
-Kernel dispatch: the MLP's three projections go through
-``fused_dense`` -> ``ops.matmul_fused`` (B1), prefill and cached
-attention through ``ops.attention`` (B2), paged decode through
-``ops.paged_attention`` (B3).  The q/k/v/o projections and the
+Kernel dispatch: the SwiGLU MLP's three projections go through
+``fused_dense`` -> ``ops.matmul_fused`` (B1), the binary MLP's two
+through ``binary_dense`` -> ``ops.binary_matmul_fused`` (B9), prefill
+and cached attention through ``ops.attention`` (B2), paged decode
+through ``ops.paged_attention`` (B3).  The q/k/v/o projections and the
 unembedding stay ``torch.matmul``, as the JAX package leaves them to
 XLA.  ``forced_backend("torch")`` pins every dispatch site onto its
 plain PyTorch path — the serving engine's degraded step.  The sites
@@ -22,7 +23,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.runtime import health
 
 Params = Dict[str, torch.Tensor]
@@ -219,12 +220,47 @@ def fused_dense(
     return out.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Binary (+-1, xnor-popcount) MLP.
+# ---------------------------------------------------------------------------
+def binary_dense(
+    p: Params,                    # w_packed (d_in/32, d_out) int32, scale, bias
+    x: torch.Tensor,              # (..., d_in) real-valued or +-1
+    binarize: bool = True,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Binarize ``x`` (``x > 0`` -> +1), project through the fused binary
+    GEMM (B9) and apply the folded batchnorm (and the sign, when
+    ``binarize``) before its one output write: +-1 int8 or float32."""
+    if backend is None:
+        backend = _BACKEND_OVERRIDE
+    d_in = x.shape[-1]
+    lead = x.shape[:-1]
+    xp = ref.pack_binary(x.reshape(-1, d_in), axis=1)
+    out = ops.binary_matmul_fused(xp, p["w_packed"], d_in, scale=p["scale"],
+                                  bias=p["bias"], binarize=binarize,
+                                  backend=backend)
+    return out.reshape(*lead, out.shape[-1])
+
+
+def binary_mlp_apply(p: Params, x: torch.Tensor,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """Two chained binary projections: the hidden layer re-binarized at
+    the flush (int8 +-1), the output left real-valued for the residual
+    stream."""
+    h = binary_dense(p["up"], x, binarize=True, backend=backend)
+    return binary_dense(p["down"], h, binarize=False, backend=backend)
+
+
 def mlp_apply(p: Params, x: torch.Tensor, cfg=None) -> torch.Tensor:
-    """SwiGLU MLP: the three projections through the fused GEMM kernel
-    (the gate's silu fused into its output write), or plain matmuls
-    under ``forced_backend("torch")``."""
+    """The MLP: binary params (``cfg.binary_mlp``) through
+    ``binary_mlp_apply``; SwiGLU through the fused GEMM kernel (the
+    gate's silu fused into its output write), or plain matmuls under
+    ``forced_backend("torch")``."""
     fault = health.maybe_inject("layers.mlp")
-    if _BACKEND_OVERRIDE is None:
+    if "up" in p:
+        out = binary_mlp_apply(p, x).to(x.dtype)
+    elif _BACKEND_OVERRIDE is None:
         gate = fused_dense(x, p["w1"], activation="silu")
         up = fused_dense(x, p["w3"])
         out = fused_dense((gate * up).to(x.dtype), p["w2"])

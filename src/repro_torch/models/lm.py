@@ -1,6 +1,7 @@
 """The dense decoder LM of the port: init, prefill, paged decode.
 
-Twin of ``repro/models/lm.py`` for the ``dense`` family.  Parameters
+Twin of ``repro/models/lm.py`` for the ``dense`` family, with the
+SwiGLU MLP or (``cfg.binary_mlp``) the binary MLP.  Parameters
 keep the JAX package's layout — per-layer leaves stacked on a leading
 ``L`` axis (``models/bridge.py`` moves a JAX tree over unchanged) — and
 a Python loop over layers replaces ``lax.scan``.  The slot-cache
@@ -14,6 +15,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.kernels import ref
 from repro_torch.models import layers
 
 Params = Dict[str, Any]
@@ -21,12 +23,13 @@ Params = Dict[str, Any]
 
 def _check_supported(cfg) -> None:
     if (cfg.family != "dense" or cfg.n_experts or cfg.has_ssm
-            or cfg.is_encoder_decoder or cfg.binary_mlp
-            or cfg.packed_weights or not cfg.has_attention):
+            or cfg.is_encoder_decoder or not cfg.has_attention):
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoders are ported (MoE, SSM, "
-            f"encoder-decoder, binary and packed MLPs are queued in "
-            f"ROADMAP.md A8-A12)")
+            f"{cfg.name}: only dense decoders are ported (MoE, SSM and "
+            f"encoder-decoder models are queued in ROADMAP.md A10-A12)")
+    if cfg.packed_weights:
+        raise NotImplementedError(
+            f"{cfg.name}: packed-weight MLPs are queued in ROADMAP.md A8")
     if cfg.kv_cache_dtype not in ("auto", None):
         raise NotImplementedError("int8 KV caches are queued in ROADMAP A6")
     if cfg.attn_window is not None and cfg.full_attn_every:
@@ -38,7 +41,10 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
     """Random weights from ``torch.Generator(seed)``, drawn on ``device``
     (the card by default), with the JAX package's init scales: dense
     N(0, 2/(d_in+d_out)), embeddings N(0, 1/d), norms 1.  Norm scales
-    are float32, the rest ``cfg.param_dtype``."""
+    are float32, the rest ``cfg.param_dtype``.  A binary MLP
+    (``cfg.binary_mlp``) draws +-1 weights bit-packed along the
+    reduction axis into int32 words, scale 1/sqrt(d_in), bias 0, as the
+    JAX package's ``init_binary_dense`` does."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -54,6 +60,18 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
+    def binary(d_in, d_out):
+        if d_in % 32:
+            raise ValueError(f"binary d_in {d_in} must be a multiple of 32")
+        words = [ref.pack_binary(torch.randn((d_in, d_out), generator=gen,
+                                             device=dev) >= 0, axis=0)
+                 for _ in range(n)]
+        return {"w_packed": torch.stack(words),
+                "scale": torch.full((n, d_out), d_in ** -0.5,
+                                    dtype=torch.float32, device=dev),
+                "bias": torch.zeros((n, d_out), dtype=torch.float32,
+                                    device=dev)}
+
     attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
             "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
     if cfg.qk_norm:
@@ -62,8 +80,10 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
         "embed": {"table": normal((cfg.padded_vocab, d), d ** -0.5)},
         "layers": {
             "ln1": ones(n, d), "attn": attn, "ln2": ones(n, d),
-            "mlp": {"w1": dense(d, cfg.d_ff), "w3": dense(d, cfg.d_ff),
-                    "w2": dense(cfg.d_ff, d)},
+            "mlp": ({"up": binary(d, cfg.d_ff), "down": binary(cfg.d_ff, d)}
+                    if cfg.binary_mlp else
+                    {"w1": dense(d, cfg.d_ff), "w3": dense(d, cfg.d_ff),
+                     "w2": dense(cfg.d_ff, d)}),
         },
         "final_norm": ones(d),
     }

@@ -32,6 +32,8 @@ INJECTION_SITES: List[str] = [
     "serve.prefill",
     "serve.decode_step",
     "kernel.matmul",
+    "kernel.conv2d",
+    "kernel.binary_matmul",
     "kernel.attention",
     "layers.attention",
     "layers.mlp",

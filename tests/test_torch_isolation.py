@@ -8,6 +8,7 @@
   is no card, or when it stands in a directory without the port.
 """
 import ast
+import dataclasses
 import pathlib
 import shutil
 import subprocess
@@ -54,8 +55,34 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         assert device.resolve().type == "cuda"
         return
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        lm.init_model(CFG)
+    from repro_torch.bench import binary as bench_binary, conv as bench_conv
+    from repro_torch.kernels import _build, ops
+
+    binary_cfg = dataclasses.replace(CFG, binary_mlp=True)
+    for entry in (lambda: lm.init_model(CFG),
+                  lambda: lm.init_model(binary_cfg),
+                  bench_conv.run, bench_binary.run):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+    # The ops follow their tensors: on CPU tensors the plain versions run
+    # and no kernel launches.
+    before = dict(_build.LAUNCHES)
+    x, w = torch.ones(1, 5, 5, 4), torch.ones(3, 3, 4, 6)
+    assert ops.conv2d(x, w).device.type == "cpu"
+    assert ops.conv2d_fused(x, w, bias=torch.ones(6)).shape == (1, 3, 3, 6)
+    assert ops.int8_conv2d_fused(x.to(torch.int8), w.to(torch.int8), 1.0,
+                                 1.0).dtype == torch.float32
+    words = torch.zeros(2, 3, dtype=torch.int32)
+    assert ops.binary_matmul(words, words.T.contiguous(), 96).shape == (2, 2)
+    assert ops.binary_matmul_fused(words, words.T.contiguous(), 96,
+                                   binarize=True).dtype == torch.int8
+    assert ops.binary_conv2d(torch.zeros(1, 3, 3, 1, dtype=torch.int32),
+                             torch.zeros(2, 2, 1, 4, dtype=torch.int32)
+                             ).shape == (1, 2, 2, 4)
+    assert _build.LAUNCHES == before
+    bparams = lm.init_model(binary_cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(binary_cfg, bparams, max_len=32)
     params = lm.init_model(CFG, device="cpu")
     assert params["embed"]["table"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):

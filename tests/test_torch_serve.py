@@ -9,6 +9,8 @@ NaNs is retried with bit-identical tokens — the commit rule at work.
 Smoke config (2 layers, d_model 128, float32); prompts from a seeded
 numpy generator.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -18,7 +20,7 @@ from repro import configs as jconfigs
 from repro.models import lm as jlm
 from repro.serve.engine import Engine as JaxEngine
 from repro_torch import configs
-from repro_torch.models import bridge
+from repro_torch.models import bridge, lm
 from repro_torch.runtime import health
 from repro_torch.serve.engine import AdmissionError, Engine, RequestState
 from repro_torch.serve.paged_cache import PagedKVCache
@@ -50,8 +52,8 @@ def _prompts(lens, seed=0):
             for n in lens]
 
 
-def _serve(tp, prompts, new_tokens, **engine_kw):
-    eng = Engine(CFG, tp, max_len=MAX_LEN, device="cpu", **engine_kw)
+def _serve(tp, prompts, new_tokens, cfg=CFG, **engine_kw):
+    eng = Engine(cfg, tp, max_len=MAX_LEN, device="cpu", **engine_kw)
     reqs = [eng.submit(p, new_tokens) for p in prompts]
     eng.drain()
     for r in reqs:
@@ -116,6 +118,14 @@ def test_nan_decode_step_is_retried_bit_identically(params, monkeypatch):
         ("layers.attention", 3, "nan")]
 
 
+# Sites no dense model's serving path reaches: the binary GEMM is drilled
+# on the binary-MLP twin of the smoke model; the conv, which no served
+# model runs, must fire nothing and leave the run clean (as the JAX
+# package's drill treats a site that never fires).
+BINARY_SITES = {"kernel.binary_matmul"}
+UNSERVED_SITES = {"kernel.conv2d"}
+
+
 @pytest.mark.parametrize("site", health.INJECTION_SITES)
 def test_fault_drill_at_every_site_keeps_tokens(params, monkeypatch, site):
     """A raise at each site's second hit is absorbed — retried on the
@@ -123,14 +133,21 @@ def test_fault_drill_at_every_site_keeps_tokens(params, monkeypatch, site):
     request holds pages — and every request still ends DONE with the
     tokens of a clean run."""
     _, tp = params
+    cfg = CFG
+    if site in BINARY_SITES:
+        cfg = dataclasses.replace(CFG, binary_mlp=True)
+        tp = lm.init_model(cfg, seed=0, device="cpu")
     prompts = _prompts([5, 9], seed=6)
-    clean, _ = _serve(tp, prompts, 3)
+    clean, _ = _serve(tp, prompts, 3, cfg=cfg)
     monkeypatch.setenv("REPRO_FAULT_PLAN", f"{site}:1:raise")
     health.reset_faults()
-    got, eng = _serve(tp, prompts, 3)
+    got, eng = _serve(tp, prompts, 3, cfg=cfg)
     assert got == clean
-    assert [(f.site, f.hit) for f in health.fault_log()] == [(site, 1)]
     stats = eng.stats()
+    if site in UNSERVED_SITES:
+        assert health.fault_log() == [] and stats["demotions"] == 0
+        return
+    assert [(f.site, f.hit) for f in health.fault_log()] == [(site, 1)]
     if site == "pool.alloc":
         assert stats["backpressure"] == 1 and stats["demotions"] == 0
     else:
