@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases card,build,kernels   # a quicker kernel check
     python3 chip_smoke.py --phases card,build,kernels,dataflows
     python3 chip_smoke.py --phases card,build,kernels,quantized
+    python3 chip_smoke.py --phases card,build,serve_packed --layers 2
 
 Phases, each printing JSON lines:
 
@@ -27,7 +28,10 @@ Phases, each printing JSON lines:
    and epilogue stage at the served binary-MLP shapes; B8 at int8 bit for
    bit, and at f32/bf16 within B1's tolerance, on the ResNet-18 layers,
    every anchor equal to OS; each infeasible anchor raises naming its
-   bytes.
+   bytes.  int8 operands in the GEMM family and packed int4/int5 weights
+   (B6 decoding them inside B1/B4/B5 and B8) are held bit for bit at
+   qwen3-1.7b's MLP shapes under each of the nine specs (int32 out, the
+   fused dequant) and on the ResNet-18 conv body under each anchor.
 4. ``dataflows``: the bench twins (``repro_torch.bench``): Fig. 2 (basic
    OS/WS/IS), Fig. 7 (auxiliary residencies) on the paper's layer grid
    and qwen3-1.7b's MLP GEMMs, and attention's OS vs WS anchor at prefill
@@ -35,8 +39,10 @@ Phases, each printing JSON lines:
 5. ``quantized``: the bench twins of the paper's quantized datapaths
    (``repro_torch.bench.conv``, ``repro_torch.bench.binary``): fused
    against unfused conv epilogue per anchor, the ResNet-18 conv body at
-   int8 per anchor, and Fig. 9 (binary against int8 and bf16 conv on the
-   VGG layers); every row printed, B8 and B9 launched.
+   int8 per anchor, Fig. 9 (binary against int8 and bf16 conv on the
+   VGG layers) and the packed-weight rows (``repro_torch.bench.packed``:
+   B1 on packed 4- and 5-bit, int8 and bf16 weights at qwen3-1.7b's MLP
+   shapes); every row printed, B8, B9, B1 and B6 launched.
 6. ``serve``: full-width qwen3-1.7b (random bf16 weights from a seed, depth
    cut to ``--layers``) served through ``Engine.submit``/``drain``:
    every request DONE, no demotion, every kernel launched, mixed-length
@@ -47,10 +53,19 @@ Phases, each printing JSON lines:
    (``binary_mlp=True``: +-1 weights bit-packed, the two projections
    through B9); besides, at every layer of a two-layer prefill the
    binary MLP on the kernels equals its plain version bit for bit.
+8. ``serve_packed``: the same, for qwen3-1.7b with packed 4-bit MLP
+   weights (``packed_weights=True``: the three projections through B1
+   with B6 decoding the planes); at every layer of a two-layer prefill
+   ``up`` and ``down`` on the kernels equal their plain versions bit for
+   bit on the same int8 inputs and ``gate`` (silu fused) holds B1's
+   tolerance.  Its activations are quantized per tensor over the batch,
+   so the mixed-batch tokens are compared with each request alone and
+   the differing tokens counted, not gated.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
-B1, B2, B3; serve_binary: B9, B2, B3; dataflows: B1, B2, B4, B5a, B5b,
-B7; quantized: B8, B9), counted from 0 just before the path runs. The
+B1, B2, B3; serve_binary: B9, B2, B3; serve_packed: B6, B1, B2, B3;
+dataflows: B1, B2, B4, B5a, B5b, B7; quantized: B8, B9, B1, B6),
+counted from 0 just before the path runs. The
 last lines are the ``{"kernels": [...]}``
 record, the card line, and ``{"ok": true, "device": {...}}``. Any
 failure raises, so the script exits non-zero and prints no ``ok`` line;
@@ -70,7 +85,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 ALL_PHASES = ("card", "build", "kernels", "dataflows", "quantized", "serve",
-              "serve_binary")
+              "serve_binary", "serve_packed")
 
 
 def emit(obj) -> None:
@@ -115,6 +130,12 @@ def check(name: str, got, want, atol: float, rtol: float, row_rtol: float,
     return err
 
 
+# B1: f32 output of bf16 operands accumulated in f32 by both sides; only
+# the order of the k sums differs (for int8 operands, only the activation:
+# the kernel's silu and PyTorch's may round one ulp apart).
+B1_TOL = dict(atol=1e-3, rtol=1e-3, row_rtol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions.
 # ---------------------------------------------------------------------------
@@ -134,9 +155,7 @@ def kernel_phase(torch, cfg, timer):
     records = {}
     d, dff = cfg.d_model, cfg.d_ff
 
-    # B1: f32 output of bf16 operands accumulated in f32 by both sides;
-    # only the order of the k sums differs.
-    b1_tol = dict(atol=1e-3, rtol=1e-3, row_rtol=1e-4)
+    b1_tol = B1_TOL
     errs = []
     head = None
     for m in (1, 4, 137, 512):
@@ -280,6 +299,8 @@ def kernel_phase(torch, cfg, timer):
                                         f32_tol))
     records.update(binary_checks(torch, cfg, timer, gen))
     records.update(conv_checks(torch, timer, gen, b1_tol))
+    records.update(int8_packed_checks(torch, cfg, timer, gen, b1_tol))
+    packed_conv_checks(torch, timer, gen)
     for name, rec in records.items():
         emit({"kernel_timing": name, **rec})
     return records
@@ -774,6 +795,264 @@ def conv_checks(torch, timer, gen, tol):
             int8="bit for bit", float=tol))}
 
 
+def _every_spec(label, call, want, plan_of):
+    """``call(spec)`` under each of the nine canonical GEMM specs: a spec
+    whose resident operands fit launches the kernel its plan names once
+    (and B6 once more when the planes are packed), equals ``want`` bit
+    for bit and equals the OS result; one that does not fit raises
+    naming its bytes."""
+    from repro_torch.bench import common
+    from repro_torch.kernels import _build
+
+    base, ran, infeasible, errs, grew = None, [], [], [], {}
+    for name, spec in common.NINE_SPECS.items():
+        try:
+            p = plan_of(spec)
+        except ValueError:
+            infeasible.append(_refuses(f"gemm[{name}]",
+                                       lambda spec=spec: call(spec),
+                                       f"{label} {name}")["shape"])
+            continue
+        before = dict(_build.LAUNCHES)
+        got = call(spec)
+        grew = {k: _build.LAUNCHES[k] - before[k] for k in before
+                if _build.LAUNCHES[k] != before[k]}
+        if grew.get(p.kernel) != 1:
+            raise AssertionError(f"{name} at {label} did not launch "
+                                 f"{p.kernel} once: {grew}")
+        errs.append(_bitwise(f"{p.kernel}[{name}]", got, want, label))
+        if base is not None and not got.equal(base):
+            raise AssertionError(f"{name} at {label} differs from OS")
+        base = got if base is None else base
+        ran.append(name)
+    emit({"check": "every_spec_bitwise", "shape": label, "ran": ran,
+          "infeasible": infeasible})
+    return errs, grew
+
+
+def int8_packed_checks(torch, cfg, timer, gen, tol):
+    """int8 operands in B1 (and B4, B5a, B5b) and packed int4/int5 planes
+    decoded in them by B6, on the card against their plain versions
+    (exact integer sums: float64 on the card), at qwen3-1.7b's MLP shapes
+    (M = 4 and 512; K x N = 2048 x 6144 and 6144 x 2048) and a ragged
+    shape (K not a multiple of 32): int8 with int32 out and the fused
+    dequant, and packed 4- and 5-bit with the dequant, under each of the
+    nine canonical specs, bit for bit, every anchor equal to OS, every
+    infeasible spec raising with its bytes; the packed gate's silu within
+    B1's tolerance.  Times B6 (packed 4-bit B1) and int8 B1 beside their
+    bounds and ``torch._int_mm`` on the int8 weights (M > 16 only)."""
+    from repro_torch.bench import common
+    from repro_torch.kernels import _build, matmul_df, ops, pack, ref
+    from repro_torch.models import layers
+
+    dev = "cuda"
+    d, dff = cfg.d_model, cfg.d_ff
+    i8 = torch.int8
+
+    def randint8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=i8)
+
+    shapes = [(f"M={m} K={k} N={n}", m, k, n) for m in (4, 512)
+              for k, n in ((d, dff), (dff, d))]
+    shapes.append(("ragged M=37 K=100 N=50", 37, 100, 50))
+    errs, packed_launches = [], 0
+    for label, m, k, n in shapes:
+        aq, bq = randint8(m, k), randint8(k, n)
+        a_scale = torch.tensor(0.02, device=dev)
+        b_scale = torch.rand((n,), generator=gen, device=dev) * 1e-3
+        scale = (a_scale * b_scale).reshape(1, n)
+        bias = torch.randn((1, n), generator=gen, device=dev)
+        residual = torch.randn((m, n), generator=gen, device=dev)
+        e, _ = _every_spec(
+            f"int8 {label} -> int32",
+            lambda spec: ops.matmul(aq, bq, spec=spec),
+            ref.matmul_ref(aq, bq),
+            lambda spec: matmul_df.plan(spec, m, k, n, i8))
+        errs += e
+        e, _ = _every_spec(
+            f"int8 {label} dequant+bias+residual",
+            lambda spec: ops.int8_matmul_fused(aq, bq, a_scale, b_scale,
+                                               bias=bias, residual=residual,
+                                               spec=spec),
+            ref.matmul_fused_ref(aq, bq, scale=scale, bias=bias,
+                                 residual=residual),
+            lambda spec: matmul_df.plan(spec, m, k, n, i8))
+        errs += e
+        if label.startswith("ragged"):   # per-row scales, bf16 output
+            rows = torch.rand((m, 1), generator=gen, device=dev) * 1e-3
+            errs.append(_bitwise(
+                "matmul_os int8 per-row dequant -> bf16",
+                ops.matmul_fused(aq, bq, scale=rows,
+                                 out_dtype=torch.bfloat16),
+                ref.matmul_fused_ref(aq, bq, scale=rows,
+                                     out_dtype=torch.bfloat16), label))
+        for bits in (4, 5):
+            pw = layers.draw_packed(gen, k, n, bits, dev)
+            r = int((pw.outlier_idx < pw.k_pad).sum())
+            e, grew = _every_spec(
+                f"packed {bits}-bit {label} (R={r} of "
+                f"{pw.outlier_idx.shape[0]}) dequant",
+                lambda spec: ops.matmul_packed(aq, pw, a_scale=a_scale,
+                                               spec=spec),
+                ref.matmul_packed_ref(aq, pw, a_scale=a_scale.reshape(1, 1)),
+                lambda spec: matmul_df.plan(spec, m, k, n, i8, bits))
+            errs += e
+            if grew.get(_build.PACKED_DECODE) != 1:
+                raise AssertionError(f"packed {label}: B6 not counted once "
+                                     f"per launch: {grew}")
+            packed_launches += 1
+            want = ref.matmul_packed_ref(
+                aq, pw, a_scale=a_scale.reshape(1, 1), bias=bias,
+                residual=residual, activation="silu")
+            check("matmul_os packed gate", ops.matmul_packed_fused(
+                aq, pw, a_scale=a_scale, bias=bias, residual=residual,
+                activation="silu"), want, shape=f"{bits}-bit {label} "
+                "dequant+bias+silu+residual", **tol)
+    emit({"check": "int8_packed_all", "bitwise_checks": len(errs)})
+
+    # Timed: packed 4-bit (B6 in B1) and int8 B1 at the down projection
+    # of a 512-token prefill, and both at the decode shapes (M = 4).
+    m, k, n = 512, dff, d
+    aq = randint8(m, k)
+    pw = layers.draw_packed(gen, k, n, 4, dev)
+    q, w_scale = pack.unpack_weights(pw)
+    a_scale = torch.tensor(0.02, device=dev)
+
+    def moved(weight_bytes, m, k, n):
+        return m * k + weight_bytes + m * n * 4
+
+    bnd = common.bound(moved(pack.packed_bytes(k, n, 4), m, k, n),
+                       2.0 * m * k * n, common.INT8_OPS_PER_S)
+    bnd8 = common.bound(moved(k * n, m, k, n), 2.0 * m * k * n,
+                        common.INT8_OPS_PER_S)
+    lib_ms = timer.ms(lambda: torch._int_mm(aq, q))
+    emit({"kernel_timing_detail": "matmul_os int8",
+          "shape": f"prefill M={m} K={k} N={n} dequant -> f32",
+          "ms": timer.ms(lambda: ops.int8_matmul_fused(aq, q, a_scale,
+                                                       w_scale)),
+          "plain_ms": timer.ms(lambda: ref.matmul_fused_ref(
+              aq, q, scale=a_scale * w_scale)),
+          "library_ms": lib_ms, "library_call": "torch._int_mm (int32 out)",
+          "bound_ms": bnd8[0], "bound_by": bnd8[1]})
+    for kk, nn in ((d, dff), (dff, d)):
+        a4 = randint8(4, kk)
+        p4 = layers.draw_packed(gen, kk, nn, 4, dev)
+        q4, s4 = pack.unpack_weights(p4)
+        for kind, fn, wbytes in (
+                ("packed 4-bit", lambda: ops.matmul_packed(
+                    a4, p4, a_scale=a_scale), pack.packed_bytes(kk, nn, 4)),
+                ("int8", lambda: ops.int8_matmul_fused(a4, q4, a_scale, s4),
+                 kk * nn)):
+            b4 = common.bound(moved(wbytes, 4, kk, nn), 2.0 * 4 * kk * nn,
+                              common.INT8_OPS_PER_S)
+            emit({"kernel_timing_detail": "matmul_os " + kind,
+                  "shape": f"decode M=4 K={kk} N={nn} dequant -> f32",
+                  "ms": timer.ms(fn), "library_ms": None,
+                  "bound_ms": b4[0], "bound_by": b4[1]})
+    return {_build.PACKED_DECODE: dict(
+        shape=f"B1 OS, packed 4-bit, prefill M={m} K={k} N={n} "
+              f"(R={int((pw.outlier_idx < pw.k_pad).sum())}), dequant -> f32",
+        max_abs_err=max(errs),
+        ms=timer.ms(lambda: ops.matmul_packed(aq, pw, a_scale=a_scale)),
+        plain_ms=timer.ms(lambda: ref.matmul_packed_ref(
+            aq, pw, a_scale=a_scale.reshape(1, 1))),
+        library_ms=lib_ms,
+        library_call="torch._int_mm on the unpacked int8 weight (int32 out)",
+        bound_ms=bnd[0], bound_by=bnd[1], tolerance="bit for bit",
+        packed_checks=packed_launches)}
+
+
+def packed_conv_checks(torch, timer, gen):
+    """B8 with packed 4- and 5-bit filters (B6 decoding each step's
+    filter block) on the ResNet-18 conv body and a ragged-channel case,
+    against the dequantize-then-conv plain version: bit for bit with the
+    dequant and with dequant + bias + relu + residual, every anchor that
+    fits equal to OS, every other raising with its bytes."""
+    from repro_torch.bench import common
+    from repro_torch.bench.conv import ANCHORS, RESNET18
+    from repro_torch.core.dataflow import ConvProblem
+    from repro_torch.kernels import _build, conv2d_df, ops, pack, ref
+
+    dev = "cuda"
+    cases = [((1, ih, iw, f, s, cin, cout), f"resnet18 {ih}x{iw}x{cin} f{f} "
+              f"s{s} -> {cout}") for ih, iw, f, s, cin, cout, _ in RESNET18]
+    cases.append(((2, 13, 12, 3, 2, 9, 70), "ragged 2x13x12x9 f3 s2 -> 70"))
+    checks, infeasible = 0, []
+    for (n, ih, iw, f, s, cin, cout), label in cases:
+        conv = ConvProblem(ih=ih, iw=iw, fh=f, fw=f, s=s, cin=cin,
+                           cout=cout, n=n)
+        xq = torch.randint(-127, 128, (n, ih, iw, cin), generator=gen,
+                           device=dev, dtype=torch.int8)
+        x_scale = torch.tensor(0.02, device=dev)
+        bias = torch.randn((cout,), generator=gen, device=dev)
+        residual = torch.randn((n, conv.oh, conv.ow, cout), generator=gen,
+                               device=dev)
+        for bits in (4, 5):
+            w = torch.randn((f, f, cin, cout), generator=gen, device=dev)
+            w[0, 1, min(3, cin - 1), :] *= 30.0    # outlier rows
+            pcw = pack.pack_conv_weights(w, bits)
+            r = pcw.outlier_idx.shape[0]
+            runs = {
+                "dequant": (lambda spec: ops.conv2d_packed(
+                    xq, pcw, s, x_scale=x_scale, spec=spec),
+                    ref.conv2d_packed_ref(xq, pcw, s,
+                                          x_scale=x_scale.reshape(1, 1))),
+                "dequant+bias+relu+res": (
+                    lambda spec: ops.conv2d_packed_fused(
+                        xq, pcw, s, x_scale=x_scale, bias=bias,
+                        residual=residual, activation="relu", spec=spec),
+                    ref.conv2d_packed_ref(
+                        xq, pcw, s, x_scale=x_scale.reshape(1, 1),
+                        bias=bias.reshape(1, -1), residual=residual,
+                        activation="relu"))}
+            for what, (call, want) in runs.items():
+                base = None
+                for anchor, spec in ANCHORS.items():
+                    shape = f"{label} {bits}-bit (R={r}) {what} {anchor}"
+                    try:
+                        conv2d_df.plan(spec, conv, torch.int8, bits)
+                    except ValueError:
+                        infeasible.append(_refuses(
+                            "conv2d packed", lambda: call(spec),
+                            shape)["shape"])
+                        continue
+                    before = _build.LAUNCHES[_build.PACKED_DECODE]
+                    got = call(spec)
+                    if _build.LAUNCHES[_build.PACKED_DECODE] != before + 1:
+                        raise AssertionError(f"{shape}: B6 not counted")
+                    _bitwise(f"conv2d packed[{anchor}]", got, want, shape)
+                    checks += 1
+                    if base is not None and not torch.equal(got, base):
+                        raise AssertionError(f"packed conv {shape} differs "
+                                             f"from OS")
+                    base = got
+    emit({"check": "conv2d_packed_all", "bitwise_checks": checks,
+          "infeasible": infeasible})
+    ih, f, s, cin, cout = 56, 3, 1, 64, 64
+    conv = ConvProblem(ih=ih, iw=ih, fh=f, fw=f, s=s, cin=cin, cout=cout)
+    xq = torch.randint(-127, 128, (1, ih, ih, cin), generator=gen,
+                       device=dev, dtype=torch.int8)
+    # MSR-coded weights, as the packed MLP draws them: 4-bit codes and
+    # two outlier rows at +-127, which set every channel's int8 scale, so
+    # the codes pack back exactly and the sidecar holds those two rows.
+    q = torch.randint(-8, 8, (f, f, cin, cout), generator=gen, device=dev)
+    q[0, 1, 3], q[2, 0, 5] = 127, -127
+    pcw = pack.pack_conv_weights(q.float() * 0.01, 4)
+    x_scale = torch.tensor(0.02, device=dev)
+    moved = (ih * ih * cin + pack.packed_bytes(f * f * cin, cout, 4)
+             + conv.oh * conv.ow * cout * 4)
+    bnd = common.bound(moved, 2.0 * conv.oh * conv.ow * f * f * cin * cout,
+                       common.INT8_OPS_PER_S)
+    emit({"kernel_timing_detail": "conv2d packed 4-bit",
+          "shape": f"resnet18 (56,3,1,64->64), R={pcw.outlier_idx.shape[0]} "
+                   "outlier rows, dequant, f32 out, OS",
+          "ms": timer.ms(lambda: ops.conv2d_packed(xq, pcw, s,
+                                                   x_scale=x_scale)),
+          "plain_ms": timer.ms(lambda: ref.conv2d_packed_ref(xq, pcw, s)),
+          "library_ms": None, "bound_ms": bnd[0], "bound_by": bnd[1]})
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the bench twins of the paper's dataflow comparison.
 # ---------------------------------------------------------------------------
@@ -805,16 +1084,16 @@ def dataflows_phase(torch):
 # ---------------------------------------------------------------------------
 # Phase 5: the bench twins of the quantized datapaths.
 # ---------------------------------------------------------------------------
-QUANTIZED_PATH = ("conv2d", "binary_mm")
+QUANTIZED_PATH = ("conv2d", "binary_mm", "matmul_os", "unpack_block")
 
 
 def quantized_phase(torch):
-    from repro_torch.bench import binary, conv
+    from repro_torch.bench import binary, conv, packed
     from repro_torch.kernels import _build
 
     _build.reset_launches()
     t0 = time.monotonic()
-    for bench in (conv, binary):
+    for bench in (conv, binary, packed):
         for row in bench.run("cuda"):
             emit({"phase": "quantized", **row})
     torch.cuda.synchronize()
@@ -838,13 +1117,13 @@ def _cosine(a, b) -> float:
 
 SERVE_PATH = ("matmul_os", "flash_attention", "paged_attention")
 SERVE_BINARY_PATH = ("binary_mm", "flash_attention", "paged_attention")
+SERVE_PACKED_PATH = ("unpack_block", "matmul_os", "flash_attention",
+                     "paged_attention")
 
 
-def binary_mlp_bitwise(cfg, params, toks, max_len, phase):
-    """At every layer of a two-layer prefill on the kernels, the binary
-    MLP's input is recorded, and the MLP on the kernels (B9) must equal
-    its plain version on that input bit for bit: the hidden +-1 int8
-    activations and the float output."""
+def _mlp_inputs(cfg, params, toks, max_len):
+    """(params, input) of each MLP call of a two-layer prefill on the
+    kernels."""
     from repro_torch.models import layers, lm
 
     sub = dataclasses.replace(cfg, n_layers=2)
@@ -861,7 +1140,47 @@ def binary_mlp_bitwise(cfg, params, toks, max_len, phase):
         lm.prefill(sub_params, toks, sub, max_len=max_len)
     finally:
         layers.mlp_apply = plain_mlp
-    for i, (p, x) in enumerate(seen):
+    if len(seen) != 2:
+        raise AssertionError(f"recorded {len(seen)} MLP calls, want 2")
+    return seen
+
+
+def packed_mlp_bitwise(cfg, params, toks, max_len, phase, tol):
+    """At every layer of a two-layer prefill on the kernels, the packed
+    MLP's input is recorded and quantized to int8 as ``packed_mlp_apply``
+    does; on those int8 inputs each projection on the kernels (B1 with
+    B6) is held against its plain version: ``up`` and ``down`` (scale-only
+    epilogues) bit for bit, ``gate`` (silu fused) within B1's
+    tolerance."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+
+    for i, (p, x) in enumerate(_mlp_inputs(cfg, params, toks, max_len)):
+        xq, xs = quant.symmetric_int8(x.reshape(-1, x.shape[-1]))
+        shape = f"layer {i} M={xq.shape[0]} d={xq.shape[1]}"
+        gate = ops.matmul_packed_fused(xq, p["w1"], a_scale=xs,
+                                       activation="silu")
+        check(f"{phase} packed_mlp gate (silu)", gate,
+              ops.matmul_packed_fused(xq, p["w1"], a_scale=xs,
+                                      activation="silu", backend="torch"),
+              shape=shape, **tol)
+        up = ops.matmul_packed(xq, p["w3"], a_scale=xs)
+        _bitwise(f"{phase} packed_mlp up", up, ops.matmul_packed(
+            xq, p["w3"], a_scale=xs, backend="torch"), shape)
+        hq, hs = quant.symmetric_int8(gate * up)
+        _bitwise(f"{phase} packed_mlp down", ops.matmul_packed(
+            hq, p["w2"], a_scale=hs), ops.matmul_packed(
+            hq, p["w2"], a_scale=hs, backend="torch"), shape)
+
+
+def binary_mlp_bitwise(cfg, params, toks, max_len, phase):
+    """At every layer of a two-layer prefill on the kernels, the binary
+    MLP's input is recorded, and the MLP on the kernels (B9) must equal
+    its plain version on that input bit for bit: the hidden +-1 int8
+    activations and the float output."""
+    from repro_torch.models import layers
+
+    for i, (p, x) in enumerate(_mlp_inputs(cfg, params, toks, max_len)):
         hidden = layers.binary_dense(p["up"], x)
         out = layers.binary_mlp_apply(p, x)
         with layers.forced_backend("torch"):
@@ -871,8 +1190,6 @@ def binary_mlp_bitwise(cfg, params, toks, max_len, phase):
         _bitwise(f"{phase} binary_mlp hidden (int8)", hidden, hidden_plain,
                  shape)
         _bitwise(f"{phase} binary_mlp out (f32)", out, out_plain, shape)
-    if len(seen) != 2:
-        raise AssertionError(f"recorded {len(seen)} MLP calls, want 2")
 
 
 def serve_path(torch, cfg, args, phase, path):
@@ -891,22 +1208,25 @@ def serve_path(torch, cfg, args, phase, path):
     torch.cuda.synchronize()
     emit({"phase": phase, "event": "init_model", "layers": cfg.n_layers,
           "d_model": cfg.d_model, "binary_mlp": cfg.binary_mlp,
+          "packed_weights": cfg.packed_weights,
+          "packed_weight_bits": cfg.packed_weight_bits,
           "params_gib": sum(t.numel() * t.element_size()
                             for t in _leaves(params)) / 2 ** 30,
           "seconds": time.monotonic() - t0})
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
+    toks = torch.as_tensor(prompts[0][None], device="cuda")
     if cfg.binary_mlp:
-        binary_mlp_bitwise(cfg, params, torch.as_tensor(
-            prompts[0][None], device="cuda"), max_len, phase)
+        binary_mlp_bitwise(cfg, params, toks, max_len, phase)
+    if cfg.packed_weights:
+        packed_mlp_bitwise(cfg, params, toks, max_len, phase, B1_TOL)
 
     # The model on the kernels against its plain PyTorch path on a small
     # input (a 17-token prompt), at full width and two layers: bf16 rounds
     # at other places in the two paths, and random weights amplify that
     # with depth, so the check is a cosine >= 0.999 of the logits at two
     # layers; the full depth's cosine is reported beside it.
-    toks = torch.as_tensor(prompts[0][None], device="cuda")
     for depth in (2, cfg.n_layers):
         sub = dataclasses.replace(cfg, n_layers=depth)
         sub_params = dict(params, layers=_map(lambda t: t[:depth],
@@ -955,16 +1275,26 @@ def serve_path(torch, cfg, args, phase, path):
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
 
-    # Mixed-length batch == each request served alone.
+    # Mixed-length batch == each request served alone.  The packed MLP
+    # quantizes its activations per tensor over the whole decode batch
+    # (as the reference's does: ROADMAP C), so there a request's tokens
+    # depend on the other rows: the tokens that differ are counted, not
+    # gated.
+    differ = 0
     for p, r in zip(prompts, reqs):
         alone = Engine(cfg, params, max_len=max_len, device="cuda")
         h = alone.submit(p, new_tokens)
         alone.drain()
-        if h.state != RequestState.DONE or h.out_tokens != r.out_tokens:
+        if h.state != RequestState.DONE:
+            raise AssertionError(f"prompt of {len(p)} alone: {h.state}")
+        differ += sum(a != b for a, b in zip(h.out_tokens, r.out_tokens))
+        if not cfg.packed_weights and h.out_tokens != r.out_tokens:
             raise AssertionError(
                 f"prompt of {len(p)}: alone {h.out_tokens} != batched "
                 f"{r.out_tokens}")
-    emit({"phase": phase, "event": "mixed_equals_sequential", "ok": True})
+    emit({"phase": phase, "event": "mixed_vs_sequential",
+          "tokens_differing": differ,
+          "gated": not cfg.packed_weights, "ok": True})
 
     # Prefill throughput: the longest prompt, whole, by CUDA events.
     toks = torch.as_tensor(prompts[-1][None], device="cuda")
@@ -1049,7 +1379,9 @@ def trace_decode(torch, cfg, params, prompts, max_len, phase: str,
 
 
 def _map(fn, tree):
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+    """``fn`` on every tensor leaf (a ``PackedWeights`` maps its own)."""
+    return {k: _map(fn, v) if isinstance(v, dict)
+            else v.map(fn) if hasattr(v, "LEAVES") else fn(v)
             for k, v in tree.items()}
 
 
@@ -1057,6 +1389,9 @@ def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
             yield from _leaves(v)
+        elif hasattr(v, "LEAVES"):
+            yield from (getattr(v, f) for f in v.LEAVES
+                        if getattr(v, f) is not None)
         else:
             yield v
 
@@ -1109,21 +1444,23 @@ def main(argv=None) -> int:
         paths["dataflows"] = dataflows_phase(torch)
     if "quantized" in phases:
         paths["quantized"] = quantized_phase(torch)
-    for phase, path, binary in (("serve", SERVE_PATH, False),
-                                ("serve_binary", SERVE_BINARY_PATH, True)):
+    for phase, path, mlp in (
+            ("serve", SERVE_PATH, {}),
+            ("serve_binary", SERVE_BINARY_PATH, {"binary_mlp": True}),
+            ("serve_packed", SERVE_PACKED_PATH, {"packed_weights": True,
+                                                 "packed_weight_bits": 4})):
         if phase in phases:
             paths[phase] = serve_path(torch, dataclasses.replace(
-                cfg, n_layers=args.layers, binary_mlp=binary), args, phase,
-                path)
+                cfg, n_layers=args.layers, **mlp), args, phase, path)
 
     kernels = []
     for name, reg in registered_kernels().items():
         rec = records.get(name, {})
         by_path = {p: n[name] for p, n in paths.items() if name in n}
         # A kernel's own path: the first of these that runs it.
-        own = next((p for p in ("serve", "serve_binary", "dataflows",
-                                "quantized") if name in paths.get(p, {})),
-                   None)
+        own = next((p for p in ("serve", "serve_binary", "serve_packed",
+                                "dataflows", "quantized")
+                    if name in paths.get(p, {})), None)
         kernels.append({   # every kernel of the port is CUDA C++ so far
             "name": name, "route": "cuda", "source": reg.source,
             "replaces": reg.replaces,

@@ -15,7 +15,9 @@ back to the plain PyTorch versions.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel, and nowhere else, so a run can show which kernels it went
-through.
+through.  B6, the packed-weight decode, is a part of the GEMM and conv
+kernels (``csrc/pack_common.cuh``): a launch of one of them on packed
+planes also counts one under ``LAUNCHES["unpack_block"]``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-HEADERS = ("common.cuh", "attention_common.cuh", "gemm_common.cuh")
+HEADERS = ("common.cuh", "attention_common.cuh", "gemm_common.cuh",
+           "pack_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # The GEMM, conv and binary kernels contract no multiply-add but their
@@ -42,15 +45,18 @@ GEMM_FLAGS = ("-fmad=false",)
 NO_FMAD = ("matmul_", "conv2d", "binary_mm")
 # Libraries compiled as PARTS[name] units with -DREPRO_PART=p (each defines
 # some of the library's instantiations) plus one unit with its entry point.
-PARTS = {"matmul_os": 4, "matmul_rmw": 4, "conv2d": 3}
+PARTS = {"matmul_os": 7, "matmul_rmw": 7, "matmul_is_stripe": 5, "conv2d": 5}
 
 # Element-type codes of the C interfaces (csrc/common.cuh).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.int32: 3}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each kernel library's entry point (csrc/<name>.cu).
-_GEMM = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P)
+# C signature of each kernel library's entry point (csrc/<name>.cu); the
+# GEMMs' common head ends with the packed weight's bits, bit plane and
+# outlier sidecar.
+_GEMM = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P,
+         _I)
 SIGNATURES = {
     "matmul_os": _GEMM + (_I, _I, _P),
     "matmul_rmw": _GEMM + (_I, _I, _I, _P),
@@ -62,12 +68,15 @@ SIGNATURES = {
                       _I, _I, _I, _F, _P),
     "paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _P),
-    "conv2d": (_P, _P, _P) + (_I,) * 10 + (_P, _I, _P, _I, _P, _I, _P),
+    "conv2d": (_P, _P, _P) + (_I,) * 10 + (_P, _I, _P, _I, _P, _I, _P, _P,
+                                           _P, _I, _I, _P),
     "binary_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I,
                   _P),
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+# B6 decodes packed planes inside these libraries' kernels.
+PACKED_DECODE = "unpack_block"
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SIGNATURES, PACKED_DECODE)}
 # ptxas resource report of each build of this process, by kernel.
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -188,9 +197,10 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, packed: bool = False) -> None:
     """Call kernel ``name``'s entry point on the current CUDA stream,
-    count the launch and raise if it was refused."""
+    count the launch (and, when it decodes ``packed`` planes, B6's) and
+    raise if it was refused."""
     lib = library(name)
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib, name)(*args, stream)
@@ -199,6 +209,8 @@ def launch(name: str, *args) -> None:
             f"{name} kernel launch failed: "
             f"{lib.repro_error_string(rc).decode()} (code {rc})")
     LAUNCHES[name] += 1
+    if packed:
+        LAUNCHES[PACKED_DECODE] += 1
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -22,9 +22,19 @@ bytes where the resident operand does not fit a block's 227 KB beside
 the two staging tiles.  The reference's conv kernel reads only the
 anchor of a spec, and so does this one.
 
+Packed int4/int5 filters (``weight_bits``; int8 images) are the per-tap
+planes of ``kernels/pack.py``, (fh, fw, Cin_pad/8, Cout) nibble words
+and, at 5 bits, (fh, fw, Cin_pad/32, Cout) bit-plane words: the kernel
+decodes each step's filter block at the load (B6,
+``csrc/pack_common.cuh``) and adds the outlier sidecar to the int32
+accumulator at the flush, one (tap, channel) row per slot; the wrapper
+turns each slot's flat row into its offset in a pixel's input window.
+The reference adds the same rows as a precomputed (N, oh, ow, Cout)
+term.
+
 For CPU tensors the wrapper computes the kernel's plain version,
-``ref.conv2d_fused_ref``; for CUDA tensors it launches the kernel or
-raises.  Packed (int4/int5) weights are not ported yet (ROADMAP A8).
+``ref.conv2d_fused_ref`` (on the exact int8 image of packed planes);
+for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -36,9 +46,10 @@ import torch
 from repro_torch.core.dataflow import (ConvProblem, DataflowSpec, Epilogue,
                                        KernelRegistration, IS, OS, WS,
                                        register_kernel)
-from repro_torch.kernels import _build, ref
-from repro_torch.kernels.matmul_df import (ACTIVATION_CODES, MAX_SMEM, Plan,
-                                         scale_mode)
+from repro_torch.kernels import _build, pack, ref
+from repro_torch.kernels.matmul_df import (ACTIVATION_CODES, MAX_SMEM,
+                                           WEIGHT_BITS, Plan, panel_bytes,
+                                           scale_mode)
 
 BLOCK = (64, 32, 64)       # (output pixels, reduction step, output channels)
 TILE_BYTES = 2 * BLOCK[1] * (BLOCK[0] + 4) * 4   # the two staging tiles
@@ -59,23 +70,28 @@ def _cdiv(a: int, b: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def plan(spec: DataflowSpec, conv: ConvProblem,
-         dtype: torch.dtype = torch.float32) -> Plan:
+         dtype: torch.dtype = torch.float32,
+         weight_bits: Optional[int] = None) -> Plan:
     """The walk and resident operand of ``spec``'s anchor for ``conv``
-    with inputs of ``dtype`` (the grid orders of
+    with inputs of ``dtype`` and a filter of the same type, or (int8)
+    packed at ``weight_bits`` (the grid orders of
     ``repro/kernels/conv2d_df.py:conv2d_df``).  Raises ``ValueError``
     when the resident operand does not fit a block's shared memory."""
     elt = dtype.itemsize
     pix, bk, bn = BLOCK
     tiles = _cdiv(conv.oh * conv.ow, pix)
     gn = _cdiv(conv.cout, bn)
-    k = conv.fh * conv.fw * conv.cin
+    cr = conv.cin if weight_bits is None else _cdiv(conv.cin, bk) * bk
+    k = conv.fh * conv.fw * cr
+    kind = f"{dtype}" if weight_bits is None else f"packed {weight_bits}-bit"
     resident: Dict[str, int] = {}
     if spec.anchor == OS:
         order, ctas = "(n, goh, gk, r)", conv.n * tiles * gn
         walk = "CTA per (image, pixel tile, channel tile)"
     elif spec.anchor == WS:
-        resident[f"weight block ({conv.fh}, {conv.fw}, {conv.cin}, {bn}) "
-                 f"{dtype}"] = _cdiv(k, bk) * bk * bn * elt
+        resident[f"weight block ({conv.fh}, {conv.fw}, {cr}, {bn}) "
+                 f"{kind}"] = panel_bytes(_cdiv(k, bk) * bk, bn, elt,
+                                          weight_bits)
         order, ctas = "(gk, n, goh, r)", gn
         walk = "CTA per channel tile, sweeps (image, pixel tile)"
     elif spec.anchor == IS:
@@ -92,7 +108,7 @@ def plan(spec: DataflowSpec, conv: ConvProblem,
                          resident.items())
         raise ValueError(
             f"conv {spec.name} at {conv.n}x{conv.ih}x{conv.iw}x{conv.cin} "
-            f"f{conv.fh}x{conv.fw} s{conv.s} -> {conv.cout} ({dtype}) needs "
+            f"f{conv.fh}x{conv.fw} s{conv.s} -> {conv.cout} ({kind}) needs "
             f"{smem} bytes of shared memory per block ({held}); a Hopper "
             f"block has {MAX_SMEM}")
     return Plan(kernel="conv2d", grid_order=order, walk=walk, ctas=ctas,
@@ -114,15 +130,44 @@ def problem(x: torch.Tensor, w: torch.Tensor, stride: int) -> ConvProblem:
                        cout=cout, n=n)
 
 
-def _not_packed(weight_bits: Optional[int]) -> None:
-    if weight_bits is not None:
-        raise NotImplementedError(
-            "packed int4/int5 conv weights are not ported yet (ROADMAP A8)")
+def check_packed(x: torch.Tensor, w: torch.Tensor, weight_bits: int,
+                 w_hi: Optional[torch.Tensor]) -> Tuple[int, int, int]:
+    """(fh, fw, cout) of packed filter planes for the int8 image ``x``."""
+    if weight_bits not in WEIGHT_BITS:
+        raise ValueError(f"weight_bits must be 4 or 5, got {weight_bits}")
+    if x.dtype != torch.int8 or x.ndim != 4:
+        raise ValueError(f"packed weights need an int8 NHWC image, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    cp = _cdiv(x.shape[3], pack.WORD_BITS) * pack.WORD_BITS
+    if (w.ndim != 4 or w.dtype != torch.int32
+            or w.shape[2] * pack.WORD_NIBBLES != cp):
+        raise ValueError(f"nibble plane {tuple(w.shape)} {w.dtype} does not "
+                         f"pack {x.shape[3]} input channels (per-tap pad "
+                         f"to {cp})")
+    fh, fw, _, cout = w.shape
+    if weight_bits == 5:
+        want = (fh, fw, cp // pack.WORD_BITS, cout)
+        if w_hi is None or tuple(w_hi.shape) != want \
+                or w_hi.dtype != torch.int32:
+            raise ValueError(f"weight_bits=5 needs the int32 bit plane "
+                             f"{want}")
+    return fh, fw, cout
+
+
+def _window_offsets(idx: torch.Tensor, conv: ConvProblem,
+                    cp: int) -> torch.Tensor:
+    """Each sidecar slot's flat row ``(ky * fw + kx) * cp + c`` as its
+    offset in a pixel's input window, -1 for an empty slot."""
+    f = idx.long()
+    tap, c = f // cp, f % cp
+    off = ((tap // conv.fw) * conv.iw + tap % conv.fw) * conv.cin + c
+    real = (f >= 0) & (f < conv.fh * conv.fw * cp) & (c < conv.cin)
+    return torch.where(real, off, -1).to(torch.int32)
 
 
 def conv2d_df(
     x: torch.Tensor,                          # (N, H, W, Cin)
-    w: torch.Tensor,                          # (fh, fw, Cin, Cout)
+    w: torch.Tensor,                          # (fh, fw, Cin, Cout) or planes
     stride: int,
     spec: DataflowSpec,
     out_dtype: Optional[torch.dtype] = None,
@@ -131,17 +176,30 @@ def conv2d_df(
     bias: Optional[torch.Tensor] = None,      # (1, Cout) float32
     residual: Optional[torch.Tensor] = None,  # (N, oh, ow, Cout)
     weight_bits: Optional[int] = None,
+    w_hi: Optional[torch.Tensor] = None,      # (fh, fw, Cin_pad/32, Cout)
+    outlier_idx: Optional[torch.Tensor] = None,    # (R,) flat tap rows
+    outlier_delta: Optional[torch.Tensor] = None,  # (R, Cout) int32
 ) -> torch.Tensor:
     """Direct conv under ``spec``'s anchor, the epilogue applied before
     the one output write, in one kernel launch.  Returns (N, oh, ow,
     Cout): int32 for int8 inputs without an epilogue, float32 otherwise
-    (or ``out_dtype``)."""
-    _not_packed(weight_bits)
-    conv = problem(x, w, stride)
-    if x.dtype not in IN_DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"conv operands must share one of {IN_DTYPES}, got "
-                        f"{x.dtype} and {w.dtype}")
-    p = plan(spec, conv, x.dtype)
+    (or ``out_dtype``).  With ``weight_bits``, ``w`` (and ``w_hi``) are
+    a packed filter's per-tap planes and ``(outlier_idx,
+    outlier_delta)`` its sidecar."""
+    if weight_bits is None:
+        conv = problem(x, w, stride)
+        if x.dtype not in IN_DTYPES or w.dtype != x.dtype:
+            raise TypeError(f"conv operands must share one of {IN_DTYPES}, "
+                            f"got {x.dtype} and {w.dtype}")
+    else:
+        fh, fw, cout = check_packed(x, w, weight_bits, w_hi)
+        conv = problem(x, torch.empty((fh, fw, x.shape[3], cout),
+                                      device="meta"), stride)
+    if (outlier_idx is None) != (outlier_delta is None) or (
+            outlier_idx is not None and weight_bits is None):
+        raise ValueError("the outlier sidecar needs both its idx and delta, "
+                         "and packed weights")
+    p = plan(spec, conv, x.dtype, weight_bits)
     epi = epilogue if (epilogue is not None and not epilogue.is_noop) \
         else None
     cout = conv.cout
@@ -176,7 +234,15 @@ def conv2d_df(
     if out_dtype not in allowed:
         raise TypeError(f"the conv kernel writes {allowed} here, got "
                         f"{out_dtype}")
+    if outlier_idx is not None and (
+            tuple(outlier_delta.shape) != (outlier_idx.shape[0], cout)):
+        raise ValueError(f"outlier delta shape {tuple(outlier_delta.shape)} "
+                         f"!= ({outlier_idx.shape[0]}, {cout})")
+    cp = _cdiv(conv.cin, pack.WORD_BITS) * pack.WORD_BITS
     if x.device.type == "cpu":
+        if weight_bits is not None:
+            w = pack.unpack_conv_planes(w, w_hi, weight_bits, conv.cin,
+                                        outlier_idx, outlier_delta)
         if epi is None:
             return ref.conv2d_ref(x, w, stride, out_dtype=out_dtype)
         return ref.conv2d_fused_ref(
@@ -185,7 +251,17 @@ def conv2d_df(
     scale, bias, residual = (None if t is None else t.float().contiguous()
                              for t in (scale, bias, residual))
     x, w = x.contiguous(), w.contiguous()
-    _build.require_cuda(x, w, scale, bias, residual)
+    r, offsets = 0, None
+    if outlier_idx is not None and outlier_idx.shape[0]:
+        r = outlier_idx.shape[0]
+        offsets = _window_offsets(outlier_idx, conv, cp).contiguous()
+        outlier_delta = outlier_delta.to(torch.int32).contiguous()
+    else:
+        outlier_delta = None
+    if w_hi is not None:
+        w_hi = w_hi.contiguous()
+    _build.require_cuda(x, w, scale, bias, residual, w_hi, offsets,
+                        outlier_delta)
     out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
     _build.launch(
         p.kernel, _build.ptr(x), _build.ptr(w), _build.ptr(out), conv.n,
@@ -193,5 +269,7 @@ def conv2d_df(
         _build.dtype_code(x), _build.dtype_code(out), _build.ptr(scale),
         scale_mode(scale), _build.ptr(bias),
         ACTIVATION_CODES[epi.activation if epi else None],
-        _build.ptr(residual), *p.args)
+        _build.ptr(residual), weight_bits or 0, _build.ptr(w_hi),
+        _build.ptr(offsets), _build.ptr(outlier_delta), r, *p.args,
+        packed=weight_bits is not None)
     return out

@@ -3,22 +3,35 @@
 // (matmul_is_stripe.cu).
 //
 // Every kernel computes C = act(scale * (A @ B) + bias) + residual with A
-// (M, K) and B (K, N) row-major, f32 or bf16, converted to f32 at the load.
-// Each output element is one f32 accumulator that starts at 0 and takes one
-// fmaf per k in ascending order, k padded with zeros to a multiple of BK, and
-// then the one epilogue below: whatever the dataflow, the grid or the other
-// rows, an output element gets the same bits. The libraries are built with
-// -fmad=false, so nothing outside the explicit fmaf is contracted and the
-// epilogue rounds the same in every kernel.
+// (M, K) and B (K, N) row-major. Float operands (f32, bf16) are converted to
+// f32 at the load; each output element is one f32 accumulator that starts at
+// 0 and takes one fmaf per k in ascending order, k padded with zeros to a
+// multiple of BK, and then the one epilogue below: whatever the dataflow, the
+// grid or the other rows, an output element gets the same bits. The libraries
+// are built with -fmad=false, so nothing outside the explicit fmaf is
+// contracted and the epilogue rounds the same in every kernel.
+//
+// int8 operands take the integer k loop: the same tiles hold int32 values,
+// each output element is one int32 accumulator and every step is an integer
+// multiply-add, exact in any order. B is then either int8 (DenseB) or the
+// packed int4/int5 planes of repro_torch/kernels/pack.py (PackedB), decoded
+// at the load (pack_common.cuh, B6); the packed weight's outlier rows are
+// added to the accumulator at the flush (add_sidecar). The int32 result is
+// written as it is when no epilogue stage is set, else converted to f32 and
+// put through the epilogue.
 //
 // A dataflow differs only in which operand a CTA holds in shared memory
-// across its walk (resident) and which it streams through 64x32 / 32x64 f32
-// tiles, the next tile's 16-byte loads in flight while the current one is
-// consumed. Resident operands are kept in their own type (bf16 stays bf16),
-// zero-padded to whole BK steps, and converted at each use.
+// across its walk (resident) and which it streams through 64x32 / 32x64
+// tiles, the next tile's loads in flight while the current one is consumed.
+// Resident operands are kept in their own type (bf16 stays bf16, packed
+// planes stay packed), zero-padded to whole BK steps, and converted at each
+// use.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "pack_common.cuh"
 
 namespace gemm {
 
@@ -26,7 +39,7 @@ constexpr int BM = 64, BN = 64, BK = 32;
 constexpr int TM = 4, TN = 4;
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 constexpr int TILE_LD = BM + 4;                 // BM == BN: one stride for both
-constexpr int TILE_FLOATS = BK * TILE_LD;
+constexpr int TILE_FLOATS = BK * TILE_LD;       // elements (4 bytes each)
 // Shared memory a block can use on Hopper (cudaFuncAttribute opt-in limit).
 constexpr size_t MAX_SMEM = 232448;
 
@@ -42,6 +55,33 @@ enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int round_up(int a, int b) { return cdiv(a, b) * b; }
+
+// The accumulator of an input type: f32 for f32 and bf16, int32 for int8.
+template <typename T>
+struct AccOf {
+  using type = float;
+};
+template <>
+struct AccOf<int8_t> {
+  using type = int;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ int widen(int8_t v) { return v; }
+
+__device__ __forceinline__ float mac(float acc, float a, float b) { return fmaf(a, b, acc); }
+__device__ __forceinline__ int mac(int acc, int a, int b) { return acc + a * b; }
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(int v) { return __int2float_rn(v); }
+
+template <typename T>
+__device__ __forceinline__ T tzero() { return T(0); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 tzero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
 
 __device__ __forceinline__ float activate(float x, int act) {
   switch (act) {
@@ -64,7 +104,15 @@ struct Epi {
   const float* bias;
   int act;
   const float* residual;
-  int out_bf16;  // the output's element type: 0 f32, 1 bf16
+  int out_dtype;  // REPRO_F32, REPRO_BF16, or REPRO_I32 (int8, no stage)
+  // The packed weight's outlier sidecar: sr slots, slot s adding
+  // A[row, sidx[s]] * sdelta[s, col] to the int32 accumulator at the flush;
+  // a slot with sidx[s] outside [0, sk) is empty. A is sa (M, sk) int8.
+  const int8_t* sa = nullptr;
+  const int* sidx = nullptr;
+  const int* sdelta = nullptr;
+  int sr = 0;
+  int sk = 0;
 };
 
 __device__ __forceinline__ float epilogue(float x, int r, int c, int n,
@@ -82,11 +130,39 @@ __device__ __forceinline__ float epilogue(float x, int r, int c, int n,
 __device__ __forceinline__ int ty() { return threadIdx.x / (BN / TN); }
 __device__ __forceinline__ int tx() { return threadIdx.x % (BN / TN); }
 
-// Runs the epilogue on a thread's accumulators and writes the ones inside
-// the (m, n) output, in the element type e.out_bf16 names.
-__device__ __forceinline__ void store_tile(void* c, const float acc[TM][TN],
-                                           int row0, int col0, int m, int n,
-                                           const Epi& e) {
+// The outlier rows of a packed weight, added to a thread's int32
+// accumulators of the output tile at (row0, col0).
+__device__ __forceinline__ void add_sidecar(int acc[TM][TN], int row0, int col0,
+                                            int m, int n, const Epi& e) {
+  for (int s = 0; s < e.sr; ++s) {
+    const int col = e.sidx[s];
+    if (col < 0 || col >= e.sk) continue;
+    int av[TM], dv[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = row0 + ty() * TM + i;
+      av[i] = r < m ? e.sa[(size_t)r * e.sk + col] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int cc = col0 + tx() * TN + j;
+      dv[j] = cc < n ? e.sdelta[(size_t)s * n + cc] : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] += av[i] * dv[j];
+  }
+}
+__device__ __forceinline__ void add_sidecar(float (*)[TN], int, int, int, int,
+                                            const Epi&) {}
+
+// Runs the epilogue on a thread's accumulators (after the sidecar) and writes
+// the ones inside the (m, n) output, in the element type e.out_dtype names.
+template <typename Acc>
+__device__ __forceinline__ void store_tile(void* c, Acc acc[TM][TN], int row0,
+                                           int col0, int m, int n, const Epi& e) {
+  add_sidecar(acc, row0, col0, m, n, e);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = row0 + ty() * TM + i;
@@ -96,20 +172,28 @@ __device__ __forceinline__ void store_tile(void* c, const float acc[TM][TN],
       const int cc = col0 + tx() * TN + j;
       if (cc >= n) continue;
       const size_t at = (size_t)r * n + cc;
-      const float x = epilogue(acc[i][j], r, cc, n, e);
-      if (e.out_bf16) store_f32(static_cast<__nv_bfloat16*>(c) + at, x);
+      if constexpr (std::is_same<Acc, int>::value) {
+        if (e.out_dtype == REPRO_I32) {
+          static_cast<int*>(c)[at] = acc[i][j];
+          continue;
+        }
+      }
+      const float x = epilogue(to_float(acc[i][j]), r, cc, n, e);
+      if (e.out_dtype == REPRO_BF16) store_f32(static_cast<__nv_bfloat16*>(c) + at, x);
       else store_f32(static_cast<float*>(c) + at, x);
     }
   }
 }
 
 // Global -> register -> shared staging of one operand element group:
-// 16-byte vectors when the rows allow it (VEC), single elements otherwise.
+// 16-byte vectors when the rows allow it (VEC, float and bf16 only), single
+// elements otherwise, widened to the accumulator type.
 template <typename T, bool VEC>
 struct TileIO;
 
 template <typename T>
 struct TileIO<T, true> {
+  static_assert(!std::is_same<T, int8_t>::value, "int8 loads are elementwise");
   static constexpr int V = Vec16<T>::N;
   using Reg = uint4;
   __device__ static __forceinline__ Reg load(const T* p, bool in) {
@@ -123,19 +207,18 @@ struct TileIO<T, true> {
 template <typename T>
 struct TileIO<T, false> {
   static constexpr int V = 1;
-  using Reg = float;
+  using Reg = typename AccOf<T>::type;
   __device__ static __forceinline__ Reg load(const T* p, bool in) {
-    return in ? load_f32(p) : 0.f;
+    return in ? widen(*p) : Reg(0);
   }
-  __device__ static __forceinline__ void unpack(const Reg& r, float* o) {
-    o[0] = r;
-  }
+  __device__ static __forceinline__ void unpack(const Reg& r, Reg* o) { o[0] = r; }
 };
 
 // A streamed BM x BK tile of A, stored k-major in shared memory.
 template <typename T, bool VEC>
 struct ATile {
   using IO = TileIO<T, VEC>;
+  using Acc = typename AccOf<T>::type;
   static constexpr int V = IO::V, VPR = BK / V, IT = BM * VPR / THREADS;
   typename IO::Reg r[IT];
 
@@ -148,8 +231,8 @@ struct ATile {
       r[it] = IO::load(a + (size_t)gr * k + gk, gr < m && gk < k);
     }
   }
-  __device__ __forceinline__ void stash(float* as) const {
-    float v[V];
+  __device__ __forceinline__ void stash(Acc* as) const {
+    Acc v[V];
 #pragma unroll
     for (int it = 0; it < IT; ++it) {
       const int i = threadIdx.x + it * THREADS;
@@ -160,10 +243,11 @@ struct ATile {
   }
 };
 
-// A streamed BK x BN tile of B.
+// A streamed BK x BN tile of a dense B.
 template <typename T, bool VEC>
 struct BTile {
   using IO = TileIO<T, VEC>;
+  using Acc = typename AccOf<T>::type;
   static constexpr int V = IO::V, VPR = BN / V, IT = BK * VPR / THREADS;
   typename IO::Reg r[IT];
 
@@ -176,8 +260,8 @@ struct BTile {
       r[it] = IO::load(b + (size_t)gk * n + gc, gk < k && gc < n);
     }
   }
-  __device__ __forceinline__ void stash(float* bs) const {
-    float v[V];
+  __device__ __forceinline__ void stash(Acc* bs) const {
+    Acc v[V];
 #pragma unroll
     for (int it = 0; it < IT; ++it) {
       const int i = threadIdx.x + it * THREADS;
@@ -187,15 +271,6 @@ struct BTile {
     }
   }
 };
-
-template <typename T>
-__device__ __forceinline__ T tzero();
-template <>
-__device__ __forceinline__ float tzero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 tzero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
 
 // A resident A row stripe: rows row0.. (ra of them) x all kp (>= k) columns,
 // stored k-major (ares[kk * ra + r]), zero past m and k.
@@ -209,24 +284,82 @@ __device__ __forceinline__ void load_a_stripe(T* ares, const T* a, int m,
   }
 }
 
-// A resident B panel: kp rows x width columns starting at col0, row-major
-// with stride width, zero past k and n.
-template <typename T>
-__device__ __forceinline__ void load_b_panel(T* bres, const T* b, int k, int n,
-                                             int kp, int col0, int width) {
-  for (int i = threadIdx.x; i < kp * width; i += THREADS) {
-    const int kk = i / width, c = i % width;
-    bres[i] = (kk < k && col0 + c < n) ? b[(size_t)kk * n + col0 + c] : tzero<T>();
+// The B operands. Each gives its accumulator type, its streamed tile
+// (fetch/stash), and its resident panel of kp rows x `width` columns: bytes,
+// load (zero past k and n) and the value at (row kk, column c).
+//
+// DenseB: B (k, n) row-major T.
+template <typename T, bool VEC>
+struct DenseB {
+  using Acc = typename AccOf<T>::type;
+  const T* p;
+
+  struct Tile {
+    BTile<T, VEC> t;
+    __device__ __forceinline__ void fetch(const DenseB& b, int k, int n, int k0,
+                                          int col0) {
+      t.fetch(b.p, k, n, k0, col0);
+    }
+    __device__ __forceinline__ void stash(Acc* bs) const { t.stash(bs); }
+  };
+
+  __host__ __device__ static constexpr size_t panel_bytes(int kp, int width) {
+    return (size_t)kp * width * sizeof(T);
   }
-}
+  __device__ __forceinline__ void load_panel(void* dst, int k, int n, int kp,
+                                             int col0, int width) const {
+    T* res = static_cast<T*>(dst);
+    for (int i = threadIdx.x; i < kp * width; i += THREADS) {
+      const int kk = i / width, c = i % width;
+      res[i] = (kk < k && col0 + c < n) ? p[(size_t)kk * n + col0 + c] : tzero<T>();
+    }
+  }
+  __device__ static __forceinline__ Acc at(const void* panel, int kk, int c,
+                                           int width, int) {
+    return widen(static_cast<const T*>(panel)[(size_t)kk * width + c]);
+  }
+};
+
+// PackedB: the int4/int5 planes of an int8 B, (kp/8, n) nibble words and
+// (kp/32, n) bit-plane words (BITS == 5), kp = round_up(k, BK) rows; decoded
+// at each tile load, and kept packed when resident.
+template <int BITS>
+struct PackedB {
+  using Acc = int;
+  const uint32_t* codes;
+  const uint32_t* hi;
+
+  struct Tile {
+    pack::Tile<BITS, BN, THREADS, TILE_LD> t;
+    __device__ __forceinline__ void fetch(const PackedB& b, int, int n, int k0,
+                                          int col0) {
+      t.fetch(b.codes, b.hi, n, n, k0, col0);
+    }
+    __device__ __forceinline__ void stash(int* bs) const { t.stash(bs); }
+  };
+
+  __host__ __device__ static constexpr size_t panel_bytes(int kp, int width) {
+    return pack::panel_bytes<BITS>(kp, width);
+  }
+  __device__ __forceinline__ void load_panel(void* dst, int, int n, int kp,
+                                             int col0, int width) const {
+    pack::load_panel<BITS, THREADS>(static_cast<uint32_t*>(dst), codes, hi, n,
+                                    kp, col0, width, n);
+  }
+  __device__ static __forceinline__ int at(const void* panel, int kk, int c,
+                                           int width, int kp) {
+    return pack::panel_at<BITS>(static_cast<const uint32_t*>(panel), kk, c,
+                                width, kp);
+  }
+};
 
 // One BK step of a thread's TM x TN accumulators: a_at(kk, i) and b_at(kk, j)
 // give its A row i and B column j at depth kk of the step.
-template <class AAt, class BAt>
-__device__ __forceinline__ void mma_step(float acc[TM][TN], AAt a_at, BAt b_at) {
+template <typename Acc, class AAt, class BAt>
+__device__ __forceinline__ void mma_step(Acc acc[TM][TN], AAt a_at, BAt b_at) {
 #pragma unroll
   for (int kk = 0; kk < BK; ++kk) {
-    float av[TM], bv[TN];
+    Acc av[TM], bv[TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i) av[i] = a_at(kk, i);
 #pragma unroll
@@ -234,30 +367,33 @@ __device__ __forceinline__ void mma_step(float acc[TM][TN], AAt a_at, BAt b_at) 
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < TN; ++j) acc[i][j] = mac(acc[i][j], av[i], bv[j]);
   }
 }
 
 // The whole k loop of the output tile at (row0, col0), into acc. A comes from
 // the streamed tile `as` or, when A_RES, from the resident stripe ares (ra
 // rows, k-major); B from the streamed tile `bs` or, when B_RES, from the
-// resident panel bres (row stride ldb, the tile's columns at bcol). Ends with
-// a barrier, so the caller may refill the tiles right after.
-template <typename T, bool VEC, bool A_RES, bool B_RES>
-__device__ __forceinline__ void tile_kloop(float acc[TM][TN], const T* a,
-                                           const T* b, int m, int n, int k,
-                                           int row0, int col0, float* as,
-                                           float* bs, const T* ares, int ra,
-                                           const T* bres, int ldb, int bcol) {
+// resident panel bres (ldb columns, the tile's columns at bcol). Ends with a
+// barrier, so the caller may refill the tiles right after.
+template <typename T, bool VEC, class B, bool A_RES, bool B_RES>
+__device__ __forceinline__ void tile_kloop(typename B::Acc acc[TM][TN],
+                                           const T* a, const B& b, int m, int n,
+                                           int k, int row0, int col0,
+                                           typename B::Acc* as,
+                                           typename B::Acc* bs, const T* ares,
+                                           int ra, const void* bres, int ldb,
+                                           int bcol) {
+  using Acc = typename B::Acc;
   ATile<T, VEC> at;
-  BTile<T, VEC> bt;
+  typename B::Tile bt;
   const int kp = round_up(k, BK);
   const int ar = ty() * TM;
   const bool a_rows = ar < ra;  // ra is a multiple of TM
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
   if (!A_RES) at.fetch(a, m, k, row0, 0);
   if (!B_RES) bt.fetch(b, k, n, 0, col0);
   if (!A_RES) at.stash(as);
@@ -269,12 +405,12 @@ __device__ __forceinline__ void tile_kloop(float acc[TM][TN], const T* a,
       if (!A_RES) at.fetch(a, m, k, row0, k0 + BK);
       if (!B_RES) bt.fetch(b, k, n, k0 + BK, col0);
     }
-    auto a_at = [&](int kk, int i) -> float {
-      if (A_RES) return a_rows ? load_f32(ares + (k0 + kk) * ra + ar + i) : 0.f;
+    auto a_at = [&](int kk, int i) -> Acc {
+      if (A_RES) return a_rows ? widen(ares[(k0 + kk) * ra + ar + i]) : Acc(0);
       return as[kk * TILE_LD + ar + i];
     };
-    auto b_at = [&](int kk, int j) -> float {
-      if (B_RES) return load_f32(bres + (size_t)(k0 + kk) * ldb + bcol + tx() * TN + j);
+    auto b_at = [&](int kk, int j) -> Acc {
+      if (B_RES) return B::at(bres, k0 + kk, bcol + tx() * TN + j, ldb, kp);
       return bs[kk * TILE_LD + tx() * TN + j];
     };
     mma_step(acc, a_at, b_at);
@@ -287,15 +423,16 @@ __device__ __forceinline__ void tile_kloop(float acc[TM][TN], const T* a,
   }
 }
 
-// Shared memory of a walk kernel, in bytes: the streamed tiles it needs and
-// its resident A stripe (ra rows) and B panel. The Python planner
+// Shared memory of a walk kernel, in bytes: the streamed tiles it needs, its
+// resident A stripe (ra rows) and its resident B panel. The Python planner
 // (matmul_df.plan) computes the same sum.
+template <typename T, class B>
 __host__ __device__ constexpr size_t walk_smem(bool a_res, int b_res, int kp,
-                                               int ra, int np, size_t elt) {
+                                               int ra, int np) {
   return (a_res ? 0 : TILE_FLOATS * 4) + (b_res ? 0 : TILE_FLOATS * 4) +
-         (a_res ? (size_t)kp * ra * elt : 0) +
-         (b_res == B_STRIPE ? (size_t)kp * BN * elt
-                            : b_res == B_WHOLE ? (size_t)kp * np * elt : 0);
+         (a_res ? (size_t)kp * ra * sizeof(T) : 0) +
+         (b_res == B_STRIPE ? B::panel_bytes(kp, BN)
+                            : b_res == B_WHOLE ? B::panel_bytes(kp, np) : 0);
 }
 
 // The walk kernel behind B1 and B4. WALK_NONE: one output tile per CTA,
@@ -305,37 +442,39 @@ __host__ __device__ constexpr size_t walk_smem(bool a_res, int b_res, int kp,
 // stripe when A_RES, and B whole when B_WHOLE, and walks the column tiles j
 // (the IS order, grid (gm, gn, gk)). Each output tile's accumulators stay in
 // registers across its whole k loop and are written once, after the epilogue.
-template <typename T, bool VEC, int WALK, bool A_RES, int B_RES>
+template <typename T, bool VEC, class B, int WALK, bool A_RES, int B_RES>
 __global__ void __launch_bounds__(THREADS)
-walk_kernel(const T* __restrict__ a, const T* __restrict__ b, void* __restrict__ c,
-            int m, int n, int k, Epi e) {
+walk_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m, int n,
+            int k, Epi e) {
+  using Acc = typename B::Acc;
   extern __shared__ __align__(16) unsigned char smem[];
   // The basic walk's tiles are static shared memory: the same kernel with
   // them in dynamic shared memory measured 3% slower at M = 512 (PERF.md).
-  __shared__ float basic_as[WALK == WALK_NONE ? TILE_FLOATS : 1];
-  __shared__ float basic_bs[WALK == WALK_NONE ? TILE_FLOATS : 1];
-  float* as = WALK == WALK_NONE ? basic_as : reinterpret_cast<float*>(smem);
-  float* bs = WALK == WALK_NONE ? basic_bs : as + (A_RES ? 0 : TILE_FLOATS);
+  __shared__ Acc basic_as[WALK == WALK_NONE ? TILE_FLOATS : 1];
+  __shared__ Acc basic_bs[WALK == WALK_NONE ? TILE_FLOATS : 1];
+  Acc* as = WALK == WALK_NONE ? basic_as : reinterpret_cast<Acc*>(smem);
+  Acc* bs = WALK == WALK_NONE ? basic_bs : as + (A_RES ? 0 : TILE_FLOATS);
   T* ares = reinterpret_cast<T*>(bs + (B_RES ? 0 : TILE_FLOATS));
   const int kp = round_up(k, BK), gm = cdiv(m, BM), gn = cdiv(n, BN);
   const int ra = min(BM, round_up(m, TM)), np = gn * BN;
-  T* bres = ares + (A_RES ? kp * ra : 0);
+  // kp * ra is a multiple of 128, so the panel stays 16-byte aligned.
+  void* bres = ares + (A_RES ? kp * ra : 0);
   const int ldb = B_RES == B_WHOLE ? np : BN;
-  float acc[TM][TN];
+  Acc acc[TM][TN];
 
   if (B_RES == B_WHOLE) {
-    load_b_panel(bres, b, k, n, kp, 0, np);
+    b.load_panel(bres, k, n, kp, 0, np);
     __syncthreads();
   }
   if (WALK == WALK_NONE) {
     const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-    tile_kloop<T, VEC, A_RES, B_RES != B_STREAMED>(
+    tile_kloop<T, VEC, B, A_RES, B_RES != B_STREAMED>(
         acc, a, b, m, n, k, row0, col0, as, bs, ares, ra, bres, ldb, col0);
     store_tile(c, acc, row0, col0, m, n, e);
   } else if (WALK == WALK_M) {
     const int col0 = blockIdx.x * BN;
     if (B_RES == B_STRIPE) {
-      load_b_panel(bres, b, k, n, kp, col0, BN);
+      b.load_panel(bres, k, n, kp, col0, BN);
       __syncthreads();
     }
     for (int i = 0; i < gm; ++i) {
@@ -343,7 +482,7 @@ walk_kernel(const T* __restrict__ a, const T* __restrict__ b, void* __restrict__
         load_a_stripe(ares, a, m, k, kp, i * BM, ra);
         __syncthreads();
       }
-      tile_kloop<T, VEC, A_RES, B_RES != B_STREAMED>(
+      tile_kloop<T, VEC, B, A_RES, B_RES != B_STREAMED>(
           acc, a, b, m, n, k, i * BM, col0, as, bs, ares, ra, bres, ldb,
           B_RES == B_WHOLE ? col0 : 0);
       store_tile(c, acc, i * BM, col0, m, n, e);
@@ -355,26 +494,47 @@ walk_kernel(const T* __restrict__ a, const T* __restrict__ b, void* __restrict__
       __syncthreads();
     }
     for (int j = 0; j < gn; ++j) {
-      tile_kloop<T, VEC, A_RES, B_RES != B_STREAMED>(
+      tile_kloop<T, VEC, B, A_RES, B_RES != B_STREAMED>(
           acc, a, b, m, n, k, row0, j * BN, as, bs, ares, ra, bres, ldb, j * BN);
       store_tile(c, acc, row0, j * BN, m, n, e);
     }
   }
 }
 
-// Whether the streamed loads may take 16-byte vectors.
+// Whether the streamed loads may take 16-byte vectors (float and bf16).
 template <typename T>
 bool vec_ok(const void* a, const void* b, int n, int k) {
-  constexpr int V = Vec16<T>::N;
-  return k % V == 0 && n % V == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  if constexpr (std::is_same<T, int8_t>::value) {
+    return false;
+  } else {
+    constexpr int V = Vec16<T>::N;
+    return k % V == 0 && n % V == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  }
+}
+
+// Calls F::template run<B, VEC>() with the B operand of input type T and
+// weight bits WB (0: a dense B of T; 4, 5: packed planes under an int8 A).
+template <typename T, int WB, class F>
+int with_b(const void* b, const void* b_hi, bool vec, F f) {
+  if constexpr (WB != 0) {
+    static_assert(std::is_same<T, int8_t>::value, "packed B needs int8 A");
+    return f(PackedB<WB>{static_cast<const uint32_t*>(b),
+                         static_cast<const uint32_t*>(b_hi)},
+             std::false_type());
+  } else if constexpr (std::is_same<T, int8_t>::value) {
+    return f(DenseB<T, false>{static_cast<const T*>(b)}, std::false_type());
+  } else {
+    if (vec) return f(DenseB<T, true>{static_cast<const T*>(b)}, std::true_type());
+    return f(DenseB<T, false>{static_cast<const T*>(b)}, std::false_type());
+  }
 }
 
 // Launches `kernel` with `smem` bytes of dynamic shared memory, opting in
 // above the 48 KB default; refuses what no Hopper block can hold.
-template <typename T, typename K>
+template <typename T, typename K, class B>
 int launch_with_smem(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                     const void* a, const void* b, void* c, int m, int n, int k,
+                     const void* a, const B& b, void* c, int m, int n, int k,
                      const Epi& e) {
   if (smem > MAX_SMEM) return REPRO_BAD_ARGUMENT;
   if (smem > 48 * 1024) {
@@ -382,8 +542,7 @@ int launch_with_smem(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(a),
-                                          static_cast<const T*>(b), c, m, n,
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(a), b, c, m, n,
                                           k, e);
   return launch_status();
 }
@@ -394,48 +553,73 @@ int launch_with_smem(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
 // units at once (-DREPRO_PART, kernels/_build.py): the entry point's unit
 // declares them with GEMM_WALK_EXTERN, each part defines some with
 // GEMM_WALK_DEFINE.
-template <typename T, int WALK, bool A_RES, int B_RES>
-int launch_walk(const void* a, const void* b, void* c, int m, int n, int k,
-                const Epi& e, cudaStream_t stream) {
+template <typename T, int WB, int WALK, bool A_RES, int B_RES>
+int launch_walk(const void* a, const void* b, const void* b_hi, void* c, int m,
+                int n, int k, const Epi& e, cudaStream_t stream) {
   const int kp = round_up(k, BK), gm = cdiv(m, BM), gn = cdiv(n, BN);
   const int ra = min(BM, round_up(m, TM));
-  const size_t smem =
-      WALK == WALK_NONE ? 0 : walk_smem(A_RES, B_RES, kp, ra, gn * BN, sizeof(T));
   const dim3 grid = WALK == WALK_NONE ? dim3(gn, gm)
                     : WALK == WALK_M  ? dim3(gn)
                                       : dim3(gm);
-  if (vec_ok<T>(a, b, n, k))
-    return launch_with_smem<T>(walk_kernel<T, true, WALK, A_RES, B_RES>, grid,
-                               smem, stream, a, b, c, m, n, k, e);
-  return launch_with_smem<T>(walk_kernel<T, false, WALK, A_RES, B_RES>, grid,
-                             smem, stream, a, b, c, m, n, k, e);
+  return with_b<T, WB>(b, b_hi, vec_ok<T>(a, b, n, k), [&](auto bop, auto vec) {
+    using B = decltype(bop);
+    const size_t smem =
+        WALK == WALK_NONE ? 0 : walk_smem<T, B>(A_RES, B_RES, kp, ra, gn * BN);
+    return launch_with_smem<T>(walk_kernel<T, decltype(vec)::value, B, WALK,
+                                           A_RES, B_RES>,
+                               grid, smem, stream, a, bop, c, m, n, k, e);
+  });
 }
 
-#define GEMM_WALK_SIGNATURE(T, WALK, A_RES, B_RES)                       \
-  int launch_walk<T, WALK, A_RES, B_RES>(const void*, const void*, void*, \
-                                         int, int, int, const Epi&,       \
-                                         cudaStream_t)
-#define GEMM_WALK_EXTERN(T, WALK, A_RES, B_RES) \
-  extern template GEMM_WALK_SIGNATURE(T, WALK, A_RES, B_RES);
-#define GEMM_WALK_DEFINE(T, WALK, A_RES, B_RES) \
-  template GEMM_WALK_SIGNATURE(T, WALK, A_RES, B_RES);
+#define GEMM_WALK_SIGNATURE(T, WB, WALK, A_RES, B_RES)                           \
+  int launch_walk<T, WB, WALK, A_RES, B_RES>(const void*, const void*,          \
+                                             const void*, void*, int, int, int, \
+                                             const Epi&, cudaStream_t)
+#define GEMM_WALK_EXTERN(T, WB, WALK, A_RES, B_RES) \
+  extern template GEMM_WALK_SIGNATURE(T, WB, WALK, A_RES, B_RES);
+#define GEMM_WALK_DEFINE(T, WB, WALK, A_RES, B_RES) \
+  template GEMM_WALK_SIGNATURE(T, WB, WALK, A_RES, B_RES);
 
-// The argument checks every GEMM entry point shares.
+// The argument checks every GEMM entry point shares. int8 inputs take an
+// int8 B or, with weight_bits 4 or 5, packed planes (the bit plane at 5
+// bits) and an outlier sidecar; their output is int32 only when no epilogue
+// stage is set.
 inline bool bad_args(int m, int n, int k, int in_dtype, int out_dtype,
-                     int scale_mode, const float* scale, int act) {
+                     int scale_mode, const float* scale, const float* bias,
+                     int act, const float* residual, int weight_bits,
+                     const void* b_hi, const int* sidx, const int* sdelta,
+                     int sr) {
+  const bool int_in = in_dtype == REPRO_I8;
+  const bool stages = scale_mode != SCALE_NONE || bias || act != ACT_NONE || residual;
   return m <= 0 || n <= 0 || k <= 0 || cdiv(m, BM) > 65535 ||
-         cdiv(n, BN) > 65535 || (in_dtype != REPRO_F32 && in_dtype != REPRO_BF16) ||
-         (out_dtype != REPRO_F32 && out_dtype != REPRO_BF16) ||
+         cdiv(n, BN) > 65535 ||
+         (in_dtype != REPRO_F32 && in_dtype != REPRO_BF16 && !int_in) ||
+         !(out_dtype == REPRO_F32 || out_dtype == REPRO_BF16 ||
+           (int_in && !stages && out_dtype == REPRO_I32)) ||
          scale_mode < SCALE_NONE || scale_mode > SCALE_ROW || act < ACT_NONE ||
-         act > ACT_SILU || (scale_mode != SCALE_NONE && scale == nullptr);
+         act > ACT_SILU || (scale_mode != SCALE_NONE && scale == nullptr) ||
+         (weight_bits != 0 && weight_bits != 4 && weight_bits != 5) ||
+         (weight_bits != 0 && !int_in) || (weight_bits == 5 && !b_hi) ||
+         sr < 0 || (sr > 0 && (weight_bits == 0 || !sidx || !sdelta));
 }
 
 }  // namespace gemm
 
-// Expands to the body of an entry point that calls LAUNCH<T>(args...) for
-// the input element type in_dtype (checked by bad_args).
-#define GEMM_DISPATCH_DTYPES(LAUNCH, ...)                 \
-  do {                                                    \
-    if (in_dtype == REPRO_F32) return LAUNCH<float>(__VA_ARGS__); \
-    return LAUNCH<__nv_bfloat16>(__VA_ARGS__);            \
+// Expands to the body of an entry point that calls LAUNCH<T, WB>(args...)
+// for the input element type in_dtype and the weight_bits (checked by
+// bad_args).
+#define GEMM_DISPATCH_DTYPES(LAUNCH, ...)                                    \
+  do {                                                                       \
+    if (in_dtype == REPRO_F32) return LAUNCH<float, 0>(__VA_ARGS__);         \
+    if (in_dtype == REPRO_BF16) return LAUNCH<__nv_bfloat16, 0>(__VA_ARGS__); \
+    if (weight_bits == 4) return LAUNCH<int8_t, 4>(__VA_ARGS__);             \
+    if (weight_bits == 5) return LAUNCH<int8_t, 5>(__VA_ARGS__);             \
+    return LAUNCH<int8_t, 0>(__VA_ARGS__);                                   \
   } while (0)
+
+// The epilogue and sidecar of a GEMM entry point's arguments.
+#define GEMM_EPI(A)                                                          \
+  gemm::Epi {                                                                \
+    scale, scale_mode, bias, act, residual, out_dtype,                       \
+        static_cast<const int8_t*>(A), sidx, sdelta, sr, k                   \
+  }

@@ -20,33 +20,36 @@
 // (gemm_common.cuh); the partial sums pass through shared memory in f32,
 // which is exact, so every output element equals B1's bit for bit. The
 // reference accumulates a float stripe in the output dtype; this kernel
-// always accumulates in f32 (ROADMAP C).
+// always accumulates in f32 (ROADMAP C). int8 and packed int4/int5 weights
+// keep an int32 stripe, with B1's sidecar at the flush; a resident packed B
+// stays packed and is decoded at each use.
 //
 // Bound on H100: as B1. The walk gives gm CTAs.
 #include "gemm_common.cuh"
 
-namespace {
+namespace is_stripe {
 
 using namespace gemm;
 
-template <typename T, bool VEC, bool B_WHOLE_RES>
+template <typename T, bool VEC, class B, bool B_WHOLE_RES>
 __global__ void __launch_bounds__(THREADS)
-is_stripe_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                 void* __restrict__ c, int m, int n, int k, Epi e) {
+is_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
+                 int n, int k, Epi e) {
+  using Acc = typename B::Acc;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ra = min(BM, round_up(m, TM)), gn = cdiv(n, BN), np = gn * BN;
   const int gk = cdiv(k, BK), kp = gk * BK;
-  float* as = reinterpret_cast<float*>(smem);
-  float* bs = as + TILE_FLOATS;  // unused with B whole
-  float* st = bs + (B_WHOLE_RES ? 0 : TILE_FLOATS);  // the stripe, (ra, np)
-  T* bw = reinterpret_cast<T*>(st + (size_t)ra * np);  // B whole, (kp, np)
+  Acc* as = reinterpret_cast<Acc*>(smem);
+  Acc* bs = as + TILE_FLOATS;  // unused with B whole
+  Acc* st = bs + (B_WHOLE_RES ? 0 : TILE_FLOATS);  // the stripe, (ra, np)
+  void* bw = st + (size_t)ra * np;                 // B whole, (kp, np)
   const int row0 = blockIdx.x * BM, steps = gk * gn;
   const int r_own = ty() * TM, c_own = tx() * TN;
   const bool own = r_own < ra;  // ra is a multiple of TM
   ATile<T, VEC> at;
-  BTile<T, VEC> bt;
+  typename B::Tile bt;
 
-  if (B_WHOLE_RES) load_b_panel(bw, b, k, n, kp, 0, np);
+  if (B_WHOLE_RES) b.load_panel(bw, k, n, kp, 0, np);
   // Step s is (k step s / gn, column tile s % gn); a new A tile at column 0.
   auto fetch = [&](int s) {
     const int kb = s / gn, j = s % gn;
@@ -66,16 +69,15 @@ is_stripe_kernel(const T* __restrict__ a, const T* __restrict__ b,
     if (more) fetch(s + 1);
     const int kb = s / gn, col = (s % gn) * BN + c_own;
     if (own) {
-      float acc[TM][TN];
+      Acc acc[TM][TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j)
-          acc[i][j] = kb == 0 ? 0.f : st[(size_t)(r_own + i) * np + col + j];
+          acc[i][j] = kb == 0 ? Acc(0) : st[(size_t)(r_own + i) * np + col + j];
       mma_step(acc, [&](int kk, int i) { return as[kk * TILE_LD + r_own + i]; },
-               [&](int kk, int j) -> float {
-                 if (B_WHOLE_RES)
-                   return load_f32(bw + (size_t)(kb * BK + kk) * np + col + j);
+               [&](int kk, int j) -> Acc {
+                 if (B_WHOLE_RES) return B::at(bw, kb * BK + kk, col + j, np, kp);
                  return bs[kk * TILE_LD + c_own + j];
                });
 #pragma unroll
@@ -93,7 +95,7 @@ is_stripe_kernel(const T* __restrict__ a, const T* __restrict__ b,
   // The flush: each thread's own stripe elements, epilogue, one write.
   if (!own) return;
   for (int j0 = 0; j0 < gn; ++j0) {
-    float acc[TM][TN];
+    Acc acc[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -103,39 +105,69 @@ is_stripe_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-template <typename T>
-int launch(int b_whole, const void* a, const void* b, void* c, int m, int n,
-           int k, const Epi& e, cudaStream_t s) {
+template <typename T, int WB>
+int launch(int b_whole, const void* a, const void* b, const void* b_hi, void* c,
+           int m, int n, int k, const Epi& e, cudaStream_t s) {
   const int ra = min(BM, round_up(m, TM)), np = round_up(n, BN);
   const int kp = round_up(k, BK);
-  const size_t smem = TILE_FLOATS * 4 * (b_whole ? 1 : 2) + (size_t)ra * np * 4 +
-                      (b_whole ? (size_t)kp * np * sizeof(T) : 0);
   const dim3 grid(cdiv(m, BM));
-  const bool vec = vec_ok<T>(a, b, n, k);
-  if (b_whole)
-    return vec ? launch_with_smem<T>(is_stripe_kernel<T, true, true>, grid,
-                                        smem, s, a, b, c, m, n, k, e)
-               : launch_with_smem<T>(is_stripe_kernel<T, false, true>, grid,
-                                        smem, s, a, b, c, m, n, k, e);
-  return vec ? launch_with_smem<T>(is_stripe_kernel<T, true, false>, grid,
-                                      smem, s, a, b, c, m, n, k, e)
-             : launch_with_smem<T>(is_stripe_kernel<T, false, false>, grid,
-                                      smem, s, a, b, c, m, n, k, e);
+  return with_b<T, WB>(b, b_hi, vec_ok<T>(a, b, n, k), [&](auto bop, auto vec) {
+    using B = decltype(bop);
+    constexpr bool V = decltype(vec)::value;
+    const size_t smem = TILE_FLOATS * 4 * (b_whole ? 1 : 2) + (size_t)ra * np * 4 +
+                        (b_whole ? B::panel_bytes(kp, np) : 0);
+    if (b_whole)
+      return launch_with_smem<T>(is_stripe_kernel<T, V, B, true>, grid, smem, s,
+                                 a, bop, c, m, n, k, e);
+    return launch_with_smem<T>(is_stripe_kernel<T, V, B, false>, grid, smem, s,
+                               a, bop, c, m, n, k, e);
+  });
 }
 
-}  // namespace
+#define IS_SIGNATURE(T, WB)                                                  \
+  int launch<T, WB>(int, const void*, const void*, const void*, void*, int, \
+                    int, int, const Epi&, cudaStream_t)
 
-// b_whole: 0 streams B, 1 holds all of B in shared memory.
+// One translation unit per input kind (-DREPRO_PART=0..4, kernels/_build.py).
+#if defined(REPRO_PART)
+#if REPRO_PART == 0
+template IS_SIGNATURE(float, 0);
+#elif REPRO_PART == 1
+template IS_SIGNATURE(__nv_bfloat16, 0);
+#elif REPRO_PART == 2
+template IS_SIGNATURE(int8_t, 0);
+#elif REPRO_PART == 3
+template IS_SIGNATURE(int8_t, 4);
+#else
+template IS_SIGNATURE(int8_t, 5);
+#endif
+#else
+extern template IS_SIGNATURE(float, 0);
+extern template IS_SIGNATURE(__nv_bfloat16, 0);
+extern template IS_SIGNATURE(int8_t, 0);
+extern template IS_SIGNATURE(int8_t, 4);
+extern template IS_SIGNATURE(int8_t, 5);
+#endif
+
+}  // namespace is_stripe
+
+#if !defined(REPRO_PART)
+// Operands as matmul_os. b_whole: 0 streams B, 1 holds all of B in shared
+// memory.
 extern "C" int matmul_is_stripe(const void* a, const void* b, void* c, int m,
                                 int n, int k, int in_dtype, int out_dtype,
                                 const float* scale, int scale_mode,
                                 const float* bias, int act,
-                                const float* residual, int b_whole,
+                                const float* residual, int weight_bits,
+                                const void* b_hi, const int* sidx,
+                                const int* sdelta, int sr, int b_whole,
                                 void* stream) {
-  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, act))
+  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, bias,
+                     act, residual, weight_bits, b_hi, sidx, sdelta, sr))
     return REPRO_BAD_ARGUMENT;
-  const gemm::Epi e{scale, scale_mode, bias, act, residual,
-                    out_dtype == REPRO_BF16};
+  const gemm::Epi e = GEMM_EPI(a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GEMM_DISPATCH_DTYPES(launch, b_whole, a, b, c, m, n, k, e, s);
+  using is_stripe::launch;
+  GEMM_DISPATCH_DTYPES(launch, b_whole, a, b, b_hi, c, m, n, k, e, s);
 }
+#endif

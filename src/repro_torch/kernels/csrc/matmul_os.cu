@@ -27,6 +27,11 @@
 // What does not fit in a block's 227 KB is refused (the Python planner says
 // so first, naming the bytes), never run as another dataflow.
 //
+// int8 operands (an int8 B, or the packed int4/int5 planes that B6 decodes at
+// the tile load) take the same walks with the integer k loop of
+// gemm_common.cuh: exact int32 sums, the outlier sidecar and the epilogue at
+// the flush.
+//
 // Bound on H100: at the decode shapes (M = batch rows) the weight stream,
 // i.e. bytes; at prefill shapes (M in the hundreds) the arithmetic. This
 // version runs on the CUDA cores in f32 (no tensor cores, no TMA), so it
@@ -35,31 +40,40 @@
 // gm * gn) for the fetch-once traffic.
 #include "gemm_common.cuh"
 
-// The walks this library instantiates, in two halves per input type; each
-// half is compiled in its own translation unit (-DREPRO_PART=0..3).
-#define OS_WALKS_0(X, T)                                            \
-  X(T, WALK_NONE, false, B_STREAMED) X(T, WALK_N, true, B_STREAMED) \
-  X(T, WALK_M, false, B_STRIPE)
-#define OS_WALKS_1(X, T)                                      \
-  X(T, WALK_M, true, B_STRIPE) X(T, WALK_N, false, B_WHOLE)   \
-  X(T, WALK_N, true, B_WHOLE)
+// The walks this library instantiates: two halves per float input type, all
+// six per int8 kind (int8 B, packed 4-bit, packed 5-bit); each group is
+// compiled in its own translation unit (-DREPRO_PART=0..6).
+#define OS_WALKS_0(X, T, WB)                                                \
+  X(T, WB, WALK_NONE, false, B_STREAMED) X(T, WB, WALK_N, true, B_STREAMED) \
+  X(T, WB, WALK_M, false, B_STRIPE)
+#define OS_WALKS_1(X, T, WB)                                          \
+  X(T, WB, WALK_M, true, B_STRIPE) X(T, WB, WALK_N, false, B_WHOLE)   \
+  X(T, WB, WALK_N, true, B_WHOLE)
+#define OS_ALL(X, T, WB) OS_WALKS_0(X, T, WB) OS_WALKS_1(X, T, WB)
 
 namespace gemm {
 #if defined(REPRO_PART)
 #if REPRO_PART == 0
-OS_WALKS_0(GEMM_WALK_DEFINE, float)
+OS_WALKS_0(GEMM_WALK_DEFINE, float, 0)
 #elif REPRO_PART == 1
-OS_WALKS_1(GEMM_WALK_DEFINE, float)
+OS_WALKS_1(GEMM_WALK_DEFINE, float, 0)
 #elif REPRO_PART == 2
-OS_WALKS_0(GEMM_WALK_DEFINE, __nv_bfloat16)
+OS_WALKS_0(GEMM_WALK_DEFINE, __nv_bfloat16, 0)
+#elif REPRO_PART == 3
+OS_WALKS_1(GEMM_WALK_DEFINE, __nv_bfloat16, 0)
+#elif REPRO_PART == 4
+OS_ALL(GEMM_WALK_DEFINE, int8_t, 0)
+#elif REPRO_PART == 5
+OS_ALL(GEMM_WALK_DEFINE, int8_t, 4)
 #else
-OS_WALKS_1(GEMM_WALK_DEFINE, __nv_bfloat16)
+OS_ALL(GEMM_WALK_DEFINE, int8_t, 5)
 #endif
 #else
-OS_WALKS_0(GEMM_WALK_EXTERN, float)
-OS_WALKS_1(GEMM_WALK_EXTERN, float)
-OS_WALKS_0(GEMM_WALK_EXTERN, __nv_bfloat16)
-OS_WALKS_1(GEMM_WALK_EXTERN, __nv_bfloat16)
+OS_ALL(GEMM_WALK_EXTERN, float, 0)
+OS_ALL(GEMM_WALK_EXTERN, __nv_bfloat16, 0)
+OS_ALL(GEMM_WALK_EXTERN, int8_t, 0)
+OS_ALL(GEMM_WALK_EXTERN, int8_t, 4)
+OS_ALL(GEMM_WALK_EXTERN, int8_t, 5)
 #endif
 }  // namespace gemm
 
@@ -68,33 +82,41 @@ namespace {
 
 using namespace gemm;
 
-template <typename T>
-int launch(int a_stripe, int b_res, const void* a, const void* b, void* c,
-           int m, int n, int k, const Epi& e, cudaStream_t s) {
+template <typename T, int WB>
+int launch(int a_stripe, int b_res, const void* a, const void* b,
+           const void* b_hi, void* c, int m, int n, int k, const Epi& e,
+           cudaStream_t s) {
   if (b_res == B_STRIPE)
-    return a_stripe ? launch_walk<T, WALK_M, true, B_STRIPE>(a, b, c, m, n, k, e, s)
-                    : launch_walk<T, WALK_M, false, B_STRIPE>(a, b, c, m, n, k, e, s);
+    return a_stripe
+               ? launch_walk<T, WB, WALK_M, true, B_STRIPE>(a, b, b_hi, c, m, n, k, e, s)
+               : launch_walk<T, WB, WALK_M, false, B_STRIPE>(a, b, b_hi, c, m, n, k, e, s);
   if (b_res == B_WHOLE)
-    return a_stripe ? launch_walk<T, WALK_N, true, B_WHOLE>(a, b, c, m, n, k, e, s)
-                    : launch_walk<T, WALK_N, false, B_WHOLE>(a, b, c, m, n, k, e, s);
+    return a_stripe
+               ? launch_walk<T, WB, WALK_N, true, B_WHOLE>(a, b, b_hi, c, m, n, k, e, s)
+               : launch_walk<T, WB, WALK_N, false, B_WHOLE>(a, b, b_hi, c, m, n, k, e, s);
   if (b_res != B_STREAMED) return REPRO_BAD_ARGUMENT;
-  return a_stripe ? launch_walk<T, WALK_N, true, B_STREAMED>(a, b, c, m, n, k, e, s)
-                  : launch_walk<T, WALK_NONE, false, B_STREAMED>(a, b, c, m, n, k, e, s);
+  return a_stripe
+             ? launch_walk<T, WB, WALK_N, true, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s)
+             : launch_walk<T, WB, WALK_NONE, false, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s);
 }
 
 }  // namespace
 
-// a_stripe: 0/1; b_res: 0 streamed, 1 stripe (n-first walk), 2 whole.
+// in_dtype f32/bf16 with a B of the same type, or int8 with an int8 B
+// (weight_bits 0) or packed planes (weight_bits 4, 5; b_hi the bit plane at
+// 5 bits; the sidecar sidx (sr,), sdelta (sr, n)). a_stripe: 0/1; b_res:
+// 0 streamed, 1 stripe (n-first walk), 2 whole.
 extern "C" int matmul_os(const void* a, const void* b, void* c, int m, int n,
                          int k, int in_dtype, int out_dtype,
                          const float* scale, int scale_mode, const float* bias,
-                         int act, const float* residual, int a_stripe,
-                         int b_res, void* stream) {
-  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, act))
+                         int act, const float* residual, int weight_bits,
+                         const void* b_hi, const int* sidx, const int* sdelta,
+                         int sr, int a_stripe, int b_res, void* stream) {
+  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, bias,
+                     act, residual, weight_bits, b_hi, sidx, sdelta, sr))
     return REPRO_BAD_ARGUMENT;
-  const gemm::Epi e{scale, scale_mode, bias, act, residual,
-                    out_dtype == REPRO_BF16};
+  const gemm::Epi e = GEMM_EPI(a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GEMM_DISPATCH_DTYPES(launch, a_stripe, b_res, a, b, c, m, n, k, e, s);
+  GEMM_DISPATCH_DTYPES(launch, a_stripe, b_res, a, b, b_hi, c, m, n, k, e, s);
 }
 #endif

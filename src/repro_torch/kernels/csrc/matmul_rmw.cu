@@ -17,34 +17,46 @@
 // TPU's in-place revisits become one write after the epilogue.
 //
 // Arithmetic: the loads, k loop and epilogue of B1 (gemm_common.cuh), so for
-// the same inputs every output element equals B1's bit for bit.
+// the same inputs every output element equals B1's bit for bit; int8 and
+// packed int4/int5 weights take B1's integer k loop and sidecar.
 //
 // Bound on H100: as B1 (operations at prefill M, bytes at decode M). The
 // walk gives gn (WS) or gm (IS) CTAs where B1 has gm * gn, which is what
 // this kernel pays for fetching its anchored operand once.
 #include "gemm_common.cuh"
 
-// The walks this library instantiates, one translation unit per input type
-// and walk order (-DREPRO_PART=0..3).
-#define RMW_WALKS_0(X, T) X(T, WALK_M, false, B_STRIPE) X(T, WALK_M, true, B_STRIPE)
-#define RMW_WALKS_1(X, T) X(T, WALK_N, true, B_STREAMED) X(T, WALK_N, true, B_WHOLE)
+// The walks this library instantiates: two per float input type and walk
+// order, all four per int8 kind (int8 B, packed 4-bit, packed 5-bit); each
+// group is compiled in its own translation unit (-DREPRO_PART=0..6).
+#define RMW_WALKS_0(X, T, WB) \
+  X(T, WB, WALK_M, false, B_STRIPE) X(T, WB, WALK_M, true, B_STRIPE)
+#define RMW_WALKS_1(X, T, WB) \
+  X(T, WB, WALK_N, true, B_STREAMED) X(T, WB, WALK_N, true, B_WHOLE)
+#define RMW_ALL(X, T, WB) RMW_WALKS_0(X, T, WB) RMW_WALKS_1(X, T, WB)
 
 namespace gemm {
 #if defined(REPRO_PART)
 #if REPRO_PART == 0
-RMW_WALKS_0(GEMM_WALK_DEFINE, float)
+RMW_WALKS_0(GEMM_WALK_DEFINE, float, 0)
 #elif REPRO_PART == 1
-RMW_WALKS_1(GEMM_WALK_DEFINE, float)
+RMW_WALKS_1(GEMM_WALK_DEFINE, float, 0)
 #elif REPRO_PART == 2
-RMW_WALKS_0(GEMM_WALK_DEFINE, __nv_bfloat16)
+RMW_WALKS_0(GEMM_WALK_DEFINE, __nv_bfloat16, 0)
+#elif REPRO_PART == 3
+RMW_WALKS_1(GEMM_WALK_DEFINE, __nv_bfloat16, 0)
+#elif REPRO_PART == 4
+RMW_ALL(GEMM_WALK_DEFINE, int8_t, 0)
+#elif REPRO_PART == 5
+RMW_ALL(GEMM_WALK_DEFINE, int8_t, 4)
 #else
-RMW_WALKS_1(GEMM_WALK_DEFINE, __nv_bfloat16)
+RMW_ALL(GEMM_WALK_DEFINE, int8_t, 5)
 #endif
 #else
-RMW_WALKS_0(GEMM_WALK_EXTERN, float)
-RMW_WALKS_1(GEMM_WALK_EXTERN, float)
-RMW_WALKS_0(GEMM_WALK_EXTERN, __nv_bfloat16)
-RMW_WALKS_1(GEMM_WALK_EXTERN, __nv_bfloat16)
+RMW_ALL(GEMM_WALK_EXTERN, float, 0)
+RMW_ALL(GEMM_WALK_EXTERN, __nv_bfloat16, 0)
+RMW_ALL(GEMM_WALK_EXTERN, int8_t, 0)
+RMW_ALL(GEMM_WALK_EXTERN, int8_t, 4)
+RMW_ALL(GEMM_WALK_EXTERN, int8_t, 5)
 #endif
 }  // namespace gemm
 
@@ -53,36 +65,41 @@ namespace {
 
 using namespace gemm;
 
-template <typename T>
+template <typename T, int WB>
 int launch(int m_minor, int a_stripe, int b_res, const void* a, const void* b,
-           void* c, int m, int n, int k, const Epi& e, cudaStream_t s) {
+           const void* b_hi, void* c, int m, int n, int k, const Epi& e,
+           cudaStream_t s) {
   if (m_minor) {
     if (b_res != B_STRIPE) return REPRO_BAD_ARGUMENT;
-    return a_stripe ? launch_walk<T, WALK_M, true, B_STRIPE>(a, b, c, m, n, k, e, s)
-                    : launch_walk<T, WALK_M, false, B_STRIPE>(a, b, c, m, n, k, e, s);
+    return a_stripe
+               ? launch_walk<T, WB, WALK_M, true, B_STRIPE>(a, b, b_hi, c, m, n, k, e, s)
+               : launch_walk<T, WB, WALK_M, false, B_STRIPE>(a, b, b_hi, c, m, n, k, e, s);
   }
   if (!a_stripe) return REPRO_BAD_ARGUMENT;
   if (b_res == B_WHOLE)
-    return launch_walk<T, WALK_N, true, B_WHOLE>(a, b, c, m, n, k, e, s);
+    return launch_walk<T, WB, WALK_N, true, B_WHOLE>(a, b, b_hi, c, m, n, k, e, s);
   if (b_res == B_STREAMED)
-    return launch_walk<T, WALK_N, true, B_STREAMED>(a, b, c, m, n, k, e, s);
+    return launch_walk<T, WB, WALK_N, true, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s);
   return REPRO_BAD_ARGUMENT;
 }
 
 }  // namespace
 
-// m_minor: 1 WS, 0 IS; a_stripe: 0/1 (1 for IS); b_res: 0 streamed,
-// 1 stripe (WS), 2 whole (IS).
+// Operands as matmul_os. m_minor: 1 WS, 0 IS; a_stripe: 0/1 (1 for IS);
+// b_res: 0 streamed, 1 stripe (WS), 2 whole (IS).
 extern "C" int matmul_rmw(const void* a, const void* b, void* c, int m, int n,
                           int k, int in_dtype, int out_dtype,
                           const float* scale, int scale_mode,
                           const float* bias, int act, const float* residual,
-                          int m_minor, int a_stripe, int b_res, void* stream) {
-  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, act))
+                          int weight_bits, const void* b_hi, const int* sidx,
+                          const int* sdelta, int sr, int m_minor, int a_stripe,
+                          int b_res, void* stream) {
+  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, bias,
+                     act, residual, weight_bits, b_hi, sidx, sdelta, sr))
     return REPRO_BAD_ARGUMENT;
-  const gemm::Epi e{scale, scale_mode, bias, act, residual,
-                    out_dtype == REPRO_BF16};
+  const gemm::Epi e = GEMM_EPI(a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GEMM_DISPATCH_DTYPES(launch, m_minor, a_stripe, b_res, a, b, c, m, n, k, e, s);
+  GEMM_DISPATCH_DTYPES(launch, m_minor, a_stripe, b_res, a, b, b_hi, c, m, n,
+                       k, e, s);
 }
 #endif

@@ -18,7 +18,9 @@
 // (gemm_common.cuh); the partial sums pass through shared memory in f32,
 // which is exact, so every output element equals B1's bit for bit. The
 // reference accumulates a float stripe in the output dtype (bf16 for a bf16
-// output); this kernel always accumulates in f32 (ROADMAP C).
+// output); this kernel always accumulates in f32 (ROADMAP C). int8 and
+// packed int4/int5 weights keep an int32 stripe (the reference's int32
+// scratch under an integer epilogue), with B1's sidecar at the flush.
 //
 // Bound on H100: as B1. The walk gives gn CTAs, and every k step re-reads
 // and re-writes the stripe in shared memory.
@@ -32,19 +34,20 @@ __host__ __device__ constexpr size_t ws_stripe_smem(int m) {
   return 2 * TILE_FLOATS * 4 + (size_t)round_up(m, TM) * BN * 4;
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, class B>
 __global__ void __launch_bounds__(THREADS)
-ws_stripe_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                 void* __restrict__ c, int m, int n, int k, Epi e) {
+ws_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
+                 int n, int k, Epi e) {
+  using Acc = typename B::Acc;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* as = reinterpret_cast<float*>(smem);
-  float* bs = as + TILE_FLOATS;
-  float* st = bs + TILE_FLOATS;  // the stripe, (mr, BN) row-major
+  Acc* as = reinterpret_cast<Acc*>(smem);
+  Acc* bs = as + TILE_FLOATS;
+  Acc* st = bs + TILE_FLOATS;  // the stripe, (mr, BN) row-major
   const int mr = round_up(m, TM), gm = cdiv(m, BM), gk = cdiv(k, BK);
   const int col0 = blockIdx.x * BN, steps = gk * gm;
   const int r_own = ty() * TM, c_own = tx() * TN;
   ATile<T, VEC> at;
-  BTile<T, VEC> bt;
+  typename B::Tile bt;
 
   // Step s is (k step s / gm, row tile s % gm); a new B tile at row tile 0.
   auto fetch = [&](int s) {
@@ -65,12 +68,12 @@ ws_stripe_kernel(const T* __restrict__ a, const T* __restrict__ b,
     if (more) fetch(s + 1);
     const int kb = s / gm, row0 = (s % gm) * BM + r_own;
     if (row0 < mr) {  // mr is a multiple of TM: all TM rows are in the stripe
-      float acc[TM][TN];
+      Acc acc[TM][TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j)
-          acc[i][j] = kb == 0 ? 0.f : st[(row0 + i) * BN + c_own + j];
+          acc[i][j] = kb == 0 ? Acc(0) : st[(row0 + i) * BN + c_own + j];
       mma_step(acc, [&](int kk, int i) { return as[kk * TILE_LD + r_own + i]; },
                [&](int kk, int j) { return bs[kk * TILE_LD + c_own + j]; });
 #pragma unroll
@@ -89,7 +92,7 @@ ws_stripe_kernel(const T* __restrict__ a, const T* __restrict__ b,
   for (int i0 = 0; i0 < gm; ++i0) {
     const int row0 = i0 * BM + r_own;
     if (row0 >= mr) continue;
-    float acc[TM][TN];
+    Acc acc[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -98,29 +101,32 @@ ws_stripe_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-template <typename T>
-int launch(const void* a, const void* b, void* c, int m, int n, int k,
-           const Epi& e, cudaStream_t s) {
+template <typename T, int WB>
+int launch(const void* a, const void* b, const void* b_hi, void* c, int m,
+           int n, int k, const Epi& e, cudaStream_t s) {
   const dim3 grid(cdiv(n, BN));
   const size_t smem = ws_stripe_smem(m);
-  if (vec_ok<T>(a, b, n, k))
-    return launch_with_smem<T>(ws_stripe_kernel<T, true>, grid, smem, s,
-                                  a, b, c, m, n, k, e);
-  return launch_with_smem<T>(ws_stripe_kernel<T, false>, grid, smem, s,
-                                a, b, c, m, n, k, e);
+  return with_b<T, WB>(b, b_hi, vec_ok<T>(a, b, n, k), [&](auto bop, auto vec) {
+    return launch_with_smem<T>(
+        ws_stripe_kernel<T, decltype(vec)::value, decltype(bop)>, grid, smem,
+        s, a, bop, c, m, n, k, e);
+  });
 }
 
 }  // namespace
 
+// Operands as matmul_os.
 extern "C" int matmul_ws_stripe(const void* a, const void* b, void* c, int m,
                                 int n, int k, int in_dtype, int out_dtype,
                                 const float* scale, int scale_mode,
                                 const float* bias, int act,
-                                const float* residual, void* stream) {
-  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, act))
+                                const float* residual, int weight_bits,
+                                const void* b_hi, const int* sidx,
+                                const int* sdelta, int sr, void* stream) {
+  if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, bias,
+                     act, residual, weight_bits, b_hi, sidx, sdelta, sr))
     return REPRO_BAD_ARGUMENT;
-  const gemm::Epi e{scale, scale_mode, bias, act, residual,
-                    out_dtype == REPRO_BF16};
+  const gemm::Epi e = GEMM_EPI(a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GEMM_DISPATCH_DTYPES(launch, a, b, c, m, n, k, e, s);
+  GEMM_DISPATCH_DTYPES(launch, a, b, b_hi, c, m, n, k, e, s);
 }

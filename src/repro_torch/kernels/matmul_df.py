@@ -31,9 +31,20 @@ batch it is in.  The reference's float output-stripe kernels accumulate
 in the output dtype (bf16 for a bf16 output); these always accumulate in
 f32 (ROADMAP C).
 
+int8 operands take the kernels' integer k loop: exact int32 sums, the
+int32 result written as it is without an epilogue, else put through
+the f32 epilogue.  With ``weight_bits`` (4 or 5) B is the packed
+nibble plane of ``kernels/pack.py`` (and its bit plane at 5 bits),
+decoded in the kernel at each tile load (B6,
+``csrc/pack_common.cuh``), and the outlier sidecar ``(outlier_idx,
+outlier_delta)`` is added to the int32 accumulator at the flush; the
+reference adds the same rows as a precomputed (M, N) compensation
+term.  ``plan`` charges int8 operands one byte an element and packed
+planes their words.
+
 Each wrapper launches its kernel for CUDA tensors and raises for what it
 does not take; for CPU tensors it computes the kernels' plain version,
-``ref.matmul_fused_ref``.
+``ref.matmul_fused_ref`` (on the exact int8 image of packed planes).
 """
 from __future__ import annotations
 
@@ -46,13 +57,14 @@ import torch
 from repro_torch.core.dataflow import (DataflowSpec, Epilogue,
                                        KernelRegistration, Residency, IS, OS,
                                        WS, register_kernel)
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, pack, ref
 
 BLOCK = (64, 32, 64)               # (bm, bk, bn) of csrc/gemm_common.cuh
 ACTIVATION_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3}
 MAX_SMEM = 232_448                 # bytes of shared memory a block can use
-# One streamed f32 tile with its padded rows, in bytes.
+# One streamed f32 (or int32) tile with its padded rows, in bytes.
 TILE_BYTES = BLOCK[1] * (BLOCK[0] + 4) * 4
+WEIGHT_BITS = (4, 5)
 _B_RES_CODES = {Residency.STREAMED: 0, Residency.STRIPE: 1,
                 Residency.WHOLE: 2}
 
@@ -78,6 +90,12 @@ IS_STRIPE = register_kernel(KernelRegistration(
     spec=DataflowSpec(anchor=IS, aux={OS: Residency.STRIPE}, block=BLOCK),
 ))
 BASIC_OS = DataflowSpec.basic(OS, block=BLOCK)
+# B6 has no kernel of its own: it is the packed-plane decode inside these
+# GEMMs' and the conv's tile loads, counted under its own launch key.
+UNPACK = register_kernel(KernelRegistration(
+    name=_build.PACKED_DECODE, source=_SRC + "pack_common.cuh",
+    replaces="src/repro/kernels/pack.py:87", spec=BASIC_OS,
+))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +121,24 @@ def _held(res: Residency) -> bool:
     return res in (Residency.STRIPE, Residency.WHOLE)
 
 
+def panel_bytes(rows: int, width: int, elt: int,
+                weight_bits: Optional[int] = None) -> int:
+    """Bytes of a resident (rows, width) B panel: ``elt`` bytes an
+    element, or the packed planes' words (rows a multiple of 32)."""
+    if weight_bits is None:
+        return rows * width * elt
+    words = rows // pack.WORD_NIBBLES + (
+        rows // pack.WORD_BITS if weight_bits == 5 else 0)
+    return words * width * 4
+
+
 @functools.lru_cache(maxsize=4096)   # every GEMM launch plans; shapes repeat
 def plan(spec: DataflowSpec, m: int, k: int, n: int,
-         dtype: torch.dtype = torch.bfloat16) -> Plan:
+         dtype: torch.dtype = torch.bfloat16,
+         weight_bits: Optional[int] = None) -> Plan:
     """The kernel, walk and resident operands of ``spec`` at (m, k, n)
-    with operands of ``dtype``, following the reference's dispatch
+    with A of ``dtype`` and B of the same type, or (int8 A) B's packed
+    planes at ``weight_bits``, following the reference's dispatch
     (``repro/kernels/matmul_df.py:_build_os/_build_rmw/_build_ws/
     _build_is``).  Raises ``ValueError`` for a block other than the
     compiled one, or when the resident operands need more shared memory
@@ -122,9 +153,11 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
     ra = min(bm, _cdiv(m, 4) * 4)          # rows of a resident A stripe
     res_a, res_b, res_o = (spec.residency(IS), spec.residency(WS),
                            spec.residency(OS))
+    b_kind = "" if weight_bits is None else f" packed {weight_bits}-bit"
+    acc = "f32" if dtype.is_floating_point else "int32"
     a_stripe_bytes = kp * ra * elt
-    b_stripe_bytes = kp * bn * elt
-    b_whole_bytes = kp * np_ * elt
+    b_stripe_bytes = panel_bytes(kp, bn, elt, weight_bits)
+    b_whole_bytes = panel_bytes(kp, np_, elt, weight_bits)
     demoted = None
     resident: Dict[str, int] = {}
 
@@ -133,11 +166,12 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
         if a_res:
             resident[f"A row stripe ({ra}, {kp})"] = a_stripe_bytes
         if res_b == Residency.STRIPE:
-            resident[f"B column stripe ({kp}, {bn})"] = b_stripe_bytes
+            resident[f"B column stripe ({kp}, {bn}){b_kind}"] = \
+                b_stripe_bytes
             order, ctas = "(gn, gm, gk)", gn
             walk = "CTA per column stripe j, sweeps i"
         elif res_b == Residency.WHOLE:
-            resident[f"B whole ({kp}, {np_})"] = b_whole_bytes
+            resident[f"B whole ({kp}, {np_}){b_kind}"] = b_whole_bytes
             order, ctas = "(gm, gn, gk)", gm
             walk = "CTA per row stripe i, sweeps j"
         elif a_res:
@@ -156,14 +190,14 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
             demoted = (f"IS {res_a.value} aux streamed: the output-stripe "
                        f"kernel takes (bm, bk) input blocks "
                        f"(repro/kernels/matmul_df.py:560)")
-        resident[f"output column stripe ({_cdiv(m, 4) * 4}, {bn}) f32"] = \
+        resident[f"output column stripe ({_cdiv(m, 4) * 4}, {bn}) {acc}"] = \
             _cdiv(m, 4) * 4 * bn * 4
         kernel, order, ctas, args = "matmul_ws_stripe", "(gn, gk, gm)", gn, ()
         walk = "CTA per column stripe j, sweeps k then i"
         smem = 2 * TILE_BYTES + sum(resident.values())
     elif spec.anchor == WS:
         a_res = _held(res_a)
-        resident[f"B column stripe ({kp}, {bn})"] = b_stripe_bytes
+        resident[f"B column stripe ({kp}, {bn}){b_kind}"] = b_stripe_bytes
         if a_res:
             resident[f"A row stripe ({ra}, {kp}), per i"] = a_stripe_bytes
         kernel, order, ctas = "matmul_rmw", "(gn, gm, gk)", gn
@@ -176,9 +210,9 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
             demoted = ("WS stripe aux streamed: the output-stripe kernel "
                        "takes (bk, bn) weight blocks "
                        "(repro/kernels/matmul_df.py:627)")
-        resident[f"output row stripe ({ra}, {np_}) f32"] = ra * np_ * 4
+        resident[f"output row stripe ({ra}, {np_}) {acc}"] = ra * np_ * 4
         if b_whole:
-            resident[f"B whole ({kp}, {np_})"] = b_whole_bytes
+            resident[f"B whole ({kp}, {np_}){b_kind}"] = b_whole_bytes
         kernel, order, ctas = "matmul_is_stripe", "(gm, gk, gn)", gm
         walk = "CTA per row stripe i, sweeps k then j"
         args = (int(b_whole),)
@@ -191,7 +225,7 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
             b_res = Residency.STREAMED
         resident[f"A row stripe ({ra}, {kp})"] = a_stripe_bytes
         if b_res == Residency.WHOLE:
-            resident[f"B whole ({kp}, {np_})"] = b_whole_bytes
+            resident[f"B whole ({kp}, {np_}){b_kind}"] = b_whole_bytes
         kernel, order, ctas = "matmul_rmw", "(gm, gn, gk)", gm
         walk = "CTA per row stripe i, sweeps j"
         args = (0, 1, _B_RES_CODES[b_res])
@@ -200,9 +234,9 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
     if smem > MAX_SMEM:
         held = ", ".join(f"{name} {size} B" for name, size in resident.items())
         raise ValueError(
-            f"{spec.name} at M={m} K={k} N={n} ({dtype}) needs {smem} bytes "
-            f"of shared memory per block ({held}); a Hopper block has "
-            f"{MAX_SMEM}")
+            f"{spec.name} at M={m} K={k} N={n} ({dtype}{b_kind}) "
+            f"needs {smem} bytes of shared memory per block ({held}); a "
+            f"Hopper block has {MAX_SMEM}")
     return Plan(kernel=kernel, grid_order=order, walk=walk, ctas=ctas,
                 resident=resident, smem_bytes=smem, args=args,
                 demoted=demoted)
@@ -219,36 +253,96 @@ def scale_mode(scale: Optional[torch.Tensor]) -> int:
     return 3
 
 
-def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
-    if a.ndim != 2 or b.ndim != 2 or b.shape[0] != a.shape[1]:
+def check_operands(a: torch.Tensor, b: torch.Tensor,
+                   weight_bits: Optional[int] = None,
+                   b_hi: Optional[torch.Tensor] = None) -> None:
+    """Float A and B, int8 A and B, or (``weight_bits``) int8 A and B's
+    packed int32 planes for round_up(K, 32) rows; raises otherwise."""
+    if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    if not (a.is_floating_point() and b.is_floating_point()):
-        raise NotImplementedError(
-            f"int8 GEMM operands are not ported yet (ROADMAP A8), got "
-            f"{a.dtype} @ {b.dtype}")
+    if weight_bits is None:
+        if b.shape[0] != a.shape[1]:
+            raise ValueError(f"bad shapes {tuple(a.shape)} @ "
+                             f"{tuple(b.shape)}")
+        if not ((a.is_floating_point() and b.is_floating_point())
+                or a.dtype == b.dtype == torch.int8):
+            raise TypeError(f"GEMM operands must both be float or both "
+                            f"int8, got {a.dtype} @ {b.dtype}")
+        return
+    if weight_bits not in WEIGHT_BITS:
+        raise ValueError(f"weight_bits must be 4 or 5, got {weight_bits}")
+    if a.dtype != torch.int8:
+        raise ValueError(f"packed weights need int8 activations, got "
+                         f"{a.dtype}")
+    kp = _cdiv(a.shape[1], pack.WORD_BITS) * pack.WORD_BITS
+    if b.dtype != torch.int32 or b.shape[0] * pack.WORD_NIBBLES != kp:
+        raise ValueError(f"bad packed shapes: a {tuple(a.shape)} vs nibble "
+                         f"plane {tuple(b.shape)} {b.dtype}")
+    if weight_bits == 5:
+        want = (kp // pack.WORD_BITS, b.shape[1])
+        if b_hi is None or tuple(b_hi.shape) != want \
+                or b_hi.dtype != torch.int32:
+            raise ValueError(f"weight_bits=5 needs the int32 bit plane "
+                             f"{want}, got "
+                             f"{None if b_hi is None else tuple(b_hi.shape)}")
+
+
+def _int_output_ok(a: torch.Tensor, stages: bool,
+                   out_dtype: torch.dtype) -> None:
+    allowed = ((torch.int32, torch.float32, torch.bfloat16)
+               if not a.is_floating_point() and not stages
+               else (torch.float32, torch.bfloat16))
+    if out_dtype not in allowed:
+        raise TypeError(f"the GEMM kernels write {allowed} here, got "
+                        f"{out_dtype}")
 
 
 def matmul_df(
     a: torch.Tensor,                          # (M, K)
-    b: torch.Tensor,                          # (K, N)
+    b: torch.Tensor,                          # (K, N), or (K_pad/8, N) words
     spec: DataflowSpec,
     scale: Optional[torch.Tensor] = None,     # (1, 1), (1, N) or (M, 1) f32
     bias: Optional[torch.Tensor] = None,      # (1, N) f32
     residual: Optional[torch.Tensor] = None,  # (M, N)
     activation: Optional[str] = None,
-    out_dtype: torch.dtype = torch.float32,
+    out_dtype: Optional[torch.dtype] = None,
+    weight_bits: Optional[int] = None,
+    b_hi: Optional[torch.Tensor] = None,      # (K_pad/32, N) int32, 5 bits
+    outlier_idx: Optional[torch.Tensor] = None,    # (R,) int32
+    outlier_delta: Optional[torch.Tensor] = None,  # (R, N) int32
 ) -> torch.Tensor:
     """``act(scale * (a @ b) + bias) + residual`` in one launch of the
-    kernel ``plan(spec, ...)`` names."""
-    check_operands(a, b)
+    kernel ``plan(spec, ...)`` names.  The output is float32 by default,
+    int32 for int8 operands without an epilogue stage.  With
+    ``weight_bits``, ``b`` (and ``b_hi``) are a packed weight's planes
+    and ``(outlier_idx, outlier_delta)`` its sidecar (slots at or past K
+    empty)."""
+    check_operands(a, b, weight_bits, b_hi)
+    if (outlier_idx is None) != (outlier_delta is None) or (
+            outlier_idx is not None and weight_bits is None):
+        raise ValueError("the outlier sidecar needs both its idx and delta, "
+                         "and packed weights")
     m, k = a.shape
     n = b.shape[1]
-    p = plan(spec, m, k, n, a.dtype)
+    p = plan(spec, m, k, n, a.dtype, weight_bits)
+    stages = any(t is not None for t in (scale, bias, residual, activation))
+    out_dtype = out_dtype or (torch.int32 if not a.is_floating_point()
+                              and not stages else torch.float32)
+    _int_output_ok(a, stages, out_dtype)
+    if outlier_idx is not None and (
+            tuple(outlier_delta.shape) != (outlier_idx.shape[0], n)):
+        raise ValueError(f"outlier delta shape {tuple(outlier_delta.shape)} "
+                         f"!= ({outlier_idx.shape[0]}, {n})")
     if a.device.type == "cpu":
+        if weight_bits is not None:
+            b = pack.unpack_planes(b, b_hi, weight_bits, k, outlier_idx,
+                                   outlier_delta)
+        if not stages:
+            return ref.matmul_ref(a, b, out_dtype)
         return ref.matmul_fused_ref(a, b, bias=bias, scale=scale,
                                     residual=residual, activation=activation,
                                     out_dtype=out_dtype)
-    if a.dtype != b.dtype:
+    if weight_bits is None and a.dtype != b.dtype:
         raise TypeError(f"operand dtypes differ: {a.dtype} vs {b.dtype}")
     epi = Epilogue(bias=bias is not None, activation=activation,
                    scale=scale is not None, residual=residual is not None)
@@ -267,13 +361,26 @@ def matmul_df(
             raise ValueError(f"residual shape {tuple(residual.shape)} != "
                              f"({m}, {n})")
     a, b = a.contiguous(), b.contiguous()
-    _build.require_cuda(a, b, scale, bias, residual)
+    r = 0
+    if outlier_idx is not None and outlier_idx.shape[0]:
+        r = outlier_idx.shape[0]
+        outlier_idx = outlier_idx.to(torch.int32).contiguous()
+        outlier_delta = outlier_delta.to(torch.int32).contiguous()
+    else:
+        outlier_idx = outlier_delta = None
+    if b_hi is not None:
+        b_hi = b_hi.contiguous()
+    _build.require_cuda(a, b, scale, bias, residual, b_hi, outlier_idx,
+                        outlier_delta)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     _build.launch(
         p.kernel, _build.ptr(a), _build.ptr(b), _build.ptr(out), m, n, k,
         _build.dtype_code(a), _build.dtype_code(out), _build.ptr(scale),
         scale_mode(scale), _build.ptr(bias),
-        ACTIVATION_CODES[epi.activation], _build.ptr(residual), *p.args)
+        ACTIVATION_CODES[epi.activation], _build.ptr(residual),
+        weight_bits or 0, _build.ptr(b_hi), _build.ptr(outlier_idx),
+        _build.ptr(outlier_delta), r, *p.args,
+        packed=weight_bits is not None)
     return out
 
 
@@ -284,7 +391,7 @@ def matmul_os(
     bias: Optional[torch.Tensor] = None,      # (1, N) f32
     residual: Optional[torch.Tensor] = None,  # (M, N)
     activation: Optional[str] = None,
-    out_dtype: torch.dtype = torch.float32,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """B1 under the basic OS dataflow, the serving path's GEMM:
     ``act(scale * (a @ b) + bias) + residual`` in one kernel launch."""

@@ -1,10 +1,12 @@
 """Public entry points of the port's kernels.
 
 The twins of ``repro/kernels/ops.py``'s ``matmul``, ``matmul_fused``,
-``conv2d``, ``conv2d_fused``, ``int8_conv2d_fused``, ``attention``,
-``paged_attention``, ``binary_matmul``, ``binary_matmul_fused`` and
-``binary_conv2d``, with the same signatures.  ``backend`` picks the
-path:
+``int8_matmul``, ``int8_matmul_fused``, ``matmul_packed``,
+``matmul_packed_fused``, ``conv2d``, ``conv2d_fused``,
+``int8_conv2d_fused``, ``conv2d_packed``, ``conv2d_packed_fused``,
+``attention``, ``paged_attention``, ``binary_matmul``,
+``binary_matmul_fused`` and ``binary_conv2d``, with the same
+signatures.  ``backend`` picks the path:
 
 * ``"cuda"`` — the hand-written kernel (``matmul_df``, ``conv2d_df``,
   ``attention_df``, ``binary_mm``), the port's counterpart of
@@ -24,8 +26,9 @@ Where the JAX ops pad operands to the block, the CUDA kernels mask the
 ragged edges themselves, so nothing is padded here. Each op carries the
 same fault-injection site as its JAX twin (``kernel.matmul``,
 ``kernel.conv2d``, ``kernel.binary_matmul``, ``kernel.attention``),
-fired on every call.  Packed binary operands are int32 words holding the
-JAX package's uint32 words bit for bit.
+fired on every call.  Packed binary operands and packed int4/int5
+weight planes are int32 words holding the JAX package's words bit for
+bit.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 from repro_torch.core.dataflow import (BinaryEpilogue, DataflowSpec,
                                        Epilogue, OS, WS)
 from repro_torch.kernels import (attention_df, binary_mm, conv2d_df,
-                                 matmul_df, ref)
+                                 matmul_df, pack, ref)
 from repro_torch.runtime import health
 
 BACKENDS = ("cuda", "torch")
@@ -64,10 +67,12 @@ def matmul(
     out_dtype: Optional[torch.dtype] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
-    """(M, K) @ (K, N) under a dataflow spec; float32 output by default."""
+    """(M, K) @ (K, N) under a dataflow spec; float32 output by default
+    (int32, exact, for int8 operands)."""
     fault = health.maybe_inject("kernel.matmul")
     matmul_df.check_operands(a, b)
-    out_dtype = out_dtype or torch.float32
+    out_dtype = out_dtype or (torch.float32 if a.is_floating_point()
+                              else torch.int32)
     if _backend(backend) == "torch":
         out = ref.matmul_ref(a, b, out_dtype)
     else:
@@ -127,6 +132,108 @@ def matmul_fused(
                                   scale=scale, bias=bias, residual=residual,
                                   activation=activation, out_dtype=out_dtype)
     return _poison(out, fault)
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def int8_matmul(
+    aq: torch.Tensor, bq: torch.Tensor, a_scale, b_scale,
+    spec: Optional[DataflowSpec] = None, backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Quantized GEMM: int8 x int8 -> exact int32 -> dequantized f32."""
+    acc = matmul(aq, bq, spec=spec, out_dtype=torch.int32, backend=backend)
+    return (acc.float() * _f32(a_scale, acc.device)
+            * _f32(b_scale, acc.device))
+
+
+def int8_matmul_fused(
+    aq: torch.Tensor, bq: torch.Tensor, a_scale, b_scale,
+    bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+    spec: Optional[DataflowSpec] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Quantized GEMM with the dequant and the epilogue fused into the
+    kernel: ``act((a_scale * b_scale) * (aq @ bq) + bias) + residual``
+    -> f32.  The scales must combine to per-tensor, per-column (1, N) or
+    per-row (M, 1); a full (M, N) grid needs ``int8_matmul``."""
+    scale = _f32(a_scale, aq.device) * _f32(b_scale, aq.device)
+    m, n = aq.shape[0], bq.shape[1]
+    per_row = scale.ndim == 2 and tuple(scale.shape) == (m, 1)
+    per_column = (tuple(scale.shape) == (n,)
+                  or (scale.ndim == 2 and tuple(scale.shape) == (1, n)))
+    if not (scale.numel() == 1 or per_column or per_row):
+        raise ValueError(
+            f"fused dequant needs scalar, per-column or per-row scales, got "
+            f"combined shape {tuple(scale.shape)}; use int8_matmul instead")
+    return matmul_fused(aq, bq, bias=bias,
+                        scale=scale if per_row else scale.reshape(1, -1),
+                        residual=residual, activation=activation, spec=spec,
+                        backend=backend)
+
+
+def _per_tensor(x_scale, device, name: str) -> Optional[torch.Tensor]:
+    if x_scale is None:
+        return None
+    x_scale = _f32(x_scale, device)
+    if x_scale.numel() != 1:
+        raise ValueError(f"{name} must be per-tensor (scalar), got "
+                         f"{tuple(x_scale.shape)}")
+    return x_scale.reshape(1, 1)
+
+
+def matmul_packed_fused(
+    aq: torch.Tensor,                         # (M, K) int8 activations
+    pw: pack.PackedWeights,
+    a_scale: Optional[torch.Tensor] = None,   # per-tensor activation scale
+    bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+    spec: Optional[DataflowSpec] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Packed-weight GEMM with the in-kernel decode (B6) and the fused
+    epilogue: ``act((a_scale * w_scale) * (aq @ W) + bias) + residual``
+    -> f32, ``W`` the exact int8 image of the packed weight.  One kernel
+    launch; bit for bit ``ref.matmul_packed_ref`` when the epilogue is
+    scale-only."""
+    fault = health.maybe_inject("kernel.matmul")
+    m, k = aq.shape
+    if k != pw.k:
+        raise ValueError(f"activation K={k} != packed weight k={pw.k}")
+    n = pw.n
+    a_scale = _per_tensor(a_scale, aq.device, "a_scale")
+    if _backend(backend) == "torch":
+        out = ref.matmul_packed_ref(aq, pw, a_scale=a_scale, bias=bias,
+                                    residual=residual,
+                                    activation=activation)
+    else:
+        scale = pw.scale if a_scale is None else a_scale * pw.scale
+        if bias is not None:
+            bias = _f32(bias, aq.device).reshape(1, n)
+        out = matmul_df.matmul_df(
+            aq, pw.codes, spec or matmul_df.BASIC_OS, scale=scale,
+            bias=bias, residual=residual, activation=activation,
+            out_dtype=torch.float32, weight_bits=pw.bits,
+            b_hi=pw.highbits, outlier_idx=pw.outlier_idx,
+            outlier_delta=pw.outlier_delta)
+    return _poison(out, fault)
+
+
+def matmul_packed(
+    aq: torch.Tensor,
+    pw: pack.PackedWeights,
+    a_scale: Optional[torch.Tensor] = None,
+    spec: Optional[DataflowSpec] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Packed-weight GEMM, dequant-only epilogue:
+    ``(a_scale * w_scale) * (aq @ W)`` -> f32 (bit for bit the oracle)."""
+    return matmul_packed_fused(aq, pw, a_scale=a_scale, spec=spec,
+                               backend=backend)
 
 
 def attention(
@@ -244,15 +351,13 @@ def conv2d(
     bk: int = 128,
     out_dtype: Optional[torch.dtype] = None,
     backend: Optional[str] = None,
-    weight_bits: Optional[int] = None,
 ) -> torch.Tensor:
     """Direct NHWC conv (VALID padding) under a dataflow spec; int32 for
     int8 inputs, float32 otherwise, by default.  ``b_oh``/``bc``/``bk``
     are the TPU kernel's blocking, kept for the signature: the CUDA
     kernel has one compiled tile (``conv2d_df.BLOCK``) and masks every
-    edge.  ``weight_bits`` (packed weights) waits for ROADMAP A8."""
+    edge.  Packed filters go through ``conv2d_packed``."""
     fault = health.maybe_inject("kernel.conv2d")
-    conv2d_df._not_packed(weight_bits)
     conv2d_df.problem(x, w, stride)
     if _backend(backend) == "torch":
         out = ref.conv2d_ref(x, w, stride, out_dtype)
@@ -276,12 +381,10 @@ def conv2d_fused(
     bk: int = 128,
     out_dtype: Optional[torch.dtype] = None,
     backend: Optional[str] = None,
-    weight_bits: Optional[int] = None,
 ) -> torch.Tensor:
     """Fused-epilogue conv ``act(scale * conv(x, w) + bias) + residual``
     in one kernel launch; float32 epilogue and output by default."""
     fault = health.maybe_inject("kernel.conv2d")
-    conv2d_df._not_packed(weight_bits)
     cout = conv2d_df.problem(x, w, stride).cout
     if bias is not None:
         bias = torch.as_tensor(bias, dtype=torch.float32,
@@ -338,6 +441,63 @@ def int8_conv2d_fused(
     return conv2d_fused(xq, wq, stride=stride, bias=bias,
                         scale=scale.reshape(1, -1), residual=residual,
                         activation=activation, spec=spec, backend=backend)
+
+
+def conv2d_packed_fused(
+    xq: torch.Tensor,                         # (N, H, W, Cin) int8
+    pcw: pack.PackedConvWeights,
+    stride: int = 1,
+    x_scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,   # (N, oh, ow, Cout)
+    activation: Optional[str] = None,
+    spec: Optional[DataflowSpec] = None,
+    b_oh: int = 8,
+    bc: int = 128,
+    bk: int = 128,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Packed-weight conv with the in-kernel decode (B6) and the fused
+    epilogue: ``act((x_scale * w_scale) * conv(xq, W) + bias) +
+    residual`` -> f32, one kernel launch; the outlier rows join the
+    int32 accumulator at the flush.  ``b_oh``/``bc``/``bk`` as
+    ``conv2d``."""
+    fault = health.maybe_inject("kernel.conv2d")
+    if xq.ndim != 4 or xq.shape[3] != pcw.cin:
+        raise ValueError(f"input channels {tuple(xq.shape)[3:]} != packed "
+                         f"cin {pcw.cin}")
+    x_scale = _per_tensor(x_scale, xq.device, "x_scale")
+    if _backend(backend) == "torch":
+        out = ref.conv2d_packed_ref(xq, pcw, stride, x_scale=x_scale,
+                                    bias=bias, residual=residual,
+                                    activation=activation)
+    else:
+        scale = pcw.scale if x_scale is None else x_scale * pcw.scale
+        if bias is not None:
+            bias = _f32(bias, xq.device).reshape(1, pcw.kout)
+        epi = Epilogue(scale=True, bias=bias is not None,
+                       activation=activation,
+                       residual=residual is not None)
+        out = conv2d_df.conv2d_df(
+            xq, pcw.codes, stride, spec or conv2d_df.BASIC_OS,
+            out_dtype=torch.float32, epilogue=epi, scale=scale, bias=bias,
+            residual=residual, weight_bits=pcw.bits, w_hi=pcw.highbits,
+            outlier_idx=pcw.outlier_idx, outlier_delta=pcw.outlier_delta)
+    return _poison(out, fault)
+
+
+def conv2d_packed(
+    xq: torch.Tensor,
+    pcw: pack.PackedConvWeights,
+    stride: int = 1,
+    x_scale: Optional[torch.Tensor] = None,
+    spec: Optional[DataflowSpec] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Packed-weight conv, dequant-only epilogue (bit for bit the
+    oracle)."""
+    return conv2d_packed_fused(xq, pcw, stride=stride, x_scale=x_scale,
+                               spec=spec, backend=backend)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import quant
 from repro_torch.core.dataflow import EPILOGUE_ACTIVATIONS
+from repro_torch.kernels import pack
 
 ACTIVATION_FNS = {
     "relu": torch.relu,
@@ -24,10 +26,28 @@ ACTIVATION_FNS = {
 assert set(ACTIVATION_FNS) == set(EPILOGUE_ACTIVATIONS)
 
 
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact product of two integer matrices -> int32: in int64 on the
+    CPU; in float64 on the card, which has no integer matmul (every
+    partial sum of an int8 GEMM is an integer far below 2^53, so float64
+    holds it exactly)."""
+    acc = torch.int64 if a.device.type == "cpu" else torch.float64
+    return (a.to(acc) @ b.to(acc)).to(torch.int32)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernels' accumulator: int32 for integer operands, else f32."""
+    if not a.is_floating_point():
+        return int_dot(a, b)
+    return a.float() @ b.float()
+
+
 def matmul_ref(a: torch.Tensor, b: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Plain GEMM oracle, accumulated in float32."""
-    return (a.float() @ b.float()).to(out_dtype or torch.float32)
+    """Plain GEMM oracle, accumulated in float32 (int8 operands exactly
+    in int32, the default output then)."""
+    acc = _dot(a, b)
+    return acc.to(out_dtype or acc.dtype)
 
 
 def matmul_fused_ref(
@@ -40,8 +60,9 @@ def matmul_fused_ref(
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Fused-epilogue GEMM oracle: act(scale * (a @ b) + bias) + residual,
-    in float32; ``bias``/``scale``/``residual`` broadcast."""
-    x = a.float() @ b.float()
+    in float32 on the exact accumulator; ``bias``/``scale``/``residual``
+    broadcast."""
+    x = _dot(a, b).float()
     if scale is not None:
         x = x * scale.float()
     if bias is not None:
@@ -333,3 +354,72 @@ def binary_conv2d_ref(
                                       residual=res2, binarize=binarize,
                                       out_dtype=out_dtype)
     return out.reshape(n, oh, ow, cout)
+
+
+# ---------------------------------------------------------------------------
+# int8 and sub-byte packed-weight oracles (twins of repro/kernels/ref.py).
+# The packed kernels are bit for bit dequantize-then-matmul: the int8 x
+# int8 -> int32 sum is exact under any blocking, the outlier sidecar
+# restores the unclipped codes, and a scale-only epilogue is one f32
+# multiply.
+# ---------------------------------------------------------------------------
+def quantize_int8(x: torch.Tensor, axis: int = -1):
+    """Symmetric per-axis int8 quantization -> (q, scale)."""
+    return quant.symmetric_int8(x, axis=axis)
+
+
+def int8_matmul_ref(aq, bq, a_scale, b_scale) -> torch.Tensor:
+    """Dequantized int8 GEMM oracle -> float32."""
+    return int_dot(aq, bq).float() * a_scale * b_scale
+
+
+def pack_roundtrip(w: torch.Tensor, bits: int = 4, group_size: int = 1,
+                   max_outliers: Optional[int] = None) -> torch.Tensor:
+    """Pack ``w``, then dequantize back -> float32 reconstruction (exact
+    on the int8 codes; only the int8 quantization's error is left)."""
+    return pack.dequantize(pack.pack_weights(
+        w, bits=bits, group_size=group_size, max_outliers=max_outliers))
+
+
+def _combined_scale(x_scale, w_scale: torch.Tensor) -> torch.Tensor:
+    if x_scale is None:
+        return w_scale
+    return torch.as_tensor(x_scale, dtype=torch.float32,
+                           device=w_scale.device) * w_scale
+
+
+def matmul_packed_ref(
+    aq: torch.Tensor,                 # (M, K) int8 activations
+    pw: pack.PackedWeights,
+    a_scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Dequantize-then-matmul oracle for ``ops.matmul_packed``:
+    ``act((a_scale * w_scale) * (aq @ W) + bias) + residual``, W the
+    exact int8 image of the packed weight."""
+    q, w_scale = pack.unpack_weights(pw)
+    return matmul_fused_ref(aq, q, bias=bias,
+                            scale=_combined_scale(a_scale, w_scale),
+                            residual=residual, activation=activation,
+                            out_dtype=out_dtype)
+
+
+def conv2d_packed_ref(
+    xq: torch.Tensor,                 # (N, H, W, Cin) int8
+    pcw: pack.PackedConvWeights,
+    stride: int = 1,
+    x_scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Dequantize-then-conv oracle for ``ops.conv2d_packed``."""
+    q, w_scale = pack.unpack_conv_weights(pcw)
+    return conv2d_fused_ref(xq, q, stride, bias=bias,
+                            scale=_combined_scale(x_scale, w_scale),
+                            residual=residual, activation=activation,
+                            out_dtype=out_dtype)

@@ -4,14 +4,18 @@
 on a leading ``L`` axis (``embed.table`` (padded_vocab, d);
 ``layers.{ln1, ln2}``, ``layers.attn.{wq, wk, wv, wo, q_norm, k_norm}``,
 ``layers.mlp.{w1, w3, w2}``, or with ``cfg.binary_mlp``
-``layers.mlp.{up, down}.{w_packed, scale, bias}``; ``final_norm``;
-``lm_head.table`` when the embeddings are untied).  ``params_from_numpy``
-takes that tree with numpy leaves (``jax.tree.map(numpy.asarray,
-params)``) and returns the port's parameters, the same layout as
-``lm.init_model`` builds.  It checks every path and shape against
-``cfg`` and raises on a mismatch.  Packed uint32 words cross over bit for
-bit as int32 (the port's word type: torch cannot shift uint32 tensors on
-the CPU).
+``layers.mlp.{up, down}.{w_packed, scale, bias}``, or with
+``cfg.packed_weights`` ``layers.mlp.{w1, w3, w2}`` as stacked
+``PackedWeights``; ``final_norm``; ``lm_head.table`` when the
+embeddings are untied).  ``params_from_numpy`` takes that tree with
+numpy leaves (``jax.tree.map(numpy.asarray, params)``) and returns the
+port's parameters, the same layout as ``lm.init_model`` builds.  It
+checks every path and shape against ``cfg`` and raises on a mismatch.
+Binary uint32 words cross over bit for bit as int32 (the port's word
+type: torch cannot shift uint32 tensors on the CPU); a ``PackedWeights``
+crosses over leaf by leaf (its planes are int32 already), with its
+``bits``, ``k`` and ``n`` as they are, into the port's
+``kernels.pack.PackedWeights``.
 Loading a checkpoint from disk is queued in ROADMAP A5.
 """
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.kernels import pack
 
 
 def expected_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
@@ -43,6 +48,11 @@ def expected_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
                                                            d_out)
             shapes[("layers", "mlp", name, "scale")] = (n, d_out)
             shapes[("layers", "mlp", name, "bias")] = (n, d_out)
+    elif cfg.packed_weights:
+        for name, d_in, d_out in _packed_mlp(cfg):
+            for leaf, shape in _packed_shapes(n, d_in, d_out,
+                                              cfg.packed_weight_bits).items():
+                shapes[("layers", "mlp", name, leaf)] = shape
     else:
         shapes[("layers", "mlp", "w1")] = (n, d, ff)
         shapes[("layers", "mlp", "w3")] = (n, d, ff)
@@ -55,10 +65,41 @@ def expected_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
     return shapes
 
 
+def _packed_mlp(cfg):
+    """(name, d_in, d_out) of a packed MLP's projections."""
+    d, ff = cfg.d_model, cfg.d_ff
+    return (("w1", d, ff), ("w3", d, ff), ("w2", ff, d))
+
+
+def _packed_shapes(n: int, d_in: int, d_out: int,
+                   bits: int) -> Dict[str, Tuple[int, ...]]:
+    """Leaf shapes of ``n`` stacked ``PackedWeights`` of a (d_in, d_out)
+    weight packed at ``outlier_capacity(d_in)``."""
+    kp = -(-d_in // pack.WORD_BITS) * pack.WORD_BITS
+    r = pack.outlier_capacity(d_in)
+    shapes = {"codes": (n, kp // pack.WORD_NIBBLES, d_out),
+              "scale": (n, 1, d_out), "outlier_idx": (n, r),
+              "outlier_delta": (n, r, d_out)}
+    if bits == 5:
+        shapes["highbits"] = (n, kp // pack.WORD_BITS, d_out)
+    return shapes
+
+
+def _is_packed(v) -> bool:
+    return all(hasattr(v, f) for f in ("codes", "outlier_idx", "bits", "k",
+                                       "n"))
+
+
 def _leaves(tree: Dict[str, Any], prefix=()):
+    """(path, array) of every leaf; a packed weight's leaves under its
+    path, by field name."""
     for k, v in tree.items():
         if isinstance(v, dict):
             yield from _leaves(v, prefix + (k,))
+        elif _is_packed(v):
+            for f in pack.PackedWeights.LEAVES:
+                if getattr(v, f) is not None:
+                    yield prefix + (k, f), getattr(v, f)
         else:
             yield prefix + (k,), v
 
@@ -87,6 +128,15 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device=None
         f"{'.'.join(p)}: shape {tuple(np.shape(got[p]))} != {shape}"
         for p, shape in want.items()
         if p in got and tuple(np.shape(got[p])) != shape]
+    if cfg.packed_weights:
+        mlp = tree.get("layers", {}).get("mlp", {})
+        problems += [
+            f"layers.mlp.{name}: (bits, k, n) != "
+            f"{(cfg.packed_weight_bits, d_in, d_out)}"
+            for name, d_in, d_out in _packed_mlp(cfg)
+            if not _is_packed(mlp.get(name)) or (
+                mlp[name].bits, mlp[name].k, mlp[name].n)
+            != (cfg.packed_weight_bits, d_in, d_out)]
     if problems:
         raise ValueError(f"parameter tree does not match {cfg.name}: "
                          + "; ".join(problems))
@@ -96,4 +146,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device=None
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = _to_tensor(arr, dev)
+    if cfg.packed_weights:
+        mlp = out["layers"]["mlp"]
+        for name, d_in, d_out in _packed_mlp(cfg):
+            leaves = mlp[name]
+            mlp[name] = pack.PackedWeights(
+                leaves["codes"], leaves.get("highbits"), leaves["scale"],
+                leaves["outlier_idx"], leaves["outlier_delta"],
+                cfg.packed_weight_bits, d_in, d_out)
     return out

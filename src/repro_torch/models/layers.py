@@ -2,16 +2,18 @@
 
 Twins of ``repro/models/layers.py`` for the dense decoder: RMSNorm,
 RoPE, embedding, GQA attention (prefill and cached), paged decode
-attention, the SwiGLU MLP and the binary MLP, with parameters as
-dictionaries of tensors in the JAX package's layout.
+attention, the SwiGLU MLP, the binary MLP and the packed-weight SwiGLU
+MLP, with parameters as dictionaries of tensors in the JAX package's
+layout.
 
 Kernel dispatch: the SwiGLU MLP's three projections go through
-``fused_dense`` -> ``ops.matmul_fused`` (B1), the binary MLP's two
-through ``binary_dense`` -> ``ops.binary_matmul_fused`` (B9), prefill
-and cached attention through ``ops.attention`` (B2), paged decode
-through ``ops.paged_attention`` (B3).  The q/k/v/o projections and the
-unembedding stay ``torch.matmul``, as the JAX package leaves them to
-XLA.  ``forced_backend("torch")`` pins every dispatch site onto its
+``fused_dense`` -> ``ops.matmul_fused`` (B1), the packed MLP's three
+through ``ops.matmul_packed[_fused]`` (B1 with B6 decoding the planes),
+the binary MLP's two through ``binary_dense`` ->
+``ops.binary_matmul_fused`` (B9), prefill and cached attention through
+``ops.attention`` (B2), paged decode through ``ops.paged_attention``
+(B3).  The q/k/v/o projections and the unembedding stay
+``torch.matmul``, as the JAX package leaves them to XLA.  ``forced_backend("torch")`` pins every dispatch site onto its
 plain PyTorch path — the serving engine's degraded step.  The sites
 carry the ``layers.attention`` / ``layers.mlp`` fault-injection points.
 """
@@ -23,7 +25,8 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops, ref
+from repro_torch.core import quant
+from repro_torch.kernels import ops, pack, ref
 from repro_torch.runtime import health
 
 Params = Dict[str, torch.Tensor]
@@ -252,14 +255,68 @@ def binary_mlp_apply(p: Params, x: torch.Tensor,
     return binary_dense(p["down"], h, binarize=False, backend=backend)
 
 
+# ---------------------------------------------------------------------------
+# Sub-byte packed-weight SwiGLU MLP (kernels/pack.py datapath).
+# ---------------------------------------------------------------------------
+def draw_packed(gen: torch.Generator, d_in: int, d_out: int, bits: int = 4,
+                device=None) -> pack.PackedWeights:
+    """One packed (d_in, d_out) weight, drawn from ``gen`` as the JAX
+    package's ``init_packed_mlp`` draws each projection: in-range
+    ``bits``-wide int8 codes, ``min(2, capacity)`` outlier rows with
+    spikes in [-100, 100], scale ``1/(127 sqrt(d_in))``, packed at
+    ``pack.outlier_capacity(d_in)``."""
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    q = torch.randint(lo, hi + 1, (d_in, d_out), generator=gen,
+                      device=device, dtype=torch.int32)
+    cap = pack.outlier_capacity(d_in)
+    rows = torch.randperm(d_in, generator=gen, device=device)[:min(2, cap)]
+    q[rows] = torch.randint(-100, 101, (rows.numel(), d_out), generator=gen,
+                            device=device, dtype=torch.int32)
+    scale = torch.full((1, d_out), 1.0 / (127.0 * d_in ** 0.5),
+                       dtype=torch.float32, device=device)
+    return pack.pack_int8(q.to(torch.int8), scale, bits=bits,
+                          max_outliers=cap)
+
+
+def init_packed_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                    bits: int = 4, device=None) -> Dict[str, pack.PackedWeights]:
+    """SwiGLU MLP with sub-byte packed weights (``draw_packed`` each)."""
+    return {"w1": draw_packed(gen, d_model, d_ff, bits, device),   # gate
+            "w3": draw_packed(gen, d_model, d_ff, bits, device),   # up
+            "w2": draw_packed(gen, d_ff, d_model, bits, device)}   # down
+
+
+def packed_mlp_apply(p: Dict[str, pack.PackedWeights], x: torch.Tensor,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """SwiGLU through the packed-weight GEMMs.  Activations quantize per
+    tensor to int8 at each projection boundary, over the flattened
+    batch, as the JAX package's does (so a row's result depends on the
+    other rows of its batch); each projection is one kernel launch with
+    the combined (activation x per-column weight) scale, and the gate's
+    silu, fused into its flush."""
+    if backend is None:
+        backend = _BACKEND_OVERRIDE
+    lead = x.shape[:-1]
+    xq, xs = quant.symmetric_int8(x.reshape(-1, x.shape[-1]))
+    gate = ops.matmul_packed_fused(xq, p["w1"], a_scale=xs,
+                                   activation="silu", backend=backend)
+    up = ops.matmul_packed(xq, p["w3"], a_scale=xs, backend=backend)
+    hq, hs = quant.symmetric_int8(gate * up)
+    out = ops.matmul_packed(hq, p["w2"], a_scale=hs, backend=backend)
+    return out.reshape(*lead, out.shape[-1])
+
+
 def mlp_apply(p: Params, x: torch.Tensor, cfg=None) -> torch.Tensor:
     """The MLP: binary params (``cfg.binary_mlp``) through
-    ``binary_mlp_apply``; SwiGLU through the fused GEMM kernel (the
+    ``binary_mlp_apply``, packed params (``cfg.packed_weights``) through
+    ``packed_mlp_apply``; SwiGLU through the fused GEMM kernel (the
     gate's silu fused into its output write), or plain matmuls under
     ``forced_backend("torch")``."""
     fault = health.maybe_inject("layers.mlp")
     if "up" in p:
         out = binary_mlp_apply(p, x).to(x.dtype)
+    elif isinstance(p.get("w1"), pack.PackedWeights):
+        out = packed_mlp_apply(p, x).to(x.dtype)
     elif _BACKEND_OVERRIDE is None:
         gate = fused_dense(x, p["w1"], activation="silu")
         up = fused_dense(x, p["w3"])

@@ -1,7 +1,8 @@
 """The dense decoder LM of the port: init, prefill, paged decode.
 
 Twin of ``repro/models/lm.py`` for the ``dense`` family, with the
-SwiGLU MLP or (``cfg.binary_mlp``) the binary MLP.  Parameters
+SwiGLU MLP, the binary MLP (``cfg.binary_mlp``) or the SwiGLU MLP with
+sub-byte packed weights (``cfg.packed_weights``).  Parameters
 keep the JAX package's layout — per-layer leaves stacked on a leading
 ``L`` axis (``models/bridge.py`` moves a JAX tree over unchanged) — and
 a Python loop over layers replaces ``lax.scan``.  The slot-cache
@@ -15,7 +16,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.kernels import ref
+from repro_torch.kernels import pack, ref
 from repro_torch.models import layers
 
 Params = Dict[str, Any]
@@ -27,9 +28,6 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: only dense decoders are ported (MoE, SSM and "
             f"encoder-decoder models are queued in ROADMAP.md A10-A12)")
-    if cfg.packed_weights:
-        raise NotImplementedError(
-            f"{cfg.name}: packed-weight MLPs are queued in ROADMAP.md A8")
     if cfg.kv_cache_dtype not in ("auto", None):
         raise NotImplementedError("int8 KV caches are queued in ROADMAP A6")
     if cfg.attn_window is not None and cfg.full_attn_every:
@@ -44,7 +42,10 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
     are float32, the rest ``cfg.param_dtype``.  A binary MLP
     (``cfg.binary_mlp``) draws +-1 weights bit-packed along the
     reduction axis into int32 words, scale 1/sqrt(d_in), bias 0, as the
-    JAX package's ``init_binary_dense`` does."""
+    JAX package's ``init_binary_dense`` does.  A packed MLP
+    (``cfg.packed_weights``) draws each layer's MSR-coded int8 codes and
+    packs them at ``cfg.packed_weight_bits`` (``layers.init_packed_mlp``);
+    its leaves are stacked on the layer axis like the rest."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -72,6 +73,18 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
                 "bias": torch.zeros((n, d_out), dtype=torch.float32,
                                     device=dev)}
 
+    def mlp():
+        if cfg.binary_mlp:
+            return {"up": binary(d, cfg.d_ff), "down": binary(cfg.d_ff, d)}
+        if cfg.packed_weights:
+            per_layer = [layers.init_packed_mlp(gen, d, cfg.d_ff,
+                                                cfg.packed_weight_bits, dev)
+                         for _ in range(n)]
+            return {name: pack.stack([lp[name] for lp in per_layer])
+                    for name in ("w1", "w3", "w2")}
+        return {"w1": dense(d, cfg.d_ff), "w3": dense(d, cfg.d_ff),
+                "w2": dense(cfg.d_ff, d)}
+
     attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
             "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
     if cfg.qk_norm:
@@ -80,10 +93,7 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
         "embed": {"table": normal((cfg.padded_vocab, d), d ** -0.5)},
         "layers": {
             "ln1": ones(n, d), "attn": attn, "ln2": ones(n, d),
-            "mlp": ({"up": binary(d, cfg.d_ff), "down": binary(cfg.d_ff, d)}
-                    if cfg.binary_mlp else
-                    {"w1": dense(d, cfg.d_ff), "w3": dense(d, cfg.d_ff),
-                     "w2": dense(cfg.d_ff, d)}),
+            "mlp": mlp(),
         },
         "final_norm": ones(d),
     }
@@ -94,12 +104,15 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
 
 
 def _layer_params(params: Params) -> List[Params]:
-    """Per-layer views of the stacked leaves."""
+    """Per-layer views of the stacked leaves (a stacked ``PackedWeights``
+    gives its layer's view)."""
     stacked = params["layers"]
     n = stacked["ln1"].shape[0]
 
     def pick(tree, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+        return {k: pick(v, i) if isinstance(v, dict)
+                else v.layer(i) if isinstance(v, pack.PackedWeights)
+                else v[i]
                 for k, v in tree.items()}
 
     return [pick(stacked, i) for i in range(n)]

@@ -30,7 +30,7 @@ from repro.models import layers as jlayers, lm as jlm
 from repro.serve.engine import Engine as JaxEngine
 from repro_torch import configs
 from repro_torch.core import dataflow as tdf
-from repro_torch.kernels import _build, binary_mm, ops, ref
+from repro_torch.kernels import _build, binary_mm, ops, pack, ref
 from repro_torch.models import bridge, layers, lm
 from repro_torch.runtime import health
 from repro_torch.serve.engine import Engine, RequestState
@@ -381,9 +381,12 @@ def test_init_model_draws_the_binary_mlp():
     assert not up["bias"].any()
     signs = ref.unpack_binary(up["w_packed"], axis=1)
     assert 0.4 < float((signs > 0).float().mean()) < 0.6
-    with pytest.raises(NotImplementedError, match="A8"):
-        lm.init_model(dataclasses.replace(CFG, packed_weights=True),
-                      device="cpu")
+    packed = lm.init_model(dataclasses.replace(CFG, binary_mlp=False,
+                                               packed_weights=True),
+                           device="cpu")["layers"]["mlp"]
+    assert all(isinstance(packed[name], pack.PackedWeights)
+               and packed[name].codes.shape[0] == n
+               for name in ("w1", "w3", "w2"))
 
 
 def test_fig9_bench_runs_on_the_cpu():

@@ -21,7 +21,7 @@ from repro.core.dataflow import IS as JIS, OS as JOS, WS as JWS
 from repro.kernels import ops as jops
 from repro_torch.core import dataflow as tdf
 from repro_torch.core.dataflow import ConvProblem
-from repro_torch.kernels import conv2d_df, ops, ref
+from repro_torch.kernels import conv2d_df, ops, pack, ref
 from repro_torch.runtime import health
 
 ANCHORS = {"os": (JOS, tdf.OS), "ws": (JWS, tdf.WS), "is": (JIS, tdf.IS)}
@@ -218,11 +218,19 @@ def test_fault_site_conv2d_fires(monkeypatch, entry):
 
 
 def test_unported_and_malformed_convs_raise():
+    """The conv ops take no ``weight_bits`` (as the reference's take
+    none): packed filters go through ``ops.conv2d_packed``, which equals
+    the int8 conv of their exact int8 image.  Malformed calls raise."""
     x, w = torch.ones(1, 4, 4, 8), torch.ones(2, 2, 8, 5)
     for call in (lambda: ops.conv2d(x, w, weight_bits=4),
                  lambda: ops.conv2d_fused(x, w, weight_bits=5)):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(TypeError, match="weight_bits"):
             call()
+    pcw = pack.pack_conv_weights(torch.randn(2, 2, 8, 5), 4)
+    xq = torch.ones(1, 4, 4, 8, dtype=torch.int8)
+    q, scale = pack.unpack_conv_weights(pcw)
+    assert torch.equal(ops.conv2d_packed(xq, pcw),
+                       ops.conv2d_fused(xq, q, scale=scale))
     with pytest.raises(ValueError, match="per-output-channel"):
         ops.conv2d_fused(x, w, scale=torch.ones(3))
     with pytest.raises(ValueError, match="per-output-channel"):

@@ -15,7 +15,7 @@ import torch
 from repro.core.dataflow import DataflowSpec, OS
 from repro.kernels import ops as jops
 from repro_torch.core import dataflow as tdataflow
-from repro_torch.kernels import matmul_df, ops
+from repro_torch.kernels import matmul_df, ops, ref
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 JAX_OS_SPEC = DataflowSpec(anchor=OS, block=(32, 32, 32))
@@ -131,20 +131,24 @@ def test_torch_backend_is_the_plain_twin():
 
 def test_unported_dataflows_raise():
     """What stays unported raises, naming its ROADMAP entry: int8 K/V
-    (A6) and int8 GEMM operands (A8); a block other than the compiled one
-    raises; and an OS spec with a residency is planned as that residency,
-    never silently streamed."""
+    (A6); int8 GEMM operands run (exact int32 sums, equal to the plain
+    int8 oracles); a block other than the compiled one raises; and an OS
+    spec with a residency is planned as that residency, never silently
+    streamed."""
     q = torch.zeros(1, 2, 4, 32)
     with pytest.raises(NotImplementedError, match="A6"):
         ops.attention(q, q.to(torch.int8), q.to(torch.int8))
     with pytest.raises(NotImplementedError, match="A6"):
         ops.attention(q, q.to(torch.int8), q.to(torch.int8), anchor="ws")
-    a8 = torch.zeros(2, 3, dtype=torch.int8)
-    b8 = torch.zeros(3, 4, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.matmul_fused(a8, b8)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.matmul(a8, b8)
+    rng = np.random.default_rng(8)
+    a8 = torch.from_numpy(rng.integers(-127, 128, (2, 3)).astype(np.int8))
+    b8 = torch.from_numpy(rng.integers(-127, 128, (3, 4)).astype(np.int8))
+    scale = torch.tensor([[0.5, 0.25, 2.0, 1.0]])
+    assert torch.equal(ops.matmul_fused(a8, b8, scale=scale),
+                       ref.int8_matmul_ref(a8, b8, 1.0, scale))
+    acc = ops.matmul(a8, b8)
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc, a8.long() @ b8.long())
     spec = tdataflow.DataflowSpec(anchor=tdataflow.OS, block=(32, 32, 32))
     with pytest.raises(ValueError, match="compiled for block"):
         ops.matmul_fused(torch.zeros(2, 3), torch.zeros(3, 4), spec=spec)
