@@ -12,13 +12,19 @@ Phases, each printing JSON lines:
 1. ``card``: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions.
 2. ``build``: every kernel built from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, started together), with its time.
+   (one ``nvcc`` per source, started together), with its time; then
+   ``cuobjdump -sass`` shows that every bf16 GEMM and flash kernel issues
+   tensor-core instructions (HMMA) and no float32 or int8 one does.
 3. ``kernels``: each kernel held against its plain PyTorch version on the
    card, at the full-width qwen3-1.7b shapes of the serving path, in bf16,
    with the tolerance stated per kernel; then each timed by CUDA events
    beside its plain version, the one PyTorch library call that computes
    the same function (where there is one; timed for the record, never on
-   the port's path) and its bound on an H100.  The GEMM dataflows (B1's
+   the port's path) and its bound on an H100: B1's bf16 prefill tile
+   (M > 16) and decode tile (M <= 16) at qwen3-1.7b's MLP shapes, B1 and
+   B2 on float32 (the CUDA cores) apart from bf16, and how B1's bf16 sums
+   round against cuBLAS (``bench/rounding.py``, not gated).  The GEMM
+   dataflows (B1's
    residencies, B4, B5a, B5b) run each of the nine canonical specs at
    qwen3-1.7b's MLP shapes, the paper's layer grid and small odd shapes: each
    runs through the kernel ``matmul_df.plan`` names, matches the plain
@@ -63,8 +69,9 @@ Phases, each printing JSON lines:
    the differing tokens counted, not gated.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
-B1, B2, B3; serve_binary: B9, B2, B3; serve_packed: B6, B1, B2, B3;
-dataflows: B1, B2, B4, B5a, B5b, B7; quantized: B8, B9, B1, B6),
+B1 with its prefill and decode tiles, B2, B3; serve_binary: B9, B2, B3;
+serve_packed: B6, B1, B2, B3; dataflows: B1 and its tiles, B2, B4, B5a,
+B5b, B7; quantized: B8, B9, B1, B6),
 counted from 0 just before the path runs. The
 last lines are the ``{"kernels": [...]}``
 record, the card line, and ``{"ok": true, "device": {...}}``. Any
@@ -137,28 +144,90 @@ B1_TOL = dict(atol=1e-3, rtol=1e-3, row_rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
+# Phase 2: which kernels run on the tensor cores.
+# ---------------------------------------------------------------------------
+TC_LIBRARIES = ("matmul_os", "matmul_rmw", "matmul_ws_stripe",
+                "matmul_is_stripe", "flash_attention")
+
+
+def tensor_core_check():
+    """The SASS of the GEMM and flash libraries (``cuobjdump -sass``):
+    every kernel that takes bf16 operands (``__nv_bfloat16`` in its
+    mangled name) issues tensor-core instructions (HMMA), and no float32
+    or int8 kernel does (float32 stays on the CUDA cores, without TF32)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        emit({"check": "tensor_core_sass", "ok": None,
+              "why": f"{tool} not found"})
+        return
+    summary, wrong = {}, []
+    for lib in TC_LIBRARIES:
+        sass = subprocess.run(
+            [str(tool), "-sass", str(_build.library_path(lib))],
+            capture_output=True, text=True, check=True, timeout=600).stdout
+        hmma, fn = {}, None
+        for line in sass.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                fn = found.group(1)
+                hmma[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                hmma[fn] += 1
+        bf16 = {f: c for f, c in hmma.items() if "__nv_bfloat16" in f}
+        other = {f: c for f, c in hmma.items() if f not in bf16}
+        wrong += [f for f, c in bf16.items() if c == 0]
+        wrong += [f for f, c in other.items() if c > 0]
+        summary[lib] = {
+            "bf16_kernels": len(bf16),
+            "bf16_with_hmma": sum(c > 0 for c in bf16.values()),
+            "other_kernels": len(other),
+            "other_with_hmma": sum(c > 0 for c in other.values()),
+            "hmma_by_bf16_kernel": {f[:96]: c for f, c in sorted(bf16.items())},
+        }
+    emit({"check": "tensor_core_sass", "libraries": summary,
+          "ok": not wrong})
+    if wrong:
+        raise AssertionError(f"kernels on the wrong cores (bf16 without "
+                             f"HMMA, or float32/int8 with it): {wrong}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 def kernel_phase(torch, cfg, timer):
     import torch.nn.functional as F
 
-    from repro_torch.bench.common import bound
+    from repro_torch.bench.common import (BF16_FLOPS_PER_S, F32_FLOPS_PER_S,
+                                          bound)
     from repro_torch.kernels import attention_df, matmul_df, ref
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
 
-    def randn(*shape, std=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf16)
+    def randn(*shape, std=1.0, generator=gen):
+        return (torch.randn(shape, generator=generator, device=dev)
+                * std).to(bf16)
 
+    # Operands of the timed shapes that no check before this slice drew
+    # come from their own generator, so every check keeps its inputs.
+    timed = torch.Generator(device=dev).manual_seed(1)
     records = {}
     d, dff = cfg.d_model, cfg.d_ff
 
     b1_tol = B1_TOL
     errs = []
+    tile_errs = {"matmul_os_prefill": [], "matmul_os_decode": []}
     head = None
     for m in (1, 4, 137, 512):
+        tile = ("matmul_os_decode" if m <= matmul_df.DECODE_M
+                else "matmul_os_prefill")
         for k, n, act in ((d, dff, "silu"), (dff, d, None)):
             a = randn(m, k)
             w = randn(k, n, std=(2.0 / (k + n)) ** 0.5)
@@ -170,8 +239,8 @@ def kernel_phase(torch, cfg, timer):
                                             residual=residual)
                 shape = (f"M={m} K={k} N={n} act={act} "
                          f"residual={residual is not None}")
-                errs.append(check("matmul_os", got, want, shape=shape,
-                                  **b1_tol))
+                errs.append(check(tile, got, want, shape=shape, **b1_tol))
+                tile_errs[tile].append(errs[-1])
             if m == 512 and act is None:
                 head = (a, w, shape.replace(" residual=True", ""))
     # Odd widths take the kernel's element-wise loads, float32 inputs its
@@ -187,28 +256,55 @@ def kernel_phase(torch, cfg, timer):
         errs.append(check("matmul_os", matmul_df.matmul_os(a, w, **epi),
                           ref.matmul_fused_ref(a, w, **epi), **b1_tol,
                           shape=f"{dt} M={m} K={k} N={n} scale+bias+gelu+res"))
-    # The decode shapes (M = batch 4), where the weight stream bounds B1.
+    def b1_record(a, w, shape, err, act=None):
+        """B1's time at one shape beside its plain version, torch.matmul
+        on the same operands and its bound (the bf16 tensor cores', or
+        the CUDA cores' float32 rate for float32 operands)."""
+        m, k = a.shape
+        n = w.shape[1]
+        elt = a.element_size()
+        rate = BF16_FLOPS_PER_S if a.dtype == bf16 else F32_FLOPS_PER_S
+        bnd = bound((m * k + k * n) * elt + m * n * 4, 2.0 * m * k * n,
+                    rate)
+        return dict(
+            shape=shape, max_abs_err=err,
+            ms=timer.ms(lambda: matmul_df.matmul_os(a, w, activation=act)),
+            plain_ms=timer.ms(lambda: ref.matmul_fused_ref(
+                a, w, activation=act)),
+            library_ms=timer.ms(lambda: torch.matmul(a, w)),
+            library_call=f"torch.matmul ({a.dtype} out)",
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=b1_tol)
+
+    # The decode shapes (M = batch 4), where the weight stream bounds B1:
+    # the decode tile.
     for k, n, act in ((d, dff, "silu"), (dff, d, None)):
         a = randn(4, k)
         w = randn(k, n, std=(2.0 / (k + n)) ** 0.5)
-        bnd = bound((4 * k + k * n) * 2 + 4 * n * 4, 2.0 * 4 * k * n)
-        emit({"kernel_timing_detail": "matmul_os",
-              "shape": f"decode M=4 K={k} N={n} act={act}",
-              "ms": timer.ms(lambda: matmul_df.matmul_os(a, w,
-                                                         activation=act)),
-              "library_ms": timer.ms(lambda: torch.matmul(a, w)),
-              "bound_ms": bnd[0], "bound_by": bnd[1]})
+        rec = b1_record(a, w, f"decode M=4 K={k} N={n} act={act}",
+                        max(tile_errs["matmul_os_decode"]), act)
+        emit({"kernel_timing_detail": "matmul_os_decode", **rec})
+        if k == dff:
+            records["matmul_os_decode"] = rec
     a, w, shape = head
-    m, k = a.shape
-    n = w.shape[1]
-    bnd = bound((m * k + k * n) * 2 + m * n * 4, 2.0 * m * k * n)
-    records["matmul_os"] = dict(
-        shape=shape, max_abs_err=max(errs),
-        ms=timer.ms(lambda: matmul_df.matmul_os(a, w)),
-        plain_ms=timer.ms(lambda: ref.matmul_fused_ref(a, w)),
-        library_ms=timer.ms(lambda: torch.matmul(a, w)),
-        library_call="torch.matmul (bf16 out)",
-        bound_ms=bnd[0], bound_by=bnd[1], tolerance=b1_tol)
+    records["matmul_os"] = b1_record(a, w, shape, max(errs))
+    # The prefill tile at the other MLP shape (the up projection).
+    a = randn(512, d, generator=timed)
+    w = randn(d, dff, std=(2.0 / (d + dff)) ** 0.5, generator=timed)
+    records["matmul_os_prefill"] = b1_record(
+        a, w, f"M=512 K={d} N={dff} act=silu",
+        max(tile_errs["matmul_os_prefill"]), "silu")
+    # float32 operands stay on the CUDA cores (one fmaf per k, no TF32):
+    # the same shapes, timed apart from bf16.
+    f32 = {}
+    for m, k, n in ((512, dff, d), (4, dff, d)):
+        a = torch.randn((m, k), generator=timed, device=dev)
+        w = torch.randn((k, n), generator=timed, device=dev) * k ** -0.5
+        rec = b1_record(a, w, f"float32 M={m} K={k} N={n}", check(
+            "matmul_os", matmul_df.matmul_os(a, w), ref.matmul_fused_ref(a, w),
+            shape=f"float32 M={m} K={k} N={n}", **b1_tol))
+        emit({"kernel_timing_detail": "matmul_os", **rec})
+        f32[f"M={m}"] = rec
+    records["matmul_os"]["float32"] = f32
 
     # B2: bf16 outputs of f32 softmax math on both sides, which may round
     # one bf16 ulp apart (2^-8 to 2^-7 of the value); long rows average to
@@ -242,20 +338,36 @@ def kernel_phase(torch, cfg, timer):
         q, kk, vv, window=9), ref.attention_ref(q, kk, vv, window=9),
         shape="float32 B=2 Sq=Skv=40 D=64 window=9", **f32_tol)
     sq = 512
+    pairs = sq * (sq + 1) // 2
+
+    def b2_record(q, kk, vv, err, tol):
+        elt = q.element_size()
+        rate = BF16_FLOPS_PER_S if q.dtype == bf16 else F32_FLOPS_PER_S
+        bnd = bound((hq + 2 * hkv) * sq * dh * elt + hq * sq * dh * elt,
+                    4.0 * dh * pairs * hq, rate)
+        return dict(
+            shape=f"prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} D={dh} causal "
+                  f"{q.dtype}",
+            max_abs_err=err,
+            ms=timer.ms(lambda: attention_df.flash_attention(q, kk, vv)),
+            plain_ms=timer.ms(lambda: ref.attention_ref(q, kk, vv)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, is_causal=True, enable_gqa=True)),
+            library_call="F.scaled_dot_product_attention(is_causal, "
+                         "enable_gqa)",
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
+
     q, kk, vv = randn(1, hq, sq, dh), randn(1, hkv, sq, dh), \
         randn(1, hkv, sq, dh)
-    pairs = sq * (sq + 1) // 2
-    bnd = bound((hq + 2 * hkv) * sq * dh * 2 + hq * sq * dh * 2,
-                4.0 * dh * pairs * hq)
-    records["flash_attention"] = dict(
-        shape=f"prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} D={dh} causal",
-        max_abs_err=max(errs),
-        ms=timer.ms(lambda: attention_df.flash_attention(q, kk, vv)),
-        plain_ms=timer.ms(lambda: ref.attention_ref(q, kk, vv)),
-        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-            q, kk, vv, is_causal=True, enable_gqa=True)),
-        library_call="F.scaled_dot_product_attention(is_causal, enable_gqa)",
-        bound_ms=bnd[0], bound_by=bnd[1], tolerance=att_tol)
+    records["flash_attention"] = b2_record(q, kk, vv, max(errs), att_tol)
+    # float32 stays on the CUDA cores: the same shape, timed apart.
+    q, kk, vv = (t.float() for t in (q, kk, vv))
+    rec = b2_record(q, kk, vv, check(
+        "flash_attention", attention_df.flash_attention(q, kk, vv),
+        ref.attention_ref(q, kk, vv), shape=f"float32 prefill Sq=Skv={sq}",
+        **f32_tol), f32_tol)
+    emit({"kernel_timing_detail": "flash_attention", **rec})
+    records["flash_attention"]["float32"] = {f"Sq={sq}": rec}
 
     # B3: 4 rows, ragged lengths including 0, shuffled page ids.
     page, max_pages = 16, 64
@@ -295,6 +407,10 @@ def kernel_phase(torch, cfg, timer):
         library_ms=None, library_call=None,
         bound_ms=bnd[0], bound_by=bnd[1], tolerance=att_tol)
     records.update(gemm_dataflow_checks(torch, cfg, timer, gen, b1_tol))
+    # How B1's bf16 k steps round against cuBLAS (reported, not gated).
+    from repro_torch.bench import rounding
+    for row in rounding.run("cuda"):
+        emit(row)
     records.update(kv_stationary_checks(torch, cfg, timer, gen, att_tol,
                                         f32_tol))
     records.update(binary_checks(torch, cfg, timer, gen))
@@ -1056,8 +1172,9 @@ def packed_conv_checks(torch, timer, gen):
 # ---------------------------------------------------------------------------
 # Phase 4: the bench twins of the paper's dataflow comparison.
 # ---------------------------------------------------------------------------
-DATAFLOW_PATH = ("matmul_os", "matmul_rmw", "matmul_ws_stripe",
-                 "matmul_is_stripe", "flash_attention", "kv_stationary")
+DATAFLOW_PATH = ("matmul_os", "matmul_os_prefill", "matmul_os_decode",
+                 "matmul_rmw", "matmul_ws_stripe", "matmul_is_stripe",
+                 "flash_attention", "kv_stationary")
 
 
 def dataflows_phase(torch):
@@ -1115,7 +1232,8 @@ def _cosine(a, b) -> float:
     return float((a @ b) / (a.norm() * b.norm()))
 
 
-SERVE_PATH = ("matmul_os", "flash_attention", "paged_attention")
+SERVE_PATH = ("matmul_os", "matmul_os_prefill", "matmul_os_decode",
+              "flash_attention", "paged_attention")
 SERVE_BINARY_PATH = ("binary_mm", "flash_attention", "paged_attention")
 SERVE_PACKED_PATH = ("unpack_block", "matmul_os", "flash_attention",
                      "paged_attention")
@@ -1316,10 +1434,14 @@ def serve_path(torch, cfg, args, phase, path):
 
 
 # Device kernels of the serving paths, by the name of their __global__
-# function (B1's basic OS is gemm_common.cuh's walk_kernel).
-KERNEL_FUNCTIONS = {"walk_kernel": "matmul_os",
+# function (B1's bf16 basic OS is gemm_tc.cuh's two tiles; its int8 and
+# packed basic OS is gemm_common.cuh's walk_kernel; B2's bf16 kernel is
+# flash_tc_kernel).
+KERNEL_FUNCTIONS = {"tc_prefill_kernel": "matmul_os_prefill",
+                    "tc_decode_kernel": "matmul_os_decode",
+                    "walk_kernel": "matmul_os",
                     "binary_kernel": "binary_mm",
-                    "flash_kernel": "flash_attention",
+                    "flash_tc_kernel": "flash_attention",
                     "paged_kernel": "paged_attention"}
 
 
@@ -1434,6 +1556,7 @@ def main(argv=None) -> int:
               "per_kernel_seconds": built})
         for name, log in _build.BUILD_LOGS.items():
             emit({"ptxas": name, "log": log.strip().splitlines()[-12:]})
+        tensor_core_check()
 
     records = {}
     if "kernels" in phases:
@@ -1470,6 +1593,7 @@ def main(argv=None) -> int:
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms"), "shape": rec.get("shape"),
+            **({"float32": rec["float32"]} if "float32" in rec else {}),
         })
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.monotonic() - t_start})

@@ -23,6 +23,7 @@ from repro_torch.kernels import matmul_df
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12            # float32 on the CUDA cores, no TF32
 INT8_OPS_PER_S = 1979e12
 # xor+popcount word pairs per second on the CUDA cores: 16 popc per SM per
 # clock (the CUDA C++ documentation's arithmetic instruction throughput,

@@ -17,7 +17,10 @@ Every wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel, and nowhere else, so a run can show which kernels it went
 through.  B6, the packed-weight decode, is a part of the GEMM and conv
 kernels (``csrc/pack_common.cuh``): a launch of one of them on packed
-planes also counts one under ``LAUNCHES["unpack_block"]``.
+planes also counts one under ``LAUNCHES["unpack_block"]``.  A bf16 basic
+OS launch of B1 takes one of its two tensor-core tiles
+(``csrc/gemm_tc.cuh``) and also counts one under that tile's name
+(``TILES``).
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 HEADERS = ("common.cuh", "attention_common.cuh", "gemm_common.cuh",
-           "pack_common.cuh")
+           "gemm_tc.cuh", "mma_common.cuh", "pack_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # The GEMM, conv and binary kernels contract no multiply-add but their
@@ -76,7 +79,10 @@ SIGNATURES = {
 
 # B6 decodes packed planes inside these libraries' kernels.
 PACKED_DECODE = "unpack_block"
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*SIGNATURES, PACKED_DECODE)}
+# B1's bf16 basic OS tiles, compiled into the matmul_os library.
+TILES = ("matmul_os_prefill", "matmul_os_decode")
+LAUNCHES: Dict[str, int] = {name: 0 for name in
+                            (*SIGNATURES, PACKED_DECODE, *TILES)}
 # ptxas resource report of each build of this process, by kernel.
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -197,10 +203,11 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args, packed: bool = False) -> None:
+def launch(name: str, *args, packed: bool = False,
+           tile: Optional[str] = None) -> None:
     """Call kernel ``name``'s entry point on the current CUDA stream,
-    count the launch (and, when it decodes ``packed`` planes, B6's) and
-    raise if it was refused."""
+    count the launch (and, when it decodes ``packed`` planes, B6's; with
+    ``tile``, that tile's) and raise if it was refused."""
     lib = library(name)
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib, name)(*args, stream)
@@ -211,6 +218,8 @@ def launch(name: str, *args, packed: bool = False) -> None:
     LAUNCHES[name] += 1
     if packed:
         LAUNCHES[PACKED_DECODE] += 1
+    if tile is not None:
+        LAUNCHES[tile] += 1
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

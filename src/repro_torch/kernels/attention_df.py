@@ -5,10 +5,13 @@ Ports of ``repro/kernels/attention_df.py``:
 
 * ``flash_attention`` (``csrc/flash_attention.cu``) replaces
   ``_flash_kernel``: output-stationary GQA attention with an online
-  softmax, one CTA per (batch*head, 16-row q tile), visiting only the KV
-  tiles inside the tile's band — the valid length (scalar, or one per
-  batch row read from device memory, q rows right-aligned against it),
-  the causal diagonal and the sliding window.
+  softmax, one CTA per (batch*head, q tile), visiting only the KV tiles
+  inside the tile's band — the valid length (scalar, or one per batch
+  row read from device memory, q rows right-aligned against it), the
+  causal diagonal and the sliding window.  bf16 runs on the tensor cores
+  (64-row q tiles, 64-key K/V tiles, ``mma.sync`` for QK^T and PV, P
+  split exactly into three bf16 parts), f32 on the CUDA cores (16-row q
+  tiles, 32-key tiles): ``FLASH_BLOCKS``.
 * ``paged_flash_attention`` (``csrc/paged_attention.cu``) replaces
   ``_paged_kernel``: decode attention (Sq == 1) off a page pool through
   an ``(R, max_pages)`` block table, one CTA per (row, kv head).
@@ -35,7 +38,10 @@ from repro_torch.core.dataflow import (DataflowSpec, KernelRegistration, OS,
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (32, 64, 128)          # d_head values the kernels are built for
-FLASH_BLOCK = (16, 32)             # (bq, bkv) of csrc/flash_attention.cu
+# (bq, bkv) of csrc/flash_attention.cu by dtype: the bf16 tensor-core tile
+# (the serving path's) and the f32 CUDA-core one.
+FLASH_BLOCKS = {torch.bfloat16: (64, 64), torch.float32: (16, 32)}
+FLASH_BLOCK = FLASH_BLOCKS[torch.bfloat16]
 KV_BLOCK = (16, 32)                # (bq, bkv) of csrc/kv_stationary.cu
 MAX_PAGE = 32                      # csrc/paged_attention.cu: keys per page
 MAX_GROUP = 8                      # csrc/paged_attention.cu: q heads per kv head

@@ -1,9 +1,9 @@
 // B2: banded causal GQA flash attention (output-stationary).
 //
 // Replaces the TPU kernel repro/kernels/attention_df.py `_flash_kernel`
-// (built by `flash_attention`). One CTA owns one (batch*head, 16-row q tile);
-// its 4 warps each carry 4 query rows' online-softmax state (m, l, acc) in
-// registers across the KV sweep, and the output is written once.
+// (built by `flash_attention`). A CTA owns one (batch*head, q tile); each
+// query row's online-softmax state (m, l, acc) stays in registers across the
+// KV sweep, and the output is written once.
 //
 // Banding: the valid KV length of the tile's batch row comes from device
 // memory (`kv_lens[bh / heads_per_row]`) or, for one length shared by the
@@ -12,20 +12,38 @@
 // KV tiles in its band [lo, hi]: hi stops at the last valid key and at the
 // causal diagonal of the tile's last row, lo starts at the sliding window of
 // its first row (the rule of attention_df.py `_band_lo_hi`). Tiles outside
-// the band are never read. Inside a tile every lane masks its key with the
-// exact per-(row, key) rule, and rows that see no valid key write zeros.
-// GQA: kv head = bh / group. The ragged q and KV edges are masked here, so
-// the caller pads nothing.
+// the band are never read. Inside a tile every (row, key) pair is masked
+// with the exact rule, and rows that see no valid key write zeros. GQA: kv
+// head = bh / group. The ragged q and KV edges are masked here, so the
+// caller pads nothing.
 //
 // Bound on H100: at prefill lengths the arithmetic (4*D flops per visited
-// (row, key) pair), at short q tiles against long caches the KV bytes. This
-// version computes on the CUDA cores from f32 copies in shared memory (each
-// tile's K and V arrive as 16-byte loads all in flight together), one key
-// per lane; tensor-core (wgmma) tiles come later (see PERF.md).
+// (row, key) pair), at short q tiles against long caches the KV bytes.
+//
+// bf16 (flash_tc_kernel, the serving path) runs on the tensor cores, in the
+// FlashAttention-2 shape: a CTA of 4 warps takes 64 q rows (16 a warp, Q's
+// fragments in registers across the sweep); 64-key K and V tiles arrive as
+// bf16 through a double-buffered cp.async ring; S = Q K^T and O += P V are
+// mma.sync m16n8k16, each 16-deep chunk summed from zero and added to the
+// f32 accumulator with one rounded add (as the GEMMs do); the softmax runs
+// on the accumulator fragments (quad shuffles for the row max and sum); P
+// is split exactly in registers into three bf16 parts, all A operands of
+// P V, so P keeps an f32's ~24 bits: rounded to one bf16 (or two), it moved
+// the served binary MLP's sign thresholds (its 2-layer logits fell to
+// cosine 0.83 (0.94) against the plain path on an H100). A warp skips the
+// tiles its rows cannot see.
+//
+// f32 (flash_kernel) keeps the CUDA cores: one CTA per 16 q rows, its 4 warps
+// each carrying 4 rows, one key per lane, f32 copies of Q, K and V in shared
+// memory.
+#include <type_traits>
+
 #include "attention_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
+// The f32 CUDA-core tile.
 constexpr int BQ = 16;   // query rows per CTA
 constexpr int BKV = 32;  // keys per KV tile: one per lane
 constexpr int WARPS = 4;
@@ -89,16 +107,240 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The bf16 tensor-core tile.
+constexpr int TQ = 64;   // query rows per CTA: 16 per warp
+constexpr int TKV = 64;  // keys per KV tile
+
+template <int D>
+constexpr size_t tc_smem() {  // Q, then K and V double-buffered
+  return (size_t)5 * TKV * (D + 8) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ o, int sq, int skv, int group,
+                int heads_per_row, const int* __restrict__ kv_lens, int kv_len,
+                int window, int causal, float scale) {
+  constexpr int LD = D + 8;  // 16 bytes of padding: ldmatrix rows on distinct banks
+  constexpr int TILE = TKV * LD, NT = WARPS * 32, VPR = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ks = qs + TILE;      // two buffers
+  __nv_bfloat16* vs = ks + 2 * TILE;  // two buffers
+  const int warp = threadIdx.x >> 5, g = tc::lane() >> 2, t = tc::lane() & 3;
+  const int bh = blockIdx.y, q0 = blockIdx.x * TQ;
+  const int kv_valid = kv_lens ? kv_lens[bh / heads_per_row] : kv_len;
+  const int off = kv_valid - sq;
+  const size_t kv_base = (size_t)(bh / group) * skv * D;
+  const __nv_bfloat16* qsrc = q + ((size_t)bh * sq + q0) * D;
+
+  // The tile's KV band, in tiles.
+  int hi = min((kv_valid + TKV - 1) / TKV, (skv + TKV - 1) / TKV) - 1;
+  if (causal) {
+    const int qmax = min(q0 + TQ, sq) - 1 + off;
+    hi = min(hi, qmax >= 0 ? qmax / TKV : -1);
+  }
+  int lo = 0;
+  if (window > 0) lo = max(0, (q0 + off - window + 1) / TKV);
+
+  // 64 rows of D bf16 from src (rows past `rows` read as zero) into dst.
+  auto copy_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int rows) {
+    for (int i = threadIdx.x; i < TKV * VPR; i += NT) {
+      const int r = i / VPR, c = (i % VPR) * 8;
+      const bool in = r < rows;
+      tc::cp_async16(dst + r * LD + c, in ? src + (size_t)r * D + c : src, in);
+    }
+  };
+  auto load_kv = [&](int blk, int buf) {
+    const size_t at = kv_base + (size_t)blk * TKV * D;
+    copy_tile(ks + buf * TILE, k + at, skv - blk * TKV);
+    copy_tile(vs + buf * TILE, v + at, skv - blk * TKV);
+  };
+
+  // This warp's rows and the positions they sit at.
+  const int wq = q0 + warp * 16;
+  const int qpos0 = wq + g + off, qpos1 = qpos0 + 8;
+  const int wq_last = min(wq + 15, sq - 1) + off;  // the warp's last position
+  float m_run[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l_run[2] = {0.f, 0.f};
+  float oacc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) oacc[i][j] = 0.f;
+
+  if (lo <= hi) {
+    copy_tile(qs, qsrc, sq - q0);
+    tc::cp_async_commit();
+    load_kv(lo, 0);
+    tc::cp_async_commit();
+  }
+  uint32_t qf[D / 16][4];
+  for (int blk = lo; blk <= hi; ++blk) {
+    const int buf = (blk - lo) & 1;
+    if (blk < hi) load_kv(blk + 1, buf ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // Q and this tile have landed
+    __syncthreads();
+    if (blk == lo) {
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c)
+        tc::frag_a_rowmajor(qf[c], qs, LD, warp * 16, c * 16);
+    }
+    const int k0 = blk * TKV;
+    // A warp whose rows are all past sq, or that sees no key of this tile
+    // (causal or window), leaves its state as it is.
+    const bool sees = wq < sq && (!causal || k0 <= wq_last) &&
+                      (window <= 0 || k0 + TKV - 1 > wq + off - window);
+    if (sees) {
+      const __nv_bfloat16* kt = ks + buf * TILE;
+      const __nv_bfloat16* vt = vs + buf * TILE;
+      float s[TKV / 8][4];
+#pragma unroll
+      for (int i = 0; i < TKV / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      // S = Q K^T: K's rows are B's columns, so K row-major is B col-major
+      // and ldmatrix without .trans gives the fragments.
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+#pragma unroll
+        for (int np = 0; np < TKV / 16; ++np) {
+          uint32_t r[4];
+          const int l = tc::lane();
+          tc::ldmatrix_x4(r, kt + (size_t)(np * 16 + (l & 7) + (l >> 4) * 8) * LD +
+                                 c * 16 + ((l >> 3) & 1) * 8);
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+          tc::mma_bf16_add(s[2 * np], qf[c], b0);
+          tc::mma_bf16_add(s[2 * np + 1], qf[c], b1);
+        }
+      }
+      // Mask, scale and the online softmax on the fragments: this thread
+      // holds rows g (j = 0, 1) and g + 8 (j = 2, 3) of the warp's 16, keys
+      // 8 i + 2 t + (j & 1).
+      float mx[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
+#pragma unroll
+      for (int i = 0; i < TKV / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kpos = k0 + i * 8 + 2 * t + (j & 1);
+          const int qpos = j < 2 ? qpos0 : qpos1;
+          bool valid = kpos < kv_valid && kpos < skv;
+          if (causal) valid = valid && kpos <= qpos;
+          if (window > 0) valid = valid && kpos > qpos - window;
+          s[i][j] = valid ? s[i][j] * scale : REPRO_NEG_INF;
+          mx[j >> 1] = fmaxf(mx[j >> 1], s[i][j]);
+        }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_run[h], mx[h]);
+        alpha[h] = expf(m_run[h] - m_new);
+        m_run[h] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < TKV / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // A masked key contributes exactly 0, so a fully masked row keeps
+          // its state while m is still NEG_INF.
+          const float p = s[i][j] > REPRO_NEG_INF ? expf(s[i][j] - m_run[j >> 1]) : 0.f;
+          s[i][j] = p;
+          sum[j >> 1] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l_run[h] = alpha[h] * l_run[h] + sum[h];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) oacc[i][j] *= alpha[j >> 1];
+      // O += P V: P's accumulator fragments of keys 16 c.. are the A
+      // fragment of chunk c; V row-major (key x d) is B row-major. P is
+      // split exactly into three bf16 parts, hi = bf16(p), mid =
+      // bf16(p - hi), lo = bf16(p - hi - mid), so it enters the product
+      // with ~24 bits, as an f32 P would; each chunk's products (lo, mid,
+      // then hi) are summed from zero and added to O with one f32 add.
+#pragma unroll
+      for (int c = 0; c < TKV / 16; ++c) {
+        uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float* pr = &s[2 * c + (r >> 1)][(r & 1) * 2];
+          hi[r] = tc::pack2_rn(pr[0], pr[1]);
+          const float r0 = pr[0] - tc::lo_half(hi[r]), r1 = pr[1] - tc::hi_half(hi[r]);
+          mid[r] = tc::pack2_rn(r0, r1);
+          lo[r] = tc::pack2_rn(r0 - tc::lo_half(mid[r]), r1 - tc::hi_half(mid[r]));
+        }
+#pragma unroll
+        for (int dn = 0; dn < D / 8; dn += 2) {
+          uint32_t b0[2], b1[2];
+          tc::frag_b2_rowmajor(b0, b1, vt, LD, c * 16, dn * 8);
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          tc::mma_bf16(t0, lo, b0);
+          tc::mma_bf16(t1, lo, b1);
+          tc::mma_bf16(t0, mid, b0);
+          tc::mma_bf16(t1, mid, b1);
+          tc::mma_bf16(t0, hi, b0);
+          tc::mma_bf16(t1, hi, b1);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            oacc[dn][j] = __fadd_rn(oacc[dn][j], t0[j]);
+            oacc[dn + 1][j] = __fadd_rn(oacc[dn + 1][j], t1[j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this buffer is consumed before it is refilled
+  }
+  tc::cp_async_wait<0>();
+
+  // acc / l; a row that saw no valid key (l == 0) writes zeros.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wq + g + h * 8;
+    if (row >= sq) continue;
+    const float l = l_run[h];
+    uint32_t* dst = reinterpret_cast<uint32_t*>(o + ((size_t)bh * sq + row) * D);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      dst[(i * 8 + 2 * t) / 2] =
+          l > 0.f ? tc::pack2_rn(oacc[i][2 * h] / l, oacc[i][2 * h + 1] / l) : 0u;
+  }
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int sq, int skv, int group, int heads_per_row, const int* kv_lens,
            int kv_len, int window, int causal, float scale,
            cudaStream_t stream) {
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
-  flash_kernel<T, D><<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, group,
-      heads_per_row, kv_lens, kv_len, window, causal, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    constexpr size_t smem = tc_smem<D>();
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid((sq + TQ - 1) / TQ, bh);
+    flash_tc_kernel<D><<<grid, WARPS * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), sq, skv, group,
+        heads_per_row, kv_lens, kv_len, window, causal, scale);
+  } else {
+    const dim3 grid((sq + BQ - 1) / BQ, bh);
+    flash_kernel<T, D><<<grid, WARPS * 32, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), sq, skv, group,
+        heads_per_row, kv_lens, kv_len, window, causal, scale);
+  }
   return launch_status();
 }
 

@@ -1,36 +1,46 @@
 // The tiles, loads, k loop and epilogue shared by the port's GEMM kernels:
-// B1 (matmul_os.cu), B4 (matmul_rmw.cu), B5a (matmul_ws_stripe.cu) and B5b
-// (matmul_is_stripe.cu).
+// B1 (matmul_os.cu, with its bf16 tensor-core tiles in gemm_tc.cuh), B4
+// (matmul_rmw.cu), B5a (matmul_ws_stripe.cu) and B5b (matmul_is_stripe.cu).
 //
 // Every kernel computes C = act(scale * (A @ B) + bias) + residual with A
-// (M, K) and B (K, N) row-major. Float operands (f32, bf16) are converted to
-// f32 at the load; each output element is one f32 accumulator that starts at
-// 0 and takes one fmaf per k in ascending order, k padded with zeros to a
-// multiple of BK, and then the one epilogue below: whatever the dataflow, the
-// grid or the other rows, an output element gets the same bits. The libraries
-// are built with -fmad=false, so nothing outside the explicit fmaf is
-// contracted and the epilogue rounds the same in every kernel.
+// (M, K) and B (K, N) row-major. Each output element is one f32 accumulator
+// that starts at 0 and sums k in ascending order, k padded with zeros to a
+// multiple of BK, and then takes the one epilogue below: whatever the
+// dataflow, the grid, the tile or the other rows, an output element gets the
+// same bits. The libraries are built with -fmad=false, so nothing outside
+// the explicit fmaf is contracted and the epilogue rounds the same in every
+// kernel.
 //
-// int8 operands take the integer k loop: the same tiles hold int32 values,
-// each output element is one int32 accumulator and every step is an integer
-// multiply-add, exact in any order. B is then either int8 (DenseB) or the
-// packed int4/int5 planes of repro_torch/kernels/pack.py (PackedB), decoded
-// at the load (pack_common.cuh, B6); the packed weight's outlier rows are
-// added to the accumulator at the flush (add_sidecar). The int32 result is
-// written as it is when no epilogue stage is set, else converted to f32 and
-// put through the epilogue.
+// The k step depends on the input type:
+// - bf16 operands run on the tensor cores: one mma.sync m16n8k16 (bf16 in,
+//   f32 out) per 16-deep k chunk, in ascending k, each chunk summed from
+//   zero and added to the f32 accumulator with one rounded add
+//   (mma_common.cuh's mma_bf16_add).
+//   The streamed tiles hold bf16, row-major, in the bytes the f32 tiles take;
+//   the 8 warps of a CTA each own a 16 x 32 block of the 64 x 64 tile.
+// - f32 operands take one fmaf per k on the CUDA cores (no TF32), each
+//   thread a 4 x 4 block of the tile from f32 tiles in shared memory.
+// - int8 operands take the integer k loop: the same tiles hold int32 values,
+//   each output element is one int32 accumulator and every step is an
+//   integer multiply-add, exact in any order. B is then either int8 (DenseB)
+//   or the packed int4/int5 planes of repro_torch/kernels/pack.py (PackedB),
+//   decoded at the load (pack_common.cuh, B6); the packed weight's outlier
+//   rows are added to the accumulator at the flush (add_sidecar). The int32
+//   result is written as it is when no epilogue stage is set, else converted
+//   to f32 and put through the epilogue.
 //
 // A dataflow differs only in which operand a CTA holds in shared memory
 // across its walk (resident) and which it streams through 64x32 / 32x64
 // tiles, the next tile's loads in flight while the current one is consumed.
 // Resident operands are kept in their own type (bf16 stays bf16, packed
-// planes stay packed), zero-padded to whole BK steps, and converted at each
-// use.
+// planes stay packed), zero-padded to whole BK steps, and converted (or, for
+// bf16, gathered into tensor-core fragments) at each use.
 #pragma once
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma_common.cuh"
 #include "pack_common.cuh"
 
 namespace gemm {
@@ -42,6 +52,16 @@ constexpr int TILE_LD = BM + 4;                 // BM == BN: one stride for both
 constexpr int TILE_FLOATS = BK * TILE_LD;       // elements (4 bytes each)
 // Shared memory a block can use on Hopper (cudaFuncAttribute opt-in limit).
 constexpr size_t MAX_SMEM = 232448;
+
+// The bf16 tensor-core path of the 64 x 64 tile: A streamed row-major
+// (BM x TA_LD), B row-major (BK x TB_LD), each row padded by 16 bytes so
+// ldmatrix reads 8 rows from distinct banks; both fit in the bytes of one
+// f32 tile.
+template <typename T>
+constexpr bool kTC = std::is_same<T, __nv_bfloat16>::value;
+constexpr int TA_LD = BK + 8, TB_LD = BN + 8;
+static_assert(BM * TA_LD * 2 <= TILE_FLOATS * 4 && BK * TB_LD * 2 <= TILE_FLOATS * 4,
+              "bf16 tiles must fit in the f32 tiles' bytes");
 
 // Residency of the B operand in the walk kernels.
 enum BRes { B_STREAMED = 0, B_STRIPE = 1, B_WHOLE = 2 };
@@ -130,6 +150,24 @@ __device__ __forceinline__ float epilogue(float x, int r, int c, int n,
 __device__ __forceinline__ int ty() { return threadIdx.x / (BN / TN); }
 __device__ __forceinline__ int tx() { return threadIdx.x % (BN / TN); }
 
+// On the tensor-core path warp w owns rows wrow().. (16) and columns
+// wcol().. (32) of a tile: four 16 x 8 mma tiles, accumulator acc[i][j]
+// holding register j of column tile i (mma_common.cuh's C layout).
+__device__ __forceinline__ int wrow() { return (threadIdx.x >> 6) * 16; }
+__device__ __forceinline__ int wcol() { return ((threadIdx.x >> 5) & 1) * 32; }
+
+// The tile row and column of a thread's accumulator acc[i][j].
+template <bool TC>
+__device__ __forceinline__ int own_row(int i, int j) {
+  if (TC) return wrow() + (tc::lane() >> 2) + (j >> 1) * 8;
+  return ty() * TM + i;
+}
+template <bool TC>
+__device__ __forceinline__ int own_col(int i, int j) {
+  if (TC) return wcol() + i * 8 + (tc::lane() & 3) * 2 + (j & 1);
+  return tx() * TN + j;
+}
+
 // The outlier rows of a packed weight, added to a thread's int32
 // accumulators of the output tile at (row0, col0).
 __device__ __forceinline__ void add_sidecar(int acc[TM][TN], int row0, int col0,
@@ -157,30 +195,35 @@ __device__ __forceinline__ void add_sidecar(int acc[TM][TN], int row0, int col0,
 __device__ __forceinline__ void add_sidecar(float (*)[TN], int, int, int, int,
                                             const Epi&) {}
 
+// Runs the epilogue on one output element and writes it, in the element type
+// e.out_dtype names.
+__device__ __forceinline__ void store_one(void* c, float acc, int r, int cc,
+                                          int n, const Epi& e) {
+  const float x = epilogue(acc, r, cc, n, e);
+  const size_t at = (size_t)r * n + cc;
+  if (e.out_dtype == REPRO_BF16) store_f32(static_cast<__nv_bfloat16*>(c) + at, x);
+  else store_f32(static_cast<float*>(c) + at, x);
+}
+
 // Runs the epilogue on a thread's accumulators (after the sidecar) and writes
-// the ones inside the (m, n) output, in the element type e.out_dtype names.
-template <typename Acc>
+// the ones inside the (m, n) output. TC: the tensor-core ownership.
+template <bool TC = false, typename Acc>
 __device__ __forceinline__ void store_tile(void* c, Acc acc[TM][TN], int row0,
                                            int col0, int m, int n, const Epi& e) {
   add_sidecar(acc, row0, col0, m, n, e);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty() * TM + i;
-    if (r >= m) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int cc = col0 + tx() * TN + j;
-      if (cc >= n) continue;
-      const size_t at = (size_t)r * n + cc;
+      const int r = row0 + own_row<TC>(i, j), cc = col0 + own_col<TC>(i, j);
+      if (r >= m || cc >= n) continue;
       if constexpr (std::is_same<Acc, int>::value) {
         if (e.out_dtype == REPRO_I32) {
-          static_cast<int*>(c)[at] = acc[i][j];
+          static_cast<int*>(c)[(size_t)r * n + cc] = acc[i][j];
           continue;
         }
       }
-      const float x = epilogue(to_float(acc[i][j]), r, cc, n, e);
-      if (e.out_dtype == REPRO_BF16) store_f32(static_cast<__nv_bfloat16*>(c) + at, x);
-      else store_f32(static_cast<float*>(c) + at, x);
+      store_one(c, to_float(acc[i][j]), r, cc, n, e);
     }
   }
 }
@@ -271,6 +314,74 @@ struct BTile {
     }
   }
 };
+
+// A streamed bf16 tile kept as bf16 bits for the tensor cores: ROWS x COLS
+// elements from (rows r0.., columns c0..) of a row-major source with ld
+// columns and (rows, cols) valid, stored row-major at stride LD; 16-byte
+// vectors when VEC, single elements otherwise, zeros outside.
+template <bool VEC, int ROWS, int COLS, int LD>
+struct HTile {
+  static constexpr int V = VEC ? 8 : 1, VPR = COLS / V,
+                       IT = ROWS * VPR / THREADS;
+  using Reg = typename std::conditional<VEC, uint4, uint16_t>::type;
+  Reg r[IT];
+
+  __device__ __forceinline__ void fetch(const __nv_bfloat16* p, int ld,
+                                        int rows, int cols, int r0, int c0) {
+    const uint16_t* src = reinterpret_cast<const uint16_t*>(p);
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      const int gr = r0 + i / VPR, gc = c0 + (i % VPR) * V;
+      const bool in = gr < rows && gc < cols;
+      if constexpr (VEC)
+        r[it] = in ? *reinterpret_cast<const uint4*>(src + (size_t)gr * ld + gc)
+                   : make_uint4(0u, 0u, 0u, 0u);
+      else
+        r[it] = in ? src[(size_t)gr * ld + gc] : uint16_t(0);
+    }
+  }
+  __device__ __forceinline__ void stash(void* dst) const {
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      *reinterpret_cast<Reg*>(static_cast<uint16_t*>(dst) + (i / VPR) * LD +
+                              (i % VPR) * V) = r[it];
+    }
+  }
+};
+
+// One BK step of a warp's 16 x 32 block on the tensor cores: afrag(kc, a)
+// gives its A fragment at depth kc of the step, bfrag(kc, c0, b) the B
+// fragment of the 8 tile columns c0... Each accumulator adds the step's two
+// 16-deep chunks in order.
+template <class AFrag, class BFrag>
+__device__ __forceinline__ void mma_step_tc(float acc[TM][TN], AFrag afrag,
+                                            BFrag bfrag) {
+#pragma unroll
+  for (int kc = 0; kc < BK; kc += 16) {
+    uint32_t a[4];
+    afrag(kc, a);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      uint32_t b[2];
+      bfrag(kc, wcol() + i * 8, b);
+      tc::mma_bf16_add(acc[i], a, b);
+    }
+  }
+}
+
+// Fragments of the streamed bf16 tiles of one step.
+__device__ __forceinline__ auto streamed_afrag(const void* as) {
+  return [as](int kc, uint32_t* a) {
+    tc::frag_a_rowmajor(a, static_cast<const __nv_bfloat16*>(as), TA_LD, wrow(), kc);
+  };
+}
+__device__ __forceinline__ auto streamed_bfrag(const void* bs) {
+  return [bs](int kc, int c0, uint32_t* b) {
+    tc::frag_b_rowmajor(b, static_cast<const __nv_bfloat16*>(bs), TB_LD, kc, c0);
+  };
+}
 
 // A resident A row stripe: rows row0.. (ra of them) x all kp (>= k) columns,
 // stored k-major (ares[kk * ra + r]), zero past m and k.
@@ -371,19 +482,12 @@ __device__ __forceinline__ void mma_step(Acc acc[TM][TN], AAt a_at, BAt b_at) {
   }
 }
 
-// The whole k loop of the output tile at (row0, col0), into acc. A comes from
-// the streamed tile `as` or, when A_RES, from the resident stripe ares (ra
-// rows, k-major); B from the streamed tile `bs` or, when B_RES, from the
-// resident panel bres (ldb columns, the tile's columns at bcol). Ends with a
-// barrier, so the caller may refill the tiles right after.
+// tile_kloop's f32 and integer path on the CUDA cores.
 template <typename T, bool VEC, class B, bool A_RES, bool B_RES>
-__device__ __forceinline__ void tile_kloop(typename B::Acc acc[TM][TN],
-                                           const T* a, const B& b, int m, int n,
-                                           int k, int row0, int col0,
-                                           typename B::Acc* as,
-                                           typename B::Acc* bs, const T* ares,
-                                           int ra, const void* bres, int ldb,
-                                           int bcol) {
+__device__ __forceinline__ void tile_kloop_cores(
+    typename B::Acc acc[TM][TN], const T* a, const B& b, int m, int n, int k,
+    int row0, int col0, typename B::Acc* as, typename B::Acc* bs,
+    const T* ares, int ra, const void* bres, int ldb, int bcol) {
   using Acc = typename B::Acc;
   ATile<T, VEC> at;
   typename B::Tile bt;
@@ -423,6 +527,93 @@ __device__ __forceinline__ void tile_kloop(typename B::Acc acc[TM][TN],
   }
 }
 
+// tile_kloop's bf16 path: the tiles hold bf16 bits and each BK step is
+// mma_step_tc; resident operands are gathered into fragments.
+template <bool VEC, bool A_RES, bool B_RES>
+__device__ __forceinline__ void tile_kloop_tc(float acc[TM][TN],
+                                              const __nv_bfloat16* a,
+                                              const __nv_bfloat16* b, int m,
+                                              int n, int k, int row0, int col0,
+                                              void* as, void* bs,
+                                              const __nv_bfloat16* ares, int ra,
+                                              const void* bres, int ldb,
+                                              int bcol) {
+  HTile<VEC, BM, BK, TA_LD> at;
+  HTile<VEC, BK, BN, TB_LD> bt;
+  const int kp = round_up(k, BK);
+  const uint16_t* ah = reinterpret_cast<const uint16_t*>(ares);
+  const uint16_t* bh = static_cast<const uint16_t*>(bres);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  if (!A_RES) at.fetch(a, k, m, k, row0, 0);
+  if (!B_RES) bt.fetch(b, n, k, n, 0, col0);
+  if (!A_RES) at.stash(as);
+  if (!B_RES) bt.stash(bs);
+  __syncthreads();
+  for (int k0 = 0; k0 < kp; k0 += BK) {
+    const bool more = k0 + BK < kp;
+    if (more) {  // in flight while this step is consumed
+      if (!A_RES) at.fetch(a, k, m, k, row0, k0 + BK);
+      if (!B_RES) bt.fetch(b, n, k, n, k0 + BK, col0);
+    }
+    auto afrag = [&](int kc, uint32_t* f) {
+      if constexpr (A_RES)
+        tc::frag_a_gather(
+            f,
+            [&](int kk, int r) -> uint16_t {
+              return r < ra ? ah[(size_t)(k0 + kk) * ra + r] : uint16_t(0);
+            },
+            wrow(), kc);
+      else
+        tc::frag_a_rowmajor(f, static_cast<const __nv_bfloat16*>(as), TA_LD,
+                            wrow(), kc);
+    };
+    auto bfrag = [&](int kc, int c0, uint32_t* f) {
+      if constexpr (B_RES)
+        tc::frag_b_gather(
+            f,
+            [&](int kk, int c) -> uint16_t {
+              return bh[(size_t)(k0 + kk) * ldb + bcol + c];
+            },
+            kc, c0);
+      else
+        tc::frag_b_rowmajor(f, static_cast<const __nv_bfloat16*>(bs), TB_LD,
+                            kc, c0);
+    };
+    mma_step_tc(acc, afrag, bfrag);
+    __syncthreads();
+    if (more && !(A_RES && B_RES)) {
+      if (!A_RES) at.stash(as);
+      if (!B_RES) bt.stash(bs);
+      __syncthreads();
+    }
+  }
+}
+
+// The whole k loop of the output tile at (row0, col0), into acc. A comes from
+// the streamed tile `as` or, when A_RES, from the resident stripe ares (ra
+// rows, k-major); B from the streamed tile `bs` or, when B_RES, from the
+// resident panel bres (ldb columns, the tile's columns at bcol). Ends with a
+// barrier, so the caller may refill the tiles right after.
+template <typename T, bool VEC, class B, bool A_RES, bool B_RES>
+__device__ __forceinline__ void tile_kloop(typename B::Acc acc[TM][TN],
+                                           const T* a, const B& b, int m, int n,
+                                           int k, int row0, int col0,
+                                           typename B::Acc* as,
+                                           typename B::Acc* bs, const T* ares,
+                                           int ra, const void* bres, int ldb,
+                                           int bcol) {
+  if constexpr (kTC<T>) {
+    tile_kloop_tc<VEC, A_RES, B_RES>(acc, a, b.p, m, n, k, row0, col0, as, bs,
+                                     ares, ra, bres, ldb, bcol);
+  } else {
+    tile_kloop_cores<T, VEC, B, A_RES, B_RES>(acc, a, b, m, n, k, row0, col0,
+                                              as, bs, ares, ra, bres, ldb, bcol);
+  }
+}
+
 // Shared memory of a walk kernel, in bytes: the streamed tiles it needs, its
 // resident A stripe (ra rows) and its resident B panel. The Python planner
 // (matmul_df.plan) computes the same sum.
@@ -450,8 +641,8 @@ walk_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m, int n,
   extern __shared__ __align__(16) unsigned char smem[];
   // The basic walk's tiles are static shared memory: the same kernel with
   // them in dynamic shared memory measured 3% slower at M = 512 (PERF.md).
-  __shared__ Acc basic_as[WALK == WALK_NONE ? TILE_FLOATS : 1];
-  __shared__ Acc basic_bs[WALK == WALK_NONE ? TILE_FLOATS : 1];
+  __shared__ __align__(16) Acc basic_as[WALK == WALK_NONE ? TILE_FLOATS : 1];
+  __shared__ __align__(16) Acc basic_bs[WALK == WALK_NONE ? TILE_FLOATS : 1];
   Acc* as = WALK == WALK_NONE ? basic_as : reinterpret_cast<Acc*>(smem);
   Acc* bs = WALK == WALK_NONE ? basic_bs : as + (A_RES ? 0 : TILE_FLOATS);
   T* ares = reinterpret_cast<T*>(bs + (B_RES ? 0 : TILE_FLOATS));
@@ -470,7 +661,7 @@ walk_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m, int n,
     const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
     tile_kloop<T, VEC, B, A_RES, B_RES != B_STREAMED>(
         acc, a, b, m, n, k, row0, col0, as, bs, ares, ra, bres, ldb, col0);
-    store_tile(c, acc, row0, col0, m, n, e);
+    store_tile<kTC<T>>(c, acc, row0, col0, m, n, e);
   } else if (WALK == WALK_M) {
     const int col0 = blockIdx.x * BN;
     if (B_RES == B_STRIPE) {
@@ -485,7 +676,7 @@ walk_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m, int n,
       tile_kloop<T, VEC, B, A_RES, B_RES != B_STREAMED>(
           acc, a, b, m, n, k, i * BM, col0, as, bs, ares, ra, bres, ldb,
           B_RES == B_WHOLE ? col0 : 0);
-      store_tile(c, acc, i * BM, col0, m, n, e);
+      store_tile<kTC<T>>(c, acc, i * BM, col0, m, n, e);
     }
   } else {
     const int row0 = blockIdx.x * BM;
@@ -496,7 +687,7 @@ walk_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m, int n,
     for (int j = 0; j < gn; ++j) {
       tile_kloop<T, VEC, B, A_RES, B_RES != B_STREAMED>(
           acc, a, b, m, n, k, row0, j * BN, as, bs, ares, ra, bres, ldb, j * BN);
-      store_tile(c, acc, row0, j * BN, m, n, e);
+      store_tile<kTC<T>>(c, acc, row0, j * BN, m, n, e);
     }
   }
 }

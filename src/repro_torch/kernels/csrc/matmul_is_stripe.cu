@@ -16,7 +16,8 @@
 // above ~800 columns at 64 rows) is refused (the Python planner says so
 // first, naming the bytes), never run as another dataflow.
 //
-// Arithmetic: the loads, per-element k order and epilogue of B1
+// Arithmetic: the loads, per-element k order, k step (bf16 on the tensor
+// cores, f32 and int8 on the CUDA cores) and epilogue of B1
 // (gemm_common.cuh); the partial sums pass through shared memory in f32,
 // which is exact, so every output element equals B1's bit for bit. The
 // reference accumulates a float stripe in the output dtype; this kernel
@@ -36,6 +37,7 @@ __global__ void __launch_bounds__(THREADS)
 is_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
                  int n, int k, Epi e) {
   using Acc = typename B::Acc;
+  constexpr bool TC = kTC<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ra = min(BM, round_up(m, TM)), gn = cdiv(n, BN), np = gn * BN;
   const int gk = cdiv(k, BK), kp = gk * BK;
@@ -46,15 +48,21 @@ is_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
   const int row0 = blockIdx.x * BM, steps = gk * gn;
   const int r_own = ty() * TM, c_own = tx() * TN;
   const bool own = r_own < ra;  // ra is a multiple of TM
-  ATile<T, VEC> at;
-  typename B::Tile bt;
+  // bf16 tiles stay bf16 for the tensor cores (gemm_common.cuh).
+  typename std::conditional<TC, HTile<VEC, BM, BK, TA_LD>, ATile<T, VEC>>::type at;
+  typename std::conditional<TC, HTile<VEC, BK, BN, TB_LD>, typename B::Tile>::type bt;
 
   if (B_WHOLE_RES) b.load_panel(bw, k, n, kp, 0, np);
   // Step s is (k step s / gn, column tile s % gn); a new A tile at column 0.
   auto fetch = [&](int s) {
     const int kb = s / gn, j = s % gn;
-    if (j == 0) at.fetch(a, m, k, row0, kb * BK);
-    if (!B_WHOLE_RES) bt.fetch(b, k, n, kb * BK, j * BN);
+    if constexpr (TC) {
+      if (j == 0) at.fetch(a, k, m, k, row0, kb * BK);
+      if (!B_WHOLE_RES) bt.fetch(b.p, n, k, n, kb * BK, j * BN);
+    } else {
+      if (j == 0) at.fetch(a, m, k, row0, kb * BK);
+      if (!B_WHOLE_RES) bt.fetch(b, k, n, kb * BK, j * BN);
+    }
   };
   auto stash = [&](int s) {
     if (s % gn == 0) at.stash(as);
@@ -67,8 +75,41 @@ is_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
   for (int s = 0; s < steps; ++s) {
     const bool more = s + 1 < steps;
     if (more) fetch(s + 1);
-    const int kb = s / gn, col = (s % gn) * BN + c_own;
-    if (own) {
+    const int kb = s / gn, tile_col = (s % gn) * BN, col = tile_col + c_own;
+    if constexpr (TC) {
+      if (wrow() < ra) {  // warp-uniform: the mma takes the warp
+        float acc[TM][TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int r = own_row<TC>(i, j);
+            acc[i][j] = kb == 0 || r >= ra
+                            ? 0.f
+                            : st[(size_t)r * np + tile_col + own_col<TC>(i, j)];
+          }
+        const uint16_t* bh = static_cast<const uint16_t*>(bw);
+        mma_step_tc(acc, streamed_afrag(as), [&](int kc, int c0, uint32_t* f) {
+          if constexpr (B_WHOLE_RES)
+            tc::frag_b_gather(
+                f,
+                [&](int kk, int cc) -> uint16_t {
+                  return bh[(size_t)(kb * BK + kk) * np + tile_col + cc];
+                },
+                kc, c0);
+          else
+            tc::frag_b_rowmajor(f, reinterpret_cast<const __nv_bfloat16*>(bs),
+                                TB_LD, kc, c0);
+        });
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int r = own_row<TC>(i, j);
+            if (r < ra) st[(size_t)r * np + tile_col + own_col<TC>(i, j)] = acc[i][j];
+          }
+      }
+    } else if (own) {
       Acc acc[TM][TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -93,15 +134,16 @@ is_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
   }
 
   // The flush: each thread's own stripe elements, epilogue, one write.
-  if (!own) return;
   for (int j0 = 0; j0 < gn; ++j0) {
     Acc acc[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j)
-        acc[i][j] = st[(size_t)(r_own + i) * np + j0 * BN + c_own + j];
-    store_tile(c, acc, row0, j0 * BN, m, n, e);
+      for (int j = 0; j < TN; ++j) {
+        const int r = own_row<TC>(i, j);
+        acc[i][j] = r < ra ? st[(size_t)r * np + j0 * BN + own_col<TC>(i, j)] : Acc(0);
+      }
+    store_tile<TC>(c, acc, row0, j0 * BN, m, n, e);
   }
 }
 

@@ -5,13 +5,21 @@
 // tile's f32 accumulator held on chip across the whole k loop and written to
 // device memory once, after the epilogue.
 //
-// One CTA owns a 64x64 output tile; its 256 threads each keep a 4x4 block of
-// accumulators in registers while 64x32 A and 32x64 B tiles stream through
-// shared memory (gemm_common.cuh). Every output element sums over k in
-// ascending order with one fmaf per step, whatever M, the tile it falls in or
-// the other rows: a row's result does not depend on the batch it rides in,
-// which the serving invariant (mixed-length batches emit the same tokens as
-// requests decoded alone) needs. No split-k, no atomics.
+// bf16 operands under the basic OS dataflow (the serving path) run on the
+// tensor cores in the tiles of gemm_tc.cuh: a 128x64 tile fed by a cp.async
+// ring for M > 16 (prefill) and a 16-row, 16-column tile streaming the
+// weights through a deep ring for M <= 16 (decode). Every other launch runs
+// the walk kernel of gemm_common.cuh: one CTA per 64x64 output tile (or per
+// stripe, below), bf16 on the tensor cores (8 warps of 16x32), f32 and int8
+// on the CUDA cores (256 threads each keeping a 4x4 block of accumulators)
+// while 64x32 A and 32x64 B tiles stream through shared memory. Every
+// output element sums over k in ascending order (one mma.sync per 16-deep k
+// chunk added to it for bf16, one fmaf or integer multiply-add per k
+// otherwise), whatever
+// M, the tile it falls in or the other rows: a row's result does not depend
+// on the batch it rides in, which the serving invariant (mixed-length
+// batches emit the same tokens as requests decoded alone) needs, and every
+// dataflow gives the basic launch's bits. No split-k, no atomics.
 //
 // The auxiliary residencies of `_build_os` hold an operand in the CTA's
 // shared memory across a walk over the grid dimension the TPU kernel revisits
@@ -33,23 +41,26 @@
 // the flush.
 //
 // Bound on H100: at the decode shapes (M = batch rows) the weight stream,
-// i.e. bytes; at prefill shapes (M in the hundreds) the arithmetic. This
-// version runs on the CUDA cores in f32 (no tensor cores, no TMA), so it
-// reaches neither bound; wgmma tiles are the next step (see PERF.md). The
-// resident walks trade the grid's parallelism (gm or gn CTAs instead of
-// gm * gn) for the fetch-once traffic.
-#include "gemm_common.cuh"
+// i.e. bytes; at prefill shapes (M in the hundreds) the tensor cores'
+// operations. The f32 and int8 paths run on the CUDA cores and reach
+// neither. The resident walks trade the grid's parallelism (gm or gn CTAs
+// instead of gm * gn) for the fetch-once traffic.
+#include "gemm_tc.cuh"
 
 // The walks this library instantiates: two halves per float input type, all
 // six per int8 kind (int8 B, packed 4-bit, packed 5-bit); each group is
-// compiled in its own translation unit (-DREPRO_PART=0..6).
-#define OS_WALKS_0(X, T, WB)                                                \
-  X(T, WB, WALK_NONE, false, B_STREAMED) X(T, WB, WALK_N, true, B_STREAMED) \
-  X(T, WB, WALK_M, false, B_STRIPE)
+// compiled in its own translation unit (-DREPRO_PART=0..6). bf16 has no
+// basic walk: its basic launch takes the tensor-core tiles (gemm_tc.cuh,
+// compiled with the entry point).
+#define OS_RES_0(X, T, WB) \
+  X(T, WB, WALK_N, true, B_STREAMED) X(T, WB, WALK_M, false, B_STRIPE)
+#define OS_WALKS_0(X, T, WB) \
+  X(T, WB, WALK_NONE, false, B_STREAMED) OS_RES_0(X, T, WB)
 #define OS_WALKS_1(X, T, WB)                                          \
   X(T, WB, WALK_M, true, B_STRIPE) X(T, WB, WALK_N, false, B_WHOLE)   \
   X(T, WB, WALK_N, true, B_WHOLE)
 #define OS_ALL(X, T, WB) OS_WALKS_0(X, T, WB) OS_WALKS_1(X, T, WB)
+#define OS_BF16(X) OS_RES_0(X, __nv_bfloat16, 0) OS_WALKS_1(X, __nv_bfloat16, 0)
 
 namespace gemm {
 #if defined(REPRO_PART)
@@ -58,7 +69,7 @@ OS_WALKS_0(GEMM_WALK_DEFINE, float, 0)
 #elif REPRO_PART == 1
 OS_WALKS_1(GEMM_WALK_DEFINE, float, 0)
 #elif REPRO_PART == 2
-OS_WALKS_0(GEMM_WALK_DEFINE, __nv_bfloat16, 0)
+OS_RES_0(GEMM_WALK_DEFINE, __nv_bfloat16, 0)
 #elif REPRO_PART == 3
 OS_WALKS_1(GEMM_WALK_DEFINE, __nv_bfloat16, 0)
 #elif REPRO_PART == 4
@@ -70,7 +81,7 @@ OS_ALL(GEMM_WALK_DEFINE, int8_t, 5)
 #endif
 #else
 OS_ALL(GEMM_WALK_EXTERN, float, 0)
-OS_ALL(GEMM_WALK_EXTERN, __nv_bfloat16, 0)
+OS_BF16(GEMM_WALK_EXTERN)
 OS_ALL(GEMM_WALK_EXTERN, int8_t, 0)
 OS_ALL(GEMM_WALK_EXTERN, int8_t, 4)
 OS_ALL(GEMM_WALK_EXTERN, int8_t, 5)
@@ -95,9 +106,10 @@ int launch(int a_stripe, int b_res, const void* a, const void* b,
                ? launch_walk<T, WB, WALK_N, true, B_WHOLE>(a, b, b_hi, c, m, n, k, e, s)
                : launch_walk<T, WB, WALK_N, false, B_WHOLE>(a, b, b_hi, c, m, n, k, e, s);
   if (b_res != B_STREAMED) return REPRO_BAD_ARGUMENT;
-  return a_stripe
-             ? launch_walk<T, WB, WALK_N, true, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s)
-             : launch_walk<T, WB, WALK_NONE, false, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s);
+  if (a_stripe)
+    return launch_walk<T, WB, WALK_N, true, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s);
+  if constexpr (kTC<T>) return launch_tc(a, b, c, m, n, k, e, s);
+  else return launch_walk<T, WB, WALK_NONE, false, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s);
 }
 
 }  // namespace

@@ -14,7 +14,8 @@
 // block's 227 KB (M above ~860 rows) is refused (the Python planner says so
 // first, naming the bytes), never run as another dataflow.
 //
-// Arithmetic: the loads, per-element k order and epilogue of B1
+// Arithmetic: the loads, per-element k order, k step (bf16 on the tensor
+// cores, f32 and int8 on the CUDA cores) and epilogue of B1
 // (gemm_common.cuh); the partial sums pass through shared memory in f32,
 // which is exact, so every output element equals B1's bit for bit. The
 // reference accumulates a float stripe in the output dtype (bf16 for a bf16
@@ -39,6 +40,7 @@ __global__ void __launch_bounds__(THREADS)
 ws_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
                  int n, int k, Epi e) {
   using Acc = typename B::Acc;
+  constexpr bool TC = kTC<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   Acc* as = reinterpret_cast<Acc*>(smem);
   Acc* bs = as + TILE_FLOATS;
@@ -46,14 +48,20 @@ ws_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
   const int mr = round_up(m, TM), gm = cdiv(m, BM), gk = cdiv(k, BK);
   const int col0 = blockIdx.x * BN, steps = gk * gm;
   const int r_own = ty() * TM, c_own = tx() * TN;
-  ATile<T, VEC> at;
-  typename B::Tile bt;
+  // bf16 tiles stay bf16 for the tensor cores (gemm_common.cuh).
+  typename std::conditional<TC, HTile<VEC, BM, BK, TA_LD>, ATile<T, VEC>>::type at;
+  typename std::conditional<TC, HTile<VEC, BK, BN, TB_LD>, typename B::Tile>::type bt;
 
   // Step s is (k step s / gm, row tile s % gm); a new B tile at row tile 0.
   auto fetch = [&](int s) {
     const int kb = s / gm, i = s % gm;
-    at.fetch(a, m, k, i * BM, kb * BK);
-    if (i == 0) bt.fetch(b, k, n, kb * BK, col0);
+    if constexpr (TC) {
+      at.fetch(a, k, m, k, i * BM, kb * BK);
+      if (i == 0) bt.fetch(b.p, n, k, n, kb * BK, col0);
+    } else {
+      at.fetch(a, m, k, i * BM, kb * BK);
+      if (i == 0) bt.fetch(b, k, n, kb * BK, col0);
+    }
   };
   auto stash = [&](int s) {
     at.stash(as);
@@ -66,8 +74,28 @@ ws_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
   for (int s = 0; s < steps; ++s) {
     const bool more = s + 1 < steps;
     if (more) fetch(s + 1);
-    const int kb = s / gm, row0 = (s % gm) * BM + r_own;
-    if (row0 < mr) {  // mr is a multiple of TM: all TM rows are in the stripe
+    const int kb = s / gm, tile_row = (s % gm) * BM;
+    if constexpr (TC) {
+      if (tile_row + wrow() < mr) {  // warp-uniform: the mma takes the warp
+        float acc[TM][TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int r = tile_row + own_row<TC>(i, j);
+            acc[i][j] = kb == 0 || r >= mr ? 0.f : st[r * BN + own_col<TC>(i, j)];
+          }
+        mma_step_tc(acc, streamed_afrag(as), streamed_bfrag(bs));
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int r = tile_row + own_row<TC>(i, j);
+            if (r < mr) st[r * BN + own_col<TC>(i, j)] = acc[i][j];
+          }
+      }
+    } else if (tile_row + r_own < mr) {  // mr is a multiple of TM
+      const int row0 = tile_row + r_own;
       Acc acc[TM][TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -90,14 +118,15 @@ ws_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
 
   // The flush: each thread's own stripe elements, epilogue, one write.
   for (int i0 = 0; i0 < gm; ++i0) {
-    const int row0 = i0 * BM + r_own;
-    if (row0 >= mr) continue;
     Acc acc[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = st[(row0 + i) * BN + c_own + j];
-    store_tile(c, acc, i0 * BM, col0, m, n, e);
+      for (int j = 0; j < TN; ++j) {
+        const int r = i0 * BM + own_row<TC>(i, j);
+        acc[i][j] = r < mr ? st[r * BN + own_col<TC>(i, j)] : Acc(0);
+      }
+    store_tile<TC>(c, acc, i0 * BM, col0, m, n, e);
   }
 }
 

@@ -24,12 +24,20 @@ the kernel, the walk and the resident operands with their bytes, and
 raises ``ValueError`` where they do not fit in a block's 227 KB, as a
 TPU compile over VMEM fails: no spec runs another dataflow instead.
 
-Every kernel tiles 64x64 outputs over 32-deep k steps and sums k in
-ascending order with one fmaf per step, so for f32 accumulation every
-dataflow gives B1's bits, and a row's result does not depend on the
-batch it is in.  The reference's float output-stripe kernels accumulate
-in the output dtype (bf16 for a bf16 output); these always accumulate in
-f32 (ROADMAP C).
+Every kernel sums k in ascending order into one f32 accumulator per
+output element, k padded with zeros to a multiple of 32: bf16 operands
+on the tensor cores (one ``mma.sync`` m16n8k16 per 16-deep k chunk, each
+chunk summed from zero and added with one rounded f32 add), f32 operands
+on the CUDA cores (one fmaf per k).  So every dataflow gives B1's bits,
+and a row's result does not depend on the batch it is in.  The walks
+tile 64x64 outputs over 32-deep k steps; B1's bf16 basic OS launch, the
+serving path's, takes a tensor-core tile of its own
+(``csrc/gemm_tc.cuh``): 128x64 fed by a 4-stage ``cp.async`` ring for
+M > 16 (prefill), 16 rows x 16 columns streaming the weights through an
+8-stage ring of 256-deep k steps for M <= 16 (decode).  ``plan`` names
+the tile.  The reference's float output-stripe kernels accumulate in the
+output dtype (bf16 for a bf16 output); these always accumulate in f32
+(ROADMAP C).
 
 int8 operands take the kernels' integer k loop: exact int32 sums, the
 int32 result written as it is without an epilogue, else put through
@@ -64,6 +72,12 @@ ACTIVATION_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3}
 MAX_SMEM = 232_448                 # bytes of shared memory a block can use
 # One streamed f32 (or int32) tile with its padded rows, in bytes.
 TILE_BYTES = BLOCK[1] * (BLOCK[0] + 4) * 4
+# B1's bf16 basic OS tiles (csrc/gemm_tc.cuh): (bm, bk, bn), ring stages
+# and dynamic shared memory (each row padded by 8 bf16); the decode tile
+# takes M <= DECODE_M.
+PREFILL_TILE, PREFILL_STAGES = (128, 32, 64), 4
+DECODE_TILE, DECODE_STAGES = (16, 256, 16), 8
+DECODE_M = DECODE_TILE[0]
 WEIGHT_BITS = (4, 5)
 _B_RES_CODES = {Residency.STREAMED: 0, Residency.STRIPE: 1,
                 Residency.WHOLE: 2}
@@ -90,6 +104,17 @@ IS_STRIPE = register_kernel(KernelRegistration(
     spec=DataflowSpec(anchor=IS, aux={OS: Residency.STRIPE}, block=BLOCK),
 ))
 BASIC_OS = DataflowSpec.basic(OS, block=BLOCK)
+# B1's bf16 basic OS tiles, counted under their own names beside matmul_os.
+PREFILL = register_kernel(KernelRegistration(
+    name="matmul_os_prefill", source=_SRC + "gemm_tc.cuh",
+    replaces="src/repro/kernels/matmul_df.py:347",
+    spec=DataflowSpec.basic(OS, block=PREFILL_TILE),
+))
+DECODE = register_kernel(KernelRegistration(
+    name="matmul_os_decode", source=_SRC + "gemm_tc.cuh",
+    replaces="src/repro/kernels/matmul_df.py:347",
+    spec=DataflowSpec.basic(OS, block=DECODE_TILE),
+))
 # B6 has no kernel of its own: it is the packed-plane decode inside these
 # GEMMs' and the conv's tile loads, counted under its own launch key.
 UNPACK = register_kernel(KernelRegistration(
@@ -111,10 +136,17 @@ class Plan:
     smem_bytes: int
     args: Tuple[int, ...]         # the entry point's dataflow arguments
     demoted: Optional[str] = None  # an aux the reference also streams
+    tile: Tuple[int, int, int] = BLOCK   # a CTA's (bm, bk, bn)
+    tile_kernel: Optional[str] = None    # B1's bf16 tile, counted beside it
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _ring_bytes(tile: Tuple[int, int, int], stages: int) -> int:
+    bm, bk, bn = tile
+    return stages * (bm * (bk + 8) + bk * (bn + 8)) * 2
 
 
 def _held(res: Residency) -> bool:
@@ -185,6 +217,18 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
         smem = ((0 if a_res else TILE_BYTES)
                 + (0 if res_b != Residency.STREAMED else TILE_BYTES)
                 + sum(resident.values()))
+        if dtype == torch.bfloat16 and not resident:
+            decode = m <= DECODE_M
+            tile_kernel, tile, stages = (
+                (DECODE.name, DECODE_TILE, DECODE_STAGES) if decode
+                else (PREFILL.name, PREFILL_TILE, PREFILL_STAGES))
+            ctas = _cdiv(m, tile[0]) * _cdiv(n, tile[2])
+            walk = (f"CTA per {tile[0]}x{tile[2]} output tile on the "
+                    f"tensor cores, {stages}-stage cp.async ring")
+            return Plan(kernel=kernel, grid_order=order, walk=walk,
+                        ctas=ctas, resident=resident,
+                        smem_bytes=_ring_bytes(tile, stages), args=args,
+                        tile=tile, tile_kernel=tile_kernel)
     elif spec.anchor == WS and _held(res_o):
         if res_a != Residency.STREAMED:
             demoted = (f"IS {res_a.value} aux streamed: the output-stripe "
@@ -380,7 +424,7 @@ def matmul_df(
         ACTIVATION_CODES[epi.activation], _build.ptr(residual),
         weight_bits or 0, _build.ptr(b_hi), _build.ptr(outlier_idx),
         _build.ptr(outlier_delta), r, *p.args,
-        packed=weight_bits is not None)
+        packed=weight_bits is not None, tile=p.tile_kernel)
     return out
 
 

@@ -125,6 +125,10 @@ def pytest_configure(config):
     import os
     import tempfile
 
+    config.addinivalue_line(
+        "markers", "card: runs only on a CUDA card (the test skips itself "
+        "when none is visible); on the card: python -m pytest -m card "
+        "tests/test_torch_*.py")
     if "REPRO_AUTOTUNE_CACHE" not in os.environ:
         os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(
             tempfile.mkdtemp(prefix="repro-autotune-"), "cache.json"
