@@ -14,7 +14,9 @@ Phases, each printing JSON lines:
 2. ``build``: every kernel built from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together), with its time; then
    ``cuobjdump -sass`` shows that every bf16 GEMM and flash kernel issues
-   tensor-core instructions (HMMA) and no float32 or int8 one does.
+   tensor-core instructions (HMMA) and no float32 or int8 one does, and
+   that B1's int8 tile kernels issue integer ones (IMMA) and no other
+   kernel does.
 3. ``kernels``: each kernel held against its plain PyTorch version on the
    card, at the full-width qwen3-1.7b shapes of the serving path, in bf16,
    with the tolerance stated per kernel; then each timed by CUDA events
@@ -37,7 +39,9 @@ Phases, each printing JSON lines:
    bytes.  int8 operands in the GEMM family and packed int4/int5 weights
    (B6 decoding them inside B1/B4/B5 and B8) are held bit for bit at
    qwen3-1.7b's MLP shapes under each of the nine specs (int32 out, the
-   fused dequant) and on the ResNet-18 conv body under each anchor.
+   fused dequant) and on the ResNet-18 conv body under each anchor; B1's
+   int8 and packed basic launch runs on its integer tensor-core tiles
+   (prefill for M > 16, decode for M <= 16), timed at M = 512 and 4.
 4. ``dataflows``: the bench twins (``repro_torch.bench``): Fig. 2 (basic
    OS/WS/IS), Fig. 7 (auxiliary residencies) on the paper's layer grid
    and qwen3-1.7b's MLP GEMMs, and attention's OS vs WS anchor at prefill
@@ -69,9 +73,11 @@ Phases, each printing JSON lines:
    the differing tokens counted, not gated.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
-B1 with its prefill and decode tiles, B2, B3; serve_binary: B9, B2, B3;
-serve_packed: B6, B1, B2, B3; dataflows: B1 and its tiles, B2, B4, B5a,
-B5b, B7; quantized: B8, B9, B1, B6),
+B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9, B2,
+B3; serve_packed: B6, B1 with its int8 prefill and decode tiles, B2, B3;
+dataflows: B1 and its bf16 tiles, B2, B4, B5a, B5b, B7; quantized: B8,
+B9, B1 and its int8 tiles, B6); on serve and serve_packed every B1
+launch is one of its tiles' (prefill plus decode),
 counted from 0 just before the path runs. The
 last lines are the ``{"kernels": [...]}``
 record, the card line, and ``{"ok": true, "device": {...}}``. Any
@@ -108,27 +114,44 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def bf16_ulp(x):
+    """One bf16 ulp of |x| (x = m 2^e, m in [0.5, 1): 2^(e - 8)); 0 at 0."""
+    import torch
+
+    x = x.float().abs()
+    ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+    return torch.where(x > 0, ulp, torch.zeros_like(x))
+
+
 def check(name: str, got, want, atol: float, rtol: float, row_rtol: float,
-          shape: str):
-    """Element-wise |got - want| <= atol + rtol*|want|, and per output row
-    (the last axis) ||got - want|| <= row_rtol*||want||: a row whose
-    every element sits inside the element limit but is shifted as a
-    whole (a skipped KV block, a page read from the wrong id) fails the
-    row check.  A row whose reference is all zeros must be all zeros."""
+          shape: str, plus_bf16_ulp: bool = False):
+    """Element-wise |got - want| <= atol + rtol*|want| (plus one bf16 ulp
+    of |want| with ``plus_bf16_ulp``, for a bf16 output: two correct
+    roundings of f32 sums a few 1e-6 apart may land on neighbouring bf16
+    values, and never further apart), and per output row (the last axis)
+    ||got - want|| <= row_rtol*||want||: a row whose every element sits
+    inside the element limit but is shifted as a whole (a skipped KV
+    block, a page read from the wrong id) fails the row check.  A row
+    whose reference is all zeros must be all zeros."""
     diff = got.float() - want.float()
     err = float(diff.abs().max())
-    limit = float((atol + rtol * want.float().abs()).min())
-    ok = bool((diff.abs() <= atol + rtol * want.float().abs()).all())
+    bound = atol + rtol * want.float().abs()
+    if plus_bf16_ulp:
+        bound = bound + bf16_ulp(want)
+    limit = float(bound.min())
+    ok = bool((diff.abs() <= bound).all())
     d = diff.reshape(-1, diff.shape[-1]).norm(dim=-1)
     w = want.float().reshape(-1, diff.shape[-1]).norm(dim=-1)
     row_err = float((d / w.clamp_min(1e-30)).max())
     row_ok = bool((d <= row_rtol * w).all())
     emit({"check": name, "shape": shape, "max_abs_err": err,
           "max_row_rel_err": row_err, "atol": atol, "rtol": rtol,
-          "row_rtol": row_rtol, "ok": ok and row_ok})
+          "row_rtol": row_rtol, "plus_bf16_ulp": plus_bf16_ulp,
+          "ok": ok and row_ok})
     if not ok:
         raise AssertionError(f"{name} {shape}: max |err| {err} exceeds "
-                             f"atol {atol} + rtol {rtol}*|ref| "
+                             f"atol {atol} + rtol {rtol}*|ref|"
+                             f"{' + 1 bf16 ulp' if plus_bf16_ulp else ''} "
                              f"(tightest {limit})")
     if not row_ok:
         raise AssertionError(f"{name} {shape}: a row's error norm is "
@@ -150,11 +173,18 @@ TC_LIBRARIES = ("matmul_os", "matmul_rmw", "matmul_ws_stripe",
                 "matmul_is_stripe", "flash_attention")
 
 
+# The int8 tensor-core tiles of B1 (csrc/gemm_tc_i8.cuh), by __global__ name.
+I8_TILE_FUNCTIONS = ("i8_prefill_kernel", "i8_decode_kernel")
+
+
 def tensor_core_check():
     """The SASS of the GEMM and flash libraries (``cuobjdump -sass``):
     every kernel that takes bf16 operands (``__nv_bfloat16`` in its
     mangled name) issues tensor-core instructions (HMMA), and no float32
-    or int8 kernel does (float32 stays on the CUDA cores, without TF32)."""
+    or int8 kernel does (float32 stays on the CUDA cores, without TF32);
+    every int8 tile kernel of B1 issues integer tensor-core instructions
+    (IMMA), and no other kernel does (the integer walks stay on the CUDA
+    cores)."""
     import re
     import subprocess
     from pathlib import Path
@@ -171,30 +201,45 @@ def tensor_core_check():
         sass = subprocess.run(
             [str(tool), "-sass", str(_build.library_path(lib))],
             capture_output=True, text=True, check=True, timeout=600).stdout
-        hmma, fn = {}, None
+        hmma, imma, fn = {}, {}, None
         for line in sass.splitlines():
             found = re.search(r"Function : (\S+)", line)
             if found:
                 fn = found.group(1)
-                hmma[fn] = 0
+                hmma[fn] = imma[fn] = 0
             elif fn is not None and "HMMA" in line:
                 hmma[fn] += 1
+            elif fn is not None and "IMMA" in line:
+                imma[fn] += 1
         bf16 = {f: c for f, c in hmma.items() if "__nv_bfloat16" in f}
         other = {f: c for f, c in hmma.items() if f not in bf16}
+        tiles = {f: c for f, c in imma.items()
+                 if any(t in f for t in I8_TILE_FUNCTIONS)}
         wrong += [f for f, c in bf16.items() if c == 0]
         wrong += [f for f, c in other.items() if c > 0]
+        wrong += [f for f, c in tiles.items() if c == 0]
+        wrong += [f for f, c in imma.items() if c > 0 and f not in tiles]
         summary[lib] = {
             "bf16_kernels": len(bf16),
             "bf16_with_hmma": sum(c > 0 for c in bf16.values()),
             "other_kernels": len(other),
             "other_with_hmma": sum(c > 0 for c in other.values()),
             "hmma_by_bf16_kernel": {f[:96]: c for f, c in sorted(bf16.items())},
+            "int8_tile_kernels": len(tiles),
+            "int8_tiles_with_imma": sum(c > 0 for c in tiles.values()),
+            "other_with_imma": sum(c > 0 for f, c in imma.items()
+                                   if f not in tiles),
+            "imma_by_int8_tile": {f[:96]: c for f, c in sorted(tiles.items())},
         }
+    if not summary["matmul_os"]["int8_tile_kernels"]:
+        wrong.append("matmul_os: no int8 tile kernel found")
     emit({"check": "tensor_core_sass", "libraries": summary,
           "ok": not wrong})
     if wrong:
         raise AssertionError(f"kernels on the wrong cores (bf16 without "
-                             f"HMMA, or float32/int8 with it): {wrong}")
+                             f"HMMA, float32/int8 with it, an int8 tile "
+                             f"without IMMA or another kernel with it): "
+                             f"{wrong}")
 
 
 # ---------------------------------------------------------------------------
@@ -468,8 +513,8 @@ def gemm_dataflow_checks(torch, cfg, timer, gen, tol):
             if _build.LAUNCHES[p.kernel] != before + 1:
                 raise AssertionError(f"{name} at {label} did not launch "
                                      f"{p.kernel} once")
-            err = check(f"{p.kernel}[{name}]", got, want,
-                        shape=label, **tol)
+            err = check(f"{p.kernel}[{name}]", got, want, shape=label,
+                        plus_bf16_ulp=out_dtype == torch.bfloat16, **tol)
             errs.setdefault(p.kernel, []).append(err)
             bitwise = torch.equal(got, base)
             if not bitwise:
@@ -933,9 +978,11 @@ def _every_spec(label, call, want, plan_of):
         got = call(spec)
         grew = {k: _build.LAUNCHES[k] - before[k] for k in before
                 if _build.LAUNCHES[k] != before[k]}
-        if grew.get(p.kernel) != 1:
+        if grew.get(p.kernel) != 1 or (
+                p.tile_kernel and grew.get(p.tile_kernel) != 1):
             raise AssertionError(f"{name} at {label} did not launch "
-                                 f"{p.kernel} once: {grew}")
+                                 f"{p.kernel} (tile {p.tile_kernel}) once: "
+                                 f"{grew}")
         errs.append(_bitwise(f"{p.kernel}[{name}]", got, want, label))
         if base is not None and not got.equal(base):
             raise AssertionError(f"{name} at {label} differs from OS")
@@ -950,13 +997,15 @@ def int8_packed_checks(torch, cfg, timer, gen, tol):
     """int8 operands in B1 (and B4, B5a, B5b) and packed int4/int5 planes
     decoded in them by B6, on the card against their plain versions
     (exact integer sums: float64 on the card), at qwen3-1.7b's MLP shapes
-    (M = 4 and 512; K x N = 2048 x 6144 and 6144 x 2048) and a ragged
+    (M = 4, 16 and 512; K x N = 2048 x 6144 and 6144 x 2048) and a ragged
     shape (K not a multiple of 32): int8 with int32 out and the fused
     dequant, and packed 4- and 5-bit with the dequant, under each of the
-    nine canonical specs, bit for bit, every anchor equal to OS, every
-    infeasible spec raising with its bytes; the packed gate's silu within
-    B1's tolerance.  Times B6 (packed 4-bit B1) and int8 B1 beside their
-    bounds and ``torch._int_mm`` on the int8 weights (M > 16 only)."""
+    nine canonical specs, bit for bit, every anchor equal to OS (the basic
+    launch on B1's integer tensor-core tiles, the others on the integer
+    walks), every infeasible spec raising with its bytes; the packed
+    gate's silu within B1's tolerance.  Times int8 and packed 4-bit B1 on
+    the tiles at M = 4 and 512 beside their plain versions, their bounds
+    and ``torch._int_mm`` on the int8 weights (M > 16 only)."""
     from repro_torch.bench import common
     from repro_torch.kernels import _build, matmul_df, ops, pack, ref
     from repro_torch.models import layers
@@ -969,9 +1018,13 @@ def int8_packed_checks(torch, cfg, timer, gen, tol):
         return torch.randint(-127, 128, shape, generator=gen, device=dev,
                              dtype=i8)
 
+    # M = 16 (the decode tile's largest M) last, so every earlier shape
+    # keeps the inputs it had before it.
+    mlp = ((d, dff), (dff, d))
     shapes = [(f"M={m} K={k} N={n}", m, k, n) for m in (4, 512)
-              for k, n in ((d, dff), (dff, d))]
+              for k, n in mlp]
     shapes.append(("ragged M=37 K=100 N=50", 37, 100, 50))
+    shapes += [(f"M=16 K={k} N={n}", 16, k, n) for k, n in mlp]
     errs, packed_launches = [], 0
     for label, m, k, n in shapes:
         aq, bq = randint8(m, k), randint8(k, n)
@@ -1027,56 +1080,55 @@ def int8_packed_checks(torch, cfg, timer, gen, tol):
                 "dequant+bias+silu+residual", **tol)
     emit({"check": "int8_packed_all", "bitwise_checks": len(errs)})
 
-    # Timed: packed 4-bit (B6 in B1) and int8 B1 at the down projection
-    # of a 512-token prefill, and both at the decode shapes (M = 4).
-    m, k, n = 512, dff, d
-    aq = randint8(m, k)
-    pw = layers.draw_packed(gen, k, n, 4, dev)
-    q, w_scale = pack.unpack_weights(pw)
+    # Timed on the tiles: int8 and packed 4-bit B1 (B6 decoding into the
+    # mma fragments) at both MLP shapes, at a 512-token prefill (the
+    # prefill tile) and at decode batch 4 (the decode tile), each with the
+    # scale-only dequant -> f32, beside the plain version, the bound and
+    # torch._int_mm on the int8 weight (int32 out; it takes M > 16 only).
     a_scale = torch.tensor(0.02, device=dev)
-
-    def moved(weight_bytes, m, k, n):
-        return m * k + weight_bytes + m * n * 4
-
-    bnd = common.bound(moved(pack.packed_bytes(k, n, 4), m, k, n),
-                       2.0 * m * k * n, common.INT8_OPS_PER_S)
-    bnd8 = common.bound(moved(k * n, m, k, n), 2.0 * m * k * n,
-                        common.INT8_OPS_PER_S)
-    lib_ms = timer.ms(lambda: torch._int_mm(aq, q))
-    emit({"kernel_timing_detail": "matmul_os int8",
-          "shape": f"prefill M={m} K={k} N={n} dequant -> f32",
-          "ms": timer.ms(lambda: ops.int8_matmul_fused(aq, q, a_scale,
-                                                       w_scale)),
-          "plain_ms": timer.ms(lambda: ref.matmul_fused_ref(
-              aq, q, scale=a_scale * w_scale)),
-          "library_ms": lib_ms, "library_call": "torch._int_mm (int32 out)",
-          "bound_ms": bnd8[0], "bound_by": bnd8[1]})
-    for kk, nn in ((d, dff), (dff, d)):
-        a4 = randint8(4, kk)
-        p4 = layers.draw_packed(gen, kk, nn, 4, dev)
-        q4, s4 = pack.unpack_weights(p4)
-        for kind, fn, wbytes in (
-                ("packed 4-bit", lambda: ops.matmul_packed(
-                    a4, p4, a_scale=a_scale), pack.packed_bytes(kk, nn, 4)),
-                ("int8", lambda: ops.int8_matmul_fused(a4, q4, a_scale, s4),
-                 kk * nn)):
-            b4 = common.bound(moved(wbytes, 4, kk, nn), 2.0 * 4 * kk * nn,
-                              common.INT8_OPS_PER_S)
-            emit({"kernel_timing_detail": "matmul_os " + kind,
-                  "shape": f"decode M=4 K={kk} N={nn} dequant -> f32",
-                  "ms": timer.ms(fn), "library_ms": None,
-                  "bound_ms": b4[0], "bound_by": b4[1]})
-    return {_build.PACKED_DECODE: dict(
-        shape=f"B1 OS, packed 4-bit, prefill M={m} K={k} N={n} "
-              f"(R={int((pw.outlier_idx < pw.k_pad).sum())}), dequant -> f32",
-        max_abs_err=max(errs),
-        ms=timer.ms(lambda: ops.matmul_packed(aq, pw, a_scale=a_scale)),
-        plain_ms=timer.ms(lambda: ref.matmul_packed_ref(
-            aq, pw, a_scale=a_scale.reshape(1, 1))),
-        library_ms=lib_ms,
-        library_call="torch._int_mm on the unpacked int8 weight (int32 out)",
-        bound_ms=bnd[0], bound_by=bnd[1], tolerance="bit for bit",
-        packed_checks=packed_launches)}
+    timed = {}
+    for m in (512, 4):
+        for k, n in ((dff, d), (d, dff)):
+            aq = randint8(m, k)
+            pw = layers.draw_packed(gen, k, n, 4, dev)
+            q, w_scale = pack.unpack_weights(pw)
+            r = int((pw.outlier_idx < pw.k_pad).sum())
+            lib_ms = timer.ms(lambda: torch._int_mm(aq, q)) if m > 16 \
+                else None
+            for kind, fn, plain, wbytes in (
+                    ("packed 4-bit",
+                     lambda: ops.matmul_packed(aq, pw, a_scale=a_scale),
+                     lambda: ref.matmul_packed_ref(
+                         aq, pw, a_scale=a_scale.reshape(1, 1)),
+                     pack.packed_bytes(k, n, 4)),
+                    ("int8", lambda: ops.int8_matmul_fused(aq, q, a_scale,
+                                                           w_scale),
+                     lambda: ref.matmul_fused_ref(aq, q,
+                                                  scale=a_scale * w_scale),
+                     k * n)):
+                bnd = common.bound(m * k + wbytes + m * n * 4,
+                                   2.0 * m * k * n, common.INT8_OPS_PER_S)
+                p = matmul_df.plan(matmul_df.BASIC_OS, m, k, n, i8,
+                                   4 if kind != "int8" else None)
+                rec = dict(
+                    shape=f"{kind} {'prefill' if m > 16 else 'decode'} "
+                          f"M={m} K={k} N={n} (R={r}), dequant -> f32, "
+                          f"{p.tile_kernel}",
+                    max_abs_err=max(errs), ms=timer.ms(fn),
+                    plain_ms=timer.ms(plain), library_ms=lib_ms,
+                    library_call="torch._int_mm on the unpacked int8 "
+                                 "weight (int32 out)" if lib_ms else None,
+                    bound_ms=bnd[0], bound_by=bnd[1],
+                    tolerance="bit for bit")
+                emit({"kernel_timing_detail": "matmul_os " + kind, **rec})
+                timed[(kind, m, k)] = rec
+    # The records: B6 and the prefill tile at the down projection of a
+    # 512-token prefill (packed and int8), the decode tile at packed
+    # 4-bit decode's down projection (serve_packed's slowest launch).
+    return {_build.PACKED_DECODE: dict(timed[("packed 4-bit", 512, dff)],
+                                       packed_checks=packed_launches),
+            "matmul_os_i8_prefill": timed[("int8", 512, dff)],
+            "matmul_os_i8_decode": timed[("packed 4-bit", 4, dff)]}
 
 
 def packed_conv_checks(torch, timer, gen):
@@ -1201,7 +1253,8 @@ def dataflows_phase(torch):
 # ---------------------------------------------------------------------------
 # Phase 5: the bench twins of the quantized datapaths.
 # ---------------------------------------------------------------------------
-QUANTIZED_PATH = ("conv2d", "binary_mm", "matmul_os", "unpack_block")
+QUANTIZED_PATH = ("conv2d", "binary_mm", "matmul_os", "unpack_block",
+                  "matmul_os_i8_prefill", "matmul_os_i8_decode")
 
 
 def quantized_phase(torch):
@@ -1235,8 +1288,13 @@ def _cosine(a, b) -> float:
 SERVE_PATH = ("matmul_os", "matmul_os_prefill", "matmul_os_decode",
               "flash_attention", "paged_attention")
 SERVE_BINARY_PATH = ("binary_mm", "flash_attention", "paged_attention")
-SERVE_PACKED_PATH = ("unpack_block", "matmul_os", "flash_attention",
+SERVE_PACKED_PATH = ("unpack_block", "matmul_os", "matmul_os_i8_prefill",
+                     "matmul_os_i8_decode", "flash_attention",
                      "paged_attention")
+# B1's basic OS tiles of each serving path's MLP GEMMs (its only B1
+# launches): every matmul_os launch there takes one of them.
+SERVE_TILES = {"serve": ("matmul_os_prefill", "matmul_os_decode"),
+               "serve_packed": ("matmul_os_i8_prefill", "matmul_os_i8_decode")}
 
 
 def _mlp_inputs(cfg, params, toks, max_len):
@@ -1392,6 +1450,15 @@ def serve_path(torch, cfg, args, phase, path):
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    if phase in SERVE_TILES:
+        prefill, decode = SERVE_TILES[phase]
+        split = {"matmul_os": launches["matmul_os"],
+                 "prefill_tile": launches[prefill],
+                 "decode_tile": launches[decode]}
+        emit({"phase": phase, "event": "b1_tiles", **split,
+              "tiles": [prefill, decode]})
+        if split["prefill_tile"] + split["decode_tile"] != split["matmul_os"]:
+            raise AssertionError(f"B1 launches off its tiles: {split}")
 
     # Mixed-length batch == each request served alone.  The packed MLP
     # quantizes its activations per tensor over the whole decode batch
@@ -1435,10 +1502,12 @@ def serve_path(torch, cfg, args, phase, path):
 
 # Device kernels of the serving paths, by the name of their __global__
 # function (B1's bf16 basic OS is gemm_tc.cuh's two tiles; its int8 and
-# packed basic OS is gemm_common.cuh's walk_kernel; B2's bf16 kernel is
-# flash_tc_kernel).
+# packed basic OS is gemm_tc_i8.cuh's two; every other B1 launch is
+# gemm_common.cuh's walk_kernel; B2's bf16 kernel is flash_tc_kernel).
 KERNEL_FUNCTIONS = {"tc_prefill_kernel": "matmul_os_prefill",
                     "tc_decode_kernel": "matmul_os_decode",
+                    "i8_prefill_kernel": "matmul_os_i8_prefill",
+                    "i8_decode_kernel": "matmul_os_i8_decode",
                     "walk_kernel": "matmul_os",
                     "binary_kernel": "binary_mm",
                     "flash_tc_kernel": "flash_attention",

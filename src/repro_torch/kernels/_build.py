@@ -19,8 +19,9 @@ through.  B6, the packed-weight decode, is a part of the GEMM and conv
 kernels (``csrc/pack_common.cuh``): a launch of one of them on packed
 planes also counts one under ``LAUNCHES["unpack_block"]``.  A bf16 basic
 OS launch of B1 takes one of its two tensor-core tiles
-(``csrc/gemm_tc.cuh``) and also counts one under that tile's name
-(``TILES``).
+(``csrc/gemm_tc.cuh``), an int8 or packed one one of its two integer
+tensor-core tiles (``csrc/gemm_tc_i8.cuh``), and also counts one under
+that tile's name (``TILES``).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 HEADERS = ("common.cuh", "attention_common.cuh", "gemm_common.cuh",
-           "gemm_tc.cuh", "mma_common.cuh", "pack_common.cuh")
+           "gemm_tc.cuh", "gemm_tc_i8.cuh", "mma_common.cuh",
+           "pack_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # The GEMM, conv and binary kernels contract no multiply-add but their
@@ -48,7 +50,7 @@ GEMM_FLAGS = ("-fmad=false",)
 NO_FMAD = ("matmul_", "conv2d", "binary_mm")
 # Libraries compiled as PARTS[name] units with -DREPRO_PART=p (each defines
 # some of the library's instantiations) plus one unit with its entry point.
-PARTS = {"matmul_os": 7, "matmul_rmw": 7, "matmul_is_stripe": 5, "conv2d": 5}
+PARTS = {"matmul_os": 8, "matmul_rmw": 7, "matmul_is_stripe": 5, "conv2d": 5}
 
 # Element-type codes of the C interfaces (csrc/common.cuh).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -79,8 +81,10 @@ SIGNATURES = {
 
 # B6 decodes packed planes inside these libraries' kernels.
 PACKED_DECODE = "unpack_block"
-# B1's bf16 basic OS tiles, compiled into the matmul_os library.
-TILES = ("matmul_os_prefill", "matmul_os_decode")
+# B1's basic OS tiles, compiled into the matmul_os library: bf16, then
+# int8 (an int8 or a packed B).
+TILES = ("matmul_os_prefill", "matmul_os_decode", "matmul_os_i8_prefill",
+         "matmul_os_i8_decode")
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             (*SIGNATURES, PACKED_DECODE, *TILES)}
 # ptxas resource report of each build of this process, by kernel.

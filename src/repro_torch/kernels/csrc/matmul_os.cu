@@ -8,7 +8,10 @@
 // bf16 operands under the basic OS dataflow (the serving path) run on the
 // tensor cores in the tiles of gemm_tc.cuh: a 128x64 tile fed by a cp.async
 // ring for M > 16 (prefill) and a 16-row, 16-column tile streaming the
-// weights through a deep ring for M <= 16 (decode). Every other launch runs
+// weights through a deep ring for M <= 16 (decode). int8 operands under the
+// basic OS dataflow (an int8 B, or packed planes decoded into the mma
+// fragments: the packed-MLP serving path) take the integer tensor-core
+// tiles of gemm_tc_i8.cuh, of the same two kinds. Every other launch runs
 // the walk kernel of gemm_common.cuh: one CTA per 64x64 output tile (or per
 // stripe, below), bf16 on the tensor cores (8 warps of 16x32), f32 and int8
 // on the CUDA cores (256 threads each keeping a 4x4 block of accumulators)
@@ -36,22 +39,25 @@
 // so first, naming the bytes), never run as another dataflow.
 //
 // int8 operands (an int8 B, or the packed int4/int5 planes that B6 decodes at
-// the tile load) take the same walks with the integer k loop of
+// the tile load) take the same residency walks with the integer k loop of
 // gemm_common.cuh: exact int32 sums, the outlier sidecar and the epilogue at
-// the flush.
+// the flush; exact in any order, so they equal the integer tiles bit for
+// bit.
 //
 // Bound on H100: at the decode shapes (M = batch rows) the weight stream,
 // i.e. bytes; at prefill shapes (M in the hundreds) the tensor cores'
-// operations. The f32 and int8 paths run on the CUDA cores and reach
-// neither. The resident walks trade the grid's parallelism (gm or gn CTAs
+// operations. The f32 path and the integer walks run on the CUDA cores and
+// reach neither. The resident walks trade the grid's parallelism (gm or gn CTAs
 // instead of gm * gn) for the fetch-once traffic.
 #include "gemm_tc.cuh"
+#include "gemm_tc_i8.cuh"
 
-// The walks this library instantiates: two halves per float input type, all
-// six per int8 kind (int8 B, packed 4-bit, packed 5-bit); each group is
-// compiled in its own translation unit (-DREPRO_PART=0..6). bf16 has no
-// basic walk: its basic launch takes the tensor-core tiles (gemm_tc.cuh,
-// compiled with the entry point).
+// The walks this library instantiates: two halves per float input type, the
+// five residency walks per int8 kind (int8 B, packed 4-bit, packed 5-bit),
+// and the int8 tensor-core tiles of the three kinds; each group is compiled
+// in its own translation unit (-DREPRO_PART=0..7). bf16 and int8 have no
+// basic walk: their basic launch takes the tensor-core tiles (gemm_tc.cuh,
+// compiled with the entry point; gemm_tc_i8.cuh, part 7).
 #define OS_RES_0(X, T, WB) \
   X(T, WB, WALK_N, true, B_STREAMED) X(T, WB, WALK_M, false, B_STRIPE)
 #define OS_WALKS_0(X, T, WB) \
@@ -60,7 +66,7 @@
   X(T, WB, WALK_M, true, B_STRIPE) X(T, WB, WALK_N, false, B_WHOLE)   \
   X(T, WB, WALK_N, true, B_WHOLE)
 #define OS_ALL(X, T, WB) OS_WALKS_0(X, T, WB) OS_WALKS_1(X, T, WB)
-#define OS_BF16(X) OS_RES_0(X, __nv_bfloat16, 0) OS_WALKS_1(X, __nv_bfloat16, 0)
+#define OS_RES(X, T, WB) OS_RES_0(X, T, WB) OS_WALKS_1(X, T, WB)
 
 namespace gemm {
 #if defined(REPRO_PART)
@@ -73,18 +79,25 @@ OS_RES_0(GEMM_WALK_DEFINE, __nv_bfloat16, 0)
 #elif REPRO_PART == 3
 OS_WALKS_1(GEMM_WALK_DEFINE, __nv_bfloat16, 0)
 #elif REPRO_PART == 4
-OS_ALL(GEMM_WALK_DEFINE, int8_t, 0)
+OS_RES(GEMM_WALK_DEFINE, int8_t, 0)
 #elif REPRO_PART == 5
-OS_ALL(GEMM_WALK_DEFINE, int8_t, 4)
+OS_RES(GEMM_WALK_DEFINE, int8_t, 4)
+#elif REPRO_PART == 6
+OS_RES(GEMM_WALK_DEFINE, int8_t, 5)
 #else
-OS_ALL(GEMM_WALK_DEFINE, int8_t, 5)
+namespace i8 {
+GEMM_I8_DEFINE(0) GEMM_I8_DEFINE(4) GEMM_I8_DEFINE(5)
+}
 #endif
 #else
 OS_ALL(GEMM_WALK_EXTERN, float, 0)
-OS_BF16(GEMM_WALK_EXTERN)
-OS_ALL(GEMM_WALK_EXTERN, int8_t, 0)
-OS_ALL(GEMM_WALK_EXTERN, int8_t, 4)
-OS_ALL(GEMM_WALK_EXTERN, int8_t, 5)
+OS_RES(GEMM_WALK_EXTERN, __nv_bfloat16, 0)
+OS_RES(GEMM_WALK_EXTERN, int8_t, 0)
+OS_RES(GEMM_WALK_EXTERN, int8_t, 4)
+OS_RES(GEMM_WALK_EXTERN, int8_t, 5)
+namespace i8 {
+GEMM_I8_EXTERN(0) GEMM_I8_EXTERN(4) GEMM_I8_EXTERN(5)
+}
 #endif
 }  // namespace gemm
 
@@ -109,6 +122,8 @@ int launch(int a_stripe, int b_res, const void* a, const void* b,
   if (a_stripe)
     return launch_walk<T, WB, WALK_N, true, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s);
   if constexpr (kTC<T>) return launch_tc(a, b, c, m, n, k, e, s);
+  else if constexpr (std::is_same<T, int8_t>::value)
+    return i8::launch<WB>(a, b, b_hi, c, m, n, k, e, s);
   else return launch_walk<T, WB, WALK_NONE, false, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s);
 }
 

@@ -1,8 +1,9 @@
 // Hopper tensor-core building blocks shared by the bf16 GEMM tiles
-// (gemm_common.cuh, gemm_tc.cuh) and the bf16 flash attention
-// (flash_attention.cu): the warp-level mma.sync m16n8k16 product with f32
-// accumulators, ldmatrix fragment loads from shared memory, and cp.async
-// copies from device memory into shared memory.
+// (gemm_common.cuh, gemm_tc.cuh), the int8 GEMM tiles (gemm_tc_i8.cuh) and
+// the bf16 flash attention (flash_attention.cu): the warp-level mma.sync
+// m16n8k16 product with f32 accumulators and m16n8k32 with s32 ones,
+// ldmatrix fragment loads from shared memory, and cp.async copies from
+// device memory into shared memory.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 * g + t):
 //   A (16 x 16, row-major): a[0] = (row g, k 2t..2t+1), a[1] = (g + 8, 2t..),
@@ -46,6 +47,25 @@ __device__ __forceinline__ void mma_bf16_add(float acc[4], const uint32_t a[4],
   mma_bf16(t, a, b);
 #pragma unroll
   for (int j = 0; j < 4; ++j) acc[j] = __fadd_rn(acc[j], t[j]);
+}
+
+// acc += A(16x32) * B(32x8), s8 operands, s32 accumulators: the int8 GEMM
+// tiles (gemm_tc_i8.cuh). Fragment layout of m16n8k32 (lane = 4 * g + t),
+// each register four s8 values, the lowest k in the low byte:
+//   A (16 x 32, row-major): a[0] = (row g, k 4t..4t+3), a[1] = (g + 8, ..),
+//     a[2] = (g, 16 + 4t..), a[3] = (g + 8, 16 + 4t..).
+//   B (32 x 8, k x n): b[0] = (k 4t..4t+3, col g), b[1] = (k 16 + 4t.., g).
+//   C (16 x 8, s32): as the bf16 product's.
+// Integer sums are exact, so any k order gives the same result: the tiles
+// feed lane t physical k 8t..8t+7 of each 32-deep chunk (a[0]/a[1]/b[0]
+// rows 8t..8t+3, a[2]/a[3]/b[1] rows 8t+4..8t+7), A and B alike.
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
+                                       const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -2,10 +2,12 @@
 //
 // Replaces repro/kernels/pack.py `unpack_block`, which the TPU kernels call
 // inside B1/B4/B5's `_load_b` (matmul_df.py:116-143) and B8's `_conv_kernel`
-// (conv2d_df.py:100-107) to decode the active weight block in VMEM. Here the
-// GEMM family's B-tile staging (gemm_common.cuh `PackedB`) and the conv's
-// filter-block staging (conv2d.cu `PackedW`) call these device functions: a
-// weight never exists as int8 in device memory, only its planes do.
+// (conv2d_df.py:100-107) to decode the active weight block in VMEM. Here
+// B1's int8 tensor-core tiles decode each word straight into mma fragments
+// (decode_frag, gemm_tc_i8.cuh), and the walk kernels' B-tile staging
+// (gemm_common.cuh `PackedB`) and the conv's filter-block staging (conv2d.cu
+// `PackedW`) decode at the load: a weight never exists as int8 in device
+// memory, only its planes do.
 //
 // Planes (repro_torch/kernels/pack.py): a nibble plane of (K/8, N) 32-bit
 // words, row 8*r + t of column c in bits [4t, 4t+4) of word (r, c), and at 5
@@ -19,8 +21,10 @@
 //
 // Bound on H100: this is part of the GEMM's or conv's tile load. It cuts the
 // weight bytes to 1/2 (4 bits) or 5/8 (5 bits) of int8's, which is what
-// bounds a decode GEMM (M = batch rows); the decode costs a shift, two masks
-// and a subtraction per weight value on the CUDA cores.
+// bounds a decode GEMM (M = batch rows). In the walks the decode costs a
+// shift, two masks and a subtraction per weight value on the CUDA cores; in
+// B1's tensor-core tiles (decode_frag) about 8 integer instructions per 8
+// values (14 at 5 bits).
 #pragma once
 
 #include "common.cuh"
@@ -79,6 +83,29 @@ __device__ __forceinline__ int panel_at(const uint32_t* panel, int kk, int c,
       BITS == 5 ? panel[(size_t)(rows / WORD_NIBBLES + kk / WORD_BITS) * width + c]
                 : 0u;
   return decode<BITS>(w, h, kk % WORD_NIBBLES, kk % WORD_BITS);
+}
+
+// The tensor-core decode (gemm_tc_i8.cuh): the 8 rows of one nibble word
+// w (at 5 bits, their code bit 4 in the low 8 bits of h8) as an mma B
+// fragment, f[0] rows 0-3 and f[1] rows 4-7, four signed bytes each (the
+// lowest row in the low byte). The nibbles are spread to bytes with one
+// byte permute per register, bit 4 is spread by a multiply, and the offset
+// 2^(bits-1) is taken from each byte without a borrow: u - 8 is
+// (u + 0x78) ^ 0x80 for u in [0, 16), u - 16 is (u + 0x70) ^ 0x80 for u in
+// [0, 32). Packed planes stay packed in shared memory; no int tile.
+template <int BITS>
+__device__ __forceinline__ void decode_frag(uint32_t w, uint32_t h8,
+                                            uint32_t f[2]) {
+  const uint32_t lo = w & 0x0F0F0F0Fu;         // rows 0, 2, 4, 6
+  const uint32_t hi = (w >> 4) & 0x0F0F0F0Fu;  // rows 1, 3, 5, 7
+  uint32_t u0 = __byte_perm(lo, hi, 0x5140), u1 = __byte_perm(lo, hi, 0x7362);
+  if (BITS == 5) {  // bit i of x to bit 4 of byte i: x * 0x02040810
+    u0 |= ((h8 & 0xFu) * 0x02040810u) & 0x10101010u;
+    u1 |= (((h8 >> 4) & 0xFu) * 0x02040810u) & 0x10101010u;
+  }
+  constexpr uint32_t bias = BITS == 5 ? 0x70707070u : 0x78787878u;
+  f[0] = (u0 + bias) ^ 0x80808080u;
+  f[1] = (u1 + bias) ^ 0x80808080u;
 }
 
 // One 32 x BN weight tile of a k step, staged through registers: thread i

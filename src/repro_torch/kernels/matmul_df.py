@@ -39,16 +39,23 @@ the tile.  The reference's float output-stripe kernels accumulate in the
 output dtype (bf16 for a bf16 output); these always accumulate in f32
 (ROADMAP C).
 
-int8 operands take the kernels' integer k loop: exact int32 sums, the
-int32 result written as it is without an epilogue, else put through
-the f32 epilogue.  With ``weight_bits`` (4 or 5) B is the packed
-nibble plane of ``kernels/pack.py`` (and its bit plane at 5 bits),
-decoded in the kernel at each tile load (B6,
-``csrc/pack_common.cuh``), and the outlier sidecar ``(outlier_idx,
-outlier_delta)`` is added to the int32 accumulator at the flush; the
-reference adds the same rows as a precomputed (M, N) compensation
-term.  ``plan`` charges int8 operands one byte an element and packed
-planes their words.
+int8 operands sum exactly in int32, the int32 result written as it is
+without an epilogue, else put through the f32 epilogue.  With
+``weight_bits`` (4 or 5) B is the packed nibble plane of
+``kernels/pack.py`` (and its bit plane at 5 bits), decoded in the
+kernel (B6, ``csrc/pack_common.cuh``), and the outlier sidecar
+``(outlier_idx, outlier_delta)`` is added to the int32 accumulator at
+the flush; the reference adds the same rows as a precomputed (M, N)
+compensation term.  The int8 basic OS launch (an int8 B or packed
+planes, the packed-MLP serving path) takes the integer tensor-core
+tiles of ``csrc/gemm_tc_i8.cuh`` (one ``mma.sync`` m16n8k32 ``.s8`` per
+32-deep k chunk, packed words decoded straight into its B fragments):
+for M > 16 a 128x64 tile on a 4-stage ring of 128-deep k steps, for
+M <= 16 the 16 rows x 32 (packed) or 64 (int8) columns on a ring of
+512-deep steps.  Every other
+int8 dataflow keeps the integer k loop on the CUDA cores; integer sums
+are exact in any order, so all give the tiles' bits.  ``plan`` charges
+int8 operands one byte an element and packed planes their words.
 
 Each wrapper launches its kernel for CUDA tensors and raises for what it
 does not take; for CPU tensors it computes the kernels' plain version,
@@ -78,6 +85,12 @@ TILE_BYTES = BLOCK[1] * (BLOCK[0] + 4) * 4
 PREFILL_TILE, PREFILL_STAGES = (128, 32, 64), 4
 DECODE_TILE, DECODE_STAGES = (16, 256, 16), 8
 DECODE_M = DECODE_TILE[0]
+# B1's int8 basic OS tiles (csrc/gemm_tc_i8.cuh): (bm, bk, bn) and ring
+# stages of the prefill tile (an int8 B or packed planes) and of the decode
+# tile (M <= DECODE_M) for an int8 B and for packed planes.
+I8_PREFILL_TILE, I8_PREFILL_STAGES = (128, 128, 64), 4
+I8_DECODE_TILE, I8_DECODE_STAGES = (16, 512, 64), 3
+PACKED_DECODE_TILE, PACKED_DECODE_STAGES = (16, 512, 32), 4
 WEIGHT_BITS = (4, 5)
 _B_RES_CODES = {Residency.STREAMED: 0, Residency.STRIPE: 1,
                 Residency.WHOLE: 2}
@@ -115,6 +128,17 @@ DECODE = register_kernel(KernelRegistration(
     replaces="src/repro/kernels/matmul_df.py:347",
     spec=DataflowSpec.basic(OS, block=DECODE_TILE),
 ))
+# B1's int8 basic OS tiles, counted the same way.
+I8_PREFILL = register_kernel(KernelRegistration(
+    name="matmul_os_i8_prefill", source=_SRC + "gemm_tc_i8.cuh",
+    replaces="src/repro/kernels/matmul_df.py:347",
+    spec=DataflowSpec.basic(OS, block=I8_PREFILL_TILE),
+))
+I8_DECODE = register_kernel(KernelRegistration(
+    name="matmul_os_i8_decode", source=_SRC + "gemm_tc_i8.cuh",
+    replaces="src/repro/kernels/matmul_df.py:347",
+    spec=DataflowSpec.basic(OS, block=PACKED_DECODE_TILE),
+))
 # B6 has no kernel of its own: it is the packed-plane decode inside these
 # GEMMs' and the conv's tile loads, counted under its own launch key.
 UNPACK = register_kernel(KernelRegistration(
@@ -137,7 +161,7 @@ class Plan:
     args: Tuple[int, ...]         # the entry point's dataflow arguments
     demoted: Optional[str] = None  # an aux the reference also streams
     tile: Tuple[int, int, int] = BLOCK   # a CTA's (bm, bk, bn)
-    tile_kernel: Optional[str] = None    # B1's bf16 tile, counted beside it
+    tile_kernel: Optional[str] = None    # B1's basic tile, counted beside it
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -147,6 +171,19 @@ def _cdiv(a: int, b: int) -> int:
 def _ring_bytes(tile: Tuple[int, int, int], stages: int) -> int:
     bm, bk, bn = tile
     return stages * (bm * (bk + 8) + bk * (bn + 8)) * 2
+
+
+def _i8_ring_bytes(tile: Tuple[int, int, int], stages: int,
+                   weight_bits: Optional[int]) -> int:
+    """An int8 tile's ring: A rows of bk bytes (+32 when bk % 64 == 0,
+    for conflict-free fragment loads), and B as int8 or as the packed
+    planes' words, rows of bn + 8 words."""
+    bm, bk, bn = tile
+    a_ld = bk + 32 if bk % 64 == 0 else bk
+    b = bk * bn if weight_bits is None else (
+        (bk // pack.WORD_NIBBLES
+         + (bk // pack.WORD_BITS if weight_bits == 5 else 0)) * (bn + 8) * 4)
+    return stages * (bm * a_ld + b)
 
 
 def _held(res: Residency) -> bool:
@@ -217,18 +254,28 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
         smem = ((0 if a_res else TILE_BYTES)
                 + (0 if res_b != Residency.STREAMED else TILE_BYTES)
                 + sum(resident.values()))
-        if dtype == torch.bfloat16 and not resident:
+        if dtype in (torch.bfloat16, torch.int8) and not resident:
             decode = m <= DECODE_M
-            tile_kernel, tile, stages = (
-                (DECODE.name, DECODE_TILE, DECODE_STAGES) if decode
-                else (PREFILL.name, PREFILL_TILE, PREFILL_STAGES))
+            if dtype == torch.bfloat16:
+                tile_kernel, tile, stages = (
+                    (DECODE.name, DECODE_TILE, DECODE_STAGES) if decode
+                    else (PREFILL.name, PREFILL_TILE, PREFILL_STAGES))
+                smem, cores = _ring_bytes(tile, stages), "tensor cores"
+            else:
+                tile_kernel, tile, stages = (
+                    (I8_PREFILL.name, I8_PREFILL_TILE, I8_PREFILL_STAGES)
+                    if not decode else
+                    (I8_DECODE.name, I8_DECODE_TILE, I8_DECODE_STAGES)
+                    if weight_bits is None else
+                    (I8_DECODE.name, PACKED_DECODE_TILE, PACKED_DECODE_STAGES))
+                smem = _i8_ring_bytes(tile, stages, weight_bits)
+                cores = "int8 tensor cores"
             ctas = _cdiv(m, tile[0]) * _cdiv(n, tile[2])
             walk = (f"CTA per {tile[0]}x{tile[2]} output tile on the "
-                    f"tensor cores, {stages}-stage cp.async ring")
+                    f"{cores}, {stages}-stage cp.async ring")
             return Plan(kernel=kernel, grid_order=order, walk=walk,
-                        ctas=ctas, resident=resident,
-                        smem_bytes=_ring_bytes(tile, stages), args=args,
-                        tile=tile, tile_kernel=tile_kernel)
+                        ctas=ctas, resident=resident, smem_bytes=smem,
+                        args=args, tile=tile, tile_kernel=tile_kernel)
     elif spec.anchor == WS and _held(res_o):
         if res_a != Residency.STREAMED:
             demoted = (f"IS {res_a.value} aux streamed: the output-stripe "

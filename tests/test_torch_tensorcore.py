@@ -3,9 +3,11 @@ card-only checks.
 
 On the CPU: ``matmul_df.plan`` names the bf16 basic OS launch's tiles
 (``csrc/gemm_tc.cuh``: 128x64 for M > 16, 16x16 for M <= 16) with their
-shared memory, while every float32, int8 and packed plan, and every bf16
+shared memory, while every float32 plan, and every bf16, int8 and packed
 plan with a residency, keeps the values it had before the tensor-core
-tiles (the table below was written from the planner before them); the
+tiles (the table below was written from the planner before them; the
+int8 and packed basic OS plans became tiles of their own later,
+``tests/test_torch_int8_tc.py``); the
 flash kernel's compiled (bq, bkv) follows the dtype; and the bf16 plain
 versions the kernels are held against on the card agree with the JAX
 package's Pallas kernels in interpret mode on the same seeded inputs.
@@ -43,14 +45,15 @@ KINDS = {"float32": (torch.float32, None), "int8": (torch.int8, None),
          "bfloat16": (torch.bfloat16, None)}
 # spec -> (smem_bytes, resident bytes) per KINDS entry at M=37 K=64 N=48
 # (test_torch_dataflows.py's PLAN_TABLE shape), from the planner before
-# the tensor-core tiles.  bf16 os_basic is the one plan that changes.
+# the tensor-core tiles.  os_basic is the one plan that changes: bf16's
+# takes the bf16 prefill tile, int8's and packed's the int8 one (None).
 PLAN_BEFORE = {
     "is_b_whole": [(26624, (10240, 16384)), (6656, (2560, 4096)), (4608, (2560, 2048)), (5120, (2560, 2560)), (13312, (5120, 8192))],
     "is_basic": [(18944, (10240,)), (11264, (2560,)), (11264, (2560,)), (11264, (2560,)), (13824, (5120,))],
     "is_o_stripe": [(27648, (10240,)), (27648, (10240,)), (27648, (10240,)), (27648, (10240,)), (27648, (10240,))],
     "is_o_stripe_b_whole": [(35328, (10240, 16384)), (23040, (10240, 4096)), (20992, (10240, 2048)), (21504, (10240, 2560)), (27136, (10240, 8192))],
     "is_w_stripe": [(18944, (10240,)), (11264, (2560,)), (11264, (2560,)), (11264, (2560,)), (13824, (5120,))],
-    "os_basic": [(17408, ()), (17408, ()), (17408, ()), (17408, ()), None],
+    "os_basic": [(17408, ()), None, None, None, None],
     "os_i_stripe": [(18944, (10240,)), (11264, (2560,)), (11264, (2560,)), (11264, (2560,)), (13824, (5120,))],
     "os_w_stripe": [(25088, (16384,)), (12800, (4096,)), (10752, (2048,)), (11264, (2560,)), (16896, (8192,))],
     "os_w_whole_i_stripe": [(26624, (10240, 16384)), (6656, (2560, 4096)), (4608, (2560, 2048)), (5120, (2560, 2560)), (13312, (5120, 8192))],
@@ -68,8 +71,10 @@ def test_plans_other_than_bf16_basic_os_are_unchanged(kind):
     for name, spec in SPECS.items():
         want = PLAN_BEFORE[name][col]
         p = matmul_df.plan(spec, 37, 64, 48, dtype, bits)
-        if want is None:               # bf16 basic OS: the prefill tile
-            assert p.tile_kernel == "matmul_os_prefill"
+        if want is None:               # basic OS: the prefill tile
+            assert p.tile_kernel == ("matmul_os_prefill"
+                                     if dtype == torch.bfloat16
+                                     else "matmul_os_i8_prefill"), kind
             continue
         assert (p.smem_bytes, tuple(p.resident.values())) == want, name
         assert p.tile == matmul_df.BLOCK and p.tile_kernel is None, name
