@@ -42,6 +42,8 @@ Phases, each printing JSON lines:
    fused dequant) and on the ResNet-18 conv body under each anchor; B1's
    int8 and packed basic launch runs on its integer tensor-core tiles
    (prefill for M > 16, decode for M <= 16), timed at M = 512 and 4.
+   Every launch of B1's basic OS reports the tile it took, its shared
+   memory and CTAs, and raises unless ``matmul_df.plan`` planned the same.
 4. ``dataflows``: the bench twins (``repro_torch.bench``): Fig. 2 (basic
    OS/WS/IS), Fig. 7 (auxiliary residencies) on the paper's layer grid
    and qwen3-1.7b's MLP GEMMs, and attention's OS vs WS anchor at prefill
@@ -57,8 +59,10 @@ Phases, each printing JSON lines:
    cut to ``--layers``) served through ``Engine.submit``/``drain``:
    every request DONE, no demotion, every kernel launched, mixed-length
    batch tokens == each request served alone; prefill tokens/s and decode
-   ms/step; then a ``torch.profiler`` trace of 6 decode steps at batch 4:
-   device busy ms/step, idle share, kernel ms/step by name.
+   ms/step; then ``torch.profiler`` traces of the 511-token prefill and
+   of 6 decode steps at batch 4: device busy ms, idle share, kernel ms by
+   name, per prefill and per step; and one prefill under ``cProfile``,
+   its functions with the most own host time.
 7. ``serve_binary``: the same, for qwen3-1.7b with its binary MLP
    (``binary_mlp=True``: +-1 weights bit-packed, the two projections
    through B9); besides, at every layer of a two-layer prefill the
@@ -1100,7 +1104,7 @@ def int8_packed_checks(torch, cfg, timer, gen, tol):
                      lambda: ops.matmul_packed(aq, pw, a_scale=a_scale),
                      lambda: ref.matmul_packed_ref(
                          aq, pw, a_scale=a_scale.reshape(1, 1)),
-                     pack.packed_bytes(k, n, 4)),
+                     common.packed_read_bytes(pw)),
                     ("int8", lambda: ops.int8_matmul_fused(aq, q, a_scale,
                                                            w_scale),
                      lambda: ref.matmul_fused_ref(aq, q,
@@ -1208,7 +1212,7 @@ def packed_conv_checks(torch, timer, gen):
     q[0, 1, 3], q[2, 0, 5] = 127, -127
     pcw = pack.pack_conv_weights(q.float() * 0.01, 4)
     x_scale = torch.tensor(0.02, device=dev)
-    moved = (ih * ih * cin + pack.packed_bytes(f * f * cin, cout, 4)
+    moved = (ih * ih * cin + common.packed_read_bytes(pcw)
              + conv.oh * conv.ow * cout * 4)
     bnd = common.bound(moved, 2.0 * conv.oh * conv.ow * f * f * cin * cout,
                        common.INT8_OPS_PER_S)
@@ -1496,6 +1500,7 @@ def serve_path(torch, cfg, args, phase, path):
           "prefill_tokens_per_s": len(prompts[-1]) / prefill_ms * 1e3,
           "decode_batch": len(prompts),
           "decode_ms_per_step": step_ms[len(step_ms) // 2]})
+    trace_prefill(torch, cfg, params, prompts[-1], max_len, phase)
     trace_decode(torch, cfg, params, prompts, max_len, phase)
     return {k: launches[k] for k in path}
 
@@ -1514,29 +1519,20 @@ KERNEL_FUNCTIONS = {"tc_prefill_kernel": "matmul_os_prefill",
                     "paged_kernel": "paged_attention"}
 
 
-def trace_decode(torch, cfg, params, prompts, max_len, phase: str,
-                 steps: int = 6):
-    """Where a decode step's time goes: a ``torch.profiler`` trace of
-    ``steps`` decode steps at batch ``len(prompts)`` (after every prompt
-    is admitted).  The device is busy for the union of its kernel and copy
-    intervals; the rest of the steps' host-clock time it is idle.  Kernel
-    time is summed by the port's kernels and by the other kernels' names.
-    The trace's own host cost is in the traced ms/step."""
+def _device_trace(torch, run, repeats: int) -> dict:
+    """A ``torch.profiler`` trace of ``repeats`` calls of ``run``: the
+    device is busy for the union of its kernel and copy intervals, idle
+    for the rest of the calls' host-clock time.  Kernel time per call is
+    summed by the port's kernels and by the other kernels' names.  The
+    trace's own host cost is in the traced ms."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve.engine import Engine
-
-    eng = Engine(cfg, params, max_len=max_len, device="cuda")
-    for p in prompts:
-        eng.submit(p, 2 * steps + len(prompts) + 2)
-    for _ in prompts:        # one admission per tick
-        eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(steps):
-            eng.step()
+        for _ in range(repeats):
+            run()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     spans, by_name = [], {}
@@ -1556,17 +1552,69 @@ def trace_decode(torch, cfg, params, prompts, max_len, phase: str,
         key = next((k for f, k in KERNEL_FUNCTIONS.items() if f in name),
                    None)
         bucket, key = (port, key) if key else (other, name[:80])
-        bucket[key] = bucket.get(key, 0.0) + us / steps / 1e3
+        bucket[key] = bucket.get(key, 0.0) + us / repeats / 1e3
     top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:8])
-    emit({"phase": phase, "event": "decode_trace", "card": card_line(),
+    return {"card": card_line(), "device_events": len(spans),
+            "traced_ms": wall_us / repeats / 1e3,
+            "device_busy_ms": busy_us / repeats / 1e3,
+            "device_idle_share": (1.0 - busy_us / wall_us) if spans else None,
+            "port_kernels_ms": port,
+            "other_device_ms": sum(other.values()),
+            "top_other_ms": top}
+
+
+def trace_decode(torch, cfg, params, prompts, max_len, phase: str,
+                 steps: int = 6):
+    """Where a decode step's time goes: ``steps`` decode steps at batch
+    ``len(prompts)`` (after every prompt is admitted), traced; every ms is
+    per step."""
+    from repro_torch.serve.engine import Engine
+
+    eng = Engine(cfg, params, max_len=max_len, device="cuda")
+    for p in prompts:
+        eng.submit(p, 2 * steps + len(prompts) + 2)
+    for _ in prompts:        # one admission per tick
+        eng.step()
+    emit({"phase": phase, "event": "decode_trace",
           "decode_batch": len(prompts), "steps": steps,
-          "device_events": len(spans),
-          "traced_ms_per_step": wall_us / steps / 1e3,
-          "device_busy_ms_per_step": busy_us / steps / 1e3,
-          "device_idle_share": (1.0 - busy_us / wall_us) if spans else None,
-          "port_kernels_ms_per_step": port,
-          "other_device_ms_per_step": sum(other.values()),
-          "top_other_ms_per_step": top})
+          **_device_trace(torch, eng.step, steps)})
+
+
+def trace_prefill(torch, cfg, params, prompt, max_len, phase: str,
+                  repeats: int = 2, top: int = 12):
+    """Where a prefill's time goes: ``lm.prefill`` of ``prompt`` (after one
+    untraced call), traced on the device; then one prefill under
+    ``cProfile``, whose ``top`` functions by own host time (the wait for
+    the card included, as ``synchronize``; cProfile's own cost inflates
+    every Python call) say what the host spends it on.  Every ms is per
+    prefill."""
+    import cProfile
+    import pstats
+
+    from repro_torch.models import lm
+
+    toks = torch.as_tensor(prompt[None], device="cuda")
+
+    def run():
+        lm.prefill(params, toks, cfg, max_len=max_len)
+
+    run()
+    rec = _device_trace(torch, run, repeats)
+    prof = cProfile.Profile()
+    t0 = time.monotonic()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    profiled_ms = (time.monotonic() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    own = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    emit({"phase": phase, "event": "prefill_trace",
+          "prefill_tokens": len(prompt), "repeats": repeats, **rec,
+          "host_profiled_ms": profiled_ms,
+          "host_top_own_ms": {
+              f"{os.path.basename(f)}:{line} {fn}": [tt * 1e3, calls]
+              for (f, line, fn), (_, calls, tt, _, _) in own}})
 
 
 def _map(fn, tree):

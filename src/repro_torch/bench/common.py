@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core.dataflow import (ConvProblem, DataflowSpec, GemmProblem,
                                        Residency, IS, OS, WS)
-from repro_torch.kernels import matmul_df
+from repro_torch.kernels import matmul_df, pack
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -89,6 +89,20 @@ def bound(bytes_moved: float, flops: float,
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def packed_read_bytes(w) -> int:
+    """Bytes a kernel must read of packed weights ``w`` (``PackedWeights``
+    or ``PackedConvWeights``): the planes, the sidecar's slot indices, and
+    the delta rows of the filled slots only (the kernels skip an empty
+    slot without reading its row)."""
+    n = w.codes.shape[-1]
+    rows = w.codes.numel() // n * pack.WORD_NIBBLES   # the padded K
+    idx = w.outlier_idx
+    filled = int(((idx >= 0) & (idx < rows)).sum())
+    planes = w.codes.numel() + (0 if w.highbits is None
+                                else w.highbits.numel())
+    return 4 * (planes + idx.numel() + filled * n)
 
 
 def gemm_bound(m: int, k: int, n: int, in_bytes: int = 2,

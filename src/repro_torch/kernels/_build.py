@@ -20,8 +20,8 @@ kernels (``csrc/pack_common.cuh``): a launch of one of them on packed
 planes also counts one under ``LAUNCHES["unpack_block"]``.  A bf16 basic
 OS launch of B1 takes one of its two tensor-core tiles
 (``csrc/gemm_tc.cuh``), an int8 or packed one one of its two integer
-tensor-core tiles (``csrc/gemm_tc_i8.cuh``), and also counts one under
-that tile's name (``TILES``).
+tensor-core tiles (``csrc/gemm_tc_i8.cuh``); the entry point reports the
+tile it took, which also counts one under its name (``TILES``).
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -63,7 +63,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEMM = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P,
          _I)
 SIGNATURES = {
-    "matmul_os": _GEMM + (_I, _I, _P),
+    "matmul_os": _GEMM + (_I, _I, _P, _P),
     "matmul_rmw": _GEMM + (_I, _I, _I, _P),
     "matmul_ws_stripe": _GEMM + (_P,),
     "matmul_is_stripe": _GEMM + (_I, _P),
@@ -82,9 +82,13 @@ SIGNATURES = {
 # B6 decodes packed planes inside these libraries' kernels.
 PACKED_DECODE = "unpack_block"
 # B1's basic OS tiles, compiled into the matmul_os library: bf16, then
-# int8 (an int8 or a packed B).
+# int8 (an int8 or a packed B); a launch reports TILES[code - 1], or 0 for
+# the walk (csrc/gemm_common.cuh TileCode).
 TILES = ("matmul_os_prefill", "matmul_os_decode", "matmul_os_i8_prefill",
          "matmul_os_i8_decode")
+# What the last matmul_os launch took (csrc/gemm_common.cuh Took): the tile
+# code, its dynamic shared memory bytes and its CTAs.
+_TOOK = (ctypes.c_int * 3)()
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             (*SIGNATURES, PACKED_DECODE, *TILES)}
 # ptxas resource report of each build of this process, by kernel.
@@ -207,14 +211,17 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args, packed: bool = False,
-           tile: Optional[str] = None) -> None:
+def launch(name: str, *args, packed: bool = False
+           ) -> Optional[Tuple[str, int, int]]:
     """Call kernel ``name``'s entry point on the current CUDA stream,
-    count the launch (and, when it decodes ``packed`` planes, B6's; with
-    ``tile``, that tile's) and raise if it was refused."""
+    count the launch (and, when it decodes ``packed`` planes, B6's) and
+    raise if it was refused.  A ``matmul_os`` launch that took one of B1's
+    tiles counts that tile too and returns (tile, shared memory bytes,
+    CTAs) as the kernel reported them; every other launch returns None."""
     lib = library(name)
     stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, name)(*args, stream)
+    took = (_TOOK,) if name == "matmul_os" else ()
+    rc = getattr(lib, name)(*args, *took, stream)
     if rc != 0:
         raise KernelError(
             f"{name} kernel launch failed: "
@@ -222,8 +229,11 @@ def launch(name: str, *args, packed: bool = False,
     LAUNCHES[name] += 1
     if packed:
         LAUNCHES[PACKED_DECODE] += 1
-    if tile is not None:
-        LAUNCHES[tile] += 1
+    if not took or not _TOOK[0]:
+        return None
+    tile = TILES[_TOOK[0] - 1]
+    LAUNCHES[tile] += 1
+    return tile, _TOOK[1], _TOOK[2]
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -135,6 +135,19 @@ struct Epi {
   int sk = 0;
 };
 
+// The tile a basic OS launch took, reported to its caller (matmul_os.cu's
+// entry point): TILE_WALK for the walk kernel, else the tile (the
+// position of its name in kernels/_build.py TILES, counting from 1), with
+// its dynamic shared memory bytes and CTAs. The tile configurations of
+// gemm_tc.cuh and gemm_tc_i8.cuh are the source of these numbers; the
+// Python planner's copy is held against them at every launch.
+enum TileCode { TILE_WALK = 0, TILE_PREFILL, TILE_DECODE, TILE_I8_PREFILL, TILE_I8_DECODE };
+struct Took {
+  int tile = TILE_WALK;
+  int smem = 0;
+  int ctas = 0;
+};
+
 __device__ __forceinline__ float epilogue(float x, int r, int c, int n,
                                           const Epi& e) {
   if (e.scale_mode == SCALE_TENSOR) x *= e.scale[0];

@@ -233,8 +233,9 @@ tc_decode_kernel(const __nv_bfloat16* __restrict__ a,
   }
 }
 
-// The tiles the bf16 basic OS launch takes (matmul_df.py's PREFILL_TILE and
-// DECODE_TILE, with their stages).
+// The tiles the bf16 basic OS launch takes (matmul_df.py's planner keeps a
+// copy, PREFILL_TILE and DECODE_TILE with their stages, checked against
+// each launch's Took).
 using Prefill = PrefillCfg<128, 64, 32, 4, 4, 2>;
 using Decode = DecodeCfg<16, 256, 8>;
 
@@ -258,31 +259,35 @@ int launch_cfg(void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*,
 // Launches the prefill tile C (any M) or the decode tile C (M <= 16).
 template <class C>
 int launch_prefill(const __nv_bfloat16* a, const __nv_bfloat16* b, void* c,
-                   int m, int n, int k, const Epi& e, cudaStream_t stream) {
+                   int m, int n, int k, const Epi& e, cudaStream_t stream,
+                   Took* took = nullptr) {
   if (cdiv(m, C::TBM) > 65535) return REPRO_BAD_ARGUMENT;
   const dim3 grid(cdiv(n, C::TBN), cdiv(m, C::TBM));
+  if (took) *took = {TILE_PREFILL, (int)C::SMEM, (int)(grid.x * grid.y)};
   return vec_ok<__nv_bfloat16>(a, b, n, k)
              ? launch_cfg<C, true>(tc_prefill_kernel<C, true>, grid, a, b, c, m, n, k, e, stream)
              : launch_cfg<C, false>(tc_prefill_kernel<C, false>, grid, a, b, c, m, n, k, e, stream);
 }
 template <class C>
 int launch_decode(const __nv_bfloat16* a, const __nv_bfloat16* b, void* c,
-                  int m, int n, int k, const Epi& e, cudaStream_t stream) {
+                  int m, int n, int k, const Epi& e, cudaStream_t stream,
+                  Took* took = nullptr) {
   if (m > C::MAX_M) return REPRO_BAD_ARGUMENT;
   const dim3 grid(cdiv(n, C::TBN));
+  if (took) *took = {TILE_DECODE, (int)C::SMEM, (int)grid.x};
   return vec_ok<__nv_bfloat16>(a, b, n, k)
              ? launch_cfg<C, true>(tc_decode_kernel<C, true>, grid, a, b, c, m, n, k, e, stream)
              : launch_cfg<C, false>(tc_decode_kernel<C, false>, grid, a, b, c, m, n, k, e, stream);
 }
 
 // The bf16 basic OS launch: the decode tile for M <= 16, else the prefill
-// tile.
+// tile; `took` names it.
 inline int launch_tc(const void* a, const void* b, void* c, int m, int n,
-                     int k, const Epi& e, cudaStream_t stream) {
+                     int k, const Epi& e, cudaStream_t stream, Took* took) {
   const auto* ah = static_cast<const __nv_bfloat16*>(a);
   const auto* bh = static_cast<const __nv_bfloat16*>(b);
-  if (m <= Decode::MAX_M) return launch_decode<Decode>(ah, bh, c, m, n, k, e, stream);
-  return launch_prefill<Prefill>(ah, bh, c, m, n, k, e, stream);
+  if (m <= Decode::MAX_M) return launch_decode<Decode>(ah, bh, c, m, n, k, e, stream, took);
+  return launch_prefill<Prefill>(ah, bh, c, m, n, k, e, stream, took);
 }
 
 }  // namespace gemm

@@ -455,9 +455,9 @@ i8_decode_kernel(const int8_t* __restrict__ a, const void* __restrict__ b,
       [&](int ni, int j) { return col0 + F::col(wc, ni, j); }, c, m, n, e);
 }
 
-// The tiles the int8 basic OS launch takes (matmul_df.py's I8_PREFILL_TILE,
-// I8_DECODE_TILE and PACKED_DECODE_TILE, with their stages): the sweep's
-// fastest at serving's mix of qwen3-1.7b's MLP shapes (two K=2048 N=6144
+// The tiles the int8 basic OS launch takes (matmul_df.py's planner keeps a
+// copy, I8_PREFILL_TILE, I8_DECODE_TILE and PACKED_DECODE_TILE with their
+// stages, checked against each launch's Took): the sweep's fastest at serving's mix of qwen3-1.7b's MLP shapes (two K=2048 N=6144
 // launches to one K=6144 N=2048) with the dequant flush (scale -> f32)
 // those launches take; the decode tile per B kind.
 using Prefill = PrefillCfg<128, 64, 128, 4, 4, 2>;
@@ -496,37 +496,39 @@ inline int launch_cfg(Kernel kernel, dim3 grid, int nt, size_t smem,
 // Launches the prefill tile C (any M) or the decode tile C (M <= 16).
 template <class C, int WB>
 int launch_prefill(const void* a, const void* b, const void* b_hi, void* c, int m,
-                   int n, int k, const Epi& e, cudaStream_t stream) {
+                   int n, int k, const Epi& e, cudaStream_t stream, Took* took = nullptr) {
   if (cdiv(m, C::TBM) > 65535) return REPRO_BAD_ARGUMENT;
   const dim3 grid(cdiv(n, C::TBN), cdiv(m, C::TBM));
+  if (took) *took = {TILE_I8_PREFILL, (int)C::smem(WB), (int)(grid.x * grid.y)};
   const Kernel kernel = vec_ok<WB>(a, b, b_hi, n, k) ? i8_prefill_kernel<C, true, WB>
                                                      : i8_prefill_kernel<C, false, WB>;
   return launch_cfg(kernel, grid, C::NT, C::smem(WB), a, b, b_hi, c, m, n, k, e, stream);
 }
 template <class C, int WB>
 int launch_decode(const void* a, const void* b, const void* b_hi, void* c, int m,
-                  int n, int k, const Epi& e, cudaStream_t stream) {
+                  int n, int k, const Epi& e, cudaStream_t stream, Took* took = nullptr) {
   if (m > C::MAX_M) return REPRO_BAD_ARGUMENT;
   const dim3 grid(cdiv(n, C::TBN));
+  if (took) *took = {TILE_I8_DECODE, (int)C::smem(WB), (int)grid.x};
   const Kernel kernel = vec_ok<WB>(a, b, b_hi, n, k) ? i8_decode_kernel<C, true, WB>
                                                      : i8_decode_kernel<C, false, WB>;
   return launch_cfg(kernel, grid, C::NT, C::smem(WB), a, b, b_hi, c, m, n, k, e, stream);
 }
 
 // The int8 basic OS launch with a B of weight bits WB (0: int8): the decode
-// tile for M <= 16, else the prefill tile. matmul_os.cu instantiates it in
-// a translation unit of its own (GEMM_I8_DEFINE).
+// tile for M <= 16, else the prefill tile; `took` names it. matmul_os.cu
+// instantiates it in a translation unit of its own (GEMM_I8_DEFINE).
 template <int WB>
 int launch(const void* a, const void* b, const void* b_hi, void* c, int m, int n,
-           int k, const Epi& e, cudaStream_t stream) {
+           int k, const Epi& e, cudaStream_t stream, Took* took = nullptr) {
   if (m <= Decode<WB>::MAX_M)
-    return launch_decode<Decode<WB>, WB>(a, b, b_hi, c, m, n, k, e, stream);
-  return launch_prefill<Prefill, WB>(a, b, b_hi, c, m, n, k, e, stream);
+    return launch_decode<Decode<WB>, WB>(a, b, b_hi, c, m, n, k, e, stream, took);
+  return launch_prefill<Prefill, WB>(a, b, b_hi, c, m, n, k, e, stream, took);
 }
 
 #define GEMM_I8_SIGNATURE(WB)                                                         \
   int launch<WB>(const void*, const void*, const void*, void*, int, int, int, const Epi&, \
-                 cudaStream_t)
+                 cudaStream_t, Took*)
 #define GEMM_I8_EXTERN(WB) extern template GEMM_I8_SIGNATURE(WB);
 #define GEMM_I8_DEFINE(WB) template GEMM_I8_SIGNATURE(WB);
 

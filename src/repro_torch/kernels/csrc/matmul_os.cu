@@ -109,7 +109,7 @@ using namespace gemm;
 template <typename T, int WB>
 int launch(int a_stripe, int b_res, const void* a, const void* b,
            const void* b_hi, void* c, int m, int n, int k, const Epi& e,
-           cudaStream_t s) {
+           cudaStream_t s, Took* took) {
   if (b_res == B_STRIPE)
     return a_stripe
                ? launch_walk<T, WB, WALK_M, true, B_STRIPE>(a, b, b_hi, c, m, n, k, e, s)
@@ -121,9 +121,9 @@ int launch(int a_stripe, int b_res, const void* a, const void* b,
   if (b_res != B_STREAMED) return REPRO_BAD_ARGUMENT;
   if (a_stripe)
     return launch_walk<T, WB, WALK_N, true, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s);
-  if constexpr (kTC<T>) return launch_tc(a, b, c, m, n, k, e, s);
+  if constexpr (kTC<T>) return launch_tc(a, b, c, m, n, k, e, s, took);
   else if constexpr (std::is_same<T, int8_t>::value)
-    return i8::launch<WB>(a, b, b_hi, c, m, n, k, e, s);
+    return i8::launch<WB>(a, b, b_hi, c, m, n, k, e, s, took);
   else return launch_walk<T, WB, WALK_NONE, false, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s);
 }
 
@@ -132,18 +132,22 @@ int launch(int a_stripe, int b_res, const void* a, const void* b,
 // in_dtype f32/bf16 with a B of the same type, or int8 with an int8 B
 // (weight_bits 0) or packed planes (weight_bits 4, 5; b_hi the bit plane at
 // 5 bits; the sidecar sidx (sr,), sdelta (sr, n)). a_stripe: 0/1; b_res:
-// 0 streamed, 1 stripe (n-first walk), 2 whole.
+// 0 streamed, 1 stripe (n-first walk), 2 whole. took (may be null): the
+// tile the launch took, its shared memory bytes and CTAs (gemm::Took).
 extern "C" int matmul_os(const void* a, const void* b, void* c, int m, int n,
                          int k, int in_dtype, int out_dtype,
                          const float* scale, int scale_mode, const float* bias,
                          int act, const float* residual, int weight_bits,
                          const void* b_hi, const int* sidx, const int* sdelta,
-                         int sr, int a_stripe, int b_res, void* stream) {
+                         int sr, int a_stripe, int b_res, gemm::Took* took,
+                         void* stream) {
+  if (took) *took = gemm::Took{};
   if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, bias,
                      act, residual, weight_bits, b_hi, sidx, sdelta, sr))
     return REPRO_BAD_ARGUMENT;
   const gemm::Epi e = GEMM_EPI(a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GEMM_DISPATCH_DTYPES(launch, a_stripe, b_res, a, b, b_hi, c, m, n, k, e, s);
+  GEMM_DISPATCH_DTYPES(launch, a_stripe, b_res, a, b, b_hi, c, m, n, k, e, s,
+                       took);
 }
 #endif

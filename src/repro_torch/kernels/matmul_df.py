@@ -87,7 +87,9 @@ DECODE_TILE, DECODE_STAGES = (16, 256, 16), 8
 DECODE_M = DECODE_TILE[0]
 # B1's int8 basic OS tiles (csrc/gemm_tc_i8.cuh): (bm, bk, bn) and ring
 # stages of the prefill tile (an int8 B or packed planes) and of the decode
-# tile (M <= DECODE_M) for an int8 B and for packed planes.
+# tile (M <= DECODE_M) for an int8 B and for packed planes.  The CUDA
+# configurations are the source; every launch reports the tile it took,
+# held against this copy (``check_took``).
 I8_PREFILL_TILE, I8_PREFILL_STAGES = (128, 128, 64), 4
 I8_DECODE_TILE, I8_DECODE_STAGES = (16, 512, 64), 3
 PACKED_DECODE_TILE, PACKED_DECODE_STAGES = (16, 512, 32), 4
@@ -128,7 +130,9 @@ DECODE = register_kernel(KernelRegistration(
     replaces="src/repro/kernels/matmul_df.py:347",
     spec=DataflowSpec.basic(OS, block=DECODE_TILE),
 ))
-# B1's int8 basic OS tiles, counted the same way.
+# B1's int8 basic OS tiles, counted the same way.  The decode tile's
+# width depends on the B kind (``plan(...).tile``), so it registers B1's
+# basic spec.
 I8_PREFILL = register_kernel(KernelRegistration(
     name="matmul_os_i8_prefill", source=_SRC + "gemm_tc_i8.cuh",
     replaces="src/repro/kernels/matmul_df.py:347",
@@ -136,8 +140,7 @@ I8_PREFILL = register_kernel(KernelRegistration(
 ))
 I8_DECODE = register_kernel(KernelRegistration(
     name="matmul_os_i8_decode", source=_SRC + "gemm_tc_i8.cuh",
-    replaces="src/repro/kernels/matmul_df.py:347",
-    spec=DataflowSpec.basic(OS, block=PACKED_DECODE_TILE),
+    replaces="src/repro/kernels/matmul_df.py:347", spec=BASIC_OS,
 ))
 # B6 has no kernel of its own: it is the packed-plane decode inside these
 # GEMMs' and the conv's tile loads, counted under its own launch key.
@@ -333,6 +336,19 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
                 demoted=demoted)
 
 
+def check_took(p: Plan, took: Optional[Tuple[str, int, int]]) -> None:
+    """Raise unless the tile a ``matmul_os`` launch took (``_build.launch``'s
+    report, from the CUDA tile configurations) is the one ``p`` planned,
+    with its shared memory bytes and CTAs: the planner's copy of the tile
+    shapes must not drift from the kernels'."""
+    want = None if p.tile_kernel is None else (
+        p.tile_kernel, p.smem_bytes, p.ctas)
+    if took != want:
+        raise _build.KernelError(
+            f"matmul_os took the tile {took} (name, shared memory bytes, "
+            f"CTAs) where its plan says {want}")
+
+
 def scale_mode(scale: Optional[torch.Tensor]) -> int:
     """0 none, 1 per-tensor (1, 1), 2 per-column (1, N), 3 per-row (M, 1)."""
     if scale is None:
@@ -464,14 +480,16 @@ def matmul_df(
     _build.require_cuda(a, b, scale, bias, residual, b_hi, outlier_idx,
                         outlier_delta)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    _build.launch(
+    took = _build.launch(
         p.kernel, _build.ptr(a), _build.ptr(b), _build.ptr(out), m, n, k,
         _build.dtype_code(a), _build.dtype_code(out), _build.ptr(scale),
         scale_mode(scale), _build.ptr(bias),
         ACTIVATION_CODES[epi.activation], _build.ptr(residual),
         weight_bits or 0, _build.ptr(b_hi), _build.ptr(outlier_idx),
         _build.ptr(outlier_delta), r, *p.args,
-        packed=weight_bits is not None, tile=p.tile_kernel)
+        packed=weight_bits is not None)
+    if p.kernel == "matmul_os":
+        check_took(p, took)
     return out
 
 

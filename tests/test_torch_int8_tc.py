@@ -3,15 +3,13 @@
 checks.
 
 On the CPU: ``matmul_df.plan`` names the int8 tiles (prefill for M > 16,
-decode for M <= 16) with their CTAs and ring bytes; and the tiles'
-register arithmetic, written out here in numpy as the CUDA source does
-it, is held against the plain versions: B6's fragment decode
-(``pack_common.cuh`` ``decode_frag``) against ``pack.unpack_block``, and
-one warp's 32-deep ``mma.sync`` m16n8k32 chunk (the A fragment loads,
-the dense B's ``ldmatrix.trans`` plus byte permutes on a swizzled tile,
-the packed B's words, the output-column map) against ``a @ b``.  A
-change to the CUDA layouts must be mirrored here; the card test below is
-what holds the kernels themselves.
+decode for M <= 16) with their CTAs and ring bytes; a launch counts the
+tile the kernel reports and raises where the plan differs from it; and
+two pieces of the tiles' arithmetic that a wrong answer could hide, as
+design notes in numpy: B6's fragment decode (``pack_common.cuh``
+``decode_frag``) against ``pack.unpack_block``, and the dense B tile's
+swizzle being a conflict-free permutation.  The card test below is what
+holds the kernels themselves.
 
 On the card (marker ``card``, skipped here): int8 and packed 4/5-bit B1
 on the tiles equals its plain version and every feasible anchor (the
@@ -87,7 +85,88 @@ def test_int8_residencies_keep_the_integer_walk(bits):
 
 
 # ---------------------------------------------------------------------------
-# The tiles' register arithmetic, as csrc/gemm_tc_i8.cuh writes it.
+# The tile a launch took, as the kernel reports it.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", sorted(I8_BASIC), ids=str)
+def test_check_took_accepts_the_planned_tile(case):
+    kind, (m, k, n) = case
+    tile_kernel, _, ctas, smem = I8_BASIC[case]
+    p = matmul_df.plan(OS_BASIC, m, k, n, torch.int8, KIND_BITS[kind])
+    matmul_df.check_took(p, (tile_kernel, smem, ctas))
+
+
+@pytest.mark.parametrize("drift", ["tile", "smem", "ctas", "walk"])
+def test_check_took_raises_when_the_plan_drifts_from_the_kernel(drift):
+    """The planner's copy of the tile shapes disagreeing with what the
+    kernel launched is a fault, not a quiet miscount."""
+    p = matmul_df.plan(OS_BASIC, 4, 6144, 2048, torch.int8, 4)
+    took = {"tile": (_PRE, p.smem_bytes, p.ctas),
+            "smem": (p.tile_kernel, p.smem_bytes + 16, p.ctas),
+            "ctas": (p.tile_kernel, p.smem_bytes, p.ctas * 2),
+            "walk": None}[drift]
+    with pytest.raises(_build.KernelError, match="plan says"):
+        matmul_df.check_took(p, took)
+    walk = matmul_df.plan(common.NINE_SPECS["os_w_stripe"], 4, 6144, 2048,
+                          torch.int8, 4)
+    matmul_df.check_took(walk, None)
+    with pytest.raises(_build.KernelError):
+        matmul_df.check_took(walk, (p.tile_kernel, p.smem_bytes, p.ctas))
+
+
+@pytest.mark.parametrize("code", range(len(_build.TILES) + 1))
+def test_launch_counts_the_tile_the_kernel_reports(monkeypatch, code):
+    """``_build.launch`` counts the tile from the entry point's report
+    (``gemm::Took``), whatever the caller planned."""
+    class Lib:
+        @staticmethod
+        def matmul_os(*args):
+            took, stream = args[-2:]
+            took[0], took[1], took[2] = code, 1000 + code, 7
+            assert args[:-2] == (1, 2, 3) and stream == 0
+            return 0
+
+    monkeypatch.setattr(_build, "library", lambda name: Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
+    got = _build.launch("matmul_os", 1, 2, 3, packed=True)
+    tile = _build.TILES[code - 1] if code else None
+    assert got == (None if tile is None else (tile, 1000 + code, 7))
+    counted = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert counted == {"matmul_os": 1, _build.PACKED_DECODE: 1,
+                       **({tile: 1} if tile else {})}
+
+
+@pytest.mark.parametrize("bits", [4, 5])
+def test_packed_read_bytes_counts_only_filled_delta_rows(bits):
+    """A bound's packed weight bytes: planes, every slot index, and the
+    delta rows of the filled slots (the tiles skip the empty ones)."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(bits)
+    k, n = 1000, 48
+    pw = layers.draw_packed(gen, k, n, bits)
+    cap, kp = pack.outlier_capacity(k), 1024
+    assert pw.outlier_idx.shape[0] == cap > 2
+    planes = kp // 8 + (kp // 32 if bits == 5 else 0)
+    assert common.packed_read_bytes(pw) == 4 * (planes * n + cap + 2 * n)
+    assert common.packed_read_bytes(pw) < pack.packed_bytes(k, n, bits)
+
+
+def test_packed_read_bytes_of_conv_weights():
+    q = torch.zeros((3, 3, 40, 16))
+    q[1, 2, 7] = 1.0          # an outlier row that sets every scale
+    q[0, 0, 0, 3] = -0.3      # and one hit in a single channel
+    pcw = pack.pack_conv_weights(q, 4)
+    r = pcw.outlier_idx.shape[0]
+    filled = int((pcw.outlier_idx < 3 * 3 * 64).sum())
+    assert filled >= 1
+    assert common.packed_read_bytes(pcw) == 4 * (
+        3 * 3 * 64 // 8 * 16 + r + filled * 16)
+
+
+# ---------------------------------------------------------------------------
+# Design notes: two pieces of csrc/gemm_tc_i8.cuh's arithmetic in numpy.
 # ---------------------------------------------------------------------------
 _M32 = 0xFFFFFFFF
 
@@ -159,131 +238,6 @@ def _b_unit(c_units, kk, c):
     else:
         z = ((kk >> 3) & 3) | ((kk & 1) << 2)
     return (kk * c_units + c) ^ z
-
-
-def _mma_s8(a, b):
-    """mma.sync m16n8k32 .s8 with the PTX fragment layouts: a (32 lanes,
-    4 regs), b (32 lanes, 2 regs) of 4 bytes each -> C (16, 8)."""
-    A = np.zeros((16, 32), np.int64)
-    B = np.zeros((32, 8), np.int64)
-    for lane in range(32):
-        g, t = lane >> 2, lane & 3
-        ab = _bytes_of(np.asarray(a[lane], np.uint64).astype(np.uint32))
-        bb = _bytes_of(np.asarray(b[lane], np.uint64).astype(np.uint32))
-        A[g, 4 * t:4 * t + 4] = ab[0]
-        A[g + 8, 4 * t:4 * t + 4] = ab[1]
-        A[g, 16 + 4 * t:20 + 4 * t] = ab[2]
-        A[g + 8, 16 + 4 * t:20 + 4 * t] = ab[3]
-        B[4 * t:4 * t + 4, g] = bb[0]
-        B[16 + 4 * t:20 + 4 * t, g] = bb[1]
-    return A @ B
-
-
-def _reg(byte_row):
-    return int(np.asarray(byte_row, np.int8).view(np.uint32)[0])
-
-
-def _frag_a(a_tile):
-    """``frag_a``: lane (g, t) loads 8 bytes at k 8t.. of rows g, g + 8."""
-    regs = []
-    for lane in range(32):
-        g, t = lane >> 2, lane & 3
-        lo, hi = a_tile[g, 8 * t:8 * t + 8], a_tile[g + 8, 8 * t:8 * t + 8]
-        regs.append([_reg(lo[:4]), _reg(hi[:4]), _reg(lo[4:]),
-                     _reg(hi[4:])])
-    return regs
-
-
-def _dense_frags(b_chunk, tbn, cg):
-    """``frag_b_dense<C>`` on a swizzled tile holding ``b_chunk`` (32 k
-    rows x tbn columns): the even and odd column tiles of unit cg."""
-    c_units = tbn // 16
-    smem = np.zeros(32 * tbn, np.int8)
-    for r in range(32):
-        for u in range(c_units):
-            at = _b_unit(c_units, r, u) * 16
-            smem[at:at + 16] = b_chunk[r, 16 * u:16 * u + 16]
-    # ldmatrix.x4.trans: lane l names row i = l & 7 of matrix j = l >> 3.
-    addr = [[0] * 8 for _ in range(4)]
-    for lane in range(32):
-        j, i = lane >> 3, lane & 7
-        addr[j][i] = _b_unit(c_units, 8 * (i >> 1) + 2 * j + (i & 1), cg) * 16
-    half = smem.view(np.uint8).astype(np.uint32)
-    fe, fo = [], []
-    for lane in range(32):
-        g, t = lane >> 2, lane & 3
-        r = []
-        for j in range(4):                 # rows 2t, 2t + 1; b16 column g
-            lo = addr[j][2 * t] + 2 * g
-            hi = addr[j][2 * t + 1] + 2 * g
-            r.append(int(half[lo] | half[lo + 1] << 8 | half[hi] << 16
-                         | half[hi + 1] << 24))
-        fe.append([int(_byte_perm(r[0], r[1], 0x6420)),
-                   int(_byte_perm(r[2], r[3], 0x6420))])
-        fo.append([int(_byte_perm(r[0], r[1], 0x7531)),
-                   int(_byte_perm(r[2], r[3], 0x7531))])
-    return fe, fo
-
-
-@pytest.mark.parametrize("tbn,ni", [(16, 2), (32, 2), (64, 4), (128, 8)])
-def test_dense_b_warp_chunk_equals_the_product(tbn, ni):
-    """One warp's chunk on a dense int8 B: lane t's physical k 8t..8t+7
-    on both sides, the ldmatrix.trans rows and byte permutes, and the
-    output map ``Frags<0>::col`` give a @ b for the warp's columns."""
-    rng = np.random.default_rng(tbn)
-    a = rng.integers(-127, 128, (16, 32)).astype(np.int8)
-    b = rng.integers(-127, 128, (32, tbn)).astype(np.int8)
-    wc = tbn - ni * 8                      # the tile's last warp
-    want = a.astype(np.int64) @ b.astype(np.int64)
-    af = _frag_a(a)
-    got = np.full((16, tbn), -(2 ** 40), np.int64)
-    for ni_ in range(0, ni, 2):
-        fe, fo = _dense_frags(b, tbn, wc // 16 + ni_ // 2)
-        for tile, frags in ((ni_, fe), (ni_ + 1, fo)):
-            c = _mma_s8(af, frags)
-            for lane in range(32):
-                g, t = lane >> 2, lane & 3
-                for j in range(4):
-                    col = (wc + 16 * (tile >> 1) + 4 * t + 2 * (j & 1)
-                           + (tile & 1))
-                    got[g + (j >> 1) * 8, col] = c[g + (j >> 1) * 8,
-                                                   2 * t + (j & 1)]
-    np.testing.assert_array_equal(got[:, wc:], want[:, wc:])
-
-
-@pytest.mark.parametrize("bits,ni", [(4, 1), (4, 4), (5, 2), (5, 8)])
-def test_packed_b_warp_chunk_equals_the_product(bits, ni):
-    """One warp's chunk on packed planes: lane (g, t) decodes word row t
-    of columns wc + g * NI + ni, and ``Frags<WB>::col`` maps the output;
-    the sum is a @ (the planes' int8 image)."""
-    rng = np.random.default_rng(10 * bits + ni)
-    n = 8 * ni
-    words = rng.integers(0, 2 ** 32, (4, n), dtype=np.uint64)
-    hi = rng.integers(0, 2 ** 32, (1, n), dtype=np.uint64)
-    w = pack.unpack_block(
-        torch.from_numpy(words.astype(np.uint32).view(np.int32)),
-        torch.from_numpy(hi.astype(np.uint32).view(np.int32)), bits,
-        32).numpy()
-    a = rng.integers(-127, 128, (16, 32)).astype(np.int8)
-    want = a.astype(np.int64) @ w.astype(np.int64)
-    af = _frag_a(a)
-    got = np.full((16, n), -(2 ** 40), np.int64)
-    for tile in range(ni):
-        frags = []
-        for lane in range(32):
-            g, t = lane >> 2, lane & 3
-            col = g * ni + tile
-            h8 = int(hi[0, col] >> np.uint64(8 * t)) & 0xFF
-            f = _decode_frag(words[t, col], h8, bits)
-            frags.append([int(f[0]), int(f[1])])
-        c = _mma_s8(af, frags)
-        for lane in range(32):
-            g, t = lane >> 2, lane & 3
-            for j in range(4):
-                col = (2 * t + (j & 1)) * ni + tile
-                got[g + (j >> 1) * 8, col] = c[g + (j >> 1) * 8,
-                                               2 * t + (j & 1)]
-    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("c_units", [1, 2, 4, 8])
