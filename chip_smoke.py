@@ -14,9 +14,10 @@ Phases, each printing JSON lines:
 2. ``build``: every kernel built from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together), with its time; then
    ``cuobjdump -sass`` shows that every bf16 GEMM and flash kernel issues
-   tensor-core instructions (HMMA) and no float32 or int8 one does, and
-   that B1's int8 tile kernels issue integer ones (IMMA) and no other
-   kernel does.
+   tensor-core instructions (HMMA) and no float32 or int8 one does, that
+   B1's int8 tile kernels issue integer ones (IMMA) and no other kernel
+   does, and that B9's binary tile kernels issue binary ones
+   (``BMMA.168256.AND.POPC``) and no other kernel does.
 3. ``kernels``: each kernel held against its plain PyTorch version on the
    card, at the full-width qwen3-1.7b shapes of the serving path, in bf16,
    with the tolerance stated per kernel; then each timed by CUDA events
@@ -32,8 +33,12 @@ Phases, each printing JSON lines:
    runs through the kernel ``matmul_df.plan`` names, matches the plain
    version and equals B1's output bit for bit, or raises ``ValueError``
    naming the shared memory it needs.  B7 is held against the plain
-   version with B2's tolerances.  B9 is held bit for bit at every anchor
-   and epilogue stage at the served binary-MLP shapes; B8 at int8 bit for
+   version with B2's tolerances.  B3 (split across CTAs) at the served
+   decode shape and at a long row (4 x 4096 keys), with and without a
+   window, timed at both.  B9 is held bit for bit at every anchor
+   and epilogue stage at the served binary-MLP shapes, its basic OS on
+   the binary tensor-core tiles (prefill for M > 16, decode for
+   M <= 16), each timed at both projections; B8 at int8 bit for
    bit, and at f32/bf16 within B1's tolerance, on the ResNet-18 layers,
    every anchor equal to OS; each infeasible anchor raises naming its
    bytes.  int8 operands in the GEMM family and packed int4/int5 weights
@@ -77,11 +82,12 @@ Phases, each printing JSON lines:
    the differing tokens counted, not gated.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
-B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9, B2,
-B3; serve_packed: B6, B1 with its int8 prefill and decode tiles, B2, B3;
-dataflows: B1 and its bf16 tiles, B2, B4, B5a, B5b, B7; quantized: B8,
-B9, B1 and its int8 tiles, B6); on serve and serve_packed every B1
-launch is one of its tiles' (prefill plus decode),
+B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
+its prefill and decode tiles, B2, B3; serve_packed: B6, B1 with its int8
+prefill and decode tiles, B2, B3; dataflows: B1 and its bf16 tiles, B2,
+B4, B5a, B5b, B7; quantized: B8, B9 and its prefill tile, B1 and its
+int8 tiles, B6); on serve and serve_packed every B1 launch, and on
+serve_binary every B9 launch, is one of its tiles' (prefill plus decode),
 counted from 0 just before the path runs. The
 last lines are the ``{"kernels": [...]}``
 record, the card line, and ``{"ok": true, "device": {...}}``. Any
@@ -174,20 +180,28 @@ B1_TOL = dict(atol=1e-3, rtol=1e-3, row_rtol=1e-4)
 # Phase 2: which kernels run on the tensor cores.
 # ---------------------------------------------------------------------------
 TC_LIBRARIES = ("matmul_os", "matmul_rmw", "matmul_ws_stripe",
-                "matmul_is_stripe", "flash_attention")
+                "matmul_is_stripe", "flash_attention", "binary_mm")
 
 
 # The int8 tensor-core tiles of B1 (csrc/gemm_tc_i8.cuh), by __global__ name.
 I8_TILE_FUNCTIONS = ("i8_prefill_kernel", "i8_decode_kernel")
+# The binary tensor-core tiles of B9 (csrc/binary_mm.cu), and the SASS
+# instruction of mma.sync m16n8k256 .b1 .and.popc as cuobjdump shows it
+# for sm_90a (any other BMMA form is counted apart).
+B1_TILE_FUNCTIONS = ("bin_prefill_kernel", "bin_decode_kernel")
+B1_MMA_SASS = "BMMA.168256.AND.POPC"
 
 
 def tensor_core_check():
-    """The SASS of the GEMM and flash libraries (``cuobjdump -sass``):
-    every kernel that takes bf16 operands (``__nv_bfloat16`` in its
-    mangled name) issues tensor-core instructions (HMMA), and no float32
-    or int8 kernel does (float32 stays on the CUDA cores, without TF32);
-    every int8 tile kernel of B1 issues integer tensor-core instructions
-    (IMMA), and no other kernel does (the integer walks stay on the CUDA
+    """The SASS of the GEMM, flash and binary libraries (``cuobjdump
+    -sass``): every kernel that takes bf16 operands (``__nv_bfloat16`` in
+    its mangled name) issues tensor-core instructions (HMMA), and no
+    float32 or int8 kernel does (float32 stays on the CUDA cores, without
+    TF32); every int8 tile kernel of B1 issues integer tensor-core
+    instructions (IMMA), and no other kernel does (the integer walks stay
+    on the CUDA cores); every binary tile kernel of B9 issues the binary
+    tensor-core instruction (``B1_MMA_SASS``) and no other BMMA form, and
+    no other kernel issues any BMMA (B9's WS and IS walks stay on the CUDA
     cores)."""
     import re
     import subprocess
@@ -205,16 +219,19 @@ def tensor_core_check():
         sass = subprocess.run(
             [str(tool), "-sass", str(_build.library_path(lib))],
             capture_output=True, text=True, check=True, timeout=600).stdout
-        hmma, imma, fn = {}, {}, None
+        hmma, imma, bmma, bmma_any, fn = {}, {}, {}, {}, None
         for line in sass.splitlines():
             found = re.search(r"Function : (\S+)", line)
             if found:
                 fn = found.group(1)
-                hmma[fn] = imma[fn] = 0
+                hmma[fn] = imma[fn] = bmma[fn] = bmma_any[fn] = 0
             elif fn is not None and "HMMA" in line:
                 hmma[fn] += 1
             elif fn is not None and "IMMA" in line:
                 imma[fn] += 1
+            elif fn is not None and "BMMA" in line:
+                bmma_any[fn] += 1
+                bmma[fn] += B1_MMA_SASS in line
         bf16 = {f: c for f, c in hmma.items() if "__nv_bfloat16" in f}
         other = {f: c for f, c in hmma.items() if f not in bf16}
         tiles = {f: c for f, c in imma.items()
@@ -223,6 +240,12 @@ def tensor_core_check():
         wrong += [f for f, c in other.items() if c > 0]
         wrong += [f for f, c in tiles.items() if c == 0]
         wrong += [f for f, c in imma.items() if c > 0 and f not in tiles]
+        b1_tiles = {f: c for f, c in bmma.items()
+                    if any(t in f for t in B1_TILE_FUNCTIONS)}
+        wrong += [f for f, c in b1_tiles.items()
+                  if c == 0 or c != bmma_any[f]]
+        wrong += [f for f, c in bmma_any.items()
+                  if c > 0 and f not in b1_tiles]
         summary[lib] = {
             "bf16_kernels": len(bf16),
             "bf16_with_hmma": sum(c > 0 for c in bf16.values()),
@@ -234,16 +257,26 @@ def tensor_core_check():
             "other_with_imma": sum(c > 0 for f, c in imma.items()
                                    if f not in tiles),
             "imma_by_int8_tile": {f[:96]: c for f, c in sorted(tiles.items())},
+            "binary_tile_kernels": len(b1_tiles),
+            "binary_tiles_with_b1_mma": sum(c > 0 for c in b1_tiles.values()),
+            "other_with_bmma": sum(c > 0 for f, c in bmma_any.items()
+                                   if f not in b1_tiles),
+            "b1_mma_by_binary_tile": {f[:96]: c
+                                      for f, c in sorted(b1_tiles.items())},
         }
     if not summary["matmul_os"]["int8_tile_kernels"]:
         wrong.append("matmul_os: no int8 tile kernel found")
+    found = summary["binary_mm"]["b1_mma_by_binary_tile"]
+    wrong += [f"binary_mm: no {t} found" for t in B1_TILE_FUNCTIONS
+              if not any(t in f for f in found)]
     emit({"check": "tensor_core_sass", "libraries": summary,
           "ok": not wrong})
     if wrong:
         raise AssertionError(f"kernels on the wrong cores (bf16 without "
                              f"HMMA, float32/int8 with it, an int8 tile "
-                             f"without IMMA or another kernel with it): "
-                             f"{wrong}")
+                             f"without IMMA or another kernel with it, a "
+                             f"binary tile without {B1_MMA_SASS} or "
+                             f"another kernel with it): {wrong}")
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +488,43 @@ def kernel_phase(torch, cfg, timer):
             q, kp, vp, tables, lens)),
         library_ms=None, library_call=None,
         bound_ms=bnd[0], bound_by=bnd[1], tolerance=att_tol)
+    # One long row a row: 4 rows at kv_len 4096 (256 pages, 32 chunks
+    # each), from their own generator so every later check keeps its
+    # inputs; checked with and without a window, timed beside the served
+    # shape.
+    long_gen = torch.Generator(device=dev).manual_seed(2)
+    long_pages = 256
+    n_long = rows * long_pages
+    kpl = randn(hkv, n_long, page, dh, generator=long_gen)
+    vpl = randn(hkv, n_long, page, dh, generator=long_gen)
+    tables_l = torch.randperm(n_long, generator=long_gen, device=dev).reshape(
+        rows, long_pages).to(torch.int32).contiguous()
+    lens_l = torch.full((rows,), 4096, device=dev, dtype=torch.int32)
+    ql = randn(rows, hq, 1, dh, generator=long_gen)
+    long_errs = []
+    for window in (None, 100):
+        long_errs.append(check(
+            "paged_attention",
+            attention_df.paged_flash_attention(ql, kpl, vpl, tables_l, lens_l,
+                                               window=window),
+            ref.paged_attention_ref(ql, kpl, vpl, tables_l, lens_l,
+                                    window=window),
+            shape=f"long R={rows} kv_lens=4096 window={window}", **att_tol))
+    keys_l = int(lens_l.sum())
+    bnd_l = bound(2 * keys_l * hkv * dh * 2 + 2 * rows * hq * dh * 2
+                  + tables_l.numel() * 4, 4.0 * dh * keys_l * hq)
+    long_rec = dict(
+        shape=f"decode R={rows} Hq={hq} Hkv={hkv} D={dh} page={page} "
+              f"kv_lens=4096 x {rows}",
+        max_abs_err=max(long_errs),
+        ms=timer.ms(lambda: attention_df.paged_flash_attention(
+            ql, kpl, vpl, tables_l, lens_l)),
+        plain_ms=timer.ms(lambda: ref.paged_attention_ref(
+            ql, kpl, vpl, tables_l, lens_l)),
+        library_ms=None, bound_ms=bnd_l[0], bound_by=bnd_l[1],
+        tolerance=att_tol)
+    emit({"kernel_timing_detail": "paged_attention", **long_rec})
+    records["paged_attention"]["long_row"] = long_rec
     records.update(gemm_dataflow_checks(torch, cfg, timer, gen, b1_tol))
     # How B1's bf16 k steps round against cuBLAS (reported, not gated).
     from repro_torch.bench import rounding
@@ -692,10 +762,15 @@ def binary_checks(torch, cfg, timer, gen):
     binarized; down: M x d_ff/32 -> d_model, float) at decode M = 4 and
     prefill M = 511, and at a ragged shape: exact integer dots and an
     epilogue rounded stage by stage on both sides, so equal bit for bit,
-    every anchor equal to OS."""
+    every anchor equal to OS.  OS is the basic launch, on the binary
+    tensor-core tiles (decode at M = 4, prefill at M = 511 and the ragged
+    M = 37): each OS launch must count one launch of the tile its plan
+    names.  Then the tiles timed at the served shapes beside the walks,
+    the plain version, ``torch.matmul`` on the unpacked +-1 bf16 operands
+    and their bounds."""
     from repro_torch.bench import common
     from repro_torch.core.dataflow import BinaryEpilogue, DataflowSpec, IS, OS, WS
-    from repro_torch.kernels import binary_mm, ref
+    from repro_torch.kernels import _build, binary_mm, ref
 
     dev = "cuda"
     d, dff = cfg.d_model, cfg.d_ff
@@ -759,9 +834,14 @@ def binary_checks(torch, cfg, timer, gen):
                         dot, binarize=binarize, out_dtype=out_dtype, **kw)
                 base = None
                 for anchor, spec in specs.items():
+                    tile = binary_mm.plan(spec, m, kp, n).tile_kernel
+                    before = _build.LAUNCHES[tile] if tile else None
                     got = binary_mm.binary_mm_df(a, b, k, spec,
                                                  out_dtype=out_dtype,
                                                  epilogue=epi, **kw)
+                    if tile and _build.LAUNCHES[tile] != before + 1:
+                        raise AssertionError(f"binary {anchor} {label} did "
+                                             f"not launch {tile} once")
                     errs.append(_bitwise(
                         f"binary_mm[{anchor}]", got, want,
                         f"{label} Kp={kp} N={n} {stage} -> {got.dtype}"))
@@ -778,50 +858,75 @@ def binary_checks(torch, cfg, timer, gen):
     emit({"check": "binary_mm_all", "bitwise_checks": len(errs),
           "infeasible": len(feasibility)})
 
-    # Timed: the served up projection at prefill M = 511, binarized.
-    m, k, n = 511, d, dff
-    a, b = operands(m, k, n)
-    kp = a.shape[1]
-    scale = torch.full((1, n), k ** -0.5, device=dev)
-    bias = torch.zeros((1, n), device=dev)
-    epi = BinaryEpilogue(scale=True, bias=True, binarize=True)
-    a_pm = ref.unpack_binary(a, axis=1, dtype=torch.bfloat16)
-    b_pm = ref.unpack_binary(b, axis=0, dtype=torch.bfloat16)
-    # The card's fastest rate for a +-1 product is the int8 tensor cores'
-    # (2*M*K*N operations on the unpacked values), against the packed
-    # bytes; the CUDA cores' xor+popc word rate, which this kernel runs
-    # at, is reported beside it.
-    moved = (m * kp + kp * n) * 4 + m * n + 2 * n * 4
-    bnd = common.bound(moved, 2.0 * m * k * n, common.INT8_OPS_PER_S)
-    popc = common.bound(moved, float(m * kp * n), common.POPC_WORDS_PER_S)
-    for anchor in ("ws", "is"):
-        emit({"kernel_timing_detail": "binary_mm",
-              "shape": f"up M={m} Kp={kp} N={n} {anchor}",
-              "ms": timer.ms(lambda: binary_mm.binary_mm_df(
-                  a, b, k, specs[anchor], epilogue=epi, scale=scale,
-                  bias=bias))})
-    a4, b4 = operands(4, dff, d)
-    emit({"kernel_timing_detail": "binary_mm",
-          "shape": f"decode down M=4 Kp={dff // 32} N={d} float",
-          "ms": timer.ms(lambda: binary_mm.binary_mm_df(
-              a4, b4, dff, specs["os"], epilogue=BinaryEpilogue(
-                  scale=True, bias=True), scale=scale[:, :d],
-              bias=bias[:, :d]))})
-    return {"binary_mm": dict(
-        shape=f"served up M={m} Kp={kp} N={n} scale+bias+sign -> int8",
-        max_abs_err=max(errs),
-        ms=timer.ms(lambda: binary_mm.binary_mm_df(
-            a, b, k, specs["os"], epilogue=epi, scale=scale, bias=bias)),
-        plain_ms=timer.ms(lambda: ref.binary_matmul_fused_ref(
-            a, b, k, scale=scale, bias=bias, binarize=True)),
-        library_ms=timer.ms(lambda: torch.matmul(a_pm, b_pm)),
-        library_call="torch.matmul on the unpacked +-1 bf16 operands",
-        bound_ms=bnd[0], bound_by=bnd[1],
-        rate_for_bound="int8 tensor cores, 1979 TOP/s dense, on the "
-                       "unpacked +-1 values",
-        popc_bound_ms=popc[0], popc_bound_by=popc[1],
-        popc_rate="xor+popc word pairs at 16 popc/SM/clock, 132 SMs, "
-                  "1.98 GHz", tolerance="bit for bit")}
+    # Timed: the served up projection at prefill M = 511, binarized (the
+    # prefill tile; binary_mm's row in the kernels line), the down
+    # projection at M = 511 and both at decode M = 4 (the decode tile).
+    def operands_timed(m, k, n):
+        return (ref.pack_binary(torch.randn((m, k), generator=timed,
+                                            device=dev), axis=1),
+                ref.pack_binary(torch.randn((k, n), generator=timed,
+                                            device=dev), axis=0))
+
+    timed = torch.Generator(device=dev).manual_seed(3)
+    max_abs = max(errs)
+
+    def b9_record(label, a, b, k, binarize):
+        """The OS launch (a tile) timed beside its plain version,
+        torch.matmul on the unpacked +-1 bf16 operands and its bound."""
+        m, kp = a.shape
+        n = b.shape[1]
+        scale = torch.full((1, n), k ** -0.5, device=dev)
+        bias = torch.zeros((1, n), device=dev)
+        epi = BinaryEpilogue(scale=True, bias=True, binarize=binarize)
+        a_pm = ref.unpack_binary(a, axis=1, dtype=torch.bfloat16)
+        b_pm = ref.unpack_binary(b, axis=0, dtype=torch.bfloat16)
+        # The card's fastest rate for a +-1 product: the binary tensor
+        # cores' as measured (2*M*K*N operations, K in bits), or the int8
+        # peak on the unpacked values if that is higher, against the
+        # packed bytes; the CUDA cores' xor+popc word rate, which the
+        # walks run at, is reported beside it.
+        moved = (m * kp + kp * n) * 4 + m * n * (1 if binarize else 4) \
+            + 2 * n * 4
+        bnd = common.bound(moved, 2.0 * m * k * n,
+                           max(common.B1_OPS_PER_S, common.INT8_OPS_PER_S))
+        popc = common.bound(moved, float(m * kp * n),
+                            common.POPC_WORDS_PER_S)
+        out = "int8" if binarize else "f32"
+        stage = "scale+bias+sign" if binarize else "scale+bias"
+        return dict(
+            shape=f"{label} M={m} Kp={kp} N={n} {stage} -> {out}",
+            tile=binary_mm.plan(specs["os"], m, kp, n).tile_kernel,
+            max_abs_err=max_abs,
+            ms=timer.ms(lambda: binary_mm.binary_mm_df(
+                a, b, k, specs["os"], epilogue=epi, scale=scale, bias=bias)),
+            plain_ms=timer.ms(lambda: ref.binary_matmul_fused_ref(
+                a, b, k, scale=scale, bias=bias, binarize=binarize)),
+            library_ms=timer.ms(lambda: torch.matmul(a_pm, b_pm)),
+            library_call="torch.matmul on the unpacked +-1 bf16 operands",
+            bound_ms=bnd[0], bound_by=bnd[1],
+            rate_for_bound="binary tensor cores, 10285.5 TOP/s (mma.sync "
+                           "m16n8k256 .b1 .and.popc as bench/binary_sweep.cu "
+                           "measured it; above int8's 1979)",
+            popc_bound_ms=popc[0], popc_bound_by=popc[1],
+            popc_rate="xor+popc word pairs at 16 popc/SM/clock, 132 SMs, "
+                      "1.98 GHz", tolerance="bit for bit",
+            walks_ms={anchor: timer.ms(lambda spec=specs[anchor]:
+                                       binary_mm.binary_mm_df(
+                                           a, b, k, spec, epilogue=epi,
+                                           scale=scale, bias=bias))
+                      for anchor in ("ws", "is")})
+
+    a, b = operands(511, d, dff)      # drawn from gen, as the checks' are
+    up = b9_record("served up", a, b, d, True)
+    down = b9_record("served down", *operands_timed(511, dff, d), dff, False)
+    up4 = b9_record("decode up", *operands_timed(4, d, dff), d, True)
+    # drawn from gen too, in the order the checks have always drawn them,
+    # so every later check keeps its inputs
+    down4 = b9_record("decode down", *operands(4, dff, d), dff, False)
+    for rec in (up, down, up4, down4):
+        emit({"kernel_timing_detail": rec["tile"], **rec})
+    return {"binary_mm": up, "binary_mm_prefill": dict(up, down=down),
+            "binary_mm_decode": dict(up4, down=down4)}
 
 
 def conv_checks(torch, timer, gen, tol):
@@ -1257,8 +1362,9 @@ def dataflows_phase(torch):
 # ---------------------------------------------------------------------------
 # Phase 5: the bench twins of the quantized datapaths.
 # ---------------------------------------------------------------------------
-QUANTIZED_PATH = ("conv2d", "binary_mm", "matmul_os", "unpack_block",
-                  "matmul_os_i8_prefill", "matmul_os_i8_decode")
+QUANTIZED_PATH = ("conv2d", "binary_mm", "binary_mm_prefill", "matmul_os",
+                  "unpack_block", "matmul_os_i8_prefill",
+                  "matmul_os_i8_decode")
 
 
 def quantized_phase(torch):
@@ -1291,14 +1397,21 @@ def _cosine(a, b) -> float:
 
 SERVE_PATH = ("matmul_os", "matmul_os_prefill", "matmul_os_decode",
               "flash_attention", "paged_attention")
-SERVE_BINARY_PATH = ("binary_mm", "flash_attention", "paged_attention")
+SERVE_BINARY_PATH = ("binary_mm", "binary_mm_prefill", "binary_mm_decode",
+                     "flash_attention", "paged_attention")
 SERVE_PACKED_PATH = ("unpack_block", "matmul_os", "matmul_os_i8_prefill",
                      "matmul_os_i8_decode", "flash_attention",
                      "paged_attention")
-# B1's basic OS tiles of each serving path's MLP GEMMs (its only B1
-# launches): every matmul_os launch there takes one of them.
-SERVE_TILES = {"serve": ("matmul_os_prefill", "matmul_os_decode"),
-               "serve_packed": ("matmul_os_i8_prefill", "matmul_os_i8_decode")}
+# The basic OS tiles of each serving path's MLP GEMMs (B1's, or B9's on
+# the binary MLP: their only launches there), by the event that reports
+# them: every launch of the library there takes one of them.
+SERVE_TILES = {"serve": ("b1_tiles", "matmul_os", "matmul_os_prefill",
+                         "matmul_os_decode"),
+               "serve_binary": ("b9_tiles", "binary_mm", "binary_mm_prefill",
+                                "binary_mm_decode"),
+               "serve_packed": ("b1_tiles", "matmul_os",
+                                "matmul_os_i8_prefill",
+                                "matmul_os_i8_decode")}
 
 
 def _mlp_inputs(cfg, params, toks, max_len):
@@ -1455,14 +1568,13 @@ def serve_path(torch, cfg, args, phase, path):
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     if phase in SERVE_TILES:
-        prefill, decode = SERVE_TILES[phase]
-        split = {"matmul_os": launches["matmul_os"],
-                 "prefill_tile": launches[prefill],
+        event, lib, prefill, decode = SERVE_TILES[phase]
+        split = {lib: launches[lib], "prefill_tile": launches[prefill],
                  "decode_tile": launches[decode]}
-        emit({"phase": phase, "event": "b1_tiles", **split,
+        emit({"phase": phase, "event": event, **split,
               "tiles": [prefill, decode]})
-        if split["prefill_tile"] + split["decode_tile"] != split["matmul_os"]:
-            raise AssertionError(f"B1 launches off its tiles: {split}")
+        if split["prefill_tile"] + split["decode_tile"] != split[lib]:
+            raise AssertionError(f"{lib} launches off its tiles: {split}")
 
     # Mixed-length batch == each request served alone.  The packed MLP
     # quantizes its activations per tensor over the whole decode batch
@@ -1508,12 +1620,16 @@ def serve_path(torch, cfg, args, phase, path):
 # Device kernels of the serving paths, by the name of their __global__
 # function (B1's bf16 basic OS is gemm_tc.cuh's two tiles; its int8 and
 # packed basic OS is gemm_tc_i8.cuh's two; every other B1 launch is
-# gemm_common.cuh's walk_kernel; B2's bf16 kernel is flash_tc_kernel).
+# gemm_common.cuh's walk_kernel; B9's basic OS is binary_mm.cu's two
+# tiles, its WS/IS walks binary_kernel; B2's bf16 kernel is
+# flash_tc_kernel; B3's chunks and their merge are one paged_kernel).
 KERNEL_FUNCTIONS = {"tc_prefill_kernel": "matmul_os_prefill",
                     "tc_decode_kernel": "matmul_os_decode",
                     "i8_prefill_kernel": "matmul_os_i8_prefill",
                     "i8_decode_kernel": "matmul_os_i8_decode",
                     "walk_kernel": "matmul_os",
+                    "bin_prefill_kernel": "binary_mm_prefill",
+                    "bin_decode_kernel": "binary_mm_decode",
                     "binary_kernel": "binary_mm",
                     "flash_tc_kernel": "flash_attention",
                     "paged_kernel": "paged_attention"}
@@ -1710,7 +1826,8 @@ def main(argv=None) -> int:
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms"), "shape": rec.get("shape"),
-            **({"float32": rec["float32"]} if "float32" in rec else {}),
+            **{k: rec[k] for k in ("float32", "long_row", "down", "tile")
+               if k in rec},
         })
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.monotonic() - t_start})

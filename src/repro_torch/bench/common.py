@@ -30,6 +30,12 @@ INT8_OPS_PER_S = 1979e12
 # compute capability 9.0) on 132 SMs at 1.98 GHz, the clock the data
 # sheet's 67 TFLOP/s float32 (128 FMA lanes per SM) implies.
 POPC_WORDS_PER_S = 132 * 16 * 1.98e9
+# The binary tensor cores (mma.sync m16n8k256 .b1 .and.popc, B9's tiles),
+# 2 M N K operations a product with K in bits: the data sheet gives no
+# rate, so this is bench/binary_sweep.cu's reading on an NVIDIA H100 80GB
+# HBM3 at 700 W (8x its m16n8k32 .s8 reading, 1 284.9 TOP/s). A measured
+# rate is at most the peak, so a bound taken from it may be loose.
+B1_OPS_PER_S = 10285.5e12
 
 # The paper's conv layer grid (Sec. V), as the reference's benches take it
 # (benchmarks/common.py): (input hw, filter hw, stride, n_filters), cin 128.

@@ -20,8 +20,10 @@ kernels (``csrc/pack_common.cuh``): a launch of one of them on packed
 planes also counts one under ``LAUNCHES["unpack_block"]``.  A bf16 basic
 OS launch of B1 takes one of its two tensor-core tiles
 (``csrc/gemm_tc.cuh``), an int8 or packed one one of its two integer
-tensor-core tiles (``csrc/gemm_tc_i8.cuh``); the entry point reports the
-tile it took, which also counts one under its name (``TILES``).
+tensor-core tiles (``csrc/gemm_tc_i8.cuh``), and B9's basic OS launch one
+of its two binary tensor-core tiles (``csrc/binary_mm.cu``); the entry
+point reports the tile it took, which also counts one under its name
+(``TILES``, ``BINARY_TILES``).
 """
 from __future__ import annotations
 
@@ -71,12 +73,11 @@ SIGNATURES = {
                         _I, _I, _F, _P),
     "kv_stationary": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                       _I, _I, _I, _F, _P),
-    "paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _F, _I, _P),
+    "paged_attention": (_P,) * 9 + (_I,) * 9 + (_F, _I, _P),
     "conv2d": (_P, _P, _P) + (_I,) * 10 + (_P, _I, _P, _I, _P, _I, _P, _P,
                                            _P, _I, _I, _P),
     "binary_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I,
-                  _P),
+                  _P, _P),
 }
 
 # B6 decodes packed planes inside these libraries' kernels.
@@ -86,11 +87,19 @@ PACKED_DECODE = "unpack_block"
 # the walk (csrc/gemm_common.cuh TileCode).
 TILES = ("matmul_os_prefill", "matmul_os_decode", "matmul_os_i8_prefill",
          "matmul_os_i8_decode")
-# What the last matmul_os launch took (csrc/gemm_common.cuh Took): the tile
-# code, its dynamic shared memory bytes and its CTAs.
+# B9's basic OS tiles on the binary tensor cores (csrc/binary_mm.cu
+# TileCode), the same way.
+BINARY_TILES = ("binary_mm_prefill", "binary_mm_decode")
+# The libraries whose entry point reports the tile a launch took, with the
+# tiles by code.
+TILE_LIBRARIES = {"matmul_os": TILES, "binary_mm": BINARY_TILES}
+# What the last such launch took (csrc/gemm_common.cuh gemm::Took,
+# csrc/binary_mm.cu bin::Took): the tile code, its shared memory bytes and
+# its CTAs.
 _TOOK = (ctypes.c_int * 3)()
 LAUNCHES: Dict[str, int] = {name: 0 for name in
-                            (*SIGNATURES, PACKED_DECODE, *TILES)}
+                            (*SIGNATURES, PACKED_DECODE, *TILES,
+                             *BINARY_TILES)}
 # ptxas resource report of each build of this process, by kernel.
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -215,12 +224,13 @@ def launch(name: str, *args, packed: bool = False
            ) -> Optional[Tuple[str, int, int]]:
     """Call kernel ``name``'s entry point on the current CUDA stream,
     count the launch (and, when it decodes ``packed`` planes, B6's) and
-    raise if it was refused.  A ``matmul_os`` launch that took one of B1's
-    tiles counts that tile too and returns (tile, shared memory bytes,
-    CTAs) as the kernel reported them; every other launch returns None."""
+    raise if it was refused.  A launch of a ``TILE_LIBRARIES`` entry that
+    took one of its tiles (B1's, B9's) counts that tile too and returns
+    (tile, shared memory bytes, CTAs) as the kernel reported them; every
+    other launch returns None."""
     lib = library(name)
     stream = torch.cuda.current_stream().cuda_stream
-    took = (_TOOK,) if name == "matmul_os" else ()
+    took = (_TOOK,) if name in TILE_LIBRARIES else ()
     rc = getattr(lib, name)(*args, *took, stream)
     if rc != 0:
         raise KernelError(
@@ -231,7 +241,7 @@ def launch(name: str, *args, packed: bool = False
         LAUNCHES[PACKED_DECODE] += 1
     if not took or not _TOOK[0]:
         return None
-    tile = TILES[_TOOK[0] - 1]
+    tile = TILE_LIBRARIES[name][_TOOK[0] - 1]
     LAUNCHES[tile] += 1
     return tile, _TOOK[1], _TOOK[2]
 

@@ -14,7 +14,13 @@ Ports of ``repro/kernels/attention_df.py``:
   tiles, 32-key tiles): ``FLASH_BLOCKS``.
 * ``paged_flash_attention`` (``csrc/paged_attention.cu``) replaces
   ``_paged_kernel``: decode attention (Sq == 1) off a page pool through
-  an ``(R, max_pages)`` block table, one CTA per (row, kv head).
+  an ``(R, max_pages)`` block table.  Each row's visited pages are cut
+  into chunks (``paged_chunks``: ``PAGED_CHUNK_TILES`` tiles of 32 / page
+  pages, counted from the window's first page, a function of the row's
+  own kv_len, window and page size alone), one CTA per (chunk, kv head,
+  row), its tiles streamed through a ``cp.async`` ring; the chunks'
+  partial (m, l, acc) meet in a workspace the wrapper sizes from the
+  shapes, merged in chunk order by the row's last CTA.
 * ``kv_stationary_attention`` (``csrc/kv_stationary.cu``) replaces
   ``_kv_stationary_kernel`` / ``_kv_single_kernel``: the WS anchor, one
   CTA per (batch*head) walking the KV blocks outer (each fetched once)
@@ -29,7 +35,7 @@ themselves, so nothing is padded.  int8 K/V is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,6 +51,8 @@ FLASH_BLOCK = FLASH_BLOCKS[torch.bfloat16]
 KV_BLOCK = (16, 32)                # (bq, bkv) of csrc/kv_stationary.cu
 MAX_PAGE = 32                      # csrc/paged_attention.cu: keys per page
 MAX_GROUP = 8                      # csrc/paged_attention.cu: q heads per kv head
+PAGED_TILE_KEYS = 32               # csrc/paged_attention.cu: keys a tile, at most
+PAGED_CHUNK_TILES = 4              # csrc/paged_attention.cu: tiles a chunk
 
 FLASH = register_kernel(KernelRegistration(
     name="flash_attention",
@@ -157,6 +165,50 @@ def kv_stationary_attention(
     return out
 
 
+def paged_chunk_pages(page: int) -> int:
+    """Pages of one of B3's chunks: ``PAGED_CHUNK_TILES`` tiles of
+    32 // page pages (one page when a page holds 32 keys or more)."""
+    return PAGED_CHUNK_TILES * max(1, PAGED_TILE_KEYS // page)
+
+
+def paged_max_chunks(page: int, max_pages: int) -> int:
+    """Chunks of the longest row a (R, max_pages) table can hold: the
+    kernel's grid and the workspace's depth."""
+    return -(-max_pages // paged_chunk_pages(page))
+
+
+def paged_chunks(kv_len: int, page: int, max_pages: int,
+                 window: Optional[int] = None):
+    """The (first, last) logical pages of each of B3's chunks of one row:
+    its visited pages lo..hi (``repro/kernels/attention_df.py:602-608``,
+    hi also capped by the table) cut from lo into runs of
+    ``paged_chunk_pages(page)``.  A function of the row alone; a row of
+    kv_len 0 has none."""
+    hi = min(-(-kv_len // page), max_pages) - 1
+    if hi < 0:
+        return []
+    lo = 0 if not window else min(max(0, (kv_len - window) // page), hi)
+    cp = paged_chunk_pages(page)
+    return [(c, min(hi, c + cp - 1)) for c in range(lo, hi + 1, cp)]
+
+
+# The zeroed arrival counters of B3's chunks, one per (row, kv head), by
+# (device, stream): each launch leaves them zero again (the last CTA of a
+# row wraps the row's counter to zero as it arrives), so they are zeroed
+# once, when first needed or grown. Launches that share a buffer run in
+# order on its stream; a launch on another stream gets a buffer of its own.
+_PAGED_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _paged_counters(device: torch.device, stream: int,
+                    count: int) -> torch.Tensor:
+    held = _PAGED_COUNTERS.get((device, stream))
+    if held is None or held.numel() < count:
+        held = torch.zeros(max(count, 64), dtype=torch.int32, device=device)
+        _PAGED_COUNTERS[(device, stream)] = held
+    return held
+
+
 def paged_flash_attention(
     q: torch.Tensor,                 # (B, Hq, 1, D)
     k_pages: torch.Tensor,           # (Hkv, P, page, D)
@@ -197,10 +249,20 @@ def paged_flash_attention(
     _build.require_cuda(q, k_pages, v_pages, tables, lens)
     _build.require_aligned(q, k_pages, v_pages)
     out = torch.empty_like(q)
+    max_pages = tables.shape[1]
+    chunks = paged_max_chunks(page, max_pages)
+    ws_acc = torch.empty((b * hq, chunks, d), dtype=torch.float32,
+                         device=q.device)
+    ws_ml = torch.empty((b * hq, chunks, 2), dtype=torch.float32,
+                        device=q.device)
+    counters = _paged_counters(
+        q.device, torch.cuda.current_stream(q.device).cuda_stream, b * hkv)
     _build.launch(
         "paged_attention", _build.ptr(q), _build.ptr(k_pages),
         _build.ptr(v_pages), _build.ptr(tables), _build.ptr(lens),
-        _build.ptr(out), _build.dtype_code(q), d, b, hq, hkv, n_pages, page,
-        tables.shape[1], float(scale if scale is not None else d ** -0.5),
+        _build.ptr(out), _build.ptr(ws_acc), _build.ptr(ws_ml),
+        _build.ptr(counters), _build.dtype_code(q), d, b, hq, hkv, n_pages,
+        page, max_pages, chunks,
+        float(scale if scale is not None else d ** -0.5),
         0 if window is None else int(window))
     return out

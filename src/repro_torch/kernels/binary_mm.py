@@ -13,12 +13,22 @@ Words are int32 tensors holding the JAX package's uint32 words bit for
 bit (``numpy_array.view(np.int32)``).  Zero words past Kp drop out of the
 popcount, so the kernel masks ragged M, N and Kp instead of padding.
 
-``plan`` names the walk of each anchor (OS: a CTA per 64x64 output tile;
-WS: a CTA per column stripe, holding B's (Kp, 64) stripe, walks the rows;
-IS: a CTA per row stripe, holding A's (64, Kp) stripe, walks the
-columns) and raises ``ValueError`` naming the bytes where a stripe does
-not fit a block's 227 KB.  The reference's kernel reads only the anchor
-of a spec, and so does this one.  Every anchor gives the same bits.
+``plan`` names the walk of each anchor and raises ``ValueError`` naming
+the bytes where a stripe does not fit a block's 227 KB.  The basic OS
+launch (serving's) runs on Hopper's binary tensor cores (``mma.sync``
+m16n8k256 ``.b1 .and.popc``, the xor count recovered as popc(a) +
+popc(b) - 2 popc(a & b)): for M > 16 the prefill tile (a CTA per 64x64
+output tile, a 3-stage ``cp.async`` ring of 32-word k stages), for
+M <= 16 the decode tile (a CTA per 16 columns, its 8 warps splitting
+the k steps); ``plan`` names the tile (``tile_kernel``), and each launch
+reports the tile it took, counted under its own name beside
+``binary_mm`` and held against the plan (``matmul_df.check_took``).  WS
+(a CTA per column stripe, holding B's (Kp, 64) stripe, walks the rows)
+and IS (a CTA per row stripe, holding A's (64, Kp) stripe, walks the
+columns) keep their xor + popc walk on the CUDA cores.  The reference's
+kernel reads only the anchor of a spec, and so does this one.  Integer
+counts are exact in any order, so every anchor and both tiles give the
+same bits.
 
 For CPU tensors the wrapper computes the kernel's plain version,
 ``ref.binary_matmul_fused_ref``; for CUDA tensors it launches the kernel
@@ -41,13 +51,36 @@ BLOCK = (64, 16, 64)               # (bm, bkp words, bn) of csrc/binary_mm.cu
 _LD = BLOCK[0] + 4                 # words per padded tile row
 TILE_BYTES = BLOCK[1] * _LD * 4    # one streamed word tile
 WALKS = {OS: 0, WS: 1, IS: 2}
+# The basic OS launch's tiles (csrc/binary_mm.cu; the CUDA configurations
+# are the source, each launch's report is held against this copy): the
+# prefill tile's (bm, words a ring stage, bn), stages and (row, column)
+# warps, its A rows padded by 4 words and B rows by 8; the decode tile's
+# (rows, words a k step, columns), for M <= DECODE_M, with its warps' int32
+# partials in shared memory.
+PREFILL_TILE, PREFILL_STAGES, PREFILL_WARPS = (64, 32, 64), 3, (4, 2)
+DECODE_TILE, DECODE_WARPS = (16, 8, 16), 8
+DECODE_M = DECODE_TILE[0]
+PREFILL_SMEM = PREFILL_STAGES * (
+    PREFILL_TILE[0] * (PREFILL_TILE[1] + 4)
+    + PREFILL_TILE[1] * (PREFILL_TILE[2] + 8)) * 4
+DECODE_SMEM = DECODE_WARPS * DECODE_TILE[0] * DECODE_TILE[2] * 4
 
+_SRC = "src/repro_torch/kernels/csrc/binary_mm.cu"
+_REPLACES = "src/repro/kernels/binary_mm.py:238"
 REGISTRATION = register_kernel(KernelRegistration(
-    name="binary_mm", source="src/repro_torch/kernels/csrc/binary_mm.cu",
-    replaces="src/repro/kernels/binary_mm.py:238",
+    name="binary_mm", source=_SRC, replaces=_REPLACES,
     spec=DataflowSpec.basic(OS, block=BLOCK),
 ))
 BASIC_OS = DataflowSpec.basic(OS, block=BLOCK)
+# The basic OS tiles, counted under their own names beside binary_mm.
+PREFILL = register_kernel(KernelRegistration(
+    name="binary_mm_prefill", source=_SRC, replaces=_REPLACES,
+    spec=DataflowSpec.basic(OS, block=PREFILL_TILE),
+))
+DECODE = register_kernel(KernelRegistration(
+    name="binary_mm_decode", source=_SRC, replaces=_REPLACES,
+    spec=DataflowSpec.basic(OS, block=DECODE_TILE),
+))
 
 # Output types the kernel writes: the raw dot, +-1, or the float image.
 RAW_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
@@ -61,7 +94,8 @@ def _cdiv(a: int, b: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def plan(spec: DataflowSpec, m: int, kp: int, n: int) -> Plan:
-    """The walk and resident stripe of ``spec``'s anchor at (m, kp, n)
+    """The tile (basic OS: prefill for m > DECODE_M, else decode) or the
+    walk and resident stripe (WS, IS) of ``spec``'s anchor at (m, kp, n)
     (``repro/kernels/binary_mm.py:binary_mm_df``'s grid orders).  Raises
     ``ValueError`` for a block other than the compiled one, or when the
     resident stripe and a streamed tile need more shared memory than a
@@ -74,9 +108,20 @@ def plan(spec: DataflowSpec, m: int, kp: int, n: int) -> Plan:
     stripe = _cdiv(kp, bkp) * bkp * _LD * 4
     resident: Dict[str, int] = {}
     if spec.anchor == OS:
-        order, walk, ctas = "(gm, gn, gk)", "CTA per output tile", gm * gn
-        smem = 2 * TILE_BYTES
-    elif spec.anchor == WS:
+        if m <= DECODE_M:
+            tile_kernel, tile, smem = DECODE.name, DECODE_TILE, DECODE_SMEM
+            ctas = _cdiv(n, tile[2])
+            walk = (f"CTA per {tile[2]} columns on the binary tensor cores, "
+                    f"{DECODE_WARPS} warps splitting the k steps")
+        else:
+            tile_kernel, tile, smem = PREFILL.name, PREFILL_TILE, PREFILL_SMEM
+            ctas = _cdiv(m, tile[0]) * _cdiv(n, tile[2])
+            walk = (f"CTA per {tile[0]}x{tile[2]} output tile on the binary "
+                    f"tensor cores, {PREFILL_STAGES}-stage cp.async ring")
+        return Plan(kernel="binary_mm", grid_order="(gm, gn, gk)", walk=walk,
+                    ctas=ctas, resident=resident, smem_bytes=smem,
+                    args=(WALKS[OS],), tile=tile, tile_kernel=tile_kernel)
+    if spec.anchor == WS:
         resident[f"B column stripe ({kp}, {bn}) words"] = stripe
         order, walk, ctas = "(gn, gm, gk)", \
             "CTA per column stripe j, sweeps i", gn
@@ -164,9 +209,10 @@ def binary_mm_df(
     a, b = a.contiguous(), b.contiguous()
     _build.require_cuda(a, b, scale, bias, residual)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    _build.launch(
+    took = _build.launch(
         p.kernel, _build.ptr(a), _build.ptr(b), _build.ptr(out), m, n, kp,
         n_bits, _build.dtype_code(out), _build.ptr(scale),
         matmul_df.scale_mode(scale), _build.ptr(bias), _build.ptr(residual),
         int(epi is not None and epi.binarize), *p.args)
+    matmul_df.check_took(p, took)
     return out

@@ -1,6 +1,7 @@
-// The online-softmax step shared by the flash (B2) and paged decode (B3)
-// attention kernels: one warp folds one KV tile of at most 32 keys (key j on
-// lane j) into one query row's running (m, l, acc) state.
+// The online-softmax step shared by the flash (B2, float32) and
+// KV-stationary (B7) attention kernels: one warp folds one KV tile of at
+// most 32 keys (key j on lane j) into one query row's running (m, l, acc)
+// state. (B3 folds with all of a CTA's warps, in paged_attention.cu.)
 #pragma once
 
 #include "common.cuh"

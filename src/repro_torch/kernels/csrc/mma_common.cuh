@@ -1,7 +1,8 @@
 // Hopper tensor-core building blocks shared by the bf16 GEMM tiles
-// (gemm_common.cuh, gemm_tc.cuh), the int8 GEMM tiles (gemm_tc_i8.cuh) and
-// the bf16 flash attention (flash_attention.cu): the warp-level mma.sync
-// m16n8k16 product with f32 accumulators and m16n8k32 with s32 ones,
+// (gemm_common.cuh, gemm_tc.cuh), the int8 GEMM tiles (gemm_tc_i8.cuh), the
+// binary GEMM tiles (binary_mm.cu) and the bf16 flash attention
+// (flash_attention.cu): the warp-level mma.sync m16n8k16 product with f32
+// accumulators, m16n8k32 and m16n8k256 (b1) with s32 ones,
 // ldmatrix fragment loads from shared memory, and cp.async copies from
 // device memory into shared memory.
 //
@@ -63,6 +64,29 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
                                        const uint32_t b[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += popc(A(16x256) AND B(256x8)), b1 operands (32 to a register),
+// s32 accumulators: the binary GEMM tiles (binary_mm.cu). Fragment layout of
+// m16n8k256 .b1 (lane = 4 * g + t; PTX ISA, "Matrix Fragments for mma.m16n8k256"):
+//   A (16 x 256, row-major): a[0] = (row g, k 32t..32t+31), a[1] = (g + 8, ..),
+//     a[2] = (g, 128 + 32t..), a[3] = (g + 8, 128 + 32t..): with 8 packed
+//     words a row per 256-deep step, a[0] is word t of row g and a[2] word
+//     4 + t, which is what ldmatrix.x4 gives from a row-major word tile.
+//   B (256 x 8, k x n): b[0] = (k 32t.., col g), b[1] = (k 128 + 32t.., g):
+//     words t and 4 + t of column g.
+//   C (16 x 8, s32): as the bf16 product's.
+// The AND form is the one sm_90a has in hardware (BMMA.168256.AND.POPC;
+// ptxas lowers .xor.popc to it, slower: binary_mm.cu). Integer counts are
+// exact, so popc(a ^ b) = popc(a) + popc(b) - 2 popc(a & b) gives the XOR
+// count's bits.
+__device__ __forceinline__ void mma_b1_and(int c[4], const uint32_t a[4],
+                                           const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

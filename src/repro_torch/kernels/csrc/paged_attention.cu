@@ -2,101 +2,303 @@
 //
 // Replaces the TPU kernel repro/kernels/attention_df.py `_paged_kernel`
 // (built by `paged_flash_attention`), where the block table rode the
-// scalar-prefetch index map. Here one CTA owns one (sequence row, kv head)
-// and runs one warp per query head of the GQA group, so each K/V page is
-// read from device memory once for the whole group. The CTA reads the row's
-// valid length from `kv_lens` and walks its logical pages lo..hi (hi: the
-// last valid page; lo: the first page the sliding window reaches, as at
-// attention_df.py:602-608), reading each physical page id from the row's
-// block table in device memory. A row with kv_len == 0 visits no page and
-// writes zeros; a page id outside the pool is treated as fully masked.
+// scalar-prefetch index map. Each row reads its valid length from `kv_lens`
+// and visits its logical pages lo..hi (hi: the last valid page; lo: the
+// first page the sliding window reaches, as at attention_df.py:602-608),
+// reading each physical page id from the row's block table in device
+// memory. A row with kv_len == 0 visits no page and writes zeros; a page id
+// outside the pool is treated as fully masked.
 //
 // Bound on H100: bytes (every visited K/V page is read once; the arithmetic
-// is 4*D flops per key). All 8 warps load each page as 16-byte vectors, in
-// flight together; one page per iteration and no prefetch of the next, so a
-// long row is still latency-bound.
-#include "attention_common.cuh"
+// is 4*D flops per key), but at decode's few rows the latency of one walk
+// over a row's pages sets the time. So the walk is split:
+//   - A row's pages lo..hi are cut into chunks of CHUNK_TILES tiles, a tile
+//     being 32 / page pages (32 keys at page 16), counted from lo. The cut
+//     depends on nothing but the row's own kv_len, window and page size, so
+//     a row gets the same bits in any batch. One CTA per (chunk, kv head,
+//     row): 4 x 8 x 5 CTAs for the 527-key row at qwen3-1.7b's 8 kv heads.
+//   - A CTA streams its chunk's tiles through a STAGES-deep cp.async ring in
+//     shared memory, the next tiles' K and V in flight while one folds; the
+//     chunk's page ids are read once, up front.
+//   - All 8 warps fold: each (q head of the GQA group, part of D) has a warp
+//     whose lanes take the tile's 32 keys, so a score is a few partial dots
+//     summed in shared memory; one warp per q head runs the online softmax
+//     over the tile (key j on lane j); then every thread folds P V into the
+//     outputs it owns, 32 keys a tile, with no shuffles.
+//   - Each chunk of a row with more than one writes its partial (m, l, acc)
+//     to a workspace the wrapper sizes from the shapes; the last CTA of the
+//     (row, kv head) to finish merges the partials in chunk order. It is
+//     found by an atomicInc that wraps the row's counter back to zero as it
+//     arrives, so every launch leaves the counters zero for the next one on
+//     its stream (the wrapper keeps one buffer per device and stream). A row of one chunk writes
+//     its output straight away.
+// The fold is this kernel's own (B2's f32 fold in attention_common.cuh
+// keeps its roundings).
+#include "mma_common.cuh"
 
 namespace {
 
-constexpr int MAX_PAGE = 32;   // keys per page: one per lane
-constexpr int MAX_GROUP = 8;   // q heads per kv head: one warp each
-constexpr int THREADS = MAX_GROUP * 32;  // every warp loads; `group` compute
+constexpr int MAX_PAGE = 32;   // keys per page
+constexpr int MAX_GROUP = 8;   // q heads per kv head
+constexpr int THREADS = 256;   // 8 warps
+constexpr int TILE_KEYS = 32;  // keys a tile holds at most: one per lane
+constexpr int CHUNK_TILES = 4; // tiles a chunk (attention_df.py keeps a copy)
+constexpr int STAGES = 3;      // ring depth, in tiles
+constexpr int MAX_CHUNK_PAGES = CHUNK_TILES * TILE_KEYS;  // page == 1
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+// Pages a tile, and a chunk, at `page` keys a page.
+__host__ __device__ constexpr int tile_pages(int page) {
+  return page >= TILE_KEYS ? 1 : TILE_KEYS / page;
+}
+__host__ __device__ constexpr int chunk_pages(int page) {
+  return CHUNK_TILES * tile_pages(page);
+}
+
+// Shared memory of one CTA, in bytes: the ring of K and V tiles (rows padded
+// by 16 bytes, an odd number of 16-byte units, so the lanes' vector loads of
+// 32 keys hit distinct banks), q, the score partials, the probabilities,
+// alpha and (m, l) per q head, and the chunk's page ids.
+template <typename T, int D>
+struct Smem {
+  static constexpr int V = 16 / sizeof(T);  // elements of a 16-byte vector
+  static constexpr int LD = D + V;          // elements of a padded key row
+  static constexpr int TILE = TILE_KEYS * LD;
+  static constexpr size_t RING = (size_t)STAGES * 2 * TILE * sizeof(T);
+  static constexpr size_t FLOATS =
+      MAX_GROUP * D + 8 * TILE_KEYS + MAX_GROUP * TILE_KEYS + 3 * MAX_GROUP;
+  static constexpr size_t BYTES = RING + FLOATS * 4 + MAX_CHUNK_PAGES * 4;
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
              const T* __restrict__ v_pages, const int* __restrict__ tables,
-             const int* __restrict__ kv_lens, T* __restrict__ o, int hq,
-             int group, int n_pages, int page, int max_pages, int window,
+             const int* __restrict__ kv_lens, T* __restrict__ o,
+             float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+             int* __restrict__ counters, int hq, int group, int n_pages,
+             int page, int max_pages, int max_chunks, int window,
              float scale) {
-  __shared__ float qs[MAX_GROUP][D];
-  __shared__ float ks[MAX_PAGE][D + 1];
-  __shared__ float vs[MAX_PAGE][D];
-  const int kvh = blockIdx.x, row = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kv_valid = kv_lens[row];
-  const size_t pool = (size_t)kvh * n_pages * page * D;
-  const size_t q_row = (size_t)row * hq + (size_t)kvh * group;
+  using S = Smem<T, D>;
+  constexpr int V = S::V, LD = S::LD;
+  constexpr int OUTS = MAX_GROUP * D / THREADS;  // outputs a thread owns
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  float* qs = reinterpret_cast<float*>(smem + S::RING);  // [MAX_GROUP][D]
+  float* sp = qs + MAX_GROUP * D;         // [8 warps][32 keys] partial dots
+  float* ps = sp + 8 * TILE_KEYS;         // [MAX_GROUP][32] probabilities
+  float* alpha_s = ps + MAX_GROUP * TILE_KEYS;  // [MAX_GROUP]
+  float* ml_s = alpha_s + MAX_GROUP;      // [MAX_GROUP][2]: m, l
+  int* ids = reinterpret_cast<int*>(ml_s + 2 * MAX_GROUP);
+  __shared__ int is_last;
 
-  load_tiles<T, MAX_GROUP, D, D, D, THREADS>(&qs[0][0], q + q_row * D,
-                                             nullptr, nullptr, D, group);
-
-  const int hi = min((kv_valid + page - 1) / page, max_pages) - 1;
+  const int chunk = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kv = kv_lens[row];
+  const int hi = min(cdiv(kv, page), max_pages) - 1;
   int lo = 0;
-  if (window > 0 && hi >= 0) lo = min(max(0, (kv_valid - window) / page), hi);
-  const int* table = tables + (size_t)row * max_pages;
+  if (window > 0 && hi >= 0) lo = min(max(0, (kv - window) / page), hi);
+  const int pt = tile_pages(page), tk = pt * page, cp = chunk_pages(page);
+  const int n_chunks = hi < 0 ? 0 : cdiv(hi - lo + 1, cp);
+  const size_t q_row = (size_t)row * hq + (size_t)kvh * group;
+  T* out = o + q_row * D;
+  const int outs = group * D;
+  if (n_chunks == 0) {  // kv_len 0: chunk 0 writes zeros
+    if (chunk == 0)
+      for (int i = tid; i < outs; i += THREADS) store_f32(out + i, 0.f);
+    return;
+  }
+  if (chunk >= n_chunks) return;
 
-  RowState<D> st;
-  st.init();
-  for (int blk = lo; blk <= hi; ++blk) {
-    const int pid = table[blk];
-    const bool pid_ok = pid >= 0 && pid < n_pages;
-    __syncthreads();  // the previous page is consumed (and qs is loaded)
-    const size_t base = pool + (size_t)(pid_ok ? pid : 0) * page * D;
-    load_tiles<T, MAX_PAGE, D, D + 1, D, THREADS>(
-        &ks[0][0], k_pages + base, &vs[0][0], v_pages + base, D,
-        pid_ok ? page : 0);
+  const int c_lo = lo + chunk * cp, n_pg = min(hi, c_lo + cp - 1) - c_lo + 1;
+  const int n_tiles = cdiv(n_pg, pt);
+  const int* table = tables + (size_t)row * max_pages + c_lo;
+  for (int i = tid; i < n_pg; i += THREADS) {
+    const int pid = table[i];
+    ids[i] = pid >= 0 && pid < n_pages ? pid : -1;
+  }
+  load_tiles<T, MAX_GROUP, D, D, D, THREADS>(qs, q + q_row * D, nullptr,
+                                             nullptr, D, group);
+  __syncthreads();
+
+  const size_t pool = (size_t)kvh * n_pages * page * D;
+  auto load = [&](int ti) {  // tile ti's K and V rows into its ring slot
+    T* kt = ring + (ti % STAGES) * 2 * S::TILE;
+    T* vt = kt + S::TILE;
+    constexpr int VPR = D / V;
+    for (int i = tid; i < tk * VPR; i += THREADS) {
+      const int j = i / VPR, c = (i % VPR) * V, pi = ti * pt + j / page;
+      const int pid = pi < n_pg ? ids[pi] : -1;
+      const size_t src = pool + ((size_t)max(pid, 0) * page + j % page) * D + c;
+      tc::cp_async16(kt + j * LD + c, k_pages + src, pid >= 0);
+      tc::cp_async16(vt + j * LD + c, v_pages + src, pid >= 0);
+    }
+  };
+
+  // Scores: warp w < group * tpp takes q head w / tpp and every tpp-th
+  // 16-byte vector of D from w % tpp; its lane j takes key j.
+  const int tpp = group == 1 ? 8 : group == 2 ? 4 : group <= 4 ? 2 : 1;
+  float m_run = REPRO_NEG_INF, l_run = 0.f;  // warp h < group: q head h
+  float acc[OUTS];
+#pragma unroll
+  for (int i = 0; i < OUTS; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load(s);
+    tc::cp_async_commit();
+  }
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    tc::cp_async_wait<STAGES - 2>();  // tile ti has landed
+    __syncthreads();                  // and tile ti - 1's slot is consumed
+    if (ti + STAGES - 1 < n_tiles) load(ti + STAGES - 1);
+    tc::cp_async_commit();
+    const T* kt = ring + (ti % STAGES) * 2 * S::TILE;
+    const T* vt = kt + S::TILE;
+
+    if (warp < group * tpp && lane < tk) {
+      const float* qh = qs + (warp / tpp) * D;
+      const T* kr = kt + lane * LD;
+      float dot = 0.f;
+      for (int v = warp % tpp; v < D / V; v += tpp) {
+        float f[V];
+        Vec16<T>::unpack(*reinterpret_cast<const uint4*>(kr + v * V), f);
+#pragma unroll
+        for (int e = 0; e < V; ++e) dot = fmaf(qh[v * V + e], f[e], dot);
+      }
+      sp[warp * TILE_KEYS + lane] = dot;
+    }
     __syncthreads();
-    if (warp < group) {  // warp-uniform
-      const int kpos = blk * page + lane;
-      bool valid = pid_ok && lane < page && kpos < kv_valid;
-      if (window > 0) valid = valid && kpos > kv_valid - 1 - window;
-      fold_tile<D>(qs[warp], &ks[0][0], &vs[0][0], pid_ok ? page : 0, valid,
-                   scale, st);
+
+    if (warp < group) {  // online softmax of q head `warp`, key `lane`
+      const int pi = ti * pt + lane / page;
+      const int kpos = (c_lo + ti * pt) * page + lane;
+      bool valid = lane < tk && pi < n_pg && ids[pi] >= 0 && kpos < kv;
+      if (window > 0) valid = valid && kpos > kv - 1 - window;
+      float s = REPRO_NEG_INF;
+      if (valid) {
+        float dot = 0.f;
+        for (int sub = 0; sub < tpp; ++sub)
+          dot += sp[(warp * tpp + sub) * TILE_KEYS + lane];
+        s = dot * scale;
+      }
+      const float m_new = fmaxf(m_run, warp_max(s));
+      const float p = valid ? expf(s - m_new) : 0.f;
+      const float alpha = expf(m_run - m_new);
+      l_run = alpha * l_run + warp_sum(p);
+      m_run = m_new;
+      ps[warp * TILE_KEYS + lane] = p;
+      if (lane == 0) alpha_s[warp] = alpha;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < OUTS; ++i) {
+      const int oi = tid + i * THREADS, h = oi / D, d = oi % D;
+      if (oi >= outs) break;
+      const float* ph = ps + h * TILE_KEYS;
+      float a = acc[i] * alpha_s[h];
+      for (int j = 0; j < tk; ++j) a = fmaf(ph[j], load_f32(vt + j * LD + d), a);
+      acc[i] = a;
     }
   }
-  if (warp < group) write_row<T, D>(o + (q_row + warp) * D, st);
+  tc::cp_async_wait<0>();
+  if (warp < group && lane == 0) {
+    ml_s[2 * warp] = m_run;
+    ml_s[2 * warp + 1] = l_run;
+  }
+  __syncthreads();
+
+  if (n_chunks == 1) {  // acc / l; a row that saw no valid key writes zeros
+#pragma unroll
+    for (int i = 0; i < OUTS; ++i) {
+      const int oi = tid + i * THREADS;
+      if (oi >= outs) break;
+      const float l = ml_s[2 * (oi / D) + 1];
+      store_f32(out + oi, l > 0.f ? acc[i] / l : 0.f);
+    }
+    return;
+  }
+
+  // This chunk's partial state, then the row's last CTA merges them all.
+  const size_t part = q_row * max_chunks;  // (q head row, chunk) slots
+#pragma unroll
+  for (int i = 0; i < OUTS; ++i) {
+    const int oi = tid + i * THREADS, h = oi / D, d = oi % D;
+    if (oi >= outs) break;
+    ws_acc[((part + (size_t)h * max_chunks) + chunk) * D + d] = acc[i];
+  }
+  if (tid < group) {
+    ws_ml[(part + (size_t)tid * max_chunks + chunk) * 2] = ml_s[2 * tid];
+    ws_ml[(part + (size_t)tid * max_chunks + chunk) * 2 + 1] = ml_s[2 * tid + 1];
+  }
+  __threadfence();
+  __syncthreads();
+  int* counter = counters + (size_t)row * gridDim.y + kvh;
+  // atomicInc stores 0 where the count reaches n_chunks - 1: the last CTA.
+  if (tid == 0)
+    is_last = atomicInc(reinterpret_cast<unsigned*>(counter), n_chunks - 1) == n_chunks - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < OUTS; ++i) {
+    const int oi = tid + i * THREADS, h = oi / D, d = oi % D;
+    if (oi >= outs) break;
+    const size_t base = part + (size_t)h * max_chunks;
+    float mx = REPRO_NEG_INF;
+    for (int c = 0; c < n_chunks; ++c) mx = fmaxf(mx, __ldcg(ws_ml + (base + c) * 2));
+    float l = 0.f, a = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {  // in chunk order
+      const float w = expf(__ldcg(ws_ml + (base + c) * 2) - mx);
+      l = fmaf(w, __ldcg(ws_ml + (base + c) * 2 + 1), l);
+      a = fmaf(w, __ldcg(ws_acc + (base + c) * D + d), a);
+    }
+    store_f32(out + oi, l > 0.f ? a / l : 0.f);
+  }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* tables,
-           const int* kv_lens, void* o, int rows, int hq, int hkv,
-           int n_pages, int page, int max_pages, int window, float scale,
+           const int* kv_lens, void* o, float* ws_acc, float* ws_ml,
+           int* counters, int rows, int hq, int hkv, int n_pages, int page,
+           int max_pages, int max_chunks, int window, float scale,
            cudaStream_t stream) {
-  const dim3 grid(hkv, rows);
-  paged_kernel<T, D><<<grid, THREADS, 0, stream>>>(
+  constexpr size_t smem = Smem<T, D>::BYTES;
+  auto kernel = paged_kernel<T, D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(max_chunks, hkv, rows);
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, kv_lens, static_cast<T*>(o), hq,
-      hq / hkv, n_pages, page, max_pages, window, scale);
+      static_cast<const T*>(vp), tables, kv_lens, static_cast<T*>(o), ws_acc,
+      ws_ml, counters, hq, hq / hkv, n_pages, page, max_pages, max_chunks,
+      window, scale);
   return launch_status();
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* kp, const void* vp,
-             const int* tables, const int* kv_lens, void* o, int rows, int hq,
-             int hkv, int n_pages, int page, int max_pages, int window,
+             const int* tables, const int* kv_lens, void* o, float* ws_acc,
+             float* ws_ml, int* counters, int rows, int hq, int hkv,
+             int n_pages, int page, int max_pages, int max_chunks, int window,
              float scale, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, kp, vp, tables, kv_lens, o, rows, hq, hkv,
-                           n_pages, page, max_pages, window, scale, stream);
+      return launch<T, 32>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
+                           counters, rows, hq, hkv, n_pages, page, max_pages,
+                           max_chunks, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, kp, vp, tables, kv_lens, o, rows, hq, hkv,
-                           n_pages, page, max_pages, window, scale, stream);
+      return launch<T, 64>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
+                           counters, rows, hq, hkv, n_pages, page, max_pages,
+                           max_chunks, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, kp, vp, tables, kv_lens, o, rows, hq, hkv,
-                            n_pages, page, max_pages, window, scale, stream);
+      return launch<T, 128>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
+                            counters, rows, hq, hkv, n_pages, page, max_pages,
+                            max_chunks, window, scale, stream);
     default:
       return REPRO_BAD_ARGUMENT;
   }
@@ -105,26 +307,32 @@ int launch_d(int d, const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // q (rows * hq, d); k_pages, v_pages (hkv, n_pages, page, d); tables
-// (rows, max_pages) int32; kv_lens (rows,) int32; o like q.
-// window <= 0: no sliding window.
+// (rows, max_pages) int32; kv_lens (rows,) int32; o like q. Workspace:
+// ws_acc (rows * hq, max_chunks, d) and ws_ml (rows * hq, max_chunks, 2)
+// float32, counters (rows * hkv) int32, zero (and left zero).
+// max_chunks must be cdiv(max_pages, chunk pages). window <= 0: no sliding
+// window.
 extern "C" int paged_attention(const void* q, const void* k_pages,
                                const void* v_pages, const int* tables,
-                               const int* kv_lens, void* o, int dtype, int d,
+                               const int* kv_lens, void* o, float* ws_acc,
+                               float* ws_ml, int* counters, int dtype, int d,
                                int rows, int hq, int hkv, int n_pages,
-                               int page, int max_pages, float scale,
-                               int window, void* stream) {
+                               int page, int max_pages, int max_chunks,
+                               float scale, int window, void* stream) {
   if (rows <= 0 || rows > 65535 || hkv <= 0 || hkv > 65535 || hq % hkv ||
       hq / hkv > MAX_GROUP || page <= 0 || page > MAX_PAGE || n_pages <= 0 ||
-      max_pages <= 0)
+      max_pages <= 0 || max_chunks != cdiv(max_pages, chunk_pages(page)) ||
+      !ws_acc || !ws_ml || !counters)
     return REPRO_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_F32)
-    return launch_d<float>(d, q, k_pages, v_pages, tables, kv_lens, o, rows,
-                           hq, hkv, n_pages, page, max_pages, window, scale,
-                           s);
+    return launch_d<float>(d, q, k_pages, v_pages, tables, kv_lens, o, ws_acc,
+                           ws_ml, counters, rows, hq, hkv, n_pages, page,
+                           max_pages, max_chunks, window, scale, s);
   if (dtype == REPRO_BF16)
     return launch_d<__nv_bfloat16>(d, q, k_pages, v_pages, tables, kv_lens, o,
-                                   rows, hq, hkv, n_pages, page, max_pages,
+                                   ws_acc, ws_ml, counters, rows, hq, hkv,
+                                   n_pages, page, max_pages, max_chunks,
                                    window, scale, s);
   return REPRO_BAD_ARGUMENT;
 }

@@ -337,15 +337,15 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
 
 
 def check_took(p: Plan, took: Optional[Tuple[str, int, int]]) -> None:
-    """Raise unless the tile a ``matmul_os`` launch took (``_build.launch``'s
-    report, from the CUDA tile configurations) is the one ``p`` planned,
-    with its shared memory bytes and CTAs: the planner's copy of the tile
-    shapes must not drift from the kernels'."""
+    """Raise unless the tile a ``matmul_os`` (or ``binary_mm``) launch took
+    (``_build.launch``'s report, from the CUDA tile configurations) is the
+    one ``p`` planned, with its shared memory bytes and CTAs: the planner's
+    copy of the tile shapes must not drift from the kernels'."""
     want = None if p.tile_kernel is None else (
         p.tile_kernel, p.smem_bytes, p.ctas)
     if took != want:
         raise _build.KernelError(
-            f"matmul_os took the tile {took} (name, shared memory bytes, "
+            f"{p.kernel} took the tile {took} (name, shared memory bytes, "
             f"CTAs) where its plan says {want}")
 
 

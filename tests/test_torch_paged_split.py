@@ -1,0 +1,306 @@
+"""B3, paged decode attention, split across CTAs (``csrc/paged_attention.cu``):
+what the CPU can hold, and the card-only checks.
+
+On the CPU: the chunk plan (``attention_df.paged_chunks``) covers each
+row's visited pages lo..hi exactly once, with and without a window, and
+is a function of the row alone; a plain PyTorch model of the kernel's
+split (tiles of 32 / page pages folded online within a chunk, each
+chunk's partial (m, l, acc), merged in chunk order) matches
+``ref.paged_attention_ref`` and the JAX package's ``paged_attention`` in
+interpret mode, float32, atol 1e-5 and rtol 1e-5 (the tolerance of
+``test_torch_kernels.py``'s paged test: the sides differ only in the
+order of float32 sums).
+
+On the card (marker ``card``, skipped here): the kernel against its plain
+version at ragged lengths and a long row:
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m card \\
+        tests/test_torch_paged_split.py
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import _build, attention_df, ops, ref
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+NEG_INF = -1e30
+
+
+@pytest.mark.parametrize("window", [None, 1, 7, 100, 600])
+@pytest.mark.parametrize("page", [1, 5, 16, 32])
+def test_chunk_plan_covers_the_visited_pages_once(page, window):
+    max_pages = -(-4096 // page) + 3
+    cp = attention_df.paged_chunk_pages(page)
+    assert cp == attention_df.PAGED_CHUNK_TILES * max(1, 32 // page)
+    for kv in (0, 1, page - 1, page, page + 1, 527, 4096):
+        chunks = attention_df.paged_chunks(kv, page, max_pages, window)
+        if kv == 0:
+            assert chunks == []
+            continue
+        hi = -(-kv // page) - 1
+        lo = 0 if window is None else max(0, (kv - window) // page)
+        pages = [p for c_lo, c_hi in chunks for p in range(c_lo, c_hi + 1)]
+        assert pages == list(range(lo, hi + 1)), (kv, chunks)
+        assert all(c_hi - c_lo + 1 == cp for c_lo, c_hi in chunks[:-1])
+        assert len(chunks) <= attention_df.paged_max_chunks(page, max_pages)
+        # the window's first valid key lies in the first chunk
+        first = max(0, kv - window) if window else 0
+        assert chunks[0][0] * page <= first
+
+
+def test_chunk_plan_depends_only_on_the_row():
+    """A row's chunks are the same whatever the other rows, the batch
+    size or the table's width (it caps hi only past a full table)."""
+    for kv in (1, 17, 200, 527, 4096):
+        for window in (None, 100):
+            alone = attention_df.paged_chunks(kv, 16, 256, window)
+            assert alone == attention_df.paged_chunks(kv, 16, 1000, window)
+    assert attention_df.paged_chunks(600, 16, 10) == [(0, 7), (8, 9)]
+    assert attention_df.paged_max_chunks(16, 64) == 8
+    assert attention_df.paged_max_chunks(16, 256) == 32
+
+
+# ---------------------------------------------------------------------------
+# A plain model of the split.
+# ---------------------------------------------------------------------------
+def split_model(q, k_pages, v_pages, tables, kv_lens, window=None,
+                scale=None):
+    """csrc/paged_attention.cu's arithmetic in plain PyTorch: per (row,
+    q head) and chunk, tiles of 32 // page pages folded into a running
+    (m, l, acc), masked keys exactly 0; the chunks' partials merged in
+    chunk order; l == 0 writes zeros."""
+    b, hq, _, d = q.shape
+    hkv, n_pages, page, _ = k_pages.shape
+    max_pages = tables.shape[1]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    pt = max(1, 32 // page)
+    out = torch.zeros_like(q)
+    for r in range(b):
+        kv = int(kv_lens[r])
+        chunks = attention_df.paged_chunks(kv, page, max_pages, window)
+        for h in range(hq):
+            qh = q[r, h, 0]
+            parts = []
+            for c_lo, c_hi in chunks:
+                m, l, acc = torch.tensor(NEG_INF), torch.tensor(0.0), \
+                    torch.zeros(d)
+                for t0 in range(c_lo, c_hi + 1, pt):
+                    blks = range(t0, min(c_hi, t0 + pt - 1) + 1)
+                    keys, vals, valid = [], [], []
+                    for blk in blks:
+                        pid = int(tables[r, blk])
+                        ok = 0 <= pid < n_pages
+                        kpos = blk * page + torch.arange(page)
+                        v = kpos < kv
+                        if window:
+                            v &= kpos > kv - 1 - window
+                        keys.append(k_pages[h // group, pid] if ok
+                                    else torch.zeros(page, d))
+                        vals.append(v_pages[h // group, pid] if ok
+                                    else torch.zeros(page, d))
+                        valid.append(v & ok)
+                    kt, vt, ok = (torch.cat(x) for x in (keys, vals, valid))
+                    s = torch.where(ok, (kt @ qh) * scale,
+                                    torch.tensor(NEG_INF))
+                    m_new = torch.maximum(m, s.max())
+                    p = torch.where(ok, torch.exp(s - m_new), 0.0)
+                    alpha = torch.exp(m - m_new)
+                    l = alpha * l + p.sum()
+                    acc = acc * alpha + p @ vt
+                    m = m_new
+                parts.append((m, l, acc))
+            if len(parts) == 1:
+                m, l, acc = parts[0]
+                out[r, h, 0] = acc / l if l > 0 else 0.0
+            elif parts:
+                mx = torch.stack([p[0] for p in parts]).max()
+                l, a = torch.tensor(0.0), torch.zeros(d)
+                for m_c, l_c, acc_c in parts:
+                    w = torch.exp(m_c - mx)
+                    l, a = l + w * l_c, a + w * acc_c
+                out[r, h, 0] = a / l if l > 0 else 0.0
+    return out
+
+
+def _paged_inputs(seed, b, hq, hkv, d, page, max_pages, kv_lens):
+    rng = np.random.default_rng(seed)
+    n_pages = b * max_pages + 1
+    k = rng.standard_normal((hkv, n_pages, page, d)).astype(np.float32)
+    v = rng.standard_normal((hkv, n_pages, page, d)).astype(np.float32)
+    tables = rng.permutation(n_pages - 1)[:b * max_pages].reshape(
+        b, max_pages).astype(np.int32)
+    q = rng.standard_normal((b, hq, 1, d)).astype(np.float32)
+    return q, k, v, tables, np.asarray(kv_lens, np.int32)
+
+
+@pytest.mark.parametrize("window", [None, 10, 45])
+@pytest.mark.parametrize("case", [
+    (4, 4, 2, 32, 8, 5, [0, 7, 21, 40]),
+    (3, 8, 2, 32, 4, 40, [150, 1, 97]),
+    (2, 2, 1, 64, 16, 20, [300, 33]),
+    (2, 6, 2, 32, 5, 30, [149, 71]),
+], ids=["page8", "page4_long", "page16", "page5"])
+def test_split_model_matches_the_plain_version_and_jax(case, window):
+    b, hq, hkv, d, page, max_pages, lens = case
+    arrays = _paged_inputs(sum(lens) + d, b, hq, hkv, d, page, max_pages,
+                           lens)
+    q, k, v, tables, kv_lens = (torch.from_numpy(a) for a in arrays)
+    got = split_model(q, k, v, tables, kv_lens, window=window)
+    want = ref.paged_attention_ref(q, k, v, tables, kv_lens, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    jwant = jops.paged_attention(*(jnp.asarray(a) for a in arrays),
+                                 window=window, backend="interpret")
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), **TOL)
+    # the port's entry point on CPU tensors is the plain version
+    np.testing.assert_array_equal(
+        ops.paged_attention(q, k, v, tables, kv_lens, window=window).numpy(),
+        want.numpy())
+    for r, kv in enumerate(lens):
+        if kv == 0:
+            assert np.all(got[r].numpy() == 0.0)
+    # a row alone: the same bits as in the batch
+    alone = split_model(q[1:2], k, v, tables[1:2], kv_lens[1:2],
+                        window=window)
+    np.testing.assert_array_equal(alone.numpy(), got[1:2].numpy())
+
+
+def test_split_model_masks_a_page_outside_the_pool():
+    q, k, v, tables, kv_lens = (torch.from_numpy(a) for a in _paged_inputs(
+        5, 2, 4, 2, 32, 8, 12, [90, 60]))
+    tables[0, 3] = k.shape[1] + 7      # out of the pool: fully masked
+    got = split_model(q, k, v, tables, kv_lens)
+    keep = torch.ones(12 * 8, dtype=torch.bool)
+    keep[24:32] = False
+    hkv, _, page, d = k.shape
+    kg = k[:, tables[0].clamp(max=k.shape[1] - 1).long()].reshape(hkv, -1, d)
+    vg = v[:, tables[0].clamp(max=k.shape[1] - 1).long()].reshape(hkv, -1, d)
+    for h in range(4):
+        s = (kg[h // 2, :90] @ q[0, h, 0]) * d ** -0.5
+        s = torch.where(keep[:90], s, torch.tensor(-float("inf")))
+        want = torch.softmax(s, 0) @ vg[h // 2, :90]
+        np.testing.assert_allclose(got[0, h, 0].numpy(), want.numpy(), **TOL)
+
+
+def test_arrival_counters_are_kept_per_device_and_stream():
+    """The zeroed counters the row's last CTA is found by: one buffer per
+    (device, stream), reused while it is large enough, grown (zeroed) when
+    not, so launches on two streams never share a counter."""
+    cpu = torch.device("cpu")
+    first = attention_df._paged_counters(cpu, 11, 32)
+    assert first.dtype == torch.int32 and bool((first == 0).all())
+    assert attention_df._paged_counters(cpu, 11, 8) is first
+    other = attention_df._paged_counters(cpu, 12, 32)
+    assert other is not first
+    grown = attention_df._paged_counters(cpu, 11, first.numel() + 1)
+    assert grown.numel() > first.numel() and bool((grown == 0).all())
+    assert attention_df._paged_counters(cpu, 12, 8) is other
+    for stream in (11, 12):
+        del attention_df._PAGED_COUNTERS[(cpu, stream)]
+
+
+# ---------------------------------------------------------------------------
+# On the card.
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the split paged kernel runs only "
+                    "there")
+    return torch.device("cuda")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("case", [
+    (16, 8, 128, 16, [0, 17, 200, 527]),
+    (16, 8, 128, 16, [4096, 4096, 4095, 1]),
+    (4, 4, 64, 8, [1, 8, 9, 300]),
+    (8, 1, 32, 32, [33, 1000, 0, 64]),
+    (6, 2, 64, 5, [7, 161, 42, 500]),
+], ids=["served", "long", "page8", "group8", "page5"])
+def test_split_kernel_matches_the_plain_version_on_the_card(
+        card, case, window, dtype):
+    """Within B2's tolerances (bf16: atol 4e-3, rtol 8e-3; float32: 1e-4;
+    chip_smoke.py's att_tol and f32_tol), every row of 0 keys all zeros."""
+    hq, hkv, d, page, lens = case
+    dt = getattr(torch, dtype)
+    rows, max_pages = len(lens), -(-max(lens) // page) + 2
+    gen = torch.Generator(device=card).manual_seed(sum(lens) + d)
+    n_pages = rows * max_pages
+    kp = torch.randn((hkv, n_pages, page, d), generator=gen,
+                     device=card).to(dt)
+    vp = torch.randn((hkv, n_pages, page, d), generator=gen,
+                     device=card).to(dt)
+    tables = torch.randperm(n_pages, generator=gen, device=card).reshape(
+        rows, max_pages).to(torch.int32)
+    q = torch.randn((rows, hq, 1, d), generator=gen, device=card).to(dt)
+    kv = torch.tensor(lens, dtype=torch.int32, device=card)
+    before = _build.LAUNCHES["paged_attention"]
+    got = attention_df.paged_flash_attention(q, kp, vp, tables, kv,
+                                             window=window)
+    assert _build.LAUNCHES["paged_attention"] == before + 1
+    want = ref.paged_attention_ref(q, kp, vp, tables, kv, window=window)
+    tol = (dict(atol=4e-3, rtol=8e-3) if dt == torch.bfloat16
+           else dict(atol=1e-4, rtol=1e-4))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    for r, n in enumerate(lens):
+        if n == 0:
+            assert bool((got[r] == 0).all())
+    # the same row alone gives the same bits
+    alone = attention_df.paged_flash_attention(q[1:2], kp, vp, tables[1:2],
+                                               kv[1:2], window=window)
+    assert torch.equal(alone, got[1:2])
+
+
+@pytest.mark.card
+def test_split_kernel_masks_a_page_outside_the_pool_on_the_card(card):
+    """A page id outside the pool reads as fully masked: float32, against
+    the split model on the CPU (1e-4)."""
+    arrays = _paged_inputs(5, 3, 4, 2, 32, 8, 40, [300, 60, 0])
+    q, k, v, tables, kv_lens = (torch.from_numpy(a) for a in arrays)
+    tables[0, 3] = k.shape[1] + 7
+    tables[1, 0] = -1
+    got = attention_df.paged_flash_attention(
+        *(t.to(card) for t in (q, k, v, tables, kv_lens)), window=None)
+    want = split_model(q, k, v, tables, kv_lens)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.card
+def test_split_kernel_on_two_streams_at_once_on_the_card(card):
+    """Launches on two streams at once, rows of many chunks, give the bits
+    of a launch on the default stream: each stream merges through
+    counters of its own."""
+    hq, hkv, d, page, lens = 16, 8, 128, 16, [4096, 527, 2000, 1]
+    rows, max_pages = len(lens), -(-max(lens) // page)
+    gen = torch.Generator(device=card).manual_seed(20)
+    n_pages = rows * max_pages
+    kp = torch.randn((hkv, n_pages, page, d), generator=gen,
+                     device=card).to(torch.bfloat16)
+    vp = torch.randn((hkv, n_pages, page, d), generator=gen,
+                     device=card).to(torch.bfloat16)
+    tables = torch.randperm(n_pages, generator=gen, device=card).reshape(
+        rows, max_pages).to(torch.int32)
+    q = torch.randn((rows, hq, 1, d), generator=gen,
+                    device=card).to(torch.bfloat16)
+    kv = torch.tensor(lens, dtype=torch.int32, device=card)
+    want = attention_df.paged_flash_attention(q, kp, vp, tables, kv)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    got = [[], []]
+    for _ in range(20):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[i].append(attention_df.paged_flash_attention(
+                    q, kp, vp, tables, kv))
+    torch.cuda.synchronize()
+    for outs in got:
+        for out in outs:
+            assert torch.equal(out, want)
+    for stream in streams:
+        assert (q.device, stream.cuda_stream) in attention_df._PAGED_COUNTERS
