@@ -16,8 +16,10 @@ Phases, each printing JSON lines:
    ``cuobjdump -sass`` shows that every bf16 GEMM and flash kernel issues
    tensor-core instructions (HMMA) and no float32 or int8 one does, that
    B1's int8 tile kernels issue integer ones (IMMA) and no other kernel
-   does, and that B9's binary tile kernels issue binary ones
-   (``BMMA.168256.AND.POPC``) and no other kernel does.
+   does, that B9's binary tile kernels issue binary ones
+   (``BMMA.168256.AND.POPC``) and no other kernel does, and that the
+   cluster walks of B1's residencies, B4 and B5a
+   (``csrc/gemm_cluster.cuh``) are in their libraries and issue HMMA.
 3. ``kernels``: each kernel held against its plain PyTorch version on the
    card, at the full-width qwen3-1.7b shapes of the serving path, in bf16,
    with the tolerance stated per kernel; then each timed by CUDA events
@@ -30,9 +32,13 @@ Phases, each printing JSON lines:
    dataflows (B1's
    residencies, B4, B5a, B5b) run each of the nine canonical specs at
    qwen3-1.7b's MLP shapes, the paper's layer grid and small odd shapes: each
-   runs through the kernel ``matmul_df.plan`` names, matches the plain
-   version and equals B1's output bit for bit, or raises ``ValueError``
-   naming the shared memory it needs.  B7 is held against the plain
+   runs through the kernel ``matmul_df.plan`` names (a bf16 walk over a
+   sweep of two tiles or more on its thread-block cluster walk, counted
+   under its cluster key, with the cluster size it reported), matches the
+   plain version and equals B1's output bit for bit, or raises
+   ``ValueError`` naming the shared memory it needs; B4's WS and IS walks
+   and B1's weight-stripe residency are timed at the paper's layer
+   (56,3,1,128), B5a at qwen3-1.7b's down projection.  B7 is held against the plain
    version with B2's tolerances.  B3 (split across CTAs) at the served
    decode shape and at a long row (4 x 4096 keys), with and without a
    window, timed at both.  B9 is held bit for bit at every anchor
@@ -85,7 +91,8 @@ The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
 its prefill and decode tiles, B2, B3; serve_packed: B6, B1 with its int8
 prefill and decode tiles, B2, B3; dataflows: B1 and its bf16 tiles, B2,
-B4, B5a, B5b, B7; quantized: B8, B9 and its prefill tile, B1 and its
+B4, B5a (B1's residencies, B4 and B5a on their cluster walks), B5b, B7;
+quantized: B8, B9 and its prefill tile, B1 and its
 int8 tiles, B6); on serve and serve_packed every B1 launch, and on
 serve_binary every B9 launch, is one of its tiles' (prefill plus decode),
 counted from 0 just before the path runs. The
@@ -190,6 +197,12 @@ I8_TILE_FUNCTIONS = ("i8_prefill_kernel", "i8_decode_kernel")
 # for sm_90a (any other BMMA form is counted apart).
 B1_TILE_FUNCTIONS = ("bin_prefill_kernel", "bin_decode_kernel")
 B1_MMA_SASS = "BMMA.168256.AND.POPC"
+# The bf16 cluster walks (csrc/gemm_cluster.cuh) each library must hold:
+# bf16 kernels, whose TMA twins take no bf16 pointer (their operands come
+# through tensor maps), so they are named here.
+CLUSTER_FUNCTIONS = {"matmul_os": ("walk_cluster_kernel", "walk_tma_kernel"),
+                     "matmul_rmw": ("walk_cluster_kernel", "walk_tma_kernel"),
+                     "matmul_ws_stripe": ("ws_stripe_cluster_kernel",)}
 
 
 def tensor_core_check():
@@ -232,7 +245,8 @@ def tensor_core_check():
             elif fn is not None and "BMMA" in line:
                 bmma_any[fn] += 1
                 bmma[fn] += B1_MMA_SASS in line
-        bf16 = {f: c for f, c in hmma.items() if "__nv_bfloat16" in f}
+        bf16 = {f: c for f, c in hmma.items() if "__nv_bfloat16" in f
+                or any(w in f for w in CLUSTER_FUNCTIONS.get(lib, ()))}
         other = {f: c for f, c in hmma.items() if f not in bf16}
         tiles = {f: c for f, c in imma.items()
                  if any(t in f for t in I8_TILE_FUNCTIONS)}
@@ -269,6 +283,13 @@ def tensor_core_check():
     found = summary["binary_mm"]["b1_mma_by_binary_tile"]
     wrong += [f"binary_mm: no {t} found" for t in B1_TILE_FUNCTIONS
               if not any(t in f for f in found)]
+    for lib, fns in CLUSTER_FUNCTIONS.items():
+        for fn in fns:
+            held = {f: c for f, c in
+                    summary[lib]["hmma_by_bf16_kernel"].items() if fn in f}
+            summary[lib].setdefault("hmma_by_cluster_walk", {}).update(held)
+            if not held or not all(held.values()):
+                wrong.append(f"{lib}: {fn} missing or without HMMA")
     emit({"check": "tensor_core_sass", "libraries": summary,
           "ok": not wrong})
     if wrong:
@@ -581,15 +602,18 @@ def gemm_dataflow_checks(torch, cfg, timer, gen, tol):
                 feasibility.append({"shape": label, "spec": name,
                                     "feasible": False, "why": str(err)})
                 continue
-            before = _build.LAUNCHES[p.kernel]
+            keys = (p.kernel,) + ((p.tile_kernel,) if p.tile_kernel else ())
+            before = [_build.LAUNCHES[key] for key in keys]
             got = ops.matmul_fused(a, w, spec=spec, out_dtype=out_dtype,
                                    **epi)
-            if _build.LAUNCHES[p.kernel] != before + 1:
+            if [_build.LAUNCHES[key] for key in keys] != \
+                    [x + 1 for x in before]:
                 raise AssertionError(f"{name} at {label} did not launch "
-                                     f"{p.kernel} once")
+                                     f"{' and '.join(keys)} once")
             err = check(f"{p.kernel}[{name}]", got, want, shape=label,
                         plus_bf16_ulp=out_dtype == torch.bfloat16, **tol)
-            errs.setdefault(p.kernel, []).append(err)
+            for key in keys:
+                errs.setdefault(key, []).append(err)
             bitwise = torch.equal(got, base)
             if not bitwise:
                 diff = float((got.float() - base.float()).abs().max())
@@ -598,6 +622,8 @@ def gemm_dataflow_checks(torch, cfg, timer, gen, tol):
             ran.append(name)
             feasibility.append({"shape": label, "spec": name,
                                 "feasible": True, "kernel": p.kernel,
+                                "tile_kernel": p.tile_kernel,
+                                "cluster": p.cluster,
                                 "walk": p.walk, "ctas": p.ctas,
                                 "smem_bytes": p.smem_bytes,
                                 "demoted": p.demoted})
@@ -640,29 +666,24 @@ def gemm_dataflow_checks(torch, cfg, timer, gen, tol):
                 activation="gelu")
     emit({"dataflow_feasibility": feasibility})
 
-    # Timed shapes: each kernel where its dataflow fits at full size.
+    # Timed shapes: each kernel where its dataflow fits at full size (the
+    # shapes of bench/walk_times.py, which times a parent commit's kernels
+    # the same way).
+    from repro_torch.bench import walk_times
+
     records = {}
-    timed = (("matmul_rmw", "ws_basic", (56, 3, 1, 128)),
-             ("matmul_ws_stripe", "ws_o_stripe", (512, dff, d)),
-             ("matmul_is_stripe", "is_o_stripe", (56, 3, 1, 128)))
-    for kernel, spec_name, shape in timed:
-        if len(shape) == 4:
-            g = common.paper_gemm(shape)
-            m, k, n = g.m, g.k, g.n
-            label = f"paper layer {shape} M={m} K={k} N={n} {spec_name}"
+    for kernel, spec_name, shape in walk_times.TIMED:
+        row = walk_times.time_row(timer, spec_name, shape, dev)
+        row.update(max_abs_err=max(errs[row["tile_kernel"] or kernel]),
+                   tolerance=tol)
+        emit({"kernel_timing_detail": kernel, **row})
+        key = row["tile_kernel"] or kernel
+        if spec_name == "is_basic":   # B4's IS walk, beside its WS walk
+            records[key]["is_walk"] = row
+        elif spec_name == "os_w_stripe":
+            records[key] = row
         else:
-            m, k, n = shape
-            label = f"M={m} K={k} N={n} {spec_name}"
-        a, w = common.gemm_operands(m, k, n, dev, seed=m + n)
-        spec = common.NINE_SPECS[spec_name]
-        bnd = common.gemm_bound(m, k, n)
-        records[kernel] = dict(
-            shape=label, max_abs_err=max(errs[kernel]),
-            ms=timer.ms(lambda: matmul_df.matmul_df(a, w, spec)),
-            plain_ms=timer.ms(lambda: ref.matmul_fused_ref(a, w)),
-            library_ms=timer.ms(lambda: torch.matmul(a, w)),
-            library_call="torch.matmul (bf16 out)",
-            bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
+            records[kernel] = records[key] = row
     return records
 
 
@@ -1334,8 +1355,9 @@ def packed_conv_checks(torch, timer, gen):
 # Phase 4: the bench twins of the paper's dataflow comparison.
 # ---------------------------------------------------------------------------
 DATAFLOW_PATH = ("matmul_os", "matmul_os_prefill", "matmul_os_decode",
-                 "matmul_rmw", "matmul_ws_stripe", "matmul_is_stripe",
-                 "flash_attention", "kv_stationary")
+                 "matmul_os_cluster", "matmul_rmw", "matmul_rmw_cluster",
+                 "matmul_ws_stripe", "matmul_ws_stripe_cluster",
+                 "matmul_is_stripe", "flash_attention", "kv_stationary")
 
 
 def dataflows_phase(torch):
@@ -1826,7 +1848,8 @@ def main(argv=None) -> int:
             "plain_ms": rec.get("plain_ms"), "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms"), "shape": rec.get("shape"),
-            **{k: rec[k] for k in ("float32", "long_row", "down", "tile")
+            **{k: rec[k] for k in ("float32", "long_row", "down", "tile",
+                                   "cluster", "ctas", "is_walk")
                if k in rec},
         })
     emit({"kernels": kernels})

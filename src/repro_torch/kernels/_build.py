@@ -21,9 +21,10 @@ planes also counts one under ``LAUNCHES["unpack_block"]``.  A bf16 basic
 OS launch of B1 takes one of its two tensor-core tiles
 (``csrc/gemm_tc.cuh``), an int8 or packed one one of its two integer
 tensor-core tiles (``csrc/gemm_tc_i8.cuh``), and B9's basic OS launch one
-of its two binary tensor-core tiles (``csrc/binary_mm.cu``); the entry
-point reports the tile it took, which also counts one under its name
-(``TILES``, ``BINARY_TILES``).
+of its two binary tensor-core tiles (``csrc/binary_mm.cu``); a bf16 launch
+of B1's residencies, B4 or B5a over a sweep of two tiles or more takes the
+cluster walk of ``csrc/gemm_cluster.cuh``; the entry point reports the
+tile it took, which also counts one under its name (``TILE_LIBRARIES``).
 """
 from __future__ import annotations
 
@@ -41,8 +42,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 HEADERS = ("common.cuh", "attention_common.cuh", "gemm_common.cuh",
-           "gemm_tc.cuh", "gemm_tc_i8.cuh", "mma_common.cuh",
-           "pack_common.cuh")
+           "gemm_cluster.cuh", "gemm_tc.cuh", "gemm_tc_i8.cuh",
+           "mma_common.cuh", "pack_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # The GEMM, conv and binary kernels contract no multiply-add but their
@@ -52,7 +53,7 @@ GEMM_FLAGS = ("-fmad=false",)
 NO_FMAD = ("matmul_", "conv2d", "binary_mm")
 # Libraries compiled as PARTS[name] units with -DREPRO_PART=p (each defines
 # some of the library's instantiations) plus one unit with its entry point.
-PARTS = {"matmul_os": 8, "matmul_rmw": 7, "matmul_is_stripe": 5, "conv2d": 5}
+PARTS = {"matmul_os": 9, "matmul_rmw": 8, "matmul_is_stripe": 5, "conv2d": 5}
 
 # Element-type codes of the C interfaces (csrc/common.cuh).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -66,8 +67,8 @@ _GEMM = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P,
          _I)
 SIGNATURES = {
     "matmul_os": _GEMM + (_I, _I, _P, _P),
-    "matmul_rmw": _GEMM + (_I, _I, _I, _P),
-    "matmul_ws_stripe": _GEMM + (_P,),
+    "matmul_rmw": _GEMM + (_I, _I, _I, _P, _P),
+    "matmul_ws_stripe": _GEMM + (_P, _P),
     "matmul_is_stripe": _GEMM + (_I, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                         _I, _I, _F, _P),
@@ -82,24 +83,31 @@ SIGNATURES = {
 
 # B6 decodes packed planes inside these libraries' kernels.
 PACKED_DECODE = "unpack_block"
-# B1's basic OS tiles, compiled into the matmul_os library: bf16, then
-# int8 (an int8 or a packed B); a launch reports TILES[code - 1], or 0 for
-# the walk (csrc/gemm_common.cuh TileCode).
+# B1's tiles, compiled into the matmul_os library: the basic OS tiles,
+# bf16, then int8 (an int8 or a packed B), then the cluster walk of its
+# residencies; a launch reports TILES[code - 1], or 0 for the walk
+# (csrc/gemm_common.cuh TileCode).
 TILES = ("matmul_os_prefill", "matmul_os_decode", "matmul_os_i8_prefill",
-         "matmul_os_i8_decode")
+         "matmul_os_i8_decode", "matmul_os_cluster")
+# B4's and B5a's cluster walks (csrc/gemm_cluster.cuh), code 1 of theirs.
+RMW_TILES = ("matmul_rmw_cluster",)
+WS_STRIPE_TILES = ("matmul_ws_stripe_cluster",)
 # B9's basic OS tiles on the binary tensor cores (csrc/binary_mm.cu
 # TileCode), the same way.
 BINARY_TILES = ("binary_mm_prefill", "binary_mm_decode")
 # The libraries whose entry point reports the tile a launch took, with the
 # tiles by code.
-TILE_LIBRARIES = {"matmul_os": TILES, "binary_mm": BINARY_TILES}
+TILE_LIBRARIES = {"matmul_os": TILES, "matmul_rmw": RMW_TILES,
+                  "matmul_ws_stripe": WS_STRIPE_TILES,
+                  "binary_mm": BINARY_TILES}
 # What the last such launch took (csrc/gemm_common.cuh gemm::Took,
-# csrc/binary_mm.cu bin::Took): the tile code, its shared memory bytes and
-# its CTAs.
-_TOOK = (ctypes.c_int * 3)()
+# csrc/binary_mm.cu bin::Took): the tile code, its shared memory bytes, its
+# CTAs and (a cluster walk) the CTAs of a cluster.
+_TOOK = (ctypes.c_int * 4)()
 LAUNCHES: Dict[str, int] = {name: 0 for name in
-                            (*SIGNATURES, PACKED_DECODE, *TILES,
-                             *BINARY_TILES)}
+                            (*SIGNATURES, PACKED_DECODE,
+                             *(t for tiles in TILE_LIBRARIES.values()
+                               for t in tiles))}
 # ptxas resource report of each build of this process, by kernel.
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -220,17 +228,19 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args, packed: bool = False
-           ) -> Optional[Tuple[str, int, int]]:
+def launch(name: str, *args, packed: bool = False) -> Optional[tuple]:
     """Call kernel ``name``'s entry point on the current CUDA stream,
     count the launch (and, when it decodes ``packed`` planes, B6's) and
     raise if it was refused.  A launch of a ``TILE_LIBRARIES`` entry that
-    took one of its tiles (B1's, B9's) counts that tile too and returns
-    (tile, shared memory bytes, CTAs) as the kernel reported them; every
-    other launch returns None."""
+    took one of its tiles (B1's, B4's, B5a's, B9's) counts that tile too
+    and returns (tile, shared memory bytes, CTAs) as the kernel reported
+    them, with the cluster size after them for a cluster walk; every other
+    launch returns None."""
     lib = library(name)
     stream = torch.cuda.current_stream().cuda_stream
     took = (_TOOK,) if name in TILE_LIBRARIES else ()
+    for i in range(len(_TOOK)):
+        _TOOK[i] = 0
     rc = getattr(lib, name)(*args, *took, stream)
     if rc != 0:
         raise KernelError(
@@ -243,7 +253,7 @@ def launch(name: str, *args, packed: bool = False
         return None
     tile = TILE_LIBRARIES[name][_TOOK[0] - 1]
     LAUNCHES[tile] += 1
-    return tile, _TOOK[1], _TOOK[2]
+    return (tile, _TOOK[1], _TOOK[2]) + ((_TOOK[3],) if _TOOK[3] else ())
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

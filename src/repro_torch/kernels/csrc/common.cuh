@@ -19,6 +19,9 @@
 
 // Returned for an argument the kernel does not take (never a CUDA error).
 #define REPRO_BAD_ARGUMENT 10000
+// Returned when the card cannot place a thread-block cluster of the size a
+// kernel chose (gemm_cluster.cuh).
+#define REPRO_NO_CLUSTER 10001
 
 // Finite stand-in for -inf in running softmax maxima, as the TPU kernels
 // use: exp(NEG_INF - NEG_INF) stays 1 instead of NaN.
@@ -125,6 +128,9 @@ static inline int launch_status() { return (int)cudaGetLastError(); }
 #if !defined(REPRO_PART)
 extern "C" const char* repro_error_string(int code) {
   if (code == REPRO_BAD_ARGUMENT) return "argument not supported by this kernel";
+  if (code == REPRO_NO_CLUSTER)
+    return "the card cannot place a thread-block cluster of this size and "
+           "shared memory (cudaOccupancyMaxActiveClusters is 0)";
   return cudaGetErrorString((cudaError_t)code);
 }
 #endif

@@ -135,17 +135,23 @@ struct Epi {
   int sk = 0;
 };
 
-// The tile a basic OS launch took, reported to its caller (matmul_os.cu's
-// entry point): TILE_WALK for the walk kernel, else the tile (the
-// position of its name in kernels/_build.py TILES, counting from 1), with
-// its dynamic shared memory bytes and CTAs. The tile configurations of
-// gemm_tc.cuh and gemm_tc_i8.cuh are the source of these numbers; the
-// Python planner's copy is held against them at every launch.
-enum TileCode { TILE_WALK = 0, TILE_PREFILL, TILE_DECODE, TILE_I8_PREFILL, TILE_I8_DECODE };
+// The tile a GEMM launch took, reported to its caller (the entry points of
+// matmul_os.cu, matmul_rmw.cu and matmul_ws_stripe.cu): TILE_WALK for the
+// walk kernel, else the tile (the position of its name in the library's
+// tuple of kernels/_build.py TILE_LIBRARIES, counting from 1), with its
+// dynamic shared memory bytes, CTAs and, for a cluster walk
+// (gemm_cluster.cuh), the CTAs of a cluster. The tile configurations of
+// gemm_tc.cuh, gemm_tc_i8.cuh and gemm_cluster.cuh are the source of these
+// numbers; the Python planner's copy is held against them at every launch.
+enum TileCode { TILE_WALK = 0, TILE_PREFILL, TILE_DECODE, TILE_I8_PREFILL, TILE_I8_DECODE,
+                TILE_OS_CLUSTER };
+// matmul_rmw's and matmul_ws_stripe's one tile: their cluster walk.
+constexpr int TILE_CLUSTER = 1;
 struct Took {
   int tile = TILE_WALK;
   int smem = 0;
   int ctas = 0;
+  int cluster = 0;
 };
 
 __device__ __forceinline__ float epilogue(float x, int r, int c, int n,

@@ -36,7 +36,11 @@
 //   b_res = whole (WS WHOLE): CTA i holds all of B (K, N), loaded once per CTA,
 //     and walks j.
 // What does not fit in a block's 227 KB is refused (the Python planner says
-// so first, naming the bytes), never run as another dataflow.
+// so first, naming the bytes), never run as another dataflow. bf16 operands
+// over a sweep of two tiles or more take the cluster walk of
+// gemm_cluster.cuh (the same as B4's): a cluster of CTAs holds the resident
+// operands, each fetched once per cluster, and splits the sweep (reported
+// as the tile "matmul_os_cluster").
 //
 // int8 operands (an int8 B, or the packed int4/int5 planes that B6 decodes at
 // the tile load) take the same residency walks with the integer k loop of
@@ -49,13 +53,15 @@
 // operations. The f32 path and the integer walks run on the CUDA cores and
 // reach neither. The resident walks trade the grid's parallelism (gm or gn CTAs
 // instead of gm * gn) for the fetch-once traffic.
+#include "gemm_cluster.cuh"
 #include "gemm_tc.cuh"
 #include "gemm_tc_i8.cuh"
 
 // The walks this library instantiates: two halves per float input type, the
 // five residency walks per int8 kind (int8 B, packed 4-bit, packed 5-bit),
 // and the int8 tensor-core tiles of the three kinds; each group is compiled
-// in its own translation unit (-DREPRO_PART=0..7). bf16 and int8 have no
+// in its own translation unit (-DREPRO_PART=0..7), the bf16 cluster walks in
+// one more (8). bf16 and int8 have no
 // basic walk: their basic launch takes the tensor-core tiles (gemm_tc.cuh,
 // compiled with the entry point; gemm_tc_i8.cuh, part 7).
 #define OS_RES_0(X, T, WB) \
@@ -67,6 +73,9 @@
   X(T, WB, WALK_N, true, B_WHOLE)
 #define OS_ALL(X, T, WB) OS_WALKS_0(X, T, WB) OS_WALKS_1(X, T, WB)
 #define OS_RES(X, T, WB) OS_RES_0(X, T, WB) OS_WALKS_1(X, T, WB)
+#define OS_CLUSTERS(X)                                                   \
+  X(WALK_N, true, B_STREAMED) X(WALK_M, false, B_STRIPE)                 \
+  X(WALK_M, true, B_STRIPE) X(WALK_N, false, B_WHOLE) X(WALK_N, true, B_WHOLE)
 
 namespace gemm {
 #if defined(REPRO_PART)
@@ -84,12 +93,15 @@ OS_RES(GEMM_WALK_DEFINE, int8_t, 0)
 OS_RES(GEMM_WALK_DEFINE, int8_t, 4)
 #elif REPRO_PART == 6
 OS_RES(GEMM_WALK_DEFINE, int8_t, 5)
+#elif REPRO_PART == 8
+OS_CLUSTERS(GEMM_CLUSTER_DEFINE)
 #else
 namespace i8 {
 GEMM_I8_DEFINE(0) GEMM_I8_DEFINE(4) GEMM_I8_DEFINE(5)
 }
 #endif
 #else
+OS_CLUSTERS(GEMM_CLUSTER_EXTERN)
 OS_ALL(GEMM_WALK_EXTERN, float, 0)
 OS_RES(GEMM_WALK_EXTERN, __nv_bfloat16, 0)
 OS_RES(GEMM_WALK_EXTERN, int8_t, 0)
@@ -110,17 +122,18 @@ template <typename T, int WB>
 int launch(int a_stripe, int b_res, const void* a, const void* b,
            const void* b_hi, void* c, int m, int n, int k, const Epi& e,
            cudaStream_t s, Took* took) {
+  constexpr int CL = TILE_OS_CLUSTER;
   if (b_res == B_STRIPE)
     return a_stripe
-               ? launch_walk<T, WB, WALK_M, true, B_STRIPE>(a, b, b_hi, c, m, n, k, e, s)
-               : launch_walk<T, WB, WALK_M, false, B_STRIPE>(a, b, b_hi, c, m, n, k, e, s);
+               ? launch_resident<T, WB, WALK_M, true, B_STRIPE>(a, b, b_hi, c, m, n, k, e, s, took, CL)
+               : launch_resident<T, WB, WALK_M, false, B_STRIPE>(a, b, b_hi, c, m, n, k, e, s, took, CL);
   if (b_res == B_WHOLE)
     return a_stripe
-               ? launch_walk<T, WB, WALK_N, true, B_WHOLE>(a, b, b_hi, c, m, n, k, e, s)
-               : launch_walk<T, WB, WALK_N, false, B_WHOLE>(a, b, b_hi, c, m, n, k, e, s);
+               ? launch_resident<T, WB, WALK_N, true, B_WHOLE>(a, b, b_hi, c, m, n, k, e, s, took, CL)
+               : launch_resident<T, WB, WALK_N, false, B_WHOLE>(a, b, b_hi, c, m, n, k, e, s, took, CL);
   if (b_res != B_STREAMED) return REPRO_BAD_ARGUMENT;
   if (a_stripe)
-    return launch_walk<T, WB, WALK_N, true, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s);
+    return launch_resident<T, WB, WALK_N, true, B_STREAMED>(a, b, b_hi, c, m, n, k, e, s, took, CL);
   if constexpr (kTC<T>) return launch_tc(a, b, c, m, n, k, e, s, took);
   else if constexpr (std::is_same<T, int8_t>::value)
     return i8::launch<WB>(a, b, b_hi, c, m, n, k, e, s, took);
@@ -133,7 +146,8 @@ int launch(int a_stripe, int b_res, const void* a, const void* b,
 // (weight_bits 0) or packed planes (weight_bits 4, 5; b_hi the bit plane at
 // 5 bits; the sidecar sidx (sr,), sdelta (sr, n)). a_stripe: 0/1; b_res:
 // 0 streamed, 1 stripe (n-first walk), 2 whole. took (may be null): the
-// tile the launch took, its shared memory bytes and CTAs (gemm::Took).
+// tile the launch took, its shared memory bytes, CTAs and cluster size
+// (gemm::Took).
 extern "C" int matmul_os(const void* a, const void* b, void* c, int m, int n,
                          int k, int in_dtype, int out_dtype,
                          const float* scale, int scale_mode, const float* bias,

@@ -23,9 +23,18 @@
 // packed int4/int5 weights keep an int32 stripe (the reference's int32
 // scratch under an integer epilogue), with B1's sidecar at the flush.
 //
-// Bound on H100: as B1. The walk gives gn CTAs, and every k step re-reads
-// and re-writes the stripe in shared memory.
-#include "gemm_common.cuh"
+// bf16 operands over two row tiles or more take the cluster kernel of
+// gemm_cluster.cuh instead (reported to the caller as the tile
+// "matmul_ws_stripe_cluster"): a cluster of C CTAs per column stripe, CTA r
+// owning row tiles r, r + C, ... with its part of the stripe in registers
+// across the reduction, each weight chunk fetched once per cluster and
+// multicast into every CTA by the TMA (or exchanged over distributed shared
+// memory). f32 and int8 operands, and a single row tile, keep the kernel
+// below.
+//
+// Bound on H100: as B1. The one-CTA kernel gives gn CTAs, and every k step
+// re-reads and re-writes the stripe in shared memory.
+#include "gemm_cluster.cuh"
 
 namespace {
 
@@ -130,9 +139,34 @@ ws_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
   }
 }
 
+// bf16 over two row tiles or more: the cluster kernel of gemm_cluster.cuh,
+// reported as TILE_CLUSTER.
+int launch_cluster(const void* a, const void* b, void* c, int m, int n, int k,
+                   const Epi& e, cudaStream_t s, Took* took) {
+  const int gn = cdiv(n, BN), C = cl::ws_stripe_cluster(m, n);
+  if (C > 8 || cdiv(cdiv(m, BM), C) > cl::STRIPE_TILES) return REPRO_BAD_ARGUMENT;
+  const size_t smem = cl::ws_stripe_smem(m, C);
+  if (took) *took = {TILE_CLUSTER, (int)smem, gn * C, C};
+  const auto* ah = static_cast<const __nv_bfloat16*>(a);
+  const auto* bh = static_cast<const __nv_bfloat16*>(b);
+  CUtensorMap ma{}, mb{};
+  if (vec_ok<__nv_bfloat16>(a, b, n, k)) {
+    const int rc = cl::make_maps(&ma, &mb, a, b, m, n, k, cl::STRIPE_KC * BK / C, false);
+    if (rc) return rc;
+    return cl::launch_in_clusters(cl::ws_stripe_cluster_kernel<true>, gn * C,
+                                  cl::TMA_THREADS, C, smem, s, ah, bh, c, m, n, k, e,
+                                  ma, mb);
+  }
+  return cl::launch_in_clusters(cl::ws_stripe_cluster_kernel<false>, gn * C, THREADS,
+                                C, smem, s, ah, bh, c, m, n, k, e, ma, mb);
+}
+
 template <typename T, int WB>
 int launch(const void* a, const void* b, const void* b_hi, void* c, int m,
-           int n, int k, const Epi& e, cudaStream_t s) {
+           int n, int k, const Epi& e, cudaStream_t s, Took* took) {
+  if constexpr (kTC<T>) {
+    if (cdiv(m, BM) >= 2) return launch_cluster(a, b, c, m, n, k, e, s, took);
+  }
   const dim3 grid(cdiv(n, BN));
   const size_t smem = ws_stripe_smem(m);
   return with_b<T, WB>(b, b_hi, vec_ok<T>(a, b, n, k), [&](auto bop, auto vec) {
@@ -144,18 +178,21 @@ int launch(const void* a, const void* b, const void* b_hi, void* c, int m,
 
 }  // namespace
 
-// Operands as matmul_os.
+// Operands as matmul_os. took (may be null): the cluster kernel's report
+// (gemm::Took), or TILE_WALK for the one-CTA kernel.
 extern "C" int matmul_ws_stripe(const void* a, const void* b, void* c, int m,
                                 int n, int k, int in_dtype, int out_dtype,
                                 const float* scale, int scale_mode,
                                 const float* bias, int act,
                                 const float* residual, int weight_bits,
                                 const void* b_hi, const int* sidx,
-                                const int* sdelta, int sr, void* stream) {
+                                const int* sdelta, int sr, gemm::Took* took,
+                                void* stream) {
+  if (took) *took = gemm::Took{};
   if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, bias,
                      act, residual, weight_bits, b_hi, sidx, sdelta, sr))
     return REPRO_BAD_ARGUMENT;
   const gemm::Epi e = GEMM_EPI(a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GEMM_DISPATCH_DTYPES(launch, a, b, b_hi, c, m, n, k, e, s);
+  GEMM_DISPATCH_DTYPES(launch, a, b, b_hi, c, m, n, k, e, s, took);
 }

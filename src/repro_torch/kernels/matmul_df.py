@@ -18,6 +18,17 @@ the post-epilogue value, under the anchor and auxiliary residencies a
   ``_is_stripe_kernel``: IS with the (bm, N) output stripe resident,
   optionally with the whole weight.
 
+bf16 launches of B1's residencies, B4 and B5a whose walk sweeps two tiles
+or more take the cluster walks of ``csrc/gemm_cluster.cuh``: a
+thread-block cluster of ``cluster`` CTAs holds the resident operand,
+fetched once per cluster, and its CTAs split the sweep (B5a: the output
+stripe's row tiles, each CTA's part in registers).  ``plan`` names the
+walk as ``tile_kernel`` (``matmul_os_cluster``, ``matmul_rmw_cluster``,
+``matmul_ws_stripe_cluster``, counted beside the library's key) with the
+cluster size, CTAs and launched shared memory, and ``check_took`` holds
+each launch's report against it.  Feasibility does not change: the
+resident operands must fit one block, as before.
+
 "Resident" means held in the CTA's shared memory across a walk over the
 grid dimension the TPU kernel revisits the operand in.  ``plan`` names
 the kernel, the walk and the resident operands with their bytes, and
@@ -94,6 +105,13 @@ I8_PREFILL_TILE, I8_PREFILL_STAGES = (128, 128, 64), 4
 I8_DECODE_TILE, I8_DECODE_STAGES = (16, 512, 64), 3
 PACKED_DECODE_TILE, PACKED_DECODE_STAGES = (16, 512, 32), 4
 WEIGHT_BITS = (4, 5)
+# The cluster walks (csrc/gemm_cluster.cuh, namespace cl; the CUDA
+# configuration is the source, held against this copy at every launch):
+# bytes of a 64 x 32 A or 32 x 64 B bf16 k step, the streamed operand's
+# ring slots, the largest cluster, the SMs a cluster size fills; B5a's k
+# steps a chunk, chunks held at once and most row tiles a CTA owns.
+CLUSTER_SLOT, CLUSTER_RING, MAX_CLUSTER, CARD_SMS = 4096, 16, 16, 132
+STRIPE_KC, STRIPE_SLOTS, STRIPE_TILES = 2, 4, 2
 _B_RES_CODES = {Residency.STREAMED: 0, Residency.STRIPE: 1,
                 Residency.WHOLE: 2}
 
@@ -142,6 +160,26 @@ I8_DECODE = register_kernel(KernelRegistration(
     name="matmul_os_i8_decode", source=_SRC + "gemm_tc_i8.cuh",
     replaces="src/repro/kernels/matmul_df.py:347", spec=BASIC_OS,
 ))
+# The cluster walks of B1's residencies, B4 and B5a, counted beside their
+# libraries' keys.
+OS_CLUSTER = register_kernel(KernelRegistration(
+    name="matmul_os_cluster", source=_SRC + "gemm_cluster.cuh",
+    replaces="src/repro/kernels/matmul_df.py:347",
+    spec=DataflowSpec(anchor=OS, aux={WS: Residency.STRIPE}, block=BLOCK),
+))
+RMW_CLUSTER = register_kernel(KernelRegistration(
+    name="matmul_rmw_cluster", source=_SRC + "gemm_cluster.cuh",
+    replaces="src/repro/kernels/matmul_df.py:476",
+    spec=DataflowSpec(anchor=WS, block=BLOCK),
+))
+WS_STRIPE_CLUSTER = register_kernel(KernelRegistration(
+    name="matmul_ws_stripe_cluster", source=_SRC + "gemm_cluster.cuh",
+    replaces="src/repro/kernels/matmul_df.py:556",
+    spec=DataflowSpec(anchor=WS, aux={OS: Residency.STRIPE}, block=BLOCK),
+))
+_CLUSTER_TILES = {"matmul_os": OS_CLUSTER.name,
+                  "matmul_rmw": RMW_CLUSTER.name,
+                  "matmul_ws_stripe": WS_STRIPE_CLUSTER.name}
 # B6 has no kernel of its own: it is the packed-plane decode inside these
 # GEMMs' and the conv's tile loads, counted under its own launch key.
 UNPACK = register_kernel(KernelRegistration(
@@ -164,7 +202,8 @@ class Plan:
     args: Tuple[int, ...]         # the entry point's dataflow arguments
     demoted: Optional[str] = None  # an aux the reference also streams
     tile: Tuple[int, int, int] = BLOCK   # a CTA's (bm, bk, bn)
-    tile_kernel: Optional[str] = None    # B1's basic tile, counted beside it
+    tile_kernel: Optional[str] = None    # the tile, counted beside kernel
+    cluster: Optional[int] = None        # CTAs of a cluster (cluster walks)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -191,6 +230,106 @@ def _i8_ring_bytes(tile: Tuple[int, int, int], stages: int,
 
 def _held(res: Residency) -> bool:
     return res in (Residency.STRIPE, Residency.WHOLE)
+
+
+def _pow2_ceil(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def cluster_size(anchors: int, g: int, lo: int = 1) -> int:
+    """CTAs of a cluster for a sweep of ``g`` tiles under ``anchors``
+    clusters (``csrc/gemm_cluster.cuh`` ``cl::cluster_size``): doubled from
+    2 while the card has SMs without a CTA, up to ``MAX_CLUSTER`` and to
+    ``g``; at least ``lo``."""
+    c = 2
+    while c < MAX_CLUSTER and 2 * c <= g and anchors * c < CARD_SMS:
+        c *= 2
+    return max(c, lo)
+
+
+def cluster_tiles(g: int, cluster: int, rank: int) -> range:
+    """The tiles of a sweep of ``g`` that CTA ``rank`` of a cluster walks
+    (and, of a resident operand's ``g`` slots, the ones it fetches)."""
+    return range(rank, g, cluster)
+
+
+def _bar_bytes(ring: int) -> int:
+    """The cluster kernels' mbarriers (``cl::bar_bytes``): one, and two a
+    ring slot, 8 bytes each, in 128-byte lines."""
+    return _cdiv(8 * (1 + 2 * ring), 128) * 128
+
+
+def cluster_walk_smem(walk: str, a_res: bool, b_res: Residency, m: int,
+                      k: int, n: int) -> int:
+    """Shared memory of a cluster walk of B1/B4 (``cl::walk_smem``):
+    ``walk`` "M" (a column stripe's CTAs split the row tiles) or "N"; the
+    resident A row stripe (``a_res`` under "N", ``ra`` rows a k step) and
+    B panel in 4 KB k steps, then the streamed operand's ring (under "M"
+    with ``a_res``, the row stripe: all its k steps, at least 2), then the
+    mbarriers (none beside an A stripe of fewer than 64 rows)."""
+    ks, gn = _cdiv(k, BLOCK[1]), _cdiv(n, BLOCK[2])
+    ra = min(BLOCK[0], _cdiv(m, 4) * 4) if walk == "N" and a_res else BLOCK[0]
+    tma = ra == BLOCK[0]
+    blocks = {Residency.STRIPE: 1, Residency.WHOLE: gn}.get(b_res, 0)
+    held = (ks * ra * 64 if walk == "N" and a_res else 0) + \
+        blocks * ks * CLUSTER_SLOT
+    if walk == "M" and a_res:
+        ring = max(2, ks)
+    elif walk == "M" or not a_res or b_res == Residency.STREAMED:
+        most = held + (_bar_bytes(CLUSTER_RING) if tma else 0)
+        ring = min(CLUSTER_RING, max(0, MAX_SMEM - most) // CLUSTER_SLOT)
+    else:
+        ring = 0
+    return held + ring * CLUSTER_SLOT + (_bar_bytes(ring) if tma else 0)
+
+
+def ws_stripe_cluster_smem(m: int, cluster: int) -> int:
+    """Shared memory of B5a's cluster kernel (``cl::ws_stripe_smem``):
+    ``STRIPE_SLOTS`` chunks of the weight column and of the busiest CTA's
+    A tiles, and the mbarriers."""
+    return (STRIPE_SLOTS * STRIPE_KC * CLUSTER_SLOT
+            * (1 + _cdiv(_cdiv(m, BLOCK[0]), cluster))
+            + _bar_bytes(STRIPE_SLOTS))
+
+
+def _cluster_plan(p: "Plan", dtype: torch.dtype, m: int, k: int,
+                  n: int) -> "Plan":
+    """``p`` as launched: a bf16 resident walk of B1/B4 or B5a over a
+    sweep of two tiles or more takes its cluster walk; anything else is
+    ``p`` itself."""
+    if dtype != torch.bfloat16 or p.kernel not in _CLUSTER_TILES:
+        return p
+    gm, gn = _cdiv(m, BLOCK[0]), _cdiv(n, BLOCK[2])
+    if p.kernel == "matmul_ws_stripe":
+        if gm < 2:
+            return p
+        c = cluster_size(gn, gm, _pow2_ceil(_cdiv(gm, STRIPE_TILES)))
+        return dataclasses.replace(
+            p, tile_kernel=WS_STRIPE_CLUSTER.name, cluster=c, ctas=gn * c,
+            smem_bytes=ws_stripe_cluster_smem(m, c),
+            walk=(f"cluster of {c} CTAs per column stripe j, CTA r owning "
+                  f"row tiles r, r+{c}, ... (stripe in registers), weight "
+                  f"chunks multicast, sweeps k"))
+    res_of = {code: res for res, code in _B_RES_CODES.items()}
+    if p.kernel == "matmul_os":          # args (a_stripe, b_res)
+        a_res, b_res = bool(p.args[0]), res_of[p.args[1]]
+        walk = "M" if b_res == Residency.STRIPE else "N"
+    else:                                # args (m_minor, a_stripe, b_res)
+        walk = "M" if p.args[0] else "N"
+        a_res, b_res = bool(p.args[1]), res_of[p.args[2]]
+    anchors, g = (gn, gm) if walk == "M" else (gm, gn)
+    if g < 2:
+        return p
+    c = cluster_size(anchors, g)
+    return dataclasses.replace(
+        p, tile_kernel=_CLUSTER_TILES[p.kernel], cluster=c, ctas=anchors * c,
+        smem_bytes=cluster_walk_smem(walk, a_res, b_res, m, k, n),
+        walk=(f"cluster of {c} CTAs per {'column' if walk == 'M' else 'row'}"
+              f" stripe, resident operands multicast, CTA r sweeps "
+              f"{'i' if walk == 'M' else 'j'} = r, r+{c}, ..."))
 
 
 def panel_bytes(rows: int, width: int, elt: int,
@@ -331,22 +470,25 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
             f"{spec.name} at M={m} K={k} N={n} ({dtype}{b_kind}) "
             f"needs {smem} bytes of shared memory per block ({held}); a "
             f"Hopper block has {MAX_SMEM}")
-    return Plan(kernel=kernel, grid_order=order, walk=walk, ctas=ctas,
-                resident=resident, smem_bytes=smem, args=args,
-                demoted=demoted)
+    return _cluster_plan(Plan(kernel=kernel, grid_order=order, walk=walk,
+                              ctas=ctas, resident=resident, smem_bytes=smem,
+                              args=args, demoted=demoted), dtype, m, k, n)
 
 
-def check_took(p: Plan, took: Optional[Tuple[str, int, int]]) -> None:
-    """Raise unless the tile a ``matmul_os`` (or ``binary_mm``) launch took
-    (``_build.launch``'s report, from the CUDA tile configurations) is the
-    one ``p`` planned, with its shared memory bytes and CTAs: the planner's
-    copy of the tile shapes must not drift from the kernels'."""
+def check_took(p: Plan, took: Optional[tuple]) -> None:
+    """Raise unless the tile a ``matmul_os``, ``matmul_rmw``,
+    ``matmul_ws_stripe`` (or ``binary_mm``) launch took (``_build.launch``'s
+    report, from the CUDA tile configurations) is the one ``p`` planned,
+    with its shared memory bytes and CTAs, and for a cluster walk its
+    cluster size: the planner's copy of the tile shapes must not drift from
+    the kernels'."""
     want = None if p.tile_kernel is None else (
-        p.tile_kernel, p.smem_bytes, p.ctas)
+        (p.tile_kernel, p.smem_bytes, p.ctas)
+        + ((p.cluster,) if p.cluster else ()))
     if took != want:
         raise _build.KernelError(
             f"{p.kernel} took the tile {took} (name, shared memory bytes, "
-            f"CTAs) where its plan says {want}")
+            f"CTAs[, cluster]) where its plan says {want}")
 
 
 def scale_mode(scale: Optional[torch.Tensor]) -> int:
@@ -488,7 +630,7 @@ def matmul_df(
         weight_bits or 0, _build.ptr(b_hi), _build.ptr(outlier_idx),
         _build.ptr(outlier_delta), r, *p.args,
         packed=weight_bits is not None)
-    if p.kernel == "matmul_os":
+    if p.kernel in _build.TILE_LIBRARIES:
         check_took(p, took)
     return out
 
