@@ -18,8 +18,9 @@ Phases, each printing JSON lines:
    B1's int8 tile kernels issue integer ones (IMMA) and no other kernel
    does, that B9's binary tile kernels issue binary ones
    (``BMMA.168256.AND.POPC``) and no other kernel does, and that the
-   cluster walks of B1's residencies, B4 and B5a
-   (``csrc/gemm_cluster.cuh``) are in their libraries and issue HMMA.
+   cluster walks of B1's residencies, B4, B5a and B5b
+   (``csrc/gemm_cluster.cuh``) and B7's bf16 cluster kernel
+   (``csrc/kv_stationary.cu``) are in their libraries and issue HMMA.
 3. ``kernels``: each kernel held against its plain PyTorch version on the
    card, at the full-width qwen3-1.7b shapes of the serving path, in bf16,
    with the tolerance stated per kernel; then each timed by CUDA events
@@ -38,8 +39,11 @@ Phases, each printing JSON lines:
    plain version and equals B1's output bit for bit, or raises
    ``ValueError`` naming the shared memory it needs; B4's WS and IS walks
    and B1's weight-stripe residency are timed at the paper's layer
-   (56,3,1,128), B5a at qwen3-1.7b's down projection.  B7 is held against the plain
-   version with B2's tolerances.  B3 (split across CTAs) at the served
+   (56,3,1,128), B5a at qwen3-1.7b's down projection, B5b (on its cluster
+   walk) at the paper's layer.  B7 is held against the plain version with
+   B2's tolerances and, at bf16 on its cluster kernel, against B2 bit for
+   bit (a gate), and timed at prefill 512 and 2048 beside B2.  B3 (split
+   across CTAs) at the served
    decode shape and at a long row (4 x 4096 keys), with and without a
    window, timed at both.  B9 is held bit for bit at every anchor
    and epilogue stage at the served binary-MLP shapes, its basic OS on
@@ -91,7 +95,8 @@ The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
 its prefill and decode tiles, B2, B3; serve_packed: B6, B1 with its int8
 prefill and decode tiles, B2, B3; dataflows: B1 and its bf16 tiles, B2,
-B4, B5a (B1's residencies, B4 and B5a on their cluster walks), B5b, B7;
+B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
+B7 (on its cluster kernel);
 quantized: B8, B9 and its prefill tile, B1 and its
 int8 tiles, B6); on serve and serve_packed every B1 launch, and on
 serve_binary every B9 launch, is one of its tiles' (prefill plus decode),
@@ -187,7 +192,8 @@ B1_TOL = dict(atol=1e-3, rtol=1e-3, row_rtol=1e-4)
 # Phase 2: which kernels run on the tensor cores.
 # ---------------------------------------------------------------------------
 TC_LIBRARIES = ("matmul_os", "matmul_rmw", "matmul_ws_stripe",
-                "matmul_is_stripe", "flash_attention", "binary_mm")
+                "matmul_is_stripe", "flash_attention", "kv_stationary",
+                "binary_mm")
 
 
 # The int8 tensor-core tiles of B1 (csrc/gemm_tc_i8.cuh), by __global__ name.
@@ -197,12 +203,15 @@ I8_TILE_FUNCTIONS = ("i8_prefill_kernel", "i8_decode_kernel")
 # for sm_90a (any other BMMA form is counted apart).
 B1_TILE_FUNCTIONS = ("bin_prefill_kernel", "bin_decode_kernel")
 B1_MMA_SASS = "BMMA.168256.AND.POPC"
-# The bf16 cluster walks (csrc/gemm_cluster.cuh) each library must hold:
-# bf16 kernels, whose TMA twins take no bf16 pointer (their operands come
-# through tensor maps), so they are named here.
+# The bf16 cluster walks (csrc/gemm_cluster.cuh) and B7's bf16 cluster
+# kernel (csrc/kv_stationary.cu) each library must hold: bf16 kernels, some
+# of whose TMA twins take no bf16 pointer (their operands come through
+# tensor maps), so they are named here.
 CLUSTER_FUNCTIONS = {"matmul_os": ("walk_cluster_kernel", "walk_tma_kernel"),
                      "matmul_rmw": ("walk_cluster_kernel", "walk_tma_kernel"),
-                     "matmul_ws_stripe": ("ws_stripe_cluster_kernel",)}
+                     "matmul_ws_stripe": ("ws_stripe_cluster_kernel",),
+                     "matmul_is_stripe": ("is_stripe_cluster_kernel",),
+                     "kv_stationary": ("kv_cluster_kernel",)}
 
 
 def tensor_core_check():
@@ -690,13 +699,13 @@ def gemm_dataflow_checks(torch, cfg, timer, gen, tol):
 def kv_stationary_checks(torch, cfg, timer, gen, tol, f32_tol):
     """B7 against the plain version at qwen3-1.7b prefill widths (the
     attention-anchor bench's 512 and 2048 among them), with B2's
-    tolerances; whether it also equals B2 bit for bit (the same online
-    softmax step over the same KV blocks, the state kept in f32) is
-    reported, not required."""
+    tolerances, and at bf16 against B2 bit for bit (the same step over the
+    same tiles, the state exact: a gate); each bf16 launch on its cluster
+    kernel, counted under its key.  Timed at Sq = 512 and 2048."""
     import torch.nn.functional as F
 
     from repro_torch.bench.common import bound
-    from repro_torch.kernels import attention_df, ref
+    from repro_torch.kernels import _build, attention_df, ref
 
     dev = "cuda"
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -704,7 +713,7 @@ def kv_stationary_checks(torch, cfg, timer, gen, tol, f32_tol):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    errs, same_as_b2 = [], []
+    errs = []
     for b, sq, skv, kv_len, window in (
             (1, 512, 512, None, None), (1, 2048, 2048, None, None),
             (1, 17, 1024, 65, None),
@@ -715,37 +724,51 @@ def kv_stationary_checks(torch, cfg, timer, gen, tol, f32_tol):
         lens = kv_len
         if isinstance(kv_len, list):
             lens = torch.tensor(kv_len, device=dev, dtype=torch.int32)
+        shape = (f"B={b} Sq={sq} Skv={skv} kv_len={kv_len} "
+                 f"window={window}")
+        before = _build.LAUNCHES["kv_stationary_cluster"]
         got = attention_df.kv_stationary_attention(q, kk, vv, kv_len=lens,
                                                    window=window)
+        if _build.LAUNCHES["kv_stationary_cluster"] != before + 1:
+            raise AssertionError(f"kv_stationary at {shape} did not launch "
+                                 f"its cluster kernel once")
         want = ref.attention_ref(q, kk, vv, kv_len=lens, window=window)
-        errs.append(check("kv_stationary", got, want, **tol,
-                          shape=f"B={b} Sq={sq} Skv={skv} kv_len={kv_len} "
-                                f"window={window}"))
-        same_as_b2.append(torch.equal(got, attention_df.flash_attention(
-            q, kk, vv, kv_len=lens, window=window)))
+        errs.append(check("kv_stationary", got, want, **tol, shape=shape))
+        _bitwise("kv_stationary_equals_flash_bitwise", got,
+                 attention_df.flash_attention(q, kk, vv, kv_len=lens,
+                                              window=window), shape)
     q, kk, vv = (torch.randn(s, generator=gen, device=dev) for s in (
         (2, 4, 40, 64), (2, 2, 40, 64), (2, 2, 40, 64)))
     check("kv_stationary", attention_df.kv_stationary_attention(
         q, kk, vv, window=9), ref.attention_ref(q, kk, vv, window=9),
         shape="float32 B=2 Sq=Skv=40 D=64 window=9", **f32_tol)
-    emit({"check": "kv_stationary_equals_flash_bitwise",
-          "cases": same_as_b2})
-    sq = 512
-    q, kk, vv = randn(1, hq, sq, dh), randn(1, hkv, sq, dh), \
-        randn(1, hkv, sq, dh)
-    pairs = sq * (sq + 1) // 2
-    bnd = bound((hq + 2 * hkv) * sq * dh * 2 + hq * sq * dh * 2,
-                4.0 * dh * pairs * hq)
-    return {"kv_stationary": dict(
-        shape=f"prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} D={dh} causal",
-        max_abs_err=max(errs),
-        ms=timer.ms(lambda: attention_df.kv_stationary_attention(q, kk, vv)),
-        plain_ms=timer.ms(lambda: ref.attention_ref(q, kk, vv)),
-        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-            q, kk, vv, is_causal=True, enable_gqa=True)),
-        library_call="F.scaled_dot_product_attention(is_causal, enable_gqa)",
-        bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol,
-        equals_flash_bitwise=all(same_as_b2))}
+
+    def record(sq):
+        q, kk, vv = randn(1, hq, sq, dh), randn(1, hkv, sq, dh), \
+            randn(1, hkv, sq, dh)
+        pairs = sq * (sq + 1) // 2
+        bnd = bound((hq + 2 * hkv) * sq * dh * 2 + hq * sq * dh * 2,
+                    4.0 * dh * pairs * hq)
+        plan = attention_df.kv_stationary_plan(1, hq, hkv, sq, sq, d=dh)
+        return dict(
+            shape=f"prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} D={dh} causal",
+            max_abs_err=max(errs), cluster=plan.cluster, ctas=plan.ctas,
+            ms=timer.ms(lambda: attention_df.kv_stationary_attention(
+                q, kk, vv)),
+            plain_ms=timer.ms(lambda: ref.attention_ref(q, kk, vv)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, is_causal=True, enable_gqa=True)),
+            library_call="F.scaled_dot_product_attention(is_causal, "
+                         "enable_gqa)",
+            flash_ms=timer.ms(lambda: attention_df.flash_attention(
+                q, kk, vv)),
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol,
+            equals_flash_bitwise=True)
+
+    rec = record(512)
+    rec["sq2048"] = record(2048)
+    emit({"kernel_timing_detail": "kv_stationary", **rec["sq2048"]})
+    return {"kv_stationary": rec, "kv_stationary_cluster": rec}
 
 
 def _bitwise(name: str, got, want, shape: str) -> float:
@@ -1357,7 +1380,8 @@ def packed_conv_checks(torch, timer, gen):
 DATAFLOW_PATH = ("matmul_os", "matmul_os_prefill", "matmul_os_decode",
                  "matmul_os_cluster", "matmul_rmw", "matmul_rmw_cluster",
                  "matmul_ws_stripe", "matmul_ws_stripe_cluster",
-                 "matmul_is_stripe", "flash_attention", "kv_stationary")
+                 "matmul_is_stripe", "matmul_is_stripe_cluster",
+                 "flash_attention", "kv_stationary", "kv_stationary_cluster")
 
 
 def dataflows_phase(torch):
@@ -1849,7 +1873,7 @@ def main(argv=None) -> int:
             "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms"), "shape": rec.get("shape"),
             **{k: rec[k] for k in ("float32", "long_row", "down", "tile",
-                                   "cluster", "ctas", "is_walk")
+                                   "cluster", "ctas", "is_walk", "sq2048")
                if k in rec},
         })
     emit({"kernels": kernels})

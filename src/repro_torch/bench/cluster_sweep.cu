@@ -440,7 +440,7 @@ int main(int argc, char** argv) {
     // weight rows must be whole 1024-byte swizzle rows.
     auto b5a = [&](bool mc, bool copies, int C, Took& took) {
       const int gn = cdiv(n, BN);
-      const size_t smem = cl::ws_stripe_smem(m, C);
+      const size_t smem = cl::stripe_smem(cdiv(m, BM), C);
       took = {TILE_CLUSTER, (int)smem, gn * C, C};
       if (cdiv(cdiv(m, BM), C) > cl::STRIPE_TILES || (mc && C > 8)) return (int)REPRO_BAD_ARGUMENT;
       CUtensorMap ma{}, mb{};

@@ -22,9 +22,10 @@ OS launch of B1 takes one of its two tensor-core tiles
 (``csrc/gemm_tc.cuh``), an int8 or packed one one of its two integer
 tensor-core tiles (``csrc/gemm_tc_i8.cuh``), and B9's basic OS launch one
 of its two binary tensor-core tiles (``csrc/binary_mm.cu``); a bf16 launch
-of B1's residencies, B4 or B5a over a sweep of two tiles or more takes the
-cluster walk of ``csrc/gemm_cluster.cuh``; the entry point reports the
-tile it took, which also counts one under its name (``TILE_LIBRARIES``).
+of B1's residencies, B4, B5a or B5b over a sweep of two tiles or more
+takes the cluster walk of ``csrc/gemm_cluster.cuh``, and a bf16 launch of
+B7 its cluster kernel; the entry point reports the tile it took, which
+also counts one under its name (``TILE_LIBRARIES``).
 """
 from __future__ import annotations
 
@@ -41,9 +42,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-HEADERS = ("common.cuh", "attention_common.cuh", "gemm_common.cuh",
-           "gemm_cluster.cuh", "gemm_tc.cuh", "gemm_tc_i8.cuh",
-           "mma_common.cuh", "pack_common.cuh")
+HEADERS = ("common.cuh", "attention_common.cuh", "flash_tc.cuh",
+           "flash_tc_step.cuh", "gemm_common.cuh", "gemm_cluster.cuh",
+           "gemm_tc.cuh", "gemm_tc_i8.cuh", "mma_common.cuh",
+           "pack_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # The GEMM, conv and binary kernels contract no multiply-add but their
@@ -69,11 +71,11 @@ SIGNATURES = {
     "matmul_os": _GEMM + (_I, _I, _P, _P),
     "matmul_rmw": _GEMM + (_I, _I, _I, _P, _P),
     "matmul_ws_stripe": _GEMM + (_P, _P),
-    "matmul_is_stripe": _GEMM + (_I, _P),
+    "matmul_is_stripe": _GEMM + (_I, _P, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                         _I, _I, _F, _P),
     "kv_stationary": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                      _I, _I, _I, _F, _P),
+                      _I, _I, _I, _F, _P, _P),
     "paged_attention": (_P,) * 9 + (_I,) * 9 + (_F, _I, _P),
     "conv2d": (_P, _P, _P) + (_I,) * 10 + (_P, _I, _P, _I, _P, _I, _P, _P,
                                            _P, _I, _I, _P),
@@ -89,9 +91,12 @@ PACKED_DECODE = "unpack_block"
 # (csrc/gemm_common.cuh TileCode).
 TILES = ("matmul_os_prefill", "matmul_os_decode", "matmul_os_i8_prefill",
          "matmul_os_i8_decode", "matmul_os_cluster")
-# B4's and B5a's cluster walks (csrc/gemm_cluster.cuh), code 1 of theirs.
+# B4's, B5a's and B5b's cluster walks (csrc/gemm_cluster.cuh), code 1 of
+# theirs; B7's bf16 cluster kernel (csrc/kv_stationary.cu), code 1 of its.
 RMW_TILES = ("matmul_rmw_cluster",)
 WS_STRIPE_TILES = ("matmul_ws_stripe_cluster",)
+IS_STRIPE_TILES = ("matmul_is_stripe_cluster",)
+KV_TILES = ("kv_stationary_cluster",)
 # B9's basic OS tiles on the binary tensor cores (csrc/binary_mm.cu
 # TileCode), the same way.
 BINARY_TILES = ("binary_mm_prefill", "binary_mm_decode")
@@ -99,9 +104,10 @@ BINARY_TILES = ("binary_mm_prefill", "binary_mm_decode")
 # tiles by code.
 TILE_LIBRARIES = {"matmul_os": TILES, "matmul_rmw": RMW_TILES,
                   "matmul_ws_stripe": WS_STRIPE_TILES,
-                  "binary_mm": BINARY_TILES}
-# What the last such launch took (csrc/gemm_common.cuh gemm::Took,
-# csrc/binary_mm.cu bin::Took): the tile code, its shared memory bytes, its
+                  "matmul_is_stripe": IS_STRIPE_TILES,
+                  "kv_stationary": KV_TILES, "binary_mm": BINARY_TILES}
+# What the last such launch took (csrc/gemm_common.cuh gemm::Took, also
+# B7's report; csrc/binary_mm.cu bin::Took): the tile code, its shared memory bytes, its
 # CTAs and (a cluster walk) the CTAs of a cluster.
 _TOOK = (ctypes.c_int * 4)()
 LAUNCHES: Dict[str, int] = {name: 0 for name in
@@ -232,9 +238,9 @@ def launch(name: str, *args, packed: bool = False) -> Optional[tuple]:
     """Call kernel ``name``'s entry point on the current CUDA stream,
     count the launch (and, when it decodes ``packed`` planes, B6's) and
     raise if it was refused.  A launch of a ``TILE_LIBRARIES`` entry that
-    took one of its tiles (B1's, B4's, B5a's, B9's) counts that tile too
-    and returns (tile, shared memory bytes, CTAs) as the kernel reported
-    them, with the cluster size after them for a cluster walk; every other
+    took one of its tiles (B1's, B4's, B5a's, B5b's, B7's, B9's) counts
+    that tile too and returns (tile, shared memory bytes, CTAs) as the
+    kernel reported them, with the cluster size after them for a cluster walk; every other
     launch returns None."""
     lib = library(name)
     stream = torch.cuda.current_stream().cuda_stream

@@ -22,10 +22,21 @@ Ports of ``repro/kernels/attention_df.py``:
   partial (m, l, acc) meet in a workspace the wrapper sizes from the
   shapes, merged in chunk order by the row's last CTA.
 * ``kv_stationary_attention`` (``csrc/kv_stationary.cu``) replaces
-  ``_kv_stationary_kernel`` / ``_kv_single_kernel``: the WS anchor, one
-  CTA per (batch*head) walking the KV blocks outer (each fetched once)
-  and the q tiles inner, the running state through device memory once
-  per visible (KV block, q tile) pair; the same band and mask as B2.
+  ``_kv_stationary_kernel`` / ``_kv_single_kernel``: the WS anchor, the
+  KV blocks walked outer and the q tiles inner, the same band and mask as
+  B2.  bf16 runs on thread-block clusters and the tensor cores: a cluster
+  of ``kv_stationary_plan(...).cluster`` CTAs per (batch row, kv head),
+  each 64-key K and V block fetched once per cluster (once per kv head,
+  for every q head of its group) by TMA copies multicast into every CTA,
+  the cluster's units (q head of the group, 64-row q tile) dealt to its
+  CTAs, each warp folding with B2's step (``csrc/flash_tc.cuh``), so
+  every output equals B2's bit for bit; a CTA with one unit keeps its
+  state in registers, one with several passes each unit's f32 state
+  through device memory between KV blocks.  The launch reports its
+  (cluster, CTAs, shared memory) and ``check_took`` holds it against the
+  plan.  f32 keeps the CUDA cores: one CTA per (batch*head), each KV
+  block fetched once per q head, the state through device memory once per
+  visible (KV block, 16-row q tile) pair.  ``KV_BLOCKS``.
 
 Each wrapper launches its kernel for CUDA tensors and raises for what it
 does not take; for CPU tensors it computes the kernel's plain version
@@ -35,20 +46,24 @@ themselves, so nothing is padded.  int8 K/V is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.dataflow import (DataflowSpec, KernelRegistration, OS,
                                        WS, register_kernel)
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, matmul_df, ref
 
 HEAD_DIMS = (32, 64, 128)          # d_head values the kernels are built for
 # (bq, bkv) of csrc/flash_attention.cu by dtype: the bf16 tensor-core tile
 # (the serving path's) and the f32 CUDA-core one.
 FLASH_BLOCKS = {torch.bfloat16: (64, 64), torch.float32: (16, 32)}
 FLASH_BLOCK = FLASH_BLOCKS[torch.bfloat16]
-KV_BLOCK = (16, 32)                # (bq, bkv) of csrc/kv_stationary.cu
+# (bq, bkv) of csrc/kv_stationary.cu by dtype: the bf16 cluster kernel's
+# (B2's tensor-core tile) and the f32 CUDA-core one.
+KV_BLOCKS = {torch.bfloat16: (64, 64), torch.float32: (16, 32)}
+KV_BLOCK = KV_BLOCKS[torch.bfloat16]
+KV_STAGES = 2                      # csrc/kv_stationary.cu: KV blocks held
 MAX_PAGE = 32                      # csrc/paged_attention.cu: keys per page
 MAX_GROUP = 8                      # csrc/paged_attention.cu: q heads per kv head
 PAGED_TILE_KEYS = 32               # csrc/paged_attention.cu: keys a tile, at most
@@ -62,6 +77,12 @@ FLASH = register_kernel(KernelRegistration(
 ))
 KV_STATIONARY = register_kernel(KernelRegistration(
     name="kv_stationary",
+    source="src/repro_torch/kernels/csrc/kv_stationary.cu",
+    replaces="src/repro/kernels/attention_df.py:538",
+    spec=DataflowSpec(anchor=WS, block=KV_BLOCK + (1,)),
+))
+KV_CLUSTER = register_kernel(KernelRegistration(
+    name="kv_stationary_cluster",
     source="src/repro_torch/kernels/csrc/kv_stationary.cu",
     replaces="src/repro/kernels/attention_df.py:538",
     spec=DataflowSpec(anchor=WS, block=KV_BLOCK + (1,)),
@@ -132,6 +153,83 @@ def flash_attention(
     return out
 
 
+class KvPlan(NamedTuple):
+    """How B7's bf16 cluster kernel runs at one shape."""
+
+    cluster: int        # CTAs of a cluster, one cluster per (batch row, kv head)
+    ctas: int
+    smem_bytes: int     # dynamic shared memory of a CTA
+
+
+def kv_stationary_plan(b: int, hq: int, hkv: int, sq: int, skv: int,
+                       dtype: torch.dtype = torch.bfloat16,
+                       d: int = 128) -> Optional[KvPlan]:
+    """The cluster, CTAs and shared memory of B7's bf16 cluster kernel
+    (``csrc/kv_stationary.cu``, which is the source: every launch reports
+    them and ``check_took`` holds the report against this copy); None for
+    float32, which keeps one CTA per (batch*head).  The cluster size is
+    ``matmul_df.cluster_size``'s rule over the clusters' units (one CTA
+    for a single unit); CTA r takes units r, r + C, ....  ``skv`` does not
+    change the plan: the shared memory is the ring of ``KV_STAGES`` K and
+    V blocks of 64 keys."""
+    if dtype != torch.bfloat16:
+        return None
+    _check_head_dim(d)
+    bq, bkv = KV_BLOCKS[dtype]
+    clusters, units = b * hkv, -(-sq // bq) * (hq // hkv)
+    c = 1 if units < 2 else matmul_df.cluster_size(clusters, units)
+    smem = KV_STAGES * 2 * bkv * d * 2 + -(-16 * KV_STAGES // 128) * 128
+    return KvPlan(cluster=c, ctas=clusters * c, smem_bytes=smem)
+
+
+def kv_band(q0: int, sq: int, skv: int, kv_valid: int, causal: bool,
+            window: Optional[int], bq: int = 64,
+            bkv: int = 64) -> Tuple[int, int]:
+    """The KV blocks [lo, hi] the q tile at row q0 sees (``csrc/flash_tc.cuh``
+    ``fa::band``, B2's rule; ``repro/kernels/attention_df.py``
+    ``_band_lo_hi``); lo > hi: none."""
+    off = kv_valid - sq
+    hi = min(-(-kv_valid // bkv), -(-skv // bkv)) - 1
+    if causal:
+        qmax = min(q0 + bq, sq) - 1 + off
+        hi = min(hi, qmax // bkv if qmax >= 0 else -1)
+    lo = max(0, (q0 + off - window + 1) // bkv) if window else 0
+    return lo, hi
+
+
+def kv_schedule(sq: int, skv: int, kv_valid: int, group: int, causal: bool,
+                window: Optional[int], cluster: int, rank: int):
+    """What CTA ``rank`` of a B7 cluster does, in order (the bf16 cluster
+    kernel's walk): ``("fold", block, unit)`` for each KV block the
+    cluster walks (the lowest band's first to the highest band's last,
+    every CTA waiting on each) and each of its units r, r + C, ... whose
+    band holds the block, then ``("zeros", unit)`` for each of its units
+    whose band is empty.  Unit u is (q tile u // group, q head u %
+    group)."""
+    gq = -(-sq // KV_BLOCK[0])
+    mine = list(matmul_df.cluster_tiles(gq * group, cluster, rank))
+    bands = {u: kv_band(u // group * KV_BLOCK[0], sq, skv, kv_valid, causal,
+                        window) for u in range(gq * group)}
+    seen = [b for b in bands.values() if b[0] <= b[1]]
+    blocks = range(min(lo for lo, _ in seen),
+                   max(hi for _, hi in seen) + 1) if seen else range(0)
+    steps = [("fold", blk, u) for blk in blocks for u in mine
+             if bands[u][0] <= blk <= bands[u][1]]
+    return steps + [("zeros", u) for u in mine if bands[u][0] > bands[u][1]]
+
+
+def check_took(plan: Optional[KvPlan], took: Optional[tuple]) -> None:
+    """Raise unless B7's launch report (``_build.launch``: tile, shared
+    memory bytes, CTAs, cluster) is the one ``plan`` gives; a float32
+    launch reports none."""
+    want = None if plan is None else (KV_CLUSTER.name, plan.smem_bytes,
+                                      plan.ctas, plan.cluster)
+    if took != want:
+        raise _build.KernelError(
+            f"kv_stationary took {took} (name, shared memory bytes, CTAs, "
+            f"cluster) where its plan says {want}")
+
+
 def kv_stationary_attention(
     q: torch.Tensor,                 # (B, Hq, Sq, D)
     k: torch.Tensor,                 # (B, Hkv, Skv, D)
@@ -142,8 +240,10 @@ def kv_stationary_attention(
     kv_len: ref.KvLen = None,        # int, 0-d or (B,) int tensor
 ) -> torch.Tensor:
     """KV-stationary (WS) GQA attention in one kernel launch: each KV
-    block fetched once per head, the (acc, m, l) state through device
-    memory once per visible KV block.  Returns (B, Hq, Sq, D)."""
+    block fetched once per kv head (bf16; float32: once per q head), the
+    (acc, m, l) state through device memory between KV blocks (except a
+    bf16 CTA holding one q tile, which keeps it in registers).  Returns
+    (B, Hq, Sq, D)."""
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale, kv_len=kv_len)
@@ -153,15 +253,17 @@ def kv_stationary_attention(
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _build.require_cuda(q, k, v, kv_lens)
     _build.require_aligned(q, k, v)
+    plan = kv_stationary_plan(b, hq, hkv, sq, skv, q.dtype, d)
     out = torch.empty_like(q)
     acc = torch.empty((b * hq, sq, d), dtype=torch.float32, device=q.device)
     ml = torch.empty((b * hq, sq, 2), dtype=torch.float32, device=q.device)
-    _build.launch(
+    took = _build.launch(
         "kv_stationary", _build.ptr(q), _build.ptr(k), _build.ptr(v),
         _build.ptr(out), _build.ptr(acc), _build.ptr(ml),
         _build.dtype_code(q), d, b * hq, sq, skv, hq // hkv, heads_per_row,
         _build.ptr(kv_lens), kv_scalar, 0 if window is None else int(window),
         int(causal), float(scale if scale is not None else d ** -0.5))
+    check_took(plan, took)
     return out
 
 

@@ -23,15 +23,15 @@
 // bf16 (flash_tc_kernel, the serving path) runs on the tensor cores, in the
 // FlashAttention-2 shape: a CTA of 4 warps takes 64 q rows (16 a warp, Q's
 // fragments in registers across the sweep); 64-key K and V tiles arrive as
-// bf16 through a double-buffered cp.async ring; S = Q K^T and O += P V are
-// mma.sync m16n8k16, each 16-deep chunk summed from zero and added to the
-// f32 accumulator with one rounded add (as the GEMMs do); the softmax runs
-// on the accumulator fragments (quad shuffles for the row max and sum); P
-// is split exactly in registers into three bf16 parts, all A operands of
-// P V, so P keeps an f32's ~24 bits: rounded to one bf16 (or two), it moved
-// the served binary MLP's sign thresholds (its 2-layer logits fell to
-// cosine 0.83 (0.94) against the plain path on an H100). A warp skips the
-// tiles its rows cannot see.
+// bf16 through a double-buffered cp.async ring; each warp folds each tile it
+// sees with flash_tc.cuh's step (flash_tc_step.cuh: S = Q K^T and O += P V
+// on mma.sync m16n8k16, each 16-deep chunk summed from zero and added to the
+// f32 accumulator with one rounded add, as the GEMMs do; the softmax on the
+// accumulator fragments; P split exactly into three bf16 parts, so P keeps
+// an f32's ~24 bits: rounded to one bf16 (or two), it moved the served
+// binary MLP's sign thresholds, its 2-layer logits falling to cosine 0.83
+// (0.94) against the plain path on an H100). B7's bf16 kernel
+// (kv_stationary.cu) takes the same step over the same tiles.
 //
 // f32 (flash_kernel) keeps the CUDA cores: one CTA per 16 q rows, its 4 warps
 // each carrying 4 rows, one key per lane, f32 copies of Q, K and V in shared
@@ -39,7 +39,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
-#include "mma_common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -107,9 +107,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The bf16 tensor-core tile.
-constexpr int TQ = 64;   // query rows per CTA: 16 per warp
-constexpr int TKV = 64;  // keys per KV tile
+// The bf16 tensor-core tile (flash_tc.cuh).
+using fa::TQ;
+using fa::TKV;
 
 template <int D>
 constexpr size_t tc_smem() {  // Q, then K and V double-buffered
@@ -137,14 +137,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t kv_base = (size_t)(bh / group) * skv * D;
   const __nv_bfloat16* qsrc = q + ((size_t)bh * sq + q0) * D;
 
-  // The tile's KV band, in tiles.
-  int hi = min((kv_valid + TKV - 1) / TKV, (skv + TKV - 1) / TKV) - 1;
-  if (causal) {
-    const int qmax = min(q0 + TQ, sq) - 1 + off;
-    hi = min(hi, qmax >= 0 ? qmax / TKV : -1);
-  }
-  int lo = 0;
-  if (window > 0) lo = max(0, (q0 + off - window + 1) / TKV);
+  int lo, hi;  // the tile's KV band, in tiles
+  fa::band(q0, sq, skv, kv_valid, causal, window, &lo, &hi);
 
   // 64 rows of D bf16 from src (rows past `rows` read as zero) into dst.
   auto copy_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int rows) {
@@ -163,7 +157,6 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // This warp's rows and the positions they sit at.
   const int wq = q0 + warp * 16;
   const int qpos0 = wq + g + off, qpos1 = qpos0 + 8;
-  const int wq_last = min(wq + 15, sq - 1) + off;  // the warp's last position
   float m_run[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l_run[2] = {0.f, 0.f};
   float oacc[D / 8][4];
 #pragma unroll
@@ -190,113 +183,14 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
         tc::frag_a_rowmajor(qf[c], qs, LD, warp * 16, c * 16);
     }
     const int k0 = blk * TKV;
-    // A warp whose rows are all past sq, or that sees no key of this tile
-    // (causal or window), leaves its state as it is.
-    const bool sees = wq < sq && (!causal || k0 <= wq_last) &&
-                      (window <= 0 || k0 + TKV - 1 > wq + off - window);
-    if (sees) {
+    if (fa::warp_sees(wq, sq, off, k0, causal, window)) {
       const __nv_bfloat16* kt = ks + buf * TILE;
       const __nv_bfloat16* vt = vs + buf * TILE;
-      float s[TKV / 8][4];
-#pragma unroll
-      for (int i = 0; i < TKV / 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      // S = Q K^T: K's rows are B's columns, so K row-major is B col-major
-      // and ldmatrix without .trans gives the fragments.
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-#pragma unroll
-        for (int np = 0; np < TKV / 16; ++np) {
-          uint32_t r[4];
-          const int l = tc::lane();
-          tc::ldmatrix_x4(r, kt + (size_t)(np * 16 + (l & 7) + (l >> 4) * 8) * LD +
-                                 c * 16 + ((l >> 3) & 1) * 8);
-          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-          tc::mma_bf16_add(s[2 * np], qf[c], b0);
-          tc::mma_bf16_add(s[2 * np + 1], qf[c], b1);
-        }
-      }
-      // Mask, scale and the online softmax on the fragments: this thread
-      // holds rows g (j = 0, 1) and g + 8 (j = 2, 3) of the warp's 16, keys
-      // 8 i + 2 t + (j & 1).
-      float mx[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
-#pragma unroll
-      for (int i = 0; i < TKV / 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kpos = k0 + i * 8 + 2 * t + (j & 1);
-          const int qpos = j < 2 ? qpos0 : qpos1;
-          bool valid = kpos < kv_valid && kpos < skv;
-          if (causal) valid = valid && kpos <= qpos;
-          if (window > 0) valid = valid && kpos > qpos - window;
-          s[i][j] = valid ? s[i][j] * scale : REPRO_NEG_INF;
-          mx[j >> 1] = fmaxf(mx[j >> 1], s[i][j]);
-        }
-      float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        const float m_new = fmaxf(m_run[h], mx[h]);
-        alpha[h] = expf(m_run[h] - m_new);
-        m_run[h] = m_new;
-      }
-#pragma unroll
-      for (int i = 0; i < TKV / 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // A masked key contributes exactly 0, so a fully masked row keeps
-          // its state while m is still NEG_INF.
-          const float p = s[i][j] > REPRO_NEG_INF ? expf(s[i][j] - m_run[j >> 1]) : 0.f;
-          s[i][j] = p;
-          sum[j >> 1] += p;
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-        l_run[h] = alpha[h] * l_run[h] + sum[h];
-      }
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) oacc[i][j] *= alpha[j >> 1];
-      // O += P V: P's accumulator fragments of keys 16 c.. are the A
-      // fragment of chunk c; V row-major (key x d) is B row-major. P is
-      // split exactly into three bf16 parts, hi = bf16(p), mid =
-      // bf16(p - hi), lo = bf16(p - hi - mid), so it enters the product
-      // with ~24 bits, as an f32 P would; each chunk's products (lo, mid,
-      // then hi) are summed from zero and added to O with one f32 add.
-#pragma unroll
-      for (int c = 0; c < TKV / 16; ++c) {
-        uint32_t hi[4], mid[4], lo[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float* pr = &s[2 * c + (r >> 1)][(r & 1) * 2];
-          hi[r] = tc::pack2_rn(pr[0], pr[1]);
-          const float r0 = pr[0] - tc::lo_half(hi[r]), r1 = pr[1] - tc::hi_half(hi[r]);
-          mid[r] = tc::pack2_rn(r0, r1);
-          lo[r] = tc::pack2_rn(r0 - tc::lo_half(mid[r]), r1 - tc::hi_half(mid[r]));
-        }
-#pragma unroll
-        for (int dn = 0; dn < D / 8; dn += 2) {
-          uint32_t b0[2], b1[2];
-          tc::frag_b2_rowmajor(b0, b1, vt, LD, c * 16, dn * 8);
-          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-          tc::mma_bf16(t0, lo, b0);
-          tc::mma_bf16(t1, lo, b1);
-          tc::mma_bf16(t0, mid, b0);
-          tc::mma_bf16(t1, mid, b1);
-          tc::mma_bf16(t0, hi, b0);
-          tc::mma_bf16(t1, hi, b1);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            oacc[dn][j] = __fadd_rn(oacc[dn][j], t0[j]);
-            oacc[dn + 1][j] = __fadd_rn(oacc[dn + 1][j], t1[j]);
-          }
-        }
-      }
+#define FA_LDSM_K(r, row, col) tc::ldmatrix_x4(r, kt + (size_t)(row) * LD + col)
+#define FA_FRAG_V(b0, b1, kr, cc) tc::frag_b2_rowmajor(b0, b1, vt, LD, kr, cc)
+#include "flash_tc_step.cuh"
+#undef FA_LDSM_K
+#undef FA_FRAG_V
     }
     __syncthreads();  // this buffer is consumed before it is refilled
   }

@@ -182,19 +182,8 @@ __device__ __forceinline__ void wait_upto(int n) {
   }
 }
 
-// ldmatrix from a 32-bit shared memory address: the walks keep their slots
-// as such addresses, computed once, since turning a generic pointer into one
-// reads the cluster's special registers each time.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
+using tc::ldsm_x4;
+using tc::ldsm_x4_trans;
 
 // One 32-deep k step of a warp's 16 x 32 block (gemm_common.cuh's wrow,
 // wcol): A from the A slot at shared address `as` with `arows` rows (rows
@@ -325,36 +314,59 @@ __device__ __forceinline__ void tma_multicast(void* dst, const CUtensorMap& map,
       : "memory");
 }
 
-// A tensor map of a row-major bf16 (rows, cols) matrix with ld columns, in
-// boxes of box_rows x box_cols, each box row's 16-byte chunks swizzled by
-// `swizzle`. cuTensorMapEncodeTiled comes through cudaGetDriverEntryPoint,
-// so the libraries need no libcuda.
-inline int make_map(CUtensorMap* map, const void* base, int rows, int cols,
-                    int ld, int box_rows, int box_cols,
-                    CUtensorMapSwizzle swizzle) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+// The box of a 3-D `map` at (c0, r0, z0), multicast as tma_multicast.
+__device__ __forceinline__ void tma_multicast_3d(void* dst, const CUtensorMap& map,
+                                                 int c0, int r0, int z0, uint64_t* bar,
+                                                 uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(tc::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(r0), "r"(z0),
+      "r"(tc::smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, through cudaGetDriverEntryPoint so the libraries
+// need no libcuda (null where the driver does not give it).
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                            const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                            const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline Encode encoder() {
   static Encode encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault);
-    if (err != cudaSuccess || !fn) return err != cudaSuccess ? (int)err : REPRO_BAD_ARGUMENT;
-    encode = reinterpret_cast<Encode>(fn);
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault) ==
+        cudaSuccess)
+      encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  return encode;
+}
+// A tensor map of a row-major bf16 array of `rank` (2 or 3) dimensions,
+// dims[0] the contiguous one, strides[i] the bytes between steps of
+// dimension i + 1, in boxes of `box`, each box row's 16-byte chunks
+// swizzled by `swizzle`; zeros past the array.
+inline int make_map_nd(CUtensorMap* map, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const Encode encode = encoder();
+  if (!encode) return REPRO_BAD_ARGUMENT;
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                             const_cast<void*>(base), dims, strides, box, step,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : REPRO_BAD_ARGUMENT;
+}
+// A (rows, cols) matrix with ld columns, in boxes of box_rows x box_cols.
+inline int make_map(CUtensorMap* map, const void* base, int rows, int cols,
+                    int ld, int box_rows, int box_cols,
+                    CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return make_map_nd(map, base, 2, dims, strides, box, swizzle);
 }
 // The A slots' map (64 x 32 boxes with the 64-byte swizzle, or wide: 64 x
 // 64 with the 128-byte one) and the B slots' (`b_rows` x 64, 128-byte
@@ -777,6 +789,153 @@ ws_stripe_cluster_kernel(const __nv_bfloat16* __restrict__ a,
   cluster_wait();  // no CTA of the cluster still reads or writes this one
 }
 
+// B5b on a cluster: B5a's mirror. A cluster per output row stripe; CTA r
+// owns the stripe's column tiles r, r + C, ... (at most STRIPE_TILES, so its
+// part of the (64, N) f32 stripe stays in registers across the whole
+// reduction). The input row stripe, the input-stationary operand, streams in
+// chunks of STRIPE_KC k steps, a chunk one wide A slot (64 rows of 64 k,
+// 128-byte rows laid out as a B slot's); each chunk's 8-row pieces are cut
+// among the cluster's CTAs and multicast by the TMA (element loads exchanged
+// over distributed shared memory where rows are not whole 16-byte vectors),
+// so the stripe leaves device memory once per stripe, as the reference
+// charges it (repro/kernels/matmul_df.py `_build_is`); STRIPE_SLOTS chunks
+// held, a chunk's slot refilled once every CTA of the cluster is done with
+// it. Each CTA streams its own B tiles: with B whole, each CTA holds only
+// its own columns, so B too leaves memory once per cluster. The epilogue
+// runs once, after the last chunk, and each output element is written once.
+template <bool TMA>
+__global__ void __launch_bounds__(TMA ? TMA_THREADS : THREADS, 3)
+is_stripe_cluster_kernel(const __nv_bfloat16* __restrict__ a,
+                         const __nv_bfloat16* __restrict__ b,
+                         void* __restrict__ c, int m, int n, int k, Epi e,
+                         const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_b) {
+  constexpr int KC = STRIPE_KC, S = STRIPE_SLOTS;
+  static_assert(S >= 3, "a chunk's slot is refilled two chunks after use");
+  static_assert(KC * BK == 2 * BK, "a chunk's A is one wide slot");
+  constexpr int VECS = KC * SLOT / 16;  // 16-byte vectors of a chunk's A
+  constexpr int PIECES = BM / 8;        // 8-row boxes of a chunk's A
+  constexpr int AHEAD = S - 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sbase = tc::smem_addr(smem);
+  const int C = ctas_in_cluster(), rank = rank_in_cluster();
+  const int row0 = (blockIdx.x / C) * BM;
+  const int ks = round_up(k, BK) / BK, gn = cdiv(n, BN);
+  const int chunks = cdiv(ks, KC);
+  const int nt = rank < gn ? cdiv(gn - rank, C) : 0;  // column tiles rank, rank + C
+  // A chunk's slot: its wide A slot, then this CTA's B tiles (KC steps
+  // each), sized for the most tiles a CTA of the cluster has so every CTA's
+  // A slots sit at the same offsets; then the mbarriers.
+  const size_t chunk_bytes = (size_t)KC * SLOT * (1 + cdiv(gn, C));
+  auto apart = [&](int ch) { return smem + (ch % S) * chunk_bytes; };
+  auto bpart = [&](int ch, int u, int s) {
+    return apart(ch) + (size_t)KC * SLOT * (1 + u) + s * SLOT;
+  };
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * chunk_bytes);
+  uint64_t* spent = full + S;
+  float acc[STRIPE_TILES][TM][TN];
+#pragma unroll
+  for (int u = 0; u < STRIPE_TILES; ++u) zero(acc[u]);
+  auto compute = [&](int ch) {
+    const int steps = min(KC, ks - ch * KC);
+    if (row0 + wrow() >= m) return;  // warp-uniform
+    for (int s = 0; s < steps; ++s)
+#pragma unroll
+      for (int u = 0; u < STRIPE_TILES; ++u)
+        if (u < nt)
+          step(acc[u], sbase + (uint32_t)(apart(ch) - smem), BM,
+               sbase + (uint32_t)(bpart(ch, u, s) - smem), s * BK);
+  };
+
+  if constexpr (TMA) {
+    auto issue = [&](int ch) {  // the producer
+      const int sl = ch % S;
+      if (ch >= S) mbar_wait<true>(&spent[sl], (ch / S - 1) & 1);
+      mbar_expect(&full[sl], (uint32_t)(KC * SLOT * (1 + nt)));
+      for (int p = rank; p < PIECES; p += C)
+        tma_multicast(apart(ch) + p * 8 * 128, map_a, ch * KC * BK, row0 + p * 8, &full[sl],
+                      (uint16_t)((1u << C) - 1));
+      for (int u = 0; u < nt; ++u)
+        tma_load(bpart(ch, u, 0), map_b, (rank + u * C) * BN, ch * KC * BK, &full[sl]);
+    };
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < S; ++i) {
+        mbar_init(&full[i], 1);
+        mbar_init(&spent[i], C);
+      }
+      mbar_init_fence();
+    }
+    cluster_arrive();  // every CTA's mbarriers exist before any copy lands
+    cluster_wait();
+    if (threadIdx.x == THREADS) {
+      for (int ch = 0; ch < chunks; ++ch) issue(ch);
+    } else if (threadIdx.x < THREADS) {
+      for (int ch = 0; ch < chunks; ++ch) {
+        mbar_wait(&full[ch % S], (ch / S) & 1);
+        compute(ch);
+        // the 8 computing warps are done with chunk ch's slot
+        asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+        if (threadIdx.x < C) mbar_arrive_peer(&spent[ch % S], threadIdx.x);
+      }
+    }
+    __syncwarp();
+  } else {
+    const int per = VECS / C, lo = rank * per;  // A vectors a CTA loads
+    auto load_own = [&](int ch) {
+      const int s0 = ch * KC, steps = min(KC, ks - s0);
+      for (int v = lo + threadIdx.x; v < lo + per; v += THREADS) {
+        const int r = v / 8, cc = (v % 8) * 8;
+        load8<false>(apart(ch) + b_off(r, cc), a, k, m, k, row0 + r, s0 * BK + cc);
+      }
+      for (int u = 0; u < nt; ++u)
+        for (int s = 0; s < steps; ++s)
+          load_slot<false, 64>(bpart(ch, u, s), b, n, k, n, (s0 + s) * BK,
+                               (rank + u * C) * BN, BK);
+    };
+    // The other CTAs' parts of chunk ch's A (vector v from CTA v / per, at
+    // the same offset: a part is whole swizzled rows).
+    auto copy_peers = [&](int ch) {
+      unsigned char* dst = apart(ch);
+      uint4 v[VECS / THREADS];
+#pragma unroll
+      for (int j = 0; j < VECS / THREADS; ++j) {
+        const int i = threadIdx.x + j * THREADS;
+        if (i / per != rank) v[j] = ld_peer(peer(dst + i * 16, i / per));
+      }
+#pragma unroll
+      for (int j = 0; j < VECS / THREADS; ++j) {
+        const int i = threadIdx.x + j * THREADS;
+        if (i / per != rank) *reinterpret_cast<uint4*>(dst + i * 16) = v[j];
+      }
+    };
+    // Chunk ch + AHEAD's own loads go into the slot chunk ch - 2 left: this
+    // CTA consumed it before the last __syncthreads, and every other CTA
+    // copied from it before arriving at the barrier this CTA last waited on.
+    for (int ch = 0; ch < AHEAD; ++ch) {
+      if (ch < chunks) load_own(ch);
+      tc::cp_async_commit();
+    }
+    for (int ch = 0; ch < chunks; ++ch) {
+      if (ch + AHEAD < chunks) load_own(ch + AHEAD);
+      tc::cp_async_commit();
+      tc::cp_async_wait<AHEAD>();  // this CTA's part of chunk ch has landed
+      cluster_arrive();            // ... and its reads of chunk ch - 1 are done
+      if (ch > 0) compute(ch - 1);
+      cluster_wait();  // every part of chunk ch has landed
+      copy_peers(ch);
+      __syncthreads();
+    }
+    compute(chunks - 1);
+    tc::cp_async_wait<0>();
+  }
+  cluster_arrive();
+  if (threadIdx.x < THREADS)
+#pragma unroll
+    for (int u = 0; u < STRIPE_TILES; ++u)
+      if (u < nt) store_tile<true>(c, acc[u], row0, (rank + u * C) * BN, m, n, e);
+  cluster_wait();  // no CTA of the cluster still reads or writes this one
+}
+
 // Launches `kernel` on `ctas` CTAs of `threads` in clusters of `cluster`,
 // with `smem` bytes of dynamic shared memory; refuses a cluster the card
 // cannot place.
@@ -854,11 +1013,12 @@ int launch_walk(const void* a, const void* b, void* c, int m, int n, int k,
                             e, ring);
 }
 
-// Shared memory of B5a's cluster kernel: STRIPE_SLOTS chunks of STRIPE_KC
-// k steps of B and of the busiest CTA's A tiles, and the mbarriers.
-// matmul_df.ws_stripe_cluster_smem mirrors it.
-inline size_t ws_stripe_smem(int m, int cluster) {
-  return (size_t)STRIPE_SLOTS * STRIPE_KC * SLOT * (1 + cdiv(cdiv(m, BM), cluster)) +
+// Shared memory of B5a's and B5b's cluster kernels over a sweep of `tiles`
+// row (B5a) or column (B5b) tiles: STRIPE_SLOTS chunks of STRIPE_KC k steps
+// of the multicast operand and of the busiest CTA's streamed tiles, and the
+// mbarriers. matmul_df.stripe_cluster_smem mirrors it.
+inline size_t stripe_smem(int tiles, int cluster) {
+  return (size_t)STRIPE_SLOTS * STRIPE_KC * SLOT * (1 + cdiv(tiles, cluster)) +
          bar_bytes(STRIPE_SLOTS);
 }
 
@@ -870,6 +1030,19 @@ inline size_t ws_stripe_smem(int m, int cluster) {
 inline int ws_stripe_cluster(int m, int n) {
   const int gm = cdiv(m, BM);
   return cluster_size(cdiv(n, BN), gm, pow2_ceil(cdiv(gm, STRIPE_TILES)));
+}
+
+// B5b's: enough CTAs that none owns more than STRIPE_TILES column tiles. It
+// takes a stripe of 2 to STRIPE_TILES * MAX_CLUSTER column tiles (more are
+// feasible only below 64 rows, and keep the one-CTA kernel); A's 8-row pieces
+// go to CTAs r < 8 of a larger cluster.
+inline bool is_stripe_on_cluster(int n) {
+  const int gn = cdiv(n, BN);
+  return gn >= 2 && gn <= STRIPE_TILES * MAX_CLUSTER;
+}
+inline int is_stripe_cluster(int m, int n) {
+  const int gn = cdiv(n, BN);
+  return cluster_size(cdiv(m, BM), gn, pow2_ceil(cdiv(gn, STRIPE_TILES)));
 }
 
 }  // namespace cl

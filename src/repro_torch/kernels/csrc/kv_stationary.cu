@@ -2,32 +2,56 @@
 //
 // Replaces the TPU kernel repro/kernels/attention_df.py `_kv_stationary_kernel`
 // / `_kv_single_kernel` (built by `kv_stationary_attention`): the WS anchor of
-// attention. Each KV block is fetched once, and the q tiles stream past it;
-// each q row's online-softmax state (acc, m, l) goes through device memory
-// once per KV block it sees (the paper's WS output traffic).
+// attention. Each 64-key K and V block leaves device memory once per kv head
+// (the q heads of its GQA group all fold it), the query tiles stream past it,
+// and each query row's online-softmax state (acc, m, l) goes through device
+// memory once per KV block it sees (the paper's WS output traffic), except
+// where a CTA holds a single query tile and keeps its state in registers.
 //
-// The TPU's single-dispatch form relies on the grid running in order; CTAs on
-// Hopper run in no order, so the order is made explicit: one CTA per
-// (batch*head) walks the KV blocks outer and the q tiles inner, and owns
-// every state row it touches, so no other CTA reads or writes them. For each
-// visible (KV block, 16-row q tile) pair the tile's rows load their state
-// from global memory (or start it, at the first block of the tile's band),
-// fold the block in with the online-softmax step B2 uses (attention_common.cuh,
-// one warp per row, one key per lane), and store it again (or, at the last
-// block of the band, write acc / l, with l == 0 -> 0). Pairs outside a tile's
-// band (the valid length, per batch row or shared; the causal diagonal; the
-// sliding window: the band rule of B2 and attention_df.py `_band_lo_hi`) are
-// skipped and update nothing; tiles with an empty band write zeros. The state
-// is f32 in device memory, which is exact, so each row's output equals B2's
-// for the same inputs.
+// bf16 (kv_cluster_kernel) runs on thread-block clusters and the tensor
+// cores. A unit is one (q head of the group, 64-row q tile); a cluster of C
+// CTAs owns every unit of one (batch row, kv head), CTA r taking units r,
+// r + C, ... (C from the rule of gemm_cluster.cuh's cl::cluster_size: doubled
+// from 2 while the card has SMs without a CTA, up to 16 and to the units).
+// The walk is KV-block-outer: every CTA finishes block j for all its units
+// before it uses block j + 1. A producer warp in each CTA issues its share of
+// each block's 8-row pieces with one TMA copy multicast into every CTA of the
+// cluster (128-byte rows with the 128-byte swizzle, 64-byte rows with the
+// 64-byte one at D = 32; zeros past the keys), so the block leaves device
+// memory once per cluster, through a ring of KV_STAGES blocks on mbarriers;
+// a block's slot is refilled once every CTA of the cluster has arrived on its
+// `spent` mbarrier, including CTAs whose units see no key of the block. Four
+// warps fold: each warp takes flash_tc.cuh's step (B2's, on mma.sync
+// m16n8k16, P in three bf16 parts) over the tiles B2's band and per-warp
+// skip give its 16 rows, in ascending order. A CTA with one unit keeps the
+// state and Q's fragments in registers; a CTA with several loads each
+// unit's Q fragments and f32 state from device memory at each block of its
+// band and stores the state again (the `acc` / `ml` scratch), which is exact.
+// So every bf16 output equals B2's bit for bit.
 //
-// Bound on H100: the arithmetic at prefill lengths, as B2; the state's round
-// trips add 2 * (D + 2) * 4 bytes per visible (row, KV block) pair, mostly
-// served from L2. One CTA per (batch*head) is the price of fetching each KV
-// block once: at batch 1 the kernel runs on Hq of the 132 SMs.
+// float32 (kv_kernel) keeps the CUDA cores: one CTA per (batch*head) walks
+// the KV blocks outer (each fetched once per q head) and 16-row q tiles
+// inner; for each visible (KV block, q tile) pair the tile's rows load their
+// state from device memory (or start it, at the first block of the tile's
+// band), fold the block in with attention_common.cuh's step (one warp per
+// row, one key per lane) and store it again (or, at the last block of the
+// band, write acc / l, with l == 0 -> 0). Tiles with an empty band write
+// zeros. The band and mask are B2's (attention_df.py `_band_lo_hi`).
+//
+// Bound on H100: the arithmetic at prefill lengths, as B2. bf16: the walk
+// gives B x Hkv clusters of C CTAs (8 x 16 at qwen3-1.7b's prefill); a CTA
+// with several units adds 2 * (D + 2) * 4 bytes of state traffic per visible
+// (row, KV block) pair, mostly served from L2. float32: one CTA per
+// (batch*head), Hq of the 132 SMs at batch 1.
+#include <climits>
+
 #include "attention_common.cuh"
+#include "flash_tc.cuh"
+#include "gemm_cluster.cuh"
 
 namespace {
+
+using fa::TKV;  // flash_tc_step.cuh's tile
 
 constexpr int BQ = 16;   // query rows per tile: one per warp
 constexpr int BKV = 32;  // keys per KV block: one per lane
@@ -124,38 +148,294 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* acc,
-           float* ml, int bh, int sq, int skv, int group, int heads_per_row,
-           const int* kv_lens, int kv_len, int window, int causal, float scale,
-           cudaStream_t stream) {
-  kv_kernel<T, D><<<bh, WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), acc, ml, sq, skv, group,
-      heads_per_row, kv_lens, kv_len, window, causal, scale);
-  return launch_status();
+// The bf16 cluster kernel (above).
+// KV blocks held at once, and two CTAs an SM (__launch_bounds__): at 255
+// registers, one CTA an SM, an H100 placed 7 clusters of 16 at once, so
+// qwen3-1.7b's 8 kv heads took two waves (PERF.md, PR 22).
+constexpr int KV_STAGES = 2;
+constexpr int KV_THREADS = fa::WARPS * 32 + 32;    // 4 warps that fold, a producer
+// kv_stationary's one tile: the cluster kernel (kernels/_build.py).
+constexpr int TILE_KV_CLUSTER = 1;
+
+template <int D>
+__host__ __device__ constexpr int kv_stage_bytes() {  // a K block and a V block
+  return 2 * fa::TKV * D * 2;
+}
+template <int D>
+constexpr size_t kv_cluster_smem() {  // the ring, then its mbarriers
+  return (size_t)KV_STAGES * kv_stage_bytes<D>() + gemm::round_up(16 * KV_STAGES, 128);
+}
+// CTAs of a cluster for `clusters` clusters of `units` units each (one CTA
+// for a single unit). attention_df.kv_stationary_plan mirrors it.
+inline int kv_cluster_size(int clusters, int units) {
+  return units < 2 ? 1 : gemm::cl::cluster_size(clusters, units, 1);
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             float* acc, float* ml, int bh, int sq, int skv, int group,
-             int heads_per_row, const int* kv_lens, int kv_len, int window,
-             int causal, float scale, cudaStream_t stream) {
+// Byte offset of the 16-byte chunk (key r, columns c..c+7) in a K or V slot:
+// 64-column panels of 64 rows, 128-byte rows with the TMA's 128-byte swizzle
+// (64-byte rows with its 64-byte swizzle at D = 32).
+template <int D>
+__device__ __forceinline__ uint32_t kv_off(int r, int c) {
+  if constexpr (D == 32) return (uint32_t)gemm::cl::a_off(r, c);
+  else return (uint32_t)((c >> 6) * fa::TKV * 128 + gemm::cl::b_off(r, c & 63));
+}
+
+// Q's fragments of the warp's rows wq.., wq + 15 of a (sq x D) bf16 head in
+// device memory, rows past sq as zeros (B2's Q tile holds the same).
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t (&qf)[D / 16][4],
+                                       const __nv_bfloat16* qh, int wq, int sq) {
+  const int g = tc::lane() >> 2, t = tc::lane() & 3;
+  const int r0 = wq + g, r1 = r0 + 8;
+  const uint32_t* q0 = reinterpret_cast<const uint32_t*>(qh + (size_t)r0 * D);
+  const uint32_t* q1 = reinterpret_cast<const uint32_t*>(qh + (size_t)r1 * D);
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    qf[c][0] = r0 < sq ? q0[c * 8 + t] : 0u;
+    qf[c][1] = r1 < sq ? q1[c * 8 + t] : 0u;
+    qf[c][2] = r0 < sq ? q0[c * 8 + 4 + t] : 0u;
+    qf[c][3] = r1 < sq ? q1[c * 8 + 4 + t] : 0u;
+  }
+}
+
+// A warp's running state: m and l of its rows g (h = 0) and g + 8 (h = 1),
+// and their accumulator fragments (o[i][j]: row g + 8 (j >> 1), column
+// 8 i + 2 t + (j & 1)).
+template <int D>
+struct State {
+  float m[2], l[2], o[D / 8][4];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) m[h] = REPRO_NEG_INF, l[h] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+  }
+  // Through device memory: acc (rows x D) and ml (rows x 2), f32, rows of
+  // the head from row0; rows past sq keep the initial state.
+  __device__ __forceinline__ void load(const float* acc, const float* ml, size_t row0,
+                                       int wq, int sq) {
+    const int g = tc::lane() >> 2, t = tc::lane() & 3;
+    init();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wq + g + 8 * h;
+      if (r >= sq) continue;
+      const float* a = acc + (row0 + r) * D;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const float2 x = *reinterpret_cast<const float2*>(a + i * 8 + 2 * t);
+        o[i][2 * h] = x.x;
+        o[i][2 * h + 1] = x.y;
+      }
+      m[h] = ml[2 * (row0 + r)];
+      l[h] = ml[2 * (row0 + r) + 1];
+    }
+  }
+  __device__ __forceinline__ void store(float* acc, float* ml, size_t row0, int wq,
+                                        int sq) const {
+    const int g = tc::lane() >> 2, t = tc::lane() & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wq + g + 8 * h;
+      if (r >= sq) continue;
+      float* a = acc + (row0 + r) * D;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<float2*>(a + i * 8 + 2 * t) = make_float2(o[i][2 * h], o[i][2 * h + 1]);
+      if (t == 0) {  // the quad's four lanes hold the same m and l
+        ml[2 * (row0 + r)] = m[h];
+        ml[2 * (row0 + r) + 1] = l[h];
+      }
+    }
+  }
+  // acc / l into the warp's rows wq.. of a (sq x D) bf16 head; a row that
+  // saw no valid key (l == 0) writes zeros (B2's write).
+  __device__ __forceinline__ void write(__nv_bfloat16* out, int wq, int sq) const {
+    const int g = tc::lane() >> 2, t = tc::lane() & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wq + g + h * 8;
+      if (row >= sq) continue;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)row * D);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        dst[(i * 8 + 2 * t) / 2] =
+            l[h] > 0.f ? tc::pack2_rn(o[i][2 * h] / l[h], o[i][2 * h + 1] / l[h]) : 0u;
+    }
+  }
+};
+
+// The B fragments of V's 16 keys from kr and columns c.., c + 8.. in a
+// swizzled slot at shared address vt (mma_common.cuh's frag_b2_rowmajor).
+template <int D>
+__device__ __forceinline__ void frag_v(uint32_t b0[2], uint32_t b1[2], uint32_t vt, int kr,
+                                       int c) {
+  const int l = tc::lane();
+  uint32_t r[4];
+  tc::ldsm_x4_trans(r, vt + kv_off<D>(kr + (l & 7) + ((l >> 3) & 1) * 8, c + (l >> 4) * 8));
+  b0[0] = r[0];
+  b0[1] = r[1];
+  b1[0] = r[2];
+  b1[1] = r[3];
+}
+
+// Cluster kvh / C's (batch row, kv head) is kvh: its q heads are
+// kvh * group .. kvh * group + group - 1; unit u is (q tile u / group, q head
+// u % group).
+template <int D>
+__global__ void __launch_bounds__(KV_THREADS, 2)
+kv_cluster_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                  float* __restrict__ acc_st, float* __restrict__ ml_st, int sq, int skv,
+                  int group, int heads_per_row, const int* __restrict__ kv_lens,
+                  int kv_len, int window, int causal, float scale,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v) {
+  using namespace gemm::cl;
+  constexpr int STAGE = kv_stage_bytes<D>(), TILE = STAGE / 2;
+  constexpr int ROW = D == 32 ? 64 : 128;           // bytes of a swizzled row
+  constexpr int PANELS = D == 32 ? 1 : D / 64;      // 64-column panels a tile
+  constexpr int PIECES = 2 * PANELS * fa::TKV / 8;  // 8-row boxes a K and V block
+  constexpr int FOLD = fa::WARPS * 32;              // threads that fold
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sbase = tc::smem_addr(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + KV_STAGES * STAGE);
+  uint64_t* spent = full + KV_STAGES;
+  const int C = ctas_in_cluster(), rank = rank_in_cluster();
+  const int kvh = blockIdx.x / C;
+  const int kv_valid = kv_lens ? kv_lens[kvh * group / heads_per_row] : kv_len;
+  const int off = kv_valid - sq;
+  const int gq = gemm::cdiv(sq, fa::TQ), units = gq * group;
+  // The blocks the cluster walks: from the first block of the lowest band
+  // to the last of the highest (tiles that see no key have none).
+  int blo = INT_MAX, bhi = -1;
+  for (int t = 0; t < gq; ++t) {
+    int lo, hi;
+    fa::band(t * fa::TQ, sq, skv, kv_valid, causal, window, &lo, &hi);
+    if (lo <= hi) blo = min(blo, lo), bhi = max(bhi, hi);
+  }
+  const int blocks = bhi >= 0 ? bhi - blo + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < KV_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&spent[i], C);
+    }
+    mbar_init_fence();
+  }
+  cluster_arrive();  // every CTA's mbarriers exist before any copy lands
+  cluster_wait();
+  if (threadIdx.x == FOLD) {  // the producer: this CTA's pieces of each block
+    const uint16_t all = (uint16_t)((1u << C) - 1);
+    for (int x = 0; x < blocks; ++x) {
+      const int sl = x % KV_STAGES, k0 = (blo + x) * fa::TKV;
+      if (x >= KV_STAGES) mbar_wait<true>(&spent[sl], (x / KV_STAGES - 1) & 1);
+      mbar_expect(&full[sl], STAGE);
+      for (int p = rank; p < PIECES; p += C) {
+        const int kv = p / (PIECES / 2), panel = (p % (PIECES / 2)) / 8, rg = p % 8;
+        tma_multicast_3d(smem + sl * STAGE + kv * TILE + (panel * fa::TKV + rg * 8) * ROW,
+                         kv ? map_v : map_k, panel * 64, k0 + rg * 8, kvh, &full[sl], all);
+      }
+    }
+  } else if (threadIdx.x < FOLD) {
+    const int warp = threadIdx.x >> 5, g = tc::lane() >> 2, t = tc::lane() & 3;
+    const int nu = rank < units ? gemm::cdiv(units - rank, C) : 0;
+    const bool held = nu == 1;  // state and Q fragments stay in registers
+    State<D> st;
+    st.init();
+    uint32_t qf[D / 16][4];
+    for (int x = 0; x < blocks; ++x) {
+      const int sl = x % KV_STAGES, blk = blo + x, k0 = blk * fa::TKV;
+      const uint32_t kt = sbase + sl * STAGE, vt = kt + TILE;
+      mbar_wait(&full[sl], (x / KV_STAGES) & 1);
+      for (int i = 0; i < nu; ++i) {
+        const int u = rank + i * C, q0 = u / group * fa::TQ;
+        const size_t row0 = (size_t)(kvh * group + u % group) * sq;  // the head's rows
+        int lo, hi;
+        fa::band(q0, sq, skv, kv_valid, causal, window, &lo, &hi);
+        if (blk < lo || blk > hi) continue;  // out of band: no update
+        const int wq = q0 + warp * 16;
+        if (blk == lo || !held) load_q<D>(qf, q + row0 * D, wq, sq);
+        if (blk == lo) st.init();
+        else if (!held) st.load(acc_st, ml_st, row0, wq, sq);
+        if (fa::warp_sees(wq, sq, off, k0, causal, window)) {
+          const int qpos0 = wq + g + off, qpos1 = qpos0 + 8;
+          float(&m_run)[2] = st.m;
+          float(&l_run)[2] = st.l;
+          float(&oacc)[D / 8][4] = st.o;
+#define FA_LDSM_K(r, row, col) tc::ldsm_x4(r, kt + kv_off<D>(row, col))
+#define FA_FRAG_V(b0, b1, kr, cc) frag_v<D>(b0, b1, vt, kr, cc)
+#include "flash_tc_step.cuh"
+#undef FA_LDSM_K
+#undef FA_FRAG_V
+        }
+        if (blk == hi) st.write(o + row0 * D, wq, sq);
+        else if (!held) st.store(acc_st, ml_st, row0, wq, sq);
+      }
+      // the four warps are done with the slot: every CTA of the cluster hears
+      asm volatile("bar.sync 1, %0;\n" ::"n"(FOLD) : "memory");
+      if (threadIdx.x < C) mbar_arrive_peer(&spent[sl], threadIdx.x);
+    }
+    // Units whose band is empty see no key: their rows write zeros.
+    for (int i = 0; i < nu; ++i) {
+      const int u = rank + i * C, q0 = u / group * fa::TQ;
+      int lo, hi;
+      fa::band(q0, sq, skv, kv_valid, causal, window, &lo, &hi);
+      if (lo > hi) {
+        st.init();
+        st.write(o + (size_t)(kvh * group + u % group) * sq * D, q0 + warp * 16, sq);
+      }
+    }
+  }
+  __syncwarp();
+  cluster_arrive();  // no CTA leaves while copies or arrivals into it may land
+  cluster_wait();
+}
+
+template <int D>
+int launch_cluster(const void* q, const void* k, const void* v, void* o, float* acc,
+                   float* ml, int bh, int sq, int skv, int group, int heads_per_row,
+                   const int* kv_lens, int kv_len, int window, int causal, float scale,
+                   cudaStream_t stream, gemm::Took* took) {
+  const int clusters = bh / group, units = gemm::cdiv(sq, fa::TQ) * group;
+  const int C = kv_cluster_size(clusters, units);
+  const size_t smem = kv_cluster_smem<D>();
+  if ((long long)clusters * C > INT_MAX) return REPRO_BAD_ARGUMENT;
+  if (took) *took = {TILE_KV_CLUSTER, (int)smem, clusters * C, C};
+  // K and V as (clusters, skv, D): 8-row boxes of one 64-column panel (of
+  // all 32 columns at D = 32), zeros past skv.
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)skv, (cuuint64_t)clusters};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)skv * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)(D < 64 ? D : 64), 8, 1};
+  const CUtensorMapSwizzle sw = D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap mk, mv;
+  int rc = gemm::cl::make_map_nd(&mk, k, 3, dims, strides, box, sw);
+  if (!rc) rc = gemm::cl::make_map_nd(&mv, v, 3, dims, strides, box, sw);
+  if (rc) return rc;
+  return gemm::cl::launch_in_clusters(
+      kv_cluster_kernel<D>, clusters * C, KV_THREADS, C, smem, stream,
+      static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), acc, ml, sq,
+      skv, group, heads_per_row, kv_lens, kv_len, window, causal, scale, mk, mv);
+}
+
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* acc,
+               float* ml, int d, int bh, int sq, int skv, int group, int heads_per_row,
+               const int* kv_lens, int kv_len, int window, int causal, float scale,
+               cudaStream_t stream) {
+  auto go = [&](auto kernel) {
+    kernel<<<bh, WARPS * 32, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), acc, ml, sq, skv, group,
+        heads_per_row, kv_lens, kv_len, window, causal, scale);
+    return launch_status();
+  };
   switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, acc, ml, bh, sq, skv, group,
-                           heads_per_row, kv_lens, kv_len, window, causal,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, acc, ml, bh, sq, skv, group,
-                           heads_per_row, kv_lens, kv_len, window, causal,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, acc, ml, bh, sq, skv, group,
-                            heads_per_row, kv_lens, kv_len, window, causal,
-                            scale, stream);
-    default:
-      return REPRO_BAD_ARGUMENT;
+    case 32: return go(&kv_kernel<float, 32>);
+    case 64: return go(&kv_kernel<float, 64>);
+    case 128: return go(&kv_kernel<float, 128>);
+    default: return REPRO_BAD_ARGUMENT;
   }
 }
 
@@ -164,24 +444,35 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 // q (bh, sq, d); k, v (bh / group, skv, d); o like q; acc (bh, sq, d) and
 // ml (bh, sq, 2) f32 scratch for the running state (written before it is
 // read). kv_lens: null (every head row uses kv_len) or bh / heads_per_row
-// lengths on the device. window <= 0: no sliding window.
+// lengths on the device. window <= 0: no sliding window. took (may be
+// null): the bf16 cluster kernel's report (gemm::Took: TILE_KV_CLUSTER, its
+// shared memory, CTAs and cluster size), TILE_WALK for the f32 kernel.
 extern "C" int kv_stationary(const void* q, const void* k, const void* v,
                              void* o, float* acc, float* ml, int dtype, int d,
                              int bh, int sq, int skv, int group,
                              int heads_per_row, const int* kv_lens, int kv_len,
                              int window, int causal, float scale,
-                             void* stream) {
+                             gemm::Took* took, void* stream) {
+  if (took) *took = gemm::Took{};
   if (bh <= 0 || sq <= 0 || skv <= 0 || group <= 0 || bh % group ||
       (kv_lens && (heads_per_row <= 0 || bh % heads_per_row)))
     return REPRO_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_F32)
-    return launch_d<float>(d, q, k, v, o, acc, ml, bh, sq, skv, group,
-                           heads_per_row, kv_lens, kv_len, window, causal,
-                           scale, s);
-  if (dtype == REPRO_BF16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, acc, ml, bh, sq, skv, group,
-                                   heads_per_row, kv_lens, kv_len, window,
-                                   causal, scale, s);
-  return REPRO_BAD_ARGUMENT;
+    return launch_f32(q, k, v, o, acc, ml, d, bh, sq, skv, group, heads_per_row,
+                      kv_lens, kv_len, window, causal, scale, s);
+  if (dtype != REPRO_BF16) return REPRO_BAD_ARGUMENT;
+  switch (d) {
+    case 32:
+      return launch_cluster<32>(q, k, v, o, acc, ml, bh, sq, skv, group, heads_per_row,
+                                kv_lens, kv_len, window, causal, scale, s, took);
+    case 64:
+      return launch_cluster<64>(q, k, v, o, acc, ml, bh, sq, skv, group, heads_per_row,
+                                kv_lens, kv_len, window, causal, scale, s, took);
+    case 128:
+      return launch_cluster<128>(q, k, v, o, acc, ml, bh, sq, skv, group, heads_per_row,
+                                 kv_lens, kv_len, window, causal, scale, s, took);
+    default:
+      return REPRO_BAD_ARGUMENT;
+  }
 }

@@ -25,8 +25,20 @@
 // keep an int32 stripe, with B1's sidecar at the flush; a resident packed B
 // stays packed and is decoded at each use.
 //
-// Bound on H100: as B1. The walk gives gm CTAs.
-#include "gemm_common.cuh"
+// bf16 operands over 2 to 32 column tiles take the cluster kernel of
+// gemm_cluster.cuh instead (reported to the caller as the tile
+// "matmul_is_stripe_cluster"): a cluster of C CTAs per row stripe, CTA r
+// owning column tiles r, r + C, ... with its part of the stripe in
+// registers across the reduction, each input chunk fetched once per cluster
+// and multicast into every CTA by the TMA (or exchanged over distributed
+// shared memory), each CTA streaming its own B tiles (with b_whole too: a
+// CTA holds only its own columns). f32, int8 and packed operands, a single
+// column tile, and more column tiles than 16 CTAs can hold in registers
+// (feasible only below 64 rows) keep the kernel below.
+//
+// Bound on H100: as B1. The one-CTA kernel gives gm CTAs, and every k step
+// re-reads and re-writes the stripe in shared memory.
+#include "gemm_cluster.cuh"
 
 namespace is_stripe {
 
@@ -147,9 +159,40 @@ is_stripe_kernel(const T* __restrict__ a, B b, void* __restrict__ c, int m,
   }
 }
 
+// bf16 over 2 to 32 column tiles: the cluster kernel of gemm_cluster.cuh,
+// reported as TILE_CLUSTER (B whole or not: each CTA streams its own
+// columns).
+template <typename T>
+int launch_cluster(const void* a, const void* b, void* c, int m, int n, int k,
+                   const Epi& e, cudaStream_t s, Took* took) {
+  static_assert(kTC<T>, "the cluster kernel takes bf16 operands");
+  const int gm = cdiv(m, BM), gn = cdiv(n, BN), C = cl::is_stripe_cluster(m, n);
+  if (C > cl::MAX_CLUSTER || cdiv(gn, C) > cl::STRIPE_TILES) return REPRO_BAD_ARGUMENT;
+  const size_t smem = cl::stripe_smem(gn, C);
+  if (took) *took = {TILE_CLUSTER, (int)smem, gm * C, C};
+  const auto* ah = static_cast<const T*>(a);
+  const auto* bh = static_cast<const T*>(b);
+  CUtensorMap ma{}, mb{};
+  if (vec_ok<T>(a, b, n, k)) {
+    // A in 8-row pieces of a chunk's 64 k, B in a chunk's 64 k rows of a tile
+    int rc = cl::make_map(&ma, a, m, k, k, 8, cl::STRIPE_KC * BK, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (!rc)
+      rc = cl::make_map(&mb, b, k, n, n, cl::STRIPE_KC * BK, BN, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (rc) return rc;
+    return cl::launch_in_clusters(cl::is_stripe_cluster_kernel<true>, gm * C,
+                                  cl::TMA_THREADS, C, smem, s, ah, bh, c, m, n, k, e,
+                                  ma, mb);
+  }
+  return cl::launch_in_clusters(cl::is_stripe_cluster_kernel<false>, gm * C, THREADS,
+                                C, smem, s, ah, bh, c, m, n, k, e, ma, mb);
+}
+
 template <typename T, int WB>
 int launch(int b_whole, const void* a, const void* b, const void* b_hi, void* c,
-           int m, int n, int k, const Epi& e, cudaStream_t s) {
+           int m, int n, int k, const Epi& e, cudaStream_t s, Took* took) {
+  if constexpr (kTC<T>) {
+    if (cl::is_stripe_on_cluster(n)) return launch_cluster<T>(a, b, c, m, n, k, e, s, took);
+  }
   const int ra = min(BM, round_up(m, TM)), np = round_up(n, BN);
   const int kp = round_up(k, BK);
   const dim3 grid(cdiv(m, BM));
@@ -168,7 +211,7 @@ int launch(int b_whole, const void* a, const void* b, const void* b_hi, void* c,
 
 #define IS_SIGNATURE(T, WB)                                                  \
   int launch<T, WB>(int, const void*, const void*, const void*, void*, int, \
-                    int, int, const Epi&, cudaStream_t)
+                    int, int, const Epi&, cudaStream_t, Took*)
 
 // One translation unit per input kind (-DREPRO_PART=0..4, kernels/_build.py).
 #if defined(REPRO_PART)
@@ -195,7 +238,8 @@ extern template IS_SIGNATURE(int8_t, 5);
 
 #if !defined(REPRO_PART)
 // Operands as matmul_os. b_whole: 0 streams B, 1 holds all of B in shared
-// memory.
+// memory. took (may be null): the cluster kernel's report (gemm::Took), or
+// TILE_WALK for the one-CTA kernel.
 extern "C" int matmul_is_stripe(const void* a, const void* b, void* c, int m,
                                 int n, int k, int in_dtype, int out_dtype,
                                 const float* scale, int scale_mode,
@@ -203,13 +247,14 @@ extern "C" int matmul_is_stripe(const void* a, const void* b, void* c, int m,
                                 const float* residual, int weight_bits,
                                 const void* b_hi, const int* sidx,
                                 const int* sdelta, int sr, int b_whole,
-                                void* stream) {
+                                gemm::Took* took, void* stream) {
+  if (took) *took = gemm::Took{};
   if (gemm::bad_args(m, n, k, in_dtype, out_dtype, scale_mode, scale, bias,
                      act, residual, weight_bits, b_hi, sidx, sdelta, sr))
     return REPRO_BAD_ARGUMENT;
   const gemm::Epi e = GEMM_EPI(a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using is_stripe::launch;
-  GEMM_DISPATCH_DTYPES(launch, b_whole, a, b, b_hi, c, m, n, k, e, s);
+  GEMM_DISPATCH_DTYPES(launch, b_whole, a, b, b_hi, c, m, n, k, e, s, took);
 }
 #endif

@@ -145,7 +145,7 @@ int launch_cluster(const void* a, const void* b, void* c, int m, int n, int k,
                    const Epi& e, cudaStream_t s, Took* took) {
   const int gn = cdiv(n, BN), C = cl::ws_stripe_cluster(m, n);
   if (C > 8 || cdiv(cdiv(m, BM), C) > cl::STRIPE_TILES) return REPRO_BAD_ARGUMENT;
-  const size_t smem = cl::ws_stripe_smem(m, C);
+  const size_t smem = cl::stripe_smem(cdiv(m, BM), C);
   if (took) *took = {TILE_CLUSTER, (int)smem, gn * C, C};
   const auto* ah = static_cast<const __nv_bfloat16*>(a);
   const auto* bh = static_cast<const __nv_bfloat16*>(b);

@@ -1,7 +1,7 @@
 // Hopper tensor-core building blocks shared by the bf16 GEMM tiles
 // (gemm_common.cuh, gemm_tc.cuh), the int8 GEMM tiles (gemm_tc_i8.cuh), the
-// binary GEMM tiles (binary_mm.cu) and the bf16 flash attention
-// (flash_attention.cu): the warp-level mma.sync m16n8k16 product with f32
+// binary GEMM tiles (binary_mm.cu) and the bf16 attention tiles
+// (flash_tc.cuh): the warp-level mma.sync m16n8k16 product with f32
 // accumulators, m16n8k32 and m16n8k256 (b1) with s32 ones,
 // ldmatrix fragment loads from shared memory, and cp.async copies from
 // device memory into shared memory.
@@ -109,6 +109,19 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) 
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+// The same from a 32-bit shared memory address: kernels that keep their
+// tiles as such addresses compute them once, since turning a generic pointer
+// into one reads the cluster's special registers each time in a cluster.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2], const void* p) {
   asm volatile(

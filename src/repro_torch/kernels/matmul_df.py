@@ -18,13 +18,15 @@ the post-epilogue value, under the anchor and auxiliary residencies a
   ``_is_stripe_kernel``: IS with the (bm, N) output stripe resident,
   optionally with the whole weight.
 
-bf16 launches of B1's residencies, B4 and B5a whose walk sweeps two tiles
-or more take the cluster walks of ``csrc/gemm_cluster.cuh``: a
+bf16 launches of B1's residencies, B4, B5a and B5b whose walk sweeps two
+tiles or more take the cluster walks of ``csrc/gemm_cluster.cuh``: a
 thread-block cluster of ``cluster`` CTAs holds the resident operand,
 fetched once per cluster, and its CTAs split the sweep (B5a: the output
-stripe's row tiles, each CTA's part in registers).  ``plan`` names the
-walk as ``tile_kernel`` (``matmul_os_cluster``, ``matmul_rmw_cluster``,
-``matmul_ws_stripe_cluster``, counted beside the library's key) with the
+stripe's row tiles, B5b: its column tiles, each CTA's part in
+registers; B5b takes 2 to 32 column tiles, more keep one CTA).  ``plan``
+names the walk as ``tile_kernel`` (``matmul_os_cluster``,
+``matmul_rmw_cluster``, ``matmul_ws_stripe_cluster``,
+``matmul_is_stripe_cluster``, counted beside the library's key) with the
 cluster size, CTAs and launched shared memory, and ``check_took`` holds
 each launch's report against it.  Feasibility does not change: the
 resident operands must fit one block, as before.
@@ -160,8 +162,8 @@ I8_DECODE = register_kernel(KernelRegistration(
     name="matmul_os_i8_decode", source=_SRC + "gemm_tc_i8.cuh",
     replaces="src/repro/kernels/matmul_df.py:347", spec=BASIC_OS,
 ))
-# The cluster walks of B1's residencies, B4 and B5a, counted beside their
-# libraries' keys.
+# The cluster walks of B1's residencies, B4, B5a and B5b, counted beside
+# their libraries' keys.
 OS_CLUSTER = register_kernel(KernelRegistration(
     name="matmul_os_cluster", source=_SRC + "gemm_cluster.cuh",
     replaces="src/repro/kernels/matmul_df.py:347",
@@ -177,9 +179,15 @@ WS_STRIPE_CLUSTER = register_kernel(KernelRegistration(
     replaces="src/repro/kernels/matmul_df.py:556",
     spec=DataflowSpec(anchor=WS, aux={OS: Residency.STRIPE}, block=BLOCK),
 ))
+IS_STRIPE_CLUSTER = register_kernel(KernelRegistration(
+    name="matmul_is_stripe_cluster", source=_SRC + "gemm_cluster.cuh",
+    replaces="src/repro/kernels/matmul_df.py:643",
+    spec=DataflowSpec(anchor=IS, aux={OS: Residency.STRIPE}, block=BLOCK),
+))
 _CLUSTER_TILES = {"matmul_os": OS_CLUSTER.name,
                   "matmul_rmw": RMW_CLUSTER.name,
-                  "matmul_ws_stripe": WS_STRIPE_CLUSTER.name}
+                  "matmul_ws_stripe": WS_STRIPE_CLUSTER.name,
+                  "matmul_is_stripe": IS_STRIPE_CLUSTER.name}
 # B6 has no kernel of its own: it is the packed-plane decode inside these
 # GEMMs' and the conv's tile loads, counted under its own launch key.
 UNPACK = register_kernel(KernelRegistration(
@@ -286,20 +294,21 @@ def cluster_walk_smem(walk: str, a_res: bool, b_res: Residency, m: int,
     return held + ring * CLUSTER_SLOT + (_bar_bytes(ring) if tma else 0)
 
 
-def ws_stripe_cluster_smem(m: int, cluster: int) -> int:
-    """Shared memory of B5a's cluster kernel (``cl::ws_stripe_smem``):
-    ``STRIPE_SLOTS`` chunks of the weight column and of the busiest CTA's
-    A tiles, and the mbarriers."""
+def stripe_cluster_smem(tiles: int, cluster: int) -> int:
+    """Shared memory of B5a's and B5b's cluster kernels over a sweep of
+    ``tiles`` row (B5a) or column (B5b) tiles (``cl::stripe_smem``):
+    ``STRIPE_SLOTS`` chunks of the multicast operand and of the busiest
+    CTA's streamed tiles, and the mbarriers."""
     return (STRIPE_SLOTS * STRIPE_KC * CLUSTER_SLOT
-            * (1 + _cdiv(_cdiv(m, BLOCK[0]), cluster))
-            + _bar_bytes(STRIPE_SLOTS))
+            * (1 + _cdiv(tiles, cluster)) + _bar_bytes(STRIPE_SLOTS))
 
 
 def _cluster_plan(p: "Plan", dtype: torch.dtype, m: int, k: int,
                   n: int) -> "Plan":
-    """``p`` as launched: a bf16 resident walk of B1/B4 or B5a over a
-    sweep of two tiles or more takes its cluster walk; anything else is
-    ``p`` itself."""
+    """``p`` as launched: a bf16 resident walk of B1/B4, B5a or B5b over
+    a sweep of two tiles or more (B5b: at most ``STRIPE_TILES *
+    MAX_CLUSTER``) takes its cluster walk; anything else is ``p``
+    itself."""
     if dtype != torch.bfloat16 or p.kernel not in _CLUSTER_TILES:
         return p
     gm, gn = _cdiv(m, BLOCK[0]), _cdiv(n, BLOCK[2])
@@ -309,9 +318,19 @@ def _cluster_plan(p: "Plan", dtype: torch.dtype, m: int, k: int,
         c = cluster_size(gn, gm, _pow2_ceil(_cdiv(gm, STRIPE_TILES)))
         return dataclasses.replace(
             p, tile_kernel=WS_STRIPE_CLUSTER.name, cluster=c, ctas=gn * c,
-            smem_bytes=ws_stripe_cluster_smem(m, c),
+            smem_bytes=stripe_cluster_smem(gm, c),
             walk=(f"cluster of {c} CTAs per column stripe j, CTA r owning "
                   f"row tiles r, r+{c}, ... (stripe in registers), weight "
+                  f"chunks multicast, sweeps k"))
+    if p.kernel == "matmul_is_stripe":
+        if not 2 <= gn <= STRIPE_TILES * MAX_CLUSTER:
+            return p
+        c = cluster_size(gm, gn, _pow2_ceil(_cdiv(gn, STRIPE_TILES)))
+        return dataclasses.replace(
+            p, tile_kernel=IS_STRIPE_CLUSTER.name, cluster=c, ctas=gm * c,
+            smem_bytes=stripe_cluster_smem(gn, c),
+            walk=(f"cluster of {c} CTAs per row stripe i, CTA r owning "
+                  f"column tiles r, r+{c}, ... (stripe in registers), input "
                   f"chunks multicast, sweeps k"))
     res_of = {code: res for res, code in _B_RES_CODES.items()}
     if p.kernel == "matmul_os":          # args (a_stripe, b_res)
@@ -477,7 +496,8 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
 
 def check_took(p: Plan, took: Optional[tuple]) -> None:
     """Raise unless the tile a ``matmul_os``, ``matmul_rmw``,
-    ``matmul_ws_stripe`` (or ``binary_mm``) launch took (``_build.launch``'s
+    ``matmul_ws_stripe``, ``matmul_is_stripe`` (or ``binary_mm``) launch
+    took (``_build.launch``'s
     report, from the CUDA tile configurations) is the one ``p`` planned,
     with its shared memory bytes and CTAs, and for a cluster walk its
     cluster size: the planner's copy of the tile shapes must not drift from

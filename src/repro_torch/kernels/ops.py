@@ -296,9 +296,9 @@ def attention(
     else:
         reg = attention_df.FLASH if anchor == "os" \
             else attention_df.KV_STATIONARY
-        built = reg.spec.block[:2]
-        if anchor == "os":
-            built = attention_df.FLASH_BLOCKS.get(q.dtype, built)
+        blocks = attention_df.FLASH_BLOCKS if anchor == "os" \
+            else attention_df.KV_BLOCKS
+        built = blocks.get(q.dtype, reg.spec.block[:2])
         if any(got is not None and got != want
                for got, want in zip((bq, bkv), built)):
             raise ValueError(f"the {reg.name} kernel is compiled for (bq, "
