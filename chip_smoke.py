@@ -15,8 +15,9 @@ Phases, each printing JSON lines:
    (one ``nvcc`` per source, started together), with its time; then
    ``cuobjdump -sass`` shows that every bf16 GEMM and flash kernel issues
    tensor-core instructions (HMMA) and no float32 or int8 one does, that
-   B1's int8 tile kernels issue integer ones (IMMA) and no other kernel
-   does, that B9's binary tile kernels issue binary ones
+   B1's int8 tile kernels and B8's int8 and packed kernels issue integer
+   ones (IMMA) and no other kernel does (B8's bf16 kernels issue HMMA,
+   its f32 walk neither), that B9's binary tile kernels issue binary ones
    (``BMMA.168256.AND.POPC``) and no other kernel does, and that the
    cluster walks of B1's residencies, B4, B5a and B5b
    (``csrc/gemm_cluster.cuh``) and B7's bf16 cluster kernel
@@ -51,8 +52,13 @@ Phases, each printing JSON lines:
    M <= 16), each timed at both projections; B8 at int8 bit for
    bit, and at f32/bf16 within B1's tolerance, on the ResNet-18 layers,
    every anchor equal to OS; each infeasible anchor raises naming its
-   bytes.  int8 operands in the GEMM family and packed int4/int5 weights
-   (B6 decoding them inside B1/B4/B5 and B8) are held bit for bit at
+   bytes; every int8, packed and bf16 launch takes the tensor-core tile
+   ``conv2d_df.plan`` names (the kernel reports it: tile, shared memory,
+   CTAs, split of k); int8 OS, WS and IS, packed 4-bit OS, bf16 OS, WS
+   (and IS at the next layer) and f32 OS timed at ResNet-18's
+   (56,3,1,64->64), bf16 and f32 beside cuDNN (no TF32).  int8
+   operands in the GEMM family and packed int4/int5 weights (B6 decoding
+   them inside B1/B4/B5 and B8) are held bit for bit at
    qwen3-1.7b's MLP shapes under each of the nine specs (int32 out, the
    fused dequant) and on the ResNet-18 conv body under each anchor; B1's
    int8 and packed basic launch runs on its integer tensor-core tiles
@@ -69,7 +75,8 @@ Phases, each printing JSON lines:
    int8 per anchor, Fig. 9 (binary against int8 and bf16 conv on the
    VGG layers) and the packed-weight rows (``repro_torch.bench.packed``:
    B1 on packed 4- and 5-bit, int8 and bf16 weights at qwen3-1.7b's MLP
-   shapes); every row printed, B8, B9, B1 and B6 launched.
+   shapes); every row printed, B8 (its int8 and bf16 tiles and walks),
+   B9, B1 and B6 launched.
 6. ``serve``: full-width qwen3-1.7b (random bf16 weights from a seed, depth
    cut to ``--layers``) served through ``Engine.submit``/``drain``:
    every request DONE, no demotion, every kernel launched, mixed-length
@@ -97,9 +104,9 @@ its prefill and decode tiles, B2, B3; serve_packed: B6, B1 with its int8
 prefill and decode tiles, B2, B3; dataflows: B1 and its bf16 tiles, B2,
 B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
 B7 (on its cluster kernel);
-quantized: B8, B9 and its prefill tile, B1 and its
-int8 tiles, B6); on serve and serve_packed every B1 launch, and on
-serve_binary every B9 launch, is one of its tiles' (prefill plus decode),
+quantized: B8 with its int8 and bf16 OS tiles and WS/IS walks, B9 and
+its prefill tile, B1 and its int8 tiles, B6); on serve and serve_packed
+every B1 launch, and on serve_binary every B9 launch, is one of its tiles' (prefill plus decode),
 counted from 0 just before the path runs. The
 last lines are the ``{"kernels": [...]}``
 record, the card line, and ``{"ok": true, "device": {...}}``. Any
@@ -193,11 +200,16 @@ B1_TOL = dict(atol=1e-3, rtol=1e-3, row_rtol=1e-4)
 # ---------------------------------------------------------------------------
 TC_LIBRARIES = ("matmul_os", "matmul_rmw", "matmul_ws_stripe",
                 "matmul_is_stripe", "flash_attention", "kv_stationary",
-                "binary_mm")
+                "binary_mm", "conv2d")
 
 
 # The int8 tensor-core tiles of B1 (csrc/gemm_tc_i8.cuh), by __global__ name.
 I8_TILE_FUNCTIONS = ("i8_prefill_kernel", "i8_decode_kernel")
+# B8's tensor-core kernels (csrc/conv_tc.cuh): the OS tile and the WS and
+# IS walks, each instantiated for bf16 (HMMA) and for int8 images with an
+# int8 or packed filter (IMMA); the f32 walk (conv2d.cu conv_kernel)
+# issues neither.
+CONV_TC_FUNCTIONS = ("conv_os_kernel", "conv_ws_kernel", "conv_is_kernel")
 # The binary tensor-core tiles of B9 (csrc/binary_mm.cu), and the SASS
 # instruction of mma.sync m16n8k256 .b1 .and.popc as cuobjdump shows it
 # for sm_90a (any other BMMA form is counted apart).
@@ -215,13 +227,14 @@ CLUSTER_FUNCTIONS = {"matmul_os": ("walk_cluster_kernel", "walk_tma_kernel"),
 
 
 def tensor_core_check():
-    """The SASS of the GEMM, flash and binary libraries (``cuobjdump
+    """The SASS of the GEMM, flash, binary and conv libraries (``cuobjdump
     -sass``): every kernel that takes bf16 operands (``__nv_bfloat16`` in
     its mangled name) issues tensor-core instructions (HMMA), and no
     float32 or int8 kernel does (float32 stays on the CUDA cores, without
-    TF32); every int8 tile kernel of B1 issues integer tensor-core
-    instructions (IMMA), and no other kernel does (the integer walks stay
-    on the CUDA cores); every binary tile kernel of B9 issues the binary
+    TF32); every int8 tile kernel of B1 and every int8 (or packed) kernel
+    of B8 issues integer tensor-core instructions (IMMA), and no other
+    kernel does (B1's other integer walks stay on the CUDA cores); every
+    binary tile kernel of B9 issues the binary
     tensor-core instruction (``B1_MMA_SASS``) and no other BMMA form, and
     no other kernel issues any BMMA (B9's WS and IS walks stay on the CUDA
     cores)."""
@@ -258,7 +271,9 @@ def tensor_core_check():
                 or any(w in f for w in CLUSTER_FUNCTIONS.get(lib, ()))}
         other = {f: c for f, c in hmma.items() if f not in bf16}
         tiles = {f: c for f, c in imma.items()
-                 if any(t in f for t in I8_TILE_FUNCTIONS)}
+                 if any(t in f for t in I8_TILE_FUNCTIONS)
+                 or (any(t in f for t in CONV_TC_FUNCTIONS)
+                     and "__nv_bfloat16" not in f)}
         wrong += [f for f, c in bf16.items() if c == 0]
         wrong += [f for f, c in other.items() if c > 0]
         wrong += [f for f, c in tiles.items() if c == 0]
@@ -289,6 +304,11 @@ def tensor_core_check():
         }
     if not summary["matmul_os"]["int8_tile_kernels"]:
         wrong.append("matmul_os: no int8 tile kernel found")
+    for fn in CONV_TC_FUNCTIONS:  # each B8 kernel in both datapaths
+        if not any(fn in f for f in summary["conv2d"]["imma_by_int8_tile"]):
+            wrong.append(f"conv2d: no int8 {fn} found")
+        if not any(fn in f for f in summary["conv2d"]["hmma_by_bf16_kernel"]):
+            wrong.append(f"conv2d: no bf16 {fn} found")
     found = summary["binary_mm"]["b1_mma_by_binary_tile"]
     wrong += [f"binary_mm: no {t} found" for t in B1_TILE_FUNCTIONS
               if not any(t in f for f in found)]
@@ -303,8 +323,9 @@ def tensor_core_check():
           "ok": not wrong})
     if wrong:
         raise AssertionError(f"kernels on the wrong cores (bf16 without "
-                             f"HMMA, float32/int8 with it, an int8 tile "
-                             f"without IMMA or another kernel with it, a "
+                             f"HMMA, float32/int8 with it, an int8 tile or "
+                             f"conv kernel without IMMA or another kernel "
+                             f"with it, a "
                              f"binary tile without {B1_MMA_SASS} or "
                              f"another kernel with it): {wrong}")
 
@@ -565,7 +586,8 @@ def kernel_phase(torch, cfg, timer):
     records.update(binary_checks(torch, cfg, timer, gen))
     records.update(conv_checks(torch, timer, gen, b1_tol))
     records.update(int8_packed_checks(torch, cfg, timer, gen, b1_tol))
-    packed_conv_checks(torch, timer, gen)
+    records["conv2d_os_i8"]["packed4"] = packed_conv_checks(torch, timer,
+                                                            gen)
     for name, rec in records.items():
         emit({"kernel_timing": name, **rec})
     return records
@@ -986,7 +1008,7 @@ def conv_checks(torch, timer, gen, tol):
 
     dev = "cuda"
 
-    def operands(n, ih, iw, f, cin, cout, dtype):
+    def operands(n, ih, iw, f, cin, cout, dtype, gen=gen):
         if dtype == torch.int8:
             x = torch.randint(-127, 128, (n, ih, iw, cin), generator=gen,
                               device=dev, dtype=torch.int8)
@@ -1002,7 +1024,7 @@ def conv_checks(torch, timer, gen, tol):
               f"f{f} s{s} -> {cout}") for ih, iw, f, s, cin, cout, _ in
              RESNET18]
     cases.append(((2, 13, 12, 3, 2, 9, 70), "ragged 2x13x12x9 f3 s2 -> 70"))
-    errs, feasibility = [], []
+    errs, float_errs, feasibility = [], [], []
     for (n, ih, iw, f, s, cin, cout), label in cases:
         conv = ConvProblem(ih=ih, iw=iw, fh=f, fw=f, s=s, cin=cin,
                            cout=cout, n=n)
@@ -1053,8 +1075,8 @@ def conv_checks(torch, timer, gen, tol):
                         errs.append(_bitwise(f"conv2d[{anchor}]", got, want,
                                              shape))
                     else:
-                        errs.append(check(f"conv2d[{anchor}]", got, want,
-                                          shape=shape, **tol))
+                        float_errs.append(check(f"conv2d[{anchor}]", got,
+                                                want, shape=shape, **tol))
                     if base is not None and not torch.equal(got, base):
                         raise AssertionError(f"conv {shape} differs from "
                                              f"OS ({p.walk})")
@@ -1068,45 +1090,82 @@ def conv_checks(torch, timer, gen, tol):
     feasibility.append(_refuses(
         "conv2d", lambda: ops.conv2d(xb, wb, spec=ANCHORS["is"]),
         "resnet18 56x56x64 bf16 is (the image needs 401408 B)"))
-    emit({"check": "conv2d_all", "checks": len(errs),
+    emit({"check": "conv2d_all", "checks": len(errs) + len(float_errs),
           "infeasible": len(feasibility),
           "infeasible_shapes": [f["shape"] for f in feasibility]})
 
-    # Timed: ResNet-18 (56, 3, 1, 64 -> 64) at int8 with the fused dequant.
+    # Timed: ResNet-18 (56, 3, 1, 64 -> 64) at int8 with the fused dequant,
+    # bf16 and f32 beside cuDNN, and each anchor's tensor-core walk.
     ih, f, s, cin, cout = 56, 3, 1, 64, 64
     conv = ConvProblem(ih=ih, iw=ih, fh=f, fw=f, s=s, cin=cin, cout=cout)
     xq, wq = operands(1, ih, ih, f, cin, cout, torch.int8)
     scale = torch.rand((1, cout), generator=gen, device=dev) * 1e-4
     bias = torch.randn((1, cout), generator=gen, device=dev)
     bnd = common.conv_bound(conv, 1, 4, common.INT8_OPS_PER_S)
-    for anchor in ("ws", "is"):
-        emit({"kernel_timing_detail": "conv2d",
-              "shape": f"resnet18 (56,3,1,64->64) int8 dequant {anchor}",
-              "ms": timer.ms(lambda: ops.conv2d_fused(
-                  xq, wq, s, scale=scale, bias=bias, spec=ANCHORS[anchor]))})
-    x_nchw = xb.permute(0, 3, 1, 2)
-    w_lib = wb.permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    bnd_bf16 = common.conv_bound(conv, 2, 4, common.BF16_FLOPS_PER_S)
-    emit({"kernel_timing_detail": "conv2d",
-          "shape": "resnet18 (56,3,1,64->64) bf16 -> f32, OS",
-          "ms": timer.ms(lambda: ops.conv2d(xb, wb, s)),
-          "plain_ms": timer.ms(lambda: ref.conv2d_ref(xb, wb, s)),
-          "library_ms": timer.ms(lambda: torch.nn.functional.conv2d(
-              x_nchw, w_lib, stride=s)),
-          "library_call": "F.conv2d (cuDNN, bf16, channels_last)",
-          "bound_ms": bnd_bf16[0], "bound_by": bnd_bf16[1]})
-    return {"conv2d": dict(
-        shape="resnet18 (56,3,1,64->64) int8, fused dequant (scale, bias), "
-              "f32 out, OS",
-        max_abs_err=max(errs),
-        ms=timer.ms(lambda: ops.conv2d_fused(xq, wq, s, scale=scale,
-                                             bias=bias)),
-        plain_ms=timer.ms(lambda: ref.conv2d_fused_ref(
-            xq, wq, s, scale=scale, bias=bias)),
-        library_ms=None, library_call=None,
-        bound_ms=bnd[0], bound_by=bnd[1], tolerance=dict(
-            int8="bit for bit", float=tol))}
+
+    def int8_record(anchor):
+        spec = ANCHORS[anchor]
+        p = conv2d_df.plan(spec, conv, torch.int8)
+        return dict(
+            shape=f"resnet18 (56,3,1,64->64) int8, fused dequant (scale, "
+                  f"bias), f32 out, {anchor.upper()}",
+            tile=p.tile_kernel, ctas=p.ctas, split=p.split,
+            max_abs_err=max(errs),
+            ms=timer.ms(lambda: ops.conv2d_fused(xq, wq, s, scale=scale,
+                                                 bias=bias, spec=spec)),
+            plain_ms=timer.ms(lambda: ref.conv2d_fused_ref(
+                xq, wq, s, scale=scale, bias=bias)),
+            library_ms=None, library_call=None,
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=dict(
+                int8="bit for bit", float=tol))
+
+    records = {f"conv2d_{a}_i8": int8_record(a) for a in ANCHORS}
+    for rec in records.values():
+        emit({"kernel_timing_detail": rec["tile"], **rec})
+
+    # operands no check before this slice drew: their own generator, so
+    # every check keeps its inputs
+    timed = torch.Generator(device=dev).manual_seed(3)
+
+    def float_record(dtype, anchor, n_ih, n_cin, n_cout, err):
+        x, w = operands(1, n_ih, n_ih, f, n_cin, n_cout, dtype, timed)
+        layer = ConvProblem(ih=n_ih, iw=n_ih, fh=f, fw=f, s=s, cin=n_cin,
+                            cout=n_cout)
+        spec = ANCHORS[anchor]
+        p = conv2d_df.plan(spec, layer, dtype)
+        rate = (common.BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                else common.F32_FLOPS_PER_S)
+        b = common.conv_bound(layer, dtype.itemsize, 4, rate)
+        x_nchw = x.permute(0, 3, 1, 2)
+        w_lib = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        torch.backends.cudnn.allow_tf32 = False   # f32 in full f32
+        return dict(
+            shape=f"resnet18 ({n_ih},3,1,{n_cin}->{n_cout}) {dtype} -> f32, "
+                  f"{anchor.upper()}",
+            tile=p.tile_kernel, ctas=p.ctas, split=p.split, max_abs_err=err,
+            ms=timer.ms(lambda: ops.conv2d(x, w, s, spec=spec)),
+            plain_ms=timer.ms(lambda: ref.conv2d_ref(x, w, s)),
+            library_ms=timer.ms(lambda: torch.nn.functional.conv2d(
+                x_nchw, w_lib, stride=s)),
+            library_call=f"F.conv2d (cuDNN, {dtype}, channels_last, "
+                         f"no TF32)",
+            bound_ms=b[0], bound_by=b[1], tolerance=tol)
+
+    err = max(float_errs)
+    records["conv2d_os_bf16"] = float_record(torch.bfloat16, "os", ih, cin,
+                                             cout, err)
+    records["conv2d_ws_bf16"] = float_record(torch.bfloat16, "ws", ih, cin,
+                                             cout, err)
+    # bf16 IS cannot hold this image (418816 B): the next layer's.
+    records["conv2d_is_bf16"] = float_record(torch.bfloat16, "is", 28, 128,
+                                             128, err)
+    f32 = float_record(torch.float32, "os", ih, cin, cout, err)
+    for rec in (records["conv2d_os_bf16"], records["conv2d_ws_bf16"],
+                records["conv2d_is_bf16"], f32):
+        emit({"kernel_timing_detail": rec["tile"] or "conv2d", **rec})
+    records["conv2d"] = dict(records["conv2d_os_i8"], float32=f32)
+    return records
 
 
 def _every_spec(label, call, want, plan_of):
@@ -1365,13 +1424,16 @@ def packed_conv_checks(torch, timer, gen):
              + conv.oh * conv.ow * cout * 4)
     bnd = common.bound(moved, 2.0 * conv.oh * conv.ow * f * f * cin * cout,
                        common.INT8_OPS_PER_S)
-    emit({"kernel_timing_detail": "conv2d packed 4-bit",
-          "shape": f"resnet18 (56,3,1,64->64), R={pcw.outlier_idx.shape[0]} "
-                   "outlier rows, dequant, f32 out, OS",
-          "ms": timer.ms(lambda: ops.conv2d_packed(xq, pcw, s,
-                                                   x_scale=x_scale)),
-          "plain_ms": timer.ms(lambda: ref.conv2d_packed_ref(xq, pcw, s)),
-          "library_ms": None, "bound_ms": bnd[0], "bound_by": bnd[1]})
+    p = conv2d_df.plan(ANCHORS["os"], conv, torch.int8, 4)
+    rec = {"shape": f"resnet18 (56,3,1,64->64), R={pcw.outlier_idx.shape[0]} "
+                    "outlier rows, dequant, f32 out, OS",
+           "tile": p.tile_kernel, "ctas": p.ctas, "split": p.split,
+           "ms": timer.ms(lambda: ops.conv2d_packed(xq, pcw, s,
+                                                    x_scale=x_scale)),
+           "plain_ms": timer.ms(lambda: ref.conv2d_packed_ref(xq, pcw, s)),
+           "library_ms": None, "bound_ms": bnd[0], "bound_by": bnd[1]}
+    emit({"kernel_timing_detail": "conv2d packed 4-bit", **rec})
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1408,7 +1470,9 @@ def dataflows_phase(torch):
 # ---------------------------------------------------------------------------
 # Phase 5: the bench twins of the quantized datapaths.
 # ---------------------------------------------------------------------------
-QUANTIZED_PATH = ("conv2d", "binary_mm", "binary_mm_prefill", "matmul_os",
+QUANTIZED_PATH = ("conv2d", "conv2d_os_i8", "conv2d_ws_i8", "conv2d_is_i8",
+                  "conv2d_os_bf16", "conv2d_ws_bf16", "conv2d_is_bf16",
+                  "binary_mm", "binary_mm_prefill", "matmul_os",
                   "unpack_block", "matmul_os_i8_prefill",
                   "matmul_os_i8_decode")
 
@@ -1873,7 +1937,8 @@ def main(argv=None) -> int:
             "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms"), "shape": rec.get("shape"),
             **{k: rec[k] for k in ("float32", "long_row", "down", "tile",
-                                   "cluster", "ctas", "is_walk", "sq2048")
+                                   "cluster", "ctas", "is_walk", "sq2048",
+                                   "split", "packed4")
                if k in rec},
         })
     emit({"kernels": kernels})

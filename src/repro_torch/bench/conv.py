@@ -9,7 +9,8 @@ The twin of ``benchmarks/bench_conv.py`` and of the functional part of
   bias, silu and residual at the flush: one launch) against
   ``ops.conv2d`` followed by the same epilogue in PyTorch (the raw
   accumulator round-trips device memory), or reports why the anchor
-  cannot hold its operand at that shape.
+  cannot hold its operand at that shape; ``conv_fused_bf16`` the same
+  in bf16 (the tensor-core OS tile and WS/IS walks).
 * ``resnet18_int8``: each layer of the ResNet-18 conv body (``RESNET18``,
   the reference's stack, batch 1) runs ``ops.int8_conv2d_fused`` with
   the dequant (per-channel x_scale * w_scale), bias and relu fused, under
@@ -60,16 +61,17 @@ def _feasible(spec: DataflowSpec, conv: ConvProblem,
         return None, str(err)
 
 
-def fused_rows(device, timer: common.Timer, iters: int,
-               seed: int) -> List[dict]:
+def fused_rows(device, timer: common.Timer, iters: int, seed: int,
+               dtype: torch.dtype = torch.float32) -> List[dict]:
     c = CASE
     gen = torch.Generator(device=device).manual_seed(seed)
     conv = ConvProblem(ih=c["ih"], iw=c["iw"], fh=c["f"], fw=c["f"],
                        s=c["s"], cin=c["cin"], cout=c["cout"], n=c["n"])
     x = torch.randn((c["n"], c["ih"], c["iw"], c["cin"]), generator=gen,
-                    device=device)
-    w = torch.randn((c["f"], c["f"], c["cin"], c["cout"]), generator=gen,
-                    device=device) * (c["f"] * c["f"] * c["cin"]) ** -0.5
+                    device=device).to(dtype)
+    w = (torch.randn((c["f"], c["f"], c["cin"], c["cout"]), generator=gen,
+                     device=device)
+         * (c["f"] * c["f"] * c["cin"]) ** -0.5).to(dtype)
     bias = torch.randn((c["cout"],), generator=gen, device=device)
     # Epilogue operands live on the device before timing: a Python scalar
     # would add a host-to-device copy to every fused call.
@@ -79,8 +81,11 @@ def fused_rows(device, timer: common.Timer, iters: int,
     rows = []
     for name, spec in ANCHORS.items():
         p, why = _feasible(spec, conv, x.dtype)
-        row = {"bench": "conv_fused", "case": dict(CASE), "anchor": name,
-               "dtype": "float32", "epilogue": "scale+bias+silu+residual"}
+        row = {"bench": "conv_fused" + ("" if dtype == torch.float32
+                                        else "_bf16"),
+               "case": dict(CASE), "anchor": name,
+               "dtype": str(dtype).removeprefix("torch."),
+               "epilogue": "scale+bias+silu+residual"}
         if p is None:
             rows.append({**row, "feasible": False, "why": why,
                          "fused_ms": None, "unfused_ms": None})
@@ -171,6 +176,7 @@ def run(device: Optional[str] = None, iters: int = 15, seed: int = 300,
     dev = device_lib.resolve(device)
     timer = common.Timer(dev)
     return (fused_rows(dev, timer, iters, seed)
+            + fused_rows(dev, timer, iters, seed + 1, torch.bfloat16)
             + resnet_rows(dev, timer, iters, seed + 10, layers))
 
 

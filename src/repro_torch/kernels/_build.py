@@ -21,7 +21,9 @@ planes also counts one under ``LAUNCHES["unpack_block"]``.  A bf16 basic
 OS launch of B1 takes one of its two tensor-core tiles
 (``csrc/gemm_tc.cuh``), an int8 or packed one one of its two integer
 tensor-core tiles (``csrc/gemm_tc_i8.cuh``), and B9's basic OS launch one
-of its two binary tensor-core tiles (``csrc/binary_mm.cu``); a bf16 launch
+of its two binary tensor-core tiles (``csrc/binary_mm.cu``), an int8,
+packed or bf16 launch of B8 its tensor-core tile or walk
+(``csrc/conv_tc.cuh``); a bf16 launch
 of B1's residencies, B4, B5a or B5b over a sweep of two tiles or more
 takes the cluster walk of ``csrc/gemm_cluster.cuh``, and a bf16 launch of
 B7 its cluster kernel; the entry point reports the tile it took, which
@@ -42,10 +44,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-HEADERS = ("common.cuh", "attention_common.cuh", "flash_tc.cuh",
-           "flash_tc_step.cuh", "gemm_common.cuh", "gemm_cluster.cuh",
-           "gemm_tc.cuh", "gemm_tc_i8.cuh", "mma_common.cuh",
-           "pack_common.cuh")
+HEADERS = ("common.cuh", "attention_common.cuh", "conv_tc.cuh",
+           "flash_tc.cuh", "flash_tc_step.cuh", "gemm_common.cuh",
+           "gemm_cluster.cuh", "gemm_tc.cuh", "gemm_tc_i8.cuh",
+           "mma_common.cuh", "pack_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # The GEMM, conv and binary kernels contract no multiply-add but their
@@ -78,7 +80,8 @@ SIGNATURES = {
                       _I, _I, _I, _F, _P, _P),
     "paged_attention": (_P,) * 9 + (_I,) * 9 + (_F, _I, _P),
     "conv2d": (_P, _P, _P) + (_I,) * 10 + (_P, _I, _P, _I, _P, _I, _P, _P,
-                                           _P, _I, _I, _P),
+                                           _P, _I, _I, _P, _I, _P, _I, _P,
+                                           _P),
     "binary_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I,
                   _P, _P),
 }
@@ -100,15 +103,22 @@ KV_TILES = ("kv_stationary_cluster",)
 # B9's basic OS tiles on the binary tensor cores (csrc/binary_mm.cu
 # TileCode), the same way.
 BINARY_TILES = ("binary_mm_prefill", "binary_mm_decode")
+# B8's int8 (and packed) and bf16 launches on the tensor cores
+# (csrc/conv_tc.cuh TileCode): the OS tile, the WS and the IS walks; the
+# f32 walk reports 0.
+CONV_TILES = ("conv2d_os_i8", "conv2d_os_bf16", "conv2d_ws_i8",
+              "conv2d_is_i8", "conv2d_ws_bf16", "conv2d_is_bf16")
 # The libraries whose entry point reports the tile a launch took, with the
 # tiles by code.
 TILE_LIBRARIES = {"matmul_os": TILES, "matmul_rmw": RMW_TILES,
                   "matmul_ws_stripe": WS_STRIPE_TILES,
                   "matmul_is_stripe": IS_STRIPE_TILES,
-                  "kv_stationary": KV_TILES, "binary_mm": BINARY_TILES}
+                  "kv_stationary": KV_TILES, "binary_mm": BINARY_TILES,
+                  "conv2d": CONV_TILES}
 # What the last such launch took (csrc/gemm_common.cuh gemm::Took, also
-# B7's report; csrc/binary_mm.cu bin::Took): the tile code, its shared memory bytes, its
-# CTAs and (a cluster walk) the CTAs of a cluster.
+# B7's and B8's report; csrc/binary_mm.cu bin::Took): the tile code, its
+# shared memory bytes, its CTAs and (a cluster walk) the CTAs of a cluster,
+# or (B8) the split of k.
 _TOOK = (ctypes.c_int * 4)()
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             (*SIGNATURES, PACKED_DECODE,
@@ -240,8 +250,9 @@ def launch(name: str, *args, packed: bool = False) -> Optional[tuple]:
     raise if it was refused.  A launch of a ``TILE_LIBRARIES`` entry that
     took one of its tiles (B1's, B4's, B5a's, B5b's, B7's, B9's) counts
     that tile too and returns (tile, shared memory bytes, CTAs) as the
-    kernel reported them, with the cluster size after them for a cluster walk; every other
-    launch returns None."""
+    kernel reported them, with the cluster size (a cluster walk) or the
+    split of k (B8's tiles) after them; every other launch returns
+    None."""
     lib = library(name)
     stream = torch.cuda.current_stream().cuda_stream
     took = (_TOOK,) if name in TILE_LIBRARIES else ()

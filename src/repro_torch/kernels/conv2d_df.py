@@ -7,11 +7,27 @@ float inputs (f32, bf16) accumulated in f32 and int8 inputs exactly in
 int32, and applies the ``Epilogue`` at the flush: ``act(scale * acc +
 bias) + residual`` in f32, scale (1, 1) or (1, Cout).
 ``csrc/conv2d.cu`` replaces ``_conv_kernel``; every anchor sums the
-reduction (ky, kx, cin) in one ascending order, so every anchor gives
-the OS anchor's bits.
+reduction (ky, kx, cin) in one order, so every anchor gives the OS
+anchor's bits.
 
-A CTA owns 64 consecutive output pixels of one image by 64 output
-channels and masks Cin, Cout and the pixel count at the edges, so
+int8 (with an int8 or a packed filter) and bf16 convs run on the tensor
+cores as an implicit GEMM (``csrc/conv_tc.cuh``): int8 one ``mma.sync``
+m16n8k32 ``.s8`` per 32-deep chunk (exact), bf16 one m16n8k16 per 16-deep
+chunk of the flat (ky, kx, cin) order, each summed from zero and added
+with one rounded f32 add (B1's order).  OS takes the tile of
+``OS_TILES`` that first gives every SM two CTAs (bf16: one; else the
+narrowest), an integer conv splitting its k steps over up to
+``MAX_SPLIT`` CTAs where its tiles alone fall short, merged by the
+tile's last CTA.  WS and IS keep
+their grids and their resident operand and run the same k step on
+``WALK_TILES``, whose rings fit in ``TILE_BYTES``.  ``plan`` names the
+tile (``tile_kernel``, counted beside ``conv2d``) with its CTAs, shared
+memory and split; the kernel reports what it took and ``check_took``
+raises on a difference.  f32 stays on the CUDA cores (one fmaf per
+index, no TF32): a CTA owns 64 consecutive output pixels of one image by
+64 output channels.
+
+Every kernel masks Cin, Cout and the pixel count at the edges, so
 nothing is padded (the reference pads channels to 128 lanes and halo
 rows for its window loads, ``ops._conv_pad``; the outputs are the same).
 ``plan`` names each anchor's walk (OS: a CTA per output tile; WS: a CTA
@@ -24,13 +40,13 @@ anchor of a spec, and so does this one.
 
 Packed int4/int5 filters (``weight_bits``; int8 images) are the per-tap
 planes of ``kernels/pack.py``, (fh, fw, Cin_pad/8, Cout) nibble words
-and, at 5 bits, (fh, fw, Cin_pad/32, Cout) bit-plane words: the kernel
-decodes each step's filter block at the load (B6,
-``csrc/pack_common.cuh``) and adds the outlier sidecar to the int32
-accumulator at the flush, one (tap, channel) row per slot; the wrapper
-turns each slot's flat row into its offset in a pixel's input window.
-The reference adds the same rows as a precomputed (N, oh, ow, Cout)
-term.
+and, at 5 bits, (fh, fw, Cin_pad/32, Cout) bit-plane words: read as
+(K/8, Cout) they are B1's packed B, decoded into the ``mma`` fragments
+(B6, ``csrc/pack_common.cuh``); the outlier sidecar is added to the
+int32 accumulator at the flush, one (tap, channel) row per slot; the
+wrapper turns each slot's flat row into its offset in a pixel's input
+window.  The reference adds the same rows as a precomputed (N, oh, ow,
+Cout) term.
 
 For CPU tensors the wrapper computes the kernel's plain version,
 ``ref.conv2d_fused_ref`` (on the exact int8 image of packed planes);
@@ -47,8 +63,10 @@ from repro_torch.core.dataflow import (ConvProblem, DataflowSpec, Epilogue,
                                        KernelRegistration, IS, OS, WS,
                                        register_kernel)
 from repro_torch.kernels import _build, pack, ref
-from repro_torch.kernels.matmul_df import (ACTIVATION_CODES, MAX_SMEM,
-                                           WEIGHT_BITS, Plan, panel_bytes,
+from repro_torch.kernels.matmul_df import (ACTIVATION_CODES, CARD_SMS,
+                                           MAX_SMEM, WEIGHT_BITS, Plan,
+                                           _i8_ring_bytes, _ring_bytes,
+                                           check_took, panel_bytes,
                                            scale_mode)
 
 BLOCK = (64, 32, 64)       # (output pixels, reduction step, output channels)
@@ -63,9 +81,56 @@ REGISTRATION = register_kernel(KernelRegistration(
 BASIC_OS = DataflowSpec.basic(OS, block=BLOCK)
 IN_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
+# The tensor-core tiles (csrc/conv_tc.cuh; the CUDA configurations are the
+# source, each launch's report is held against this copy by check_took):
+# (pixels, k step, channels) and ring stages by input kind.  OS takes the
+# first tile whose CTAs reach TARGET_CTAS (two an SM for integers, one for
+# bf16, which cannot split k), else the last; an integer conv splits its k
+# steps as far as that needs, into up to MAX_SPLIT parts of at least
+# MIN_PART steps.  The walks: 64 x 64 in
+# 32-deep steps (bf16 IS 16-deep), rings within TILE_BYTES.
+OS_TILES = {"int8": (((128, 64, 64), 4), ((64, 64, 64), 4),
+                     ((32, 64, 32), 4)),
+            "bf16": (((128, 64, 64), 3), ((64, 64, 64), 4),
+                     ((32, 64, 32), 4))}
+TARGET_CTAS = {"int8": 2 * CARD_SMS, "bf16": CARD_SMS}
+MIN_PART, MAX_SPLIT = 5, 8
+WALK_TILES = {("int8", WS): ((64, 32, 64), 4), ("int8", IS): ((64, 32, 64), 4),
+              ("bf16", WS): ((64, 32, 64), 3), ("bf16", IS): ((64, 16, 64), 3)}
+_SRC = "src/repro_torch/kernels/csrc/conv_tc.cuh"
+# Counted beside conv2d under their own names (_build.CONV_TILES).
+TILE_KERNELS = {(OS, "int8"): "conv2d_os_i8", (OS, "bf16"): "conv2d_os_bf16",
+                (WS, "int8"): "conv2d_ws_i8", (IS, "int8"): "conv2d_is_i8",
+                (WS, "bf16"): "conv2d_ws_bf16", (IS, "bf16"): "conv2d_is_bf16"}
+for (_anchor, _kind), _name in TILE_KERNELS.items():
+    register_kernel(KernelRegistration(
+        name=_name, source=_SRC, replaces=REGISTRATION.replaces,
+        spec=DataflowSpec.basic(_anchor, block=(
+            OS_TILES[_kind][1][0] if _anchor == OS
+            else WALK_TILES[(_kind, _anchor)][0]))))
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _tc_kind(dtype: torch.dtype) -> Optional[str]:
+    return {torch.int8: "int8", torch.bfloat16: "bf16"}.get(dtype)
+
+
+def os_tile(conv: ConvProblem, kind: str,
+            k: int) -> Tuple[Tuple[int, int, int], int, int, int]:
+    """(tile, stages, output tiles, split) the OS rule takes
+    (``csrc/conv_tc.cuh`` ``os_tile``)."""
+    p = conv.oh * conv.ow
+    for tile, stages in OS_TILES[kind]:
+        outputs = conv.n * _cdiv(p, tile[0]) * _cdiv(conv.cout, tile[2])
+        split = 1 if kind != "int8" else max(1, min(
+            _cdiv(TARGET_CTAS[kind], outputs),
+            _cdiv(_cdiv(k, 32) * 32, tile[1]) // MIN_PART, MAX_SPLIT))
+        if outputs * split >= TARGET_CTAS[kind]:
+            break
+    return tile, stages, outputs, split
 
 
 @functools.lru_cache(maxsize=1024)
@@ -75,8 +140,9 @@ def plan(spec: DataflowSpec, conv: ConvProblem,
     """The walk and resident operand of ``spec``'s anchor for ``conv``
     with inputs of ``dtype`` and a filter of the same type, or (int8)
     packed at ``weight_bits`` (the grid orders of
-    ``repro/kernels/conv2d_df.py:conv2d_df``).  Raises ``ValueError``
-    when the resident operand does not fit a block's shared memory."""
+    ``repro/kernels/conv2d_df.py:conv2d_df``), and for int8, packed and
+    bf16 inputs the tensor-core tile.  Raises ``ValueError`` when the
+    resident operand does not fit a block's shared memory."""
     elt = dtype.itemsize
     pix, bk, bn = BLOCK
     tiles = _cdiv(conv.oh * conv.ow, pix)
@@ -111,9 +177,41 @@ def plan(spec: DataflowSpec, conv: ConvProblem,
             f"f{conv.fh}x{conv.fw} s{conv.s} -> {conv.cout} ({kind}) needs "
             f"{smem} bytes of shared memory per block ({held}); a Hopper "
             f"block has {MAX_SMEM}")
+    tc = _tc_kind(dtype)
+    if tc is None:
+        return Plan(kernel="conv2d", grid_order=order, walk=walk, ctas=ctas,
+                    resident=resident, smem_bytes=smem,
+                    args=(WALKS[spec.anchor],))
+    split = 1
+    if spec.anchor == OS:
+        tile, stages, ctas, split = os_tile(conv, tc, k)
+        smem = (_i8_ring_bytes(tile, stages, weight_bits) if tc == "int8"
+                else _ring_bytes(tile, stages))
+        ctas *= split
+        walk = (f"CTA per (image, {tile[0]}-pixel tile, {tile[2]}-channel "
+                f"tile)" + (f" x {split} parts of k" if split > 1 else ""))
+    else:
+        tile, stages = WALK_TILES[(tc, spec.anchor)]
+    walk += f" on the {tc} tensor cores"
     return Plan(kernel="conv2d", grid_order=order, walk=walk, ctas=ctas,
                 resident=resident, smem_bytes=smem,
-                args=(WALKS[spec.anchor],))
+                args=(WALKS[spec.anchor],), tile=tile,
+                tile_kernel=TILE_KERNELS[(spec.anchor, tc)], split=split)
+
+
+# Zeroed arrival counters of the split merge per (device, stream): every
+# launch leaves them zeroed (csrc/conv_tc.cuh's atomicInc wraps), so
+# launches on one stream share them.
+_SPLIT_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _split_counters(device: torch.device, stream: int,
+                    count: int) -> torch.Tensor:
+    held = _SPLIT_COUNTERS.get((device, stream))
+    if held is None or held.numel() < count:
+        held = torch.zeros(max(count, 256), dtype=torch.int32, device=device)
+        _SPLIT_COUNTERS[(device, stream)] = held
+    return held
 
 
 def problem(x: torch.Tensor, w: torch.Tensor, stride: int) -> ConvProblem:
@@ -263,7 +361,14 @@ def conv2d_df(
     _build.require_cuda(x, w, scale, bias, residual, w_hi, offsets,
                         outlier_delta)
     out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
-    _build.launch(
+    ws = counters = None
+    if p.split and p.split > 1:   # each part's int32 sums, then the merge
+        ws = torch.empty(p.ctas * p.tile[0] * p.tile[2], dtype=torch.int32,
+                         device=x.device)
+        counters = _split_counters(
+            x.device, torch.cuda.current_stream(x.device).cuda_stream,
+            p.ctas // p.split)
+    took = _build.launch(
         p.kernel, _build.ptr(x), _build.ptr(w), _build.ptr(out), conv.n,
         conv.ih, conv.iw, conv.cin, conv.fh, conv.fw, stride, cout,
         _build.dtype_code(x), _build.dtype_code(out), _build.ptr(scale),
@@ -271,5 +376,8 @@ def conv2d_df(
         ACTIVATION_CODES[epi.activation if epi else None],
         _build.ptr(residual), weight_bits or 0, _build.ptr(w_hi),
         _build.ptr(offsets), _build.ptr(outlier_delta), r, *p.args,
+        _build.ptr(ws), 0 if ws is None else ws.numel(), _build.ptr(counters),
+        0 if counters is None else counters.numel(),
         packed=weight_bits is not None)
+    check_took(p, took)
     return out

@@ -136,6 +136,21 @@ __device__ __forceinline__ void load_words(uint32_t w[NI], const uint32_t* p) {
   }
 }
 
+// The packed B fragments of NI column tiles (columns wc.. ; lane g takes
+// columns wc + g * NI + ni) at chunk q: nibble words of rows 4q + t of
+// `words`, bit-plane words of row q of `hi` (5 bits), both ld words a row.
+template <int WB, int NI>
+__device__ __forceinline__ void frag_b_packed(uint32_t f[NI][2], const uint32_t* words,
+                                              const uint32_t* hi, int ld, int q, int wc) {
+  const int g = tc::lane() >> 2, t = tc::lane() & 3;
+  uint32_t w[NI], h[NI];
+  load_words<NI>(w, words + (q * 4 + t) * ld + wc + g * NI);
+  if constexpr (WB == 5) load_words<NI>(h, hi + q * ld + wc + g * NI);
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+    pack::decode_frag<WB>(w[ni], WB == 5 ? h[ni] >> (8 * t) : 0u, f[ni]);
+}
+
 // The B operand of a tile kernel, by weight bits WB: its fragments for a
 // warp's NI column tiles (columns wc.. of the tile) at chunk q of a k step,
 // and the tile column of accumulator element j of column tile ni.
@@ -163,15 +178,8 @@ struct Frags {  // packed planes: lane g takes columns wc + g * NI + ni
   static constexpr int LD = w_ld(TBN);
   __device__ static __forceinline__ void b(uint32_t f[NI][2], const void* bt,
                                            int q, int wc) {
-    const int g = tc::lane() >> 2, t = tc::lane() & 3;
     const uint32_t* words = static_cast<const uint32_t*>(bt);
-    uint32_t w[NI], h[NI];
-    load_words<NI>(w, words + (q * 4 + t) * LD + wc + g * NI);
-    if constexpr (WB == 5)
-      load_words<NI>(h, words + (TBK / pack::WORD_NIBBLES + q) * LD + wc + g * NI);
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-      pack::decode_frag<WB>(w[ni], WB == 5 ? h[ni] >> (8 * t) : 0u, f[ni]);
+    frag_b_packed<WB, NI>(f, words, words + TBK / pack::WORD_NIBBLES * LD, LD, q, wc);
   }
   __device__ static __forceinline__ int col(int wc, int ni, int j) {
     return wc + (2 * (tc::lane() & 3) + (j & 1)) * NI + ni;

@@ -212,6 +212,7 @@ class Plan:
     tile: Tuple[int, int, int] = BLOCK   # a CTA's (bm, bk, bn)
     tile_kernel: Optional[str] = None    # the tile, counted beside kernel
     cluster: Optional[int] = None        # CTAs of a cluster (cluster walks)
+    split: Optional[int] = None          # parts of k (B8's tensor-core tiles)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -496,19 +497,20 @@ def plan(spec: DataflowSpec, m: int, k: int, n: int,
 
 def check_took(p: Plan, took: Optional[tuple]) -> None:
     """Raise unless the tile a ``matmul_os``, ``matmul_rmw``,
-    ``matmul_ws_stripe``, ``matmul_is_stripe`` (or ``binary_mm``) launch
-    took (``_build.launch``'s
+    ``matmul_ws_stripe``, ``matmul_is_stripe`` (or ``binary_mm``,
+    ``conv2d``) launch took (``_build.launch``'s
     report, from the CUDA tile configurations) is the one ``p`` planned,
-    with its shared memory bytes and CTAs, and for a cluster walk its
-    cluster size: the planner's copy of the tile shapes must not drift from
-    the kernels'."""
+    with its shared memory bytes and CTAs, for a cluster walk its
+    cluster size and for B8's tiles the split of k: the planner's copy of
+    the tile shapes must not drift from the kernels'."""
     want = None if p.tile_kernel is None else (
         (p.tile_kernel, p.smem_bytes, p.ctas)
-        + ((p.cluster,) if p.cluster else ()))
+        + ((p.cluster,) if p.cluster else ())
+        + ((p.split,) if p.split else ()))
     if took != want:
         raise _build.KernelError(
             f"{p.kernel} took the tile {took} (name, shared memory bytes, "
-            f"CTAs[, cluster]) where its plan says {want}")
+            f"CTAs[, cluster or split]) where its plan says {want}")
 
 
 def scale_mode(scale: Optional[torch.Tensor]) -> int:

@@ -357,8 +357,10 @@ def conv2d(
     """Direct NHWC conv (VALID padding) under a dataflow spec; int32 for
     int8 inputs, float32 otherwise, by default.  ``b_oh``/``bc``/``bk``
     are the TPU kernel's blocking, kept for the signature: the CUDA
-    kernel has one compiled tile (``conv2d_df.BLOCK``) and masks every
-    edge.  Packed filters go through ``conv2d_packed``."""
+    kernel picks its own tile (``conv2d_df.plan``: the f32 walk's
+    ``conv2d_df.BLOCK``, or for int8 and bf16 a tensor-core tile by the
+    CTAs it gives) and masks every edge.  Packed filters go through
+    ``conv2d_packed``."""
     fault = health.maybe_inject("kernel.conv2d")
     conv2d_df.problem(x, w, stride)
     if _backend(backend) == "torch":
