@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases card,build,kernels,dataflows
     python3 chip_smoke.py --phases card,build,kernels,quantized
     python3 chip_smoke.py --phases card,build,serve_packed --layers 2
+    python3 chip_smoke.py --phases card,build,serve_recovery
 
 Phases, each printing JSON lines:
 
@@ -97,11 +98,33 @@ Phases, each printing JSON lines:
    tolerance.  Its activations are quantized per tensor over the batch,
    so the mixed-batch tokens are compared with each request alone and
    the differing tokens counted, not gated.
+9. ``serve_recovery``: full-width qwen3-1.7b (depth ``--layers``) through
+   ``Engine`` in the modes the serving loop adds, every gate raising:
+   chunked prefill (``prefill_chunk=128``; prompts of 17/64/200/511
+   tokens, 16 new) emits the whole prompts' tokens, with the first
+   token's logit difference and both prefills' ms (7 repeats each, run
+   outside ``Engine`` after the path's counts are read) reported; the
+   pressure ladder (prompts of 100/120/60/140 tokens, 64 new, reaches of
+   44 pages in a pool of 24) spills or preempts, fails nothing, diverges
+   nowhere and emits the tokens of an unconstrained pool; the
+   batch-synchronous ``serve()`` on the slot cache (four 64-token
+   prompts) ends DONE, its tokens that differ from the paged drain's
+   counted (B2 at Sq = 1 and B3 fold in different orders) and both
+   loops' decode ms/step reported;
+   then two crash drills at 2 layers, each a process killed by
+   ``REPRO_FAULT_PLAN`` and a process that restores and finishes (this
+   script with ``--drill``): (a) a ragged continuous drain killed in its
+   decode loop (a cold replay), (b) the batch loop with snapshots every 2
+   steps killed after one (a warm resume); both must recover every
+   journaled request with the uninterrupted run's tokens, none FAILED,
+   no replay divergence.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
 its prefill and decode tiles, B2, B3; serve_packed: B6, B1 with its int8
-prefill and decode tiles, B2, B3; dataflows: B1 and its bf16 tiles, B2,
+prefill and decode tiles, B2, B3; serve_recovery: B1 with its bf16
+prefill and decode tiles, B2 (at chunks and slot-cache decode too), B3,
+counted over its in-process ``Engine`` runs; dataflows: B1 and its bf16 tiles, B2,
 B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
 B7 (on its cluster kernel);
 quantized: B8 with its int8 and bf16 OS tiles and WS/IS walks, B9 and
@@ -127,7 +150,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 ALL_PHASES = ("card", "build", "kernels", "dataflows", "quantized", "serve",
-              "serve_binary", "serve_packed")
+              "serve_binary", "serve_packed", "serve_recovery")
 
 
 def emit(obj) -> None:
@@ -501,6 +524,8 @@ def kernel_phase(torch, cfg, timer):
         **f32_tol), f32_tol)
     emit({"kernel_timing_detail": "flash_attention", **rec})
     records["flash_attention"]["float32"] = {f"Sq={sq}": rec}
+    records["flash_attention"].update(b2_serving_modes(
+        torch, timer, hq, hkv, dh, att_tol))
 
     # B3: 4 rows, ragged lengths including 0, shuffled page ids.
     page, max_pages = 16, 64
@@ -591,6 +616,63 @@ def kernel_phase(torch, cfg, timer):
     for name, rec in records.items():
         emit({"kernel_timing": name, **rec})
     return records
+
+
+def b2_serving_modes(torch, timer, hq, hkv, dh, tol):
+    """B2 in the two modes the serving loop adds, at full width in a
+    1 024-key buffer: one prefill chunk (Sq = 128 queries at offset 384,
+    kv_len 512) and the slot-cache decode step (4 rows of Sq = 1, per-row
+    kv_len 17/64/200/511; B2's 64-row q tile carries one live row).  Each
+    is held against the plain version and timed beside it and SDPA with
+    the equivalent boolean mask; the bound counts the keys each row's
+    band reads."""
+    import torch.nn.functional as F
+
+    from repro_torch.bench.common import bound
+    from repro_torch.kernels import attention_df, ref
+
+    dev, buf = "cuda", 1024
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    out = {}
+    for mode, sq, lens in (("chunk", 128, [512]),
+                           ("slot_decode", 1, [17, 64, 200, 511])):
+        b = len(lens)
+        q, kk, vv = randn(b, hq, sq, dh), randn(b, hkv, buf, dh), \
+            randn(b, hkv, buf, dh)
+        kv = (lens[0] if b == 1
+              else torch.tensor(lens, device=dev, dtype=torch.int32))
+        shape = (f"{mode} B={b} Sq={sq} kv_len={lens} buffer={buf} "
+                 f"Hq={hq} Hkv={hkv} D={dh} bf16")
+        err = check("flash_attention",
+                    attention_df.flash_attention(q, kk, vv, kv_len=kv),
+                    ref.attention_ref(q, kk, vv, kv_len=kv), shape=shape,
+                    **tol)
+        kv_col = torch.tensor(lens, device=dev)[:, None, None]
+        row = torch.arange(sq, device=dev)[None, :, None] + kv_col - sq
+        key = torch.arange(buf, device=dev)[None, None, :]
+        mask = ((key < kv_col) & (key <= row))[:, None]     # (B, 1, Sq, buf)
+        pairs = sum(sq * n - sq * (sq - 1) // 2 for n in lens)
+        bnd = bound(2 * sum(lens) * hkv * dh * 2 + 2 * b * hq * sq * dh * 2,
+                    4.0 * dh * pairs * hq)
+        rec = dict(
+            shape=shape, max_abs_err=err,
+            ms=timer.ms(lambda: attention_df.flash_attention(
+                q, kk, vv, kv_len=kv)),
+            plain_ms=timer.ms(lambda: ref.attention_ref(q, kk, vv,
+                                                        kv_len=kv)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=mask, enable_gqa=True)),
+            library_call="F.scaled_dot_product_attention(attn_mask, "
+                         "enable_gqa)",
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
+        emit({"kernel_timing_detail": "flash_attention", **rec})
+        out[mode] = rec
+    return out
 
 
 def gemm_dataflow_checks(torch, cfg, timer, gen, tol):
@@ -1727,6 +1809,329 @@ def serve_path(torch, cfg, args, phase, path):
     return {k: launches[k] for k in path}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the serving invariants — chunked prefill, pool pressure, the
+# slot-cache serve() and crash recovery.
+# ---------------------------------------------------------------------------
+# The crash drills: full width at 2 layers, one process killed by the
+# fault plan, a second restoring and finishing; each within DRILL_TIMEOUT.
+DRILL_LAYERS, DRILL_TIMEOUT = 2, 180
+# Timed repeats of each 511-token prefill, whole and chunked.
+PREFILL_REPEATS = 7
+DRILLS = {
+    # (a) a ragged continuous drain, killed in its decode loop
+    "ragged": dict(lens=[17, 64, 200, 511], new_tokens=8,
+                   plan="serve.decode_step:3:kill", warm=False),
+    # (b) the batch-synchronous loop with snapshots every 2 steps, killed
+    # at step 3, after the step-2 snapshot
+    "batch": dict(lens=[64, 64, 64, 64], new_tokens=6, snapshot_every=2,
+                  plan="serve.decode_step:2:kill", warm=True),
+}
+
+
+def _healthy(phase: str, event: str, reqs, eng) -> None:
+    from repro_torch.serve.engine import RequestState
+
+    stats = eng.stats()
+    bad = [(r.rid, r.state.value, r.error) for r in reqs
+           if r.state != RequestState.DONE]
+    if bad or stats["demotions"] or stats["degraded_steps"] \
+            or stats["failed"] or stats["replay_divergence"]:
+        raise AssertionError(f"{phase} {event}: {bad}, {stats}")
+
+
+def _step_ms(eng) -> float:
+    ms = sorted(rec.seconds * 1e3 for rec in eng.monitor.records)
+    return ms[len(ms) // 2]
+
+
+def _prompts(cfg, seed: int, lens):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lens]
+
+
+def drill_main(mode: str, jdir: str, out: str, case_json: str) -> int:
+    """One process of a crash drill (``chip_smoke.py --drill``): serve the
+    case's prompts with a journal (``mode`` "run"), or restore and finish
+    them ("resume"); the result goes to ``out`` as JSON.  A kill fault in
+    ``REPRO_FAULT_PLAN`` ends the run process with SIGKILL."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+
+    case = json.loads(case_json)
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b"),
+                              n_layers=DRILL_LAYERS)
+    params = lm.init_model(cfg, seed=case["seed"], device="cuda")
+    eng = Engine(cfg, params, max_len=1024, device="cuda", journal_dir=jdir,
+                 snapshot_every=case.get("snapshot_every"))
+    if mode == "resume":
+        reqs = eng.restore()
+        eng.serve(reqs)
+    else:
+        reqs = [eng.submit(p, case["new_tokens"])
+                for p in _prompts(cfg, case["seed"], case["lens"])]
+        eng.serve(reqs)
+    torch.cuda.synchronize()
+    stats = eng.stats()
+    with open(out, "w") as f:
+        json.dump({"tokens": {str(r.rid): r.out_tokens for r in reqs},
+                   "states": {str(r.rid): r.state.value for r in reqs},
+                   "stats": {k: v for k, v in stats.items()
+                             if isinstance(v, int)},
+                   "snapshots": stats.get("snapshots"),
+                   "restores": [e.detail for e in
+                                eng.monitor.events_of("restore")],
+                   "launches": {k: v for k, v in _build.LAUNCHES.items()
+                                if v}}, f)
+    return 0
+
+
+def crash_drill(name: str, case: dict, seed: int, workdir: str):
+    """Drill ``name``: the uninterrupted run in this process, then a
+    process killed by ``case["plan"]`` and a process that restores and
+    finishes; its tokens must be the uninterrupted run's, every
+    journaled request recovered once, none FAILED, no replay
+    divergence."""
+    import subprocess
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.journal import RequestJournal
+
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b"),
+                              n_layers=DRILL_LAYERS)
+    case = dict(case, seed=seed)
+    params = lm.init_model(cfg, seed=seed, device="cuda")
+    eng = Engine(cfg, params, max_len=1024, device="cuda")
+    reqs = [eng.submit(p, case["new_tokens"])
+            for p in _prompts(cfg, seed, case["lens"])]
+    eng.serve(reqs)
+    _healthy("serve_recovery", f"drill {name} baseline", reqs, eng)
+    base = {str(r.rid): r.out_tokens for r in reqs}
+    del eng, params
+    jdir = os.path.join(workdir, name)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("REPRO_JOURNAL_DIR", None)
+    env.pop("REPRO_SNAPSHOT_EVERY", None)
+    runs = {}
+    for mode, plan in (("run", case["plan"]), ("resume", None)):
+        out = os.path.join(workdir, f"{name}_{mode}.json")
+        env.pop("REPRO_FAULT_PLAN", None)
+        if plan:
+            env["REPRO_FAULT_PLAN"] = plan
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--drill", mode,
+             jdir, out, json.dumps(case)], env=env, cwd=ROOT,
+            timeout=DRILL_TIMEOUT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
+        runs[mode] = (proc, out, time.monotonic() - t0)
+    killed, _, kill_s = runs["run"]
+    if killed.returncode != -9 or os.path.exists(runs["run"][1]):
+        raise AssertionError(f"drill {name}: the run was not killed "
+                             f"(rc {killed.returncode}): "
+                             f"{killed.stderr.decode()[-2000:]}")
+    owed = sorted(r["rid"] for r in RequestJournal(jdir).scan()
+                  if r["kind"] == "submit")
+    proc, out, resume_s = runs["resume"]
+    if proc.returncode != 0:
+        raise AssertionError(f"drill {name}: resume failed (rc "
+                             f"{proc.returncode}): "
+                             f"{proc.stderr.decode()[-2000:]}")
+    with open(out) as f:
+        result = json.load(f)
+    got = {int(rid): toks for rid, toks in result["tokens"].items()}
+    restore = result["restores"][-1] if result["restores"] else ""
+    ok = (sorted(got) == owed == sorted(int(r) for r in base)
+          and all(result["states"][str(r)] == "done" for r in owed)
+          and all(got[r] == base[str(r)] for r in owed)
+          and result["stats"]["failed"] == 0
+          and result["stats"]["replay_divergence"] == 0
+          and ("warm resume" if case["warm"] else "cold resume") in restore)
+    emit({"phase": "serve_recovery", "event": f"drill_{name}",
+          "layers": DRILL_LAYERS, "prompt_lens": case["lens"],
+          "new_tokens": case["new_tokens"], "plan": case["plan"],
+          "killed_rc": killed.returncode, "owed": owed, "restore": restore,
+          "recovered": result["stats"]["recovered"],
+          "replayed_steps": result["stats"]["replayed_steps"],
+          "snapshots_saved_after_restore": result["stats"][
+              "snapshots_saved"],
+          "snapshots": result["snapshots"],
+          "kill_run_s": kill_s, "resume_run_s": resume_s,
+          "resume_launches": result["launches"], "ok": ok})
+    if not ok:
+        raise AssertionError(f"drill {name}: recovered {result} against "
+                             f"the uninterrupted {base}")
+
+
+def serve_recovery_phase(torch, cfg, args):
+    """Full-width qwen3-1.7b (random weights from ``--seed``, depth
+    ``--layers``) through ``Engine`` in the modes the serving loop adds,
+    each gated: chunked prefill against whole prompts, the pressure
+    ladder against an unconstrained pool, the batch-synchronous
+    ``serve()`` on the slot cache, and two crash drills in subprocesses.
+    Returns the launches of the path's kernels over the in-process
+    serving (the drills run in their own processes)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    phase, max_len = "serve_recovery", 1024
+    t_phase = time.monotonic()
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+
+    def drain(prompts, new_tokens, event, **sc):
+        eng = Engine(cfg, params, max_len=max_len, device="cuda",
+                     scheduler_config=SchedulerConfig(**sc) if sc else None)
+        reqs = [eng.submit(p, new_tokens) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        eng.drain()
+        torch.cuda.synchronize()
+        _healthy(phase, event, reqs, eng)
+        return [r.out_tokens for r in reqs], eng, time.monotonic() - t0
+
+    def launched(since):
+        """The path's launches since the counts ``since``."""
+        return {k: _build.LAUNCHES[k] - since.get(k, 0)
+                for k in SERVE_PATH}
+
+    # The main path: counts zeroed just before, read just after.
+    _build.reset_launches()
+    # Chunked prefill: every prompt longer than a chunk streams through
+    # lm.prefill_chunk 128 tokens a step (B2 at Sq = 128 over the filled
+    # cache), interleaved with decode.
+    chunk_lens = (17, 64, 200, 511)
+    chunk_prompts = _prompts(cfg, args.seed, chunk_lens)
+    whole, _, whole_s = drain(chunk_prompts, 16, "whole")
+    chunked, _, chunked_s = drain(chunk_prompts, 16, "chunked",
+                                  prefill_chunk=128)
+    launches_drains = launched({})
+    differ = sum(a != b for w, c in zip(whole, chunked)
+                 for a, b in zip(w, c))
+    if differ:
+        raise AssertionError(f"chunked prefill tokens {chunked} != whole "
+                             f"prompt tokens {whole}")
+
+    # Pool pressure: reaches of 11 + 12 + 8 + 13 = 44 pages in a pool of
+    # 24 (each within it): admission defers, decode growth spills and
+    # preempts, and the tokens stay those of an unconstrained pool.
+    lens = (100, 120, 60, 140)
+    prompts = _prompts(cfg, args.seed + 1, lens)
+    sc = dict(max_batch=4, page_size=16)
+    since = dict(_build.LAUNCHES)
+    free, _, free_s = drain(prompts, 64, "pressure_unconstrained", **sc)
+    tight, eng, tight_s = drain(prompts, 64, "pressure", n_pages=24, **sc)
+    stats = eng.stats()
+    ladder = {k: stats[k] for k in ("spills", "spilled_pages", "unspills",
+                                    "preemptions", "backpressure",
+                                    "replay_divergence", "failed")}
+    emit({"phase": phase, "event": "pool_pressure", "prompt_lens": list(lens),
+          "new_tokens": 64, "n_pages": 24, "page_size": 16,
+          "reach_pages": [-(-(n + 64) // 16) for n in lens], **ladder,
+          "tokens_equal": tight == free,
+          "decode_ms_per_step_median": _step_ms(eng),
+          "drain_s": {"unconstrained": free_s, "n_pages=24": tight_s},
+          "launches": launched(since)})
+    if tight != free or not ladder["spills"] + ladder["preemptions"]:
+        raise AssertionError(f"pressure run: tokens equal {tight == free}, "
+                             f"ladder {ladder}")
+
+    # The batch-synchronous serve() on the slot cache (B2 at Sq = 1)
+    # beside the paged drain of the same requests (B3).
+    prompts = _prompts(cfg, args.seed + 2, (64, 64, 64, 64))
+    paged, peng, _ = drain(prompts, 16, "paged_drain")
+    since = dict(_build.LAUNCHES)
+    seng = Engine(cfg, params, max_len=max_len, device="cuda")
+    reqs = [seng.submit(p, 16) for p in prompts]
+    seng.serve(reqs)
+    torch.cuda.synchronize()
+    _healthy(phase, "slot_serve", reqs, seng)
+    slot = [r.out_tokens for r in reqs]
+    emit({"phase": phase, "event": "slot_cache_serve",
+          "prompt_lens": [64] * 4, "new_tokens": 16,
+          "scheduler_ran": seng.scheduler_report() is not None,
+          "tokens_differing_from_paged": sum(
+              a != b for s, p in zip(slot, paged) for a, b in zip(s, p)),
+          "decode_ms_per_step_median": {"slot_serve": _step_ms(seng),
+                                        "paged_drain": _step_ms(peng)},
+          "launches_slot_serve": launched(since)})
+    launches = dict(_build.LAUNCHES)
+    missing = [k for k in SERVE_PATH if launches[k] <= 0]
+    emit({"phase": phase, "event": "launches", "launches": launches,
+          "missing": missing})
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+
+    # Off the main path (after its counts were read): the 511-token prompt
+    # prefilled whole and in chunks of 128 outside Engine, for the first
+    # token's logits and the time of each, repeats alternating.
+    toks = torch.as_tensor(chunk_prompts[-1][None], device="cuda")
+
+    def whole_prefill():
+        return lm.prefill(params, toks, cfg, max_len=max_len)[0]
+
+    def chunked_prefill():
+        cache = lm.init_cache(cfg, 1, max_len, cfg.act_dtype, "cuda")
+        for pos in range(0, toks.shape[1], 128):
+            logits, cache = lm.prefill_chunk(params, cache,
+                                             toks[:, pos:pos + 128], cfg,
+                                             pos)
+        return logits
+
+    fns = {"whole": whole_prefill, "chunked": chunked_prefill}
+    first = {name: fn() for name, fn in fns.items()}
+    prefill_ms = {name: [] for name in fns}
+    for _ in range(PREFILL_REPEATS):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            prefill_ms[name].append(start.elapsed_time(end))
+    emit({"phase": phase, "event": "chunked_prefill", "card": card_line(),
+          "prompt_lens": list(chunk_lens), "new_tokens": 16,
+          "prefill_chunk": 128,
+          "tokens_differing": differ,
+          "first_token_max_abs_logit_diff": max_err(first["chunked"],
+                                                    first["whole"]),
+          "first_token_argmax_equal": int(first["chunked"].argmax())
+          == int(first["whole"].argmax()),
+          "prefill_511_ms": {name: {"median": sorted(ms)[len(ms) // 2],
+                                    "min": min(ms), "max": max(ms),
+                                    "samples": ms}
+                             for name, ms in prefill_ms.items()},
+          "drain_s": {"whole": whole_s, "chunked": chunked_s},
+          "launches_drains": launches_drains})
+    del params, eng, peng, seng
+    torch.cuda.empty_cache()
+
+    workdir = tempfile.mkdtemp(prefix=".serve_recovery_", dir=ROOT)
+    try:
+        for name, case in DRILLS.items():
+            crash_drill(name, case, args.seed, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": phase, "event": "done",
+          "seconds": time.monotonic() - t_phase})
+    return {k: launches[k] for k in SERVE_PATH}
+
+
 # Device kernels of the serving paths, by the name of their __global__
 # function (B1's bf16 basic OS is gemm_tc.cuh's two tiles; its int8 and
 # packed basic OS is gemm_tc_i8.cuh's two; every other B1 launch is
@@ -1868,6 +2273,9 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=28,
                     help="decoder depth (qwen3-1.7b has 28)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--drill", nargs=4, default=None,
+                    metavar=("MODE", "JOURNAL_DIR", "OUT", "CASE"),
+                    help="one process of a serve_recovery crash drill")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1877,6 +2285,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "smoke test needs a CUDA card", file=sys.stderr)
         return 2
+    if args.drill:
+        return drill_main(*args.drill)
     # float32 references run in full float32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1918,6 +2328,9 @@ def main(argv=None) -> int:
         if phase in phases:
             paths[phase] = serve_path(torch, dataclasses.replace(
                 cfg, n_layers=args.layers, **mlp), args, phase, path)
+    if "serve_recovery" in phases:
+        paths["serve_recovery"] = serve_recovery_phase(
+            torch, dataclasses.replace(cfg, n_layers=args.layers), args)
 
     kernels = []
     for name, reg in registered_kernels().items():
@@ -1925,7 +2338,7 @@ def main(argv=None) -> int:
         by_path = {p: n[name] for p, n in paths.items() if name in n}
         # A kernel's own path: the first of these that runs it.
         own = next((p for p in ("serve", "serve_binary", "serve_packed",
-                                "dataflows", "quantized")
+                                "serve_recovery", "dataflows", "quantized")
                     if name in paths.get(p, {})), None)
         kernels.append({   # every kernel of the port is CUDA C++ so far
             "name": name, "route": "cuda", "source": reg.source,
@@ -1938,7 +2351,8 @@ def main(argv=None) -> int:
             "library_ms": rec.get("library_ms"), "shape": rec.get("shape"),
             **{k: rec[k] for k in ("float32", "long_row", "down", "tile",
                                    "cluster", "ctas", "is_walk", "sq2048",
-                                   "split", "packed4")
+                                   "split", "packed4", "chunk",
+                                   "slot_decode")
                if k in rec},
         })
     emit({"kernels": kernels})

@@ -10,9 +10,20 @@ Usage (on the card; random weights from ``--seed``, nothing downloaded):
       --smoke --device cpu
 
 Requests go through ``Engine.submit`` and ``drain`` (the continuous
-scheduler); ``--ragged`` draws prompt lengths in [1, prompt-len].  The
-JAX launcher's ``--journal-dir``, ``--snapshot-every`` and ``--resume``
-wait for ROADMAP A5a.
+scheduler); ``--ragged`` draws prompt lengths in [1, prompt-len].
+
+Crash-safe serving: with a journal directory every admission, token and
+terminal transition is journaled, with engine snapshots every
+``--snapshot-every`` decode steps of the batch loop; after a kill,
+``--resume`` restores the journal (and the newest snapshot) and finishes
+the interrupted requests with the uninterrupted run's greedy tokens:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --smoke --device cpu --journal-dir /tmp/serve-journal
+  # ... a SIGKILL mid-decode (REPRO_FAULT_PLAN=serve.decode_step:3:kill),
+  # then:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --smoke --device cpu --journal-dir /tmp/serve-journal --resume
 """
 from __future__ import annotations
 
@@ -37,6 +48,15 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu for the plain PyTorch path")
+    ap.add_argument("--journal-dir", default=None,
+                    help="journal requests (write-ahead) and snapshots "
+                         "under this directory")
+    ap.add_argument("--snapshot-every", type=int, default=None,
+                    help="engine snapshot cadence in decode steps "
+                         "(default: REPRO_SNAPSHOT_EVERY)")
+    ap.add_argument("--resume", action="store_true",
+                    help="recover the journaled requests after a crash "
+                         "and finish serving them")
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(
@@ -44,14 +64,21 @@ def main(argv=None) -> None:
     params = lm.init_model(cfg, seed=args.seed, device=args.device)
     # the paged path needs max_len to be a whole number of pages (16)
     max_len = -(-(args.prompt_len + args.new_tokens + 8) // 16) * 16
-    engine = Engine(cfg, params, max_len=max_len, device=args.device)
-    rng = np.random.default_rng(args.seed)
-    lens = (rng.integers(1, args.prompt_len + 1, args.batch) if args.ragged
-            else np.full(args.batch, args.prompt_len))
-    reqs = [engine.submit(rng.integers(0, cfg.vocab_size, int(n)).astype(
-                np.int32), args.new_tokens)
-            for n in lens]
-    engine.drain()
+    engine = Engine(cfg, params, max_len=max_len, device=args.device,
+                    journal_dir=args.journal_dir,
+                    snapshot_every=args.snapshot_every)
+    if args.resume:
+        reqs = engine.restore()
+        engine.serve(reqs)
+        print(f"resumed {len(reqs)} journaled request(s):")
+    else:
+        rng = np.random.default_rng(args.seed)
+        lens = (rng.integers(1, args.prompt_len + 1, args.batch)
+                if args.ragged else np.full(args.batch, args.prompt_len))
+        reqs = [engine.submit(rng.integers(0, cfg.vocab_size, int(n)).astype(
+                    np.int32), args.new_tokens)
+                for n in lens]
+        engine.drain()
     for r in reqs:
         print(f"  req{r.rid} [{r.state.value}] prompt={len(r.prompt)}: "
               f"{r.out_tokens}")
@@ -59,7 +86,10 @@ def main(argv=None) -> None:
     print(f"engine on {engine.device}: admitted={stats['admitted']} "
           f"completed={stats['completed']} retries={stats['retries']} "
           f"demotions={stats['demotions']} "
-          f"degraded_steps={stats['degraded_steps']}")
+          f"degraded_steps={stats['degraded_steps']} "
+          f"snapshots={stats['snapshots_saved']} "
+          f"recovered={stats['recovered']} "
+          f"replayed_steps={stats['replayed_steps']}")
 
 
 if __name__ == "__main__":

@@ -16,11 +16,15 @@ type: torch cannot shift uint32 tensors on the CPU); a ``PackedWeights``
 crosses over leaf by leaf (its planes are int32 already), with its
 ``bits``, ``k`` and ``n`` as they are, into the port's
 ``kernels.pack.PackedWeights``.
-Loading a checkpoint from disk is queued in ROADMAP A5.
+
+``params_from_checkpoint`` loads the port's parameters from one of its
+own checkpoints (the ``params`` tree of an engine snapshot,
+``ckpt.checkpoint``), checked against ``cfg`` the same way.  It reads no
+JAX checkpoint.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,10 +120,9 @@ def _to_tensor(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def params_from_numpy(tree: Dict[str, Any], cfg, device=None
-                      ) -> Dict[str, Any]:
-    """The port's parameters from a JAX parameter tree of numpy arrays."""
-    dev = device_lib.resolve(device)
+def check_tree(tree: Dict[str, Any], cfg) -> Dict[Tuple[str, ...], Any]:
+    """The tree's leaves by path, or ``ValueError`` naming every path,
+    shape and packed size that does not match ``cfg``."""
     want = expected_shapes(cfg)
     got = dict(_leaves(tree))
     problems = [f"missing {'.'.join(p)}" for p in want if p not in got]
@@ -140,6 +143,14 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device=None
     if problems:
         raise ValueError(f"parameter tree does not match {cfg.name}: "
                          + "; ".join(problems))
+    return got
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg, device=None
+                      ) -> Dict[str, Any]:
+    """The port's parameters from a JAX parameter tree of numpy arrays."""
+    dev = device_lib.resolve(device)
+    got = check_tree(tree, cfg)
     out: Dict[str, Any] = {}
     for path, arr in got.items():
         node = out
@@ -155,3 +166,17 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device=None
                 leaves["outlier_idx"], leaves["outlier_delta"],
                 cfg.packed_weight_bits, d_in, d_out)
     return out
+
+
+def params_from_checkpoint(directory: str, cfg, step: Optional[int] = None,
+                           device=None) -> Dict[str, Any]:
+    """The port's parameters from one of its own checkpoints in
+    ``directory`` (step ``step``, default the latest), loaded onto
+    ``device`` (the card by default) and checked against ``cfg``."""
+    from repro_torch.ckpt.checkpoint import Checkpointer
+
+    dev = device_lib.resolve(device)
+    _, state, _ = Checkpointer(directory).restore(step, device=dev,
+                                                  names=["params"])
+    check_tree(state["params"], cfg)
+    return state["params"]

@@ -1,13 +1,15 @@
-"""The dense decoder LM of the port: init, prefill, paged decode.
+"""The dense decoder LM of the port: init, prefill, decode.
 
 Twin of ``repro/models/lm.py`` for the ``dense`` family, with the
 SwiGLU MLP, the binary MLP (``cfg.binary_mlp``) or the SwiGLU MLP with
 sub-byte packed weights (``cfg.packed_weights``).  Parameters
 keep the JAX package's layout — per-layer leaves stacked on a leading
 ``L`` axis (``models/bridge.py`` moves a JAX tree over unchanged) — and
-a Python loop over layers replaces ``lax.scan``.  The slot-cache
-``decode_step`` and the MoE, SSM, hybrid and encoder-decoder families
-are not ported yet (ROADMAP A5, A11, A12, A10).
+a Python loop over layers replaces ``lax.scan``.  Decode runs off the
+paged KV pool (``paged_decode_step``) or off the contiguous slot cache
+(``decode_step``, a scalar or per-row ``index``).  The MoE, SSM, hybrid
+and encoder-decoder families are not ported yet (ROADMAP A11, A12,
+A10).
 """
 from __future__ import annotations
 
@@ -197,6 +199,41 @@ def prefill_chunk(params: Params, cache: Params, tokens: torch.Tensor, cfg,
     cache["index"] = start + s
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return layers.unembed(_head(params), x[:, -1]), cache
+
+
+def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg
+                ) -> Tuple[torch.Tensor, Params]:
+    """One decode step (tokens (B, 1)) on the contiguous slot cache.
+
+    ``cache["index"]`` is one position for the whole batch (an int) or
+    one per row (a ``(B,)`` tensor): positions, the cache writes and the
+    attention bands (``kv_len = index + 1``, B2 at Sq = 1) follow it.
+    Each layer writes its fresh K/V into the buffers in place at
+    ``index``; the returned cache is a new dict whose ``index`` has
+    advanced, so a caller that keeps the old dict after a failed step
+    retries at the same positions.  Returns (logits (B, V), cache),
+    padded-vocab logits at -inf.
+    """
+    b = tokens.shape[0]
+    dev = tokens.device
+    x = layers.embed(params["embed"]["table"], tokens).to(
+        getattr(torch, cfg.act_dtype))
+    idx = cache["index"]
+    if torch.is_tensor(idx) and idx.ndim == 1:
+        positions = idx.to(dev).long()[:, None]
+    else:
+        positions = torch.full((b, 1), int(idx), device=dev)
+    for i, lp in enumerate(_layer_params(params)):
+        h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        attn_out, _ = layers.attention_apply(
+            lp["attn"], h, cfg, positions=positions, window=_window(cfg),
+            kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx)
+        x = _mlp_residual(lp, x + attn_out, cfg)
+    new = dict(cache)
+    new["index"] = idx + 1
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = layers.unembed(_head(params), x[:, -1])
+    return _mask_vocab(logits, cfg), new
 
 
 def supports_paged_decode(cfg) -> bool:

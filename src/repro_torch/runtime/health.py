@@ -8,16 +8,20 @@ path uses it.  Every place the path can plausibly fail calls
 
 ``step`` is the 0-based hit count of that site (``*`` = every hit) and
 ``kind`` is ``raise`` (raise ``SimulatedFailure``), ``nan`` (the caller
-poisons its output with NaNs) or ``hang-timeout`` (sleep
-``REPRO_FAULT_HANG_S`` seconds, default 0.25, then continue).  PyTorch
-runs eagerly, so every site fires on every call — a ``kernel.*`` or
-``layers.*`` site counts one hit per launch, not one per traced shape as
-in the JAX package.
+poisons its output with NaNs), ``hang-timeout`` (sleep
+``REPRO_FAULT_HANG_S`` seconds, default 0.25, then continue) or ``kill``
+(``SIGKILL`` the process at the site: no ``finally``, no flush, no
+``atexit`` — the crash that the request journal and snapshots must
+survive).  PyTorch runs eagerly, so every site fires on every call — a
+``kernel.*`` or ``layers.*`` site counts one hit per launch, not one per
+traced shape as in the JAX package.  Modules that own a site register it
+at import time (``register_site``).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import signal
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -26,8 +30,10 @@ class SimulatedFailure(RuntimeError):
     """Raised by an armed ``raise``-kind injection site."""
 
 
-FAULT_KINDS = ("raise", "nan", "hang-timeout")
+FAULT_KINDS = ("raise", "nan", "hang-timeout", "kill")
 
+# The drillable sites; a module that owns another registers it when it is
+# imported (the journal, snapshot, restore and checkpoint sites).
 INJECTION_SITES: List[str] = [
     "serve.prefill",
     "serve.decode_step",
@@ -38,7 +44,15 @@ INJECTION_SITES: List[str] = [
     "layers.attention",
     "layers.mlp",
     "pool.alloc",
+    "pool.spill",
 ]
+
+
+def register_site(site: str) -> str:
+    """Idempotently add ``site`` to the drillable-site registry."""
+    if site not in INJECTION_SITES:
+        INJECTION_SITES.append(site)
+    return site
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +111,8 @@ def maybe_inject(site: str) -> Optional[str]:
 
     Returns ``"nan"`` or ``"hang-timeout"`` for faults the caller
     realizes (the sleep has already happened), None when nothing fired;
-    ``raise``-kind faults raise ``SimulatedFailure``.
+    ``raise``-kind faults raise ``SimulatedFailure`` and ``kill``-kind
+    faults never return.
     """
     hit = _site_hits.get(site, 0)
     _site_hits[site] = hit + 1
@@ -108,6 +123,8 @@ def maybe_inject(site: str) -> Optional[str]:
         _fired.append(FiredFault(site, hit, spec.kind, time.time()))
         if spec.kind == "raise":
             raise SimulatedFailure(f"injected failure at {site} (hit {hit})")
+        if spec.kind == "kill":
+            os.kill(os.getpid(), signal.SIGKILL)
         if spec.kind == "hang-timeout":
             time.sleep(float(os.environ.get("REPRO_FAULT_HANG_S", "0.25")))
         return spec.kind
@@ -169,6 +186,9 @@ class HealthMonitor:
         ev = HealthEvent(kind=kind, site=site, step=step, detail=detail)
         self.events.append(ev)
         return ev
+
+    def events_of(self, kind: str) -> List[HealthEvent]:
+        return [e for e in self.events if e.kind == kind]
 
     @property
     def median_step_seconds(self) -> float:

@@ -8,17 +8,32 @@ writes of idle batch rows land there, and it is never allocated or read.
 Pages are refcounted, and full pages join a prefix chain keyed
 ``(parent_key, token_chunk)`` so prompts with a common prefix share its
 pages (``lookup_prefix``).  Bookkeeping is host-side; only the payload
-lives on the device.  The host spill tier (``spill``/``unspill``) is not
-ported yet (ROADMAP A5).
+lives on the device.
+
+Memory pressure adds a second tier below the device pool:
+``spill(pages)`` copies a cold request's private pages to host tensors
+and returns the device pages to the free list; ``unspill(entries)``
+copies them back bit for bit.  Shared prefix pages (refcount > 1) are
+never copied: the spilling request keeps its reference, so they stay
+pinned.  High and low watermarks over the pool's occupancy give the
+scheduler a hysteresis band: admission defers above ``high_watermark``
+and spilled requests resume below ``low_watermark``.  A release of a
+free page (a double free) is counted, and raises under
+``REPRO_STRICT_POOL=1``.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.runtime import health
+
+
+def _strict_pool() -> bool:
+    return os.environ.get("REPRO_STRICT_POOL", "0") not in ("", "0")
 
 
 def pages_for(seq: int, page_size: int) -> int:
@@ -31,7 +46,7 @@ class PagedKVCache:
 
     def __init__(self, cfg, n_pages: int, page_size: int = 16,
                  dtype: str = "bfloat16", device=None,
-                 high_watermark: float = 0.90):
+                 high_watermark: float = 0.90, low_watermark: float = 0.60):
         if n_pages < 1:
             raise ValueError(f"need at least one page, got {n_pages}")
         shape = (cfg.n_layers, cfg.n_kv_heads, n_pages + 1, page_size,
@@ -43,6 +58,7 @@ class PagedKVCache:
         self.n_pages = int(n_pages)
         self.scratch = int(n_pages)
         self.high_watermark = float(high_watermark)
+        self.low_watermark = float(low_watermark)
         self.refs = np.zeros(n_pages, np.int32)
         self._free: List[int] = list(range(n_pages - 1, -1, -1))
         self._prefix: Dict[Tuple, int] = {}
@@ -50,6 +66,7 @@ class PagedKVCache:
         self.stats: Dict[str, int] = {
             "allocs": 0, "frees": 0, "reuse_hits": 0, "reuse_pages": 0,
             "oom_rejects": 0, "ref_underflows": 0,
+            "spills": 0, "spilled_pages": 0, "unspills": 0,
         }
 
     # -- allocation -----------------------------------------------------
@@ -62,6 +79,9 @@ class PagedKVCache:
 
     def above_high(self) -> bool:
         return self.occupancy() >= self.high_watermark
+
+    def below_low(self) -> bool:
+        return self.occupancy() <= self.low_watermark
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """Take ``n`` fresh pages (ref 1 each), or None if the pool cannot
@@ -85,10 +105,15 @@ class PagedKVCache:
         """Drop one reference per page; at 0 the page returns to the free
         list and leaves the prefix chain.  A release of a free page (a
         double free) is counted in ``ref_underflows``, not clamped
-        silently."""
+        silently, and raises under ``REPRO_STRICT_POOL=1``: an underflow
+        means another request's shared page was just freed under it."""
         for pid in pages:
             if self.refs[pid] <= 0:
                 self.stats["ref_underflows"] += 1
+                if _strict_pool():
+                    raise RuntimeError(
+                        f"page {pid} released with refcount "
+                        f"{int(self.refs[pid])} (double free)")
                 continue
             self.refs[pid] -= 1
             if self.refs[pid] == 0:
@@ -98,15 +123,64 @@ class PagedKVCache:
                 self._free.append(pid)
                 self.stats["frees"] += 1
 
-    def spill(self, pages: Sequence[int]):
-        raise NotImplementedError(
-            "the host spill tier is not ported yet (ROADMAP A5b: spill/"
-            "preempt ladder)")
+    # -- host spill tier -----------------------------------------------
+    def spill(self, pages: Sequence[int]) -> List[Tuple]:
+        """Move a request's pages to host memory, freeing device pages.
 
-    def unspill(self, entries):
-        raise NotImplementedError(
-            "the host spill tier is not ported yet (ROADMAP A5b: spill/"
-            "preempt ladder)")
+        One entry per page, in order: ``("host", k, v)`` for a private
+        page (refcount 1), whose payload (``(n_layers, n_kv_heads, page,
+        d_head)`` each) was copied to host tensors and whose device page
+        went back to the free list; ``("resident", pid)`` for a shared
+        page, which stays on the device with the spiller's reference.
+        """
+        # the SIGKILL-mid-spill drill's site: spilling never touches the
+        # journal, so a cold replay re-prefills and needs no host copy
+        health.maybe_inject("pool.spill")
+        entries: List[Tuple] = []
+        n_host = 0
+        for pid in pages:
+            pid = int(pid)
+            if self.refs[pid] > 1:
+                entries.append(("resident", pid))
+                continue
+            entries.append(("host",
+                            self.k_pages[:, :, pid].to("cpu", copy=True),
+                            self.v_pages[:, :, pid].to("cpu", copy=True)))
+            self.release([pid])
+            n_host += 1
+        self.stats["spills"] += 1
+        self.stats["spilled_pages"] += n_host
+        return entries
+
+    def unspill(self, entries: Sequence[Tuple]) -> Optional[List[int]]:
+        """Copy spilled entries back onto fresh device pages; returns the
+        request's page list in its old order (shared pages unchanged), or
+        None, with ``entries`` untouched and no page taken, when the pool
+        cannot hold them now."""
+        need = sum(1 for e in entries if e[0] == "host")
+        fresh = self.alloc(need) if need else []
+        if fresh is None:
+            return None
+        pages: List[int] = []
+        new_ids, chunks_k, chunks_v = [], [], []
+        it = iter(fresh)
+        for e in entries:
+            if e[0] == "resident":
+                pages.append(e[1])
+                continue
+            pid = next(it)
+            pages.append(pid)
+            new_ids.append(pid)
+            chunks_k.append(e[1])
+            chunks_v.append(e[2])
+        if new_ids:
+            idx = torch.as_tensor(new_ids, device=self.k_pages.device)
+            for pool, chunks in ((self.k_pages, chunks_k),
+                                 (self.v_pages, chunks_v)):
+                pool[:, :, idx] = torch.stack(chunks, dim=2).to(
+                    device=pool.device, dtype=pool.dtype)
+        self.stats["unspills"] += 1
+        return pages
 
     # -- prefix reuse ---------------------------------------------------
     def lookup_prefix(self, tokens) -> Tuple[List[int], int]:
@@ -193,4 +267,5 @@ class PagedKVCache:
         out["pages_shared"] = int(np.sum(self.refs > 1))
         out["occupancy"] = round(self.occupancy(), 4)
         out["above_high"] = self.above_high()
+        out["below_low"] = self.below_low()
         return out

@@ -6,10 +6,13 @@ Held against the JAX package's engine on the same bridged weights
 a mixed-length batch emits the tokens each request emits alone, a
 prefix-reuse hit the tokens of a miss, and a decode step poisoned with
 NaNs is retried with bit-identical tokens — the commit rule at work.
-Smoke config (2 layers, d_model 128, float32); prompts from a seeded
-numpy generator.
+A raise at every registered fault site leaves the tokens of a clean
+run.  Smoke config (2 layers, d_model 128, float32); prompts from a
+seeded numpy generator.
 """
 import dataclasses
+import json
+import os
 
 import jax
 import numpy as np
@@ -19,11 +22,11 @@ import torch
 from repro import configs as jconfigs
 from repro.models import lm as jlm
 from repro.serve.engine import Engine as JaxEngine
+from repro.serve.scheduler import SchedulerConfig as JaxSchedulerConfig
 from repro_torch import configs
 from repro_torch.models import bridge, lm
 from repro_torch.runtime import health
 from repro_torch.serve.engine import AdmissionError, Engine, RequestState
-from repro_torch.serve.paged_cache import PagedKVCache
 from repro_torch.serve.scheduler import SamplingParams, SchedulerConfig
 
 CFG = configs.get_smoke("qwen3-1.7b")
@@ -121,27 +124,71 @@ def test_nan_decode_step_is_retried_bit_identically(params, monkeypatch):
 # Sites no dense model's serving path reaches: the binary GEMM is drilled
 # on the binary-MLP twin of the smoke model; the conv, which no served
 # model runs, must fire nothing and leave the run clean (as the JAX
-# package's drill treats a site that never fires).
+# package's drill treats a site that never fires).  The spill site needs a
+# pool too small for the batch; the durability sites a journal, snapshots
+# and (engine.restore) a restart.
 BINARY_SITES = {"kernel.binary_matmul"}
 UNSERVED_SITES = {"kernel.conv2d"}
+PRESSURE_SITES = {"pool.spill"}
+DURABLE_SITES = {"journal.append", "snapshot.save", "ckpt.write",
+                 "engine.restore"}
+
+
+def _drop_terminals(jdir):
+    path = os.path.join(jdir, "journal.jsonl")
+    lines = [line for line in open(path) if json.loads(line)["rec"]["kind"]
+             not in ("done", "failed", "evicted")]
+    open(path, "w").writelines(lines)
+
+
+def _drill(tp, site, cfg, jdir):
+    """One run of the drill's scenario for ``site``: (tokens, engine)."""
+    if site in PRESSURE_SITES:
+        # three spills and three preemptions on a clean run
+        return _serve(tp, _prompts([14, 14], seed=9), 10, cfg=cfg,
+                      scheduler_config=SchedulerConfig(
+                          max_batch=2, n_pages=5, page_size=8))
+    if site not in DURABLE_SITES:
+        return _serve(tp, _prompts([5, 9], seed=6), 3, cfg=cfg)
+    eng = Engine(cfg, tp, max_len=MAX_LEN, device="cpu", journal_dir=jdir,
+                 snapshot_every=1)
+    reqs = [eng.submit(p, 5) for p in _prompts([6, 6], seed=6)]
+    eng.serve(reqs)
+    if site == "engine.restore":
+        # a crash after the last token: the newest snapshot is torn, so
+        # the restore's hit 0 falls back, hit 1 meets the drill
+        _drop_terminals(jdir)
+        newest = eng.snapshots.steps()[-1]
+        with open(os.path.join(jdir, "snapshots", f"step_{newest:08d}",
+                               "arrays.npz"), "wb") as f:
+            f.write(b"torn")
+        eng = Engine(cfg, tp, max_len=MAX_LEN, device="cpu",
+                     journal_dir=jdir)
+        reqs = eng.restore()
+        eng.serve(reqs)
+    for r in reqs:
+        assert r.state == RequestState.DONE, (r.rid, r.state, r.error)
+    return [list(r.out_tokens) for r in reqs], eng
 
 
 @pytest.mark.parametrize("site", health.INJECTION_SITES)
-def test_fault_drill_at_every_site_keeps_tokens(params, monkeypatch, site):
+def test_fault_drill_at_every_site_keeps_tokens(params, monkeypatch, site,
+                                                tmp_path):
     """A raise at each site's second hit is absorbed — retried on the
-    plain path, or (pool.alloc) deferred as backpressure while the first
-    request holds pages — and every request still ends DONE with the
-    tokens of a clean run."""
+    plain path; (pool.alloc) deferred as backpressure while the first
+    request holds pages; (pool.spill) escalated to a preemption;
+    (journal, snapshots) counted as degraded durability; (engine.restore)
+    a fallback to an older snapshot — and every request still ends DONE
+    with the tokens of a clean run."""
     _, tp = params
     cfg = CFG
     if site in BINARY_SITES:
         cfg = dataclasses.replace(CFG, binary_mlp=True)
         tp = lm.init_model(cfg, seed=0, device="cpu")
-    prompts = _prompts([5, 9], seed=6)
-    clean, _ = _serve(tp, prompts, 3, cfg=cfg)
+    clean, _ = _drill(tp, site, cfg, str(tmp_path / "clean"))
     monkeypatch.setenv("REPRO_FAULT_PLAN", f"{site}:1:raise")
     health.reset_faults()
-    got, eng = _serve(tp, prompts, 3, cfg=cfg)
+    got, eng = _drill(tp, site, cfg, str(tmp_path / "drill"))
     assert got == clean
     stats = eng.stats()
     if site in UNSERVED_SITES:
@@ -150,6 +197,16 @@ def test_fault_drill_at_every_site_keeps_tokens(params, monkeypatch, site):
     assert [(f.site, f.hit) for f in health.fault_log()] == [(site, 1)]
     if site == "pool.alloc":
         assert stats["backpressure"] == 1 and stats["demotions"] == 0
+    elif site == "pool.spill":
+        assert eng.monitor.events_of("spill-failed")
+        assert stats["preemptions"] >= 1 and stats["demotions"] == 0
+    elif site == "journal.append":
+        assert stats["journal"]["append_errors"] == 1
+    elif site in ("snapshot.save", "ckpt.write"):
+        assert stats["snapshot_errors"] == 1 and stats["demotions"] == 0
+    elif site == "engine.restore":
+        assert stats["restore_fallbacks"] == 2
+        assert "warm resume" in eng.monitor.events_of("restore")[-1].detail
     else:
         assert stats["demotions"] == 1 and stats["retries"] == 1
 
@@ -228,36 +285,91 @@ def test_admission_rejects(params):
     assert tiny.stats()["rejected"] == 1
 
 
-def _chunked(tp):
-    _serve(tp, _prompts([9]), 2,
-           scheduler_config=SchedulerConfig(prefill_chunk=4))
+def _both_engines(tp, jp, prompts, new_tokens, run, engine_kw=None,
+                  **sckw):
+    """The scenario on the port's engine and on the JAX engine: ``run`` is
+    ``"drain"`` or ``"serve"``; returns (port tokens, JAX tokens, port
+    engine)."""
+    out = []
+    for make, p, cfg, sc_cls, kw in (
+            (Engine, tp, CFG, SchedulerConfig,
+             dict(engine_kw or {}, device="cpu")),
+            (JaxEngine, jp, JCFG, JaxSchedulerConfig,
+             {k: v.replace("port", "jax") if k == "journal_dir" else v
+              for k, v in (engine_kw or {}).items()})):
+        eng = make(cfg, p, max_len=MAX_LEN,
+                   scheduler_config=sc_cls(**sckw) if sckw else None, **kw)
+        reqs = [eng.submit(q, new_tokens) for q in prompts]
+        if run == "drain":
+            eng.drain()
+        else:
+            eng.serve(reqs)
+        for r in reqs:
+            assert r.state.value == "done", (r.rid, r.state, r.error)
+        out.append(([list(r.out_tokens) for r in reqs], eng))
+    return out[0][0], out[1][0], out[0][1]
 
 
-def _pool_full(tp):
-    # two 15-token prompts fill a 4-page pool; the first decode step that
-    # crosses a page boundary needs the spill rung
-    _serve(tp, _prompts([15, 15]), 4,
-           scheduler_config=SchedulerConfig(max_batch=2, n_pages=4,
-                                            page_size=8))
+# What the port once refused (each raised NotImplementedError naming its
+# ROADMAP entry) now serves, with the JAX engine's tokens.
+FORMERLY_UNPORTED = {
+    "journal": dict(run="drain", lens=[7, 12, 2], new=4),
+    "serve": dict(run="serve", lens=[9, 9, 9], new=4),
+    "chunked_prefill": dict(run="drain", lens=[9, 3], new=2,
+                            sckw=dict(prefill_chunk=4)),
+    "slot_cache": dict(run="drain", lens=[5, 11], new=3,
+                       sckw=dict(page_size=0)),
+    # two 14-token prompts fill 4 of 5 pages: decode growth runs the whole
+    # ladder (spills, then preemptions)
+    "pool_full": dict(run="drain", lens=[14, 14], new=10,
+                      sckw=dict(max_batch=2, n_pages=5, page_size=8)),
+    # three requests in 6 pages: one spills at a page boundary and comes
+    # back once another finishes
+    "spill": dict(run="drain", lens=[12, 12, 3], new=8,
+                  sckw=dict(max_batch=3, n_pages=6, page_size=8)),
+}
+
+
+@pytest.mark.parametrize("what", sorted(FORMERLY_UNPORTED))
+def test_formerly_unported_paths_serve_like_jax(params, what, tmp_path):
+    jp, tp = params
+    case = FORMERLY_UNPORTED[what]
+    engine_kw = ({"journal_dir": str(tmp_path / "port")}
+                 if what == "journal" else None)
+    got, want, eng = _both_engines(
+        tp, jp, _prompts(case["lens"], seed=9), case["new"], case["run"],
+        engine_kw, **case.get("sckw", {}))
+    assert got == want
+    stats = eng.stats()
+    assert stats["demotions"] == 0 and stats["failed"] == 0
+    if what == "journal":
+        assert stats["journal"]["fsyncs"] > 0
+    elif what in ("pool_full", "spill"):
+        assert stats["spills"] + stats["preemptions"] > 0
+        assert stats["replay_divergence"] == 0
+        if what == "spill":
+            assert stats["spills"] > 0 and stats["unspills"] > 0
+
+
+def _int8_kv(tp):
+    Engine(dataclasses.replace(CFG, kv_cache_dtype="int8"), tp,
+           max_len=MAX_LEN, device="cpu")
 
 
 UNPORTED = {
-    "journal": (lambda tp: Engine(CFG, tp, max_len=MAX_LEN, device="cpu",
-                                  journal_dir="journal"), "A5a"),
-    "serve": (lambda tp: Engine(CFG, tp, max_len=MAX_LEN,
-                                device="cpu").serve([]), "A5d"),
-    "chunked_prefill": (_chunked, "A5c"),
-    "slot_cache": (lambda tp: _serve(tp, _prompts([5]), 2,
-                                     scheduler_config=SchedulerConfig(
-                                         page_size=0)), "A5d"),
-    "pool_full": (_pool_full, "A5b"),
-    "spill": (lambda tp: PagedKVCache(CFG, 4, 8).spill([0]), "A5b"),
+    "restore_devices": (lambda tp: Engine(
+        CFG, tp, max_len=MAX_LEN, device="cpu",
+        journal_dir="journal").restore(devices=["cpu"]), "A14"),
+    "int8_kv": (_int8_kv, "A6"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(UNPORTED))
-def test_unported_paths_raise_naming_their_roadmap_entry(params, what):
+def test_unported_paths_raise_naming_their_roadmap_entry(params, what,
+                                                         monkeypatch,
+                                                         tmp_path):
     _, tp = params
+    monkeypatch.chdir(tmp_path)
     fn, entry = UNPORTED[what]
     with pytest.raises(NotImplementedError, match=entry):
         fn(tp)
