@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases card,build,kernels,quantized
     python3 chip_smoke.py --phases card,build,serve_packed --layers 2
     python3 chip_smoke.py --phases card,build,serve_recovery
+    python3 chip_smoke.py --phases card,build,kernels,serve_int8kv
 
 Phases, each printing JSON lines:
 
@@ -47,7 +48,11 @@ Phases, each printing JSON lines:
    bit (a gate), and timed at prefill 512 and 2048 beside B2.  B3 (split
    across CTAs) at the served
    decode shape and at a long row (4 x 4096 keys), with and without a
-   window, timed at both.  B9 is held bit for bit at every anchor
+   window, timed at both.  B2 over the int8 KV cache's K/V (int8 codes
+   with per-position f32 scales, bf16 queries) at a prefill chunk and at
+   slot-cache decode, held against the plain version and timed beside it
+   and bf16 B2; B7 over int8 K/V at prefill 512, equal to B2's int8
+   output bit for bit (a gate) and timed.  B9 is held bit for bit at every anchor
    and epilogue stage at the served binary-MLP shapes, its basic OS on
    the binary tensor-core tiles (prefill for M > 16, decode for
    M <= 16), each timed at both projections; B8 at int8 bit for
@@ -118,13 +123,25 @@ Phases, each printing JSON lines:
    steps killed after one (a warm resume); both must recover every
    journaled request with the uninterrupted run's tokens, none FAILED,
    no replay divergence.
+10. ``serve_int8kv``: full-width qwen3-1.7b (depth ``--layers``) with
+   ``kv_cache_dtype="int8"`` through ``Engine``'s continuous scheduler
+   (prompts of 17/64/200/511 tokens, 16 new): every request DONE, 0
+   demotions, mixed batch == each request alone, no page pool and no B3
+   launch, B2's int8 launches exactly one a layer for every decode step
+   and prefill chunk, the int8 cache under 0.6x a bf16 cache's bytes, a
+   ``prefill_chunk=128`` run DONE (its tokens that differ from the whole
+   prompts' counted), the first decode logits within 0.05 (relative to
+   the largest) of the bf16 cache's at 2 layers (the full depth's
+   reported), and the decode step traced.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
 its prefill and decode tiles, B2, B3; serve_packed: B6, B1 with its int8
 prefill and decode tiles, B2, B3; serve_recovery: B1 with its bf16
 prefill and decode tiles, B2 (at chunks and slot-cache decode too), B3,
-counted over its in-process ``Engine`` runs; dataflows: B1 and its bf16 tiles, B2,
+counted over its in-process ``Engine`` runs; serve_int8kv: B1 with its
+bf16 tiles, B2 and its int8 path; B7's int8 path, on no serving path,
+its launches in the kernels phase; dataflows: B1 and its bf16 tiles, B2,
 B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
 B7 (on its cluster kernel);
 quantized: B8 with its int8 and bf16 OS tiles and WS/IS walks, B9 and
@@ -150,7 +167,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 ALL_PHASES = ("card", "build", "kernels", "dataflows", "quantized", "serve",
-              "serve_binary", "serve_packed", "serve_recovery")
+              "serve_binary", "serve_packed", "serve_recovery",
+              "serve_int8kv")
 
 
 def emit(obj) -> None:
@@ -524,8 +542,12 @@ def kernel_phase(torch, cfg, timer):
         **f32_tol), f32_tol)
     emit({"kernel_timing_detail": "flash_attention", **rec})
     records["flash_attention"]["float32"] = {f"Sq={sq}": rec}
-    records["flash_attention"].update(b2_serving_modes(
-        torch, timer, hq, hkv, dh, att_tol))
+    modes, modes_i8 = b2_serving_modes(torch, timer, hq, hkv, dh, att_tol)
+    records["flash_attention"].update(modes)
+    # the int8 KV cache's B2: the slot-cache decode step (its serving
+    # path's every decode launch), the chunk beside it
+    records["flash_attention_i8kv"] = dict(modes_i8["slot_decode"],
+                                           chunk=modes_i8["chunk"])
 
     # B3: 4 rows, ragged lengths including 0, shuffled page ids.
     page, max_pages = 16, 64
@@ -625,11 +647,19 @@ def b2_serving_modes(torch, timer, hq, hkv, dh, tol):
     kv_len 17/64/200/511; B2's 64-row q tile carries one live row).  Each
     is held against the plain version and timed beside it and SDPA with
     the equivalent boolean mask; the bound counts the keys each row's
-    band reads."""
+    band reads.  Then the same two modes over the int8 KV cache's K/V
+    (the bf16 K/V quantized per position, ``quant.symmetric_int8``),
+    held against the plain version with the scales, each launch counted
+    under ``flash_attention_i8kv``, timed beside the plain version and
+    bf16 B2 at the same shape (no PyTorch call attends over int8 K/V
+    with per-position scales); the bound counts the int8 codes and f32
+    scales of the visited keys.  Returns (bf16 records, int8 records)
+    by mode."""
     import torch.nn.functional as F
 
     from repro_torch.bench.common import bound
-    from repro_torch.kernels import attention_df, ref
+    from repro_torch.core import quant
+    from repro_torch.kernels import _build, attention_df, ref
 
     dev, buf = "cuda", 1024
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -638,7 +668,7 @@ def b2_serving_modes(torch, timer, hq, hkv, dh, tol):
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
-    out = {}
+    out, out_i8 = {}, {}
     for mode, sq, lens in (("chunk", 128, [512]),
                            ("slot_decode", 1, [17, 64, 200, 511])):
         b = len(lens)
@@ -657,7 +687,8 @@ def b2_serving_modes(torch, timer, hq, hkv, dh, tol):
         key = torch.arange(buf, device=dev)[None, None, :]
         mask = ((key < kv_col) & (key <= row))[:, None]     # (B, 1, Sq, buf)
         pairs = sum(sq * n - sq * (sq - 1) // 2 for n in lens)
-        bnd = bound(2 * sum(lens) * hkv * dh * 2 + 2 * b * hq * sq * dh * 2,
+        qo_bytes = 2 * b * hq * sq * dh * 2
+        bnd = bound(2 * sum(lens) * hkv * dh * 2 + qo_bytes,
                     4.0 * dh * pairs * hq)
         rec = dict(
             shape=shape, max_abs_err=err,
@@ -672,7 +703,34 @@ def b2_serving_modes(torch, timer, hq, hkv, dh, tol):
             bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
         emit({"kernel_timing_detail": "flash_attention", **rec})
         out[mode] = rec
-    return out
+
+        # int8 K/V: the same keys quantized per position
+        (kq, ks), (vq, vs) = quant.symmetric_int8(kk, -1), \
+            quant.symmetric_int8(vv, -1)
+        i8 = dict(kv_len=kv, k_scale=ks, v_scale=vs)
+        shape8 = shape.replace("bf16", "bf16 q, int8 K/V + f32 scales")
+        before = _build.LAUNCHES["flash_attention_i8kv"]
+        got = attention_df.flash_attention(q, kq, vq, **i8)
+        if _build.LAUNCHES["flash_attention_i8kv"] != before + 1:
+            raise AssertionError(f"flash_attention at {shape8} did not "
+                                 f"launch its int8 path once")
+        err8 = check("flash_attention_i8kv", got,
+                     ref.attention_ref(q, kq, vq, **i8), shape=shape8, **tol)
+        bnd8 = bound(2 * sum(lens) * hkv * (dh + 4) + qo_bytes,
+                     4.0 * dh * pairs * hq)
+        rec8 = dict(
+            shape=shape8, max_abs_err=err8,
+            ms=timer.ms(lambda: attention_df.flash_attention(q, kq, vq,
+                                                             **i8)),
+            plain_ms=timer.ms(lambda: ref.attention_ref(q, kq, vq, **i8)),
+            library_ms=None,
+            library_call=None, library_why="no PyTorch call attends over "
+            "int8 K/V with per-position scales",
+            bf16_ms=rec["ms"], bound_ms=bnd8[0], bound_by=bnd8[1],
+            tolerance=tol)
+        emit({"kernel_timing_detail": "flash_attention_i8kv", **rec8})
+        out_i8[mode] = rec8
+    return out, out_i8
 
 
 def gemm_dataflow_checks(torch, cfg, timer, gen, tol):
@@ -872,7 +930,51 @@ def kv_stationary_checks(torch, cfg, timer, gen, tol, f32_tol):
     rec = record(512)
     rec["sq2048"] = record(2048)
     emit({"kernel_timing_detail": "kv_stationary", **rec["sq2048"]})
-    return {"kv_stationary": rec, "kv_stationary_cluster": rec}
+
+    # int8 K/V (the int8 KV cache's datapath) at prefill 512: B7 on its
+    # cluster kernel, counted under its int8 key, equal to B2's int8
+    # output bit for bit (a gate) and within B2's tolerance of the plain
+    # version; its own generator, so every check above keeps its inputs.
+    from repro_torch.core import quant
+
+    sq = 512
+    g8 = torch.Generator(device=dev).manual_seed(4)
+    q, kk, vv = (torch.randn((1, h, sq, dh), generator=g8, device=dev).to(
+        torch.bfloat16) for h in (hq, hkv, hkv))
+    (kq, ks), (vq, vs) = quant.symmetric_int8(kk, -1), \
+        quant.symmetric_int8(vv, -1)
+    i8 = dict(k_scale=ks, v_scale=vs)
+    shape = (f"prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} D={dh} causal, bf16 q, "
+             f"int8 K/V + f32 scales")
+    before = _build.LAUNCHES["kv_stationary_cluster_i8kv"]
+    got = attention_df.kv_stationary_attention(q, kq, vq, **i8)
+    launched = _build.LAUNCHES["kv_stationary_cluster_i8kv"] - before
+    if launched != 1:
+        raise AssertionError(f"kv_stationary at {shape} launched its int8 "
+                             f"cluster path {launched} times, not once")
+    err = check("kv_stationary_cluster_i8kv", got,
+                ref.attention_ref(q, kq, vq, **i8), **tol, shape=shape)
+    _bitwise("kv_stationary_i8kv_equals_flash_i8kv_bitwise", got,
+             attention_df.flash_attention(q, kq, vq, **i8), shape)
+    pairs = sq * (sq + 1) // 2
+    bnd = bound(2 * sq * hkv * (dh + 4) + 2 * hq * sq * dh * 2,
+                4.0 * dh * pairs * hq)
+    plan = attention_df.kv_stationary_plan(1, hq, hkv, sq, sq, d=dh,
+                                           kv_int8=True)
+    rec8 = dict(
+        shape=shape, max_abs_err=err, cluster=plan.cluster, ctas=plan.ctas,
+        ms=timer.ms(lambda: attention_df.kv_stationary_attention(
+            q, kq, vq, **i8)),
+        plain_ms=timer.ms(lambda: ref.attention_ref(q, kq, vq, **i8)),
+        library_ms=None, library_call=None,
+        library_why="no PyTorch call attends over int8 K/V with "
+                    "per-position scales",
+        flash_ms=timer.ms(lambda: attention_df.flash_attention(
+            q, kq, vq, **i8)),
+        bf16_ms=rec["ms"], bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol,
+        equals_flash_bitwise=True, kernels_phase_launches=launched)
+    return {"kv_stationary": rec, "kv_stationary_cluster": rec,
+            "kv_stationary_cluster_i8kv": rec8}
 
 
 def _bitwise(name: str, got, want, shape: str) -> float:
@@ -2132,6 +2234,168 @@ def serve_recovery_phase(torch, cfg, args):
     return {k: launches[k] for k in SERVE_PATH}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the int8 KV cache.
+# ---------------------------------------------------------------------------
+SERVE_INT8KV_PATH = ("matmul_os", "matmul_os_prefill", "matmul_os_decode",
+                     "flash_attention", "flash_attention_i8kv")
+# The reference's bound on the int8 cache's first decode logits against
+# the bf16 cache's (max |diff| over max |bf16 logit|), gated at 2 layers.
+INT8KV_REL_TOL = 0.05
+
+
+def _cache_bytes(cache) -> int:
+    return sum(cache[k].numel() * cache[k].element_size()
+               for k in ("k", "v", "k_scale", "v_scale") if k in cache)
+
+
+def serve_int8kv_phase(torch, cfg, args):
+    """Full-width qwen3-1.7b (random weights from ``--seed``, depth
+    ``--layers``) with ``kv_cache_dtype="int8"`` through ``Engine``'s
+    continuous scheduler: the slot cache holds int8 codes and f32
+    per-position scales, every decode step and prefill chunk attends over
+    them through B2's int8 path, a whole prompt's prefill over its float
+    K/V.  Gates: every request DONE, 0 demotions; mixed batch == each
+    request alone; no page pool and no paged launch; B2's int8 launches
+    exactly the decode steps' and chunks' (one a layer) and its float
+    launches the whole prompts'; the int8 cache's bytes under 0.6x a bf16
+    cache's; a run with ``prefill_chunk=128`` DONE (its tokens that differ
+    from the whole prompts' counted: a whole prefill attends over float
+    K/V, a chunk over the int8 cache); the first decode logits within
+    ``INT8KV_REL_TOL`` of the bf16 cache's at 2 layers (the full depth's
+    reported).  Returns the launches of the path's kernels over the main
+    drain."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, RequestState
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    phase, max_len, new_tokens = "serve_int8kv", 1024, 16
+    lens = (17, 64, 200, 511)
+    t_phase = time.monotonic()
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+    prompts = _prompts(cfg, args.seed, lens)
+
+    def drain(ps, event, **sc):
+        eng = Engine(cfg8, params, max_len=max_len, device="cuda",
+                     scheduler_config=SchedulerConfig(**sc) if sc else None)
+        reqs = [eng.submit(p, new_tokens) for p in ps]
+        since = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        _healthy(phase, event, reqs, eng)
+        rep = eng.scheduler_report()
+        if rep["paged_decode"] or "pages" in rep \
+                or eng._scheduler.paged is not None:
+            raise AssertionError(f"{event}: an int8 cache decoded off or "
+                                 f"mirrored into a page pool: {rep}")
+        launched = {k: _build.LAUNCHES[k] - since.get(k, 0)
+                    for k in (*SERVE_INT8KV_PATH, "paged_attention")}
+        return [r.out_tokens for r in reqs], eng, wall, launched
+
+    # The main path: counts zeroed just before, read just after.
+    _build.reset_launches()
+    tokens, eng, wall, launches = drain(prompts, "drain")
+    cache = eng._scheduler.cache
+    steps = len(eng.monitor.records)
+    want_i8 = steps * cfg.n_layers
+    want_float = len(lens) * cfg.n_layers
+    bytes8 = _cache_bytes(cache)
+    bytes16 = cache["k"].numel() * 2 * 2
+    emit({"phase": phase, "event": "drain", "prompt_lens": list(lens),
+          "new_tokens": new_tokens, "wall_s": wall, "decode_steps": steps,
+          "decode_ms_per_step_median": _step_ms(eng),
+          "cache_dtype": str(cache["k"].dtype),
+          "cache_bytes": bytes8, "bf16_cache_bytes": bytes16,
+          "cache_bytes_ratio": bytes8 / bytes16, "launches": launches,
+          "want_flash_i8kv": want_i8,
+          "want_flash_float": want_float, "tokens": tokens})
+    missing = [k for k in SERVE_INT8KV_PATH if launches[k] <= 0]
+    if missing or launches["paged_attention"]:
+        raise AssertionError(f"int8 serve launches: missing {missing}, "
+                             f"paged {launches['paged_attention']}")
+    if launches["flash_attention_i8kv"] != want_i8 or \
+            launches["flash_attention"] != want_i8 + want_float:
+        raise AssertionError(
+            f"B2's int8 launches {launches['flash_attention_i8kv']} (want "
+            f"{want_i8}: {steps} decode steps x {cfg.n_layers} layers), all "
+            f"{launches['flash_attention']} (want {want_i8 + want_float})")
+    if cache["k"].dtype != torch.int8 or bytes8 >= 0.6 * bytes16:
+        raise AssertionError(f"int8 cache {cache['k'].dtype}, {bytes8} "
+                             f"bytes against bf16's {bytes16}")
+
+    # Mixed-length batch == each request alone: per-position scales keep
+    # the rows independent.
+    for p, t in zip(prompts, tokens):
+        alone = Engine(cfg8, params, max_len=max_len, device="cuda")
+        h = alone.submit(p, new_tokens)
+        alone.drain()
+        if h.state != RequestState.DONE or h.out_tokens != t:
+            raise AssertionError(f"prompt of {len(p)} alone: {h.state} "
+                                 f"{h.out_tokens} != batched {t}")
+    emit({"phase": phase, "event": "mixed_vs_sequential",
+          "tokens_differing": 0, "gated": True, "ok": True})
+
+    # Chunked prefill over the int8 cache: the 200- and 511-token prompts
+    # in chunks of 128 (2 + 4), each chunk's B2 launches int8 too.
+    chunked, ceng, chunked_s, claunch = drain(prompts, "chunked",
+                                              prefill_chunk=128)
+    chunks = sum(-(-n // 128) for n in lens if n > 128)
+    csteps = len(ceng.monitor.records)
+    whole_prompts = sum(n <= 128 for n in lens)
+    emit({"phase": phase, "event": "chunked", "prefill_chunk": 128,
+          "chunks": chunks, "decode_steps": csteps, "wall_s": chunked_s,
+          "launches": claunch,
+          "tokens_differing_from_whole": sum(
+              a != b for w, c in zip(tokens, chunked) for a, b in zip(w, c))})
+    if claunch["flash_attention_i8kv"] != (csteps + chunks) * cfg.n_layers \
+            or claunch["flash_attention"] != claunch["flash_attention_i8kv"] \
+            + whole_prompts * cfg.n_layers:
+        raise AssertionError(f"chunked run's B2 launches {claunch}: want "
+                             f"{(csteps + chunks) * cfg.n_layers} int8")
+
+    # The first decode logits off the int8 cache against the bf16 cache's,
+    # prompt by prompt (the reference's own check, at 2 layers and at the
+    # full depth).
+    for depth in (2, cfg.n_layers):
+        sub = dataclasses.replace(cfg, n_layers=depth)
+        sub8 = dataclasses.replace(cfg8, n_layers=depth)
+        sub_params = dict(params, layers=_map(lambda t: t[:depth],
+                                              params["layers"]))
+        rel = []
+        for p in prompts:
+            toks = torch.as_tensor(p[None], device="cuda")
+            first, c16 = lm.prefill(sub_params, toks, sub, max_len=max_len)
+            _, c8 = lm.prefill(sub_params, toks, sub8, max_len=max_len)
+            nxt = first.argmax(-1, keepdim=True)
+            d16, _ = lm.decode_step(sub_params, c16, nxt, sub)
+            d8, _ = lm.decode_step(sub_params, c8, nxt, sub8)
+            if not bool(torch.isfinite(d8[..., :cfg.vocab_size]).all()):
+                raise AssertionError(f"{depth} layers: int8 decode logits "
+                                     f"not finite")
+            valid = d16[..., :cfg.vocab_size].float()
+            rel.append(float((d8[..., :cfg.vocab_size].float() - valid)
+                             .abs().max() / (valid.abs().max() + 1e-9)))
+        gated = depth == 2
+        emit({"phase": phase, "event": "int8_vs_bf16_first_decode",
+              "layers": depth, "prompt_lens": list(lens),
+              "rel_max_err": rel, "bound": INT8KV_REL_TOL, "gated": gated})
+        if gated and max(rel) >= INT8KV_REL_TOL:
+            raise AssertionError(f"2-layer int8 decode logits off the bf16 "
+                                 f"cache's by {max(rel)}")
+    trace_decode(torch, cfg8, params, prompts, max_len, phase)
+    emit({"phase": phase, "event": "done",
+          "seconds": time.monotonic() - t_phase,
+          "launches_by_path": {k: launches[k] for k in SERVE_INT8KV_PATH}})
+    return {k: launches[k] for k in SERVE_INT8KV_PATH}
+
+
 # Device kernels of the serving paths, by the name of their __global__
 # function (B1's bf16 basic OS is gemm_tc.cuh's two tiles; its int8 and
 # packed basic OS is gemm_tc_i8.cuh's two; every other B1 launch is
@@ -2331,15 +2595,24 @@ def main(argv=None) -> int:
     if "serve_recovery" in phases:
         paths["serve_recovery"] = serve_recovery_phase(
             torch, dataclasses.replace(cfg, n_layers=args.layers), args)
+    if "serve_int8kv" in phases:
+        paths["serve_int8kv"] = serve_int8kv_phase(
+            torch, dataclasses.replace(cfg, n_layers=args.layers), args)
 
     kernels = []
     for name, reg in registered_kernels().items():
         rec = records.get(name, {})
-        by_path = {p: n[name] for p, n in paths.items() if name in n}
         # A kernel's own path: the first of these that runs it.
         own = next((p for p in ("serve", "serve_binary", "serve_packed",
-                                "serve_recovery", "dataflows", "quantized")
+                                "serve_recovery", "serve_int8kv",
+                                "dataflows", "quantized")
                     if name in paths.get(p, {})), None)
+        if own is None and "kernels_phase_launches" in rec:
+            # on no serving path (B7's int8 path, as in the reference):
+            # its launches in the kernels phase's checks
+            own, paths.setdefault("kernels", {})[name] = \
+                "kernels", rec["kernels_phase_launches"]
+        by_path = {p: n[name] for p, n in paths.items() if name in n}
         kernels.append({   # every kernel of the port is CUDA C++ so far
             "name": name, "route": "cuda", "source": reg.source,
             "replaces": reg.replaces,
@@ -2352,7 +2625,8 @@ def main(argv=None) -> int:
             **{k: rec[k] for k in ("float32", "long_row", "down", "tile",
                                    "cluster", "ctas", "is_walk", "sq2048",
                                    "split", "packed4", "chunk",
-                                   "slot_decode")
+                                   "slot_decode", "bf16_ms", "flash_ms",
+                                   "library_why")
                if k in rec},
         })
     emit({"kernels": kernels})

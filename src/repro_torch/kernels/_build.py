@@ -27,7 +27,8 @@ packed or bf16 launch of B8 its tensor-core tile or walk
 of B1's residencies, B4, B5a or B5b over a sweep of two tiles or more
 takes the cluster walk of ``csrc/gemm_cluster.cuh``, and a bf16 launch of
 B7 its cluster kernel; the entry point reports the tile it took, which
-also counts one under its name (``TILE_LIBRARIES``).
+also counts one under its name (``TILE_LIBRARIES``).  A launch of B2 or
+B7 over int8 K/V also counts one under its ``I8KV_LAUNCHES`` key.
 """
 from __future__ import annotations
 
@@ -74,10 +75,8 @@ SIGNATURES = {
     "matmul_rmw": _GEMM + (_I, _I, _I, _P, _P),
     "matmul_ws_stripe": _GEMM + (_P, _P),
     "matmul_is_stripe": _GEMM + (_I, _P, _P),
-    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-                        _I, _I, _F, _P),
-    "kv_stationary": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                      _I, _I, _I, _F, _P, _P),
+    "flash_attention": (_P,) * 6 + (_I,) * 8 + (_P, _I, _I, _I, _F, _P),
+    "kv_stationary": (_P,) * 8 + (_I,) * 8 + (_P, _I, _I, _I, _F, _P, _P),
     "paged_attention": (_P,) * 9 + (_I,) * 9 + (_F, _I, _P),
     "conv2d": (_P, _P, _P) + (_I,) * 10 + (_P, _I, _P, _I, _P, _I, _P, _P,
                                            _P, _I, _I, _P, _I, _P, _I, _P,
@@ -108,6 +107,9 @@ BINARY_TILES = ("binary_mm_prefill", "binary_mm_decode")
 # f32 walk reports 0.
 CONV_TILES = ("conv2d_os_i8", "conv2d_os_bf16", "conv2d_ws_i8",
               "conv2d_is_i8", "conv2d_ws_bf16", "conv2d_is_bf16")
+# B2's and B7's launches over int8 K/V (the int8 KV cache), each counted
+# beside the library's own count (and, for B7, its cluster tile's).
+I8KV_LAUNCHES = ("flash_attention_i8kv", "kv_stationary_cluster_i8kv")
 # The libraries whose entry point reports the tile a launch took, with the
 # tiles by code.
 TILE_LIBRARIES = {"matmul_os": TILES, "matmul_rmw": RMW_TILES,
@@ -121,7 +123,7 @@ TILE_LIBRARIES = {"matmul_os": TILES, "matmul_rmw": RMW_TILES,
 # or (B8) the split of k.
 _TOOK = (ctypes.c_int * 4)()
 LAUNCHES: Dict[str, int] = {name: 0 for name in
-                            (*SIGNATURES, PACKED_DECODE,
+                            (*SIGNATURES, PACKED_DECODE, *I8KV_LAUNCHES,
                              *(t for tiles in TILE_LIBRARIES.values()
                                for t in tiles))}
 # ptxas resource report of each build of this process, by kernel.
@@ -244,10 +246,12 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args, packed: bool = False) -> Optional[tuple]:
+def launch(name: str, *args, packed: bool = False,
+           also: Optional[str] = None) -> Optional[tuple]:
     """Call kernel ``name``'s entry point on the current CUDA stream,
-    count the launch (and, when it decodes ``packed`` planes, B6's) and
-    raise if it was refused.  A launch of a ``TILE_LIBRARIES`` entry that
+    count the launch (and, when it decodes ``packed`` planes, B6's; and
+    under ``also``, one of ``I8KV_LAUNCHES``) and raise if it was
+    refused.  A launch of a ``TILE_LIBRARIES`` entry that
     took one of its tiles (B1's, B4's, B5a's, B5b's, B7's, B9's) counts
     that tile too and returns (tile, shared memory bytes, CTAs) as the
     kernel reported them, with the cluster size (a cluster walk) or the
@@ -266,6 +270,8 @@ def launch(name: str, *args, packed: bool = False) -> Optional[tuple]:
     LAUNCHES[name] += 1
     if packed:
         LAUNCHES[PACKED_DECODE] += 1
+    if also is not None:
+        LAUNCHES[also] += 1
     if not took or not _TOOK[0]:
         return None
     tile = TILE_LIBRARIES[name][_TOOK[0] - 1]

@@ -38,11 +38,23 @@ Ports of ``repro/kernels/attention_df.py``:
   block fetched once per q head, the state through device memory once per
   visible (KV block, 16-row q tile) pair.  ``KV_BLOCKS``.
 
+B2 and B7 also take int8 K/V with per-position f32 scales under bf16
+queries (the int8 KV cache; the TPU kernels' ``_load_kv`` dequantizes at
+the block load): the int8 tiles stream in at half the bytes (B2 through
+its ``cp.async`` ring, B7 multicast by the TMA), are converted exactly
+to bf16 in shared memory, and fold with the same step, which multiplies
+each score by its key's K scale and each probability by its key's V
+scale (``ref.attention_ref``'s folded dequant), so B7's int8 output
+equals B2's bit for bit.  Such a launch also counts under
+``FLASH_I8KV`` / ``KV_CLUSTER_I8KV``.  float32 queries over int8 K/V
+are not ported (ROADMAP B): they raise on the card.
+
 Each wrapper launches its kernel for CUDA tensors and raises for what it
 does not take; for CPU tensors it computes the kernel's plain version
 (``ref.attention_ref`` / ``ref.paged_attention_ref``; B7's is
 ``attention_ref`` too).  The kernels mask the ragged q and KV edges
-themselves, so nothing is padded.  int8 K/V is not ported yet.
+themselves, so nothing is padded.  B3's pools stay float, as the JAX
+package's do.
 """
 from __future__ import annotations
 
@@ -87,6 +99,18 @@ KV_CLUSTER = register_kernel(KernelRegistration(
     replaces="src/repro/kernels/attention_df.py:538",
     spec=DataflowSpec(anchor=WS, block=KV_BLOCK + (1,)),
 ))
+FLASH_I8KV = register_kernel(KernelRegistration(
+    name="flash_attention_i8kv",
+    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+    replaces="src/repro/kernels/attention_df.py:328",
+    spec=DataflowSpec(anchor=OS, block=FLASH_BLOCK + (1,)),
+))
+KV_CLUSTER_I8KV = register_kernel(KernelRegistration(
+    name="kv_stationary_cluster_i8kv",
+    source="src/repro_torch/kernels/csrc/kv_stationary.cu",
+    replaces="src/repro/kernels/attention_df.py:538",
+    spec=DataflowSpec(anchor=WS, block=KV_BLOCK + (1,)),
+))
 PAGED = register_kernel(KernelRegistration(
     name="paged_attention",
     source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -101,18 +125,45 @@ def _check_head_dim(d: int) -> None:
                          f"got {d}")
 
 
-def _banded_args(q, k, v, window, kv_len):
+def _kv_scales(q, k, v, k_scale, v_scale):
+    """The K/V scales a banded kernel takes: None for float K/V, else
+    both (B, Hkv, Skv, 1) scales as contiguous f32.  K/V are either of
+    q's float dtype, or both int8 with both scales under bf16 q."""
+    int8 = k.dtype == torch.int8 or v.dtype == torch.int8
+    if not int8:
+        if k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError("q, k and v must share one float dtype, or K/V "
+                            "be int8 with per-position scales")
+        if k_scale is not None or v_scale is not None:
+            raise TypeError("k_scale/v_scale go with int8 K/V only")
+        return None
+    if k.dtype != v.dtype or k_scale is None or v_scale is None:
+        raise TypeError("int8 K/V need both K and V int8 and both "
+                        "per-position k_scale/v_scale")
+    want = tuple(k.shape[:-1]) + (1,)
+    if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+        raise ValueError(f"int8 K/V scales must be per-position with a "
+                         f"trailing singleton lane: expected {want}, got "
+                         f"{tuple(k_scale.shape)} and {tuple(v_scale.shape)}")
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"{q.dtype} queries over int8 K/V are not ported (ROADMAP B): "
+            f"the int8 kernels take bfloat16 queries")
+    return (k_scale.to(torch.float32).contiguous(),
+            v_scale.to(torch.float32).contiguous())
+
+
+def _banded_args(q, k, v, window, kv_len, k_scale=None, v_scale=None):
     """Checks shared by the banded kernels (B2, B7); returns the per-row
-    lengths on the device (or None), the shared length, and the heads per
-    batch row."""
+    lengths on the device (or None), the shared length, the heads per
+    batch row and the K/V scales (``_kv_scales``)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _check_head_dim(d)
     if k.shape != (b, hkv, skv, d) or v.shape != k.shape or hq % hkv:
         raise ValueError(f"bad attention shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k and v must share one float dtype")
+    scales = _kv_scales(q, k, v, k_scale, v_scale)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if torch.is_tensor(kv_len) and kv_len.ndim == 1:
@@ -120,8 +171,8 @@ def _banded_args(q, k, v, window, kv_len):
             raise ValueError(f"per-row kv_len needs one entry per batch row "
                              f"({b}), got shape {tuple(kv_len.shape)}")
         return (kv_len.to(device=q.device, dtype=torch.int32).contiguous(),
-                skv, hq)
-    return None, (skv if kv_len is None else int(kv_len)), 0
+                skv, hq, scales)
+    return None, (skv if kv_len is None else int(kv_len)), 0, scales
 
 
 def flash_attention(
@@ -132,24 +183,31 @@ def flash_attention(
     window: Optional[int] = None,
     scale: Optional[float] = None,
     kv_len: ref.KvLen = None,        # int, 0-d or (B,) int tensor
+    k_scale: Optional[torch.Tensor] = None,   # int8 K/V: (B, Hkv, Skv, 1)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Banded GQA attention in one kernel launch.  Returns (B, Hq, Sq, D)."""
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 scale=scale, kv_len=kv_len)
+                                 scale=scale, kv_len=kv_len, k_scale=k_scale,
+                                 v_scale=v_scale)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    kv_lens, kv_scalar, heads_per_row = _banded_args(q, k, v, window, kv_len)
+    kv_lens, kv_scalar, heads_per_row, scales = _banded_args(
+        q, k, v, window, kv_len, k_scale, v_scale)
+    ks, vs = scales or (None, None)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _build.require_cuda(q, k, v, kv_lens)
+    _build.require_cuda(q, k, v, kv_lens, ks, vs)
     _build.require_aligned(q, k, v)
     out = torch.empty_like(q)
     _build.launch(
         "flash_attention", _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(out), _build.dtype_code(q), d, b * hq, sq, skv, hq // hkv,
-        heads_per_row, _build.ptr(kv_lens), kv_scalar,
+        _build.ptr(ks), _build.ptr(vs), _build.ptr(out),
+        _build.dtype_code(q), _build.dtype_code(k), d, b * hq, sq, skv,
+        hq // hkv, heads_per_row, _build.ptr(kv_lens), kv_scalar,
         0 if window is None else int(window), int(causal),
-        float(scale if scale is not None else d ** -0.5))
+        float(scale if scale is not None else d ** -0.5),
+        also=None if scales is None else FLASH_I8KV.name)
     return out
 
 
@@ -163,7 +221,8 @@ class KvPlan(NamedTuple):
 
 def kv_stationary_plan(b: int, hq: int, hkv: int, sq: int, skv: int,
                        dtype: torch.dtype = torch.bfloat16,
-                       d: int = 128) -> Optional[KvPlan]:
+                       d: int = 128, kv_int8: bool = False
+                       ) -> Optional[KvPlan]:
     """The cluster, CTAs and shared memory of B7's bf16 cluster kernel
     (``csrc/kv_stationary.cu``, which is the source: every launch reports
     them and ``check_took`` holds the report against this copy); None for
@@ -171,14 +230,18 @@ def kv_stationary_plan(b: int, hq: int, hkv: int, sq: int, skv: int,
     ``matmul_df.cluster_size``'s rule over the clusters' units (one CTA
     for a single unit); CTA r takes units r, r + C, ....  ``skv`` does not
     change the plan: the shared memory is the ring of ``KV_STAGES`` K and
-    V blocks of 64 keys."""
+    V blocks of 64 keys (``kv_int8``: of int8 codes, then the block
+    converted to bf16 and its 64 K and 64 V scales)."""
     if dtype != torch.bfloat16:
         return None
     _check_head_dim(d)
     bq, bkv = KV_BLOCKS[dtype]
     clusters, units = b * hkv, -(-sq // bq) * (hq // hkv)
     c = 1 if units < 2 else matmul_df.cluster_size(clusters, units)
-    smem = KV_STAGES * 2 * bkv * d * 2 + -(-16 * KV_STAGES // 128) * 128
+    block = 2 * bkv * d * 2                # a K and a V block in bf16
+    ring = KV_STAGES * (block // 2 if kv_int8 else block)
+    work = block + 2 * bkv * 4 if kv_int8 else 0
+    smem = ring + work + -(-16 * KV_STAGES // 128) * 128
     return KvPlan(cluster=c, ctas=clusters * c, smem_bytes=smem)
 
 
@@ -238,31 +301,39 @@ def kv_stationary_attention(
     window: Optional[int] = None,
     scale: Optional[float] = None,
     kv_len: ref.KvLen = None,        # int, 0-d or (B,) int tensor
+    k_scale: Optional[torch.Tensor] = None,   # int8 K/V: (B, Hkv, Skv, 1)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """KV-stationary (WS) GQA attention in one kernel launch: each KV
-    block fetched once per kv head (bf16; float32: once per q head), the
-    (acc, m, l) state through device memory between KV blocks (except a
-    bf16 CTA holding one q tile, which keeps it in registers).  Returns
-    (B, Hq, Sq, D)."""
+    block fetched once per kv head (bf16 and int8; float32: once per q
+    head), the (acc, m, l) state through device memory between KV blocks
+    (except a bf16 CTA holding one q tile, which keeps it in registers).
+    Returns (B, Hq, Sq, D)."""
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 scale=scale, kv_len=kv_len)
+                                 scale=scale, kv_len=kv_len, k_scale=k_scale,
+                                 v_scale=v_scale)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    kv_lens, kv_scalar, heads_per_row = _banded_args(q, k, v, window, kv_len)
+    kv_lens, kv_scalar, heads_per_row, scales = _banded_args(
+        q, k, v, window, kv_len, k_scale, v_scale)
+    ks, vs = scales or (None, None)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _build.require_cuda(q, k, v, kv_lens)
+    _build.require_cuda(q, k, v, kv_lens, ks, vs)
     _build.require_aligned(q, k, v)
-    plan = kv_stationary_plan(b, hq, hkv, sq, skv, q.dtype, d)
+    plan = kv_stationary_plan(b, hq, hkv, sq, skv, q.dtype, d,
+                              kv_int8=scales is not None)
     out = torch.empty_like(q)
     acc = torch.empty((b * hq, sq, d), dtype=torch.float32, device=q.device)
     ml = torch.empty((b * hq, sq, 2), dtype=torch.float32, device=q.device)
     took = _build.launch(
         "kv_stationary", _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(out), _build.ptr(acc), _build.ptr(ml),
-        _build.dtype_code(q), d, b * hq, sq, skv, hq // hkv, heads_per_row,
-        _build.ptr(kv_lens), kv_scalar, 0 if window is None else int(window),
-        int(causal), float(scale if scale is not None else d ** -0.5))
+        _build.ptr(ks), _build.ptr(vs), _build.ptr(out), _build.ptr(acc),
+        _build.ptr(ml), _build.dtype_code(q), _build.dtype_code(k), d,
+        b * hq, sq, skv, hq // hkv, heads_per_row, _build.ptr(kv_lens),
+        kv_scalar, 0 if window is None else int(window), int(causal),
+        float(scale if scale is not None else d ** -0.5),
+        also=None if scales is None else KV_CLUSTER_I8KV.name)
     check_took(plan, took)
     return out
 

@@ -33,6 +33,15 @@
 // (0.94) against the plain path on an H100). B7's bf16 kernel
 // (kv_stationary.cu) takes the same step over the same tiles.
 //
+// int8 K/V under bf16 queries (the int8 KV cache; the TPU kernel's
+// `_load_kv` dequantizes at the block load) takes the same kernel: the
+// 64-key int8 tiles stream through the cp.async ring at half the bytes, each
+// is converted exactly to bf16 (|q| <= 127 fits bf16's significand) a tile
+// ahead of the fold, so the step's mma.sync runs on the codes, and the step
+// folds the per-position f32 scales per key: K's into each score after
+// `* scale`, V's into each probability after it has been summed into l (the
+// folded dequant of ref.attention_ref). The bf16 path's code is as it was.
+//
 // f32 (flash_kernel) keeps the CUDA cores: one CTA per 16 q rows, its 4 warps
 // each carrying 4 rows, one key per lane, f32 copies of Q, K and V in shared
 // memory.
@@ -111,25 +120,63 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 using fa::TQ;
 using fa::TKV;
 
+// int8 K/V: one tile's K and V codes (rows of D bytes) converted exactly
+// to bf16 into dst (the K tile, then the V tile TILE elements on, rows of
+// LD), 16 codes a thread at a time (fa::codes_to_bf16).
 template <int D>
-constexpr size_t tc_smem() {  // Q, then K and V double-buffered
-  return (size_t)5 * TKV * (D + 8) * 2;
+__device__ __forceinline__ void convert_codes(__nv_bfloat16* dst, const int8_t* src) {
+  constexpr int LD = D + 8, CPR = D / 16, CHUNKS = 2 * TKV * CPR;
+#pragma unroll 2
+  for (int j = 0; j < CHUNKS / (WARPS * 32); ++j) {
+    const int i = threadIdx.x + j * WARPS * 32;
+    const int kv = i / (TKV * CPR), r = (i / CPR) % TKV, c = (i % CPR) * 16;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + (kv * TKV + r) * D + c);
+    uint4 a, b;
+    fa::codes_to_bf16(w.x, a.x, a.y);
+    fa::codes_to_bf16(w.y, a.z, a.w);
+    fa::codes_to_bf16(w.z, b.x, b.y);
+    fa::codes_to_bf16(w.w, b.z, b.w);
+    uint4* out = reinterpret_cast<uint4*>(dst + kv * TKV * LD + r * LD + c);
+    out[0] = a;
+    out[1] = b;
+  }
 }
 
-template <int D>
+template <int D, typename KV>
+constexpr size_t tc_smem() {
+  if constexpr (std::is_same<KV, int8_t>::value)
+    // Q, two converted K and V tiles, the int8 ring (two K and V tiles),
+    // two tiles' scales
+    return (size_t)5 * TKV * (D + 8) * 2 + (size_t)4 * TKV * D + 4 * TKV * 4;
+  else
+    return (size_t)5 * TKV * (D + 8) * 2;  // Q, then K and V double-buffered
+}
+
+// KV = __nv_bfloat16: K and V tiles double-buffered as bf16. KV = int8_t:
+// int8 K and V tiles stream through a two-slot ring at half the bytes, and
+// the loop is pipelined a tile deep: while the warps fold tile j (its bf16
+// copy and scales in buffer j % 2), they convert tile j + 1's codes
+// (convert_codes) and store its 64 K and 64 V scales (read from device
+// memory a tile ahead, one a thread) into buffer (j + 1) % 2, and tile j +
+// 2's codes land in the ring slot tile j held; one barrier a tile. The
+// step folds the scales per key (FA_KSCALE, FA_VSCALE).
+template <int D, typename KV>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int sq, int skv, int group,
-                int heads_per_row, const int* __restrict__ kv_lens, int kv_len,
-                int window, int causal, float scale) {
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
+                const KV* __restrict__ v, const float* __restrict__ k_scale,
+                const float* __restrict__ v_scale, __nv_bfloat16* __restrict__ o,
+                int sq, int skv, int group, int heads_per_row,
+                const int* __restrict__ kv_lens, int kv_len, int window, int causal,
+                float scale) {
+  constexpr bool I8 = std::is_same<KV, int8_t>::value;
   constexpr int LD = D + 8;  // 16 bytes of padding: ldmatrix rows on distinct banks
   constexpr int TILE = TKV * LD, NT = WARPS * 32, VPR = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + TILE;      // two buffers
+  __nv_bfloat16* ks = qs + TILE;      // two buffers (int8: K, V of one tile each)
   __nv_bfloat16* vs = ks + 2 * TILE;  // two buffers
+  int8_t* ring = reinterpret_cast<int8_t*>(vs + 2 * TILE);  // int8: two K/V slots
+  float* scs = reinterpret_cast<float*>(ring + 4 * TKV * D);  // int8: two tiles' scales
   const int warp = threadIdx.x >> 5, g = tc::lane() >> 2, t = tc::lane() & 3;
   const int bh = blockIdx.y, q0 = blockIdx.x * TQ;
   const int kv_valid = kv_lens ? kv_lens[bh / heads_per_row] : kv_len;
@@ -148,10 +195,30 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       tc::cp_async16(dst + r * LD + c, in ? src + (size_t)r * D + c : src, in);
     }
   };
+  // ... and 64 rows of D int8 codes, unpadded.
+  auto copy_codes = [&](int8_t* dst, const int8_t* src, int rows) {
+    for (int i = threadIdx.x; i < TKV * (D / 16); i += NT) {
+      const int r = i / (D / 16), c = (i % (D / 16)) * 16;
+      const bool in = r < rows;
+      tc::cp_async16(dst + r * D + c, in ? src + (size_t)r * D + c : src, in);
+    }
+  };
   auto load_kv = [&](int blk, int buf) {
     const size_t at = kv_base + (size_t)blk * TKV * D;
-    copy_tile(ks + buf * TILE, k + at, skv - blk * TKV);
-    copy_tile(vs + buf * TILE, v + at, skv - blk * TKV);
+    if constexpr (I8) {
+      copy_codes(ring + buf * 2 * TKV * D, k + at, skv - blk * TKV);
+      copy_codes(ring + (buf * 2 + 1) * TKV * D, v + at, skv - blk * TKV);
+    } else {
+      copy_tile(ks + buf * TILE, k + at, skv - blk * TKV);
+      copy_tile(vs + buf * TILE, v + at, skv - blk * TKV);
+    }
+  };
+  // int8: thread j < 64 carries K's scale of a tile's key j, thread 64 + j
+  // V's; 0 past skv.
+  auto load_scale = [&](int blk) {
+    const int j = threadIdx.x & (TKV - 1), key = blk * TKV + j;
+    const float* src = threadIdx.x < TKV ? k_scale : v_scale;
+    return key < skv ? src[(size_t)(bh / group) * skv + key] : 0.f;
   };
 
   // This warp's rows and the positions they sit at.
@@ -164,35 +231,84 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < 4; ++j) oacc[i][j] = 0.f;
 
-  if (lo <= hi) {
-    copy_tile(qs, qsrc, sq - q0);
-    tc::cp_async_commit();
-    load_kv(lo, 0);
-    tc::cp_async_commit();
-  }
   uint32_t qf[D / 16][4];
-  for (int blk = lo; blk <= hi; ++blk) {
-    const int buf = (blk - lo) & 1;
-    if (blk < hi) load_kv(blk + 1, buf ^ 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();  // Q and this tile have landed
-    __syncthreads();
-    if (blk == lo) {
+  if constexpr (I8) {
+    // Prologue: Q and tile lo, then tile lo + 1 in flight; tile lo
+    // converted and its scales stored before the loop.
+    float sc = 0.f;
+    if (lo <= hi) {
+      copy_tile(qs, qsrc, sq - q0);
+      load_kv(lo, 0);
+      tc::cp_async_commit();
+      if (lo < hi) load_kv(lo + 1, 1);
+      tc::cp_async_commit();
+      scs[threadIdx.x] = load_scale(lo);
+      if (lo < hi) sc = load_scale(lo + 1);
+      tc::cp_async_wait<1>();
+      __syncthreads();
+      convert_codes<D>(ks, ring);
 #pragma unroll
       for (int c = 0; c < D / 16; ++c)
         tc::frag_a_rowmajor(qf[c], qs, LD, warp * 16, c * 16);
     }
-    const int k0 = blk * TKV;
-    if (fa::warp_sees(wq, sq, off, k0, causal, window)) {
-      const __nv_bfloat16* kt = ks + buf * TILE;
-      const __nv_bfloat16* vt = vs + buf * TILE;
+    for (int blk = lo; blk <= hi; ++blk) {
+      const int buf = (blk - lo) & 1;
+      tc::cp_async_wait<0>();  // tile blk + 1 has landed
+      __syncthreads();         // tile blk converted; tile blk - 1 folded
+      if (blk < hi) {
+        if (blk + 2 <= hi) load_kv(blk + 2, buf);  // the slot tile blk held
+        tc::cp_async_commit();
+        convert_codes<D>(ks + (buf ^ 1) * 2 * TILE, ring + (buf ^ 1) * 2 * TKV * D);
+        scs[(buf ^ 1) * 2 * TKV + threadIdx.x] = sc;
+        if (blk + 2 <= hi) sc = load_scale(blk + 2);
+      }
+      const int k0 = blk * TKV;
+      if (fa::warp_sees(wq, sq, off, k0, causal, window)) {
+        const __nv_bfloat16* kt = ks + buf * 2 * TILE;
+        const __nv_bfloat16* vt = kt + TILE;
+        const float* ksc = scs + buf * 2 * TKV;
+        const float* vsc = ksc + TKV;
+#define FA_LDSM_K(r, row, col) tc::ldmatrix_x4(r, kt + (size_t)(row) * LD + col)
+#define FA_FRAG_V(b0, b1, kr, cc) tc::frag_b2_rowmajor(b0, b1, vt, LD, kr, cc)
+#define FA_KSCALE(j) ksc[j]
+#define FA_VSCALE(j) vsc[j]
+#include "flash_tc_step.cuh"
+#undef FA_KSCALE
+#undef FA_VSCALE
+#undef FA_LDSM_K
+#undef FA_FRAG_V
+      }
+    }
+  } else {
+    if (lo <= hi) {
+      copy_tile(qs, qsrc, sq - q0);
+      tc::cp_async_commit();
+      load_kv(lo, 0);
+      tc::cp_async_commit();
+    }
+    for (int blk = lo; blk <= hi; ++blk) {
+      const int buf = (blk - lo) & 1;
+      if (blk < hi) load_kv(blk + 1, buf ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();  // Q and this tile have landed
+      __syncthreads();
+      if (blk == lo) {
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c)
+          tc::frag_a_rowmajor(qf[c], qs, LD, warp * 16, c * 16);
+      }
+      const int k0 = blk * TKV;
+      if (fa::warp_sees(wq, sq, off, k0, causal, window)) {
+        const __nv_bfloat16* kt = ks + buf * TILE;
+        const __nv_bfloat16* vt = vs + buf * TILE;
 #define FA_LDSM_K(r, row, col) tc::ldmatrix_x4(r, kt + (size_t)(row) * LD + col)
 #define FA_FRAG_V(b0, b1, kr, cc) tc::frag_b2_rowmajor(b0, b1, vt, LD, kr, cc)
 #include "flash_tc_step.cuh"
 #undef FA_LDSM_K
 #undef FA_FRAG_V
+      }
+      __syncthreads();  // this buffer is consumed before it is refilled
     }
-    __syncthreads();  // this buffer is consumed before it is refilled
   }
   tc::cp_async_wait<0>();
 
@@ -210,74 +326,86 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int skv, int group, int heads_per_row, const int* kv_lens,
-           int kv_len, int window, int causal, float scale,
-           cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr size_t smem = tc_smem<D>();
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    const dim3 grid((sq + TQ - 1) / TQ, bh);
-    flash_tc_kernel<D><<<grid, WARPS * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), sq, skv, group,
-        heads_per_row, kv_lens, kv_len, window, causal, scale);
-  } else {
-    const dim3 grid((sq + BQ - 1) / BQ, bh);
-    flash_kernel<T, D><<<grid, WARPS * 32, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), sq, skv, group,
-        heads_per_row, kv_lens, kv_len, window, causal, scale);
+template <int D, typename KV>
+int launch_tc(const void* q, const void* k, const void* v, const float* k_scale,
+              const float* v_scale, void* o, int bh, int sq, int skv, int group,
+              int heads_per_row, const int* kv_lens, int kv_len, int window, int causal,
+              float scale, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem<D, KV>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  const dim3 grid((sq + TQ - 1) / TQ, bh);
+  flash_tc_kernel<D, KV><<<grid, WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), k_scale, v_scale, static_cast<__nv_bfloat16*>(o), sq,
+      skv, group, heads_per_row, kv_lens, kv_len, window, causal, scale);
   return launch_status();
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             int bh, int sq, int skv, int group, int heads_per_row,
-             const int* kv_lens, int kv_len, int window, int causal,
-             float scale, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, bh, sq, skv, group, heads_per_row,
-                           kv_lens, kv_len, window, causal, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, bh, sq, skv, group, heads_per_row,
-                           kv_lens, kv_len, window, causal, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, bh, sq, skv, group, heads_per_row,
-                            kv_lens, kv_len, window, causal, scale, stream);
-    default:
-      return REPRO_BAD_ARGUMENT;
-  }
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int sq,
+               int skv, int group, int heads_per_row, const int* kv_lens, int kv_len,
+               int window, int causal, float scale, cudaStream_t stream) {
+  const dim3 grid((sq + BQ - 1) / BQ, bh);
+  flash_kernel<float, D><<<grid, WARPS * 32, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, group,
+      heads_per_row, kv_lens, kv_len, window, causal, scale);
+  return launch_status();
+}
+
+// kv: the K/V element type's code (REPRO_F32, REPRO_BF16 or REPRO_I8).
+template <int D>
+int launch(int kv, const void* q, const void* k, const void* v, const float* k_scale,
+           const float* v_scale, void* o, int bh, int sq, int skv, int group,
+           int heads_per_row, const int* kv_lens, int kv_len, int window, int causal,
+           float scale, cudaStream_t stream) {
+  if (kv == REPRO_F32)
+    return launch_f32<D>(q, k, v, o, bh, sq, skv, group, heads_per_row, kv_lens,
+                         kv_len, window, causal, scale, stream);
+  if (kv == REPRO_BF16)
+    return launch_tc<D, __nv_bfloat16>(q, k, v, nullptr, nullptr, o, bh, sq, skv, group,
+                                       heads_per_row, kv_lens, kv_len, window, causal,
+                                       scale, stream);
+  return launch_tc<D, int8_t>(q, k, v, k_scale, v_scale, o, bh, sq, skv, group,
+                              heads_per_row, kv_lens, kv_len, window, causal, scale,
+                              stream);
 }
 
 }  // namespace
 
-// q (bh, sq, d); k, v (bh / group, skv, d); o like q. kv_lens: null (every
-// head row uses kv_len) or bh / heads_per_row lengths on the device.
+// q (bh, sq, d); k, v (bh / group, skv, d); o like q. dtype: q's (and o's)
+// element type; kv_dtype: K's and V's, the same, or int8 under bf16 q with
+// k_scale and v_scale (bh / group, skv) f32, one per position. kv_lens: null
+// (every head row uses kv_len) or bh / heads_per_row lengths on the device.
 // window <= 0: no sliding window.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int dtype, int d, int bh, int sq,
+                               const float* k_scale, const float* v_scale, void* o,
+                               int dtype, int kv_dtype, int d, int bh, int sq,
                                int skv, int group, int heads_per_row,
                                const int* kv_lens, int kv_len, int window,
                                int causal, float scale, void* stream) {
   if (bh <= 0 || bh > 65535 || sq <= 0 || skv <= 0 || group <= 0 ||
       bh % group || (kv_lens && (heads_per_row <= 0 || bh % heads_per_row)))
     return REPRO_BAD_ARGUMENT;
+  const bool i8 = dtype == REPRO_BF16 && kv_dtype == REPRO_I8 && k_scale && v_scale;
+  if (!i8 && (kv_dtype != dtype || (dtype != REPRO_F32 && dtype != REPRO_BF16)))
+    return REPRO_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_F32)
-    return launch_d<float>(d, q, k, v, o, bh, sq, skv, group, heads_per_row,
-                           kv_lens, kv_len, window, causal, scale, s);
-  if (dtype == REPRO_BF16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, bh, sq, skv, group,
-                                   heads_per_row, kv_lens, kv_len, window,
-                                   causal, scale, s);
-  return REPRO_BAD_ARGUMENT;
+  switch (d) {
+    case 32:
+      return launch<32>(kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv, group,
+                        heads_per_row, kv_lens, kv_len, window, causal, scale, s);
+    case 64:
+      return launch<64>(kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv, group,
+                        heads_per_row, kv_lens, kv_len, window, causal, scale, s);
+    case 128:
+      return launch<128>(kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv, group,
+                         heads_per_row, kv_lens, kv_len, window, causal, scale, s);
+    default:
+      return REPRO_BAD_ARGUMENT;
+  }
 }

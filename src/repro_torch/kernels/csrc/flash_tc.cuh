@@ -52,4 +52,20 @@ __device__ __forceinline__ bool warp_sees(int wq, int sq, int off, int k0,
          (window <= 0 || k0 + TKV - 1 > wq + off - window);
 }
 
+// Four int8 codes (the bytes of w, code 0 lowest) as four exact bf16
+// (|q| <= 127 fits bf16's 8-bit significand), codes 0 and 1 in lo, 2 and 3
+// in hi: each byte, biased by 128, becomes the low byte of the f32 2^23 +
+// 128 + q, from which one add leaves q exactly, and the f32's high half is
+// its bf16. Full-rate adds and byte permutes, no conversion instruction.
+__device__ __forceinline__ void codes_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) -
+                           8388736.f);
+  lo = __byte_perm(f[0], f[1], 0x7632);
+  hi = __byte_perm(f[2], f[3], 0x7632);
+}
+
 }  // namespace fa

@@ -13,6 +13,13 @@
 // k.. and columns c.., c + 8..). A function holding the same statements
 // cost B2 5% on an H100 (nvcc 12.9; PERF.md, PR 22), so the step is shared
 // as text.
+//
+// Over int8 K/V (codes converted exactly to bf16 in the tiles the macros
+// read) the includer also defines FA_KSCALE(j) and FA_VSCALE(j), the K and
+// V scales of the tile's key j: the K scale multiplies each score after
+// `* scale`, the V scale each probability after it has been summed into l
+// and before P is split, the order of ref.attention_ref's folded dequant.
+// Without them the step is the bf16 one as it was.
       float s[TKV / 8][4];
 #pragma unroll
       for (int i = 0; i < TKV / 8; ++i)
@@ -45,7 +52,11 @@
           bool valid = kpos < kv_valid && kpos < skv;
           if (causal) valid = valid && kpos <= qpos;
           if (window > 0) valid = valid && kpos > qpos - window;
+#ifdef FA_KSCALE
+          s[i][j] = valid ? s[i][j] * scale * FA_KSCALE(kpos - k0) : REPRO_NEG_INF;
+#else
           s[i][j] = valid ? s[i][j] * scale : REPRO_NEG_INF;
+#endif
           mx[j >> 1] = fmaxf(mx[j >> 1], s[i][j]);
         }
       float alpha[2], sum[2] = {0.f, 0.f};
@@ -73,6 +84,12 @@
         sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
         l_run[h] = alpha[h] * l_run[h] + sum[h];
       }
+#ifdef FA_VSCALE
+#pragma unroll
+      for (int i = 0; i < TKV / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] *= FA_VSCALE(i * 8 + 2 * t + (j & 1));
+#endif
 #pragma unroll
       for (int i = 0; i < D / 8; ++i)
 #pragma unroll

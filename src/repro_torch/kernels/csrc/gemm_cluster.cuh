@@ -342,17 +342,18 @@ inline Encode encoder() {
   }
   return encode;
 }
-// A tensor map of a row-major bf16 array of `rank` (2 or 3) dimensions,
-// dims[0] the contiguous one, strides[i] the bytes between steps of
-// dimension i + 1, in boxes of `box`, each box row's 16-byte chunks
+// A tensor map of a row-major bf16 array (or one of `type`) of `rank` (2 or
+// 3) dimensions, dims[0] the contiguous one, strides[i] the bytes between
+// steps of dimension i + 1, in boxes of `box`, each box row's 16-byte chunks
 // swizzled by `swizzle`; zeros past the array.
 inline int make_map_nd(CUtensorMap* map, const void* base, int rank,
                        const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+                       CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const Encode encode = encoder();
   if (!encode) return REPRO_BAD_ARGUMENT;
   const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = encode(map, type, (cuuint32_t)rank,
                             const_cast<void*>(base), dims, strides, box, step,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -29,6 +29,16 @@
 // band and stores the state again (the `acc` / `ml` scratch), which is exact.
 // So every bf16 output equals B2's bit for bit.
 //
+// int8 K/V under bf16 queries (the int8 KV cache) takes the same cluster
+// kernel: the TMA multicasts each block's int8 codes (a UINT8 tensor map,
+// 8-row pieces of D bytes, unswizzled) at half the bytes; each CTA converts
+// its copy exactly to bf16 into work tiles laid out as the bf16 ring's
+// swizzled slots (releasing the ring slot to the cluster at once), reads the
+// block's 64 K and 64 V scales from device memory (a block ahead; a tensor
+// map of the scales would need Skv % 4 == 0), and its warps fold with the
+// step and the scale macros of B2's int8 path, so every int8 output equals
+// B2's int8 output bit for bit too.
+//
 // float32 (kv_kernel) keeps the CUDA cores: one CTA per (batch*head) walks
 // the KV blocks outer (each fetched once per q head) and 16-row q tiles
 // inner; for each visible (KV block, q tile) pair the tile's rows load their
@@ -157,13 +167,20 @@ constexpr int KV_THREADS = fa::WARPS * 32 + 32;    // 4 warps that fold, a produ
 // kv_stationary's one tile: the cluster kernel (kernels/_build.py).
 constexpr int TILE_KV_CLUSTER = 1;
 
-template <int D>
+template <int D, bool I8 = false>
 __host__ __device__ constexpr int kv_stage_bytes() {  // a K block and a V block
-  return 2 * fa::TKV * D * 2;
+  return 2 * fa::TKV * D * (I8 ? 1 : 2);
 }
+// int8: the block's K and V converted to bf16 (the TMA's swizzled layout),
+// then its 64 K and 64 V scales.
 template <int D>
-constexpr size_t kv_cluster_smem() {  // the ring, then its mbarriers
-  return (size_t)KV_STAGES * kv_stage_bytes<D>() + gemm::round_up(16 * KV_STAGES, 128);
+__host__ __device__ constexpr int kv_work_bytes() {
+  return kv_stage_bytes<D>() + 2 * fa::TKV * 4;
+}
+template <int D, bool I8 = false>
+constexpr size_t kv_cluster_smem() {  // the ring, (int8) the work tiles, the mbarriers
+  return (size_t)KV_STAGES * kv_stage_bytes<D, I8>() + (I8 ? kv_work_bytes<D>() : 0) +
+         gemm::round_up(16 * KV_STAGES, 128);
 }
 // CTAs of a cluster for `clusters` clusters of `units` units each (one CTA
 // for a single unit). attention_df.kv_stationary_plan mirrors it.
@@ -282,26 +299,60 @@ __device__ __forceinline__ void frag_v(uint32_t b0[2], uint32_t b1[2], uint32_t 
   b1[1] = r[3];
 }
 
+// int8: the block's codes (rows of D bytes, unswizzled, in slot `codes`)
+// converted exactly to bf16 into the work tiles at kv_off's places, 16 codes
+// a thread of the 4 folding warps at a time (fa::codes_to_bf16).
+template <int D>
+__device__ __forceinline__ void convert_codes(unsigned char* work,
+                                              const unsigned char* codes) {
+  constexpr int CPR = D / 16, WT = fa::TKV * D * 2;  // chunks a row; a work tile's bytes
+  constexpr int CHUNKS = 2 * fa::TKV * CPR, NT = fa::WARPS * 32;
+#pragma unroll 2
+  for (int j = 0; j < CHUNKS / NT; ++j) {
+    const int i = threadIdx.x + j * NT;
+    const int kv = i / (fa::TKV * CPR), r = (i / CPR) % fa::TKV, c = (i % CPR) * 16;
+    const uint4 w = *reinterpret_cast<const uint4*>(codes + (kv * fa::TKV + r) * D + c);
+    uint4 a, b;
+    fa::codes_to_bf16(w.x, a.x, a.y);
+    fa::codes_to_bf16(w.y, a.z, a.w);
+    fa::codes_to_bf16(w.z, b.x, b.y);
+    fa::codes_to_bf16(w.w, b.z, b.w);
+    unsigned char* dst = work + kv * WT;
+    *reinterpret_cast<uint4*>(dst + kv_off<D>(r, c)) = a;
+    *reinterpret_cast<uint4*>(dst + kv_off<D>(r, c + 8)) = b;
+  }
+}
+
 // Cluster kvh / C's (batch row, kv head) is kvh: its q heads are
 // kvh * group .. kvh * group + group - 1; unit u is (q tile u / group, q head
-// u % group).
-template <int D>
+// u % group). I8: K and V are int8 codes with per-position f32 scales
+// (k_scale, v_scale (clusters, skv)); each CTA converts each multicast block
+// of codes into bf16 work tiles with the block's scales, and folds them with
+// the step and the macros of B2's int8 path.
+template <int D, bool I8>
 __global__ void __launch_bounds__(KV_THREADS, 2)
 kv_cluster_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
                   float* __restrict__ acc_st, float* __restrict__ ml_st, int sq, int skv,
                   int group, int heads_per_row, const int* __restrict__ kv_lens,
                   int kv_len, int window, int causal, float scale,
+                  const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v) {
   using namespace gemm::cl;
-  constexpr int STAGE = kv_stage_bytes<D>(), TILE = STAGE / 2;
-  constexpr int ROW = D == 32 ? 64 : 128;           // bytes of a swizzled row
-  constexpr int PANELS = D == 32 ? 1 : D / 64;      // 64-column panels a tile
+  constexpr int STAGE = kv_stage_bytes<D, I8>(), TILE = STAGE / 2;
+  // bf16: 128-byte rows with the 128-byte swizzle (64-byte ones at D = 32),
+  // in 64-column panels; int8: rows of D bytes, one panel.
+  constexpr int ROW = I8 ? D : D == 32 ? 64 : 128;
+  constexpr int PANELS = I8 || D == 32 ? 1 : D / 64;
   constexpr int PIECES = 2 * PANELS * fa::TKV / 8;  // 8-row boxes a K and V block
   constexpr int FOLD = fa::WARPS * 32;              // threads that fold
+  constexpr int WORK = KV_STAGES * STAGE;           // int8: the work tiles' offset
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sbase = tc::smem_addr(smem);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + KV_STAGES * STAGE);
+  float* ksc = reinterpret_cast<float*>(smem + WORK + kv_stage_bytes<D>());  // int8
+  float* vsc = ksc + fa::TKV;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + WORK + (I8 ? kv_work_bytes<D>() : 0));
   uint64_t* spent = full + KV_STAGES;
   const int C = ctas_in_cluster(), rank = rank_in_cluster();
   const int kvh = blockIdx.x / C;
@@ -346,10 +397,30 @@ kv_cluster_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict
     State<D> st;
     st.init();
     uint32_t qf[D / 16][4];
+    // int8: thread j < 64 carries K's scale of the block's key j, thread
+    // 64 + j V's, read a block ahead; 0 past skv.
+    auto load_scale = [&](int blk) {
+      const int j = threadIdx.x & (fa::TKV - 1), key = blk * fa::TKV + j;
+      const float* src = threadIdx.x < fa::TKV ? k_scale : v_scale;
+      return key < skv ? src[(size_t)kvh * skv + key] : 0.f;
+    };
+    float sc_next = 0.f;
+    if constexpr (I8) {
+      if (blocks) sc_next = load_scale(blo);
+    }
     for (int x = 0; x < blocks; ++x) {
       const int sl = x % KV_STAGES, blk = blo + x, k0 = blk * fa::TKV;
-      const uint32_t kt = sbase + sl * STAGE, vt = kt + TILE;
+      const uint32_t kt = sbase + (I8 ? WORK : sl * STAGE), vt = kt + (I8 ? TILE * 2 : TILE);
       mbar_wait(&full[sl], (x / KV_STAGES) & 1);
+      if constexpr (I8) {
+        convert_codes<D>(smem + WORK, smem + sl * STAGE);
+        (threadIdx.x < fa::TKV ? ksc : vsc)[threadIdx.x & (fa::TKV - 1)] = sc_next;
+        if (x + 1 < blocks) sc_next = load_scale(blk + 1);
+        asm volatile("bar.sync 1, %0;\n" ::"n"(FOLD) : "memory");
+        // the codes are converted: every CTA of the cluster hears that the
+        // slot may be refilled while this CTA folds the work tiles
+        if (threadIdx.x < C) mbar_arrive_peer(&spent[sl], threadIdx.x);
+      }
       for (int i = 0; i < nu; ++i) {
         const int u = rank + i * C, q0 = u / group * fa::TQ;
         const size_t row0 = (size_t)(kvh * group + u % group) * sq;  // the head's rows
@@ -367,16 +438,25 @@ kv_cluster_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict
           float(&oacc)[D / 8][4] = st.o;
 #define FA_LDSM_K(r, row, col) tc::ldsm_x4(r, kt + kv_off<D>(row, col))
 #define FA_FRAG_V(b0, b1, kr, cc) frag_v<D>(b0, b1, vt, kr, cc)
+          if constexpr (I8) {
+#define FA_KSCALE(j) ksc[j]
+#define FA_VSCALE(j) vsc[j]
 #include "flash_tc_step.cuh"
+#undef FA_KSCALE
+#undef FA_VSCALE
+          } else {
+#include "flash_tc_step.cuh"
+          }
 #undef FA_LDSM_K
 #undef FA_FRAG_V
         }
         if (blk == hi) st.write(o + row0 * D, wq, sq);
         else if (!held) st.store(acc_st, ml_st, row0, wq, sq);
       }
-      // the four warps are done with the slot: every CTA of the cluster hears
+      // the four warps are done with the slot (int8: with the work tiles):
+      // every CTA of the cluster hears
       asm volatile("bar.sync 1, %0;\n" ::"n"(FOLD) : "memory");
-      if (threadIdx.x < C) mbar_arrive_peer(&spent[sl], threadIdx.x);
+      if (!I8 && threadIdx.x < C) mbar_arrive_peer(&spent[sl], threadIdx.x);
     }
     // Units whose band is empty see no key: their rows write zeros.
     for (int i = 0; i < nu; ++i) {
@@ -394,30 +474,62 @@ kv_cluster_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict
   cluster_wait();
 }
 
-template <int D>
-int launch_cluster(const void* q, const void* k, const void* v, void* o, float* acc,
-                   float* ml, int bh, int sq, int skv, int group, int heads_per_row,
-                   const int* kv_lens, int kv_len, int window, int causal, float scale,
-                   cudaStream_t stream, gemm::Took* took) {
+template <int D, bool I8>
+int launch_cluster(const void* q, const void* k, const void* v, const float* k_scale,
+                   const float* v_scale, void* o, float* acc, float* ml, int bh, int sq,
+                   int skv, int group, int heads_per_row, const int* kv_lens, int kv_len,
+                   int window, int causal, float scale, cudaStream_t stream,
+                   gemm::Took* took) {
   const int clusters = bh / group, units = gemm::cdiv(sq, fa::TQ) * group;
   const int C = kv_cluster_size(clusters, units);
-  const size_t smem = kv_cluster_smem<D>();
+  const size_t smem = kv_cluster_smem<D, I8>();
   if ((long long)clusters * C > INT_MAX) return REPRO_BAD_ARGUMENT;
   if (took) *took = {TILE_KV_CLUSTER, (int)smem, clusters * C, C};
-  // K and V as (clusters, skv, D): 8-row boxes of one 64-column panel (of
-  // all 32 columns at D = 32), zeros past skv.
+  // K and V as (clusters, skv, D): bf16 in 8-row boxes of one 64-column
+  // panel (of all 32 columns at D = 32), swizzled; int8 in 8-row boxes of
+  // all D columns, unswizzled; zeros past skv.
+  const int elt = I8 ? 1 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)skv, (cuuint64_t)clusters};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)skv * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)(D < 64 ? D : 64), 8, 1};
-  const CUtensorMapSwizzle sw = D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const cuuint64_t strides[2] = {(cuuint64_t)D * elt, (cuuint64_t)skv * D * elt};
+  const cuuint32_t box[3] = {(cuuint32_t)(I8 || D < 64 ? D : 64), 8, 1};
+  const CUtensorMapSwizzle sw = I8        ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                          : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapDataType type =
+      I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mk, mv;
-  int rc = gemm::cl::make_map_nd(&mk, k, 3, dims, strides, box, sw);
-  if (!rc) rc = gemm::cl::make_map_nd(&mv, v, 3, dims, strides, box, sw);
+  int rc = gemm::cl::make_map_nd(&mk, k, 3, dims, strides, box, sw, type);
+  if (!rc) rc = gemm::cl::make_map_nd(&mv, v, 3, dims, strides, box, sw, type);
   if (rc) return rc;
   return gemm::cl::launch_in_clusters(
-      kv_cluster_kernel<D>, clusters * C, KV_THREADS, C, smem, stream,
+      kv_cluster_kernel<D, I8>, clusters * C, KV_THREADS, C, smem, stream,
       static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), acc, ml, sq,
-      skv, group, heads_per_row, kv_lens, kv_len, window, causal, scale, mk, mv);
+      skv, group, heads_per_row, kv_lens, kv_len, window, causal, scale, k_scale, v_scale,
+      mk, mv);
+}
+
+template <bool I8>
+int launch_cluster_d(int d, const void* q, const void* k, const void* v,
+                     const float* k_scale, const float* v_scale, void* o, float* acc,
+                     float* ml, int bh, int sq, int skv, int group, int heads_per_row,
+                     const int* kv_lens, int kv_len, int window, int causal, float scale,
+                     cudaStream_t s, gemm::Took* took) {
+  switch (d) {
+    case 32:
+      return launch_cluster<32, I8>(q, k, v, k_scale, v_scale, o, acc, ml, bh, sq, skv,
+                                    group, heads_per_row, kv_lens, kv_len, window, causal,
+                                    scale, s, took);
+    case 64:
+      return launch_cluster<64, I8>(q, k, v, k_scale, v_scale, o, acc, ml, bh, sq, skv,
+                                    group, heads_per_row, kv_lens, kv_len, window, causal,
+                                    scale, s, took);
+    case 128:
+      return launch_cluster<128, I8>(q, k, v, k_scale, v_scale, o, acc, ml, bh, sq, skv,
+                                     group, heads_per_row, kv_lens, kv_len, window, causal,
+                                     scale, s, took);
+    default:
+      return REPRO_BAD_ARGUMENT;
+  }
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* acc,
@@ -443,12 +555,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* acc,
 
 // q (bh, sq, d); k, v (bh / group, skv, d); o like q; acc (bh, sq, d) and
 // ml (bh, sq, 2) f32 scratch for the running state (written before it is
-// read). kv_lens: null (every head row uses kv_len) or bh / heads_per_row
-// lengths on the device. window <= 0: no sliding window. took (may be
-// null): the bf16 cluster kernel's report (gemm::Took: TILE_KV_CLUSTER, its
-// shared memory, CTAs and cluster size), TILE_WALK for the f32 kernel.
+// read). dtype: q's (and o's) element type; kv_dtype: K's and V's, the same,
+// or int8 under bf16 q with k_scale and v_scale (bh / group, skv) f32, one
+// per position. kv_lens: null (every head row uses kv_len) or bh /
+// heads_per_row lengths on the device. window <= 0: no sliding window. took
+// (may be null): the cluster kernel's report (gemm::Took: TILE_KV_CLUSTER,
+// its shared memory, CTAs and cluster size), TILE_WALK for the f32 kernel.
 extern "C" int kv_stationary(const void* q, const void* k, const void* v,
-                             void* o, float* acc, float* ml, int dtype, int d,
+                             const float* k_scale, const float* v_scale, void* o,
+                             float* acc, float* ml, int dtype, int kv_dtype, int d,
                              int bh, int sq, int skv, int group,
                              int heads_per_row, const int* kv_lens, int kv_len,
                              int window, int causal, float scale,
@@ -458,21 +573,17 @@ extern "C" int kv_stationary(const void* q, const void* k, const void* v,
       (kv_lens && (heads_per_row <= 0 || bh % heads_per_row)))
     return REPRO_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_F32)
+  if (dtype == REPRO_F32 && kv_dtype == REPRO_F32)
     return launch_f32(q, k, v, o, acc, ml, d, bh, sq, skv, group, heads_per_row,
                       kv_lens, kv_len, window, causal, scale, s);
   if (dtype != REPRO_BF16) return REPRO_BAD_ARGUMENT;
-  switch (d) {
-    case 32:
-      return launch_cluster<32>(q, k, v, o, acc, ml, bh, sq, skv, group, heads_per_row,
-                                kv_lens, kv_len, window, causal, scale, s, took);
-    case 64:
-      return launch_cluster<64>(q, k, v, o, acc, ml, bh, sq, skv, group, heads_per_row,
-                                kv_lens, kv_len, window, causal, scale, s, took);
-    case 128:
-      return launch_cluster<128>(q, k, v, o, acc, ml, bh, sq, skv, group, heads_per_row,
-                                 kv_lens, kv_len, window, causal, scale, s, took);
-    default:
-      return REPRO_BAD_ARGUMENT;
-  }
+  if (kv_dtype == REPRO_BF16)
+    return launch_cluster_d<false>(d, q, k, v, nullptr, nullptr, o, acc, ml, bh, sq, skv,
+                                   group, heads_per_row, kv_lens, kv_len, window, causal,
+                                   scale, s, took);
+  if (kv_dtype == REPRO_I8 && k_scale && v_scale)
+    return launch_cluster_d<true>(d, q, k, v, k_scale, v_scale, o, acc, ml, bh, sq, skv,
+                                  group, heads_per_row, kv_lens, kv_len, window, causal,
+                                  scale, s, took);
+  return REPRO_BAD_ARGUMENT;
 }

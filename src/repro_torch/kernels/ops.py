@@ -261,16 +261,30 @@ def attention(
     right-align against it and the kernel visits only the KV tiles in
     each q tile's band.  A ``(B,)`` vector bands every batch row at its
     own length.  ``window``/``window_dyn`` is a causal sliding window
-    (PyTorch runs eagerly, so the two mean the same here).
+    (PyTorch runs eagerly, so the two mean the same here).  int8 K/V
+    (the int8 KV cache) take per-position f32 ``k_scale``/``v_scale`` of
+    shape ``(B, Hkv, Skv, 1)``, dequantized inside the kernel (folded
+    into the scores and probabilities); the cache is never copied to
+    float.
     """
     fault = health.maybe_inject("kernel.attention")
     b, hq, _, _ = q.shape
     hkv = k.shape[1]
     if group is not None and group != hq // hkv:
         raise ValueError(f"group {group} != Hq/Hkv = {hq // hkv}")
-    if k_scale is not None or v_scale is not None or not k.is_floating_point():
-        raise NotImplementedError(
-            "int8 K/V is not ported yet (ROADMAP A6)")
+    if k.dtype == torch.int8:
+        if k_scale is None or v_scale is None:
+            raise ValueError("int8 K/V need per-position k_scale/v_scale")
+        # catch wrong scale layouts (a squeezed (B, H, S) vector, a
+        # per-tensor or per-head scale) before they broadcast silently
+        want_k = tuple(k.shape[:-1]) + (1,)
+        want_v = tuple(v.shape[:-1]) + (1,)
+        if tuple(k_scale.shape) != want_k or tuple(v_scale.shape) != want_v:
+            raise ValueError(
+                f"int8 K/V scales must be per-position with a trailing "
+                f"singleton lane: expected k_scale {want_k} and v_scale "
+                f"{want_v}, got {tuple(k_scale.shape)} and "
+                f"{tuple(v_scale.shape)}")
     if spec is not None:
         if spec.anchor not in (OS, WS):
             raise ValueError(f"attention admits OS/WS anchors, not "
@@ -292,7 +306,8 @@ def attention(
                          f"({b}), got shape {tuple(kv_len.shape)}")
     if backend == "torch":
         out = ref.attention_ref(q, k, v, causal=causal, window=win,
-                                scale=scale, kv_len=kv_len)
+                                scale=scale, kv_len=kv_len, k_scale=k_scale,
+                                v_scale=v_scale)
     else:
         reg = attention_df.FLASH if anchor == "os" \
             else attention_df.KV_STATIONARY
@@ -306,7 +321,7 @@ def attention(
         fn = attention_df.flash_attention if anchor == "os" \
             else attention_df.kv_stationary_attention
         out = fn(q, k, v, causal=causal, window=win, scale=scale,
-                 kv_len=kv_len)
+                 kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)
     return _poison(out, fault)
 
 

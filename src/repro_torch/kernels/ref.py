@@ -85,6 +85,8 @@ def attention_ref(
     window: Optional[int] = None,
     scale: Optional[float] = None,
     kv_len: KvLen = None,         # scalar, or (B,) per-row valid lengths
+    k_scale: Optional[torch.Tensor] = None,   # (B, Hkv, Skv, 1) f32
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """GQA attention oracle with the kernels' mask.
 
@@ -92,7 +94,11 @@ def attention_ref(
     ``Skv``): row i sits at position ``i + kv_len - Sq``.  A key is
     visible when it lies below ``kv_len``, at or before the row
     (``causal``) and within ``window`` positions of it.  Rows that see no
-    key emit 0.
+    key emit 0.  int8 K/V dequantize through their per-position scales,
+    folded as the JAX oracle folds them: ``k_scale`` multiplies the
+    scaled logits, ``v_scale`` the normalized probabilities (equal to
+    scaling the K/V rows, since the scales are per position), so no float
+    copy of the cache is made.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -102,6 +108,8 @@ def attention_ref(
     logits = torch.einsum("bhgqd,bhkd->bhgqk",
                           q.float().reshape(b, hkv, group, sq, d),
                           k.float()) * scale
+    if k_scale is not None:
+        logits = logits * k_scale[..., 0].float()[:, :, None, None, :]
     kv_valid = skv if kv_len is None else kv_len
     kpos = torch.arange(skv, device=dev)
     if torch.is_tensor(kv_valid) and kv_valid.ndim == 1:
@@ -122,6 +130,8 @@ def attention_ref(
     logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)                 # fully-masked rows
+    if v_scale is not None:
+        p = p * v_scale[..., 0].float()[:, :, None, None, :]
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, sq, d).to(q.dtype)
 

@@ -17,6 +17,10 @@ crosses over leaf by leaf (its planes are int32 already), with its
 ``bits``, ``k`` and ``n`` as they are, into the port's
 ``kernels.pack.PackedWeights``.
 
+``cache_from_numpy`` carries a JAX KV cache across the same way (int8
+codes, f32 scales, bf16 K/V by their bits, and ``index``), so the
+port's decode step can run on exactly the JAX package's cache.
+
 ``params_from_checkpoint`` loads the port's parameters from one of its
 own checkpoints (the ``params`` tree of an engine snapshot,
 ``ckpt.checkpoint``), checked against ``cfg`` the same way.  It reads no
@@ -165,6 +169,40 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device=None
                 leaves["codes"], leaves.get("highbits"), leaves["scale"],
                 leaves["outlier_idx"], leaves["outlier_delta"],
                 cfg.packed_weight_bits, d_in, d_out)
+    return out
+
+
+def cache_from_numpy(tree: Dict[str, Any], cfg, device=None
+                     ) -> Dict[str, Any]:
+    """The port's KV cache (``lm.init_cache``'s layout) from a JAX cache
+    of numpy arrays (``jax.tree.map(numpy.asarray, cache)``): ``k``/``v``
+    (L, B, Hkv, S, D) as they are (bf16 by their bits, int8 codes), an
+    int8 cache's ``k_scale``/``v_scale`` (L, B, Hkv, S, 1) f32, and
+    ``index`` as an int (a scalar) or an int32 tensor (one per row).
+    Raises ``ValueError`` on a missing buffer or a shape ``cfg`` does not
+    give."""
+    from repro_torch.models import lm
+
+    dev = device_lib.resolve(device)
+    names = [n for n in lm.KV_KEYS if n in tree]
+    int8 = np.asarray(tree.get("k")).dtype == np.int8
+    want = list(lm.KV_KEYS if int8 else lm.KV_KEYS[:2])
+    if names != want or "index" not in tree:
+        raise ValueError(f"a {'int8' if int8 else 'float'} cache has "
+                         f"index and {want}, got {sorted(tree)}")
+    shape = np.shape(tree["k"])
+    if len(shape) != 5 or shape[0] != cfg.n_layers \
+            or shape[2] != cfg.n_kv_heads or shape[4] != cfg.d_head:
+        raise ValueError(f"cache buffers {shape} do not match {cfg.name}'s "
+                         f"(L, B, Hkv, S, D)")
+    for n in names:
+        sh = shape[:4] + ((1,) if n.endswith("scale") else (shape[4],))
+        if tuple(np.shape(tree[n])) != sh:
+            raise ValueError(f"cache {n}: shape {np.shape(tree[n])} != {sh}")
+    out: Dict[str, Any] = {n: _to_tensor(tree[n], dev) for n in names}
+    index = np.asarray(tree["index"])
+    out["index"] = (int(index) if index.ndim == 0 else
+                    torch.from_numpy(index.astype(np.int32)).to(dev))
     return out
 
 

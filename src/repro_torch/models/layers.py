@@ -117,6 +117,12 @@ def _cache_update(buf: torch.Tensor, val: torch.Tensor, idx: Index) -> None:
         buf[:, :, i:i + s] = val.to(buf.dtype)
 
 
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(batch, head, position) int8 quantization of K/V:
+    int8 codes and (B, H, S, 1) f32 scales."""
+    return quant.symmetric_int8(x, axis=-1)
+
+
 def _finish(p: Params, out: torch.Tensor, fault: Optional[str]):
     if fault == "nan":
         out = out * float("nan")
@@ -130,11 +136,11 @@ def attention_apply(
     cfg,
     positions: Optional[torch.Tensor] = None,
     window: Optional[int] = None,     # static sliding window
-    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    kv_cache: Optional[Tuple[torch.Tensor, ...]] = None,
     cache_index: Optional[Index] = None,
     attend_local: bool = False,
     backend: Optional[str] = None,
-) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, ...]]]:
     """GQA self-attention.  Returns (out, new_kv_cache).
 
     With ``kv_cache`` (each (B, Hkv, S_max, D)) the fresh K/V is written
@@ -144,6 +150,13 @@ def attention_apply(
     is the same math over S positions instead of S_max.  In place is
     safe for a retried step: the write lands beyond the prefix the
     caller has committed, and a retry rewrites the same positions.
+
+    An int8 cache is the 4-tuple ``(k, v, k_scale, v_scale)``, the
+    scales (B, Hkv, S_max, 1) f32: the fresh K/V is quantized per
+    position (``_quantize_kv``) and its codes and scales written in
+    place, and attention runs over the int8 buffers with their scales
+    (dequantized inside the kernel), or with ``attend_local`` over the
+    fresh float K/V, as the JAX package does.
     """
     fault = health.maybe_inject("layers.attention")
     b, s, _ = x.shape
@@ -153,17 +166,27 @@ def attention_apply(
     new_cache = None
     kv_len = None
     k_att, v_att = k, v
+    k_sc = v_sc = None
     if kv_cache is not None:
-        ck, cv = kv_cache
-        _cache_update(ck, k, cache_index)
-        _cache_update(cv, v, cache_index)
-        new_cache = (ck, cv)
+        ck, cv = kv_cache[0], kv_cache[1]
+        if ck.dtype == torch.int8:
+            (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+            new_cache = kv_cache
+            for buf, val in zip(kv_cache, (kq, vq, ks, vs)):
+                _cache_update(buf, val, cache_index)
+        else:
+            _cache_update(ck, k, cache_index)
+            _cache_update(cv, v, cache_index)
+            new_cache = (ck, cv)
         if not attend_local:
             k_att, v_att = ck, cv
+            if ck.dtype == torch.int8:
+                k_sc, v_sc = kv_cache[2], kv_cache[3]
             kv_len = cache_index + s
     out = ops.attention(q, k_att, v_att, causal=True,
                         scale=cfg.d_head ** -0.5, window=window,
-                        kv_len=kv_len, backend=backend or _BACKEND_OVERRIDE)
+                        kv_len=kv_len, k_scale=k_sc, v_scale=v_sc,
+                        backend=backend or _BACKEND_OVERRIDE)
     return _finish(p, out, fault), new_cache
 
 

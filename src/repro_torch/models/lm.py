@@ -7,7 +7,9 @@ keep the JAX package's layout — per-layer leaves stacked on a leading
 ``L`` axis (``models/bridge.py`` moves a JAX tree over unchanged) — and
 a Python loop over layers replaces ``lax.scan``.  Decode runs off the
 paged KV pool (``paged_decode_step``) or off the contiguous slot cache
-(``decode_step``, a scalar or per-row ``index``).  The MoE, SSM, hybrid
+(``decode_step``, a scalar or per-row ``index``); an int8 KV cache
+(``cfg.kv_cache_dtype == "int8"``: int8 codes with per-position f32
+scales) decodes off the slot cache only, as in the JAX package.  The MoE, SSM, hybrid
 and encoder-decoder families are not ported yet (ROADMAP A11, A12,
 A10).
 """
@@ -30,8 +32,6 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: only dense decoders are ported (MoE, SSM and "
             f"encoder-decoder models are queued in ROADMAP.md A10-A12)")
-    if cfg.kv_cache_dtype not in ("auto", None):
-        raise NotImplementedError("int8 KV caches are queued in ROADMAP A6")
     if cfg.attn_window is not None and cfg.full_attn_every:
         raise NotImplementedError(
             "per-layer sliding-window schedules are queued in ROADMAP A12")
@@ -139,16 +139,36 @@ def _mask_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
     return logits
 
 
+# The cache's per-layer buffers, in the order ``attention_apply`` takes
+# them (the scales only in an int8 cache).
+KV_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
                device=None) -> Params:
-    """Contiguous KV buffers ``(L, B, Hkv, max_len, D)`` plus ``index``."""
+    """Contiguous KV buffers ``(L, B, Hkv, max_len, D)`` plus ``index``,
+    of ``dtype`` unless ``cfg.kv_cache_dtype`` names another: an int8
+    cache adds ``k_scale``/``v_scale`` ``(L, B, Hkv, max_len, 1)`` f32,
+    ones until written."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
-    dt = getattr(torch, dtype)
-    return {"index": 0,
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    kv = cfg.kv_cache_dtype
+    dt = getattr(torch, dtype if kv in ("auto", None) else kv)
+    cache = {"index": 0,
+             "k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if dt == torch.int8:
+        for name in KV_KEYS[2:]:
+            cache[name] = torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                                     device=dev)
+    return cache
+
+
+def _layer_cache(cache: Params, i: int) -> Tuple[torch.Tensor, ...]:
+    """Layer ``i``'s views of the cache's buffers: (k, v), or (k, v,
+    k_scale, v_scale) for an int8 cache."""
+    return tuple(cache[name][i] for name in KV_KEYS if name in cache)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg,
@@ -166,7 +186,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg,
         h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         attn_out, _ = layers.attention_apply(
             lp["attn"], h, cfg, positions=positions, window=_window(cfg),
-            kv_cache=(cache["k"][i], cache["v"][i]), cache_index=0,
+            kv_cache=_layer_cache(cache, i), cache_index=0,
             attend_local=True)
         x = _mlp_residual(lp, x + attn_out, cfg)
     cache["index"] = s
@@ -194,7 +214,7 @@ def prefill_chunk(params: Params, cache: Params, tokens: torch.Tensor, cfg,
         h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         attn_out, _ = layers.attention_apply(
             lp["attn"], h, cfg, positions=positions, window=_window(cfg),
-            kv_cache=(cache["k"][i], cache["v"][i]), cache_index=start)
+            kv_cache=_layer_cache(cache, i), cache_index=start)
         x = _mlp_residual(lp, x + attn_out, cfg)
     cache["index"] = start + s
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -227,7 +247,7 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg
         h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         attn_out, _ = layers.attention_apply(
             lp["attn"], h, cfg, positions=positions, window=_window(cfg),
-            kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx)
+            kv_cache=_layer_cache(cache, i), cache_index=idx)
         x = _mlp_residual(lp, x + attn_out, cfg)
     new = dict(cache)
     new["index"] = idx + 1
@@ -236,9 +256,16 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg
     return _mask_vocab(logits, cfg), new
 
 
+def int8_kv(cfg) -> bool:
+    """Does this config keep an int8 KV cache (codes and per-position
+    scales)?"""
+    return cfg.kv_cache_dtype == "int8"
+
+
 def supports_paged_decode(cfg) -> bool:
     """Can ``paged_decode_step`` drive this config's decode?  (The
-    pure-attention decoder with no or a uniform static window.)"""
+    pure-attention decoder with no or a uniform static window, over a
+    float cache: the page pools hold no int8 scales.)"""
     return bool(
         cfg.has_attention
         and not cfg.has_ssm

@@ -16,7 +16,10 @@ the scheduler keeps a contiguous slot cache of ``max_batch`` rows and
 decodes with ``lm.decode_step`` (B2 at Sq = 1 with a per-row
 ``kv_len``); freed rows park at index 0, so the cache is a pure
 function of the live requests, and a page pool (when ``page_size`` is
-set) only mirrors prompts for prefix sharing.
+set) only mirrors prompts for prefix sharing.  An int8 KV cache
+(``kv_cache_dtype="int8"``) always decodes off the slot cache, its
+codes and per-position scales side by side, with no pool at all: the
+pool holds float K/V, so there is no mirror and no prefix reuse.
 
 Memory pressure on the paged path runs a ladder, coarse to fine:
 
@@ -148,7 +151,10 @@ class ContinuousScheduler:
         self.spilled: Dict[int, Tuple[Any, int, List[Tuple]]] = {}
         self._pf: Optional[Tuple] = None       # chunked prefill in flight
         self.paged: Optional[PagedKVCache] = None
-        if self.cc.page_size:
+        # the pool holds float K/V: an int8 cache (codes and per-position
+        # scales) gets none, so no mirror and no prefix reuse, as in the
+        # JAX package
+        if self.cc.page_size and not lm.int8_kv(cfg):
             self.paged = PagedKVCache(
                 cfg, pool_capacity(self.cc, engine.max_len),
                 self.cc.page_size, dtype=cfg.act_dtype,
@@ -482,8 +488,9 @@ class ContinuousScheduler:
         if self.use_paged:
             self.kv_lens[slot] = plen
         else:
-            self.cache["k"][:, slot] = rcache["k"][:, 0]
-            self.cache["v"][:, slot] = rcache["v"][:, 0]
+            for name in lm.KV_KEYS:
+                if name in self.cache:
+                    self.cache[name][:, slot] = rcache[name][:, 0]
             self.cache["index"][slot] = plen
         req.state = self._E.RequestState.DECODING
         self.slots[slot] = req

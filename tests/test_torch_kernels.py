@@ -130,15 +130,15 @@ def test_torch_backend_is_the_plain_twin():
 
 
 def test_unported_dataflows_raise():
-    """What stays unported raises, naming its ROADMAP entry: int8 K/V
-    (A6); int8 GEMM operands run (exact int32 sums, equal to the plain
-    int8 oracles); a block other than the compiled one raises; and an OS
-    spec with a residency is planned as that residency, never silently
-    streamed."""
+    """What the port refuses raises: int8 K/V without their per-position
+    scales (int8 K/V with them run, ROADMAP A6 being ported); int8 GEMM
+    operands run (exact int32 sums, equal to the plain int8 oracles); a
+    block other than the compiled one raises; and an OS spec with a
+    residency is planned as that residency, never silently streamed."""
     q = torch.zeros(1, 2, 4, 32)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="per-position"):
         ops.attention(q, q.to(torch.int8), q.to(torch.int8))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="per-position"):
         ops.attention(q, q.to(torch.int8), q.to(torch.int8), anchor="ws")
     rng = np.random.default_rng(8)
     a8 = torch.from_numpy(rng.integers(-127, 128, (2, 3)).astype(np.int8))

@@ -286,10 +286,10 @@ def test_admission_rejects(params):
 
 
 def _both_engines(tp, jp, prompts, new_tokens, run, engine_kw=None,
-                  **sckw):
+                  cfgkw=None, **sckw):
     """The scenario on the port's engine and on the JAX engine: ``run`` is
-    ``"drain"`` or ``"serve"``; returns (port tokens, JAX tokens, port
-    engine)."""
+    ``"drain"`` or ``"serve"``, ``cfgkw`` replaces config fields in both;
+    returns (port tokens, JAX tokens, port engine)."""
     out = []
     for make, p, cfg, sc_cls, kw in (
             (Engine, tp, CFG, SchedulerConfig,
@@ -297,6 +297,7 @@ def _both_engines(tp, jp, prompts, new_tokens, run, engine_kw=None,
             (JaxEngine, jp, JCFG, JaxSchedulerConfig,
              {k: v.replace("port", "jax") if k == "journal_dir" else v
               for k, v in (engine_kw or {}).items()})):
+        cfg = dataclasses.replace(cfg, **(cfgkw or {}))
         eng = make(cfg, p, max_len=MAX_LEN,
                    scheduler_config=sc_cls(**sckw) if sckw else None, **kw)
         reqs = [eng.submit(q, new_tokens) for q in prompts]
@@ -327,6 +328,9 @@ FORMERLY_UNPORTED = {
     # back once another finishes
     "spill": dict(run="drain", lens=[12, 12, 3], new=8,
                   sckw=dict(max_batch=3, n_pages=6, page_size=8)),
+    # an int8 KV cache: codes and per-position scales, off the slot cache
+    "int8_kv": dict(run="drain", lens=[7, 12, 2], new=4,
+                    cfgkw=dict(kv_cache_dtype="int8")),
 }
 
 
@@ -338,12 +342,15 @@ def test_formerly_unported_paths_serve_like_jax(params, what, tmp_path):
                  if what == "journal" else None)
     got, want, eng = _both_engines(
         tp, jp, _prompts(case["lens"], seed=9), case["new"], case["run"],
-        engine_kw, **case.get("sckw", {}))
+        engine_kw, case.get("cfgkw"), **case.get("sckw", {}))
     assert got == want
     stats = eng.stats()
     assert stats["demotions"] == 0 and stats["failed"] == 0
     if what == "journal":
         assert stats["journal"]["fsyncs"] > 0
+    elif what == "int8_kv":
+        rep = eng.scheduler_report()
+        assert rep["paged_decode"] is False and "pages" not in rep
     elif what in ("pool_full", "spill"):
         assert stats["spills"] + stats["preemptions"] > 0
         assert stats["replay_divergence"] == 0
@@ -351,16 +358,10 @@ def test_formerly_unported_paths_serve_like_jax(params, what, tmp_path):
             assert stats["spills"] > 0 and stats["unspills"] > 0
 
 
-def _int8_kv(tp):
-    Engine(dataclasses.replace(CFG, kv_cache_dtype="int8"), tp,
-           max_len=MAX_LEN, device="cpu")
-
-
 UNPORTED = {
     "restore_devices": (lambda tp: Engine(
         CFG, tp, max_len=MAX_LEN, device="cpu",
         journal_dir="journal").restore(devices=["cpu"]), "A14"),
-    "int8_kv": (_int8_kv, "A6"),
 }
 
 
