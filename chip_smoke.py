@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases card,build,serve_packed --layers 2
     python3 chip_smoke.py --phases card,build,serve_recovery
     python3 chip_smoke.py --phases card,build,kernels,serve_int8kv
+    python3 chip_smoke.py --phases card,build,serve_dense,serve_f32
 
 Phases, each printing JSON lines:
 
@@ -52,7 +53,15 @@ Phases, each printing JSON lines:
    with per-position f32 scales, bf16 queries) at a prefill chunk and at
    slot-cache decode, held against the plain version and timed beside it
    and bf16 B2; B7 over int8 K/V at prefill 512, equal to B2's int8
-   output bit for bit (a gate) and timed.  B9 is held bit for bit at every anchor
+   output bit for bit (a gate) and timed.  Under float32 queries over int8
+   K/V, K1 (B2's f32 kernel) at the chunk and slot-cache decode at full
+   width and at d_head 16/32/64 over every mask of B2's card tests, and
+   K2 (B7's f32 kernel) equal to K1 bit for bit (a gate) at prefill 512
+   and over the same cases; each timed beside its plain version and f32
+   B2/B7 over the float K/V.  At d_head 16, B2 (bf16, f32), B7 (bf16 on
+   its cluster kernel, equal to B2 bit for bit; f32) and B3 (bf16, f32)
+   held against their plain versions and timed at qwen3-1.7b's heads,
+   beside SDPA.  B9 is held bit for bit at every anchor
    and epilogue stage at the served binary-MLP shapes, its basic OS on
    the binary tensor-core tiles (prefill for M > 16, decode for
    M <= 16), each timed at both projections; B8 at int8 bit for
@@ -133,6 +142,22 @@ Phases, each printing JSON lines:
    prompts' counted), the first decode logits within 0.05 (relative to
    the largest) of the bf16 cache's at 2 layers (the full depth's
    reported), and the decode step traced.
+11. ``serve_dense``: the other dense decoders at full width, bf16, random
+   weights from ``--seed``, through ``Engine`` on the paged path with the
+   serve cell's prompts: minicpm-2b at full depth (40 layers), then
+   mistral-nemo-12b, minitron-8b and chameleon-34b at 4 layers each (the
+   cut printed).  Gates per config: B1's tile at the down projection
+   within B1's tolerance; the first decode step's logits finite and at
+   cosine >= 0.999 of the plain path's at 2 layers; every request DONE;
+   no token >= ``vocab_size``; every B1 launch on its tiles; B2 launches
+   = layers x prompts, B3 = layers x decode steps.  Weights' bytes and
+   decode ms/step printed; minicpm-2b's decode step traced.
+12. ``serve_f32``: the five dense smoke configs in float32 (minicpm-2b's at
+   d_head 16), each from the float cache (B2 and B3 f32) and from an int8
+   KV cache (K1: B2's f32 kernel over int8 K/V at every decode step and
+   chunk), whole prompts and with ``prefill_chunk=32``: the first decode
+   logits within B2's f32 tolerance of the plain path, every request
+   DONE, the launch counts exact; differing tokens counted, not gated.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
@@ -140,13 +165,16 @@ its prefill and decode tiles, B2, B3; serve_packed: B6, B1 with its int8
 prefill and decode tiles, B2, B3; serve_recovery: B1 with its bf16
 prefill and decode tiles, B2 (at chunks and slot-cache decode too), B3,
 counted over its in-process ``Engine`` runs; serve_int8kv: B1 with its
-bf16 tiles, B2 and its int8 path; B7's int8 path, on no serving path,
-its launches in the kernels phase; dataflows: B1 and its bf16 tiles, B2,
+bf16 tiles, B2 and its int8 path; serve_dense: B1 with its bf16 tiles,
+B2, B3, over its four configs; serve_f32: B1's f32 walk, B2, K1, B3;
+B7's int8 paths (K2 among them), on no serving path, their launches in
+the kernels phase; dataflows: B1 and its bf16 tiles, B2,
 B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
 B7 (on its cluster kernel);
 quantized: B8 with its int8 and bf16 OS tiles and WS/IS walks, B9 and
-its prefill tile, B1 and its int8 tiles, B6); on serve and serve_packed
-every B1 launch, and on serve_binary every B9 launch, is one of its tiles' (prefill plus decode),
+its prefill tile, B1 and its int8 tiles, B6); on serve, serve_packed,
+serve_int8kv and serve_dense every B1 launch, and on serve_binary every
+B9 launch, is one of its tiles' (prefill plus decode),
 counted from 0 just before the path runs. The
 last lines are the ``{"kernels": [...]}``
 record, the card line, and ``{"ok": true, "device": {...}}``. Any
@@ -168,7 +196,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 ALL_PHASES = ("card", "build", "kernels", "dataflows", "quantized", "serve",
               "serve_binary", "serve_packed", "serve_recovery",
-              "serve_int8kv")
+              "serve_int8kv", "serve_dense", "serve_f32")
 
 
 def emit(obj) -> None:
@@ -234,6 +262,10 @@ def check(name: str, got, want, atol: float, rtol: float, row_rtol: float,
 # the order of the k sums differs (for int8 operands, only the activation:
 # the kernel's silu and PyTorch's may round one ulp apart).
 B1_TOL = dict(atol=1e-3, rtol=1e-3, row_rtol=1e-4)
+# B2 (and B1, B3, B7) on float32: f32 math on both sides, only the order of
+# the sums differs; also the first decode logits of a float32 model on the
+# kernels against its plain path (serve_f32).
+F32_TOL = dict(atol=1e-4, rtol=1e-4, row_rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -505,7 +537,7 @@ def kernel_phase(torch, cfg, timer):
     errs.append(check("flash_attention", got, want, **att_tol,
                       shape="B=4 Sq=3 Skv=64 kv_len=[0,5,40,64] window=24"))
     # float32 instantiation at D=64 (f32 math on both sides)
-    f32_tol = dict(atol=1e-4, rtol=1e-4, row_rtol=1e-4)
+    f32_tol = F32_TOL
     q, kk, vv = (torch.randn(s, generator=gen, device=dev) for s in (
         (2, 4, 40, 64), (2, 2, 40, 64), (2, 2, 40, 64)))
     check("flash_attention", attention_df.flash_attention(
@@ -630,6 +662,12 @@ def kernel_phase(torch, cfg, timer):
         emit(row)
     records.update(kv_stationary_checks(torch, cfg, timer, gen, att_tol,
                                         f32_tol))
+    k1, k2, d16 = f32_int8_and_d16_checks(torch, cfg, timer, att_tol,
+                                          f32_tol)
+    records["flash_attention_f32_i8kv"] = k1
+    records["kv_stationary_f32_i8kv"] = k2
+    for name, rec in d16.items():
+        records[name]["d16"] = rec
     records.update(binary_checks(torch, cfg, timer, gen))
     records.update(conv_checks(torch, timer, gen, b1_tol))
     records.update(int8_packed_checks(torch, cfg, timer, gen, b1_tol))
@@ -975,6 +1013,267 @@ def kv_stationary_checks(torch, cfg, timer, gen, tol, f32_tol):
         equals_flash_bitwise=True, kernels_phase_launches=launched)
     return {"kv_stationary": rec, "kv_stationary_cluster": rec,
             "kv_stationary_cluster_i8kv": rec8}
+
+
+# (causal, window, kv_len) of B2's and B7's card tests
+# (tests/test_torch_int8_kv.py MASKS): kv_len "short" is a scalar below
+# Skv, a list one length per batch row (0 among them).
+ATT_MASKS = ((True, None, None), (True, 24, "short"), (False, None, [0, 40]),
+             (True, 40, [70, 0]), (False, 16, "short"))
+# (Sq, group) of the small cases at each d_head: Skv = Sq + 57, 2 kv heads,
+# 2 batch rows.
+SMALL_ATT = ((1, 1), (17, 2), (200, 4))
+
+
+def _small_att_cases(torch, gen, d, dtype):
+    """Each small case at ``d``: (label, q, k, v, masks), K/V drawn in
+    ``dtype``; masks the ``ATT_MASKS`` as keyword arguments."""
+    dev = "cuda"
+    for sq, group in SMALL_ATT:
+        b, hkv, skv = 2, 2, sq + 57
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in ((b, hkv * group, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d)))
+        masks = []
+        for causal, window, kv_len in ATT_MASKS:
+            lens = ({None: None, "short": skv - 9}[kv_len]
+                    if not isinstance(kv_len, list) else
+                    torch.tensor(kv_len, device=dev, dtype=torch.int32))
+            masks.append(dict(causal=causal, window=window, kv_len=lens))
+        yield f"B={b} Hq={hkv * group} Hkv={hkv} Sq={sq} Skv={skv} D={d}", \
+            q, k, v, masks
+
+
+def f32_int8_and_d16_checks(torch, cfg, timer, tol, f32_tol):
+    """The paths of this slice's kernels, each held against its plain
+    version on the card.  K1, B2's f32 kernel over int8 K/V (float32
+    queries; the int8 codes with per-position f32 scales, counted under
+    ``flash_attention_f32_i8kv``): at qwen3-1.7b's full-width heads at
+    the prefill chunk and slot-cache decode (B2's serving modes, 1 024-key
+    buffer), timed beside its plain version and f32 B2 over the float K/V
+    (no PyTorch call attends over int8 K/V with per-position scales), and
+    at d_head 16/32/64 over the small cases and every mask of B2's card
+    tests.  K2, B7's f32 kernel over int8 K/V (counted under
+    ``kv_stationary_f32_i8kv``): equal to K1 bit for bit (a gate; B7's f32
+    kernel folds B2's f32 tiles with B2's f32 step) at prefill 512 at full
+    width, timed there, and over the small cases.  K3, every attention
+    kernel at d_head 16: B2 (bf16 and f32) and B7 (bf16 on its cluster
+    kernel, equal to B2 bit for bit; f32) over the small cases, B3 (bf16
+    and f32) at the served decode shape, each timed at qwen3-1.7b's
+    heads with d_head 16 beside its plain version and SDPA (none for
+    B3).  Returns the records to merge into the kernels phase's."""
+    import torch.nn.functional as F
+
+    from repro_torch.bench.common import (BF16_FLOPS_PER_S, F32_FLOPS_PER_S,
+                                          bound)
+    from repro_torch.core import quant
+    from repro_torch.kernels import _build, attention_df, ref
+
+    dev, buf = "cuda", 1024
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device=dev).manual_seed(5)
+    no_lib = "no PyTorch call attends over int8 K/V with per-position scales"
+
+    def quantized(k, v):
+        (kq, ks), (vq, vs) = quant.symmetric_int8(k, -1), \
+            quant.symmetric_int8(v, -1)
+        return kq, vq, dict(k_scale=ks, v_scale=vs)
+
+    def counted(key, fn, shape):
+        before = _build.LAUNCHES[key]
+        out = fn()
+        if _build.LAUNCHES[key] != before + 1:
+            raise AssertionError(f"{shape}: not one launch under {key}")
+        return out
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # K1 in B2's two serving modes at full width.
+    k1 = {}
+    for mode, sq, lens in (("chunk", 128, [512]),
+                           ("slot_decode", 1, [17, 64, 200, 511])):
+        b = len(lens)
+        q, kk, vv = randn(b, hq, sq, dh), randn(b, hkv, buf, dh), \
+            randn(b, hkv, buf, dh)
+        kv = (lens[0] if b == 1
+              else torch.tensor(lens, device=dev, dtype=torch.int32))
+        kq, vq, sc = quantized(kk, vv)
+        shape = (f"{mode} B={b} Sq={sq} kv_len={lens} buffer={buf} Hq={hq} "
+                 f"Hkv={hkv} D={dh} float32 q, int8 K/V + f32 scales")
+        got = counted("flash_attention_f32_i8kv", lambda: attention_df.
+                      flash_attention(q, kq, vq, kv_len=kv, **sc), shape)
+        err = check("flash_attention_f32_i8kv", got, ref.attention_ref(
+            q, kq, vq, kv_len=kv, **sc), shape=shape, **f32_tol)
+        pairs = sum(sq * n - sq * (sq - 1) // 2 for n in lens)
+        bnd = bound(2 * sum(lens) * hkv * (dh + 4) + 2 * b * hq * sq * dh * 4,
+                    4.0 * dh * pairs * hq, F32_FLOPS_PER_S)
+        k1[mode] = dict(
+            shape=shape, max_abs_err=err,
+            ms=timer.ms(lambda: attention_df.flash_attention(
+                q, kq, vq, kv_len=kv, **sc)),
+            plain_ms=timer.ms(lambda: ref.attention_ref(q, kq, vq, kv_len=kv,
+                                                        **sc)),
+            library_ms=None, library_call=None, library_why=no_lib,
+            f32_ms=timer.ms(lambda: attention_df.flash_attention(
+                q, kk, vv, kv_len=kv)),
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=f32_tol)
+        emit({"kernel_timing_detail": "flash_attention_f32_i8kv",
+              **k1[mode]})
+
+    # K1 and K2 over the small cases at d_head 16, 32 and 64 (and 128 for
+    # K2), every mask: K1 against its plain version, K2 against K1.
+    k1_errs, k2_launched = [], 0
+    for d in (16, 32, 64, 128):
+        for label, q, kk, vv, masks in _small_att_cases(torch, gen, d,
+                                                        torch.float32):
+            kq, vq, sc = quantized(kk, vv)
+            shape = f"{label} float32 q, int8 K/V, {len(masks)} masks"
+            got = torch.stack([counted(
+                "flash_attention_f32_i8kv", lambda: attention_df.
+                flash_attention(q, kq, vq, **m, **sc), shape)
+                for m in masks])
+            if d != 128:
+                k1_errs.append(check(
+                    "flash_attention_f32_i8kv", got, torch.stack([
+                        ref.attention_ref(q, kq, vq, **m, **sc)
+                        for m in masks]), shape=shape, **f32_tol))
+            b7 = torch.stack([counted(
+                "kv_stationary_f32_i8kv", lambda: attention_df.
+                kv_stationary_attention(q, kq, vq, **m, **sc), shape)
+                for m in masks])
+            k2_launched += len(masks)
+            _bitwise("kv_stationary_f32_i8kv_equals_flash_f32_i8kv_bitwise",
+                     b7, got, shape)
+    k1["slot_decode"]["small_d_heads"] = dict(
+        d_heads=[16, 32, 64], cases=[list(c) for c in SMALL_ATT],
+        masks=len(ATT_MASKS), max_abs_err=max(k1_errs))
+
+    # K2 at prefill 512, full width.
+    sq = 512
+    q, kk, vv = randn(1, hq, sq, dh), randn(1, hkv, sq, dh), \
+        randn(1, hkv, sq, dh)
+    kq, vq, sc = quantized(kk, vv)
+    shape = (f"prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} D={dh} causal, float32 "
+             f"q, int8 K/V + f32 scales")
+    got = counted("kv_stationary_f32_i8kv", lambda: attention_df.
+                  kv_stationary_attention(q, kq, vq, **sc), shape)
+    k2_launched += 1
+    err = check("kv_stationary_f32_i8kv", got,
+                ref.attention_ref(q, kq, vq, **sc), shape=shape, **f32_tol)
+    _bitwise("kv_stationary_f32_i8kv_equals_flash_f32_i8kv_bitwise", got,
+             attention_df.flash_attention(q, kq, vq, **sc), shape)
+    pairs = sq * (sq + 1) // 2
+    bnd = bound(2 * sq * hkv * (dh + 4) + 2 * hq * sq * dh * 4,
+                4.0 * dh * pairs * hq, F32_FLOPS_PER_S)
+    k2 = dict(
+        shape=shape, max_abs_err=err,
+        ms=timer.ms(lambda: attention_df.kv_stationary_attention(
+            q, kq, vq, **sc)),
+        plain_ms=timer.ms(lambda: ref.attention_ref(q, kq, vq, **sc)),
+        library_ms=None, library_call=None, library_why=no_lib,
+        flash_ms=timer.ms(lambda: attention_df.flash_attention(q, kq, vq,
+                                                               **sc)),
+        f32_ms=timer.ms(lambda: attention_df.kv_stationary_attention(
+            q, kk, vv)),
+        bound_ms=bnd[0], bound_by=bnd[1], tolerance=f32_tol,
+        equals_flash_bitwise=True)
+
+    # K3: d_head 16.  B2 (bf16, f32) and B7 (bf16 == B2; f32) over the
+    # small cases, every mask.
+    d16 = {"flash_attention": {}, "kv_stationary": {}, "paged_attention": {}}
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        t = tol if dt == torch.bfloat16 else f32_tol
+        name = str(dt).replace("torch.", "")
+        for label, q, kk, vv, masks in _small_att_cases(torch, gen, 16, dt):
+            shape = f"{label} {name}, {len(masks)} masks"
+            got = torch.stack([attention_df.flash_attention(q, kk, vv, **m)
+                               for m in masks])
+            want = torch.stack([ref.attention_ref(q, kk, vv, **m)
+                                for m in masks])
+            errs.setdefault(("flash_attention", name), []).append(
+                check("flash_attention", got, want, shape=shape, **t))
+            b7 = torch.stack([attention_df.kv_stationary_attention(
+                q, kk, vv, **m) for m in masks])
+            errs.setdefault(("kv_stationary", name), []).append(
+                check("kv_stationary", b7, want, shape=shape, **t))
+            if dt == torch.bfloat16:
+                _bitwise("kv_stationary_equals_flash_bitwise", b7, got,
+                         shape)
+
+    # ... each timed at prefill 512 with qwen3-1.7b's heads at d_head 16.
+    sq, d = 512, 16
+    pairs = sq * (sq + 1) // 2
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).replace("torch.", "")
+        elt, rate = (2, BF16_FLOPS_PER_S) if dt == torch.bfloat16 else \
+            (4, F32_FLOPS_PER_S)
+        q, kk, vv = randn(1, hq, sq, d, dtype=dt), \
+            randn(1, hkv, sq, d, dtype=dt), randn(1, hkv, sq, d, dtype=dt)
+        bnd = bound((hq + 2 * hkv) * sq * d * elt + hq * sq * d * elt,
+                    4.0 * d * pairs * hq, rate)
+        sdpa = timer.ms(lambda: F.scaled_dot_product_attention(
+            q, kk, vv, is_causal=True, enable_gqa=True))
+        for kernel, fn in (("flash_attention", attention_df.flash_attention),
+                           ("kv_stationary",
+                            attention_df.kv_stationary_attention)):
+            d16[kernel][name] = dict(
+                shape=f"prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} D={d} causal "
+                      f"{name}",
+                max_abs_err=max(errs[(kernel, name)]),
+                ms=timer.ms(lambda: fn(q, kk, vv)),
+                plain_ms=timer.ms(lambda: ref.attention_ref(q, kk, vv)),
+                library_ms=sdpa,
+                library_call="F.scaled_dot_product_attention(is_causal, "
+                             "enable_gqa)",
+                bound_ms=bnd[0], bound_by=bnd[1],
+                small_cases=[list(c) for c in SMALL_ATT],
+                tolerance=tol if dt == torch.bfloat16 else f32_tol)
+            emit({"kernel_timing_detail": f"{kernel} d16",
+                  **d16[kernel][name]})
+
+    # B3 at d_head 16: the served decode shape (4 rows, kv_lens
+    # 0/17/200/527, page 16, shuffled page ids), with and without a window.
+    page, max_pages, rows = 16, 64, 4
+    n_pages = rows * max_pages
+    lens = torch.tensor([0, 17, 200, 527], device=dev, dtype=torch.int32)
+    tables = torch.randperm(n_pages, generator=gen, device=dev).reshape(
+        rows, max_pages).to(torch.int32).contiguous()
+    keys = int(lens.sum())
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).replace("torch.", "")
+        t = tol if dt == torch.bfloat16 else f32_tol
+        elt, rate = (2, BF16_FLOPS_PER_S) if dt == torch.bfloat16 else \
+            (4, F32_FLOPS_PER_S)
+        kp, vp = randn(hkv, n_pages + 1, page, d, dtype=dt), \
+            randn(hkv, n_pages + 1, page, d, dtype=dt)
+        q = randn(rows, hq, 1, d, dtype=dt)
+        errs_b3 = [check(
+            "paged_attention",
+            attention_df.paged_flash_attention(q, kp, vp, tables, lens,
+                                               window=window),
+            ref.paged_attention_ref(q, kp, vp, tables, lens, window=window),
+            shape=f"R={rows} page={page} D={d} kv_lens=[0,17,200,527] "
+                  f"{name} window={window}", **t)
+            for window in (None, 100)]
+        bnd = bound(2 * keys * hkv * d * elt + 2 * rows * hq * d * elt
+                    + tables.numel() * 4, 4.0 * d * keys * hq, rate)
+        d16["paged_attention"][name] = dict(
+            shape=f"decode R={rows} Hq={hq} Hkv={hkv} D={d} page={page} "
+                  f"kv_lens=[0,17,200,527] {name}",
+            max_abs_err=max(errs_b3),
+            ms=timer.ms(lambda: attention_df.paged_flash_attention(
+                q, kp, vp, tables, lens)),
+            plain_ms=timer.ms(lambda: ref.paged_attention_ref(
+                q, kp, vp, tables, lens)),
+            library_ms=None, library_call=None,
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=t)
+        emit({"kernel_timing_detail": "paged_attention d16",
+              **d16["paged_attention"][name]})
+    k1rec = dict(k1["slot_decode"], chunk=k1["chunk"])
+    k2["kernels_phase_launches"] = k2_launched
+    return k1rec, k2, d16
 
 
 def _bitwise(name: str, got, want, shape: str) -> float:
@@ -1705,7 +2004,11 @@ SERVE_TILES = {"serve": ("b1_tiles", "matmul_os", "matmul_os_prefill",
                                 "binary_mm_decode"),
                "serve_packed": ("b1_tiles", "matmul_os",
                                 "matmul_os_i8_prefill",
-                                "matmul_os_i8_decode")}
+                                "matmul_os_i8_decode"),
+               "serve_int8kv": ("b1_tiles", "matmul_os", "matmul_os_prefill",
+                                "matmul_os_decode"),
+               "serve_dense": ("b1_tiles", "matmul_os", "matmul_os_prefill",
+                               "matmul_os_decode")}
 
 
 def _mlp_inputs(cfg, params, toks, max_len):
@@ -1862,13 +2165,7 @@ def serve_path(torch, cfg, args, phase, path):
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     if phase in SERVE_TILES:
-        event, lib, prefill, decode = SERVE_TILES[phase]
-        split = {lib: launches[lib], "prefill_tile": launches[prefill],
-                 "decode_tile": launches[decode]}
-        emit({"phase": phase, "event": event, **split,
-              "tiles": [prefill, decode]})
-        if split["prefill_tile"] + split["decode_tile"] != split[lib]:
-            raise AssertionError(f"{lib} launches off its tiles: {split}")
+        _tiles_gate(phase, launches)
 
     # Mixed-length batch == each request served alone.  The packed MLP
     # quantizes its activations per tensor over the whole decode batch
@@ -2326,6 +2623,7 @@ def serve_int8kv_phase(torch, cfg, args):
             f"B2's int8 launches {launches['flash_attention_i8kv']} (want "
             f"{want_i8}: {steps} decode steps x {cfg.n_layers} layers), all "
             f"{launches['flash_attention']} (want {want_i8 + want_float})")
+    _tiles_gate(phase, launches)
     if cache["k"].dtype != torch.int8 or bytes8 >= 0.6 * bytes16:
         raise AssertionError(f"int8 cache {cache['k'].dtype}, {bytes8} "
                              f"bytes against bf16's {bytes16}")
@@ -2394,6 +2692,303 @@ def serve_int8kv_phase(torch, cfg, args):
           "seconds": time.monotonic() - t_phase,
           "launches_by_path": {k: launches[k] for k in SERVE_INT8KV_PATH}})
     return {k: launches[k] for k in SERVE_INT8KV_PATH}
+
+
+# ---------------------------------------------------------------------------
+# Phases 11 and 12: the other dense decoders, at full width and at their
+# float32 smoke sizes.
+# ---------------------------------------------------------------------------
+# (config, layers served): minicpm-2b whole; the others cut to 4 layers for
+# the script's time (their weights at full depth would fit the card).
+SERVE_DENSE = (("minicpm-2b", None), ("mistral-nemo-12b", 4),
+               ("minitron-8b", 4), ("chameleon-34b", 4))
+# The five dense smoke configs served in float32 (as the serve examples
+# serve them), each from the float cache and from an int8 KV cache.
+SERVE_F32 = ("qwen3-1.7b", "minicpm-2b", "mistral-nemo-12b", "minitron-8b",
+             "chameleon-34b")
+# B1's f32 walk, B2 (f32 over float K/V at whole prompts; K1 over the int8
+# cache at every decode step and chunk), B3 (f32, the float cache).
+SERVE_F32_PATH = ("matmul_os", "flash_attention", "flash_attention_f32_i8kv",
+                  "paged_attention")
+
+
+def _tiles_gate(phase: str, launches) -> None:
+    """Every launch of the phase's MLP GEMM library is one of its tiles'
+    (``SERVE_TILES``), or raise."""
+    event, lib, prefill, decode = SERVE_TILES[phase]
+    split = {lib: launches[lib], "prefill_tile": launches[prefill],
+             "decode_tile": launches[decode]}
+    emit({"phase": phase, "event": event, **split,
+          "tiles": [prefill, decode]})
+    if split["prefill_tile"] + split["decode_tile"] != split[lib]:
+        raise AssertionError(f"{phase}: {lib} launches off its tiles: "
+                             f"{split}")
+
+
+def _first_decode(torch, cfg, params, prompt, max_len, nxt=None):
+    """The first decode step's logits after ``lm.prefill`` of ``prompt``:
+    off a page pool filled from the prefill's cache (page 16, B3) for a
+    float cache, off the slot cache (B2; K1 under float32 queries) for an
+    int8 one; ``nxt`` (the token fed, default the prefill's greedy one
+    over the first ``vocab_size`` logits).  Returns (logits, nxt)."""
+    from repro_torch.models import lm
+
+    toks = torch.as_tensor(prompt[None], device="cuda")
+    first, cache = lm.prefill(params, toks, cfg, max_len=max_len)
+    if nxt is None:
+        nxt = first[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    if lm.int8_kv(cfg):
+        logits, _ = lm.decode_step(params, cache, nxt, cfg)
+        return logits, nxt
+    page, n = 16, len(prompt)
+    n_layers, _, hkv, _, dh = cache["k"].shape
+
+    def pool(buf):
+        p = buf[:, 0].reshape(n_layers, hkv, max_len // page, page, dh)
+        return torch.cat([p, torch.zeros_like(p[:, :, :1])], 2).contiguous()
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+    logits, _ = lm.paged_decode_step(
+        params, pool(cache["k"]), pool(cache["v"]), nxt,
+        torch.arange(max_len // page, **i32)[None],
+        torch.tensor([n], **i32), torch.tensor([n // page], **i32),
+        torch.tensor([n % page], **i32), cfg)
+    return logits, nxt
+
+
+def serve_dense_phase(torch, args):
+    """minicpm-2b at full width and full depth (40 layers), then
+    mistral-nemo-12b, minitron-8b and chameleon-34b at full width with 4
+    layers each (the cut printed), bf16, random weights from ``--seed``,
+    served through ``Engine`` on the paged path with the serve cell's
+    prompts (17/64/200/511 tokens, 16 new each).  Gates per config: B1's
+    tile at the down projection (K = d_ff; minicpm's 5 760 is no multiple
+    of the decode tile's 256-deep step) within B1's tolerance; the first
+    decode step's logits over the first ``vocab_size`` columns finite, at
+    cosine >= 0.999 of the plain path's on the card at 2 layers (the
+    served depth's reported); every request DONE, 0 demotions; no token
+    >= ``vocab_size``; every B1 launch on its tiles; B2 launches = layers
+    x prompts, B3 = layers x decode steps.  minicpm-2b's decode step is
+    traced.  Returns the path's launches, summed over the four drains
+    (counts set to 0 at the phase's start, each drain's read just
+    before and after it)."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build, matmul_df, ref
+    from repro_torch.models import layers, lm
+    from repro_torch.serve.engine import Engine
+
+    phase, max_len, new_tokens = "serve_dense", 1024, 16
+    lens = (17, 64, 200, 511)
+    t_phase = time.monotonic()
+    _build.reset_launches()
+    total = {k: 0 for k in SERVE_PATH}
+    per_config = {}
+    for name, depth in SERVE_DENSE:
+        t0 = time.monotonic()
+        full = configs.get(name)
+        cfg = full if depth is None else dataclasses.replace(full,
+                                                             n_layers=depth)
+        params = lm.init_model(cfg, seed=args.seed, device="cuda")
+        torch.cuda.synchronize()
+        weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+        emit({"phase": phase, "config": name, "event": "init_model",
+              "layers": cfg.n_layers, "published_layers": full.n_layers,
+              "depth_cut": None if depth is None else
+              f"{full.n_layers} -> {depth} layers (the script's time)",
+              "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+              "d_head": cfg.d_head, "q_dim": cfg.q_dim, "d_ff": cfg.d_ff,
+              "vocab": [cfg.vocab_size, cfg.padded_vocab],
+              "tied": cfg.tie_embeddings, "qk_norm": cfg.qk_norm,
+              "weights_bytes": weights, "weights_gb": weights / 1e9,
+              "seconds": time.monotonic() - t0})
+        prompts = _prompts(cfg, args.seed, lens)
+
+        # B1 at the down projection (K = d_ff), decode and prefill tiles.
+        w2 = params["layers"]["mlp"]["w2"][0]
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        for m in (4, 511):
+            a = torch.randn((m, cfg.d_ff), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            tile = ("matmul_os_decode" if m <= matmul_df.DECODE_M
+                    else "matmul_os_prefill")
+            check(tile, matmul_df.matmul_os(a, w2), ref.matmul_fused_ref(
+                a, w2), shape=f"{name} down M={m} K={cfg.d_ff} N={cfg.d_model}",
+                **B1_TOL)
+
+        # The first decode step on the kernels against the plain path, the
+        # same token fed to both.
+        for sub_depth in sorted({2, cfg.n_layers}):
+            sub = dataclasses.replace(cfg, n_layers=sub_depth)
+            sub_params = dict(params, layers=_map(lambda t: t[:sub_depth],
+                                                  params["layers"]))
+            got, nxt = _first_decode(torch, sub, sub_params, prompts[0],
+                                     max_len)
+            with layers.forced_backend("torch"):
+                want, _ = _first_decode(torch, sub, sub_params, prompts[0],
+                                        max_len, nxt)
+            got, want = (x[..., :cfg.vocab_size] for x in (got, want))
+            cos = _cosine(got, want)
+            finite = bool(torch.isfinite(got).all())
+            emit({"phase": phase, "config": name,
+                  "event": "first_decode_vs_plain", "layers": sub_depth,
+                  "finite": finite, "cosine": cos,
+                  "max_abs_err": max_err(got, want), "gated": sub_depth == 2,
+                  "argmax_equal": int(got.argmax()) == int(want.argmax())})
+            if not finite or (sub_depth == 2 and cos < 0.999):
+                raise AssertionError(f"{name}: {sub_depth}-layer first decode "
+                                     f"logits off the plain path (cosine "
+                                     f"{cos}, finite {finite})")
+
+        # The main path.
+        eng = Engine(cfg, params, max_len=max_len, device="cuda")
+        reqs = [eng.submit(p, new_tokens) for p in prompts]
+        since = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t_drain = time.monotonic()
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t_drain
+        launches = {k: _build.LAUNCHES[k] - since[k] for k in _build.LAUNCHES}
+        _healthy(phase, name, reqs, eng)
+        steps = len(eng.monitor.records)
+        tokens = [r.out_tokens for r in reqs]
+        emit({"phase": phase, "config": name, "event": "drain",
+              "layers": cfg.n_layers, "prompt_lens": list(lens),
+              "new_tokens": new_tokens, "wall_s": wall,
+              "decode_steps": steps,
+              "decode_ms_per_step_median": _step_ms(eng),
+              "launches": {k: launches[k] for k in
+                           (*SERVE_PATH, "flash_attention_i8kv")},
+              "tokens": tokens})
+        over = [t for ts in tokens for t in ts if t >= cfg.vocab_size]
+        if over:
+            raise AssertionError(f"{name}: tokens past vocab_size {over}")
+        _tiles_gate(phase, launches)
+        want_b2, want_b3 = cfg.n_layers * len(lens), cfg.n_layers * steps
+        if launches["flash_attention"] != want_b2 or \
+                launches["paged_attention"] != want_b3:
+            raise AssertionError(
+                f"{name}: B2 launches {launches['flash_attention']} (want "
+                f"{want_b2}), B3 {launches['paged_attention']} (want "
+                f"{want_b3})")
+        for k in SERVE_PATH:
+            total[k] += launches[k]
+        if depth is None:
+            trace_decode(torch, cfg, params, prompts, max_len,
+                         f"{phase} {name}")
+        per_config[name] = dict(layers=cfg.n_layers, weights_bytes=weights,
+                                decode_steps=steps,
+                                decode_ms_per_step=_step_ms(eng),
+                                seconds=time.monotonic() - t0)
+        del params, eng
+        torch.cuda.empty_cache()
+    missing = [k for k in SERVE_PATH if total[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on {phase}: {missing}")
+    emit({"phase": phase, "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t_phase, "configs": per_config,
+          "launches_by_path": total})
+    return total
+
+
+def serve_f32_phase(torch, args):
+    """The five dense smoke configs (qwen3-1.7b's, minicpm-2b's at d_head
+    16, mistral-nemo-12b's, minitron-8b's, chameleon-34b's), float32, on
+    the card through ``Engine``, as the serve examples serve them: from the
+    float cache (the paged path: B1's f32 walk, B2 f32, B3 f32) and from an
+    int8 KV cache (``kv_cache_dtype="int8"``: the slot cache, K1 at every
+    decode step and chunk), whole prompts and with ``prefill_chunk=32``.
+    Gates per config and cache: the first decode logits within B2's f32
+    tolerance of the plain path on the card; every request DONE, 0
+    demotions; B2 launches = layers x whole prompts, B3 = layers x decode
+    steps (float cache), K1 = layers x (decode steps + chunks) and none of
+    B3 (int8 cache).  The int8 runs' tokens that differ from the float
+    cache's and the chunked run's that differ from the whole prompts' are
+    counted, not gated (greedy ties at random weights).  Returns the
+    path's launches over the drains."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers, lm
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    phase, max_len, new_tokens, chunk = "serve_f32", 256, 8, 32
+    lens = (5, 17, 40, 100)
+    t_phase = time.monotonic()
+    _build.reset_launches()
+    total = {k: 0 for k in SERVE_F32_PATH}
+
+    def drain(cfg, params, prompts, event, **sc):
+        eng = Engine(cfg, params, max_len=max_len, device="cuda",
+                     scheduler_config=SchedulerConfig(**sc) if sc else None)
+        reqs = [eng.submit(p, new_tokens) for p in prompts]
+        since = dict(_build.LAUNCHES)
+        eng.drain()
+        torch.cuda.synchronize()
+        launches = {k: _build.LAUNCHES[k] - since[k] for k in _build.LAUNCHES}
+        _healthy(phase, event, reqs, eng)
+        for k in SERVE_F32_PATH:
+            total[k] += launches[k]
+        return [r.out_tokens for r in reqs], len(eng.monitor.records), \
+            launches
+
+    for name in SERVE_F32:
+        t0 = time.monotonic()
+        cfg = configs.get_smoke(name)
+        cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        params = lm.init_model(cfg, seed=args.seed, device="cuda")
+        prompts = _prompts(cfg, args.seed, lens)
+        for c in (cfg, cfg8):
+            got, nxt = _first_decode(torch, c, params, prompts[2], max_len)
+            with layers.forced_backend("torch"):
+                want, _ = _first_decode(torch, c, params, prompts[2],
+                                        max_len, nxt)
+            check(f"{phase} {name} first decode logits", got[
+                ..., :cfg.vocab_size], want[..., :cfg.vocab_size],
+                shape=f"{cfg.name} {c.kv_cache_dtype} cache d_head "
+                      f"{cfg.d_head}", **F32_TOL)
+        L = cfg.n_layers
+        tokens, steps, la = drain(cfg, params, prompts, f"{name} float")
+        if la["flash_attention"] != L * len(lens) or \
+                la["paged_attention"] != L * steps or \
+                la["flash_attention_f32_i8kv"]:
+            raise AssertionError(f"{name} float cache launches {la}")
+        tokens8, steps8, l8 = drain(cfg8, params, prompts, f"{name} int8")
+        if l8["flash_attention_f32_i8kv"] != L * steps8 or \
+                l8["flash_attention"] != L * (steps8 + len(lens)) or \
+                l8["paged_attention"]:
+            raise AssertionError(f"{name} int8 cache launches {l8}: K1 "
+                                 f"want {L * steps8}")
+        chunked, csteps, lc = drain(cfg8, params, prompts, f"{name} chunked",
+                                    prefill_chunk=chunk)
+        chunks = sum(-(-n // chunk) for n in lens if n > chunk)
+        whole = sum(n <= chunk for n in lens)
+        if lc["flash_attention_f32_i8kv"] != L * (csteps + chunks) or \
+                lc["flash_attention"] != L * (csteps + chunks + whole):
+            raise AssertionError(f"{name} chunked int8 launches {lc}: K1 "
+                                 f"want {L * (csteps + chunks)}")
+        emit({"phase": phase, "config": cfg.name, "d_head": cfg.d_head,
+              "heads": [cfg.n_heads, cfg.n_kv_heads], "layers": L,
+              "decode_steps": {"float": steps, "int8": steps8,
+                               "int8_chunked": csteps},
+              "chunks": chunks,
+              "launches": {"float": {k: la[k] for k in SERVE_F32_PATH},
+                           "int8": {k: l8[k] for k in SERVE_F32_PATH},
+                           "int8_chunked": {k: lc[k] for k in
+                                            SERVE_F32_PATH}},
+              "int8_tokens_differing_from_float": sum(
+                  a != b for x, y in zip(tokens, tokens8)
+                  for a, b in zip(x, y)),
+              "chunked_tokens_differing_from_whole": sum(
+                  a != b for x, y in zip(tokens8, chunked)
+                  for a, b in zip(x, y)),
+              "seconds": time.monotonic() - t0})
+    missing = [k for k in SERVE_F32_PATH if total[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on {phase}: {missing}")
+    emit({"phase": phase, "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t_phase, "launches_by_path": total})
+    return total
 
 
 # Device kernels of the serving paths, by the name of their __global__
@@ -2598,6 +3193,10 @@ def main(argv=None) -> int:
     if "serve_int8kv" in phases:
         paths["serve_int8kv"] = serve_int8kv_phase(
             torch, dataclasses.replace(cfg, n_layers=args.layers), args)
+    if "serve_dense" in phases:
+        paths["serve_dense"] = serve_dense_phase(torch, args)
+    if "serve_f32" in phases:
+        paths["serve_f32"] = serve_f32_phase(torch, args)
 
     kernels = []
     for name, reg in registered_kernels().items():
@@ -2605,10 +3204,11 @@ def main(argv=None) -> int:
         # A kernel's own path: the first of these that runs it.
         own = next((p for p in ("serve", "serve_binary", "serve_packed",
                                 "serve_recovery", "serve_int8kv",
+                                "serve_dense", "serve_f32",
                                 "dataflows", "quantized")
                     if name in paths.get(p, {})), None)
         if own is None and "kernels_phase_launches" in rec:
-            # on no serving path (B7's int8 path, as in the reference):
+            # on no serving path (B7's int8 paths, as in the reference):
             # its launches in the kernels phase's checks
             own, paths.setdefault("kernels", {})[name] = \
                 "kernels", rec["kernels_phase_launches"]
@@ -2626,7 +3226,7 @@ def main(argv=None) -> int:
                                    "cluster", "ctas", "is_walk", "sq2048",
                                    "split", "packed4", "chunk",
                                    "slot_decode", "bf16_ms", "flash_ms",
-                                   "library_why")
+                                   "f32_ms", "library_why", "d16")
                if k in rec},
         })
     emit({"kernels": kernels})

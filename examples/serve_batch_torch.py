@@ -4,8 +4,10 @@ batched requests.
     PYTHONPATH=src python examples/serve_batch_torch.py [--device cpu]
 
 The twin of ``examples/serve_batch.py`` on ``repro_torch`` (no JAX): the
-smoke config of ``--arch`` with random weights, on the card unless
-``--device cpu``.  ``submit`` returns a ``RequestHandle``; the first
+smoke config of ``--arch`` (any of ``repro_torch.configs.ARCH_NAMES``:
+qwen3-1.7b, minicpm-2b, mistral-nemo-12b, minitron-8b, chameleon-34b)
+with random weights, on the card unless ``--device cpu``;
+``--kv-cache-dtype int8`` serves it from an int8 KV cache.  ``submit`` returns a ``RequestHandle``; the first
 request's tokens are streamed (each ``next()`` steps the continuous
 scheduler) and ``drain`` finishes the rest — mixed prompt lengths
 welcome (``--ragged``).  ``--batch-loop`` serves the batch through
@@ -26,6 +28,7 @@ the uninterrupted run would have produced:
         --journal-dir /tmp/serve-crash --resume
 """
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -37,7 +40,11 @@ from repro_torch.serve.engine import Engine
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="qwen3-1.7b",
+                    choices=configs.ARCH_NAMES)
+    ap.add_argument("--kv-cache-dtype", default=None,
+                    choices=("auto", "int8"),
+                    help="the KV cache's type (default: the config's)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu for the plain PyTorch path")
     ap.add_argument("--batch", type=int, default=4)
@@ -57,6 +64,8 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = configs.get_smoke(args.arch)
+    if args.kv_cache_dtype is not None:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_cache_dtype)
     params = lm.init_model(cfg, seed=0, device=args.device)
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"serving {cfg.name} ({n_params / 1e6:.1f}M params, reduced "

@@ -1,5 +1,6 @@
-"""B2 and B7 at the serving shapes, for one checkout's kernels: bf16 K/V
-and, where the checkout has it, the int8 KV cache's int8 K/V.
+"""B2 and B7 at the serving shapes, for one checkout's kernels: bf16 and
+float32 K/V and, where the checkout has them, the int8 KV cache's int8
+K/V under bf16 and under float32 queries.
 
 ``chip_smoke.py`` times these shapes for the tree it runs from; this
 module also runs against another checkout's ``src`` (a parent commit's
@@ -12,7 +13,8 @@ causal; a prefill chunk (Sq 128 at offset 384, kv_len 512 of a 1 024-key
 buffer); slot-cache decode (4 rows of Sq 1, kv_len 17/64/200/511 of a
 1 024-key buffer).  Each row: B2's CUDA-event median and a sha256 of its
 output bytes on seeded inputs, so two checkouts' bits can be compared;
-the int8 rows add B7's median and digest at prefill.  Needs a card.
+the float32 and int8 rows add B7's median and digest at prefill (float32:
+the same inputs in float32).  Needs a card.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ def rows(timer, dev: str = "cuda"):
     from repro_torch.kernels import attention_df
 
     int8 = hasattr(attention_df, "FLASH_I8KV")
+    f32_int8 = hasattr(attention_df, "FLASH_F32_I8KV")
     out = []
     for name, (b, sq, lens, skv) in SHAPES.items():
         gen = torch.Generator(device=dev).manual_seed(sq + skv)
@@ -69,6 +72,26 @@ def rows(timer, dev: str = "cuda"):
                     q, kq, vq, **i8)
                 row["int8_kv_stationary_ms"] = timer.ms(kv8)
                 row["int8_kv_stationary_sha256"] = _digest(kv8())
+        qf, kf, vf = q.float(), k.float(), v.float()
+        flash32 = lambda: attention_df.flash_attention(qf, kf, vf, kv_len=kv)
+        row["f32_flash_ms"] = timer.ms(flash32)
+        row["f32_flash_sha256"] = _digest(flash32())
+        if name == "prefill":
+            kv32 = lambda: attention_df.kv_stationary_attention(qf, kf, vf)
+            row["f32_kv_stationary_ms"] = timer.ms(kv32)
+            row["f32_kv_stationary_sha256"] = _digest(kv32())
+        if f32_int8:
+            (kq, ks), (vq, vs) = (quant.symmetric_int8(kf, -1),
+                                  quant.symmetric_int8(vf, -1))
+            i8 = dict(kv_len=kv, k_scale=ks, v_scale=vs)
+            k1 = lambda: attention_df.flash_attention(qf, kq, vq, **i8)
+            row["f32_int8_flash_ms"] = timer.ms(k1)
+            row["f32_int8_flash_sha256"] = _digest(k1())
+            if name == "prefill":
+                k2 = lambda: attention_df.kv_stationary_attention(
+                    qf, kq, vq, **i8)
+                row["f32_int8_kv_stationary_ms"] = timer.ms(k2)
+                row["f32_int8_kv_stationary_sha256"] = _digest(k2())
         out.append(row)
     return out
 

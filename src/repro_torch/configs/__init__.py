@@ -1,26 +1,42 @@
 """Architecture registry of the port.
 
-``get(name)`` / ``get_smoke(name)`` resolve a config.  Only qwen3-1.7b
-is ported; the JAX package's other nine configs are queued in
-ROADMAP.md (A3).
+``get(name)`` / ``get_smoke(name)`` resolve a config: the port's own
+copies of the JAX package's dense decoders (qwen3-1.7b, minicpm-2b,
+mistral-nemo-12b, minitron-8b) and chameleon-34b, which the JAX package
+serves as a dense backbone (family ``vlm``: image tokens are vocab ids).
+The MoE, SSM, hybrid and encoder-decoder configs are queued in
+ROADMAP.md (A11, A12, A10).
 """
 from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import qwen3_1_7b
+from repro_torch.configs import (chameleon_34b, minicpm_2b, minitron_8b,
+                                 mistral_nemo_12b, qwen3_1_7b)
 from repro_torch.configs.base import ArchConfig
 
-_MODULES = {"qwen3-1.7b": qwen3_1_7b}
+_MODULES = {
+    "minicpm-2b": minicpm_2b,
+    "mistral-nemo-12b": mistral_nemo_12b,
+    "qwen3-1.7b": qwen3_1_7b,
+    "minitron-8b": minitron_8b,
+    "chameleon-34b": chameleon_34b,
+}
+# The JAX package's other configs, by the ROADMAP entry that ports them.
+QUEUED = {
+    "qwen3-moe-235b-a22b": "A11", "moonshot-v1-16b-a3b": "A11",
+    "hymba-1.5b": "A12", "mamba2-780m": "A12", "whisper-tiny": "A10",
+}
 
 ARCH_NAMES: List[str] = list(_MODULES)
 
 
 def _module(name: str):
     if name not in _MODULES:
+        queued = ", ".join(f"{n} ({a})" for n, a in QUEUED.items())
         raise KeyError(
             f"unknown or not yet ported arch {name!r}; the port has "
-            f"{ARCH_NAMES} (the other configs are queued in ROADMAP.md A3)")
+            f"{ARCH_NAMES}; queued in ROADMAP.md: {queued}")
     return _MODULES[name]
 
 

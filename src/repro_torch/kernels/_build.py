@@ -108,8 +108,10 @@ BINARY_TILES = ("binary_mm_prefill", "binary_mm_decode")
 CONV_TILES = ("conv2d_os_i8", "conv2d_os_bf16", "conv2d_ws_i8",
               "conv2d_is_i8", "conv2d_ws_bf16", "conv2d_is_bf16")
 # B2's and B7's launches over int8 K/V (the int8 KV cache), each counted
-# beside the library's own count (and, for B7, its cluster tile's).
-I8KV_LAUNCHES = ("flash_attention_i8kv", "kv_stationary_cluster_i8kv")
+# beside the library's own count (and, for B7's bf16 path, its cluster
+# tile's): under bf16 queries, then under float32 queries.
+I8KV_LAUNCHES = ("flash_attention_i8kv", "kv_stationary_cluster_i8kv",
+                 "flash_attention_f32_i8kv", "kv_stationary_f32_i8kv")
 # The libraries whose entry point reports the tile a launch took, with the
 # tiles by code.
 TILE_LIBRARIES = {"matmul_os": TILES, "matmul_rmw": RMW_TILES,

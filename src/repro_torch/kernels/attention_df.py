@@ -38,16 +38,20 @@ Ports of ``repro/kernels/attention_df.py``:
   block fetched once per q head, the state through device memory once per
   visible (KV block, 16-row q tile) pair.  ``KV_BLOCKS``.
 
-B2 and B7 also take int8 K/V with per-position f32 scales under bf16
-queries (the int8 KV cache; the TPU kernels' ``_load_kv`` dequantizes at
-the block load): the int8 tiles stream in at half the bytes (B2 through
-its ``cp.async`` ring, B7 multicast by the TMA), are converted exactly
-to bf16 in shared memory, and fold with the same step, which multiplies
-each score by its key's K scale and each probability by its key's V
-scale (``ref.attention_ref``'s folded dequant), so B7's int8 output
-equals B2's bit for bit.  Such a launch also counts under
-``FLASH_I8KV`` / ``KV_CLUSTER_I8KV``.  float32 queries over int8 K/V
-are not ported (ROADMAP B): they raise on the card.
+B2 and B7 also take int8 K/V with per-position f32 scales (the int8 KV
+cache; the TPU kernels' ``_load_kv`` dequantizes at the block load).
+Under bf16 queries the int8 tiles stream in at half the bytes (B2
+through its ``cp.async`` ring, B7 multicast by the TMA), are converted
+exactly to bf16 in shared memory, and fold with the same step, which
+multiplies each score by its key's K scale and each probability by its
+key's V scale (``ref.attention_ref``'s folded dequant), so B7's int8
+output equals B2's bit for bit; such a launch also counts under
+``FLASH_I8KV`` / ``KV_CLUSTER_I8KV``.  Under float32 queries the f32
+CUDA-core kernels read the int8 tiles as exact floats and fold the
+scales the same way, B7's f32 kernel with B2's f32 step, so again B7
+equals B2 bit for bit; such a launch also counts under
+``FLASH_F32_I8KV`` / ``KV_F32_I8KV``.  Every kernel is built for
+``HEAD_DIMS``.
 
 Each wrapper launches its kernel for CUDA tensors and raises for what it
 does not take; for CPU tensors it computes the kernel's plain version
@@ -66,7 +70,7 @@ from repro_torch.core.dataflow import (DataflowSpec, KernelRegistration, OS,
                                        WS, register_kernel)
 from repro_torch.kernels import _build, matmul_df, ref
 
-HEAD_DIMS = (32, 64, 128)          # d_head values the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)      # d_head values the kernels are built for
 # (bq, bkv) of csrc/flash_attention.cu by dtype: the bf16 tensor-core tile
 # (the serving path's) and the f32 CUDA-core one.
 FLASH_BLOCKS = {torch.bfloat16: (64, 64), torch.float32: (16, 32)}
@@ -111,6 +115,18 @@ KV_CLUSTER_I8KV = register_kernel(KernelRegistration(
     replaces="src/repro/kernels/attention_df.py:538",
     spec=DataflowSpec(anchor=WS, block=KV_BLOCK + (1,)),
 ))
+FLASH_F32_I8KV = register_kernel(KernelRegistration(
+    name="flash_attention_f32_i8kv",
+    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+    replaces="src/repro/kernels/attention_df.py:328",
+    spec=DataflowSpec(anchor=OS, block=FLASH_BLOCKS[torch.float32] + (1,)),
+))
+KV_F32_I8KV = register_kernel(KernelRegistration(
+    name="kv_stationary_f32_i8kv",
+    source="src/repro_torch/kernels/csrc/kv_stationary.cu",
+    replaces="src/repro/kernels/attention_df.py:538",
+    spec=DataflowSpec(anchor=WS, block=KV_BLOCKS[torch.float32] + (1,)),
+))
 PAGED = register_kernel(KernelRegistration(
     name="paged_attention",
     source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -128,7 +144,7 @@ def _check_head_dim(d: int) -> None:
 def _kv_scales(q, k, v, k_scale, v_scale):
     """The K/V scales a banded kernel takes: None for float K/V, else
     both (B, Hkv, Skv, 1) scales as contiguous f32.  K/V are either of
-    q's float dtype, or both int8 with both scales under bf16 q."""
+    q's float dtype, or both int8 with both scales."""
     int8 = k.dtype == torch.int8 or v.dtype == torch.int8
     if not int8:
         if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -145,12 +161,16 @@ def _kv_scales(q, k, v, k_scale, v_scale):
         raise ValueError(f"int8 K/V scales must be per-position with a "
                          f"trailing singleton lane: expected {want}, got "
                          f"{tuple(k_scale.shape)} and {tuple(v_scale.shape)}")
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"{q.dtype} queries over int8 K/V are not ported (ROADMAP B): "
-            f"the int8 kernels take bfloat16 queries")
     return (k_scale.to(torch.float32).contiguous(),
             v_scale.to(torch.float32).contiguous())
+
+
+def _i8kv_count(q, scales, bf16_path, f32_path) -> Optional[str]:
+    """The count a launch over int8 K/V also adds one to: its bf16- or
+    float32-query path's; None over float K/V."""
+    if scales is None:
+        return None
+    return (bf16_path if q.dtype == torch.bfloat16 else f32_path).name
 
 
 def _banded_args(q, k, v, window, kv_len, k_scale=None, v_scale=None):
@@ -207,7 +227,7 @@ def flash_attention(
         hq // hkv, heads_per_row, _build.ptr(kv_lens), kv_scalar,
         0 if window is None else int(window), int(causal),
         float(scale if scale is not None else d ** -0.5),
-        also=None if scales is None else FLASH_I8KV.name)
+        also=_i8kv_count(q, scales, FLASH_I8KV, FLASH_F32_I8KV))
     return out
 
 
@@ -333,7 +353,7 @@ def kv_stationary_attention(
         b * hq, sq, skv, hq // hkv, heads_per_row, _build.ptr(kv_lens),
         kv_scalar, 0 if window is None else int(window), int(causal),
         float(scale if scale is not None else d ** -0.5),
-        also=None if scales is None else KV_CLUSTER_I8KV.name)
+        also=_i8kv_count(q, scales, KV_CLUSTER_I8KV, KV_F32_I8KV))
     check_took(plan, took)
     return out
 

@@ -45,6 +45,20 @@
 // f32 (flash_kernel) keeps the CUDA cores: one CTA per 16 q rows, its 4 warps
 // each carrying 4 rows, one key per lane, f32 copies of Q, K and V in shared
 // memory.
+//
+// int8 K/V under f32 queries (a float32 config's int8 KV cache) takes the same
+// f32 kernel: the 32-key int8 tiles are read 16 codes a thread and held as
+// exact floats in the same shared tiles, and each lane carries its key's K
+// and V scales (read beside the tile) into the fold, which folds them as
+// ref.attention_ref does (attention_common.cuh: K's into the score after
+// `* scale`, V's into the probability after it has been summed into l). B7's
+// f32 kernel (kv_stationary.cu kv_kernel) folds the same tiles with the same
+// step, so its int8 output equals this one's bit for bit.
+//
+// Every path is built for d_head 16, 32, 64 and 128. At D = 16 a bf16 row is
+// two 16-byte chunks and an int8 row one; the tensor-core step's QK^T is one
+// m16n8k16 chunk and its PV two n8 fragments, summed in the same chunk order;
+// the f32 fold's lanes 16-31 own no output column.
 #include <type_traits>
 
 #include "attention_common.cuh"
@@ -58,15 +72,20 @@ constexpr int BKV = 32;  // keys per KV tile: one per lane
 constexpr int WARPS = 4;
 constexpr int ROWS_PER_WARP = BQ / WARPS;
 
-template <typename T, int D>
+// KV = T: float K/V. KV = int8_t: int8 codes with per-position f32 scales
+// (k_scale, v_scale (bh / group, skv)), folded per key.
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
+flash_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+             const KV* __restrict__ v, const float* __restrict__ k_scale,
+             const float* __restrict__ v_scale, T* __restrict__ o, int sq, int skv,
              int group, int heads_per_row, const int* __restrict__ kv_lens,
              int kv_len, int window, int causal, float scale) {
+  constexpr bool I8 = std::is_same<KV, int8_t>::value;
   __shared__ float qs[BQ][D];
   __shared__ float ks[BKV][D + 1];
   __shared__ float vs[BKV][D];
+  __shared__ float scs[2][BKV];  // int8: the tile's K and V scales
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const int kv_valid = kv_lens ? kv_lens[bh / heads_per_row] : kv_len;
@@ -93,8 +112,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int blk = lo; blk <= hi; ++blk) {
     __syncthreads();  // the previous tile is consumed (and qs is loaded)
     const size_t tile = kv_base + (size_t)blk * BKV * D;
-    load_tiles<T, BKV, D, D + 1, D, WARPS * 32>(
+    load_tiles<KV, BKV, D, D + 1, D, WARPS * 32>(
         &ks[0][0], k + tile, &vs[0][0], v + tile, D, skv - blk * BKV);
+    if constexpr (I8) {
+      // thread j < 32 stores K's scale of the tile's key j, 32 + j V's; 0
+      // past skv
+      if (threadIdx.x < 2 * BKV) {
+        const int j = threadIdx.x & (BKV - 1), key = blk * BKV + j;
+        const float* src = threadIdx.x < BKV ? k_scale : v_scale;
+        scs[threadIdx.x / BKV][j] = key < skv ? src[(size_t)(bh / group) * skv + key] : 0.f;
+      }
+    }
     __syncthreads();
     const int kpos = blk * BKV + lane;
 #pragma unroll
@@ -105,7 +133,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bool valid = kpos < kv_valid && kpos < skv;
       if (causal) valid = valid && kpos <= qpos;
       if (window > 0) valid = valid && kpos > qpos - window;
-      fold_tile<D>(qs[r], &ks[0][0], &vs[0][0], BKV, valid, scale, st[rr]);
+      if constexpr (I8)
+        fold_tile<D, true>(qs[r], &ks[0][0], &vs[0][0], BKV, valid, scale, st[rr],
+                           scs[0][lane], scs[1][lane]);
+      else
+        fold_tile<D>(qs[r], &ks[0][0], &vs[0][0], BKV, valid, scale, st[rr]);
     }
   }
 
@@ -345,27 +377,34 @@ int launch_tc(const void* q, const void* k, const void* v, const float* k_scale,
   return launch_status();
 }
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int sq,
-               int skv, int group, int heads_per_row, const int* kv_lens, int kv_len,
-               int window, int causal, float scale, cudaStream_t stream) {
+template <int D, typename KV>
+int launch_f32(const void* q, const void* k, const void* v, const float* k_scale,
+               const float* v_scale, void* o, int bh, int sq, int skv, int group,
+               int heads_per_row, const int* kv_lens, int kv_len, int window,
+               int causal, float scale, cudaStream_t stream) {
   const dim3 grid((sq + BQ - 1) / BQ, bh);
-  flash_kernel<float, D><<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, group,
-      heads_per_row, kv_lens, kv_len, window, causal, scale);
+  flash_kernel<float, KV, D><<<grid, WARPS * 32, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), k_scale, v_scale, static_cast<float*>(o), sq, skv,
+      group, heads_per_row, kv_lens, kv_len, window, causal, scale);
   return launch_status();
 }
 
-// kv: the K/V element type's code (REPRO_F32, REPRO_BF16 or REPRO_I8).
+// dtype: q's element type (REPRO_F32 or REPRO_BF16); kv: K's and V's
+// (the same, or REPRO_I8).
 template <int D>
-int launch(int kv, const void* q, const void* k, const void* v, const float* k_scale,
-           const float* v_scale, void* o, int bh, int sq, int skv, int group,
-           int heads_per_row, const int* kv_lens, int kv_len, int window, int causal,
-           float scale, cudaStream_t stream) {
-  if (kv == REPRO_F32)
-    return launch_f32<D>(q, k, v, o, bh, sq, skv, group, heads_per_row, kv_lens,
-                         kv_len, window, causal, scale, stream);
+int launch(int dtype, int kv, const void* q, const void* k, const void* v,
+           const float* k_scale, const float* v_scale, void* o, int bh, int sq,
+           int skv, int group, int heads_per_row, const int* kv_lens, int kv_len,
+           int window, int causal, float scale, cudaStream_t stream) {
+  if (dtype == REPRO_F32 && kv == REPRO_F32)
+    return launch_f32<D, float>(q, k, v, nullptr, nullptr, o, bh, sq, skv, group,
+                                heads_per_row, kv_lens, kv_len, window, causal, scale,
+                                stream);
+  if (dtype == REPRO_F32)
+    return launch_f32<D, int8_t>(q, k, v, k_scale, v_scale, o, bh, sq, skv, group,
+                                 heads_per_row, kv_lens, kv_len, window, causal, scale,
+                                 stream);
   if (kv == REPRO_BF16)
     return launch_tc<D, __nv_bfloat16>(q, k, v, nullptr, nullptr, o, bh, sq, skv, group,
                                        heads_per_row, kv_lens, kv_len, window, causal,
@@ -378,10 +417,10 @@ int launch(int kv, const void* q, const void* k, const void* v, const float* k_s
 }  // namespace
 
 // q (bh, sq, d); k, v (bh / group, skv, d); o like q. dtype: q's (and o's)
-// element type; kv_dtype: K's and V's, the same, or int8 under bf16 q with
-// k_scale and v_scale (bh / group, skv) f32, one per position. kv_lens: null
-// (every head row uses kv_len) or bh / heads_per_row lengths on the device.
-// window <= 0: no sliding window.
+// element type, float32 or bf16; kv_dtype: K's and V's, the same, or int8
+// with k_scale and v_scale (bh / group, skv) f32, one per position. kv_lens:
+// null (every head row uses kv_len) or bh / heads_per_row lengths on the
+// device. window <= 0: no sliding window. d: 16, 32, 64 or 128.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const float* k_scale, const float* v_scale, void* o,
                                int dtype, int kv_dtype, int d, int bh, int sq,
@@ -391,20 +430,24 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (bh <= 0 || bh > 65535 || sq <= 0 || skv <= 0 || group <= 0 ||
       bh % group || (kv_lens && (heads_per_row <= 0 || bh % heads_per_row)))
     return REPRO_BAD_ARGUMENT;
-  const bool i8 = dtype == REPRO_BF16 && kv_dtype == REPRO_I8 && k_scale && v_scale;
-  if (!i8 && (kv_dtype != dtype || (dtype != REPRO_F32 && dtype != REPRO_BF16)))
-    return REPRO_BAD_ARGUMENT;
+  if (dtype != REPRO_F32 && dtype != REPRO_BF16) return REPRO_BAD_ARGUMENT;
+  const bool i8 = kv_dtype == REPRO_I8 && k_scale && v_scale;
+  if (!i8 && kv_dtype != dtype) return REPRO_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 16:
+      return launch<16>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv,
+                        group, heads_per_row, kv_lens, kv_len, window, causal, scale, s);
     case 32:
-      return launch<32>(kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv, group,
-                        heads_per_row, kv_lens, kv_len, window, causal, scale, s);
+      return launch<32>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv,
+                        group, heads_per_row, kv_lens, kv_len, window, causal, scale, s);
     case 64:
-      return launch<64>(kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv, group,
-                        heads_per_row, kv_lens, kv_len, window, causal, scale, s);
+      return launch<64>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv,
+                        group, heads_per_row, kv_lens, kv_len, window, causal, scale, s);
     case 128:
-      return launch<128>(kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv, group,
-                         heads_per_row, kv_lens, kv_len, window, causal, scale, s);
+      return launch<128>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv,
+                         group, heads_per_row, kv_lens, kv_len, window, causal, scale,
+                         s);
     default:
       return REPRO_BAD_ARGUMENT;
   }

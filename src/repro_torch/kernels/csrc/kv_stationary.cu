@@ -47,6 +47,14 @@
 // row, one key per lane) and store it again (or, at the last block of the
 // band, write acc / l, with l == 0 -> 0). Tiles with an empty band write
 // zeros. The band and mask are B2's (attention_df.py `_band_lo_hi`).
+// int8 K/V under f32 queries takes the same kernel: the 32-key int8 tiles
+// held as exact floats, each lane's key's K and V scales folded as B2's f32
+// kernel folds them (attention_common.cuh), so its output equals B2's f32
+// int8 output bit for bit.
+//
+// Both kernels are built for d_head 16, 32, 64 and 128: at D = 16 the
+// cluster kernel's bf16 rows are 32 bytes, copied with the TMA's 32-byte
+// swizzle (an int8 row, 16 bytes, unswizzled).
 //
 // Bound on H100: the arithmetic at prefill lengths, as B2. bf16: the walk
 // gives B x Hkv clusters of C CTAs (8 x 16 at qwen3-1.7b's prefill); a CTA
@@ -54,6 +62,7 @@
 // (row, KV block) pair, mostly served from L2. float32: one CTA per
 // (batch*head), Hq of the 132 SMs at batch 1.
 #include <climits>
+#include <type_traits>
 
 #include "attention_common.cuh"
 #include "flash_tc.cuh"
@@ -67,16 +76,21 @@ constexpr int BQ = 16;   // query rows per tile: one per warp
 constexpr int BKV = 32;  // keys per KV block: one per lane
 constexpr int WARPS = BQ;
 
-template <typename T, int D>
+// KV = T: float K/V. KV = int8_t: int8 codes with per-position f32 scales
+// (k_scale, v_scale (bh / group, skv)), folded per key.
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(WARPS * 32)
-kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o,
+kv_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+          const KV* __restrict__ v, const float* __restrict__ k_scale,
+          const float* __restrict__ v_scale, T* __restrict__ o,
           float* __restrict__ acc_st, float* __restrict__ ml_st, int sq,
           int skv, int group, int heads_per_row, const int* __restrict__ kv_lens,
           int kv_len, int window, int causal, float scale) {
+  constexpr bool I8 = std::is_same<KV, int8_t>::value;
   __shared__ float qs[BQ][D];
   __shared__ float ks[BKV][D + 1];
   __shared__ float vs[BKV][D];
+  __shared__ float scs[2][BKV];  // int8: the block's K and V scales
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.x;
   const int kv_valid = kv_lens ? kv_lens[bh / heads_per_row] : kv_len;
@@ -103,8 +117,17 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int blk = blo; blk <= bhi; ++blk) {
     __syncthreads();  // the previous block and q tile are consumed
     const size_t tile = kv_base + (size_t)blk * BKV * D;
-    load_tiles<T, BKV, D, D + 1, D, WARPS * 32>(
+    load_tiles<KV, BKV, D, D + 1, D, WARPS * 32>(
         &ks[0][0], k + tile, &vs[0][0], v + tile, D, skv - blk * BKV);
+    if constexpr (I8) {
+      // thread j < 32 stores K's scale of the block's key j, 32 + j V's; 0
+      // past skv (read after the q tile's barrier below)
+      if (threadIdx.x < 2 * BKV) {
+        const int j = threadIdx.x & (BKV - 1), key = blk * BKV + j;
+        const float* src = threadIdx.x < BKV ? k_scale : v_scale;
+        scs[threadIdx.x / BKV][j] = key < skv ? src[(size_t)(bh / group) * skv + key] : 0.f;
+      }
+    }
     const int kpos = blk * BKV + lane;
     for (int t = 0; t < gq; ++t) {
       int lo, hi;
@@ -126,18 +149,24 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         st.m = ml_st[2 * row];
         st.l = ml_st[2 * row + 1];
 #pragma unroll
-        for (int c = 0; c < D / 32; ++c) st.acc[c] = acc_st[row * D + lane + 32 * c];
+        for (int c = 0; c < RowState<D>::COLS; ++c)
+          if (owns_col<D>(lane, c)) st.acc[c] = acc_st[row * D + lane + 32 * c];
       }
       const int qpos = r + off;
       bool valid = kpos < kv_valid && kpos < skv;
       if (causal) valid = valid && kpos <= qpos;
       if (window > 0) valid = valid && kpos > qpos - window;
-      fold_tile<D>(qs[warp], &ks[0][0], &vs[0][0], BKV, valid, scale, st);
+      if constexpr (I8)
+        fold_tile<D, true>(qs[warp], &ks[0][0], &vs[0][0], BKV, valid, scale, st,
+                           scs[0][lane], scs[1][lane]);
+      else
+        fold_tile<D>(qs[warp], &ks[0][0], &vs[0][0], BKV, valid, scale, st);
       if (blk == hi) {
         write_row<T, D>(o + row * D, st);
       } else {
 #pragma unroll
-        for (int c = 0; c < D / 32; ++c) acc_st[row * D + lane + 32 * c] = st.acc[c];
+        for (int c = 0; c < RowState<D>::COLS; ++c)
+          if (owns_col<D>(lane, c)) acc_st[row * D + lane + 32 * c] = st.acc[c];
         if (lane == 0) {
           ml_st[2 * row] = st.m;
           ml_st[2 * row + 1] = st.l;
@@ -190,10 +219,14 @@ inline int kv_cluster_size(int clusters, int units) {
 
 // Byte offset of the 16-byte chunk (key r, columns c..c+7) in a K or V slot:
 // 64-column panels of 64 rows, 128-byte rows with the TMA's 128-byte swizzle
-// (64-byte rows with its 64-byte swizzle at D = 32).
+// (64-byte rows with its 64-byte swizzle at D = 32; 32-byte rows with its
+// 32-byte swizzle at D = 16, chunk (c / 8) ^ ((r / 4) % 2): the 8 rows of an
+// ldmatrix then fall on distinct banks).
 template <int D>
 __device__ __forceinline__ uint32_t kv_off(int r, int c) {
-  if constexpr (D == 32) return (uint32_t)gemm::cl::a_off(r, c);
+  if constexpr (D == 16)
+    return (uint32_t)(r * 32 + ((((c >> 3) ^ (r >> 2)) & 1) << 4) + ((c & 7) << 1));
+  else if constexpr (D == 32) return (uint32_t)gemm::cl::a_off(r, c);
   else return (uint32_t)((c >> 6) * fa::TKV * 128 + gemm::cl::b_off(r, c & 63));
 }
 
@@ -340,10 +373,11 @@ kv_cluster_kernel(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict
                   const __grid_constant__ CUtensorMap map_v) {
   using namespace gemm::cl;
   constexpr int STAGE = kv_stage_bytes<D, I8>(), TILE = STAGE / 2;
-  // bf16: 128-byte rows with the 128-byte swizzle (64-byte ones at D = 32),
-  // in 64-column panels; int8: rows of D bytes, one panel.
-  constexpr int ROW = I8 ? D : D == 32 ? 64 : 128;
-  constexpr int PANELS = I8 || D == 32 ? 1 : D / 64;
+  // bf16: 128-byte rows with the 128-byte swizzle (64-byte ones at D = 32,
+  // 32-byte ones at D = 16), in 64-column panels; int8: rows of D bytes, one
+  // panel.
+  constexpr int ROW = I8 ? D : D < 64 ? 2 * D : 128;
+  constexpr int PANELS = I8 || D < 64 ? 1 : D / 64;
   constexpr int PIECES = 2 * PANELS * fa::TKV / 8;  // 8-row boxes a K and V block
   constexpr int FOLD = fa::WARPS * 32;              // threads that fold
   constexpr int WORK = KV_STAGES * STAGE;           // int8: the work tiles' offset
@@ -486,13 +520,14 @@ int launch_cluster(const void* q, const void* k, const void* v, const float* k_s
   if ((long long)clusters * C > INT_MAX) return REPRO_BAD_ARGUMENT;
   if (took) *took = {TILE_KV_CLUSTER, (int)smem, clusters * C, C};
   // K and V as (clusters, skv, D): bf16 in 8-row boxes of one 64-column
-  // panel (of all 32 columns at D = 32), swizzled; int8 in 8-row boxes of
-  // all D columns, unswizzled; zeros past skv.
+  // panel (of all D columns at D = 16 and 32), swizzled; int8 in 8-row boxes
+  // of all D columns, unswizzled; zeros past skv.
   const int elt = I8 ? 1 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)skv, (cuuint64_t)clusters};
   const cuuint64_t strides[2] = {(cuuint64_t)D * elt, (cuuint64_t)skv * D * elt};
   const cuuint32_t box[3] = {(cuuint32_t)(I8 || D < 64 ? D : 64), 8, 1};
   const CUtensorMapSwizzle sw = I8        ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                : D == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
                                 : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                           : CU_TENSOR_MAP_SWIZZLE_128B;
   const CUtensorMapDataType type =
@@ -515,6 +550,10 @@ int launch_cluster_d(int d, const void* q, const void* k, const void* v,
                      const int* kv_lens, int kv_len, int window, int causal, float scale,
                      cudaStream_t s, gemm::Took* took) {
   switch (d) {
+    case 16:
+      return launch_cluster<16, I8>(q, k, v, k_scale, v_scale, o, acc, ml, bh, sq, skv,
+                                    group, heads_per_row, kv_lens, kv_len, window, causal,
+                                    scale, s, took);
     case 32:
       return launch_cluster<32, I8>(q, k, v, k_scale, v_scale, o, acc, ml, bh, sq, skv,
                                     group, heads_per_row, kv_lens, kv_len, window, causal,
@@ -532,21 +571,23 @@ int launch_cluster_d(int d, const void* q, const void* k, const void* v,
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o, float* acc,
-               float* ml, int d, int bh, int sq, int skv, int group, int heads_per_row,
-               const int* kv_lens, int kv_len, int window, int causal, float scale,
-               cudaStream_t stream) {
+template <typename KV>
+int launch_f32(const void* q, const void* k, const void* v, const float* k_scale,
+               const float* v_scale, void* o, float* acc, float* ml, int d, int bh,
+               int sq, int skv, int group, int heads_per_row, const int* kv_lens,
+               int kv_len, int window, int causal, float scale, cudaStream_t stream) {
   auto go = [&](auto kernel) {
     kernel<<<bh, WARPS * 32, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), acc, ml, sq, skv, group,
-        heads_per_row, kv_lens, kv_len, window, causal, scale);
+        static_cast<const float*>(q), static_cast<const KV*>(k),
+        static_cast<const KV*>(v), k_scale, v_scale, static_cast<float*>(o), acc, ml,
+        sq, skv, group, heads_per_row, kv_lens, kv_len, window, causal, scale);
     return launch_status();
   };
   switch (d) {
-    case 32: return go(&kv_kernel<float, 32>);
-    case 64: return go(&kv_kernel<float, 64>);
-    case 128: return go(&kv_kernel<float, 128>);
+    case 16: return go(&kv_kernel<float, KV, 16>);
+    case 32: return go(&kv_kernel<float, KV, 32>);
+    case 64: return go(&kv_kernel<float, KV, 64>);
+    case 128: return go(&kv_kernel<float, KV, 128>);
     default: return REPRO_BAD_ARGUMENT;
   }
 }
@@ -555,9 +596,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* acc,
 
 // q (bh, sq, d); k, v (bh / group, skv, d); o like q; acc (bh, sq, d) and
 // ml (bh, sq, 2) f32 scratch for the running state (written before it is
-// read). dtype: q's (and o's) element type; kv_dtype: K's and V's, the same,
-// or int8 under bf16 q with k_scale and v_scale (bh / group, skv) f32, one
-// per position. kv_lens: null (every head row uses kv_len) or bh /
+// read). dtype: q's (and o's) element type, float32 or bf16; kv_dtype: K's
+// and V's, the same, or int8 with k_scale and v_scale (bh / group, skv) f32,
+// one per position. d: 16, 32, 64 or 128. kv_lens: null (every head row uses kv_len) or bh /
 // heads_per_row lengths on the device. window <= 0: no sliding window. took
 // (may be null): the cluster kernel's report (gemm::Took: TILE_KV_CLUSTER,
 // its shared memory, CTAs and cluster size), TILE_WALK for the f32 kernel.
@@ -574,8 +615,13 @@ extern "C" int kv_stationary(const void* q, const void* k, const void* v,
     return REPRO_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_F32 && kv_dtype == REPRO_F32)
-    return launch_f32(q, k, v, o, acc, ml, d, bh, sq, skv, group, heads_per_row,
-                      kv_lens, kv_len, window, causal, scale, s);
+    return launch_f32<float>(q, k, v, nullptr, nullptr, o, acc, ml, d, bh, sq, skv,
+                             group, heads_per_row, kv_lens, kv_len, window, causal,
+                             scale, s);
+  if (dtype == REPRO_F32 && kv_dtype == REPRO_I8 && k_scale && v_scale)
+    return launch_f32<int8_t>(q, k, v, k_scale, v_scale, o, acc, ml, d, bh, sq, skv,
+                              group, heads_per_row, kv_lens, kv_len, window, causal,
+                              scale, s);
   if (dtype != REPRO_BF16) return REPRO_BAD_ARGUMENT;
   if (kv_dtype == REPRO_BF16)
     return launch_cluster_d<false>(d, q, k, v, nullptr, nullptr, o, acc, ml, bh, sq, skv,

@@ -33,7 +33,10 @@
 //     its stream (the wrapper keeps one buffer per device and stream). A row of one chunk writes
 //     its output straight away.
 // The fold is this kernel's own (B2's f32 fold in attention_common.cuh
-// keeps its roundings).
+// keeps its roundings). Built for d_head 16, 32, 64 and 128: at D = 16 a
+// bf16 key row is two 16-byte vectors, so with a small group some score
+// warps take no vector and store a zero partial, and the outputs are owned
+// by the first 128 threads.
 #include "mma_common.cuh"
 
 namespace {
@@ -81,7 +84,8 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
              float scale) {
   using S = Smem<T, D>;
   constexpr int V = S::V, LD = S::LD;
-  constexpr int OUTS = MAX_GROUP * D / THREADS;  // outputs a thread owns
+  // outputs a thread owns, at most (D = 16: one for the first 128 threads)
+  constexpr int OUTS = cdiv(MAX_GROUP * D, THREADS);
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
   float* qs = reinterpret_cast<float*>(smem + S::RING);  // [MAX_GROUP][D]
@@ -287,6 +291,10 @@ int launch_d(int d, const void* q, const void* kp, const void* vp,
              int n_pages, int page, int max_pages, int max_chunks, int window,
              float scale, cudaStream_t stream) {
   switch (d) {
+    case 16:
+      return launch<T, 16>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
+                           counters, rows, hq, hkv, n_pages, page, max_pages,
+                           max_chunks, window, scale, stream);
     case 32:
       return launch<T, 32>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
                            counters, rows, hq, hkv, n_pages, page, max_pages,

@@ -9,6 +9,16 @@ Usage (on the card; random weights from ``--seed``, nothing downloaded):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --smoke --device cpu
 
+  # another dense config, its float32 smoke size (d_head 16) on the card,
+  # from an int8 KV cache (codes with per-position scales, the slot cache):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b \
+      --smoke --kv-cache-dtype int8
+
+``--arch`` takes every name of ``repro_torch.configs.ARCH_NAMES``
+(qwen3-1.7b, minicpm-2b, mistral-nemo-12b, minitron-8b, chameleon-34b);
+``--kv-cache-dtype`` sets the config's ``kv_cache_dtype`` ("auto" follows
+the activations; "int8" decodes off the slot cache, no page pool).
+
 Requests go through ``Engine.submit`` and ``drain`` (the continuous
 scheduler); ``--ragged`` draws prompt lengths in [1, prompt-len].
 
@@ -28,6 +38,7 @@ the interrupted requests with the uninterrupted run's greedy tokens:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
@@ -38,8 +49,11 @@ from repro_torch.serve.engine import Engine
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=configs.ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--kv-cache-dtype", default=None,
+                    choices=("auto", "int8"),
+                    help="the KV cache's type (default: the config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -61,6 +75,8 @@ def main(argv=None) -> None:
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(
         args.arch)
+    if args.kv_cache_dtype is not None:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_cache_dtype)
     params = lm.init_model(cfg, seed=args.seed, device=args.device)
     # the paged path needs max_len to be a whole number of pages (16)
     max_len = -(-(args.prompt_len + args.new_tokens + 8) // 16) * 16

@@ -1,6 +1,7 @@
 """The dense decoder LM of the port: init, prefill, decode.
 
-Twin of ``repro/models/lm.py`` for the ``dense`` family, with the
+Twin of ``repro/models/lm.py`` for the ``dense`` family (and ``vlm``,
+which the JAX package serves as a dense backbone), with the
 SwiGLU MLP, the binary MLP (``cfg.binary_mlp``) or the SwiGLU MLP with
 sub-byte packed weights (``cfg.packed_weights``).  Parameters
 keep the JAX package's layout — per-layer leaves stacked on a leading
@@ -26,8 +27,13 @@ from repro_torch.models import layers
 Params = Dict[str, Any]
 
 
+# Families served as the dense decoder: ``vlm`` (chameleon) is early
+# fusion, its image tokens ordinary vocab ids, as the JAX package serves it.
+DENSE_FAMILIES = ("dense", "vlm")
+
+
 def _check_supported(cfg) -> None:
-    if (cfg.family != "dense" or cfg.n_experts or cfg.has_ssm
+    if (cfg.family not in DENSE_FAMILIES or cfg.n_experts or cfg.has_ssm
             or cfg.is_encoder_decoder or not cfg.has_attention):
         raise NotImplementedError(
             f"{cfg.name}: only dense decoders are ported (MoE, SSM and "

@@ -22,7 +22,12 @@ its plain twin over causal, windowed, scalar and per-row ``kv_len`` (0
 among them), Sq = 1, 3, 17, 65 and 200 and groups of 1, 2 and 4, each
 launch counted under ``flash_attention_i8kv``; B7 over int8 K/V equal
 to B2's int8 output bit for bit, counted under
-``kv_stationary_cluster_i8kv``; float32 queries over int8 K/V refused.
+``kv_stationary_cluster_i8kv``; both at d_head 16 too; under float32
+queries B2's f32 kernel over int8 K/V (K1, counted under
+``flash_attention_f32_i8kv``) against its plain twin over the same masks,
+Sq and groups at d_head 16, 32, 64 and 128, and B7's f32 kernel over
+int8 K/V (K2, counted under ``kv_stationary_f32_i8kv``) equal to K1 bit
+for bit; int8 K with a bf16 V refused.
 Those tests import no JAX, so they run on the card without the repo's
 conftest:
 
@@ -43,6 +48,9 @@ from repro_torch.models import bridge, layers, lm
 # The kernels' tolerance against the plain version (B2's, chip_smoke.py):
 # bf16 outputs of f32 softmax math on both sides.
 CARD_TOL = dict(atol=4e-3, rtol=8e-3)
+# float32 queries (B2's f32 tolerance, chip_smoke.py's f32_tol): f32 math on
+# both sides, only the order of the sums differs.
+F32_CARD_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -56,15 +64,15 @@ def card():
     return torch.device("cuda")
 
 
-def _int8_operands(dev, b, hq, hkv, sq, skv, d, seed):
-    """bf16 queries; K/V drawn in bf16 and quantized per position
-    (``quant.symmetric_int8`` over the head dim), as the cache holds
-    them."""
+def _int8_operands(dev, b, hq, hkv, sq, skv, d, seed,
+                   dtype=torch.bfloat16):
+    """Queries of ``dtype`` (bf16 or float32); K/V drawn in ``dtype`` and
+    quantized per position (``quant.symmetric_int8`` over the head dim),
+    as the cache holds them."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(
-        torch.bfloat16)
+    q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
     k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(2))
+        dtype) for _ in range(2))
     (kq, ks), (vq, vs) = quant.symmetric_int8(k, -1), quant.symmetric_int8(
         v, -1)
     return q, kq, vq, ks, vs
@@ -133,14 +141,100 @@ def test_b7_int8_kv_equals_b2_bitwise_on_the_card(card, sq, group):
 
 
 @pytest.mark.card
-def test_float32_queries_over_int8_kv_are_refused_on_the_card(card):
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("sq", [1, 3, 17, 65, 200])
+def test_k1_f32_queries_over_int8_kv_match_the_plain_twin_on_the_card(
+        card, sq, group, d):
+    """B2's f32 kernel over int8 K/V (K1), each launch counted under
+    ``flash_attention_f32_i8kv``, within B2's f32 tolerance of the plain
+    twin."""
+    hkv, b, skv = 2, 2, sq + 57
+    q, kq, vq, ks, vs = _int8_operands(card, b, hkv * group, hkv, sq, skv,
+                                       d, sq * 10 + group + d,
+                                       torch.float32)
+    for causal, window, kv_len in MASKS:
+        lens = _lens(kv_len, skv, card)
+        before = (_build.LAUNCHES["flash_attention"],
+                  _build.LAUNCHES["flash_attention_f32_i8kv"])
+        got = attention_df.flash_attention(
+            q, kq, vq, causal=causal, window=window, kv_len=lens,
+            k_scale=ks, v_scale=vs)
+        assert (_build.LAUNCHES["flash_attention"],
+                _build.LAUNCHES["flash_attention_f32_i8kv"]) == \
+            (before[0] + 1, before[1] + 1)
+        want = ref.attention_ref(q, kq, vq, causal=causal, window=window,
+                                 kv_len=lens, k_scale=ks, v_scale=vs)
+        assert got.dtype == torch.float32
+        assert torch.allclose(got, want, **F32_CARD_TOL), (
+            causal, window, kv_len, (got - want).abs().max())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("d", [16, 32, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("sq", [1, 17, 200])
+def test_k2_equals_k1_bitwise_on_the_card(card, sq, group, d):
+    """B7's f32 kernel over int8 K/V (K2, counted under
+    ``kv_stationary_f32_i8kv``) folds B2's f32 tiles with B2's f32 step:
+    its output equals K1's bit for bit, as B7's f32 output over float K/V
+    equals B2's."""
+    hkv, b, skv = 2, 2, sq + 57
+    q, kq, vq, ks, vs = _int8_operands(card, b, hkv * group, hkv, sq, skv,
+                                       d, sq * 10 + group + d + 1,
+                                       torch.float32)
+    kf, vf = kq.float() * ks, vq.float() * vs
+    for causal, window, kv_len in MASKS:
+        lens = _lens(kv_len, skv, card)
+        before = (_build.LAUNCHES["kv_stationary"],
+                  _build.LAUNCHES["kv_stationary_f32_i8kv"])
+        got = attention_df.kv_stationary_attention(
+            q, kq, vq, causal=causal, window=window, kv_len=lens,
+            k_scale=ks, v_scale=vs)
+        assert (_build.LAUNCHES["kv_stationary"],
+                _build.LAUNCHES["kv_stationary_f32_i8kv"]) == \
+            (before[0] + 1, before[1] + 1)
+        want = attention_df.flash_attention(
+            q, kq, vq, causal=causal, window=window, kv_len=lens,
+            k_scale=ks, v_scale=vs)
+        assert torch.equal(got, want), (causal, window, kv_len, (
+            got - want).abs().max())
+        mask = dict(causal=causal, window=window, kv_len=lens)
+        assert torch.equal(attention_df.kv_stationary_attention(
+            q, kf, vf, **mask), attention_df.flash_attention(
+            q, kf, vf, **mask)), ("float K/V", causal, window, kv_len)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("sq", [1, 17, 200])
+def test_bf16_queries_over_int8_kv_at_d_head_16_on_the_card(card, sq):
+    """B2's bf16 int8 path at d_head 16 (one 16-byte code chunk a row)
+    within B2's tolerance of the plain twin, and B7's cluster kernel over
+    the same int8 K/V equal to it bit for bit."""
+    for group in (1, 2, 4):
+        hkv, b, skv = 2, 2, sq + 57
+        q, kq, vq, ks, vs = _int8_operands(card, b, hkv * group, hkv, sq,
+                                           skv, 16, sq + group)
+        for causal, window, kv_len in MASKS:
+            mask = dict(causal=causal, window=window,
+                        kv_len=_lens(kv_len, skv, card), k_scale=ks,
+                        v_scale=vs)
+            got = attention_df.flash_attention(q, kq, vq, **mask)
+            want = ref.attention_ref(q, kq, vq, **mask)
+            assert torch.allclose(got.float(), want.float(), **CARD_TOL), (
+                group, causal, window, kv_len)
+            assert torch.equal(attention_df.kv_stationary_attention(
+                q, kq, vq, **mask), got), (group, causal, window, kv_len)
+
+
+@pytest.mark.card
+def test_int8_kv_needs_int8_k_and_v_on_the_card(card):
     q, kq, vq, ks, vs = _int8_operands(card, 1, 2, 2, 4, 64, 64, 0)
     for fn in (attention_df.flash_attention,
                attention_df.kv_stationary_attention):
-        with pytest.raises(NotImplementedError, match="ROADMAP B"):
-            fn(q.float(), kq, vq, k_scale=ks, v_scale=vs)
-        with pytest.raises(TypeError, match="per-position"):
-            fn(q, kq, vq.to(torch.bfloat16), k_scale=ks, v_scale=vs)
+        for qq in (q, q.float()):
+            with pytest.raises(TypeError, match="per-position"):
+                fn(qq, kq, vq.to(qq.dtype), k_scale=ks, v_scale=vs)
 
 
 # ---------------------------------------------------------------------------
@@ -525,7 +619,9 @@ def test_int8_kernel_paths_are_registered_and_counted(monkeypatch):
 
     regs = registered_kernels()
     for key, library in (("flash_attention_i8kv", "flash_attention"),
-                         ("kv_stationary_cluster_i8kv", "kv_stationary")):
+                         ("kv_stationary_cluster_i8kv", "kv_stationary"),
+                         ("flash_attention_f32_i8kv", "flash_attention"),
+                         ("kv_stationary_f32_i8kv", "kv_stationary")):
         assert key in _build.I8KV_LAUNCHES and key in _build.LAUNCHES
         assert regs[key].source == regs[library].source
         assert regs[key].replaces == regs[library].replaces

@@ -317,6 +317,39 @@ def test_kv_stationary_equals_flash_bitwise_on_the_card(card, sq, group):
 
 
 @pytest.mark.card
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("sq", [1, 17, 200])
+def test_kv_stationary_at_d_head_16_on_the_card(card, sq, group):
+    """d_head 16: bf16 B7 on its cluster kernel (32-byte rows under the
+    TMA's 32-byte swizzle) equals B2 bit for bit; float32 B7 equals B2's
+    f32 kernel bit for bit and both hold 1e-4 of the plain version."""
+    hkv, d = 2, 16
+    b, skv = 2, sq + 57
+    gen = torch.Generator(device=card).manual_seed(sq * 10 + group + 16)
+    q = torch.randn((b, hkv * group, sq, d), generator=gen, device=card)
+    k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=card)
+            for _ in range(2))
+    for causal, window, kv_len in MASKS:
+        lens = {None: None, "short": skv - 9}.get(kv_len) \
+            if not isinstance(kv_len, list) else \
+            torch.tensor(kv_len, dtype=torch.int32, device=card)
+        mask = dict(causal=causal, window=window, kv_len=lens)
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        before = _build.LAUNCHES["kv_stationary_cluster"]
+        got = attention_df.kv_stationary_attention(qb, kb, vb, **mask)
+        assert _build.LAUNCHES["kv_stationary_cluster"] == before + 1
+        assert torch.equal(got, attention_df.flash_attention(
+            qb, kb, vb, **mask)), (causal, window, kv_len)
+        assert torch.allclose(got.float(), ref.attention_ref(
+            qb, kb, vb, **mask).float(), atol=4e-3, rtol=8e-3)
+        got32 = attention_df.kv_stationary_attention(q, k, v, **mask)
+        assert torch.equal(got32, attention_df.flash_attention(
+            q, k, v, **mask)), ("float32", causal, window, kv_len)
+        assert torch.allclose(got32, ref.attention_ref(q, k, v, **mask),
+                              atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.card
 def test_kv_stationary_several_units_a_cta_on_the_card(card):
     """Sq = 2048 at qwen3-1.7b's widths: 4 units a CTA, the state through
     device memory between KV blocks; D = 32 at 64 units over 2 clusters."""

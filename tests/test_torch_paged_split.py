@@ -222,7 +222,9 @@ def card():
     (4, 4, 64, 8, [1, 8, 9, 300]),
     (8, 1, 32, 32, [33, 1000, 0, 64]),
     (6, 2, 64, 5, [7, 161, 42, 500]),
-], ids=["served", "long", "page8", "group8", "page5"])
+    (6, 6, 16, 16, [5, 17, 200, 0]),
+    (8, 2, 16, 8, [1, 300, 33, 64]),
+], ids=["served", "long", "page8", "group8", "page5", "d16_mha", "d16"])
 def test_split_kernel_matches_the_plain_version_on_the_card(
         card, case, window, dtype):
     """Within B2's tolerances (bf16: atol 4e-3, rtol 8e-3; float32: 1e-4;

@@ -230,6 +230,28 @@ def test_bf16_b1_equals_every_anchor_on_the_card(card, m):
 
 
 @pytest.mark.card
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_b2_at_d_head_16_on_the_card(card, dtype):
+    """B2 at d_head 16 (the tensor-core tile's single QK^T chunk and two PV
+    fragments; the f32 kernel's half-idle lanes) against its plain version
+    over causal, windowed and per-row bands (a zero row among them), with
+    B2's tolerance (float32: 1e-4)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=card).manual_seed(16)
+    tol = ATT_TOL if dt == torch.bfloat16 else dict(atol=1e-4, rtol=1e-4)
+    for b, hq, hkv, sq, skv in ((3, 6, 6, 70, 150), (2, 8, 2, 1, 300),
+                                (1, 4, 2, 200, 200)):
+        q, k, v = (torch.randn(s, generator=gen, device=card).to(dt) for s in (
+            (b, hq, sq, 16), (b, hkv, skv, 16), (b, hkv, skv, 16)))
+        lens = torch.tensor([0, 90, skv][:b], device=card, dtype=torch.int32)
+        for mask in (dict(), dict(kv_len=lens, window=40),
+                     dict(causal=False, kv_len=skv - 9)):
+            got = attention_df.flash_attention(q, k, v, **mask)
+            want = ref.attention_ref(q, k, v, **mask)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.card
 def test_bf16_b2_within_att_tol_on_the_card(card):
     """Banded GQA (per-row kv_len with a zero row, window) on the
     tensor-core flash kernel against its plain version."""
