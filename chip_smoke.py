@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as the gate runs it
     python3 chip_smoke.py --phases card,build,kernels   # a quicker kernel check
+    python3 chip_smoke.py --phases card,build,autotune  # the explorer's picks against the card
     python3 chip_smoke.py --phases card,build,kernels,dataflows
     python3 chip_smoke.py --phases card,build,kernels,quantized
     python3 chip_smoke.py --phases card,build,serve_packed --layers 2
@@ -80,31 +81,56 @@ Phases, each printing JSON lines:
    (prefill for M > 16, decode for M <= 16), timed at M = 512 and 4.
    Every launch of B1's basic OS reports the tile it took, its shared
    memory and CTAs, and raises unless ``matmul_df.plan`` planned the same.
-4. ``dataflows``: the bench twins (``repro_torch.bench``): Fig. 2 (basic
+4. ``autotune``: the explorer (``core.explorer``) against the card.  For
+   each distinct workload the serve phases hand the autotuner (qwen3-1.7b
+   at full width: the MLP GEMMs at bf16, packed 4-bit and binary for the
+   serve prompts and at decode batch 4, the prefill, chunk and slot-decode
+   attention over bf16 and int8 K/V), the paper's 12-layer grid, Fig.
+   2/7's qwen3-1.7b GEMMs, the quantized phase's convs and serve_f32's
+   smoke problems: every feasible candidate with its analytical estimate,
+   run through its public op, held bit for bit against basic OS (B2 for
+   attention; a gate) and timed (CUDA events after an L2 flush, median of
+   15); on every serve hot problem and serve_f32 problem the autotuner
+   must serve the explorer's fresh pick (the store is this run's own,
+   under a temporary directory) and the pick's time must be within
+   ``PICK_RATIO`` (1.15x) of the fastest candidate's (gates); the paper
+   group's agreement is reported, and that of a group held out of the
+   cost model's fit (qwen3-1.7b at a 1 024-token prompt and decode batch
+   16).  Every serve phase then measures, the
+   same way, each problem it looked up that this phase did not (group
+   ``served``; serve_dense's, the other decoders' widths, ``held-out``),
+   and reports their agreement.
+5. ``dataflows``: the bench twins (``repro_torch.bench``): Fig. 2 (basic
    OS/WS/IS), Fig. 7 (auxiliary residencies) on the paper's layer grid
    and qwen3-1.7b's MLP GEMMs, and attention's OS vs WS anchor at prefill
    512 and 2048; every row printed, every dataflow kernel launched.
-5. ``quantized``: the bench twins of the paper's quantized datapaths
+6. ``quantized``: the bench twins of the paper's quantized datapaths
    (``repro_torch.bench.conv``, ``repro_torch.bench.binary``): fused
    against unfused conv epilogue per anchor, the ResNet-18 conv body at
    int8 per anchor, Fig. 9 (binary against int8 and bf16 conv on the
    VGG layers) and the packed-weight rows (``repro_torch.bench.packed``:
    B1 on packed 4- and 5-bit, int8 and bf16 weights at qwen3-1.7b's MLP
    shapes); every row printed, B8 (its int8 and bf16 tiles and walks),
-   B9, B1 and B6 launched.
-6. ``serve``: full-width qwen3-1.7b (random bf16 weights from a seed, depth
+   B9, B1 and B6 launched, and each kernel the autotuner's picks of the
+   ``spec=None`` calls imply (Fig. 9's convs, the packed rows' B1)
+   launched at least that often.
+7. ``serve``: full-width qwen3-1.7b (random bf16 weights from a seed, depth
    cut to ``--layers``) served through ``Engine.submit``/``drain``:
-   every request DONE, no demotion, every kernel launched, mixed-length
+   every request DONE, no demotion, every kernel launched, every
+   kernel's launches equal to what the autotuner's picks of the ops'
+   ``spec=None`` calls imply and each pick the explorer's fresh first
+   (``_picks_gate``; every serve phase),
+   mixed-length
    batch tokens == each request served alone; prefill tokens/s and decode
    ms/step; then ``torch.profiler`` traces of the 511-token prefill and
    of 6 decode steps at batch 4: device busy ms, idle share, kernel ms by
    name, per prefill and per step; and one prefill under ``cProfile``,
    its functions with the most own host time.
-7. ``serve_binary``: the same, for qwen3-1.7b with its binary MLP
+8. ``serve_binary``: the same, for qwen3-1.7b with its binary MLP
    (``binary_mlp=True``: +-1 weights bit-packed, the two projections
    through B9); besides, at every layer of a two-layer prefill the
    binary MLP on the kernels equals its plain version bit for bit.
-8. ``serve_packed``: the same, for qwen3-1.7b with packed 4-bit MLP
+9. ``serve_packed``: the same, for qwen3-1.7b with packed 4-bit MLP
    weights (``packed_weights=True``: the three projections through B1
    with B6 decoding the planes); at every layer of a two-layer prefill
    ``up`` and ``down`` on the kernels equal their plain versions bit for
@@ -112,7 +138,7 @@ Phases, each printing JSON lines:
    tolerance.  Its activations are quantized per tensor over the batch,
    so the mixed-batch tokens are compared with each request alone and
    the differing tokens counted, not gated.
-9. ``serve_recovery``: full-width qwen3-1.7b (depth ``--layers``) through
+10. ``serve_recovery``: full-width qwen3-1.7b (depth ``--layers``) through
    ``Engine`` in the modes the serving loop adds, every gate raising:
    chunked prefill (``prefill_chunk=128``; prompts of 17/64/200/511
    tokens, 16 new) emits the whole prompts' tokens, with the first
@@ -132,7 +158,7 @@ Phases, each printing JSON lines:
    steps killed after one (a warm resume); both must recover every
    journaled request with the uninterrupted run's tokens, none FAILED,
    no replay divergence.
-10. ``serve_int8kv``: full-width qwen3-1.7b (depth ``--layers``) with
+11. ``serve_int8kv``: full-width qwen3-1.7b (depth ``--layers``) with
    ``kv_cache_dtype="int8"`` through ``Engine``'s continuous scheduler
    (prompts of 17/64/200/511 tokens, 16 new): every request DONE, 0
    demotions, mixed batch == each request alone, no page pool and no B3
@@ -142,7 +168,7 @@ Phases, each printing JSON lines:
    prompts' counted), the first decode logits within 0.05 (relative to
    the largest) of the bf16 cache's at 2 layers (the full depth's
    reported), and the decode step traced.
-11. ``serve_dense``: the other dense decoders at full width, bf16, random
+12. ``serve_dense``: the other dense decoders at full width, bf16, random
    weights from ``--seed``, through ``Engine`` on the paged path with the
    serve cell's prompts: minicpm-2b at full depth (40 layers), then
    mistral-nemo-12b, minitron-8b and chameleon-34b at 4 layers each (the
@@ -152,7 +178,7 @@ Phases, each printing JSON lines:
    no token >= ``vocab_size``; every B1 launch on its tiles; B2 launches
    = layers x prompts, B3 = layers x decode steps.  Weights' bytes and
    decode ms/step printed; minicpm-2b's decode step traced.
-12. ``serve_f32``: the five dense smoke configs in float32 (minicpm-2b's at
+13. ``serve_f32``: the five dense smoke configs in float32 (minicpm-2b's at
    d_head 16), each from the float cache (B2 and B3 f32) and from an int8
    KV cache (K1: B2's f32 kernel over int8 K/V at every decode step and
    chunk), whole prompts and with ``prefill_chunk=32``: the first decode
@@ -175,7 +201,10 @@ quantized: B8 with its int8 and bf16 OS tiles and WS/IS walks, B9 and
 its prefill tile, B1 and its int8 tiles, B6); on serve, serve_packed,
 serve_int8kv and serve_dense every B1 launch, and on serve_binary every
 B9 launch, is one of its tiles' (prefill plus decode),
-counted from 0 just before the path runs. The
+counted from 0 just before the path runs; a serve path's kernels include
+whichever its autotuned picks launch (B5a and B5b at some bf16 prefill
+down projections). B2's and B7's attention launches are gated on their
+sum and each on the picks. The
 last lines are the ``{"kernels": [...]}``
 record, the card line, and ``{"ok": true, "device": {...}}``. Any
 failure raises, so the script exits non-zero and prints no ``ok`` line;
@@ -185,16 +214,20 @@ sources are not beside it.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-ALL_PHASES = ("card", "build", "kernels", "dataflows", "quantized", "serve",
+ALL_PHASES = ("card", "build", "kernels", "autotune", "dataflows",
+              "quantized", "serve",
               "serve_binary", "serve_packed", "serve_recovery",
               "serve_int8kv", "serve_dense", "serve_f32")
 
@@ -1792,12 +1825,13 @@ def int8_packed_checks(torch, cfg, timer, gen, tol):
                 else None
             for kind, fn, plain, wbytes in (
                     ("packed 4-bit",
-                     lambda: ops.matmul_packed(aq, pw, a_scale=a_scale),
+                     lambda: ops.matmul_packed(aq, pw, a_scale=a_scale,
+                                               spec=matmul_df.BASIC_OS),
                      lambda: ref.matmul_packed_ref(
                          aq, pw, a_scale=a_scale.reshape(1, 1)),
                      common.packed_read_bytes(pw)),
-                    ("int8", lambda: ops.int8_matmul_fused(aq, q, a_scale,
-                                                           w_scale),
+                    ("int8", lambda: ops.int8_matmul_fused(
+                        aq, q, a_scale, w_scale, spec=matmul_df.BASIC_OS),
                      lambda: ref.matmul_fused_ref(aq, q,
                                                   scale=a_scale * w_scale),
                      k * n)):
@@ -1912,7 +1946,8 @@ def packed_conv_checks(torch, timer, gen):
                     "outlier rows, dequant, f32 out, OS",
            "tile": p.tile_kernel, "ctas": p.ctas, "split": p.split,
            "ms": timer.ms(lambda: ops.conv2d_packed(xq, pcw, s,
-                                                    x_scale=x_scale)),
+                                                    x_scale=x_scale,
+                                                    spec=ANCHORS["os"])),
            "plain_ms": timer.ms(lambda: ref.conv2d_packed_ref(xq, pcw, s)),
            "library_ms": None, "bound_ms": bnd[0], "bound_by": bnd[1]}
     emit({"kernel_timing_detail": "conv2d packed 4-bit", **rec})
@@ -1961,23 +1996,404 @@ QUANTIZED_PATH = ("conv2d", "conv2d_os_i8", "conv2d_ws_i8", "conv2d_is_i8",
 
 
 def quantized_phase(torch):
+    """The bench twins' rows; the launches of their ``spec=None`` calls
+    (Fig. 9's int8, bf16 and binary convs, the packed rows' B1) follow
+    the autotuner's picks: every kernel key the picks imply is launched
+    at least that often (the benches' pinned specs launch the rest)."""
     from repro_torch.bench import binary, conv, packed
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
 
     _build.reset_launches()
+    ops.RESOLVED.clear()
     t0 = time.monotonic()
     for bench in (conv, binary, packed):
         for row in bench.run("cuda"):
             emit({"phase": "quantized", **row})
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    picks = picks_since()
+    implied = implied_launches(picks)
+    short = {k: [launches[k], n] for k, n in implied.items()
+             if launches[k] < n}
     emit({"phase": "quantized", "event": "done", "card": card_line(),
-          "seconds": time.monotonic() - t0, "launches": launches})
+          "seconds": time.monotonic() - t0, "launches": launches,
+          "picks": {f"{type(p).__name__} {dataclasses.astuple(p)}":
+                    [spec.name, n] for (p, spec), n in picks.items()},
+          "implied_launches": implied})
+    if short:
+        raise AssertionError(f"quantized: launches below the autotuner's "
+                             f"picks (launched, implied): {short}")
     missing = [k for k in QUANTIZED_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the quantized "
                              f"path: {missing}")
     return {k: launches[k] for k in QUANTIZED_PATH}
+
+
+# ---------------------------------------------------------------------------
+# The autotune phase: the explorer's analytical pick against the card.
+# ---------------------------------------------------------------------------
+# The serve phases' traffic: prompts of these lengths prefilled one at a
+# time, decode at the scheduler's batch of 4 over a 1 024-key buffer, and
+# serve_recovery's 128-token prefill chunks over it.
+SERVE_LENS, SERVE_MAX_LEN, SERVE_BATCH, SERVE_CHUNK = (17, 64, 200, 511), \
+    1024, 4, 128
+# The analytical pick's measured time over the fastest candidate's, at
+# most, on every serve hot problem.
+PICK_RATIO = 1.15
+
+
+def serve_hot_problems(cfg):
+    """(label, problem) of each distinct workload the serve phases hand
+    the autotuner for qwen3-1.7b at full width: the MLP GEMMs at bf16,
+    packed 4-bit and binary (every prefill length, and decode at batch
+    4), the prefill, chunk and slot-decode attention over bf16 and int8
+    K/V."""
+    from repro_torch.core.dataflow import AttentionProblem
+    from repro_torch.models import lm
+
+    out = []
+    for tag, mlp in (("bf16", {}),
+                     ("packed4", {"packed_weights": True,
+                                  "packed_weight_bits": 4}),
+                     ("binary", {"binary_mlp": True})):
+        c = dataclasses.replace(cfg, **mlp)
+        for stage, batch, seq in ([("prefill", 1, n) for n in SERVE_LENS]
+                                  + [("decode", SERVE_BATCH, 1)]):
+            for p in (lm.hot_gemm_problems(c, batch, seq)
+                      + lm.hot_binary_problems(c, batch, seq)):
+                out.append((f"{tag} {stage} mlp", p))
+    for kvd in ("auto", "int8"):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kvd)
+        if kvd == "auto":
+            for n in SERVE_LENS:
+                out.append(("attention prefill", lm.hot_attention_problems(
+                    c, 1, n, SERVE_MAX_LEN)[0]))
+        # the scheduler's slot cache decodes each row at its own index
+        dec = lm.hot_attention_problems(c, SERVE_BATCH, 1, SERVE_MAX_LEN,
+                                        rows=SERVE_BATCH)[1]
+        out.append((f"attention slot decode {kvd}", dec))
+        out.append((f"attention chunk {kvd}", dataclasses.replace(
+            dec, bh=cfg.n_heads, sq=SERVE_CHUNK, rows=1)))
+    return out
+
+
+def heldout_problems(cfg):
+    """(label, problem) of qwen3-1.7b at a second batch and prompt length,
+    none of them in the cost model's fit: the MLP GEMMs at bf16, packed
+    4-bit and binary for a 1 024-token prompt and decode at batch 16, and
+    the attention of that prefill and of the slot-cache decode at batch
+    16 over bf16 and int8 K/V."""
+    from repro_torch.models import lm
+
+    out = []
+    for tag, mlp in (("bf16", {}),
+                     ("packed4", {"packed_weights": True,
+                                  "packed_weight_bits": 4}),
+                     ("binary", {"binary_mlp": True})):
+        c = dataclasses.replace(cfg, **mlp)
+        for stage, batch, seq in (("prefill", 1, 1024), ("decode", 16, 1)):
+            out += [(f"{tag} {stage} mlp", p)
+                    for p in (lm.hot_gemm_problems(c, batch, seq)
+                              + lm.hot_binary_problems(c, batch, seq))]
+    out.append(("attention prefill",
+                lm.hot_attention_problems(cfg, 1, 1024)[0]))
+    for kvd in ("auto", "int8"):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kvd)
+        out.append((f"attention slot decode {kvd}", lm.hot_attention_problems(
+            c, 16, 1, 2048, rows=16)[1]))
+    return out
+
+
+def paper_problems():
+    """(label, problem) of the paper's 12-layer grid (bf16 GEMM view),
+    qwen3-1.7b's MLP GEMMs of Fig. 2/7 and the conv layers of the
+    quantized phase (ResNet-18's int8 body, Fig. 9's VGG layers at int8
+    and bf16)."""
+    from repro_torch.bench import binary as bench_binary, common
+    from repro_torch.bench import conv as bench_conv
+    from repro_torch.core.dataflow import ConvProblem, GemmProblem
+
+    out = [(f"grid {layer}", GemmProblem(g.m, g.k, g.n))
+           for layer in common.PAPER_LAYERS
+           for g in [common.paper_gemm(layer)]]
+    out += [("fig2/7 qwen3-1.7b mlp", GemmProblem(m, k, n))
+            for m, k, n in common.QWEN_MLP]
+    for ih, iw, f, s, cin, cout, _ in bench_conv.RESNET18:
+        out.append(("resnet18 int8 conv", ConvProblem(
+            ih=ih, iw=iw, fh=f, fw=f, s=s, cin=cin, cout=cout,
+            out_dtype="float32")))
+    for ih, iw, f, s, cin, cout in bench_binary.VGG_LAYERS:
+        for dt in ("int8", "bfloat16"):
+            out.append((f"fig9 {dt} conv", ConvProblem(
+                ih=ih, iw=iw, fh=f, fw=f, s=s, cin=cin, cout=cout,
+                in_dtype=dt, out_dtype="int32" if dt == "int8"
+                else "float32")))
+    return out
+
+
+def f32_problems():
+    """(label, problem) of the serve_f32 phase's smoke configs in float32:
+    their MLP GEMMs at each prompt length and at decode batch 4, and the
+    prefill, chunk and slot-decode attention over float and int8 K/V."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    out = []
+    for name in SERVE_F32:
+        c = configs.get_smoke(name)
+        for n in SERVE_F32_LENS:
+            out += [(f"{name} f32 prefill mlp", p)
+                    for p in lm.hot_gemm_problems(c, 1, n)]
+            out.append((f"{name} f32 attention prefill",
+                        lm.hot_attention_problems(c, 1, n)[0]))
+        out += [(f"{name} f32 decode mlp", p)
+                for p in lm.hot_gemm_problems(c, SERVE_BATCH, 1)]
+        for kvd in ("auto", "int8"):
+            dec = lm.hot_attention_problems(dataclasses.replace(
+                c, kv_cache_dtype=kvd), SERVE_BATCH, 1, SERVE_F32_MAX_LEN,
+                rows=SERVE_BATCH)[1]
+            out.append((f"{name} f32 attention slot decode {kvd}", dec))
+            out.append((f"{name} f32 attention chunk {kvd}",
+                        dataclasses.replace(dec, bh=c.n_heads,
+                                            sq=SERVE_F32_CHUNK, rows=1)))
+    return out
+
+
+def _base_spec(problem, specs):
+    """The candidate every other one must equal bit for bit: basic OS
+    (the OS anchor for a conv; B2 for attention)."""
+    from repro_torch.core.dataflow import OS
+
+    for spec in specs:
+        if spec.anchor == OS and not [r for _, r in spec.aux
+                                      if r.value != "streamed"]:
+            return spec
+    return next(s for s in specs if s.anchor == OS)
+
+
+def _plan_summary(problem, spec) -> dict:
+    from repro_torch.core import cost_model
+    from repro_torch.core.dataflow import (AttentionProblem, BinaryProblem,
+                                           ConvProblem, OS)
+    from repro_torch.kernels import binary_mm, conv2d_df, matmul_df
+
+    if isinstance(problem, AttentionProblem):
+        kvp = cost_model._kv_plan(problem) if spec.anchor != OS else None
+        return {"kernel": "flash_attention" if spec.anchor == OS
+                else "kv_stationary",
+                "cluster": kvp.cluster if kvp else None,
+                "ctas": kvp.ctas if kvp else None}
+    if isinstance(problem, BinaryProblem):
+        p = binary_mm.plan(spec, problem.m, problem.kp, problem.n)
+    elif isinstance(problem, ConvProblem):
+        p = conv2d_df.plan(spec, problem,
+                           cost_model.TORCH_DTYPES[problem.in_dtype],
+                           problem.weight_bits)
+    else:
+        p = matmul_df.plan(spec, problem.m, problem.k, problem.n,
+                           cost_model.TORCH_DTYPES[problem.in_dtype],
+                           problem.weight_bits)
+    return {"kernel": p.kernel, "tile": p.tile_kernel, "ctas": p.ctas,
+            "cluster": p.cluster}
+
+
+# Every problem the autotune phase or a serve measured: problem -> its
+# record (the pick's measured time over the fastest candidate's).
+MEASURED = {}
+
+
+def measure_problem(torch, group: str, label: str, problem, hw) -> dict:
+    """The explorer's candidates of ``problem`` with their analytical
+    estimates, each run on the card, held bit for bit against basic OS
+    (B2 for attention) and timed (CUDA events after an L2 flush, median
+    of 15); emits the record and keeps it in ``MEASURED``.  Raises if a
+    candidate differs from basic OS."""
+    from repro_torch.core import explorer
+
+    cands = explorer.explore(problem, hw, top=99)
+    specs = [c.spec for c in cands]
+    base = _base_spec(problem, specs)
+    calls = dict(explorer.candidate_calls(problem, specs, "cuda"))
+    want = calls[base]()
+    out, differ = [], []
+    for c in cands:
+        got = calls[c.spec]()
+        same = bool(torch.equal(got, want))
+        ms = explorer.measure(calls[c.spec], "cuda") * 1e3
+        out.append({"spec": c.name, "est_ms": c.est_seconds * 1e3,
+                    "ms": ms, "equal_basic_os": same,
+                    **_plan_summary(problem, c.spec)})
+        if not same:
+            differ.append(c.name)
+    del calls, want
+    fastest = min(out, key=lambda r: r["ms"])
+    ranked = sorted(out, key=lambda r: r["ms"])
+    pick = out[0]
+    rec = {"phase": "autotune", "group": group, "label": label,
+           "problem": dataclasses.asdict(problem),
+           "kind": type(problem).__name__, "pick": pick["spec"],
+           "pick_est_ms": pick["est_ms"], "pick_ms": pick["ms"],
+           "fastest": fastest["spec"], "fastest_ms": fastest["ms"],
+           "ratio": pick["ms"] / fastest["ms"],
+           "pick_measured_rank": ranked.index(pick) + 1, "candidates": out}
+    emit(rec)
+    MEASURED[problem] = rec
+    if differ:
+        raise AssertionError(f"{label} {problem}: {differ} != "
+                             f"{base.name} bit for bit")
+    return rec
+
+
+def autotune_phase(torch):
+    """Each serve hot problem, serve_f32's problems and the paper's
+    problems through ``measure_problem``; gates that every candidate
+    equals basic OS, that the autotuner serves the explorer's fresh pick
+    of every serve and f32 problem, and that there the pick's time is
+    within ``PICK_RATIO`` of the fastest candidate's.  The paper's
+    problems' agreement and that of problems held out of the cost
+    model's fit (``heldout_problems``) are reported."""
+    from repro_torch import configs
+    from repro_torch.core import autotune, cost_model
+    from repro_torch.kernels import _build
+
+    cfg = configs.get("qwen3-1.7b")
+    hw = cost_model.hardware_for("cuda")
+    t0 = time.monotonic()
+    emit({"phase": "autotune", "event": "hardware", "name": hw.name,
+          "sms": hw.sms, "smem_block": hw.smem_block,
+          "l2_bytes": hw.l2_bytes, "card": card_line(),
+          "model": cost_model.model_digest(),
+          "store": autotune.cache_path()})
+    misses = []
+    summary = {"serve": [], "paper": [], "f32": [], "held-out": []}
+    rows = [("serve", label, p) for label, p in serve_hot_problems(cfg)] + \
+        [("paper", label, p) for label, p in paper_problems()] + \
+        [("f32", label, p) for label, p in dict.fromkeys(f32_problems())] + \
+        [("held-out", label, p) for label, p in heldout_problems(cfg)]
+    for group, label, problem in rows:
+        try:
+            rec = measure_problem(torch, group, label, problem, hw)
+        except AssertionError as e:
+            misses.append(str(e))
+            continue
+        summary[group].append(rec["ratio"])
+        if group in ("paper", "held-out"):
+            continue
+        served = autotune.best_spec(problem, hw).name
+        if served != rec["pick"]:
+            misses.append(f"{label} {problem}: the autotuner serves "
+                          f"{served}, the explorer picks {rec['pick']}")
+        if rec["ratio"] > PICK_RATIO:
+            misses.append(f"{label} {problem}: the pick {rec['pick']} "
+                          f"{rec['pick_ms']:.4f} ms is {rec['ratio']:.3f}x "
+                          f"the fastest {rec['fastest']} "
+                          f"{rec['fastest_ms']:.4f}")
+    torch.cuda.synchronize()
+    emit({"phase": "autotune", "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t0,
+          "agreement": _agreement(summary),
+          "launches": {k: v for k, v in _build.LAUNCHES.items() if v}})
+    if misses:
+        raise AssertionError("autotune: " + "; ".join(misses))
+
+
+def _agreement(summary) -> dict:
+    return {g: {"problems": len(r), "pick_is_fastest": sum(
+        x <= 1.0 for x in r), "within_ratio": sum(x <= PICK_RATIO for x in r),
+        "worst_ratio": max(r)} for g, r in summary.items() if r}
+
+
+def launch_keys(problem, spec):
+    """The ``_build.LAUNCHES`` keys one op call adds one to when it runs
+    ``spec`` on ``problem``: the kernel, the tile or walk it reports, B6
+    for packed weights, the int8 K/V path's count."""
+    from repro_torch.core import cost_model
+    from repro_torch.core.dataflow import (AttentionProblem, BinaryProblem,
+                                           ConvProblem, OS)
+    from repro_torch.kernels import _build, binary_mm, conv2d_df, matmul_df
+
+    if isinstance(problem, AttentionProblem):
+        bf16 = problem.dtype == "bfloat16"
+        i8 = problem.kv_quantized
+        if spec.anchor == OS:
+            return ["flash_attention"] + (
+                [] if not i8 else ["flash_attention_i8kv" if bf16
+                                   else "flash_attention_f32_i8kv"])
+        return ["kv_stationary"] + (["kv_stationary_cluster"] if bf16
+                                    else []) + (
+            [] if not i8 else ["kv_stationary_cluster_i8kv" if bf16
+                               else "kv_stationary_f32_i8kv"])
+    dtype = cost_model.TORCH_DTYPES.get(getattr(problem, "in_dtype", ""))
+    if isinstance(problem, BinaryProblem):
+        p = binary_mm.plan(spec, problem.m, problem.kp, problem.n)
+    elif isinstance(problem, ConvProblem):
+        p = conv2d_df.plan(spec, problem, dtype, problem.weight_bits)
+    else:
+        p = matmul_df.plan(spec, problem.m, problem.k, problem.n, dtype,
+                           problem.weight_bits)
+    return [p.kernel] + ([p.tile_kernel] if p.tile_kernel else []) + (
+        [_build.PACKED_DECODE] if getattr(problem, "weight_bits", None)
+        else [])
+
+
+def picks_since(since=None):
+    """The op calls the autotuner resolved on the card since the snapshot
+    ``since`` of ``ops.RESOLVED``: {(problem, spec): calls}."""
+    from repro_torch.core import autotune, cost_model
+    from repro_torch.kernels import ops
+
+    since = since or {}
+    hw = cost_model.hardware_for("cuda")
+    return {(p, autotune.best_spec(p, hw)): n - since.get(p, 0)
+            for p, n in ops.RESOLVED.items() if n > since.get(p, 0)}
+
+
+def implied_launches(picks):
+    """The launches of each kernel key the picked plans imply."""
+    out = {}
+    for (problem, spec), n in picks.items():
+        for key in launch_keys(problem, spec):
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+def _picks_gate(phase: str, launches, picks, group: str = "served") -> dict:
+    """Each kernel's launches equal what the autotuner's picks imply
+    (B3, which is not autotuned, aside), and each pick is the explorer's
+    fresh ranking's first, or raise.  Each picked problem the autotune
+    phase did not measure (and gate) is measured (``measure_problem``,
+    under ``group``) and its agreement reported.  Returns the launches
+    the picks imply."""
+    import torch
+
+    from repro_torch.core import cost_model, explorer
+
+    hw = cost_model.hardware_for("cuda")
+    implied = implied_launches(picks)
+    keys = sorted((set(implied) | {k for k, v in launches.items() if v})
+                  - {"paged_attention"})
+    off = {k: [launches.get(k, 0), implied.get(k, 0)] for k in keys
+           if launches.get(k, 0) != implied.get(k, 0)}
+    by_kernel, stale, new = {}, [], []
+    for (problem, spec), n in picks.items():
+        name = f"{type(problem).__name__} {spec.name}"
+        by_kernel[name] = by_kernel.get(name, 0) + n
+        if explorer.explore(problem, hw, top=1)[0].spec != spec:
+            stale.append(f"{problem}: {spec.name}")
+        if problem not in MEASURED:
+            new.append(measure_problem(torch, group, phase, problem,
+                                       hw)["ratio"])
+    emit({"phase": phase, "event": "picks", "calls_by_pick": by_kernel,
+          "implied_launches": implied, "off": off, "problems": len(picks),
+          "worst_ratio": max((MEASURED[p]["ratio"] for p, _ in picks),
+                             default=None),
+          group: _agreement({group: new}).get(group)})
+    if off or stale:
+        raise AssertionError(
+            f"{phase}: launches off the autotuner's picks (launched, "
+            f"implied): {off}; picks not the explorer's: {stale}")
+    return implied
 
 
 # ---------------------------------------------------------------------------
@@ -2088,11 +2504,11 @@ def serve_path(torch, cfg, args, phase, path):
     decode trace; returns the launches of ``path``'s kernels."""
     import numpy as np
 
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     from repro_torch.models import layers, lm
     from repro_torch.serve.engine import Engine, RequestState
 
-    max_len, new_tokens, lens = 1024, 16, (17, 64, 200, 511)
+    max_len, new_tokens, lens = SERVE_MAX_LEN, 16, SERVE_LENS
     t0 = time.monotonic()
     params = lm.init_model(cfg, seed=args.seed, device="cuda")
     torch.cuda.synchronize()
@@ -2138,6 +2554,7 @@ def serve_path(torch, cfg, args, phase, path):
 
     # The main path: counts zeroed just before, read just after.
     _build.reset_launches()
+    ops.RESOLVED.clear()
     eng = Engine(cfg, params, max_len=max_len, device="cuda")
     reqs = [eng.submit(p, new_tokens) for p in prompts]
     torch.cuda.synchronize()
@@ -2146,6 +2563,9 @@ def serve_path(torch, cfg, args, phase, path):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = dict(_build.LAUNCHES)
+    implied = _picks_gate(phase, launches, picks_since())
+    path = tuple(dict.fromkeys(path + tuple(k for k, v in implied.items()
+                                            if v)))
     stats = eng.stats()
     bad = [(r.rid, r.state.value, r.error) for r in reqs
            if r.state != RequestState.DONE]
@@ -2160,7 +2580,8 @@ def serve_path(torch, cfg, args, phase, path):
           "tokens": [r.out_tokens for r in reqs]})
     if bad or stats["demotions"] or stats["degraded_steps"]:
         raise AssertionError(f"serve run unhealthy: {bad}, {stats}")
-    missing = [k for k in path if launches[k] <= 0]
+    missing = [k for k in path if launches[k] <= 0
+               and (k == "paged_attention" or implied.get(k))]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -2382,7 +2803,7 @@ def serve_recovery_phase(torch, cfg, args):
     import shutil
     import tempfile
 
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.scheduler import SchedulerConfig
@@ -2409,6 +2830,7 @@ def serve_recovery_phase(torch, cfg, args):
 
     # The main path: counts zeroed just before, read just after.
     _build.reset_launches()
+    ops.RESOLVED.clear()
     # Chunked prefill: every prompt longer than a chunk streams through
     # lm.prefill_chunk 128 tokens a step (B2 at Sq = 128 over the filled
     # cache), interleaved with decode.
@@ -2468,7 +2890,11 @@ def serve_recovery_phase(torch, cfg, args):
                                         "paged_drain": _step_ms(peng)},
           "launches_slot_serve": launched(since)})
     launches = dict(_build.LAUNCHES)
-    missing = [k for k in SERVE_PATH if launches[k] <= 0]
+    implied = _picks_gate(phase, launches, picks_since())
+    path = tuple(dict.fromkeys(SERVE_PATH + tuple(
+        k for k, v in implied.items() if v)))
+    missing = [k for k in path if launches[k] <= 0
+               and (k == "paged_attention" or implied.get(k))]
     emit({"phase": phase, "event": "launches", "launches": launches,
           "missing": missing})
     if missing:
@@ -2528,7 +2954,7 @@ def serve_recovery_phase(torch, cfg, args):
         shutil.rmtree(workdir, ignore_errors=True)
     emit({"phase": phase, "event": "done",
           "seconds": time.monotonic() - t_phase})
-    return {k: launches[k] for k in SERVE_PATH}
+    return {k: launches[k] for k in path}
 
 
 # ---------------------------------------------------------------------------
@@ -2536,6 +2962,21 @@ def serve_recovery_phase(torch, cfg, args):
 # ---------------------------------------------------------------------------
 SERVE_INT8KV_PATH = ("matmul_os", "matmul_os_prefill", "matmul_os_decode",
                      "flash_attention", "flash_attention_i8kv")
+# B2's and B7's launch counts: the attention launches of a serve are
+# gated on their sum (one a layer a prompt, step or chunk) and each on
+# the autotuner's picks (``_picks_gate``).
+ATTENTION_KEYS = ("flash_attention", "kv_stationary", "flash_attention_i8kv",
+                  "kv_stationary_cluster_i8kv", "flash_attention_f32_i8kv",
+                  "kv_stationary_f32_i8kv")
+
+
+def _attention(launches, i8: bool = False, f32: bool = False) -> int:
+    """B2's and B7's launches together: all, over int8 K/V under bf16
+    queries (``i8``), or under float32 queries (``f32``)."""
+    keys = (("flash_attention_f32_i8kv", "kv_stationary_f32_i8kv") if f32
+            else ("flash_attention_i8kv", "kv_stationary_cluster_i8kv") if i8
+            else ("flash_attention", "kv_stationary"))
+    return sum(launches.get(k, 0) for k in keys)
 # The reference's bound on the int8 cache's first decode logits against
 # the bf16 cache's (max |diff| over max |bf16 logit|), gated at 2 layers.
 INT8KV_REL_TOL = 0.05
@@ -2564,7 +3005,7 @@ def serve_int8kv_phase(torch, cfg, args):
     drain."""
     import numpy as np
 
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, RequestState
     from repro_torch.serve.scheduler import SchedulerConfig
@@ -2580,7 +3021,7 @@ def serve_int8kv_phase(torch, cfg, args):
         eng = Engine(cfg8, params, max_len=max_len, device="cuda",
                      scheduler_config=SchedulerConfig(**sc) if sc else None)
         reqs = [eng.submit(p, new_tokens) for p in ps]
-        since = dict(_build.LAUNCHES)
+        since, rsince = dict(_build.LAUNCHES), dict(ops.RESOLVED)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         eng.drain()
@@ -2593,8 +3034,15 @@ def serve_int8kv_phase(torch, cfg, args):
             raise AssertionError(f"{event}: an int8 cache decoded off or "
                                  f"mirrored into a page pool: {rep}")
         launched = {k: _build.LAUNCHES[k] - since.get(k, 0)
-                    for k in (*SERVE_INT8KV_PATH, "paged_attention")}
-        return [r.out_tokens for r in reqs], eng, wall, launched
+                    for k in _build.LAUNCHES}
+        implied = _picks_gate(f"{phase} {event}", launched,
+                              picks_since(rsince))
+        keys = dict.fromkeys((*(k for k in SERVE_INT8KV_PATH
+                                if implied.get(k)), "paged_attention",
+                              *ATTENTION_KEYS,
+                              *(k for k, v in implied.items() if v)))
+        return ([r.out_tokens for r in reqs], eng, wall,
+                {k: launched[k] for k in keys})
 
     # The main path: counts zeroed just before, read just after.
     _build.reset_launches()
@@ -2613,16 +3061,18 @@ def serve_int8kv_phase(torch, cfg, args):
           "cache_bytes_ratio": bytes8 / bytes16, "launches": launches,
           "want_flash_i8kv": want_i8,
           "want_flash_float": want_float, "tokens": tokens})
-    missing = [k for k in SERVE_INT8KV_PATH if launches[k] <= 0]
+    missing = [k for k in launches if launches[k] <= 0
+               and k not in ATTENTION_KEYS and k != "paged_attention"]
+    missing += [] if _attention(launches) else ["flash_attention"]
     if missing or launches["paged_attention"]:
         raise AssertionError(f"int8 serve launches: missing {missing}, "
                              f"paged {launches['paged_attention']}")
-    if launches["flash_attention_i8kv"] != want_i8 or \
-            launches["flash_attention"] != want_i8 + want_float:
+    if _attention(launches, i8=True) != want_i8 or \
+            _attention(launches) != want_i8 + want_float:
         raise AssertionError(
-            f"B2's int8 launches {launches['flash_attention_i8kv']} (want "
+            f"B2/B7's int8 launches {_attention(launches, i8=True)} (want "
             f"{want_i8}: {steps} decode steps x {cfg.n_layers} layers), all "
-            f"{launches['flash_attention']} (want {want_i8 + want_float})")
+            f"{_attention(launches)} (want {want_i8 + want_float})")
     _tiles_gate(phase, launches)
     if cache["k"].dtype != torch.int8 or bytes8 >= 0.6 * bytes16:
         raise AssertionError(f"int8 cache {cache['k'].dtype}, {bytes8} "
@@ -2652,10 +3102,10 @@ def serve_int8kv_phase(torch, cfg, args):
           "launches": claunch,
           "tokens_differing_from_whole": sum(
               a != b for w, c in zip(tokens, chunked) for a, b in zip(w, c))})
-    if claunch["flash_attention_i8kv"] != (csteps + chunks) * cfg.n_layers \
-            or claunch["flash_attention"] != claunch["flash_attention_i8kv"] \
+    if _attention(claunch, i8=True) != (csteps + chunks) * cfg.n_layers \
+            or _attention(claunch) != _attention(claunch, i8=True) \
             + whole_prompts * cfg.n_layers:
-        raise AssertionError(f"chunked run's B2 launches {claunch}: want "
+        raise AssertionError(f"chunked run's B2/B7 launches {claunch}: want "
                              f"{(csteps + chunks) * cfg.n_layers} int8")
 
     # The first decode logits off the int8 cache against the bf16 cache's,
@@ -2690,8 +3140,9 @@ def serve_int8kv_phase(torch, cfg, args):
     trace_decode(torch, cfg8, params, prompts, max_len, phase)
     emit({"phase": phase, "event": "done",
           "seconds": time.monotonic() - t_phase,
-          "launches_by_path": {k: launches[k] for k in SERVE_INT8KV_PATH}})
-    return {k: launches[k] for k in SERVE_INT8KV_PATH}
+          "launches_by_path": launches})
+    return {k: v for k, v in launches.items()
+            if k != "paged_attention" and v}
 
 
 # ---------------------------------------------------------------------------
@@ -2706,6 +3157,7 @@ SERVE_DENSE = (("minicpm-2b", None), ("mistral-nemo-12b", 4),
 # serve them), each from the float cache and from an int8 KV cache.
 SERVE_F32 = ("qwen3-1.7b", "minicpm-2b", "mistral-nemo-12b", "minitron-8b",
              "chameleon-34b")
+SERVE_F32_LENS, SERVE_F32_MAX_LEN, SERVE_F32_CHUNK = (5, 17, 40, 100), 256, 32
 # B1's f32 walk, B2 (f32 over float K/V at whole prompts; K1 over the int8
 # cache at every decode step and chunk), B3 (f32, the float cache).
 SERVE_F32_PATH = ("matmul_os", "flash_attention", "flash_attention_f32_i8kv",
@@ -2716,8 +3168,9 @@ def _tiles_gate(phase: str, launches) -> None:
     """Every launch of the phase's MLP GEMM library is one of its tiles'
     (``SERVE_TILES``), or raise."""
     event, lib, prefill, decode = SERVE_TILES[phase]
-    split = {lib: launches[lib], "prefill_tile": launches[prefill],
-             "decode_tile": launches[decode]}
+    split = {lib: launches.get(lib, 0),
+             "prefill_tile": launches.get(prefill, 0),
+             "decode_tile": launches.get(decode, 0)}
     emit({"phase": phase, "event": event, **split,
           "tiles": [prefill, decode]})
     if split["prefill_tile"] + split["decode_tile"] != split[lib]:
@@ -2773,7 +3226,7 @@ def serve_dense_phase(torch, args):
     (counts set to 0 at the phase's start, each drain's read just
     before and after it)."""
     from repro_torch import configs
-    from repro_torch.kernels import _build, matmul_df, ref
+    from repro_torch.kernels import _build, matmul_df, ops, ref
     from repro_torch.models import layers, lm
     from repro_torch.serve.engine import Engine
 
@@ -2782,6 +3235,7 @@ def serve_dense_phase(torch, args):
     t_phase = time.monotonic()
     _build.reset_launches()
     total = {k: 0 for k in SERVE_PATH}
+    implied_total = {}
     per_config = {}
     for name, depth in SERVE_DENSE:
         t0 = time.monotonic()
@@ -2842,13 +3296,16 @@ def serve_dense_phase(torch, args):
         # The main path.
         eng = Engine(cfg, params, max_len=max_len, device="cuda")
         reqs = [eng.submit(p, new_tokens) for p in prompts]
-        since = dict(_build.LAUNCHES)
+        since, rsince = dict(_build.LAUNCHES), dict(ops.RESOLVED)
         torch.cuda.synchronize()
         t_drain = time.monotonic()
         eng.drain()
         torch.cuda.synchronize()
         wall = time.monotonic() - t_drain
         launches = {k: _build.LAUNCHES[k] - since[k] for k in _build.LAUNCHES}
+        # the other decoders' widths: held out of the cost model's fit
+        implied = _picks_gate(f"{phase} {name}", launches,
+                              picks_since(rsince), group="held-out")
         _healthy(phase, name, reqs, eng)
         steps = len(eng.monitor.records)
         tokens = [r.out_tokens for r in reqs]
@@ -2865,14 +3322,15 @@ def serve_dense_phase(torch, args):
             raise AssertionError(f"{name}: tokens past vocab_size {over}")
         _tiles_gate(phase, launches)
         want_b2, want_b3 = cfg.n_layers * len(lens), cfg.n_layers * steps
-        if launches["flash_attention"] != want_b2 or \
+        if _attention(launches) != want_b2 or \
                 launches["paged_attention"] != want_b3:
             raise AssertionError(
-                f"{name}: B2 launches {launches['flash_attention']} (want "
+                f"{name}: B2/B7 launches {_attention(launches)} (want "
                 f"{want_b2}), B3 {launches['paged_attention']} (want "
                 f"{want_b3})")
-        for k in SERVE_PATH:
-            total[k] += launches[k]
+        for k in dict.fromkeys((*SERVE_PATH, *implied)):
+            total[k] = total.get(k, 0) + launches[k]
+            implied_total[k] = implied_total.get(k, 0) + implied.get(k, 0)
         if depth is None:
             trace_decode(torch, cfg, params, prompts, max_len,
                          f"{phase} {name}")
@@ -2882,7 +3340,8 @@ def serve_dense_phase(torch, args):
                                 seconds=time.monotonic() - t0)
         del params, eng
         torch.cuda.empty_cache()
-    missing = [k for k in SERVE_PATH if total[k] <= 0]
+    missing = [k for k in total if total[k] <= 0
+               and (k == "paged_attention" or implied_total.get(k))]
     if missing:
         raise AssertionError(f"kernels never launched on {phase}: {missing}")
     emit({"phase": phase, "event": "done", "card": card_line(),
@@ -2907,28 +3366,32 @@ def serve_f32_phase(torch, args):
     counted, not gated (greedy ties at random weights).  Returns the
     path's launches over the drains."""
     from repro_torch import configs
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     from repro_torch.models import layers, lm
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.scheduler import SchedulerConfig
 
-    phase, max_len, new_tokens, chunk = "serve_f32", 256, 8, 32
-    lens = (5, 17, 40, 100)
+    phase, new_tokens = "serve_f32", 8
+    max_len, chunk, lens = SERVE_F32_MAX_LEN, SERVE_F32_CHUNK, SERVE_F32_LENS
     t_phase = time.monotonic()
     _build.reset_launches()
     total = {k: 0 for k in SERVE_F32_PATH}
+    implied_total = {}
 
     def drain(cfg, params, prompts, event, **sc):
         eng = Engine(cfg, params, max_len=max_len, device="cuda",
                      scheduler_config=SchedulerConfig(**sc) if sc else None)
         reqs = [eng.submit(p, new_tokens) for p in prompts]
-        since = dict(_build.LAUNCHES)
+        since, rsince = dict(_build.LAUNCHES), dict(ops.RESOLVED)
         eng.drain()
         torch.cuda.synchronize()
         launches = {k: _build.LAUNCHES[k] - since[k] for k in _build.LAUNCHES}
         _healthy(phase, event, reqs, eng)
-        for k in SERVE_F32_PATH:
-            total[k] += launches[k]
+        implied = _picks_gate(f"{phase} {event}", launches,
+                              picks_since(rsince))
+        for k in dict.fromkeys((*SERVE_F32_PATH, *implied)):
+            total[k] = total.get(k, 0) + launches[k]
+            implied_total[k] = implied_total.get(k, 0) + implied.get(k, 0)
         return [r.out_tokens for r in reqs], len(eng.monitor.records), \
             launches
 
@@ -2949,23 +3412,23 @@ def serve_f32_phase(torch, args):
                       f"{cfg.d_head}", **F32_TOL)
         L = cfg.n_layers
         tokens, steps, la = drain(cfg, params, prompts, f"{name} float")
-        if la["flash_attention"] != L * len(lens) or \
+        if _attention(la) != L * len(lens) or \
                 la["paged_attention"] != L * steps or \
-                la["flash_attention_f32_i8kv"]:
+                _attention(la, f32=True):
             raise AssertionError(f"{name} float cache launches {la}")
         tokens8, steps8, l8 = drain(cfg8, params, prompts, f"{name} int8")
-        if l8["flash_attention_f32_i8kv"] != L * steps8 or \
-                l8["flash_attention"] != L * (steps8 + len(lens)) or \
+        if _attention(l8, f32=True) != L * steps8 or \
+                _attention(l8) != L * (steps8 + len(lens)) or \
                 l8["paged_attention"]:
-            raise AssertionError(f"{name} int8 cache launches {l8}: K1 "
+            raise AssertionError(f"{name} int8 cache launches {l8}: K1/K2 "
                                  f"want {L * steps8}")
         chunked, csteps, lc = drain(cfg8, params, prompts, f"{name} chunked",
                                     prefill_chunk=chunk)
         chunks = sum(-(-n // chunk) for n in lens if n > chunk)
         whole = sum(n <= chunk for n in lens)
-        if lc["flash_attention_f32_i8kv"] != L * (csteps + chunks) or \
-                lc["flash_attention"] != L * (csteps + chunks + whole):
-            raise AssertionError(f"{name} chunked int8 launches {lc}: K1 "
+        if _attention(lc, f32=True) != L * (csteps + chunks) or \
+                _attention(lc) != L * (csteps + chunks + whole):
+            raise AssertionError(f"{name} chunked int8 launches {lc}: K1/K2 "
                                  f"want {L * (csteps + chunks)}")
         emit({"phase": phase, "config": cfg.name, "d_head": cfg.d_head,
               "heads": [cfg.n_heads, cfg.n_kv_heads], "layers": L,
@@ -2983,7 +3446,8 @@ def serve_f32_phase(torch, args):
                   a != b for x, y in zip(tokens8, chunked)
                   for a, b in zip(x, y)),
               "seconds": time.monotonic() - t0})
-    missing = [k for k in SERVE_F32_PATH if total[k] <= 0]
+    missing = [k for k in total if total[k] <= 0
+               and (k == "paged_attention" or implied_total.get(k))]
     if missing:
         raise AssertionError(f"kernels never launched on {phase}: {missing}")
     emit({"phase": phase, "event": "done", "card": card_line(),
@@ -2994,14 +3458,21 @@ def serve_f32_phase(torch, args):
 # Device kernels of the serving paths, by the name of their __global__
 # function (B1's bf16 basic OS is gemm_tc.cuh's two tiles; its int8 and
 # packed basic OS is gemm_tc_i8.cuh's two; every other B1 launch is
-# gemm_common.cuh's walk_kernel; B9's basic OS is binary_mm.cu's two
-# tiles, its WS/IS walks binary_kernel; B2's bf16 kernel is
-# flash_tc_kernel; B3's chunks and their merge are one paged_kernel).
+# gemm_common.cuh's walk_kernel, or a cluster walk of gemm_cluster.cuh,
+# as the autotuned B5a and B5b at some prefill down projections are;
+# B9's basic OS is binary_mm.cu's two tiles, its WS/IS walks
+# binary_kernel; B2's bf16 kernel is flash_tc_kernel, B7's
+# kv_cluster_kernel; B3's chunks and their merge are one paged_kernel).
 KERNEL_FUNCTIONS = {"tc_prefill_kernel": "matmul_os_prefill",
                     "tc_decode_kernel": "matmul_os_decode",
                     "i8_prefill_kernel": "matmul_os_i8_prefill",
                     "i8_decode_kernel": "matmul_os_i8_decode",
                     "walk_kernel": "matmul_os",
+                    "ws_stripe_cluster_kernel": "matmul_ws_stripe_cluster",
+                    "is_stripe_cluster_kernel": "matmul_is_stripe_cluster",
+                    "walk_cluster_kernel": "matmul_os_cluster|rmw_cluster",
+                    "walk_tma_kernel": "matmul_os_cluster|rmw_cluster",
+                    "kv_cluster_kernel": "kv_stationary_cluster",
                     "bin_prefill_kernel": "binary_mm_prefill",
                     "bin_decode_kernel": "binary_mm_decode",
                     "binary_kernel": "binary_mm",
@@ -3146,6 +3617,11 @@ def main(argv=None) -> int:
         return 2
     if args.drill:
         return drill_main(*args.drill)
+    # the autotuner's store: this run's own (its drills share it), never
+    # one that earlier runs left under the home directory
+    store = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    atexit.register(shutil.rmtree, store, True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(store, "autotune.json")
     # float32 references run in full float32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3175,6 +3651,8 @@ def main(argv=None) -> int:
         records = kernel_phase(torch, cfg, Timer("cuda"))
 
     paths = {}
+    if "autotune" in phases:
+        autotune_phase(torch)
     if "dataflows" in phases:
         paths["dataflows"] = dataflows_phase(torch)
     if "quantized" in phases:
@@ -3206,13 +3684,13 @@ def main(argv=None) -> int:
                                 "serve_recovery", "serve_int8kv",
                                 "serve_dense", "serve_f32",
                                 "dataflows", "quantized")
-                    if name in paths.get(p, {})), None)
+                    if paths.get(p, {}).get(name)), None)
         if own is None and "kernels_phase_launches" in rec:
             # on no serving path (B7's int8 paths, as in the reference):
             # its launches in the kernels phase's checks
             own, paths.setdefault("kernels", {})[name] = \
                 "kernels", rec["kernels_phase_launches"]
-        by_path = {p: n[name] for p, n in paths.items() if name in n}
+        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
         kernels.append({   # every kernel of the port is CUDA C++ so far
             "name": name, "route": "cuda", "source": reg.source,
             "replaces": reg.replaces,

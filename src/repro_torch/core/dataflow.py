@@ -1,22 +1,26 @@
 """Dataflow specifications, as far as the port's kernels use them.
 
-A copy of the part of ``repro/core/dataflow.py`` that the port's
-``kernels`` and ``bench`` read: the stationarity names and anchor
-constants, the ``Epilogue`` a GEMM fuses into its output write,
-``DataflowSpec`` (with its residency queries and canonical dataflows),
-the ``BinaryEpilogue`` a binary GEMM fuses into its flush, and the
-``GemmProblem``/``ConvProblem``/``BinaryProblem`` shape records.
-The port keeps its own kernel registry here (``register_kernel``): one
+The port's copy of ``repro/core/dataflow.py``: the stationarity names
+and anchor constants, the ``Epilogue`` a GEMM fuses into its output
+write, ``DataflowSpec`` (with its residency queries and canonical
+dataflows), the per-call ``SpecOverride``, the ``BinaryEpilogue`` a
+binary GEMM fuses into its flush, the ``GemmProblem``/``ConvProblem``/
+``BinaryProblem``/``AttentionProblem`` workload records, and the problem
+registry through which ``core.explorer`` and ``core.autotune`` serve
+every problem type.  ``DataflowSpec`` has no VMEM budget: each kernel is
+compiled for one block, and what fits is what its planner
+(``matmul_df.plan`` and the others) does not refuse.
+The port also keeps a kernel registry here (``register_kernel``): one
 row per hand-written CUDA kernel, saying which TPU kernel it replaces,
 where its source lives and which dataflow and block it is compiled for.
-It is separate from the JAX package's problem registry, which a process
+Both registries are separate from the JAX package's, which a process
 importing both packages must not see overwritten.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 
 class Stationarity(str, enum.Enum):
@@ -126,14 +130,99 @@ class DataflowSpec:
                    aux={WS: Residency.STRIPE, IS: Residency.STREAMED},
                    aux_priority=(WS, IS), **kw)
 
+    def with_block(self, block: Tuple[int, int, int]) -> "DataflowSpec":
+        return dataclasses.replace(self, block=tuple(block))
+
+
+_ANCHOR_ALIASES = {
+    "os": Stationarity.OUTPUT, "output": Stationarity.OUTPUT,
+    "ws": Stationarity.WEIGHT, "weight": Stationarity.WEIGHT,
+    "is": Stationarity.INPUT, "input": Stationarity.INPUT,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecOverride:
+    """A partial per-call dataflow override for ``ops.*(spec=...)``:
+    fields left ``None`` inherit from the autotuned spec of the call's
+    problem, so ``SpecOverride(anchor=WS)`` forces the anchor and keeps
+    the rest.  ``anchor`` takes a ``Stationarity`` or its short name
+    (``"os"``/``"ws"``/``"is"``); for attention ``block`` is ``(bq,
+    bkv)``.  A block other than the kernel's compiled one raises where
+    the op runs, as an explicit spec's does."""
+
+    anchor: Optional[Stationarity] = None
+    block: Optional[Tuple[Optional[int], ...]] = None
+
+    def __post_init__(self) -> None:
+        a = self.anchor
+        if isinstance(a, str) and not isinstance(a, Stationarity):
+            try:
+                a = _ANCHOR_ALIASES[a.lower()]
+            except KeyError:
+                raise ValueError(
+                    f"unknown anchor {self.anchor!r}; use one of "
+                    f"{sorted(_ANCHOR_ALIASES)} or a Stationarity") from None
+            object.__setattr__(self, "anchor", a)
+        if self.block is not None:
+            object.__setattr__(self, "block", tuple(self.block))
+
+    @property
+    def anchor_name(self) -> Optional[str]:
+        if self.anchor is None:
+            return None
+        return {OS: "os", WS: "ws", IS: "is"}[self.anchor]
+
+    def block_dim(self, idx: int) -> Optional[int]:
+        if self.block is None or idx >= len(self.block):
+            return None
+        return self.block[idx]
+
+    @property
+    def is_complete(self) -> bool:
+        """Every field pinned: the merge needs no autotuned base."""
+        return (self.anchor is not None and self.block is not None
+                and len(self.block) > 0
+                and all(b is not None for b in self.block))
+
+    def merge(self, base: DataflowSpec) -> DataflowSpec:
+        """The full spec this override realizes over ``base``: an anchor
+        change drops ``base``'s residencies (chosen for the old anchor),
+        a pure block override keeps them."""
+        anchor = self.anchor if self.anchor is not None else base.anchor
+        block = list(base.block)
+        if self.block is not None:
+            for i, bv in enumerate(self.block):
+                if bv is not None and i < len(block):
+                    block[i] = bv
+        if anchor == base.anchor:
+            return dataclasses.replace(base, block=tuple(block))
+        return DataflowSpec.basic(anchor, block=tuple(block))
+
 
 @dataclasses.dataclass(frozen=True)
 class GemmProblem:
-    """A GEMM-like workload: (M, K) x (K, N) -> (M, N)."""
+    """A GEMM-like workload: (M, K) x (K, N) -> (M, N).  ``weight_bits``
+    (None, 4 or 5) marks B as the packed planes of ``kernels/pack.py``:
+    the cost model charges their bytes and the autotune key gains a
+    packing segment."""
 
     m: int
     k: int
     n: int
+    in_dtype: str = "bfloat16"
+    out_dtype: str = "float32"
+    acc_dtype: str = "float32"
+    weight_bits: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if self.weight_bits not in (None, 4, 5):
+            raise ValueError(
+                f"weight_bits must be None, 4 or 5, got {self.weight_bits}")
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.m * self.k * self.n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +239,14 @@ class ConvProblem:
     cin: int
     cout: int
     n: int = 1
+    in_dtype: str = "int8"
+    out_dtype: str = "int32"
+    weight_bits: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if self.weight_bits not in (None, 4, 5):
+            raise ValueError(
+                f"weight_bits must be None, 4 or 5, got {self.weight_bits}")
 
     @property
     def oh(self) -> int:
@@ -159,10 +256,29 @@ class ConvProblem:
     def ow(self) -> int:
         return (self.iw - self.fw) // self.s + 1
 
+    # The paper's notation: H = ih*iw, R = fh*fw, E = oh*ow.
+    @property
+    def H(self) -> int:
+        return self.ih * self.iw
+
+    @property
+    def R(self) -> int:
+        return self.fh * self.fw
+
+    @property
+    def E(self) -> int:
+        return self.oh * self.ow
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.n * self.E * self.R * self.cin * self.cout
+
     def as_gemm(self) -> GemmProblem:
         """Implicit-GEMM view: M = n*oh*ow, K = fh*fw*cin, N = cout."""
         return GemmProblem(m=self.n * self.oh * self.ow,
-                           k=self.fh * self.fw * self.cin, n=self.cout)
+                           k=self.fh * self.fw * self.cin, n=self.cout,
+                           in_dtype=self.in_dtype, out_dtype=self.out_dtype,
+                           weight_bits=self.weight_bits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,8 +306,10 @@ class BinaryProblem:
         return 2 * self.m * self.n_bits * self.n
 
     def as_gemm(self) -> GemmProblem:
-        """The packed-word GEMM view."""
-        return GemmProblem(m=self.m, k=self.kp, n=self.n)
+        """The packed-word GEMM view the traffic is counted on."""
+        return GemmProblem(m=self.m, k=self.kp, n=self.n,
+                           in_dtype="binary_packed", out_dtype=self.out_dtype,
+                           acc_dtype="int32")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,6 +330,130 @@ class BinaryEpilogue:
     def is_noop(self) -> bool:
         return not (self.scale or self.bias or self.residual
                     or self.binarize)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionProblem:
+    """A (GQA) attention workload: ``bh`` folded batch * q heads,
+    ``group`` q heads a KV head, true lengths ``sq``/``skv`` (q rows
+    right-aligned against the KV length, so decode is ``sq=1``).
+    ``kv_len`` is the valid prefix of a padded KV buffer (None: all of
+    ``skv``, the worst case a run-time length keys as), ``window`` a
+    causal sliding window, ``kv_dtype`` the K/V element type where it is
+    not ``dtype`` (``"int8"``: the int8 KV cache, with per-position f32
+    scales), ``rows`` the batch rows that each carry their own valid
+    length.  The anchors: OS is B2 (flash, the q tile anchored), WS is B7
+    (KV-stationary, each KV block fetched once per cluster); a spec's
+    ``block`` is ``(bq, bkv, d)``."""
+
+    bh: int
+    sq: int
+    skv: int
+    d: int
+    group: int = 1
+    causal: bool = True
+    window: Optional[int] = None
+    dtype: str = "float32"
+    kv_len: Optional[int] = None
+    kv_dtype: Optional[str] = None
+    rows: int = 1
+
+    def __post_init__(self) -> None:
+        if self.bh % max(self.group, 1):
+            raise ValueError(
+                f"bh={self.bh} not divisible by group={self.group}")
+        if self.kv_len is not None and not 0 < self.kv_len <= self.skv:
+            raise ValueError(
+                f"kv_len={self.kv_len} outside (0, skv={self.skv}]")
+        if self.rows < 1 or self.bh % self.rows:
+            raise ValueError(
+                f"bh={self.bh} not divisible by rows={self.rows}")
+
+    @property
+    def bh_kv(self) -> int:
+        return self.bh // max(self.group, 1)
+
+    @property
+    def kv_valid(self) -> int:
+        return self.kv_len if self.kv_len is not None else self.skv
+
+    @property
+    def kv_elem_dtype(self) -> str:
+        return self.kv_dtype if self.kv_dtype is not None else self.dtype
+
+    @property
+    def kv_quantized(self) -> bool:
+        """The K/V carry per-position dequant scales (int8 codes)."""
+        return self.kv_elem_dtype in ("int8", "uint8")
+
+    @property
+    def dot_flops(self) -> int:
+        """QK^T + PV flops over the full (unbanded) score grid."""
+        return 4 * self.bh * self.sq * self.skv * self.d
+
+    @property
+    def softmax_ops(self) -> int:
+        return 6 * self.bh * self.sq * self.skv
+
+    @property
+    def flops(self) -> int:
+        return self.dot_flops
+
+
+# ---------------------------------------------------------------------------
+# The problem registry: one explore/autotune pipeline for every problem type.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ProblemRegistration:
+    """How a problem type plugs into ``core.explorer``/``core.autotune``:
+    ``kind`` (the cache-key tag), ``key_fields`` (problem -> strings of
+    every field that changes the ranking), ``enumerate`` ((problem, hw)
+    -> the feasible ``explorer.Candidate`` list, each with its estimate),
+    ``time_estimate`` ((problem, spec, hw) -> seconds), ``footprint``
+    ((problem, spec) -> shared memory bytes a block of the planned kernel
+    takes) and ``measure`` ((problem, specs) -> [(spec, seconds)] fastest
+    first, the refinement hook)."""
+
+    kind: str
+    problem_cls: type
+    key_fields: Callable[[Any], Tuple[str, ...]]
+    enumerate: Callable[..., Any]
+    time_estimate: Callable[..., float]
+    footprint: Callable[[Any, DataflowSpec], int]
+    measure: Optional[Callable[..., Any]] = None
+
+
+_PROBLEMS: Dict[type, ProblemRegistration] = {}
+
+
+def register_problem(reg: ProblemRegistration) -> ProblemRegistration:
+    """Register (or re-register) a problem type; ``kind`` tags must be
+    unique, or two types would share autotune keys."""
+    for cls, existing in _PROBLEMS.items():
+        if existing.kind == reg.kind and cls is not reg.problem_cls:
+            raise ValueError(f"kind {reg.kind!r} is already registered for "
+                             f"{cls.__name__}; cache keys would collide")
+    _PROBLEMS[reg.problem_cls] = reg
+    return reg
+
+
+def registration_for(problem_or_cls) -> ProblemRegistration:
+    """The registration of a problem instance or class; ``TypeError``
+    naming an unregistered type."""
+    cls = (problem_or_cls if isinstance(problem_or_cls, type)
+           else type(problem_or_cls))
+    reg = _PROBLEMS.get(cls)
+    if reg is None:
+        raise TypeError(
+            f"{cls.__name__} is not a registered dataflow problem type; "
+            f"known: {sorted(r.kind for r in _PROBLEMS.values())} "
+            f"(see core.dataflow.register_problem)")
+    return reg
+
+
+def registered_kinds() -> Dict[str, type]:
+    """kind tag -> problem class for every registered problem type."""
+    return {reg.kind: cls for cls, reg in _PROBLEMS.items()}
 
 
 # ---------------------------------------------------------------------------

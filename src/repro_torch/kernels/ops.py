@@ -16,12 +16,20 @@ signatures.  ``backend`` picks the path:
   counterpart of ``"xla"`` and the path a CPU serving engine demotes to;
 * ``None`` — ``"cuda"``.
 
-``spec=None`` takes the basic OS dataflow (attention: B2's flash
-anchor); nothing is autotuned yet (ROADMAP A4). An explicit GEMM spec
-runs, at the kernels' one compiled block, the kernel ``matmul_df.plan``
-names for its anchor and residencies, or raises ``ValueError`` where
-they do not fit in shared memory; a conv or binary spec runs its
-anchor's walk (``conv2d_df.plan``, ``binary_mm.plan``) the same way.
+``spec=None`` takes the dataflow ``core.autotune`` picks for the call's
+problem (``GemmProblem``, ``ConvProblem``, ``BinaryProblem``,
+``AttentionProblem``) on the card the operands live on (the H100's
+constant for CPU tensors): the explorer's candidates are ranked once a
+workload by the Hopper cost model, and memoized in the process and on
+disk; ``ValueError`` where no candidate is feasible.  A
+``SpecOverride`` merges onto that pick (a complete one onto Alg. 8's
+``DataflowSpec.optimized()``), and a full ``DataflowSpec`` runs as
+given.  Every spec runs at the kernels' one compiled block: a GEMM spec
+the kernel ``matmul_df.plan`` names for its anchor and residencies, a
+conv or binary spec its anchor's walk (``conv2d_df.plan``,
+``binary_mm.plan``), an attention spec B2 (OS) or B7 (WS); each raises
+``ValueError`` where the resident operands do not fit in shared memory
+or the block is another.  ``backend="torch"`` resolves nothing.
 Where the JAX ops pad operands to the block, the CUDA kernels mask the
 ragged edges themselves, so nothing is padded here. Each op carries the
 same fault-injection site as its JAX twin (``kernel.matmul``,
@@ -32,17 +40,32 @@ bit.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core.dataflow import (BinaryEpilogue, DataflowSpec,
-                                       Epilogue, OS, WS)
+from repro_torch.core import autotune, cost_model
+from repro_torch.core.dataflow import (AttentionProblem, BinaryEpilogue,
+                                       BinaryProblem, ConvProblem,
+                                       DataflowSpec, Epilogue, GemmProblem,
+                                       Residency, SpecOverride, IS, OS, WS)
 from repro_torch.kernels import (attention_df, binary_mm, conv2d_df,
                                  matmul_df, pack, ref)
 from repro_torch.runtime import health
 
 BACKENDS = ("cuda", "torch")
+Spec = Optional[object]          # None, a SpecOverride or a DataflowSpec
+# Calls whose ``spec=None`` the autotuner resolved, by problem (each took
+# ``autotune.best_spec`` of it on its card): what a launch count on the
+# card must follow (chip_smoke.py's gates).
+RESOLVED: Dict[object, int] = {}
+
+
+def _picked(problem, device: torch.device) -> DataflowSpec:
+    spec = autotune.best_spec(problem, cost_model.hardware_for(device))
+    RESOLVED[problem] = RESOLVED.get(problem, 0) + 1
+    return spec
 
 
 def _backend(backend: Optional[str]) -> str:
@@ -60,10 +83,83 @@ def _poison(out: torch.Tensor, fault: Optional[str]) -> torch.Tensor:
     return out
 
 
+def _resolve_spec(spec: Spec, problem, device: torch.device,
+                  block) -> DataflowSpec:
+    """``None`` -> the autotuned spec of ``problem`` on ``device``'s card;
+    a ``SpecOverride`` merged onto it (a complete one onto Alg. 8's
+    dataflow at ``block``, with no lookup); a ``DataflowSpec`` as is."""
+    if isinstance(spec, SpecOverride):
+        if spec.is_complete:
+            return spec.merge(DataflowSpec.optimized(block=block))
+        base = autotune.best_spec(problem, cost_model.hardware_for(device))
+        return spec.merge(base)
+    if spec is None:
+        return _picked(problem, device)
+    return spec
+
+
+def _out_name(dtype: Optional[torch.dtype], integer: bool) -> str:
+    if dtype is None:
+        return "int32" if integer else "float32"
+    return cost_model.dtype_name(dtype)
+
+
+# The problem builders are memoized: a serving step calls them with the
+# same few shapes every time, and a lookup is far cheaper than a build.
+@functools.lru_cache(maxsize=4096)
+def _gemm_problem(m: int, k: int, n: int, in_dtype: torch.dtype,
+                  out_dtype: Optional[torch.dtype],
+                  weight_bits: Optional[int] = None) -> GemmProblem:
+    integer = not in_dtype.is_floating_point
+    return GemmProblem(m=m, k=k, n=n, in_dtype=cost_model.dtype_name(in_dtype),
+                       out_dtype=_out_name(out_dtype, integer),
+                       acc_dtype="int32" if integer else "float32",
+                       weight_bits=weight_bits)
+
+
+@functools.lru_cache(maxsize=4096)
+def _conv_problem(x_shape: tuple, x_dtype: torch.dtype, cout: int, fh: int,
+                  fw: int, stride: int, out_dtype: Optional[torch.dtype],
+                  weight_bits: Optional[int] = None) -> ConvProblem:
+    n, ih, iw, cin = x_shape
+    return ConvProblem(ih=ih, iw=iw, fh=fh, fw=fw, s=stride, cin=cin,
+                       cout=cout, n=n, in_dtype=cost_model.dtype_name(x_dtype),
+                       out_dtype=_out_name(out_dtype,
+                                           not x_dtype.is_floating_point),
+                       weight_bits=weight_bits)
+
+
+@functools.lru_cache(maxsize=4096)
+def _binary_problem(m: int, kp: int, n: int, n_bits: int,
+                    out_dtype: torch.dtype) -> BinaryProblem:
+    return BinaryProblem(m=m, kp=kp, n=n, n_bits=n_bits,
+                         out_dtype=cost_model.dtype_name(out_dtype))
+
+
+def default_matmul_spec(m: int, k: int, n: int, in_dtype: str = "bfloat16",
+                        hw: cost_model.HardwareSpec = cost_model.H100
+                        ) -> DataflowSpec:
+    """Paper Alg. 8 under ``hw``'s shared memory a block: the OS anchor,
+    auxiliary residency to the weights first (WHOLE if it fits, else a
+    STRIPE), then to the inputs, at the compiled block."""
+    dtype = cost_model.TORCH_DTYPES[in_dtype]
+    for aux in ({WS: Residency.WHOLE, IS: Residency.STRIPE},
+                {WS: Residency.WHOLE}, {WS: Residency.STRIPE}, {}):
+        spec = DataflowSpec(anchor=OS, aux=aux, aux_priority=(WS, IS),
+                            block=matmul_df.BLOCK)
+        try:
+            if matmul_df.plan(spec, m, k, n, dtype).smem_bytes \
+                    <= hw.smem_block:
+                return spec
+        except ValueError:
+            continue
+    raise ValueError(f"no OS dataflow fits M={m} K={k} N={n} {in_dtype}")
+
+
 def matmul(
     a: torch.Tensor,
     b: torch.Tensor,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     out_dtype: Optional[torch.dtype] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
@@ -76,8 +172,11 @@ def matmul(
     if _backend(backend) == "torch":
         out = ref.matmul_ref(a, b, out_dtype)
     else:
-        out = matmul_df.matmul_df(a, b, spec or matmul_df.BASIC_OS,
-                                  out_dtype=out_dtype)
+        m, k = a.shape
+        spec = _resolve_spec(spec, _gemm_problem(m, k, b.shape[1], a.dtype,
+                                                 out_dtype),
+                             a.device, matmul_df.BLOCK)
+        out = matmul_df.matmul_df(a, b, spec, out_dtype=out_dtype)
     return _poison(out, fault)
 
 
@@ -88,7 +187,7 @@ def matmul_fused(
     scale: Optional[torch.Tensor] = None,      # scalar, (N,) or (M, 1)
     residual: Optional[torch.Tensor] = None,   # (M, N)
     activation: Optional[str] = None,          # relu | gelu | silu
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     out_dtype: Optional[torch.dtype] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
@@ -128,9 +227,12 @@ def matmul_fused(
                                    residual=residual, activation=activation,
                                    out_dtype=out_dtype)
     else:
-        out = matmul_df.matmul_df(a, b, spec or matmul_df.BASIC_OS,
-                                  scale=scale, bias=bias, residual=residual,
-                                  activation=activation, out_dtype=out_dtype)
+        spec = _resolve_spec(spec, _gemm_problem(m, a.shape[1], n, a.dtype,
+                                                 out_dtype),
+                             a.device, matmul_df.BLOCK)
+        out = matmul_df.matmul_df(a, b, spec, scale=scale, bias=bias,
+                                  residual=residual, activation=activation,
+                                  out_dtype=out_dtype)
     return _poison(out, fault)
 
 
@@ -140,7 +242,7 @@ def _f32(x, device) -> torch.Tensor:
 
 def int8_matmul(
     aq: torch.Tensor, bq: torch.Tensor, a_scale, b_scale,
-    spec: Optional[DataflowSpec] = None, backend: Optional[str] = None,
+    spec: Spec = None, backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Quantized GEMM: int8 x int8 -> exact int32 -> dequantized f32."""
     acc = matmul(aq, bq, spec=spec, out_dtype=torch.int32, backend=backend)
@@ -153,7 +255,7 @@ def int8_matmul_fused(
     bias: Optional[torch.Tensor] = None,
     residual: Optional[torch.Tensor] = None,
     activation: Optional[str] = None,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Quantized GEMM with the dequant and the epilogue fused into the
@@ -192,7 +294,7 @@ def matmul_packed_fused(
     bias: Optional[torch.Tensor] = None,
     residual: Optional[torch.Tensor] = None,
     activation: Optional[str] = None,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Packed-weight GEMM with the in-kernel decode (B6) and the fused
@@ -214,8 +316,11 @@ def matmul_packed_fused(
         scale = pw.scale if a_scale is None else a_scale * pw.scale
         if bias is not None:
             bias = _f32(bias, aq.device).reshape(1, n)
+        spec = _resolve_spec(spec, _gemm_problem(m, k, n, aq.dtype,
+                                                 torch.float32, pw.bits),
+                             aq.device, matmul_df.BLOCK)
         out = matmul_df.matmul_df(
-            aq, pw.codes, spec or matmul_df.BASIC_OS, scale=scale,
+            aq, pw.codes, spec, scale=scale,
             bias=bias, residual=residual, activation=activation,
             out_dtype=torch.float32, weight_bits=pw.bits,
             b_hi=pw.highbits, outlier_idx=pw.outlier_idx,
@@ -227,13 +332,28 @@ def matmul_packed(
     aq: torch.Tensor,
     pw: pack.PackedWeights,
     a_scale: Optional[torch.Tensor] = None,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Packed-weight GEMM, dequant-only epilogue:
     ``(a_scale * w_scale) * (aq @ W)`` -> f32 (bit for bit the oracle)."""
     return matmul_packed_fused(aq, pw, a_scale=a_scale, spec=spec,
                                backend=backend)
+
+
+@functools.lru_cache(maxsize=4096)
+def _attention_problem(q_shape: tuple, q_dtype: torch.dtype, k_shape: tuple,
+                       k_dtype: torch.dtype, causal: bool,
+                       window: Optional[int], rows: int) -> AttentionProblem:
+    """The problem an attention call keys the autotuner on: a run-time
+    valid length keys as the whole buffer (the reference's worst case)."""
+    b, hq, sq, d = q_shape
+    hkv, skv = k_shape[1], k_shape[2]
+    kdt = cost_model.dtype_name(k_dtype)
+    dt = cost_model.dtype_name(q_dtype)
+    return AttentionProblem(bh=b * hq, sq=sq, skv=skv, d=d, group=hq // hkv,
+                            causal=causal, window=window, dtype=dt,
+                            kv_dtype=None if kdt == dt else kdt, rows=rows)
 
 
 def attention(
@@ -243,7 +363,7 @@ def attention(
     causal: bool = True,
     window: Optional[int] = None,
     scale: Optional[float] = None,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     bq: Optional[int] = None,
     bkv: Optional[int] = None,
     backend: Optional[str] = None,
@@ -255,7 +375,8 @@ def attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """GQA attention under the OS (flash, B2) or WS (kv-stationary, B7)
-    anchor.  Returns (B, Hq, Sq, D).
+    anchor: ``anchor``, or the spec's, or (neither given) the autotuned
+    pick of the call's ``AttentionProblem``.  Returns (B, Hq, Sq, D).
 
     ``kv_len`` is the filled prefix of a padded KV buffer; q rows
     right-align against it and the kernel visits only the KV tiles in
@@ -285,6 +406,24 @@ def attention(
                 f"singleton lane: expected k_scale {want_k} and v_scale "
                 f"{want_v}, got {tuple(k_scale.shape)} and "
                 f"{tuple(v_scale.shape)}")
+    if isinstance(spec, SpecOverride):
+        # its fields fill whichever of anchor/bq/bkv were not passed
+        if spec.anchor not in (None, OS, WS):
+            raise ValueError(f"attention admits OS/WS anchors, not "
+                             f"{spec.anchor!r}")
+        anchor = anchor if anchor is not None else spec.anchor_name
+        bq = bq if bq is not None else spec.block_dim(0)
+        bkv = bkv if bkv is not None else spec.block_dim(1)
+        spec = None
+    win = window if window is not None else window_dyn
+    if torch.is_tensor(win):
+        win = int(win)
+    backend = _backend(backend)
+    if spec is None and anchor is None and backend != "torch":
+        ragged = torch.is_tensor(kv_len) and kv_len.ndim == 1
+        spec = _picked(_attention_problem(
+            tuple(q.shape), q.dtype, tuple(k.shape), k.dtype, causal, win,
+            b if ragged else 1), q.device)
     if spec is not None:
         if spec.anchor not in (OS, WS):
             raise ValueError(f"attention admits OS/WS anchors, not "
@@ -296,10 +435,6 @@ def attention(
     if anchor not in ("os", "ws"):
         raise ValueError(f"attention anchor must be 'os' or 'ws', got "
                          f"{anchor!r}")
-    win = window if window is not None else window_dyn
-    if torch.is_tensor(win):
-        win = int(win)
-    backend = _backend(backend)
     if torch.is_tensor(kv_len) and kv_len.ndim == 1 \
             and kv_len.shape[0] != b:
         raise ValueError(f"per-row kv_len needs one entry per batch row "
@@ -362,7 +497,7 @@ def conv2d(
     x: torch.Tensor,           # (N, H, W, Cin)
     w: torch.Tensor,           # (fh, fw, Cin, Cout)
     stride: int = 1,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     b_oh: int = 8,
     bc: int = 128,
     bk: int = 128,
@@ -381,8 +516,11 @@ def conv2d(
     if _backend(backend) == "torch":
         out = ref.conv2d_ref(x, w, stride, out_dtype)
     else:
-        out = conv2d_df.conv2d_df(x, w, stride, spec or conv2d_df.BASIC_OS,
-                                  out_dtype=out_dtype)
+        fh, fw, _, cout = w.shape
+        spec = _resolve_spec(spec, _conv_problem(
+            tuple(x.shape), x.dtype, cout, fh, fw, stride, out_dtype),
+                             x.device, conv2d_df.BLOCK)
+        out = conv2d_df.conv2d_df(x, w, stride, spec, out_dtype=out_dtype)
     return _poison(out, fault)
 
 
@@ -394,7 +532,7 @@ def conv2d_fused(
     scale: Optional[torch.Tensor] = None,      # scalar or (Cout,)
     residual: Optional[torch.Tensor] = None,   # (N, oh, ow, Cout)
     activation: Optional[str] = None,          # relu | gelu | silu
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     b_oh: int = 8,
     bc: int = 128,
     bk: int = 128,
@@ -426,8 +564,13 @@ def conv2d_fused(
         epi = Epilogue(bias=bias is not None, activation=activation,
                        scale=scale is not None,
                        residual=residual is not None)
+        fh, fw = w.shape[:2]
+        spec = _resolve_spec(spec, _conv_problem(
+            tuple(x.shape), x.dtype, cout, fh, fw, stride,
+            out_dtype or torch.float32),
+            x.device, conv2d_df.BLOCK)
         out = conv2d_df.conv2d_df(
-            x, w, stride, spec or conv2d_df.BASIC_OS,
+            x, w, stride, spec,
             out_dtype=out_dtype or torch.float32, epilogue=epi, scale=scale,
             bias=bias, residual=residual)
     return _poison(out, fault)
@@ -442,7 +585,7 @@ def int8_conv2d_fused(
     bias: Optional[torch.Tensor] = None,
     residual: Optional[torch.Tensor] = None,
     activation: Optional[str] = None,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Quantized conv with the dequant and the epilogue fused into the
@@ -470,7 +613,7 @@ def conv2d_packed_fused(
     bias: Optional[torch.Tensor] = None,
     residual: Optional[torch.Tensor] = None,   # (N, oh, ow, Cout)
     activation: Optional[str] = None,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     b_oh: int = 8,
     bc: int = 128,
     bk: int = 128,
@@ -497,8 +640,12 @@ def conv2d_packed_fused(
         epi = Epilogue(scale=True, bias=bias is not None,
                        activation=activation,
                        residual=residual is not None)
+        spec = _resolve_spec(spec, _conv_problem(
+            tuple(xq.shape), xq.dtype, pcw.kout, pcw.fh, pcw.fw, stride,
+            torch.float32, pcw.bits),
+            xq.device, conv2d_df.BLOCK)
         out = conv2d_df.conv2d_df(
-            xq, pcw.codes, stride, spec or conv2d_df.BASIC_OS,
+            xq, pcw.codes, stride, spec,
             out_dtype=torch.float32, epilogue=epi, scale=scale, bias=bias,
             residual=residual, weight_bits=pcw.bits, w_hi=pcw.highbits,
             outlier_idx=pcw.outlier_idx, outlier_delta=pcw.outlier_delta)
@@ -510,7 +657,7 @@ def conv2d_packed(
     pcw: pack.PackedConvWeights,
     stride: int = 1,
     x_scale: Optional[torch.Tensor] = None,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Packed-weight conv, dequant-only epilogue (bit for bit the
@@ -526,7 +673,7 @@ def binary_matmul(
     a_packed: torch.Tensor,    # (M, Kp) int32 words
     b_packed: torch.Tensor,    # (Kp, N) int32 words
     n_bits: int,               # true pre-packing reduction depth K
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Packed +-1 GEMM: (M, N) int32 dots ``n_bits - 2*popcount(a ^ b)``."""
@@ -535,8 +682,11 @@ def binary_matmul(
     if _backend(backend) == "torch":
         out = ref.binary_matmul_ref(a_packed, b_packed, n_bits)
     else:
-        out = binary_mm.binary_mm_df(a_packed, b_packed, n_bits,
-                                     spec or binary_mm.BASIC_OS,
+        m, kp = a_packed.shape
+        spec = _resolve_spec(spec, _binary_problem(
+            m, kp, b_packed.shape[1], n_bits, torch.int32),
+            a_packed.device, binary_mm.BLOCK)
+        out = binary_mm.binary_mm_df(a_packed, b_packed, n_bits, spec,
                                      out_dtype=torch.int32)
     return _poison(out, fault)
 
@@ -549,7 +699,7 @@ def binary_matmul_fused(
     bias: Optional[torch.Tensor] = None,       # (N,) folded-BN beta
     residual: Optional[torch.Tensor] = None,   # (M, N)
     binarize: bool = False,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     out_dtype: Optional[torch.dtype] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:
@@ -581,10 +731,12 @@ def binary_matmul_fused(
         epi = BinaryEpilogue(scale=scale is not None, bias=bias is not None,
                              residual=residual is not None,
                              binarize=binarize)
+        out_dtype = out_dtype or (torch.int8 if binarize else torch.float32)
+        spec = _resolve_spec(spec, _binary_problem(
+            a_packed.shape[0], a_packed.shape[1], n, n_bits, out_dtype),
+            a_packed.device, binary_mm.BLOCK)
         out = binary_mm.binary_mm_df(
-            a_packed, b_packed, n_bits, spec or binary_mm.BASIC_OS,
-            out_dtype=out_dtype or (torch.int8 if binarize
-                                    else torch.float32),
+            a_packed, b_packed, n_bits, spec, out_dtype=out_dtype,
             epilogue=epi, scale=scale, bias=bias, residual=residual)
     return _poison(out, fault)
 
@@ -598,7 +750,7 @@ def binary_conv2d(
     bias: Optional[torch.Tensor] = None,
     residual: Optional[torch.Tensor] = None,   # (N, oh, ow, Cout)
     binarize: bool = False,
-    spec: Optional[DataflowSpec] = None,
+    spec: Spec = None,
     out_dtype: Optional[torch.dtype] = None,
     backend: Optional[str] = None,
 ) -> torch.Tensor:

@@ -16,11 +16,14 @@ A10).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.core.dataflow import (AttentionProblem, BinaryProblem,
+                                       GemmProblem)
 from repro_torch.kernels import pack, ref
 from repro_torch.models import layers
 
@@ -109,6 +112,77 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
         params["lm_head"] = {"table": normal((cfg.padded_vocab, d),
                                              d ** -0.5)}
     return params
+
+
+def hot_gemm_problems(cfg, batch: int, seq: int) -> List[GemmProblem]:
+    """The GEMMs that reach the autotuned fused kernel, as ``GemmProblem``
+    rows for ``core.autotune.warm``: the MLP's projections
+    (``layers.fused_dense`` -> ``ops.matmul_fused``), or for a packed MLP
+    the int8-activation, ``weight_bits``-tagged problems of
+    ``ops.matmul_packed``.  A binary MLP reaches B9 instead
+    (``hot_binary_problems``)."""
+    if not cfg.d_ff or getattr(cfg, "binary_mlp", False):
+        return []
+    t = batch * seq
+    shapes = sorted({(t, cfg.d_model, cfg.d_ff), (t, cfg.d_ff, cfg.d_model)})
+    if getattr(cfg, "packed_weights", False):
+        return [GemmProblem(m, k, n, in_dtype="int8", out_dtype="float32",
+                            acc_dtype="int32",
+                            weight_bits=cfg.packed_weight_bits)
+                for m, k, n in shapes]
+    return [GemmProblem(m, k, n, in_dtype=cfg.param_dtype)
+            for m, k, n in shapes]
+
+
+def hot_binary_problems(cfg, batch: int, seq: int) -> List[BinaryProblem]:
+    """A binary MLP's two projections (``layers.binary_mlp_apply``) as
+    ``BinaryProblem`` rows: packed depth d/32 words, true depth d bits,
+    the hidden one re-binarized (int8), the output float32."""
+    if not getattr(cfg, "binary_mlp", False) or not cfg.d_ff:
+        return []
+    t = batch * seq
+    return [BinaryProblem(m=t, kp=cfg.d_model // 32, n=cfg.d_ff,
+                          n_bits=cfg.d_model, out_dtype="int8"),
+            BinaryProblem(m=t, kp=cfg.d_ff // 32, n=cfg.d_model,
+                          n_bits=cfg.d_ff, out_dtype="float32")]
+
+
+def hot_attention_problems(cfg, batch: int, seq: int,
+                           max_len: Optional[int] = None, rows: int = 1
+                           ) -> List[AttentionProblem]:
+    """The attention of the decoder layers that reaches ``ops.attention``:
+    the prefill square (``sq = skv = seq``) and the slot-cache decode step
+    (``sq = 1`` over the ``max_len`` buffer, its run-time valid length
+    keyed as the whole buffer; ``rows = batch`` where each row has a cache
+    index of its own, as the scheduler's slot cache has), with the
+    config's window; an int8 KV cache keys the decode with
+    ``kv_dtype="int8"``.  (Decode off the page pool runs B3, which is not
+    autotuned.)"""
+    if not cfg.has_attention:
+        return []
+    kv_dt = "int8" if int8_kv(cfg) else None
+    group = max(1, cfg.n_heads // cfg.n_kv_heads)
+    bh = batch * cfg.n_heads
+    win = cfg.attn_window
+    return [AttentionProblem(bh=bh, sq=seq, skv=seq, d=cfg.d_head,
+                             group=group, causal=True, window=win,
+                             dtype=cfg.act_dtype),
+            AttentionProblem(bh=bh, sq=1, skv=max_len or seq, d=cfg.d_head,
+                             group=group, causal=True, window=win,
+                             dtype=cfg.act_dtype, kv_dtype=kv_dt,
+                             rows=rows)]
+
+
+def hot_chunk_problems(cfg, seq: int, max_len: int) -> list:
+    """What a ``prefill_chunk`` of ``seq`` tokens of one row into a
+    ``max_len`` cache hands the autotuner: the MLP GEMMs (or binary
+    GEMMs) of ``seq`` rows and the attention of the chunk over the cache
+    buffer (its valid prefix keyed as the whole buffer)."""
+    out = hot_gemm_problems(cfg, 1, seq) + hot_binary_problems(cfg, 1, seq)
+    if cfg.has_attention:
+        dec = hot_attention_problems(cfg, 1, 1, max_len)[1]
+        out.append(dataclasses.replace(dec, sq=seq))
+    return out
 
 
 def _layer_params(params: Params) -> List[Params]:

@@ -37,6 +37,8 @@ FAULT_KINDS = ("raise", "nan", "hang-timeout", "kill")
 INJECTION_SITES: List[str] = [
     "serve.prefill",
     "serve.decode_step",
+    "autotune.load",
+    "autotune.save",
     "kernel.matmul",
     "kernel.conv2d",
     "kernel.binary_matmul",

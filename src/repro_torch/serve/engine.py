@@ -24,7 +24,13 @@ kernel wrapper computes its plain version, a failed step demotes to
 re-probing the primary path after a cooldown.  A kernel that does not
 build or launch (``KernelError``) is not a failed step: it propagates at
 once.  Admission asks what the CUDA kernels accept — the head dimension,
-the page size and the GQA group — where the JAX engine probes TPU VMEM.
+the page size and the GQA group — and then, as the JAX engine does,
+whether the explorer has a feasible attention dataflow for every
+workload the request implies (``_attention_feasible``).  A CUDA engine
+warms the autotuner (``core.autotune``) for each request shape before it
+runs (``_warm_autotune``), so the ops' ``spec=None`` lookups on the
+serving path are dictionary hits; ``self.hw`` is the card the engine's
+device is, and the picks are the Hopper cost model's for it.
 
 Crash safety.  Given a journal directory (``journal_dir=`` or
 ``REPRO_JOURNAL_DIR``), every admission, emitted token, preemption and
@@ -57,6 +63,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.ckpt.checkpoint import Checkpointer, CheckpointError
+from repro_torch.core import autotune, cost_model, explorer
 from repro_torch.kernels import attention_df
 from repro_torch.kernels._build import KernelError
 from repro_torch.models import bridge, layers, lm
@@ -165,6 +172,10 @@ class Engine:
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
+        self.hw = cost_model.hardware_for(self.device)
+        self._warmed: set = set()
+        # (seq len, kv reach) -> feasible
+        self._admission_cache: Dict[Tuple[int, int], bool] = {}
         self.monitor = health.HealthMonitor()
         self.policy = health.DegradationPolicy()
         self.scheduler_config = scheduler_config
@@ -214,6 +225,59 @@ class Engine:
                     f"kernel's {attention_df.MAX_GROUP}")
         return None
 
+    def _attention_feasible(self, seq: int,
+                            cap: Optional[int] = None) -> bool:
+        """Does the explorer have a feasible attention dataflow (B2 or B7
+        on ``self.hw``) for every attention workload a request of ``seq``
+        prompt tokens and kv reach ``cap`` implies?"""
+        cap = int(cap if cap is not None else self.max_len)
+        key = (seq, cap)
+        if key not in self._admission_cache:
+            self._admission_cache[key] = all(
+                explorer.enumerate_attention_candidates(p, self.hw)
+                for p in lm.hot_attention_problems(self.cfg, 1, max(seq, 1),
+                                                   cap))
+        return self._admission_cache[key]
+
+    def _warm_autotune(self, batch: int, seq: int,
+                       decode_batch: Optional[int] = None,
+                       per_row: bool = False,
+                       chunks: Optional[Sequence[int]] = None) -> None:
+        """Fill the autotuner for this request shape, so the ops' lookups
+        on the serving path hit.  Runs on a CUDA engine only, as the JAX
+        engine warms on a TPU only."""
+        if self.device.type != "cuda":
+            return
+        key = (batch, seq, decode_batch, per_row, tuple(chunks or ()))
+        if key in self._warmed:
+            return
+        self._warmed.add(key)
+        autotune.warm(self._hot_problems(batch, seq, decode_batch, per_row,
+                                         chunks), hw=self.hw)
+
+    def _hot_problems(self, batch: int, seq: int,
+                      decode_batch: Optional[int] = None,
+                      per_row: bool = False,
+                      chunks: Optional[Sequence[int]] = None) -> list:
+        """What a request shape hands the autotuner: the MLP GEMMs (or
+        binary GEMMs) and the attention of a ``batch`` x ``seq`` prefill
+        (or, with ``chunks``, of one row's chunks of those lengths over
+        the cache) and of a decode step at ``decode_batch`` rows (default
+        ``batch``; ``per_row``: each row at its own cache index, as the
+        scheduler's slot cache decodes)."""
+        cfg, db = self.cfg, decode_batch or batch
+        if chunks:
+            prefill = [p for c in sorted(set(chunks))
+                       for p in lm.hot_chunk_problems(cfg, c, self.max_len)]
+        else:
+            prefill = (lm.hot_gemm_problems(cfg, batch, seq)
+                       + lm.hot_binary_problems(cfg, batch, seq)
+                       + lm.hot_attention_problems(cfg, batch, seq)[:1])
+        return (prefill + lm.hot_gemm_problems(cfg, db, 1)
+                + lm.hot_binary_problems(cfg, db, 1)
+                + lm.hot_attention_problems(cfg, db, 1, self.max_len,
+                                            rows=db if per_row else 1)[1:])
+
     def _reject(self, reason: str, exc_type=ValueError) -> None:
         self._counters["rejected"] += 1
         self.monitor.note("admission-reject", site="serve.submit",
@@ -251,6 +315,10 @@ class Engine:
             self._reject(f"the port's kernels cannot serve {self.cfg.name}: "
                          f"{self._kernel_refusal}", AdmissionError)
         reach = min(plen + max_new_tokens, self.max_len)
+        if not self._attention_feasible(plen, reach):
+            self._reject(f"no attention dataflow of the port's kernels "
+                         f"serves a {plen}-token prompt reaching {reach} "
+                         f"keys on {self.hw.name}", AdmissionError)
         sc = self.scheduler_config or SchedulerConfig()
         if paged_decode_enabled(self.cfg, sc, self.max_len):
             need, cap = pages_for(reach, sc.page_size), pool_capacity(
@@ -377,6 +445,7 @@ class Engine:
         if len(lens) != 1 or mode == "continuous":
             return self._serve_ragged(requests, reqs, greedy, seed)
         prompts = np.stack([r.prompt for r in reqs]).astype(np.int64)
+        self._warm_autotune(prompts.shape[0], prompts.shape[1])
         t_start = time.monotonic()
         if self.journal is not None:
             # the batch a cold replay must rebuild

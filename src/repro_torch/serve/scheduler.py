@@ -290,6 +290,10 @@ class ContinuousScheduler:
             req.queue_reason = None
             self._ensure_cache()
             self.t_start.setdefault(req.rid, time.monotonic())
+            c = self.cc.prefill_chunk
+            self.eng._warm_autotune(
+                1, plen, self.cc.max_batch, per_row=True,
+                chunks=(c, plen - (plen - 1) // c * c) if chunked else None)
             if chunked:
                 self._pf = (req, None, 0, pages)
                 return self._advance_chunked()
@@ -401,6 +405,8 @@ class ContinuousScheduler:
         rcache["k"][:, 0, :, :covered] = kp[:, :, :covered]
         rcache["v"][:, 0, :, :covered] = vp[:, :, :covered]
         rcache["index"] = covered
+        self.eng._warm_autotune(1, len(prompt), self.cc.max_batch,
+                                per_row=True, chunks=(len(prompt) - covered,))
         tail = torch.as_tensor(prompt[None, covered:], device=self.eng.device)
         logits, rcache, path = self.eng._execute(
             "serve.prefill", self.step_count,

@@ -24,6 +24,7 @@ from repro.models import lm as jlm
 from repro.serve.engine import Engine as JaxEngine
 from repro.serve.scheduler import SchedulerConfig as JaxSchedulerConfig
 from repro_torch import configs
+from repro_torch.core import autotune
 from repro_torch.models import bridge, lm
 from repro_torch.runtime import health
 from repro_torch.serve.engine import AdmissionError, Engine, RequestState
@@ -126,8 +127,12 @@ def test_nan_decode_step_is_retried_bit_identically(params, monkeypatch):
 # model runs, must fire nothing and leave the run clean (as the JAX
 # package's drill treats a site that never fires).  The spill site needs a
 # pool too small for the batch; the durability sites a journal, snapshots
-# and (engine.restore) a restart.
+# and (engine.restore) a restart.  The autotuner's store sites fire at
+# lookups on the CPU too: its first lookup after a clear reads the store
+# (``autotune.load``), each miss writes it (``autotune.save``); a failed
+# read or write is absorbed by the store, never by the step.
 BINARY_SITES = {"kernel.binary_matmul"}
+AUTOTUNE_SITES = {"autotune.load", "autotune.save"}
 UNSERVED_SITES = {"kernel.conv2d"}
 PRESSURE_SITES = {"pool.spill"}
 DURABLE_SITES = {"journal.append", "snapshot.save", "ckpt.write",
@@ -148,6 +153,14 @@ def _drill(tp, site, cfg, jdir):
         return _serve(tp, _prompts([14, 14], seed=9), 10, cfg=cfg,
                       scheduler_config=SchedulerConfig(
                           max_batch=2, n_pages=5, page_size=8))
+    if site in AUTOTUNE_SITES:
+        # twice from an emptied in-memory cache: the store is read at
+        # each run's first lookup and written at the first run's misses
+        autotune.reset_stats()
+        for _ in range(2):
+            autotune.clear()
+            got = _serve(tp, _prompts([5, 9], seed=6), 3, cfg=cfg)
+        return got
     if site not in DURABLE_SITES:
         return _serve(tp, _prompts([5, 9], seed=6), 3, cfg=cfg)
     eng = Engine(cfg, tp, max_len=MAX_LEN, device="cpu", journal_dir=jdir,
@@ -185,7 +198,11 @@ def test_fault_drill_at_every_site_keeps_tokens(params, monkeypatch, site,
     if site in BINARY_SITES:
         cfg = dataclasses.replace(CFG, binary_mlp=True)
         tp = lm.init_model(cfg, seed=0, device="cpu")
+    if site in AUTOTUNE_SITES:
+        monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
     clean, _ = _drill(tp, site, cfg, str(tmp_path / "clean"))
+    if site in AUTOTUNE_SITES:
+        autotune.clear(disk=True)
     monkeypatch.setenv("REPRO_FAULT_PLAN", f"{site}:1:raise")
     health.reset_faults()
     got, eng = _drill(tp, site, cfg, str(tmp_path / "drill"))
@@ -195,7 +212,11 @@ def test_fault_drill_at_every_site_keeps_tokens(params, monkeypatch, site,
         assert health.fault_log() == [] and stats["demotions"] == 0
         return
     assert [(f.site, f.hit) for f in health.fault_log()] == [(site, 1)]
-    if site == "pool.alloc":
+    if site in AUTOTUNE_SITES:
+        errors = "load_errors" if site == "autotune.load" else "save_errors"
+        assert autotune.stats()[errors] == 1 and stats["demotions"] == 0
+        autotune.clear()
+    elif site == "pool.alloc":
         assert stats["backpressure"] == 1 and stats["demotions"] == 0
     elif site == "pool.spill":
         assert eng.monitor.events_of("spill-failed")
