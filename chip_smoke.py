@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases card,build,serve_recovery
     python3 chip_smoke.py --phases card,build,kernels,serve_int8kv
     python3 chip_smoke.py --phases card,build,serve_dense,serve_f32
+    python3 chip_smoke.py --phases card,build,serve_moe
 
 Phases, each printing JSON lines:
 
@@ -50,7 +51,9 @@ Phases, each printing JSON lines:
    bit (a gate), and timed at prefill 512 and 2048 beside B2.  B3 (split
    across CTAs) at the served
    decode shape and at a long row (4 x 4096 keys), with and without a
-   window, timed at both.  B2 over the int8 KV cache's K/V (int8 codes
+   window, timed at both; at a GQA group of 16 (Hq 64, Hkv 4: its 16-warp
+   kernel, counted under ``paged_attention_g16``) at the served decode
+   shape, timed with its byte bound.  B2 over the int8 KV cache's K/V (int8 codes
    with per-position f32 scales, bf16 queries) at a prefill chunk and at
    slot-cache decode, held against the plain version and timed beside it
    and bf16 B2; B7 over int8 K/V at prefill 512, equal to B2's int8
@@ -184,6 +187,25 @@ Phases, each printing JSON lines:
    chunk), whole prompts and with ``prefill_chunk=32``: the first decode
    logits within B2's f32 tolerance of the plain path, every request
    DONE, the launch counts exact; differing tokens counted, not gated.
+14. ``serve_moe``: the MoE decoders at full width, bf16, random weights
+   from ``--seed``, through ``Engine`` on the paged path with the serve
+   cell's prompts: moonshot-v1-16b-a3b at full depth (48 layers; 64
+   experts top-6, 2 shared experts through B1's tiles), then
+   qwen3-moe-235b-a22b at 4 layers (128 experts top-8, B3 at its group
+   of 16; the cut printed).  Printed: weights' bytes, capacities, the
+   assignments each prefill and decode step dropped, decode ms/step.
+   Gates per config: the router's float32 logits within 1e-5 of float64;
+   the first decode step's logits finite and at cosine >= 0.999 of the
+   plain path's at 2 layers, each layer's top-k printed on both paths and
+   a first flip at a margin over 1e-3 failing (after a flip the cosine is
+   reported, not gated); every request DONE, 0 demotions; no decode
+   token >= ``vocab_size`` (first tokens past it, from the prefill's
+   unmasked logits as in the reference, counted); every B1 launch on its
+   tiles; B2 = layers x prompts,
+   B3 = layers x decode steps (qwen3-moe's all on the 16-warp kernel);
+   the mixed batch == each request alone wherever no decode step
+   dropped.  moonshot's decode step traced, the expert GEMMs' device time
+   beside the port's kernels.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
@@ -193,13 +215,14 @@ prefill and decode tiles, B2 (at chunks and slot-cache decode too), B3,
 counted over its in-process ``Engine`` runs; serve_int8kv: B1 with its
 bf16 tiles, B2 and its int8 path; serve_dense: B1 with its bf16 tiles,
 B2, B3, over its four configs; serve_f32: B1's f32 walk, B2, K1, B3;
+serve_moe: B1 with its bf16 tiles, B2, B3 and its 16-warp kernel;
 B7's int8 paths (K2 among them), on no serving path, their launches in
 the kernels phase; dataflows: B1 and its bf16 tiles, B2,
 B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
 B7 (on its cluster kernel);
 quantized: B8 with its int8 and bf16 OS tiles and WS/IS walks, B9 and
 its prefill tile, B1 and its int8 tiles, B6); on serve, serve_packed,
-serve_int8kv and serve_dense every B1 launch, and on serve_binary every
+serve_int8kv, serve_dense and serve_moe every B1 launch, and on serve_binary every
 B9 launch, is one of its tiles' (prefill plus decode),
 counted from 0 just before the path runs; a serve path's kernels include
 whichever its autotuned picks launch (B5a and B5b at some bf16 prefill
@@ -215,6 +238,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import dataclasses
 import json
 import os
@@ -229,7 +253,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 ALL_PHASES = ("card", "build", "kernels", "autotune", "dataflows",
               "quantized", "serve",
               "serve_binary", "serve_packed", "serve_recovery",
-              "serve_int8kv", "serve_dense", "serve_f32")
+              "serve_int8kv", "serve_dense", "serve_f32", "serve_moe")
 
 
 def emit(obj) -> None:
@@ -688,6 +712,8 @@ def kernel_phase(torch, cfg, timer):
         tolerance=att_tol)
     emit({"kernel_timing_detail": "paged_attention", **long_rec})
     records["paged_attention"]["long_row"] = long_rec
+    records["paged_attention_g16"] = paged_group16_checks(
+        torch, timer, att_tol, f32_tol)
     records.update(gemm_dataflow_checks(torch, cfg, timer, gen, b1_tol))
     # How B1's bf16 k steps round against cuBLAS (reported, not gated).
     from repro_torch.bench import rounding
@@ -709,6 +735,64 @@ def kernel_phase(torch, cfg, timer):
     for name, rec in records.items():
         emit({"kernel_timing": name, **rec})
     return records
+
+
+def paged_group16_checks(torch, timer, tol, f32_tol):
+    """B3 at a GQA group of 16 (qwen3-moe-235b-a22b's 64 q heads over 4
+    kv heads, D 128): its 16-warp kernel at the served decode shape (4
+    rows, kv_lens 0/17/200/527, page 16, shuffled page ids), with and
+    without a window, held against the plain version within B2's
+    tolerance (and at float32, D 64), timed beside it with its byte
+    bound.  Inputs from their own generator, so every other check keeps
+    its inputs.  Returns the kernel's record."""
+    from repro_torch.bench.common import bound
+    from repro_torch.kernels import _build, attention_df, ref
+
+    dev, bf16 = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    hq, hkv, dh, page, max_pages, rows = 64, 4, 128, 16, 64, 4
+    n_pages = rows * max_pages
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    kp, vp = randn(hkv, n_pages + 1, page, dh), randn(hkv, n_pages + 1,
+                                                       page, dh)
+    tables = torch.randperm(n_pages, generator=gen, device=dev).reshape(
+        rows, max_pages).to(torch.int32).contiguous()
+    lens = torch.tensor([0, 17, 200, 527], device=dev, dtype=torch.int32)
+    q = randn(rows, hq, 1, dh)
+    errs = []
+    before = _build.LAUNCHES[_build.PAGED_G16]
+    for window in (None, 100):
+        errs.append(check(
+            "paged_attention_g16",
+            attention_df.paged_flash_attention(q, kp, vp, tables, lens,
+                                               window=window),
+            ref.paged_attention_ref(q, kp, vp, tables, lens, window=window),
+            shape=f"group 16 R={rows} page={page} kv_lens=[0,17,200,527] "
+                  f"shuffled window={window}", **tol))
+    kp32, vp32, q32 = (t[..., :64].float().contiguous() for t in (kp, vp, q))
+    check("paged_attention_g16",
+          attention_df.paged_flash_attention(q32, kp32, vp32, tables, lens),
+          ref.paged_attention_ref(q32, kp32, vp32, tables, lens),
+          shape="group 16 float32 D=64 kv_lens=[0,17,200,527]", **f32_tol)
+    if _build.LAUNCHES[_build.PAGED_G16] != before + 3:
+        raise AssertionError("B3 at group 16 did not run its 16-warp kernel")
+    keys = int(lens.sum())
+    bnd = bound(2 * keys * hkv * dh * 2 + 2 * rows * hq * dh * 2
+                + tables.numel() * 4, 4.0 * dh * keys * hq)
+    return dict(
+        shape=f"decode R={rows} Hq={hq} Hkv={hkv} D={dh} page={page} "
+              f"kv_lens=[0,17,200,527]",
+        max_abs_err=max(errs),
+        ms=timer.ms(lambda: attention_df.paged_flash_attention(
+            q, kp, vp, tables, lens)),
+        plain_ms=timer.ms(lambda: ref.paged_attention_ref(
+            q, kp, vp, tables, lens)),
+        library_ms=None, library_call=None,
+        library_why="no single PyTorch call attends through a block table",
+        bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
 
 
 def b2_serving_modes(torch, timer, hq, hkv, dh, tol):
@@ -2372,7 +2456,7 @@ def _picks_gate(phase: str, launches, picks, group: str = "served") -> dict:
     hw = cost_model.hardware_for("cuda")
     implied = implied_launches(picks)
     keys = sorted((set(implied) | {k for k, v in launches.items() if v})
-                  - {"paged_attention"})
+                  - {"paged_attention", "paged_attention_g16"})
     off = {k: [launches.get(k, 0), implied.get(k, 0)] for k in keys
            if launches.get(k, 0) != implied.get(k, 0)}
     by_kernel, stale, new = {}, [], []
@@ -2424,7 +2508,9 @@ SERVE_TILES = {"serve": ("b1_tiles", "matmul_os", "matmul_os_prefill",
                "serve_int8kv": ("b1_tiles", "matmul_os", "matmul_os_prefill",
                                 "matmul_os_decode"),
                "serve_dense": ("b1_tiles", "matmul_os", "matmul_os_prefill",
-                               "matmul_os_decode")}
+                               "matmul_os_decode"),
+               "serve_moe": ("b1_tiles", "matmul_os", "matmul_os_prefill",
+                             "matmul_os_decode")}
 
 
 def _mlp_inputs(cfg, params, toks, max_len):
@@ -3455,6 +3541,382 @@ def serve_f32_phase(torch, args):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the MoE decoders at full width.
+# ---------------------------------------------------------------------------
+# (config, layers served): moonshot-v1-16b-a3b whole (57.8 GB of bf16
+# weights); qwen3-moe-235b-a22b at 4 of its 94 layers (470 GB whole).
+SERVE_MOE = (("moonshot-v1-16b-a3b", None), ("qwen3-moe-235b-a22b", 4))
+# B1's bf16 tiles (moonshot's shared experts), B2, B3 and B3's 16-warp
+# kernel (qwen3-moe's group of 16).
+SERVE_MOE_PATH = SERVE_PATH + ("paged_attention_g16",)
+# A routing flip between the kernels and the plain path at a margin (the
+# plain path's k-th minus (k+1)-th probability) above this fails the phase.
+FLIP_MARGIN = 1e-3
+# The float32 router logits on the card against float64, relative to the
+# largest: full float32 sums (TF32 would be ~1e-3 off).
+ROUTER_RTOL = 1e-5
+
+
+@contextlib.contextmanager
+def _wrapped(module, name: str, wrap):
+    """``module.name`` replaced by ``wrap(module.name)`` for the duration."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _recording_routes(records):
+    """``moe._route`` recording, call by call (a layer of a forward), the
+    experts it picked (T, k) and each token's margin, the k-th minus the
+    (k+1)-th routing probability (device tensors, read after the run)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    def wrap(orig):
+        def route(x_flat, router, top_k):
+            out = orig(x_flat, router, top_k)
+            probs = torch.softmax(moe.router_logits(x_flat, router), -1)
+            top = torch.topk(probs, top_k + 1, dim=-1).values
+            records.append((out[1], top[:, top_k - 1] - top[:, top_k]))
+            return out
+        return route
+    return _wrapped(moe, "_route", wrap)
+
+
+def _recording_drops(records):
+    """``moe._dispatch_indices`` recording, call by call, (tokens routed,
+    assignments dropped) (the count a device tensor, read after the
+    run)."""
+    from repro_torch.models import moe
+
+    def wrap(orig):
+        def dispatch(top_e, top_k, n_experts, cap):
+            out = orig(top_e, top_k, n_experts, cap)
+            records.append((top_e.shape[0], (~out[4]).sum()))
+            return out
+        return dispatch
+    return _wrapped(moe, "_dispatch_indices", wrap)
+
+
+def _drops_by_forward(records, n_layers: int, decode_rows: int):
+    """Dropped assignments summed over each forward's layers: (prefills,
+    decode steps), a decode step being a forward of ``decode_rows``
+    tokens (no served prompt has that many)."""
+    prefill, decode = [], []
+    for i in range(0, len(records), n_layers):
+        part = records[i:i + n_layers]
+        n = int(sum(d for _, d in part))
+        (decode if part[0][0] == decode_rows else prefill).append(n)
+    return prefill, decode
+
+
+def _route_flips(label: str, got, want, n_layers: int, gated: bool):
+    """The kernels' routes against the plain path's, forward by forward
+    (a prefill's layers, then the decode step's): per layer the tokens
+    whose expert set differs and the plain path's margin at each.  The
+    first layer with a flip is gated when ``gated`` (every flip there at
+    a margin <= FLIP_MARGIN): the layers after it see inputs that already
+    differ by a discrete choice, so they are reported only.  Returns
+    whether any route flipped."""
+    rows, first = [], None
+    for i, ((ge, _), (we, wm)) in enumerate(zip(got, want)):
+        flip = (ge.sort(-1).values != we.sort(-1).values).any(-1)
+        margins = [float(m) for m in wm[flip]]
+        row = {"stage": "prefill" if i < n_layers else "decode",
+               "layer": i % n_layers, "flips": len(margins),
+               "flip_margins": margins,
+               "least_margin": float(wm.min())}
+        if i >= n_layers:
+            row["top_k_kernels"] = ge[0].tolist()
+            row["top_k_plain"] = we[0].tolist()
+        if margins and first is None:
+            first, row["first_flip"] = i, True
+        rows.append(row)
+    emit({"phase": "serve_moe", "config": label, "event": "routes",
+          "layers": n_layers, "forwards": len(got) // n_layers,
+          "flips": sum(r["flips"] for r in rows),
+          "layers_with_flips": [[r["stage"], r["layer"]] for r in rows
+                                if r["flips"]],
+          "first_flip_gated": gated and first is not None,
+          "per_layer": rows})
+    if gated and first is not None \
+            and max(rows[first]["flip_margins"]) > FLIP_MARGIN:
+        raise AssertionError(f"{label}: a route flipped at margin "
+                             f"{max(rows[first]['flip_margins'])} > "
+                             f"{FLIP_MARGIN}: {rows[first]}")
+    return first is not None
+
+
+def serve_moe_phase(torch, args):
+    """moonshot-v1-16b-a3b at full width and full depth (48 layers, 64
+    experts top-6 and 2 shared experts), then qwen3-moe-235b-a22b at full
+    width with 4 of its 94 layers (128 experts top-8, 64 q heads over 4 kv
+    heads: B3's group of 16; the cut printed), bf16, random weights from
+    ``--seed``, served through ``Engine`` on the paged path with the serve
+    cell's prompts (17/64/200/511 tokens, 16 new each, decode batch 4).
+    Printed per config: weights' bytes, layers, experts, top-k, capacity
+    at each prefill and at decode, the assignments each prefill and each
+    decode step dropped (summed over the layers; counted by a wrapper of
+    ``moe._dispatch_indices`` in the drain, one reduction a layer), decode
+    ms/step.  Gates per config: the float32 router logits within
+    ROUTER_RTOL of float64; the first decode step's logits over the first
+    ``vocab_size`` columns finite and, at 2 layers, at cosine >= 0.999 of
+    the plain path's (the served depth reported), each layer's top-k on
+    both paths printed and the first flip at 2 layers at a margin <=
+    FLIP_MARGIN (after a flip the cosine is reported, not gated); every
+    request DONE, 0 demotions; no decode token >= ``vocab_size`` (a first
+    token comes from the prefill's logits, which the reference leaves
+    unmasked: counted, not gated); every B1 launch
+    on its tiles; B2/B7 launches = layers x prompts, B3 = layers x decode
+    steps, all of qwen3-moe's on B3's 16-warp kernel and none of
+    moonshot's; the mixed batch's tokens == each request's alone wherever
+    no decode step dropped an assignment (prefill drops are the
+    reference's semantics: counted, not gated).  moonshot's decode step
+    is traced, with the expert GEMMs' (``aten::bmm``) device time; one
+    layer's ``_expert_ffn`` at the decode capacity is timed apart.
+    Returns the path's launches, summed over the two drains."""
+    import gc
+
+    from repro_torch.kernels import _build
+
+    phase = "serve_moe"
+    t_phase = time.monotonic()
+    _build.reset_launches()
+    total = {k: 0 for k in SERVE_MOE_PATH}
+    implied_total = {}
+    per_config = {}
+    for name, depth in SERVE_MOE:
+        # An engine and its request handles refer to each other, so the
+        # weights of an earlier phase's or config's engine go only with a
+        # collection: moonshot's 57.8 GB leave little room beside them.
+        gc.collect()
+        torch.cuda.empty_cache()
+        per_config[name] = _serve_moe_config(torch, args, name, depth,
+                                             total, implied_total)
+    missing = [k for k in total if total[k] <= 0
+               and (k in ("paged_attention", "paged_attention_g16")
+                    or implied_total.get(k))]
+    if missing:
+        raise AssertionError(f"kernels never launched on {phase}: {missing}")
+    emit({"phase": phase, "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t_phase, "configs": per_config,
+          "launches_by_path": total})
+    return total
+
+
+def _serve_moe_config(torch, args, name: str, depth, total, implied_total):
+    """``serve_moe`` for one config (``depth`` layers, or all): its
+    gates, its launches added into ``total`` and the launches its picks
+    imply into ``implied_total``.  Returns its summary."""
+    from repro_torch import configs
+    from repro_torch.bench.common import HBM_BYTES_PER_S, Timer
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import layers, lm, moe
+    from repro_torch.serve.engine import Engine
+
+    import gc
+
+    phase, max_len, new_tokens = "serve_moe", SERVE_MAX_LEN, 16
+    lens, batch = SERVE_LENS, SERVE_BATCH
+    t0 = time.monotonic()
+    full = configs.get(name)
+    cfg = full if depth is None else dataclasses.replace(full,
+                                                         n_layers=depth)
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    caps = {"prefill": {n: moe.capacity(cfg, n) for n in lens},
+            "decode": moe.capacity(cfg, batch)}
+    emit({"phase": phase, "config": name, "event": "init_model",
+          "layers": cfg.n_layers, "published_layers": full.n_layers,
+          "depth_cut": None if depth is None else
+          f"{full.n_layers} -> {depth} layers (the card's memory: "
+          f"{full.n_layers} layers are ~470 GB)",
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "gqa_group": cfg.n_heads // cfg.n_kv_heads,
+          "d_head": cfg.d_head, "expert_d_ff": cfg.d_ff,
+          "experts": cfg.n_experts, "top_k": cfg.top_k,
+          "shared_experts": cfg.n_shared_experts,
+          "capacity_factor": cfg.capacity_factor, "capacity": caps,
+          "vocab": [cfg.vocab_size, cfg.padded_vocab],
+          "weights_bytes": weights, "weights_gb": weights / 1e9,
+          "device_memory_gb": torch.cuda.memory_allocated() / 1e9,
+          "seconds": time.monotonic() - t0})
+    prompts = _prompts(cfg, args.seed, lens)
+
+    # The router in full float32: layer 0's logits of the 511-token
+    # prompt's normed embeddings against float64.
+    h = layers.rmsnorm(params["layers"]["ln2"][0], layers.embed(
+        params["embed"]["table"], torch.as_tensor(
+            prompts[-1], device="cuda")).to(torch.bfloat16),
+        cfg.norm_eps)
+    router = params["layers"]["moe"]["router"][0]
+    want64 = h.double() @ router.double()
+    rel = float((moe.router_logits(h, router).double() - want64).abs()
+                .max() / want64.abs().max())
+    emit({"phase": phase, "config": name, "event": "router_precision",
+          "tokens": h.shape[0], "max_rel_err_vs_float64": rel,
+          "limit": ROUTER_RTOL,
+          "tf32": torch.backends.cuda.matmul.allow_tf32})
+    if rel > ROUTER_RTOL:
+        raise AssertionError(f"{name}: router logits {rel} off float64")
+
+    # The first decode step on the kernels against the plain path, the
+    # same token fed to both, each layer's routes beside each other.
+    for sub_depth in sorted({2, cfg.n_layers}):
+        sub = dataclasses.replace(cfg, n_layers=sub_depth)
+        sub_params = dict(params, layers=_map(lambda t: t[:sub_depth],
+                                              params["layers"]))
+        got_routes, want_routes = [], []
+        with _recording_routes(got_routes):
+            got, nxt = _first_decode(torch, sub, sub_params, prompts[0],
+                                     max_len)
+        with _recording_routes(want_routes), \
+                layers.forced_backend("torch"):
+            want, _ = _first_decode(torch, sub, sub_params, prompts[0],
+                                    max_len, nxt)
+        flipped = _route_flips(f"{name} {sub_depth} layers", got_routes,
+                               want_routes, sub_depth,
+                               gated=sub_depth == 2)
+        got, want = (x[..., :cfg.vocab_size] for x in (got, want))
+        cos = _cosine(got, want)
+        finite = bool(torch.isfinite(got).all())
+        gated = sub_depth == 2 and not flipped
+        emit({"phase": phase, "config": name,
+              "event": "first_decode_vs_plain", "layers": sub_depth,
+              "finite": finite, "cosine": cos,
+              "max_abs_err": max_err(got, want), "routes_flipped": flipped,
+              "gated": gated,
+              "argmax_equal": int(got.argmax()) == int(want.argmax())})
+        if not finite or (gated and cos < 0.999):
+            raise AssertionError(f"{name}: {sub_depth}-layer first decode "
+                                 f"logits off the plain path (cosine "
+                                 f"{cos}, finite {finite})")
+        del sub_params
+
+    # The main path.
+    eng = Engine(cfg, params, max_len=max_len, device="cuda")
+    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    drops = []
+    since, rsince = dict(_build.LAUNCHES), dict(ops.RESOLVED)
+    torch.cuda.synchronize()
+    t_drain = time.monotonic()
+    with _recording_drops(drops):
+        eng.drain()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t_drain
+    launches = {k: _build.LAUNCHES[k] - since[k] for k in _build.LAUNCHES}
+    # the MoE decoders' widths: held out of the cost model's fit
+    implied = _picks_gate(f"{phase} {name}", launches,
+                          picks_since(rsince), group="held-out")
+    _healthy(phase, name, reqs, eng)
+    steps = len(eng.monitor.records)
+    tokens = [list(r.out_tokens) for r in reqs]
+    prefill_drops, decode_drops = _drops_by_forward(drops, cfg.n_layers,
+                                                    batch)
+    emit({"phase": phase, "config": name, "event": "drain",
+          "layers": cfg.n_layers, "prompt_lens": list(lens),
+          "new_tokens": new_tokens, "wall_s": wall,
+          "decode_steps": steps,
+          "decode_ms_per_step_median": _step_ms(eng),
+          "dropped_per_prefill": prefill_drops,
+          "dropped_per_decode_step": decode_drops,
+          "launches": {k: launches[k] for k in SERVE_MOE_PATH},
+          "tokens": tokens})
+    # Decode masks the padded vocab; a first token comes from the
+    # prefill's unmasked logits, as in the reference (ROADMAP C), so it is
+    # counted, not gated.
+    over = [t for ts in tokens for t in ts[1:] if t >= cfg.vocab_size]
+    emit({"phase": phase, "config": name, "event": "vocab",
+          "decode_tokens_past_vocab": len(over),
+          "first_tokens_past_vocab": [ts[0] for ts in tokens
+                                      if ts[0] >= cfg.vocab_size],
+          "vocab": [cfg.vocab_size, cfg.padded_vocab]})
+    if over:
+        raise AssertionError(f"{name}: decode tokens past vocab_size "
+                             f"{over}")
+    _tiles_gate(phase, launches)
+    want_b2, want_b3 = cfg.n_layers * len(lens), cfg.n_layers * steps
+    want_g16 = want_b3 if cfg.n_heads // cfg.n_kv_heads > 8 else 0
+    if _attention(launches) != want_b2 or \
+            launches["paged_attention"] != want_b3 or \
+            launches["paged_attention_g16"] != want_g16:
+        raise AssertionError(
+            f"{name}: B2/B7 launches {_attention(launches)} (want "
+            f"{want_b2}), B3 {launches['paged_attention']} (want "
+            f"{want_b3}), on its 16-warp kernel "
+            f"{launches['paged_attention_g16']} (want {want_g16})")
+    for k in dict.fromkeys((*SERVE_MOE_PATH, *implied)):
+        total[k] = total.get(k, 0) + launches[k]
+        implied_total[k] = implied_total.get(k, 0) + implied.get(k, 0)
+
+    # Each request alone, after the path's counts are read.
+    alone, alone_drops = [], []
+    for p in prompts:
+        one = Engine(cfg, params, max_len=max_len, device="cuda")
+        r = one.submit(p, new_tokens)
+        with _recording_drops(alone_drops):
+            one.drain()
+        _healthy(phase, f"{name} alone", [r], one)
+        alone.append(list(r.out_tokens))
+        del one, r          # and its page pool, before the next engine's
+        gc.collect()
+    alone_decode_drops = _drops_by_forward(alone_drops, cfg.n_layers,
+                                           batch)[1]
+    no_decode_drops = not any(decode_drops) and not any(
+        alone_decode_drops)
+    differing = sum(a != b for x, y in zip(tokens, alone)
+                    for a, b in zip(x, y))
+    emit({"phase": phase, "config": name, "event": "mixed_vs_alone",
+          "decode_drops_mixed": sum(decode_drops),
+          "decode_drops_alone": sum(alone_decode_drops),
+          "tokens_differing": differing, "gated": no_decode_drops})
+    if no_decode_drops and tokens != alone:
+        raise AssertionError(f"{name}: mixed-batch tokens {tokens} != "
+                             f"each request alone {alone}")
+
+    # Where a decode step's time goes (moonshot whole), and the routed
+    # experts' GEMMs alone: one layer's _expert_ffn at the decode
+    # capacity, every expert's weights read.
+    trace = None
+    if depth is None:
+        trace = trace_decode(torch, cfg, params, prompts, max_len,
+                             f"{phase} {name}")
+    lp = {k: params["layers"]["moe"][k][0] for k in ("w1", "w3", "w2")}
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    buf = torch.randn((cfg.n_experts, caps["decode"], cfg.d_model),
+                      generator=gen, device="cuda").to(torch.bfloat16)
+    ffn_ms = Timer("cuda").ms(lambda: moe._expert_ffn(lp, buf))
+    expert_bytes = sum(t.numel() * t.element_size() for t in lp.values())
+    ffn = {"expert_ffn_ms_per_layer": ffn_ms,
+           "expert_ffn_ms_per_step": ffn_ms * cfg.n_layers,
+           "expert_bytes_per_layer": expert_bytes,
+           "bound_ms_per_layer": expert_bytes / HBM_BYTES_PER_S * 1e3}
+    if trace is not None:
+        bmm = trace.get("op_device_ms", {}).get("aten::bmm")
+        ffn.update(traced_bmm_ms_per_step=bmm,
+                   traced_bmm_share_of_busy=(
+                       bmm / trace["device_busy_ms"]
+                       if bmm and trace["device_busy_ms"] else None),
+                   port_kernels_ms_per_step=trace["port_kernels_ms"],
+                   device_busy_ms_per_step=trace["device_busy_ms"],
+                   device_idle_share=trace["device_idle_share"])
+    emit({"phase": phase, "config": name, "event": "expert_gemms",
+          "card": card_line(), **ffn})
+    return dict(layers=cfg.n_layers, weights_bytes=weights,
+                experts=cfg.n_experts, top_k=cfg.top_k, capacity=caps,
+                decode_steps=steps, dropped_per_prefill=prefill_drops,
+                decode_drops=sum(decode_drops),
+                decode_ms_per_step=_step_ms(eng),
+                mixed_equals_alone=tokens == alone,
+                seconds=time.monotonic() - t0, **ffn)
+
+
 # Device kernels of the serving paths, by the name of their __global__
 # function (B1's bf16 basic OS is gemm_tc.cuh's two tiles; its int8 and
 # packed basic OS is gemm_tc_i8.cuh's two; every other B1 launch is
@@ -3480,12 +3942,18 @@ KERNEL_FUNCTIONS = {"tc_prefill_kernel": "matmul_os_prefill",
                     "paged_kernel": "paged_attention"}
 
 
+# aten ops whose device time a trace sums apart: the MoE layer's routed
+# expert GEMMs (no other op on the port's kernel path calls bmm).
+TRACED_OPS = ("aten::bmm",)
+
+
 def _device_trace(torch, run, repeats: int) -> dict:
     """A ``torch.profiler`` trace of ``repeats`` calls of ``run``: the
     device is busy for the union of its kernel and copy intervals, idle
     for the rest of the calls' host-clock time.  Kernel time per call is
-    summed by the port's kernels and by the other kernels' names.  The
-    trace's own host cost is in the traced ms."""
+    summed by the port's kernels and by the other kernels' names, and by
+    the ``TRACED_OPS`` that ran.  The trace's own host cost is in the
+    traced ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3508,6 +3976,16 @@ def _device_trace(torch, run, repeats: int) -> dict:
         if end > reach:
             busy_us += end - max(start, reach)
             reach = end
+    # the device time of each of TRACED_OPS (its kernels, by the
+    # profiler's op -> launch links), per call of ``run``
+    op_us = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CPU \
+                and ev.name in TRACED_OPS:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            op_us[ev.name] = op_us.get(ev.name, 0.0) + us
     port, other = {}, {}
     for name, us in by_name.items():
         key = next((k for f, k in KERNEL_FUNCTIONS.items() if f in name),
@@ -3521,14 +3999,17 @@ def _device_trace(torch, run, repeats: int) -> dict:
             "device_idle_share": (1.0 - busy_us / wall_us) if spans else None,
             "port_kernels_ms": port,
             "other_device_ms": sum(other.values()),
-            "top_other_ms": top}
+            "top_other_ms": top,
+            **({"op_device_ms": {k: us / repeats / 1e3
+                                 for k, us in op_us.items()}}
+               if op_us else {})}
 
 
 def trace_decode(torch, cfg, params, prompts, max_len, phase: str,
                  steps: int = 6):
     """Where a decode step's time goes: ``steps`` decode steps at batch
     ``len(prompts)`` (after every prompt is admitted), traced; every ms is
-    per step."""
+    per step.  Returns the trace's record."""
     from repro_torch.serve.engine import Engine
 
     eng = Engine(cfg, params, max_len=max_len, device="cuda")
@@ -3536,9 +4017,10 @@ def trace_decode(torch, cfg, params, prompts, max_len, phase: str,
         eng.submit(p, 2 * steps + len(prompts) + 2)
     for _ in prompts:        # one admission per tick
         eng.step()
+    rec = _device_trace(torch, eng.step, steps)
     emit({"phase": phase, "event": "decode_trace",
-          "decode_batch": len(prompts), "steps": steps,
-          **_device_trace(torch, eng.step, steps)})
+          "decode_batch": len(prompts), "steps": steps, **rec})
+    return rec
 
 
 def trace_prefill(torch, cfg, params, prompt, max_len, phase: str,
@@ -3675,6 +4157,8 @@ def main(argv=None) -> int:
         paths["serve_dense"] = serve_dense_phase(torch, args)
     if "serve_f32" in phases:
         paths["serve_f32"] = serve_f32_phase(torch, args)
+    if "serve_moe" in phases:
+        paths["serve_moe"] = serve_moe_phase(torch, args)
 
     kernels = []
     for name, reg in registered_kernels().items():
@@ -3682,7 +4166,7 @@ def main(argv=None) -> int:
         # A kernel's own path: the first of these that runs it.
         own = next((p for p in ("serve", "serve_binary", "serve_packed",
                                 "serve_recovery", "serve_int8kv",
-                                "serve_dense", "serve_f32",
+                                "serve_dense", "serve_f32", "serve_moe",
                                 "dataflows", "quantized")
                     if paths.get(p, {}).get(name)), None)
         if own is None and "kernels_phase_launches" in rec:

@@ -1,12 +1,14 @@
 """B2 and B7 at the serving shapes, for one checkout's kernels: bf16 and
 float32 K/V and, where the checkout has them, the int8 KV cache's int8
-K/V under bf16 and under float32 queries.
+K/V under bf16 and under float32 queries; and B3 at each served GQA
+group.
 
 ``chip_smoke.py`` times these shapes for the tree it runs from; this
 module also runs against another checkout's ``src`` (a parent commit's
 ``git archive``), so two checkouts are timed in one call on one card:
 
     python3 src/repro_torch/bench/attention_times.py --src .chip_parent/src
+    python3 src/repro_torch/bench/attention_times.py --kernels paged
 
 Shapes (qwen3-1.7b: Hq 16, Hkv 8, D 128): prefill Sq = Skv = 512,
 causal; a prefill chunk (Sq 128 at offset 384, kv_len 512 of a 1 024-key
@@ -14,7 +16,12 @@ buffer); slot-cache decode (4 rows of Sq 1, kv_len 17/64/200/511 of a
 1 024-key buffer).  Each row: B2's CUDA-event median and a sha256 of its
 output bytes on seeded inputs, so two checkouts' bits can be compared;
 the float32 and int8 rows add B7's median and digest at prefill (float32:
-the same inputs in float32).  Needs a card.
+the same inputs in float32).  B3 (``--kernels paged`` alone: only its
+library is built): decode off a page pool, 4 rows at kv_len 0/17/200/527,
+page 16, shuffled page ids, D 128, at the served groups (moonshot-v1-16b-a3b
+16/16, qwen3-1.7b 16/8, 32/4, qwen3-moe-235b-a22b 64/4), bf16 and float32,
+each with its median and digest; a group the checkout's kernel does not
+take is reported as such.  Needs a card.
 """
 from __future__ import annotations
 
@@ -36,6 +43,44 @@ def _digest(t) -> str:
 
     return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()
                           ).hexdigest()[:16]
+
+
+# (Hq, Hkv) of B3's rows: groups 1, 2, 8 and 16.
+PAGED_HEADS = ((16, 16), (16, 8), (32, 4), (64, 4))
+PAGED_LENS, PAGED_PAGE = [0, 17, 200, 527], 16
+
+
+def paged_rows(timer, dev: str = "cuda"):
+    import torch
+
+    from repro_torch.kernels import attention_df
+
+    out = []
+    rows, max_pages = len(PAGED_LENS), 64
+    for hq, hkv in PAGED_HEADS:
+        gen = torch.Generator(device=dev).manual_seed(hq + hkv)
+        n_pages = rows * max_pages + 1
+        kp, vp = (torch.randn((hkv, n_pages, PAGED_PAGE, D), generator=gen,
+                              device=dev) for _ in range(2))
+        tables = torch.randperm(rows * max_pages, generator=gen,
+                                device=dev).reshape(rows, max_pages).to(
+                                    torch.int32)
+        q = torch.randn((rows, hq, 1, D), generator=gen, device=dev)
+        lens = torch.tensor(PAGED_LENS, device=dev, dtype=torch.int32)
+        row = {"shape": f"paged decode R={rows} kv_lens={PAGED_LENS} "
+                        f"page={PAGED_PAGE} Hq={hq} Hkv={hkv} D={D}",
+               "group": hq // hkv}
+        if hq // hkv > attention_df.MAX_GROUP:
+            row["paged"] = f"not taken (MAX_GROUP {attention_df.MAX_GROUP})"
+            out.append(row)
+            continue
+        for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            args = [t.to(dt) for t in (q, kp, vp)] + [tables, lens]
+            paged = lambda: attention_df.paged_flash_attention(*args)
+            row[f"{tag}_paged_ms"] = timer.ms(paged)
+            row[f"{tag}_paged_sha256"] = _digest(paged())
+        out.append(row)
+    return out
 
 
 def rows(timer, dev: str = "cuda"):
@@ -101,6 +146,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."),
         help="the src directory whose repro_torch is timed")
+    ap.add_argument("--kernels", choices=("all", "paged"), default="all",
+                    help="every row, or B3's alone")
     args = ap.parse_args(argv)
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
@@ -113,7 +160,8 @@ def main(argv=None) -> int:
 
     timer = common.Timer("cuda")
     card = common.card_line()
-    for row in rows(timer):
+    for row in ((rows(timer) if args.kernels == "all" else [])
+                + paged_rows(timer)):
         print(json.dumps({"bench": "attention_times", "src": src,
                           "card": card, **row}), flush=True)
     return 0

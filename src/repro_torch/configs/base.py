@@ -3,7 +3,7 @@
 The twin of ``repro/configs/base.py``'s ``ArchConfig``: the same fields
 with the same defaults (a test holds the two field sets equal), and the
 derived sizes the port reads.  Fields of families the port does not run
-yet (MoE, SSM, hybrid, encoder-decoder, binary and packed MLPs) are kept
+yet (SSM, hybrid, encoder-decoder) are kept
 so a config reads the same in both packages.
 """
 from __future__ import annotations

@@ -28,7 +28,9 @@ of B1's residencies, B4, B5a or B5b over a sweep of two tiles or more
 takes the cluster walk of ``csrc/gemm_cluster.cuh``, and a bf16 launch of
 B7 its cluster kernel; the entry point reports the tile it took, which
 also counts one under its name (``TILE_LIBRARIES``).  A launch of B2 or
-B7 over int8 K/V also counts one under its ``I8KV_LAUNCHES`` key.
+B7 over int8 K/V also counts one under its ``I8KV_LAUNCHES`` key, and a
+launch of B3 at a GQA group over 8 (its 16-warp kernel) one under
+``PAGED_G16``.
 """
 from __future__ import annotations
 
@@ -112,6 +114,9 @@ CONV_TILES = ("conv2d_os_i8", "conv2d_os_bf16", "conv2d_ws_i8",
 # tile's): under bf16 queries, then under float32 queries.
 I8KV_LAUNCHES = ("flash_attention_i8kv", "kv_stationary_cluster_i8kv",
                  "flash_attention_f32_i8kv", "kv_stationary_f32_i8kv")
+# B3's launches on its 16-warp kernel (a GQA group of 9 to 16), counted
+# beside the library's own count.
+PAGED_G16 = "paged_attention_g16"
 # The libraries whose entry point reports the tile a launch took, with the
 # tiles by code.
 TILE_LIBRARIES = {"matmul_os": TILES, "matmul_rmw": RMW_TILES,
@@ -126,6 +131,7 @@ TILE_LIBRARIES = {"matmul_os": TILES, "matmul_rmw": RMW_TILES,
 _TOOK = (ctypes.c_int * 4)()
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             (*SIGNATURES, PACKED_DECODE, *I8KV_LAUNCHES,
+                             PAGED_G16,
                              *(t for tiles in TILE_LIBRARIES.values()
                                for t in tiles))}
 # ptxas resource report of each build of this process, by kernel.
@@ -252,8 +258,8 @@ def launch(name: str, *args, packed: bool = False,
            also: Optional[str] = None) -> Optional[tuple]:
     """Call kernel ``name``'s entry point on the current CUDA stream,
     count the launch (and, when it decodes ``packed`` planes, B6's; and
-    under ``also``, one of ``I8KV_LAUNCHES``) and raise if it was
-    refused.  A launch of a ``TILE_LIBRARIES`` entry that
+    under ``also``, one of ``I8KV_LAUNCHES`` or ``PAGED_G16``) and raise
+    if it was refused.  A launch of a ``TILE_LIBRARIES`` entry that
     took one of its tiles (B1's, B4's, B5a's, B5b's, B7's, B9's) counts
     that tile too and returns (tile, shared memory bytes, CTAs) as the
     kernel reported them, with the cluster size (a cluster walk) or the

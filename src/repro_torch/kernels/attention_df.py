@@ -20,7 +20,10 @@ Ports of ``repro/kernels/attention_df.py``:
   own kv_len, window and page size alone), one CTA per (chunk, kv head,
   row), its tiles streamed through a ``cp.async`` ring; the chunks'
   partial (m, l, acc) meet in a workspace the wrapper sizes from the
-  shapes, merged in chunk order by the row's last CTA.
+  shapes, merged in chunk order by the row's last CTA.  A CTA has a warp
+  per q head of its group bound: 8 warps for a group of at most 8, 16
+  for a group of 9 to ``MAX_GROUP`` (qwen3-moe-235b-a22b's 16), so each
+  K/V page is read once per (chunk, kv head) at either.
 * ``kv_stationary_attention`` (``csrc/kv_stationary.cu``) replaces
   ``_kv_stationary_kernel`` / ``_kv_single_kernel``: the WS anchor, the
   KV blocks walked outer and the q tiles inner, the same band and mask as
@@ -81,7 +84,8 @@ KV_BLOCKS = {torch.bfloat16: (64, 64), torch.float32: (16, 32)}
 KV_BLOCK = KV_BLOCKS[torch.bfloat16]
 KV_STAGES = 2                      # csrc/kv_stationary.cu: KV blocks held
 MAX_PAGE = 32                      # csrc/paged_attention.cu: keys per page
-MAX_GROUP = 8                      # csrc/paged_attention.cu: q heads per kv head
+MAX_GROUP = 16                     # csrc/paged_attention.cu: q heads per kv head
+PAGED_NARROW_GROUP = 8             # ... at most, on its 8-warp kernel
 PAGED_TILE_KEYS = 32               # csrc/paged_attention.cu: keys a tile, at most
 PAGED_CHUNK_TILES = 4              # csrc/paged_attention.cu: tiles a chunk
 
@@ -129,6 +133,12 @@ KV_F32_I8KV = register_kernel(KernelRegistration(
 ))
 PAGED = register_kernel(KernelRegistration(
     name="paged_attention",
+    source="src/repro_torch/kernels/csrc/paged_attention.cu",
+    replaces="src/repro/kernels/attention_df.py:714",
+    spec=DataflowSpec(anchor=OS, block=(1, MAX_PAGE, 1)),
+))
+PAGED_G16 = register_kernel(KernelRegistration(
+    name=_build.PAGED_G16,
     source="src/repro_torch/kernels/csrc/paged_attention.cu",
     replaces="src/repro/kernels/attention_df.py:714",
     spec=DataflowSpec(anchor=OS, block=(1, MAX_PAGE, 1)),
@@ -457,5 +467,6 @@ def paged_flash_attention(
         _build.ptr(counters), _build.dtype_code(q), d, b, hq, hkv, n_pages,
         page, max_pages, chunks,
         float(scale if scale is not None else d ** -0.5),
-        0 if window is None else int(window))
+        0 if window is None else int(window),
+        also=PAGED_G16.name if hq // hkv > PAGED_NARROW_GROUP else None)
     return out

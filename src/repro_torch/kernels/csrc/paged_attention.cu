@@ -20,11 +20,17 @@
 //   - A CTA streams its chunk's tiles through a STAGES-deep cp.async ring in
 //     shared memory, the next tiles' K and V in flight while one folds; the
 //     chunk's page ids are read once, up front.
-//   - All 8 warps fold: each (q head of the GQA group, part of D) has a warp
+//   - All G warps fold: each (q head of the GQA group, part of D) has a warp
 //     whose lanes take the tile's 32 keys, so a score is a few partial dots
 //     summed in shared memory; one warp per q head runs the online softmax
 //     over the tile (key j on lane j); then every thread folds P V into the
 //     outputs it owns, 32 keys a tile, with no shuffles.
+//   - G, the group bound, is a template parameter: a CTA of G warps holds the
+//     q rows, probabilities and (m, l) of up to G q heads. A group of at most
+//     8 takes the 8-warp kernel; a group of 9 to 16 (qwen3-moe-235b-a22b's
+//     64 q heads over 4 kv heads) the 16-warp one, so every thread still owns
+//     cdiv(8 * D, 256) outputs and every K/V page is still read once per
+//     (chunk, kv head).
 //   - Each chunk of a row with more than one writes its partial (m, l, acc)
 //     to a workspace the wrapper sizes from the shapes; the last CTA of the
 //     (row, kv head) to finish merges the partials in chunk order. It is
@@ -36,14 +42,13 @@
 // keeps its roundings). Built for d_head 16, 32, 64 and 128: at D = 16 a
 // bf16 key row is two 16-byte vectors, so with a small group some score
 // warps take no vector and store a zero partial, and the outputs are owned
-// by the first 128 threads.
+// by the first 8 * G threads.
 #include "mma_common.cuh"
 
 namespace {
 
 constexpr int MAX_PAGE = 32;   // keys per page
-constexpr int MAX_GROUP = 8;   // q heads per kv head
-constexpr int THREADS = 256;   // 8 warps
+constexpr int MAX_GROUP = 16;  // q heads per kv head: the larger G
 constexpr int TILE_KEYS = 32;  // keys a tile holds at most: one per lane
 constexpr int CHUNK_TILES = 4; // tiles a chunk (attention_df.py keeps a copy)
 constexpr int STAGES = 3;      // ring depth, in tiles
@@ -58,23 +63,25 @@ __host__ __device__ constexpr int chunk_pages(int page) {
   return CHUNK_TILES * tile_pages(page);
 }
 
+// Threads of the CTA of group bound G: a warp per q head.
+__host__ __device__ constexpr int threads(int g) { return 32 * g; }
+
 // Shared memory of one CTA, in bytes: the ring of K and V tiles (rows padded
 // by 16 bytes, an odd number of 16-byte units, so the lanes' vector loads of
-// 32 keys hit distinct banks), q, the score partials, the probabilities,
-// alpha and (m, l) per q head, and the chunk's page ids.
-template <typename T, int D>
+// 32 keys hit distinct banks), q, the score partials (a row a warp), the
+// probabilities, alpha and (m, l) per q head, and the chunk's page ids.
+template <typename T, int D, int G>
 struct Smem {
   static constexpr int V = 16 / sizeof(T);  // elements of a 16-byte vector
   static constexpr int LD = D + V;          // elements of a padded key row
   static constexpr int TILE = TILE_KEYS * LD;
   static constexpr size_t RING = (size_t)STAGES * 2 * TILE * sizeof(T);
-  static constexpr size_t FLOATS =
-      MAX_GROUP * D + 8 * TILE_KEYS + MAX_GROUP * TILE_KEYS + 3 * MAX_GROUP;
+  static constexpr size_t FLOATS = G * D + G * TILE_KEYS + G * TILE_KEYS + 3 * G;
   static constexpr size_t BYTES = RING + FLOATS * 4 + MAX_CHUNK_PAGES * 4;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(threads(G))
 paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
              const T* __restrict__ v_pages, const int* __restrict__ tables,
              const int* __restrict__ kv_lens, T* __restrict__ o,
@@ -82,18 +89,18 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
              int* __restrict__ counters, int hq, int group, int n_pages,
              int page, int max_pages, int max_chunks, int window,
              float scale) {
-  using S = Smem<T, D>;
-  constexpr int V = S::V, LD = S::LD;
-  // outputs a thread owns, at most (D = 16: one for the first 128 threads)
-  constexpr int OUTS = cdiv(MAX_GROUP * D, THREADS);
+  using S = Smem<T, D, G>;
+  constexpr int V = S::V, LD = S::LD, THREADS = threads(G);
+  // outputs a thread owns, at most (D = 16: one for the first 8 * G threads)
+  constexpr int OUTS = cdiv(G * D, THREADS);
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
-  float* qs = reinterpret_cast<float*>(smem + S::RING);  // [MAX_GROUP][D]
-  float* sp = qs + MAX_GROUP * D;         // [8 warps][32 keys] partial dots
-  float* ps = sp + 8 * TILE_KEYS;         // [MAX_GROUP][32] probabilities
-  float* alpha_s = ps + MAX_GROUP * TILE_KEYS;  // [MAX_GROUP]
-  float* ml_s = alpha_s + MAX_GROUP;      // [MAX_GROUP][2]: m, l
-  int* ids = reinterpret_cast<int*>(ml_s + 2 * MAX_GROUP);
+  float* qs = reinterpret_cast<float*>(smem + S::RING);  // [G][D]
+  float* sp = qs + G * D;                 // [G warps][32 keys] partial dots
+  float* ps = sp + G * TILE_KEYS;         // [G][32] probabilities
+  float* alpha_s = ps + G * TILE_KEYS;    // [G]
+  float* ml_s = alpha_s + G;              // [G][2]: m, l
+  int* ids = reinterpret_cast<int*>(ml_s + 2 * G);
   __shared__ int is_last;
 
   const int chunk = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
@@ -121,8 +128,8 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const int pid = table[i];
     ids[i] = pid >= 0 && pid < n_pages ? pid : -1;
   }
-  load_tiles<T, MAX_GROUP, D, D, D, THREADS>(qs, q + q_row * D, nullptr,
-                                             nullptr, D, group);
+  load_tiles<T, G, D, D, D, THREADS>(qs, q + q_row * D, nullptr, nullptr,
+                                     D, group);
   __syncthreads();
 
   const size_t pool = (size_t)kvh * n_pages * page * D;
@@ -140,7 +147,8 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   };
 
   // Scores: warp w < group * tpp takes q head w / tpp and every tpp-th
-  // 16-byte vector of D from w % tpp; its lane j takes key j.
+  // 16-byte vector of D from w % tpp; its lane j takes key j. (G = 16 takes
+  // groups over 8 only: one warp a q head.)
   const int tpp = group == 1 ? 8 : group == 2 ? 4 : group <= 4 ? 2 : 1;
   float m_run = REPRO_NEG_INF, l_run = 0.f;  // warp h < group: q head h
   float acc[OUTS];
@@ -262,21 +270,21 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int G>
 int launch(const void* q, const void* kp, const void* vp, const int* tables,
            const int* kv_lens, void* o, float* ws_acc, float* ws_ml,
            int* counters, int rows, int hq, int hkv, int n_pages, int page,
            int max_pages, int max_chunks, int window, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = Smem<T, D>::BYTES;
-  auto kernel = paged_kernel<T, D>;
+  constexpr size_t smem = Smem<T, D, G>::BYTES;
+  auto kernel = paged_kernel<T, D, G>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(max_chunks, hkv, rows);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, threads(G), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), tables, kv_lens, static_cast<T*>(o), ws_acc,
       ws_ml, counters, hq, hq / hkv, n_pages, page, max_pages, max_chunks,
@@ -284,7 +292,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables,
   return launch_status();
 }
 
-template <typename T>
+template <typename T, int G>
 int launch_d(int d, const void* q, const void* kp, const void* vp,
              const int* tables, const int* kv_lens, void* o, float* ws_acc,
              float* ws_ml, int* counters, int rows, int hq, int hkv,
@@ -292,19 +300,19 @@ int launch_d(int d, const void* q, const void* kp, const void* vp,
              float scale, cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch<T, 16>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
+      return launch<T, 16, G>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
                            counters, rows, hq, hkv, n_pages, page, max_pages,
                            max_chunks, window, scale, stream);
     case 32:
-      return launch<T, 32>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
+      return launch<T, 32, G>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
                            counters, rows, hq, hkv, n_pages, page, max_pages,
                            max_chunks, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
+      return launch<T, 64, G>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
                            counters, rows, hq, hkv, n_pages, page, max_pages,
                            max_chunks, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
+      return launch<T, 128, G>(q, kp, vp, tables, kv_lens, o, ws_acc, ws_ml,
                             counters, rows, hq, hkv, n_pages, page, max_pages,
                             max_chunks, window, scale, stream);
     default:
@@ -333,14 +341,14 @@ extern "C" int paged_attention(const void* q, const void* k_pages,
       !ws_acc || !ws_ml || !counters)
     return REPRO_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = hq / hkv > 8;  // the 16-warp kernel
   if (dtype == REPRO_F32)
-    return launch_d<float>(d, q, k_pages, v_pages, tables, kv_lens, o, ws_acc,
-                           ws_ml, counters, rows, hq, hkv, n_pages, page,
-                           max_pages, max_chunks, window, scale, s);
+    return (wide ? launch_d<float, 16> : launch_d<float, 8>)(
+        d, q, k_pages, v_pages, tables, kv_lens, o, ws_acc, ws_ml, counters,
+        rows, hq, hkv, n_pages, page, max_pages, max_chunks, window, scale, s);
   if (dtype == REPRO_BF16)
-    return launch_d<__nv_bfloat16>(d, q, k_pages, v_pages, tables, kv_lens, o,
-                                   ws_acc, ws_ml, counters, rows, hq, hkv,
-                                   n_pages, page, max_pages, max_chunks,
-                                   window, scale, s);
+    return (wide ? launch_d<__nv_bfloat16, 16> : launch_d<__nv_bfloat16, 8>)(
+        d, q, k_pages, v_pages, tables, kv_lens, o, ws_acc, ws_ml, counters,
+        rows, hq, hkv, n_pages, page, max_pages, max_chunks, window, scale, s);
   return REPRO_BAD_ARGUMENT;
 }

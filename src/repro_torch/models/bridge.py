@@ -6,10 +6,12 @@ on a leading ``L`` axis (``embed.table`` (padded_vocab, d);
 ``layers.mlp.{w1, w3, w2}``, or with ``cfg.binary_mlp``
 ``layers.mlp.{up, down}.{w_packed, scale, bias}``, or with
 ``cfg.packed_weights`` ``layers.mlp.{w1, w3, w2}`` as stacked
-``PackedWeights``; ``final_norm``; ``lm_head.table`` when the
-embeddings are untied).  ``params_from_numpy`` takes that tree with
-numpy leaves (``jax.tree.map(numpy.asarray, params)``) and returns the
-port's parameters, the same layout as ``lm.init_model`` builds.  It
+``PackedWeights``, or with ``cfg.n_experts`` ``layers.moe.{router, w1,
+w3, w2}`` and, with shared experts, ``layers.moe.shared.{w1, w3, w2}``;
+``final_norm``; ``lm_head.table`` when the embeddings are untied).
+``params_from_numpy`` takes that tree with numpy leaves
+(``jax.tree.map(numpy.asarray, params)``) and returns the port's
+parameters, the same layout as ``lm.init_model`` builds.  It
 checks every path and shape against ``cfg`` and raises on a mismatch.
 Binary uint32 words cross over bit for bit as int32 (the port's word
 type: torch cannot shift uint32 tensors on the CPU); a ``PackedWeights``
@@ -38,7 +40,7 @@ from repro_torch.kernels import pack
 
 
 def expected_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
-    """Leaf path -> shape of a dense decoder's parameter tree."""
+    """Leaf path -> shape of a dense or MoE decoder's parameter tree."""
     n, d, dh, ff = cfg.n_layers, cfg.d_model, cfg.d_head, cfg.d_ff
     shapes = {
         ("embed", "table"): (cfg.padded_vocab, d),
@@ -50,7 +52,17 @@ def expected_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
         ("layers", "attn", "wo"): (n, cfg.q_dim, d),
         ("final_norm",): (d,),
     }
-    if cfg.binary_mlp:
+    if cfg.n_experts:
+        e, fs = cfg.n_experts, ff * cfg.n_shared_experts
+        shapes[("layers", "moe", "router")] = (n, d, e)
+        shapes[("layers", "moe", "w1")] = (n, e, d, ff)
+        shapes[("layers", "moe", "w3")] = (n, e, d, ff)
+        shapes[("layers", "moe", "w2")] = (n, e, ff, d)
+        if fs:
+            shapes[("layers", "moe", "shared", "w1")] = (n, d, fs)
+            shapes[("layers", "moe", "shared", "w3")] = (n, d, fs)
+            shapes[("layers", "moe", "shared", "w2")] = (n, fs, d)
+    elif cfg.binary_mlp:
         for name, d_in, d_out in (("up", d, ff), ("down", ff, d)):
             shapes[("layers", "mlp", name, "w_packed")] = (n, d_in // 32,
                                                            d_out)

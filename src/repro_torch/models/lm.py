@@ -1,17 +1,20 @@
-"""The dense decoder LM of the port: init, prefill, decode.
+"""The decoder LM of the port: init, prefill, decode.
 
 Twin of ``repro/models/lm.py`` for the ``dense`` family (and ``vlm``,
 which the JAX package serves as a dense backbone), with the
 SwiGLU MLP, the binary MLP (``cfg.binary_mlp``) or the SwiGLU MLP with
-sub-byte packed weights (``cfg.packed_weights``).  Parameters
+sub-byte packed weights (``cfg.packed_weights``), and for the ``moe``
+family, whose layers run the routed-expert block (``models/moe.py``,
+its load-balancing loss dropped, as the reference's serving steps drop
+it) where the dense ones run the MLP.  Parameters
 keep the JAX package's layout — per-layer leaves stacked on a leading
 ``L`` axis (``models/bridge.py`` moves a JAX tree over unchanged) — and
 a Python loop over layers replaces ``lax.scan``.  Decode runs off the
 paged KV pool (``paged_decode_step``) or off the contiguous slot cache
 (``decode_step``, a scalar or per-row ``index``); an int8 KV cache
 (``cfg.kv_cache_dtype == "int8"``: int8 codes with per-position f32
-scales) decodes off the slot cache only, as in the JAX package.  The MoE, SSM, hybrid
-and encoder-decoder families are not ported yet (ROADMAP A11, A12,
+scales) decodes off the slot cache only, as in the JAX package.  The SSM,
+hybrid and encoder-decoder families are not ported yet (ROADMAP A12,
 A10).
 """
 from __future__ import annotations
@@ -25,7 +28,7 @@ from repro_torch import device as device_lib
 from repro_torch.core.dataflow import (AttentionProblem, BinaryProblem,
                                        GemmProblem)
 from repro_torch.kernels import pack, ref
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 
 Params = Dict[str, Any]
 
@@ -33,14 +36,19 @@ Params = Dict[str, Any]
 # Families served as the dense decoder: ``vlm`` (chameleon) is early
 # fusion, its image tokens ordinary vocab ids, as the JAX package serves it.
 DENSE_FAMILIES = ("dense", "vlm")
+# Families served as the decoder with routed experts in place of the MLP.
+MOE_FAMILIES = ("moe",)
 
 
 def _check_supported(cfg) -> None:
-    if (cfg.family not in DENSE_FAMILIES or cfg.n_experts or cfg.has_ssm
+    moe_family = cfg.family in MOE_FAMILIES
+    if (cfg.family not in DENSE_FAMILIES + MOE_FAMILIES
+            or bool(cfg.n_experts) != moe_family or cfg.has_ssm
             or cfg.is_encoder_decoder or not cfg.has_attention):
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoders are ported (MoE, SSM and "
-            f"encoder-decoder models are queued in ROADMAP.md A10-A12)")
+            f"{cfg.name}: only dense and MoE decoders are ported (SSM, "
+            f"hybrid and encoder-decoder models are queued in ROADMAP.md "
+            f"A10 and A12)")
     if cfg.attn_window is not None and cfg.full_attn_every:
         raise NotImplementedError(
             "per-layer sliding-window schedules are queued in ROADMAP A12")
@@ -56,7 +64,9 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
     JAX package's ``init_binary_dense`` does.  A packed MLP
     (``cfg.packed_weights``) draws each layer's MSR-coded int8 codes and
     packs them at ``cfg.packed_weight_bits`` (``layers.init_packed_mlp``);
-    its leaves are stacked on the layer axis like the rest."""
+    its leaves are stacked on the layer axis like the rest.  A MoE config
+    (``cfg.n_experts``) draws ``layers["moe"]`` (``moe.init_moe``, a
+    layer at a time) in place of the MLP."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -96,6 +106,11 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
         return {"w1": dense(d, cfg.d_ff), "w3": dense(d, cfg.d_ff),
                 "w2": dense(cfg.d_ff, d)}
 
+    def ffn():
+        if cfg.n_experts:
+            return {"moe": moe.init_moe(gen, cfg, n, dev)}
+        return {"mlp": mlp()}
+
     attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
             "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
     if cfg.qk_norm:
@@ -103,8 +118,7 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
     params: Params = {
         "embed": {"table": normal((cfg.padded_vocab, d), d ** -0.5)},
         "layers": {
-            "ln1": ones(n, d), "attn": attn, "ln2": ones(n, d),
-            "mlp": mlp(),
+            "ln1": ones(n, d), "attn": attn, "ln2": ones(n, d), **ffn(),
         },
         "final_norm": ones(d),
     }
@@ -120,11 +134,16 @@ def hot_gemm_problems(cfg, batch: int, seq: int) -> List[GemmProblem]:
     (``layers.fused_dense`` -> ``ops.matmul_fused``), or for a packed MLP
     the int8-activation, ``weight_bits``-tagged problems of
     ``ops.matmul_packed``.  A binary MLP reaches B9 instead
-    (``hot_binary_problems``)."""
+    (``hot_binary_problems``).  A MoE config lists its shared experts'
+    projections (width ``d_ff * n_shared_experts``), and nothing without
+    them: its routed experts run as ``torch.bmm``, reaching no kernel."""
     if not cfg.d_ff or getattr(cfg, "binary_mlp", False):
         return []
     t = batch * seq
-    shapes = sorted({(t, cfg.d_model, cfg.d_ff), (t, cfg.d_ff, cfg.d_model)})
+    ff = cfg.d_ff * cfg.n_shared_experts if cfg.n_experts else cfg.d_ff
+    if not ff:
+        return []
+    shapes = sorted({(t, cfg.d_model, ff), (t, ff, cfg.d_model)})
     if getattr(cfg, "packed_weights", False):
         return [GemmProblem(m, k, n, in_dtype="int8", out_dtype="float32",
                             acc_dtype="int32",
@@ -208,8 +227,14 @@ def _head(params: Params) -> torch.Tensor:
     return params.get("lm_head", params["embed"])["table"]
 
 
-def _mlp_residual(lp: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def _ffn_residual(lp: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """``x`` plus the layer's MLP, or its MoE block (the load-balancing
+    loss dropped, as the reference's serving steps drop it), over the
+    normed ``x``."""
     h2 = layers.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if cfg.n_experts:
+        y, _ = moe.moe_apply(lp["moe"], h2, cfg)
+        return x + y
     return x + layers.mlp_apply(lp["mlp"], h2, cfg)
 
 
@@ -268,7 +293,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg,
             lp["attn"], h, cfg, positions=positions, window=_window(cfg),
             kv_cache=_layer_cache(cache, i), cache_index=0,
             attend_local=True)
-        x = _mlp_residual(lp, x + attn_out, cfg)
+        x = _ffn_residual(lp, x + attn_out, cfg)
     cache["index"] = s
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return layers.unembed(_head(params), x[:, -1]), cache
@@ -295,7 +320,7 @@ def prefill_chunk(params: Params, cache: Params, tokens: torch.Tensor, cfg,
         attn_out, _ = layers.attention_apply(
             lp["attn"], h, cfg, positions=positions, window=_window(cfg),
             kv_cache=_layer_cache(cache, i), cache_index=start)
-        x = _mlp_residual(lp, x + attn_out, cfg)
+        x = _ffn_residual(lp, x + attn_out, cfg)
     cache["index"] = start + s
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return layers.unembed(_head(params), x[:, -1]), cache
@@ -328,7 +353,7 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg
         attn_out, _ = layers.attention_apply(
             lp["attn"], h, cfg, positions=positions, window=_window(cfg),
             kv_cache=_layer_cache(cache, i), cache_index=idx)
-        x = _mlp_residual(lp, x + attn_out, cfg)
+        x = _ffn_residual(lp, x + attn_out, cfg)
     new = dict(cache)
     new["index"] = idx + 1
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -385,7 +410,7 @@ def paged_decode_step(
             k_pages=k_pages[i], v_pages=v_pages[i],
             block_tables=block_tables, kv_lens=kv_lens,
             write_pids=write_pids, write_offs=write_offs)
-        x = _mlp_residual(lp, x + attn_out, cfg)
+        x = _ffn_residual(lp, x + attn_out, cfg)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = layers.unembed(_head(params), x[:, -1])
     return _mask_vocab(logits, cfg), (k_pages, v_pages)

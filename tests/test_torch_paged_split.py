@@ -224,7 +224,10 @@ def card():
     (6, 2, 64, 5, [7, 161, 42, 500]),
     (6, 6, 16, 16, [5, 17, 200, 0]),
     (8, 2, 16, 8, [1, 300, 33, 64]),
-], ids=["served", "long", "page8", "group8", "page5", "d16_mha", "d16"])
+    (64, 4, 128, 16, [0, 17, 200, 527]),
+    (12, 1, 64, 8, [5, 300, 0, 33]),
+], ids=["served", "long", "page8", "group8", "page5", "d16_mha", "d16",
+        "group16", "group12"])
 def test_split_kernel_matches_the_plain_version_on_the_card(
         card, case, window, dtype):
     """Within B2's tolerances (bf16: atol 4e-3, rtol 8e-3; float32: 1e-4;
@@ -242,10 +245,14 @@ def test_split_kernel_matches_the_plain_version_on_the_card(
         rows, max_pages).to(torch.int32)
     q = torch.randn((rows, hq, 1, d), generator=gen, device=card).to(dt)
     kv = torch.tensor(lens, dtype=torch.int32, device=card)
-    before = _build.LAUNCHES["paged_attention"]
+    before = dict(_build.LAUNCHES)
     got = attention_df.paged_flash_attention(q, kp, vp, tables, kv,
                                              window=window)
-    assert _build.LAUNCHES["paged_attention"] == before + 1
+    assert _build.LAUNCHES["paged_attention"] == \
+        before["paged_attention"] + 1
+    # a group over 8 runs the 16-warp kernel, counted beside
+    assert _build.LAUNCHES[_build.PAGED_G16] == \
+        before[_build.PAGED_G16] + (hq // hkv > 8)
     want = ref.paged_attention_ref(q, kp, vp, tables, kv, window=window)
     tol = (dict(atol=4e-3, rtol=8e-3) if dt == torch.bfloat16
            else dict(atol=1e-4, rtol=1e-4))
