@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases card,build,kernels,serve_int8kv
     python3 chip_smoke.py --phases card,build,serve_dense,serve_f32
     python3 chip_smoke.py --phases card,build,serve_moe
+    python3 chip_smoke.py --phases card,build,serve_ssm
 
 Phases, each printing JSON lines:
 
@@ -206,6 +207,24 @@ Phases, each printing JSON lines:
    the mixed batch == each request alone wherever no decode step
    dropped.  moonshot's decode step traced, the expert GEMMs' device time
    beside the port's kernels.
+15. ``serve_ssm``: the SSM and hybrid decoders whole, full width, bf16,
+   random weights from ``--seed``, through ``Engine`` off the slot cache
+   (each row's SSM state beside its K/V), decode batch 4, ``max_len``
+   2 048: mamba2-780m (48 attention-free layers; no kernel of the port)
+   and hymba-1.5b (32 layers, B1's tiles at its MLP, B2 at group 5 with a
+   1 024-key window on 29 layers), the serve cell's prompts plus one of
+   1 536 tokens for hymba.  Gates per config: the first decode logits at
+   2 layers at cosine >= 0.999 of the plain path's; at 2 layers the
+   chunked SSD prefill's layer-0 state within ``SSD_STATE_RTOL`` of the
+   per-token recurrence's, its logits at cosine >= 0.999; every request
+   DONE, 0 demotions; every B1 launch on its tiles; the attention calls
+   of the full and the windowed layers each layers x (prompts + decode
+   steps), B2/B7 as the picks imply, no B3; mixed batch == alone.
+   Counted: a ``prefill_chunk=128`` run's tokens that differ.  Printed:
+   weights' and state bytes, prefill tokens/s, decode ms/step, the decode
+   step traced with the Mamba2 blocks' device time.  The kernels phase
+   holds B2 and B1 at hymba's widths (``hymba_checks``); ``serve_f32``
+   serves mamba2-smoke and hymba-smoke.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
@@ -216,6 +235,7 @@ counted over its in-process ``Engine`` runs; serve_int8kv: B1 with its
 bf16 tiles, B2 and its int8 path; serve_dense: B1 with its bf16 tiles,
 B2, B3, over its four configs; serve_f32: B1's f32 walk, B2, K1, B3;
 serve_moe: B1 with its bf16 tiles, B2, B3 and its 16-warp kernel;
+serve_ssm: B1 with its bf16 tiles, B2;
 B7's int8 paths (K2 among them), on no serving path, their launches in
 the kernels phase; dataflows: B1 and its bf16 tiles, B2,
 B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
@@ -253,7 +273,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 ALL_PHASES = ("card", "build", "kernels", "autotune", "dataflows",
               "quantized", "serve",
               "serve_binary", "serve_packed", "serve_recovery",
-              "serve_int8kv", "serve_dense", "serve_f32", "serve_moe")
+              "serve_int8kv", "serve_dense", "serve_f32", "serve_moe",
+              "serve_ssm")
 
 
 def emit(obj) -> None:
@@ -633,6 +654,8 @@ def kernel_phase(torch, cfg, timer):
     records["flash_attention"]["float32"] = {f"Sq={sq}": rec}
     modes, modes_i8 = b2_serving_modes(torch, timer, hq, hkv, dh, att_tol)
     records["flash_attention"].update(modes)
+    records["flash_attention"]["group5"], records["matmul_os"]["hymba"] = \
+        hymba_checks(torch, timer, att_tol)
     # the int8 KV cache's B2: the slot-cache decode step (its serving
     # path's every decode launch), the chunk beside it
     records["flash_attention_i8kv"] = dict(modes_i8["slot_decode"],
@@ -886,6 +909,132 @@ def b2_serving_modes(torch, timer, hq, hkv, dh, tol):
         emit({"kernel_timing_detail": "flash_attention_i8kv", **rec8})
         out_i8[mode] = rec8
     return out, out_i8
+
+
+def hymba_checks(torch, timer, tol):
+    """The kernels at hymba-1.5b's widths, which no config served before
+    it: B2 at its GQA group of 5 (25 q heads over 5 kv heads, D 64),
+    windowed (1 024 keys) as 29 of its 32 layers attend and full as the
+    other 3, at the prefill square of its longest served prompt (Sq =
+    1 536) and at the slot-cache decode step (4 rows of Sq = 1 in a
+    2 048-key buffer, kv_len 17/64/200/1 536); and B1's bf16 tiles at its
+    MLP (K 1 600 -> N 5 504 with the silu, 5 504 -> 1 600; M 4, 511 and
+    1 536).  Each held against its plain version (B2's tolerance ``tol``,
+    B1's ``B1_TOL``) and timed beside it and the PyTorch call (SDPA with
+    the equivalent boolean mask; ``torch.matmul``); B2's bound counts the
+    keys each row's band reads.  Inputs from their own generator, so
+    every other check keeps its inputs.  Returns (B2 records by mode, B1
+    records by shape)."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.bench.common import bound
+    from repro_torch.kernels import attention_df, matmul_df, ref
+
+    cfg = configs.get("hymba-1.5b")
+    hq, hkv, dh, win = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, \
+        cfg.attn_window
+    dev, buf, sq = "cuda", 2048, 1536
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(
+            torch.bfloat16)
+
+    att = {}
+    q, kk, vv = randn(1, hq, sq, dh), randn(1, hkv, sq, dh), \
+        randn(1, hkv, sq, dh)
+    lens = [17, 64, 200, sq]
+    qd, kd, vd = randn(4, hq, 1, dh), randn(4, hkv, buf, dh), \
+        randn(4, hkv, buf, dh)
+    kv = torch.tensor(lens, device=dev, dtype=torch.int32)
+    key = torch.arange(buf, device=dev)
+    kv_col = kv.long()[:, None]
+    pos = torch.arange(sq, device=dev)
+    for w in (win, None):
+        tag = f"window={w}"
+        band = sq if w is None else w
+        # the prefill square: row i sees min(i + 1, band) keys
+        pairs = sum(min(i + 1, band) for i in range(sq))
+        err = check("flash_attention",
+                    attention_df.flash_attention(q, kk, vv, window=w),
+                    ref.attention_ref(q, kk, vv, window=w), **tol,
+                    shape=f"hymba prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} "
+                          f"D={dh} {tag}")
+        mask = pos[None, :] <= pos[:, None]
+        if w is not None:
+            mask = mask & (pos[None, :] > pos[:, None] - w)
+        bnd = bound(2 * (hq + hkv) * sq * dh * 2, 4.0 * dh * pairs * hq)
+        att[f"prefill {tag}"] = dict(
+            shape=f"prefill Sq=Skv={sq} Hq={hq} Hkv={hkv} D={dh} {tag} bf16",
+            max_abs_err=err,
+            ms=timer.ms(lambda: attention_df.flash_attention(q, kk, vv,
+                                                             window=w)),
+            plain_ms=timer.ms(lambda: ref.attention_ref(q, kk, vv,
+                                                        window=w)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=mask, enable_gqa=True)),
+            library_call="F.scaled_dot_product_attention(attn_mask, "
+                         "enable_gqa)",
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
+        # the slot-cache decode step: row r sees min(kv_len_r, band) keys
+        keys = sum(min(n, band) for n in lens)
+        err = check("flash_attention",
+                    attention_df.flash_attention(qd, kd, vd, kv_len=kv,
+                                                 window=w),
+                    ref.attention_ref(qd, kd, vd, kv_len=kv, window=w),
+                    **tol, shape=f"hymba slot decode B=4 Sq=1 kv_len={lens}"
+                                 f" buffer={buf} {tag}")
+        dmask = key[None, :] < kv_col
+        if w is not None:
+            dmask = dmask & (key[None, :] >= kv_col - w)
+        dmask = dmask[:, None, None, :]
+        bnd = bound(2 * keys * hkv * dh * 2 + 2 * 4 * hq * dh * 2,
+                    4.0 * dh * keys * hq)
+        att[f"slot_decode {tag}"] = dict(
+            shape=f"slot decode B=4 Sq=1 kv_len={lens} buffer={buf} "
+                  f"Hq={hq} Hkv={hkv} D={dh} {tag} bf16",
+            max_abs_err=err,
+            ms=timer.ms(lambda: attention_df.flash_attention(
+                qd, kd, vd, kv_len=kv, window=w)),
+            plain_ms=timer.ms(lambda: ref.attention_ref(
+                qd, kd, vd, kv_len=kv, window=w)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=dmask, enable_gqa=True)),
+            library_call="F.scaled_dot_product_attention(attn_mask, "
+                         "enable_gqa)",
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
+    for rec in att.values():
+        emit({"kernel_timing_detail": "flash_attention", "config": cfg.name,
+              **rec})
+
+    mlp = {}
+    d, dff = cfg.d_model, cfg.d_ff
+    for k, n, act in ((d, dff, "silu"), (dff, d, None)):
+        w2 = randn(k, n, std=(2.0 / (k + n)) ** 0.5)
+        for m in (4, 511, sq):
+            a = randn(m, k)
+            tile = ("matmul_os_decode" if m <= matmul_df.DECODE_M
+                    else "matmul_os_prefill")
+            shape = f"hymba M={m} K={k} N={n} act={act}"
+            err = check(tile, matmul_df.matmul_os(a, w2, activation=act),
+                        ref.matmul_fused_ref(a, w2, activation=act),
+                        shape=shape, **B1_TOL)
+            if m == 511:
+                continue
+            bnd = bound((m * k + k * n) * 2 + m * n * 4, 2.0 * m * k * n)
+            mlp[f"M={m} K={k} N={n}"] = dict(
+                shape=shape, tile=tile, max_abs_err=err,
+                ms=timer.ms(lambda: matmul_df.matmul_os(a, w2,
+                                                        activation=act)),
+                plain_ms=timer.ms(lambda: ref.matmul_fused_ref(
+                    a, w2, activation=act)),
+                library_ms=timer.ms(lambda: torch.matmul(a, w2)),
+                library_call="torch.matmul (bf16 out)",
+                bound_ms=bnd[0], bound_by=bnd[1], tolerance=B1_TOL)
+            emit({"kernel_timing_detail": tile, "config": cfg.name,
+                  **mlp[f"M={m} K={k} N={n}"]})
+    return att, mlp
 
 
 def gemm_dataflow_checks(torch, cfg, timer, gen, tol):
@@ -2510,6 +2659,8 @@ SERVE_TILES = {"serve": ("b1_tiles", "matmul_os", "matmul_os_prefill",
                "serve_dense": ("b1_tiles", "matmul_os", "matmul_os_prefill",
                                "matmul_os_decode"),
                "serve_moe": ("b1_tiles", "matmul_os", "matmul_os_prefill",
+                             "matmul_os_decode"),
+               "serve_ssm": ("b1_tiles", "matmul_os", "matmul_os_prefill",
                              "matmul_os_decode")}
 
 
@@ -3268,15 +3419,16 @@ def _first_decode(torch, cfg, params, prompt, max_len, nxt=None):
     """The first decode step's logits after ``lm.prefill`` of ``prompt``:
     off a page pool filled from the prefill's cache (page 16, B3) for a
     float cache, off the slot cache (B2; K1 under float32 queries) for an
-    int8 one; ``nxt`` (the token fed, default the prefill's greedy one
-    over the first ``vocab_size`` logits).  Returns (logits, nxt)."""
+    int8 one or a config with SSM state; ``nxt`` (the token fed, default
+    the prefill's greedy one over the first ``vocab_size`` logits).
+    Returns (logits, nxt)."""
     from repro_torch.models import lm
 
     toks = torch.as_tensor(prompt[None], device="cuda")
     first, cache = lm.prefill(params, toks, cfg, max_len=max_len)
     if nxt is None:
         nxt = first[:, :cfg.vocab_size].argmax(-1, keepdim=True)
-    if lm.int8_kv(cfg):
+    if not lm.supports_paged_decode(cfg):
         logits, _ = lm.decode_step(params, cache, nxt, cfg)
         return logits, nxt
     page, n = 16, len(prompt)
@@ -3442,11 +3594,16 @@ def serve_f32_phase(torch, args):
     the card through ``Engine``, as the serve examples serve them: from the
     float cache (the paged path: B1's f32 walk, B2 f32, B3 f32) and from an
     int8 KV cache (``kv_cache_dtype="int8"``: the slot cache, K1 at every
-    decode step and chunk), whole prompts and with ``prefill_chunk=32``.
+    decode step and chunk), whole prompts and with ``prefill_chunk=32``;
+    then mamba2-smoke (no kernel: its float cache is the SSM state alone,
+    whole prompts and chunked) and hymba-smoke (float cache off the slot
+    cache, B2 f32 at every prefill and decode step; int8 cache as the
+    dense ones).
     Gates per config and cache: the first decode logits within B2's f32
     tolerance of the plain path on the card; every request DONE, 0
     demotions; B2 launches = layers x whole prompts, B3 = layers x decode
-    steps (float cache), K1 = layers x (decode steps + chunks) and none of
+    steps (float cache; off the slot cache B2 = layers x (prompts + decode
+    steps) and no B3), K1 = layers x (decode steps + chunks) and none of
     B3 (int8 cache).  The int8 runs' tokens that differ from the float
     cache's and the chunked run's that differ from the whole prompts' are
     counted, not gated (greedy ties at random weights).  Returns the
@@ -3481,13 +3638,15 @@ def serve_f32_phase(torch, args):
         return [r.out_tokens for r in reqs], len(eng.monitor.records), \
             launches
 
-    for name in SERVE_F32:
+    for name in SERVE_F32 + SERVE_SSM:
         t0 = time.monotonic()
         cfg = configs.get_smoke(name)
         cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        # an attention-free config has no KV cache to make int8
+        caches = (cfg, cfg8) if cfg.has_attention else (cfg,)
         params = lm.init_model(cfg, seed=args.seed, device="cuda")
         prompts = _prompts(cfg, args.seed, lens)
-        for c in (cfg, cfg8):
+        for c in caches:
             got, nxt = _first_decode(torch, c, params, prompts[2], max_len)
             with layers.forced_backend("torch"):
                 want, _ = _first_decode(torch, c, params, prompts[2],
@@ -3496,40 +3655,50 @@ def serve_f32_phase(torch, args):
                 ..., :cfg.vocab_size], want[..., :cfg.vocab_size],
                 shape=f"{cfg.name} {c.kv_cache_dtype} cache d_head "
                       f"{cfg.d_head}", **F32_TOL)
-        L = cfg.n_layers
+        # layers with attention; the float cache decodes off the page pool
+        # (B3) where the paged step takes the config, else off the slot
+        # cache (B2 at every decode step)
+        L = cfg.n_layers if cfg.has_attention else 0
+        paged = lm.supports_paged_decode(cfg)
         tokens, steps, la = drain(cfg, params, prompts, f"{name} float")
-        if _attention(la) != L * len(lens) or \
-                la["paged_attention"] != L * steps or \
+        if _attention(la) != L * (len(lens) + (0 if paged else steps)) or \
+                la["paged_attention"] != (L * steps if paged else 0) or \
                 _attention(la, f32=True):
             raise AssertionError(f"{name} float cache launches {la}")
-        tokens8, steps8, l8 = drain(cfg8, params, prompts, f"{name} int8")
-        if _attention(l8, f32=True) != L * steps8 or \
-                _attention(l8) != L * (steps8 + len(lens)) or \
-                l8["paged_attention"]:
-            raise AssertionError(f"{name} int8 cache launches {l8}: K1/K2 "
-                                 f"want {L * steps8}")
-        chunked, csteps, lc = drain(cfg8, params, prompts, f"{name} chunked",
-                                    prefill_chunk=chunk)
+        runs = {"float": (tokens, steps, la)}
         chunks = sum(-(-n // chunk) for n in lens if n > chunk)
         whole = sum(n <= chunk for n in lens)
+        if cfg.has_attention:
+            tokens8, steps8, l8 = drain(cfg8, params, prompts,
+                                        f"{name} int8")
+            if _attention(l8, f32=True) != L * steps8 or \
+                    _attention(l8) != L * (steps8 + len(lens)) or \
+                    l8["paged_attention"]:
+                raise AssertionError(f"{name} int8 cache launches {l8}: "
+                                     f"K1/K2 want {L * steps8}")
+            runs["int8"] = (tokens8, steps8, l8)
+        chunked, csteps, lc = drain(caches[-1], params, prompts,
+                                    f"{name} chunked", prefill_chunk=chunk)
         if _attention(lc, f32=True) != L * (csteps + chunks) or \
                 _attention(lc) != L * (csteps + chunks + whole):
-            raise AssertionError(f"{name} chunked int8 launches {lc}: K1/K2 "
+            raise AssertionError(f"{name} chunked launches {lc}: K1/K2 "
                                  f"want {L * (csteps + chunks)}")
+        runs[f"{caches[-1].kv_cache_dtype}_chunked"] = (chunked, csteps, lc)
+        if not cfg.has_attention and any(v for v in lc.values()):
+            raise AssertionError(f"{name} reached a kernel: {lc}")
         emit({"phase": phase, "config": cfg.name, "d_head": cfg.d_head,
               "heads": [cfg.n_heads, cfg.n_kv_heads], "layers": L,
-              "decode_steps": {"float": steps, "int8": steps8,
-                               "int8_chunked": csteps},
+              "decode_steps": {k: v[1] for k, v in runs.items()},
               "chunks": chunks,
-              "launches": {"float": {k: la[k] for k in SERVE_F32_PATH},
-                           "int8": {k: l8[k] for k in SERVE_F32_PATH},
-                           "int8_chunked": {k: lc[k] for k in
-                                            SERVE_F32_PATH}},
+              "launches": {k: {n: v[2][n] for n in SERVE_F32_PATH}
+                           for k, v in runs.items()},
               "int8_tokens_differing_from_float": sum(
-                  a != b for x, y in zip(tokens, tokens8)
-                  for a, b in zip(x, y)),
+                  a != b for x, y in zip(tokens, runs["int8"][0])
+                  for a, b in zip(x, y)) if "int8" in runs else None,
               "chunked_tokens_differing_from_whole": sum(
-                  a != b for x, y in zip(tokens8, chunked)
+                  a != b for x, y in zip(
+                      runs["int8" if cfg.has_attention else "float"][0],
+                      chunked)
                   for a, b in zip(x, y)),
               "seconds": time.monotonic() - t0})
     missing = [k for k in total if total[k] <= 0
@@ -3917,6 +4086,370 @@ def _serve_moe_config(torch, args, name: str, depth, total, implied_total):
                 seconds=time.monotonic() - t0, **ffn)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the SSM and hybrid decoders whole.
+# ---------------------------------------------------------------------------
+# mamba2-780m (1.6 GB of bf16 weights) and hymba-1.5b (3.2 GB), whole.
+SERVE_SSM = ("mamba2-780m", "hymba-1.5b")
+# The serve cell's prompts, and for hymba one of 1 536 tokens, so its
+# window (1 024 keys) binds at prefill and at every decode step.
+SERVE_SSM_LENS = {"mamba2-780m": SERVE_LENS,
+                  "hymba-1.5b": SERVE_LENS + (1536,)}
+SERVE_SSM_MAX_LEN = 2048
+# B1's bf16 tiles (hymba's MLP) and B2 (hymba's attention); mamba2's
+# layers reach no kernel of the port (its block is plain PyTorch, as the
+# reference's is plain jnp).
+SERVE_SSM_PATH = ("matmul_os", "matmul_os_prefill", "matmul_os_decode",
+                  "flash_attention")
+# Layer 0's final SSM state after a 511-token prefill, the chunked SSD
+# against the per-token recurrence on the same bf16 inputs, over the
+# state's largest magnitude: both sum in float32, in other orders.
+SSD_STATE_RTOL = 1e-3
+
+
+def serve_ssm_phase(torch, args):
+    """mamba2-780m (48 attention-free layers of a Mamba2 block, state 128,
+    48 heads of 64) and hymba-1.5b (32 layers of attention, 25 q heads
+    over 5 kv heads, beside a Mamba2 block of state 16; a 1 024-key window
+    on all but layers 0, 16 and 31; SwiGLU MLP of 5 504), each whole at
+    full width in bf16, random weights from ``--seed``, through ``Engine``
+    on the slot cache (its SSM state per row beside the K/V), decode batch
+    4, 16 new tokens, ``max_len`` 2 048, the serve cell's prompts plus one
+    of 1 536 tokens for hymba; one config after the other, with a
+    collection between them.  Per config, gates: the first decode logits
+    at 2 layers at cosine >= 0.999 of the plain path's (the full depth's
+    reported); at 2 layers the chunked SSD prefill's layer-0 state within
+    ``SSD_STATE_RTOL`` of the per-token recurrence's and its logits at
+    cosine >= 0.999; every request DONE, 0 demotions; no decode token past
+    ``vocab_size``; every B1 launch on its tiles; B2/B7 launches equal to
+    the autotuner's picks (``_picks_gate``), the full-attention and the
+    windowed layers' calls counted apart, each layers x (prompts + decode
+    steps), and no B3; the mixed batch's tokens equal each request's
+    alone; a ``prefill_chunk=128`` run DONE, its tokens that differ from
+    the whole prompts' counted.  Reported: weights' and SSM state's
+    bytes, prefill tokens/s (one row at the longest prompts, four rows of
+    511), decode ms/step, the decode step traced with the Mamba2 blocks'
+    device time.  Returns the path's launches over the two drains."""
+    import gc
+
+    from repro_torch.kernels import _build
+
+    phase = "serve_ssm"
+    t_phase = time.monotonic()
+    _build.reset_launches()
+    total = {k: 0 for k in SERVE_SSM_PATH}
+    implied_total = {}
+    per_config = {}
+    for name in SERVE_SSM:
+        # an engine and its handles refer to each other: the earlier
+        # config's weights go only with a collection
+        gc.collect()
+        torch.cuda.empty_cache()
+        per_config[name] = _serve_ssm_config(torch, args, name, total,
+                                             implied_total)
+    missing = [k for k in total if total[k] <= 0 and implied_total.get(k)]
+    if missing or not total["matmul_os"] or not _attention(total):
+        raise AssertionError(f"kernels never launched on {phase}: "
+                             f"{missing or total}")
+    emit({"phase": phase, "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t_phase, "configs": per_config,
+          "launches_by_path": total})
+    return total
+
+
+def _ssm_ranges():
+    """Each ``ssm.mamba_apply`` call inside a profiler range named
+    ``ssm.mamba_apply`` (``TRACED_OPS``), for the duration."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import ssm
+
+    def wrap(orig):
+        def apply(*args, **kwargs):
+            with record_function("ssm.mamba_apply"):
+                return orig(*args, **kwargs)
+        return apply
+    return _wrapped(ssm, "mamba_apply", wrap)
+
+
+def _ssd_vs_recurrence(torch, cfg, params, prompt, max_len, phase):
+    """At full width and 2 layers, bf16: ``lm.prefill`` of ``prompt`` with
+    the port's chunked SSD, and with every chunked call replaced by the
+    per-token recurrence from the same state (what the reference serves).
+    Layer 0's SSD sees the same inputs on both: its final state must lie
+    within ``SSD_STATE_RTOL`` of the recurrence's largest magnitude; layer
+    1's inputs differ by bf16 roundings of layer 0's output (the chunked
+    form rounds each chunk's output to bf16, as the reference's does), so
+    its state is reported and the logits gated at cosine >= 0.999."""
+    from repro_torch.models import lm, ssm
+
+    sub = dataclasses.replace(cfg, n_layers=2)
+    sub_params = dict(params, layers=_map(lambda t: t[:2], params["layers"]))
+    toks = torch.as_tensor(prompt[None], device="cuda")
+    got, cache = lm.prefill(sub_params, toks, sub, max_len=max_len)
+
+    def wrap(orig):
+        # a prefill always hands the block its (zero) state
+        def recurrent(xh, dt, a, bmat, cmat, chunk, s0):
+            return ssm._ssd_recurrent(xh, dt, a, bmat, cmat, s0)
+        return recurrent
+
+    with _wrapped(ssm, "_ssd_chunked", wrap):
+        want, rcache = lm.prefill(sub_params, toks, sub, max_len=max_len)
+    rel = [float((cache["ssm"][i] - rcache["ssm"][i]).abs().max()
+                 / rcache["ssm"][i].abs().max()) for i in range(2)]
+    got, want = (x[..., :cfg.vocab_size] for x in (got, want))
+    cos = _cosine(got, want)
+    emit({"phase": phase, "config": cfg.name,
+          "event": "chunked_ssd_vs_recurrence", "layers": 2,
+          "prompt_tokens": len(prompt), "chunk": cfg.ssm_chunk,
+          "state_max_rel_err": rel, "state_rtol_layer0": SSD_STATE_RTOL,
+          "layer0_conv_tail_equal": bool(torch.equal(cache["conv"][0],
+                                                     rcache["conv"][0])),
+          "logits_cosine": cos, "logits_max_abs_err": max_err(got, want),
+          "argmax_equal": int(got.argmax()) == int(want.argmax())})
+    if rel[0] > SSD_STATE_RTOL or cos < 0.999 \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{cfg.name}: the chunked SSD prefill is off "
+                             f"the per-token recurrence (state {rel}, "
+                             f"logits cosine {cos})")
+
+
+def _serve_ssm_config(torch, args, name: str, total, implied_total):
+    """``serve_ssm`` for one config, whole: its gates, its launches added
+    into ``total`` and the launches its picks imply into
+    ``implied_total``.  Returns its summary."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.dataflow import AttentionProblem
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import layers, lm
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    phase, max_len, new_tokens = "serve_ssm", SERVE_SSM_MAX_LEN, 16
+    lens, batch = SERVE_SSM_LENS[name], SERVE_BATCH
+    t0 = time.monotonic()
+    cfg = configs.get(name)
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    state_row = cfg.n_layers * cfg.ssm_heads * cfg.ssm_state \
+        * cfg.ssm_headdim * 4
+    conv_row = cfg.n_layers * (cfg.ssm_conv - 1) \
+        * (cfg.d_inner + 2 * cfg.ssm_state) * 4
+    windows = [cfg.layer_window(i) for i in range(cfg.n_layers)]
+    full = [i for i, w in enumerate(windows) if w is None] \
+        if cfg.has_attention else []
+    windowed = len(windows) - len(full) if cfg.has_attention else 0
+    emit({"phase": phase, "config": name, "event": "init_model",
+          "family": cfg.family, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "d_head": cfg.d_head, "d_ff": cfg.d_ff, "d_inner": cfg.d_inner,
+          "ssm_heads": cfg.ssm_heads, "ssm_state": cfg.ssm_state,
+          "ssm_headdim": cfg.ssm_headdim, "ssm_chunk": cfg.ssm_chunk,
+          "window": cfg.attn_window, "full_attention_layers": full,
+          "vocab": [cfg.vocab_size, cfg.padded_vocab],
+          "tied": cfg.tie_embeddings, "weights_bytes": weights,
+          "weights_gb": weights / 1e9,
+          "ssm_state_bytes_per_row": state_row,
+          "ssm_state_bytes_at_batch": state_row * batch,
+          "conv_tail_bytes_per_row": conv_row,
+          "seconds": time.monotonic() - t0})
+    prompts = _prompts(cfg, args.seed, lens)
+
+    # The first decode step on the kernels against the plain path, the
+    # same token fed to both.
+    for sub_depth in sorted({2, cfg.n_layers}):
+        sub = dataclasses.replace(cfg, n_layers=sub_depth)
+        sub_params = dict(params, layers=_map(lambda t: t[:sub_depth],
+                                              params["layers"]))
+        got, nxt = _first_decode(torch, sub, sub_params, prompts[0],
+                                 max_len)
+        with layers.forced_backend("torch"):
+            want, _ = _first_decode(torch, sub, sub_params, prompts[0],
+                                    max_len, nxt)
+        got, want = (x[..., :cfg.vocab_size] for x in (got, want))
+        cos = _cosine(got, want)
+        finite = bool(torch.isfinite(got).all())
+        emit({"phase": phase, "config": name,
+              "event": "first_decode_vs_plain", "layers": sub_depth,
+              "finite": finite, "cosine": cos,
+              "max_abs_err": max_err(got, want), "gated": sub_depth == 2,
+              "argmax_equal": int(got.argmax()) == int(want.argmax())})
+        if not finite or (sub_depth == 2 and cos < 0.999):
+            raise AssertionError(f"{name}: {sub_depth}-layer first decode "
+                                 f"logits off the plain path (cosine "
+                                 f"{cos}, finite {finite})")
+        del sub_params
+    _ssd_vs_recurrence(torch, cfg, params, prompts[SERVE_LENS.index(511)],
+                       max_len, phase)
+
+    # The main path.
+    eng = Engine(cfg, params, max_len=max_len, device="cuda")
+    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    since, rsince = dict(_build.LAUNCHES), dict(ops.RESOLVED)
+    torch.cuda.synchronize()
+    t_drain = time.monotonic()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t_drain
+    launches = {k: _build.LAUNCHES[k] - since[k] for k in _build.LAUNCHES}
+    picks = picks_since(rsince)
+    # the SSM configs' widths: held out of the cost model's fit
+    implied = _picks_gate(f"{phase} {name}", launches, picks,
+                          group="held-out")
+    _healthy(phase, name, reqs, eng)
+    steps = len(eng.monitor.records)
+    tokens = [list(r.out_tokens) for r in reqs]
+    slot = eng._scheduler.cache
+    emit({"phase": phase, "config": name, "event": "drain",
+          "layers": cfg.n_layers, "prompt_lens": list(lens),
+          "new_tokens": new_tokens, "decode_batch": batch,
+          "wall_s": wall, "decode_steps": steps,
+          "decode_ms_per_step_median": _step_ms(eng),
+          "slot_cache_bytes": {k: slot[k].numel() * slot[k].element_size()
+                               for k in lm.CACHE_KEYS if k in slot},
+          "launches": {k: launches[k] for k in (*SERVE_SSM_PATH,
+                                                "kv_stationary",
+                                                "paged_attention")},
+          "tokens": tokens})
+    # decode masks the padded vocab; a first token comes from the
+    # prefill's unmasked logits, as in the reference: counted, not gated
+    over = [t for ts in tokens for t in ts[1:] if t >= cfg.vocab_size]
+    emit({"phase": phase, "config": name, "event": "vocab",
+          "decode_tokens_past_vocab": len(over),
+          "first_tokens_past_vocab": [ts[0] for ts in tokens
+                                      if ts[0] >= cfg.vocab_size]})
+    if over:
+        raise AssertionError(f"{name}: decode tokens past vocab_size "
+                             f"{over}")
+    _tiles_gate(phase, launches)
+    # attention calls by window, from the picks: every whole prompt's
+    # prefill and every decode step runs each layer's attention once
+    calls = {}
+    for (problem, _), n in picks.items():
+        if isinstance(problem, AttentionProblem):
+            key = str(problem.window)
+            calls[key] = calls.get(key, 0) + n
+    forwards = len(lens) + steps
+    want = {str(w): n * forwards for w, n in (
+        (None, len(full)), (cfg.attn_window, windowed)) if n}
+    emit({"phase": phase, "config": name, "event": "attention_by_window",
+          "calls": calls, "want": want, "full_layers": len(full),
+          "windowed_layers": windowed,
+          "forwards": forwards, "b2_b7_launches": _attention(launches),
+          "paged_attention": launches["paged_attention"]})
+    if calls != want or _attention(launches) != sum(want.values()) \
+            or launches["paged_attention"]:
+        raise AssertionError(f"{name}: attention calls by window {calls} "
+                             f"(want {want}), B2/B7 launches "
+                             f"{_attention(launches)}, B3 "
+                             f"{launches['paged_attention']}")
+    for k in dict.fromkeys((*SERVE_SSM_PATH, *implied)):
+        total[k] = total.get(k, 0) + launches[k]
+        implied_total[k] = implied_total.get(k, 0) + implied.get(k, 0)
+
+    # Each request alone, after the path's counts are read.  Alone and
+    # mixed give every kernel and every torch.matmul the same shapes (a
+    # prefill is one row, a decode step the slot cache's max_batch rows),
+    # so a difference is one row's result depending on another's.
+    alone = []
+    for p in prompts:
+        one = Engine(cfg, params, max_len=max_len, device="cuda")
+        r = one.submit(p, new_tokens)
+        one.drain()
+        _healthy(phase, f"{name} alone", [r], one)
+        alone.append(list(r.out_tokens))
+        del one, r
+        gc.collect()
+    first = next(((i, j, a, b) for i, (x, y) in enumerate(zip(tokens, alone))
+                  for j, (a, b) in enumerate(zip(x, y)) if a != b), None)
+    emit({"phase": phase, "config": name, "event": "mixed_vs_alone",
+          "tokens_differing": sum(a != b for x, y in zip(tokens, alone)
+                                  for a, b in zip(x, y)),
+          "first_difference": first, "gated": True})
+    if first is not None:
+        raise AssertionError(
+            f"{name}: request {first[0]}'s token {first[1]} is {first[2]} "
+            f"mixed and {first[3]} alone, at the same shapes")
+
+    # Chunked prefill: 128-token chunks through lm.prefill_chunk.
+    ceng = Engine(cfg, params, max_len=max_len, device="cuda",
+                  scheduler_config=SchedulerConfig(prefill_chunk=SERVE_CHUNK))
+    creqs = [ceng.submit(p, new_tokens) for p in prompts]
+    ceng.drain()
+    _healthy(phase, f"{name} chunked", creqs, ceng)
+    chunked = [list(r.out_tokens) for r in creqs]
+    # the chunked SSD passes the state at other boundaries (and rounds
+    # each chunk's output to bf16 at others): counted, not gated; the
+    # first differing token of each request says where greedy decode
+    # left the whole prompt's path
+    emit({"phase": phase, "config": name, "event": "chunked",
+          "prefill_chunk": SERVE_CHUNK,
+          "chunks": sum(-(-n // SERVE_CHUNK) for n in lens
+                        if n > SERVE_CHUNK),
+          "tokens_differing_from_whole": sum(
+              a != b for x, y in zip(tokens, chunked) for a, b in zip(x, y)),
+          "first_difference_by_request": [
+              next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), None)
+              for x, y in zip(tokens, chunked)],
+          "decode_ms_per_step_median": _step_ms(ceng)})
+    del ceng, creqs
+    gc.collect()
+
+    # Prefill throughput by CUDA events (median of 3 after one warm-up):
+    # one row at the two longest prompts, as the scheduler prefills, and
+    # four rows of 511 tokens.
+    prefill = {}
+    for rows, n in ([(1, len(p)) for p in prompts[-2:]]
+                    + [(batch, SERVE_LENS[-1])]):
+        toks = torch.as_tensor(np.stack(_prompts(cfg, args.seed + rows,
+                                                 [n] * rows)), device="cuda")
+        lm.prefill(params, toks, cfg, max_len=max_len)
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            lm.prefill(params, toks, cfg, max_len=max_len)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = sorted(times)[1]
+        prefill[f"{rows}x{n}"] = {"ms": ms,
+                                  "tokens_per_s": rows * n / ms * 1e3}
+    emit({"phase": phase, "config": name, "event": "throughput",
+          "card": card_line(), "prefill": prefill,
+          "decode_batch": batch,
+          "decode_ms_per_step_median": _step_ms(eng)})
+
+    # Where a decode step's time goes, the Mamba2 blocks' device time
+    # apart (batch 4: the longest prompts).
+    with _ssm_ranges():
+        trace = trace_decode(torch, cfg, params, prompts[-batch:], max_len,
+                             f"{phase} {name}")
+    ssm_ms = trace.get("op_device_ms", {}).get("ssm.mamba_apply")
+    busy = trace["device_busy_ms"]
+    emit({"phase": phase, "config": name, "event": "ssm_share",
+          "card": card_line(), "ssm_device_ms_per_step": ssm_ms,
+          "device_busy_ms_per_step": busy,
+          "ssm_share_of_busy": ssm_ms / busy if ssm_ms and busy else None,
+          "device_idle_share": trace["device_idle_share"],
+          "port_kernels_ms_per_step": trace["port_kernels_ms"]})
+    return dict(layers=cfg.n_layers, weights_bytes=weights,
+                ssm_state_bytes_per_row=state_row, decode_steps=steps,
+                decode_ms_per_step=_step_ms(eng), prefill=prefill,
+                device_busy_ms_per_step=busy,
+                device_idle_share=trace["device_idle_share"],
+                ssm_device_ms_per_step=ssm_ms,
+                mixed_equals_alone=True,
+                seconds=time.monotonic() - t0)
+
+
 # Device kernels of the serving paths, by the name of their __global__
 # function (B1's bf16 basic OS is gemm_tc.cuh's two tiles; its int8 and
 # packed basic OS is gemm_tc_i8.cuh's two; every other B1 launch is
@@ -3942,9 +4475,10 @@ KERNEL_FUNCTIONS = {"tc_prefill_kernel": "matmul_os_prefill",
                     "paged_kernel": "paged_attention"}
 
 
-# aten ops whose device time a trace sums apart: the MoE layer's routed
-# expert GEMMs (no other op on the port's kernel path calls bmm).
-TRACED_OPS = ("aten::bmm",)
+# aten ops (and ranges) whose device time a trace sums apart: the MoE
+# layer's routed expert GEMMs (no other op on the port's kernel path calls
+# bmm); the Mamba2 blocks, where ``_ssm_ranges`` marks them.
+TRACED_OPS = ("aten::bmm", "ssm.mamba_apply")
 
 
 def _device_trace(torch, run, repeats: int) -> dict:
@@ -3966,7 +4500,9 @@ def _device_trace(torch, run, repeats: int) -> dict:
         wall_us = (time.monotonic() - t0) * 1e6
     spans, by_name = [], {}
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        # a range's own device-side marker is no kernel
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.name in TRACED_OPS:
             continue
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
@@ -4159,6 +4695,8 @@ def main(argv=None) -> int:
         paths["serve_f32"] = serve_f32_phase(torch, args)
     if "serve_moe" in phases:
         paths["serve_moe"] = serve_moe_phase(torch, args)
+    if "serve_ssm" in phases:
+        paths["serve_ssm"] = serve_ssm_phase(torch, args)
 
     kernels = []
     for name, reg in registered_kernels().items():
@@ -4167,6 +4705,7 @@ def main(argv=None) -> int:
         own = next((p for p in ("serve", "serve_binary", "serve_packed",
                                 "serve_recovery", "serve_int8kv",
                                 "serve_dense", "serve_f32", "serve_moe",
+                                "serve_ssm",
                                 "dataflows", "quantized")
                     if paths.get(p, {}).get(name)), None)
         if own is None and "kernels_phase_launches" in rec:
@@ -4188,7 +4727,8 @@ def main(argv=None) -> int:
                                    "cluster", "ctas", "is_walk", "sq2048",
                                    "split", "packed4", "chunk",
                                    "slot_decode", "bf16_ms", "flash_ms",
-                                   "f32_ms", "library_why", "d16")
+                                   "f32_ms", "library_why", "d16", "group5",
+                                   "hymba")
                if k in rec},
         })
     emit({"kernels": kernels})

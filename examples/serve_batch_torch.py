@@ -5,7 +5,8 @@ batched requests.
 
 The twin of ``examples/serve_batch.py`` on ``repro_torch`` (no JAX): the
 smoke config of ``--arch`` (any of ``repro_torch.configs.ARCH_NAMES``:
-qwen3-1.7b, minicpm-2b, mistral-nemo-12b, minitron-8b, chameleon-34b)
+qwen3-1.7b, minicpm-2b, mistral-nemo-12b, minitron-8b, chameleon-34b,
+qwen3-moe-235b-a22b, moonshot-v1-16b-a3b, mamba2-780m, hymba-1.5b)
 with random weights, on the card unless ``--device cpu``;
 ``--kv-cache-dtype int8`` serves it from an int8 KV cache.  ``submit`` returns a ``RequestHandle``; the first
 request's tokens are streamed (each ``next()`` steps the continuous

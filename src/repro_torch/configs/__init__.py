@@ -4,17 +4,19 @@
 copies of the JAX package's dense decoders (qwen3-1.7b, minicpm-2b,
 mistral-nemo-12b, minitron-8b), chameleon-34b, which the JAX package
 serves as a dense backbone (family ``vlm``: image tokens are vocab ids),
-and the MoE decoders (qwen3-moe-235b-a22b, moonshot-v1-16b-a3b).
-The SSM, hybrid and encoder-decoder configs are queued in ROADMAP.md
-(A12, A10).
+the MoE decoders (qwen3-moe-235b-a22b, moonshot-v1-16b-a3b), the
+attention-free SSM mamba2-780m and the hybrid hymba-1.5b (attention and
+SSM heads in parallel, sliding windows but on three layers).  The
+encoder-decoder config is queued in ROADMAP.md (A10).
 """
 from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import (chameleon_34b, minicpm_2b, minitron_8b,
-                                 mistral_nemo_12b, moonshot_v1_16b_a3b,
-                                 qwen3_1_7b, qwen3_moe_235b_a22b)
+from repro_torch.configs import (chameleon_34b, hymba_1_5b, mamba2_780m,
+                                 minicpm_2b, minitron_8b, mistral_nemo_12b,
+                                 moonshot_v1_16b_a3b, qwen3_1_7b,
+                                 qwen3_moe_235b_a22b)
 from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
@@ -25,9 +27,11 @@ _MODULES = {
     "chameleon-34b": chameleon_34b,
     "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+    "mamba2-780m": mamba2_780m,
+    "hymba-1.5b": hymba_1_5b,
 }
 # The JAX package's other configs, by the ROADMAP entry that ports them.
-QUEUED = {"hymba-1.5b": "A12", "mamba2-780m": "A12", "whisper-tiny": "A10"}
+QUEUED = {"whisper-tiny": "A10"}
 
 ARCH_NAMES: List[str] = list(_MODULES)
 

@@ -2,9 +2,9 @@
 
 The twin of ``repro/configs/base.py``'s ``ArchConfig``: the same fields
 with the same defaults (a test holds the two field sets equal), and the
-derived sizes the port reads.  Fields of families the port does not run
-yet (SSM, hybrid, encoder-decoder) are kept
-so a config reads the same in both packages.
+derived sizes and the per-layer window schedule the port reads.  Fields
+of the family the port does not run yet (encoder-decoder) are kept so a
+config reads the same in both packages.
 """
 from __future__ import annotations
 
@@ -83,9 +83,35 @@ class ArchConfig:
         return self.n_kv_heads * self.d_head
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_state else 0
+
+    @property
     def has_attention(self) -> bool:
         return self.n_heads > 0
 
     @property
     def has_ssm(self) -> bool:
         return self.ssm_state > 0
+
+    @property
+    def subquadratic(self) -> bool:
+        """An SSM, or a hybrid whose attention is windowed."""
+        return self.has_ssm and (
+            self.family == "ssm"
+            or (self.family == "hybrid" and self.attn_window is not None))
+
+    def layer_window(self, layer: int) -> Optional[int]:
+        """Layer ``layer``'s sliding window: ``attn_window``, except the
+        full-attention layers {first, middle, last} when
+        ``full_attn_every`` is set (hymba)."""
+        if self.attn_window is None:
+            return None
+        if self.full_attn_every:
+            if layer in {0, self.n_layers // 2, self.n_layers - 1}:
+                return None
+        return self.attn_window

@@ -15,7 +15,10 @@ Usage (on the card; random weights from ``--seed``, nothing downloaded):
       --smoke --kv-cache-dtype int8
 
 ``--arch`` takes every name of ``repro_torch.configs.ARCH_NAMES``
-(qwen3-1.7b, minicpm-2b, mistral-nemo-12b, minitron-8b, chameleon-34b);
+(qwen3-1.7b, minicpm-2b, mistral-nemo-12b, minitron-8b, chameleon-34b,
+the MoE decoders qwen3-moe-235b-a22b and moonshot-v1-16b-a3b, the SSM
+mamba2-780m and the hybrid hymba-1.5b, which decode off the slot cache
+with their SSM state);
 ``--kv-cache-dtype`` sets the config's ``kv_cache_dtype`` ("auto" follows
 the activations; "int8" decodes off the slot cache, no page pool).
 

@@ -8,7 +8,11 @@ on a leading ``L`` axis (``embed.table`` (padded_vocab, d);
 ``cfg.packed_weights`` ``layers.mlp.{w1, w3, w2}`` as stacked
 ``PackedWeights``, or with ``cfg.n_experts`` ``layers.moe.{router, w1,
 w3, w2}`` and, with shared experts, ``layers.moe.shared.{w1, w3, w2}``;
-``final_norm``; ``lm_head.table`` when the embeddings are untied).
+with an SSM ``layers.mamba.{z_proj, x_proj, bc_proj, dt_proj, conv_x_w,
+conv_x_b, conv_bc_w, conv_bc_b, a_log, d_skip, dt_bias, norm,
+out_proj}``, and no ``attn`` for an attention-free config, no ``ln2`` or
+``mlp`` for an ``ssm`` one; ``final_norm``; ``lm_head.table`` when the
+embeddings are untied).
 ``params_from_numpy`` takes that tree with numpy leaves
 (``jax.tree.map(numpy.asarray, params)``) and returns the port's
 parameters, the same layout as ``lm.init_model`` builds.  It
@@ -19,9 +23,10 @@ crosses over leaf by leaf (its planes are int32 already), with its
 ``bits``, ``k`` and ``n`` as they are, into the port's
 ``kernels.pack.PackedWeights``.
 
-``cache_from_numpy`` carries a JAX KV cache across the same way (int8
-codes, f32 scales, bf16 K/V by their bits, and ``index``), so the
-port's decode step can run on exactly the JAX package's cache.
+``cache_from_numpy`` carries a JAX cache across the same way (int8
+codes, f32 scales, bf16 K/V by their bits, the SSM's ``ssm``/``conv``
+state, and ``index``), so the port's decode step can run on exactly the
+JAX package's cache.
 
 ``params_from_checkpoint`` loads the port's parameters from one of its
 own checkpoints (the ``params`` tree of an engine snapshot,
@@ -39,19 +44,36 @@ from repro_torch import device as device_lib
 from repro_torch.kernels import pack
 
 
+def _mamba_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """Leaf -> shape of one Mamba2 block (``ssm.init_mamba``)."""
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    h, k = cfg.ssm_heads, cfg.ssm_conv
+    return {"z_proj": (d, di), "x_proj": (d, di), "bc_proj": (d, 2 * n),
+            "dt_proj": (d, h), "conv_x_w": (k, di), "conv_x_b": (di,),
+            "conv_bc_w": (k, 2 * n), "conv_bc_b": (2 * n,), "a_log": (h,),
+            "d_skip": (h,), "dt_bias": (h,), "norm": (di,),
+            "out_proj": (di, d)}
+
+
 def expected_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
-    """Leaf path -> shape of a dense or MoE decoder's parameter tree."""
+    """Leaf path -> shape of a dense, MoE, SSM or hybrid decoder's
+    parameter tree."""
     n, d, dh, ff = cfg.n_layers, cfg.d_model, cfg.d_head, cfg.d_ff
     shapes = {
         ("embed", "table"): (cfg.padded_vocab, d),
         ("layers", "ln1"): (n, d),
-        ("layers", "ln2"): (n, d),
-        ("layers", "attn", "wq"): (n, d, cfg.q_dim),
-        ("layers", "attn", "wk"): (n, d, cfg.kv_dim),
-        ("layers", "attn", "wv"): (n, d, cfg.kv_dim),
-        ("layers", "attn", "wo"): (n, cfg.q_dim, d),
         ("final_norm",): (d,),
     }
+    if cfg.has_attention:
+        shapes[("layers", "attn", "wq")] = (n, d, cfg.q_dim)
+        shapes[("layers", "attn", "wk")] = (n, d, cfg.kv_dim)
+        shapes[("layers", "attn", "wv")] = (n, d, cfg.kv_dim)
+        shapes[("layers", "attn", "wo")] = (n, cfg.q_dim, d)
+    if cfg.has_ssm:
+        for leaf, shape in _mamba_shapes(cfg).items():
+            shapes[("layers", "mamba", leaf)] = (n,) + shape
+    if cfg.n_experts or (ff and cfg.family != "ssm"):
+        shapes[("layers", "ln2")] = (n, d)
     if cfg.n_experts:
         e, fs = cfg.n_experts, ff * cfg.n_shared_experts
         shapes[("layers", "moe", "router")] = (n, d, e)
@@ -73,11 +95,11 @@ def expected_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
             for leaf, shape in _packed_shapes(n, d_in, d_out,
                                               cfg.packed_weight_bits).items():
                 shapes[("layers", "mlp", name, leaf)] = shape
-    else:
+    elif ff and cfg.family != "ssm":
         shapes[("layers", "mlp", "w1")] = (n, d, ff)
         shapes[("layers", "mlp", "w3")] = (n, d, ff)
         shapes[("layers", "mlp", "w2")] = (n, ff, d)
-    if cfg.qk_norm:
+    if cfg.qk_norm and cfg.has_attention:
         shapes[("layers", "attn", "q_norm")] = (n, dh)
         shapes[("layers", "attn", "k_norm")] = (n, dh)
     if not cfg.tie_embeddings:
@@ -186,32 +208,51 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device=None
 
 def cache_from_numpy(tree: Dict[str, Any], cfg, device=None
                      ) -> Dict[str, Any]:
-    """The port's KV cache (``lm.init_cache``'s layout) from a JAX cache
-    of numpy arrays (``jax.tree.map(numpy.asarray, cache)``): ``k``/``v``
-    (L, B, Hkv, S, D) as they are (bf16 by their bits, int8 codes), an
-    int8 cache's ``k_scale``/``v_scale`` (L, B, Hkv, S, 1) f32, and
-    ``index`` as an int (a scalar) or an int32 tensor (one per row).
-    Raises ``ValueError`` on a missing buffer or a shape ``cfg`` does not
-    give."""
+    """The port's cache (``lm.init_cache``'s layout) from a JAX cache of
+    numpy arrays (``jax.tree.map(numpy.asarray, cache)``): with attention
+    ``k``/``v`` (L, B, Hkv, S, D) as they are (bf16 by their bits, int8
+    codes) and an int8 cache's ``k_scale``/``v_scale`` (L, B, Hkv, S, 1)
+    f32; with an SSM ``ssm`` (L, B, H, N, P) and ``conv`` (L, B, K-1,
+    d_inner + 2N), float32 (a tail the reference left in the activations'
+    type is widened, exactly); and ``index`` as an int (a scalar) or an
+    int32 tensor (one per row).  Raises ``ValueError`` on a missing or
+    unexpected buffer or a shape ``cfg`` does not give."""
     from repro_torch.models import lm
 
     dev = device_lib.resolve(device)
-    names = [n for n in lm.KV_KEYS if n in tree]
     int8 = np.asarray(tree.get("k")).dtype == np.int8
-    want = list(lm.KV_KEYS if int8 else lm.KV_KEYS[:2])
+    want = list(lm.KV_KEYS if int8 else lm.KV_KEYS[:2]) \
+        if cfg.has_attention else []
+    want += list(lm.SSM_KEYS) if cfg.has_ssm else []
+    names = [n for n in lm.CACHE_KEYS if n in tree]
     if names != want or "index" not in tree:
-        raise ValueError(f"a {'int8' if int8 else 'float'} cache has "
-                         f"index and {want}, got {sorted(tree)}")
-    shape = np.shape(tree["k"])
-    if len(shape) != 5 or shape[0] != cfg.n_layers \
-            or shape[2] != cfg.n_kv_heads or shape[4] != cfg.d_head:
-        raise ValueError(f"cache buffers {shape} do not match {cfg.name}'s "
-                         f"(L, B, Hkv, S, D)")
-    for n in names:
-        sh = shape[:4] + ((1,) if n.endswith("scale") else (shape[4],))
+        raise ValueError(f"a {'int8' if int8 else 'float'} cache of "
+                         f"{cfg.name} has index and {want}, got "
+                         f"{sorted(tree)}")
+    shapes = {}
+    if cfg.has_attention:
+        shape = np.shape(tree["k"])
+        if len(shape) != 5 or shape[0] != cfg.n_layers \
+                or shape[2] != cfg.n_kv_heads or shape[4] != cfg.d_head:
+            raise ValueError(f"cache buffers {shape} do not match "
+                             f"{cfg.name}'s (L, B, Hkv, S, D)")
+        for n in names:
+            if n in lm.KV_KEYS:
+                shapes[n] = shape[:4] + ((1,) if n.endswith("scale")
+                                         else (shape[4],))
+    if cfg.has_ssm:
+        b = np.shape(tree["ssm"])[1]
+        shapes["ssm"] = (cfg.n_layers, b, cfg.ssm_heads, cfg.ssm_state,
+                         cfg.ssm_headdim)
+        shapes["conv"] = (cfg.n_layers, b, cfg.ssm_conv - 1,
+                          cfg.d_inner + 2 * cfg.ssm_state)
+    for n, sh in shapes.items():
         if tuple(np.shape(tree[n])) != sh:
             raise ValueError(f"cache {n}: shape {np.shape(tree[n])} != {sh}")
     out: Dict[str, Any] = {n: _to_tensor(tree[n], dev) for n in names}
+    for n in lm.SSM_KEYS:
+        if n in out:
+            out[n] = out[n].float()
     index = np.asarray(tree["index"])
     out["index"] = (int(index) if index.ndim == 0 else
                     torch.from_numpy(index.astype(np.int32)).to(dev))

@@ -3,19 +3,26 @@
 Twin of ``repro/models/lm.py`` for the ``dense`` family (and ``vlm``,
 which the JAX package serves as a dense backbone), with the
 SwiGLU MLP, the binary MLP (``cfg.binary_mlp``) or the SwiGLU MLP with
-sub-byte packed weights (``cfg.packed_weights``), and for the ``moe``
+sub-byte packed weights (``cfg.packed_weights``); for the ``moe``
 family, whose layers run the routed-expert block (``models/moe.py``,
 its load-balancing loss dropped, as the reference's serving steps drop
-it) where the dense ones run the MLP.  Parameters
+it) where the dense ones run the MLP; for the ``ssm`` family, whose
+layers are a Mamba2 block alone (``models/ssm.py``: no attention, no
+MLP); and for the ``hybrid`` family (hymba), whose layers run attention
+and the Mamba2 block side by side on the same normed input and add
+their mean (``_mix_residual``), then the MLP.  Each layer attends
+with its own sliding window (``cfg.layer_window``: hymba keeps its
+first, middle and last layers full), a static int the kernels band
+with.  Parameters
 keep the JAX package's layout — per-layer leaves stacked on a leading
 ``L`` axis (``models/bridge.py`` moves a JAX tree over unchanged) — and
 a Python loop over layers replaces ``lax.scan``.  Decode runs off the
 paged KV pool (``paged_decode_step``) or off the contiguous slot cache
 (``decode_step``, a scalar or per-row ``index``); an int8 KV cache
 (``cfg.kv_cache_dtype == "int8"``: int8 codes with per-position f32
-scales) decodes off the slot cache only, as in the JAX package.  The SSM,
-hybrid and encoder-decoder families are not ported yet (ROADMAP A12,
-A10).
+scales) decodes off the slot cache only, as in the JAX package, and so
+does a config with SSM state (``ssm``/``conv`` in the slot cache).  The
+encoder-decoder family is not ported yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ from repro_torch import device as device_lib
 from repro_torch.core.dataflow import (AttentionProblem, BinaryProblem,
                                        GemmProblem)
 from repro_torch.kernels import pack, ref
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 
 Params = Dict[str, Any]
 
@@ -38,20 +45,20 @@ Params = Dict[str, Any]
 DENSE_FAMILIES = ("dense", "vlm")
 # Families served as the decoder with routed experts in place of the MLP.
 MOE_FAMILIES = ("moe",)
+# Family -> (attention, SSM) paths its layers run.
+_PATHS = {**{f: (True, False) for f in DENSE_FAMILIES + MOE_FAMILIES},
+          "ssm": (False, True), "hybrid": (True, True)}
 
 
 def _check_supported(cfg) -> None:
-    moe_family = cfg.family in MOE_FAMILIES
-    if (cfg.family not in DENSE_FAMILIES + MOE_FAMILIES
-            or bool(cfg.n_experts) != moe_family or cfg.has_ssm
-            or cfg.is_encoder_decoder or not cfg.has_attention):
+    paths = _PATHS.get(cfg.family)
+    if (paths != (cfg.has_attention, cfg.has_ssm)
+            or bool(cfg.n_experts) != (cfg.family in MOE_FAMILIES)
+            or cfg.is_encoder_decoder):
         raise NotImplementedError(
-            f"{cfg.name}: only dense and MoE decoders are ported (SSM, "
-            f"hybrid and encoder-decoder models are queued in ROADMAP.md "
-            f"A10 and A12)")
-    if cfg.attn_window is not None and cfg.full_attn_every:
-        raise NotImplementedError(
-            "per-layer sliding-window schedules are queued in ROADMAP A12")
+            f"{cfg.name} (family {cfg.family!r}): the port runs dense, "
+            f"MoE, SSM and hybrid decoders; encoder-decoder models are "
+            f"queued in ROADMAP.md A10")
 
 
 def init_model(cfg, seed: int = 0, device=None) -> Params:
@@ -66,7 +73,10 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
     packs them at ``cfg.packed_weight_bits`` (``layers.init_packed_mlp``);
     its leaves are stacked on the layer axis like the rest.  A MoE config
     (``cfg.n_experts``) draws ``layers["moe"]`` (``moe.init_moe``, a
-    layer at a time) in place of the MLP."""
+    layer at a time) in place of the MLP.  An SSM config draws
+    ``layers["mamba"]`` (``ssm.init_mamba``); its layers have ``ln1`` and
+    the block alone.  A hybrid config draws attention, the block and the
+    MLP."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -108,18 +118,24 @@ def init_model(cfg, seed: int = 0, device=None) -> Params:
 
     def ffn():
         if cfg.n_experts:
-            return {"moe": moe.init_moe(gen, cfg, n, dev)}
-        return {"mlp": mlp()}
+            return {"ln2": ones(n, d), "moe": moe.init_moe(gen, cfg, n, dev)}
+        if cfg.d_ff and cfg.family != "ssm":
+            return {"ln2": ones(n, d), "mlp": mlp()}
+        return {}
 
-    attn = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
-            "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
-    if cfg.qk_norm:
-        attn["q_norm"], attn["k_norm"] = ones(n, dh), ones(n, dh)
+    mix = {}
+    if cfg.has_attention:
+        mix["attn"] = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
+                       "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
+        if cfg.qk_norm:
+            mix["attn"]["q_norm"] = ones(n, dh)
+            mix["attn"]["k_norm"] = ones(n, dh)
+    embed = {"table": normal((cfg.padded_vocab, d), d ** -0.5)}
+    if cfg.has_ssm:
+        mix["mamba"] = ssm.init_mamba(gen, cfg, n, dev)
     params: Params = {
-        "embed": {"table": normal((cfg.padded_vocab, d), d ** -0.5)},
-        "layers": {
-            "ln1": ones(n, d), "attn": attn, "ln2": ones(n, d), **ffn(),
-        },
+        "embed": embed,
+        "layers": {"ln1": ones(n, d), **mix, **ffn()},
         "final_norm": ones(d),
     }
     if not cfg.tie_embeddings:
@@ -136,8 +152,11 @@ def hot_gemm_problems(cfg, batch: int, seq: int) -> List[GemmProblem]:
     ``ops.matmul_packed``.  A binary MLP reaches B9 instead
     (``hot_binary_problems``).  A MoE config lists its shared experts'
     projections (width ``d_ff * n_shared_experts``), and nothing without
-    them: its routed experts run as ``torch.bmm``, reaching no kernel."""
-    if not cfg.d_ff or getattr(cfg, "binary_mlp", False):
+    them: its routed experts run as ``torch.bmm``, reaching no kernel.
+    An SSM config lists nothing: its projections are ``torch.matmul``, as
+    the reference's are ``jnp.einsum``."""
+    if not cfg.d_ff or cfg.family == "ssm" or getattr(cfg, "binary_mlp",
+                                                        False):
         return []
     t = batch * seq
     ff = cfg.d_ff * cfg.n_shared_experts if cfg.n_experts else cfg.d_ff
@@ -173,23 +192,29 @@ def hot_attention_problems(cfg, batch: int, seq: int,
     the prefill square (``sq = skv = seq``) and the slot-cache decode step
     (``sq = 1`` over the ``max_len`` buffer, its run-time valid length
     keyed as the whole buffer; ``rows = batch`` where each row has a cache
-    index of its own, as the scheduler's slot cache has), with the
-    config's window; an int8 KV cache keys the decode with
-    ``kv_dtype="int8"``.  (Decode off the page pool runs B3, which is not
+    index of its own, as the scheduler's slot cache has), full and, for a
+    config with ``attn_window``, windowed (the reference's order: the
+    pair without a window, then the pair with it); an int8 KV cache keys
+    the decode with ``kv_dtype="int8"``.  Callers pick prefill and decode
+    rows by ``sq``.  (Decode off the page pool runs B3, which is not
     autotuned.)"""
     if not cfg.has_attention:
         return []
     kv_dt = "int8" if int8_kv(cfg) else None
     group = max(1, cfg.n_heads // cfg.n_kv_heads)
     bh = batch * cfg.n_heads
-    win = cfg.attn_window
-    return [AttentionProblem(bh=bh, sq=seq, skv=seq, d=cfg.d_head,
-                             group=group, causal=True, window=win,
-                             dtype=cfg.act_dtype),
-            AttentionProblem(bh=bh, sq=1, skv=max_len or seq, d=cfg.d_head,
-                             group=group, causal=True, window=win,
-                             dtype=cfg.act_dtype, kv_dtype=kv_dt,
-                             rows=rows)]
+    windows = [None] + ([int(cfg.attn_window)]
+                        if cfg.attn_window is not None else [])
+    out = []
+    for win in windows:
+        out += [AttentionProblem(bh=bh, sq=seq, skv=seq, d=cfg.d_head,
+                                 group=group, causal=True, window=win,
+                                 dtype=cfg.act_dtype),
+                AttentionProblem(bh=bh, sq=1, skv=max_len or seq,
+                                 d=cfg.d_head, group=group, causal=True,
+                                 window=win, dtype=cfg.act_dtype,
+                                 kv_dtype=kv_dt, rows=rows)]
+    return out
 
 
 def hot_chunk_problems(cfg, seq: int, max_len: int) -> list:
@@ -198,9 +223,9 @@ def hot_chunk_problems(cfg, seq: int, max_len: int) -> list:
     GEMMs) of ``seq`` rows and the attention of the chunk over the cache
     buffer (its valid prefix keyed as the whole buffer)."""
     out = hot_gemm_problems(cfg, 1, seq) + hot_binary_problems(cfg, 1, seq)
-    if cfg.has_attention:
-        dec = hot_attention_problems(cfg, 1, 1, max_len)[1]
-        out.append(dataclasses.replace(dec, sq=seq))
+    out += [dataclasses.replace(p, sq=seq)
+            for p in hot_attention_problems(cfg, 1, 1, max_len)
+            if p.skv == max_len]
     return out
 
 
@@ -219,10 +244,6 @@ def _layer_params(params: Params) -> List[Params]:
     return [pick(stacked, i) for i in range(n)]
 
 
-def _window(cfg) -> Optional[int]:
-    return None if cfg.attn_window is None else int(cfg.attn_window)
-
-
 def _head(params: Params) -> torch.Tensor:
     return params.get("lm_head", params["embed"])["table"]
 
@@ -230,7 +251,9 @@ def _head(params: Params) -> torch.Tensor:
 def _ffn_residual(lp: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """``x`` plus the layer's MLP, or its MoE block (the load-balancing
     loss dropped, as the reference's serving steps drop it), over the
-    normed ``x``."""
+    normed ``x``; ``x`` as it is for a layer with neither (an SSM's)."""
+    if "ln2" not in lp:
+        return x
     h2 = layers.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if cfg.n_experts:
         y, _ = moe.moe_apply(lp["moe"], h2, cfg)
@@ -247,26 +270,35 @@ def _mask_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
 # The cache's per-layer buffers, in the order ``attention_apply`` takes
 # them (the scales only in an int8 cache).
 KV_KEYS = ("k", "v", "k_scale", "v_scale")
+# The SSM's per-layer state and conv tail (configs with SSM state).
+SSM_KEYS = ("ssm", "conv")
+CACHE_KEYS = KV_KEYS + SSM_KEYS
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
                device=None) -> Params:
-    """Contiguous KV buffers ``(L, B, Hkv, max_len, D)`` plus ``index``,
-    of ``dtype`` unless ``cfg.kv_cache_dtype`` names another: an int8
-    cache adds ``k_scale``/``v_scale`` ``(L, B, Hkv, max_len, 1)`` f32,
-    ones until written."""
+    """``index`` plus, with attention, contiguous KV buffers ``(L, B,
+    Hkv, max_len, D)`` of ``dtype`` unless ``cfg.kv_cache_dtype`` names
+    another (an int8 cache adds ``k_scale``/``v_scale`` ``(L, B, Hkv,
+    max_len, 1)`` f32, ones until written), and with an SSM, zero
+    float32 ``ssm`` ``(L, B, H, N, P)`` and ``conv`` ``(L, B, K-1,
+    d_inner + 2N)``."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
-    kv = cfg.kv_cache_dtype
-    dt = getattr(torch, dtype if kv in ("auto", None) else kv)
-    cache = {"index": 0,
-             "k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
-    if dt == torch.int8:
-        for name in KV_KEYS[2:]:
-            cache[name] = torch.ones(shape[:-1] + (1,), dtype=torch.float32,
-                                     device=dev)
+    cache: Params = {"index": 0}
+    if cfg.has_attention:
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
+        kv = cfg.kv_cache_dtype
+        dt = getattr(torch, dtype if kv in ("auto", None) else kv)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+        if dt == torch.int8:
+            for name in KV_KEYS[2:]:
+                cache[name] = torch.ones(shape[:-1] + (1,),
+                                         dtype=torch.float32, device=dev)
+    if cfg.has_ssm:
+        for name, buf in zip(SSM_KEYS, ssm.init_ssm_state(cfg, batch, dev)):
+            cache[name] = buf.expand((cfg.n_layers,) + buf.shape).clone()
     return cache
 
 
@@ -276,11 +308,47 @@ def _layer_cache(cache: Params, i: int) -> Tuple[torch.Tensor, ...]:
     return tuple(cache[name][i] for name in KV_KEYS if name in cache)
 
 
+def _mix_residual(lp: Params, x: torch.Tensor, cfg, i: int, cache: Params,
+                  new: Params, positions: torch.Tensor, cache_index,
+                  attend_local: bool = False) -> torch.Tensor:
+    """Layer ``i`` over ``cache``: ``x`` plus the mean of its attention
+    (window ``cfg.layer_window(i)``; K/V written into the cache in place)
+    and its Mamba2 block (from the layer's state in ``cache``, the new
+    state written into ``new``'s buffers), both over the normed ``x``, as
+    the reference's ``layer_apply`` mixes them; then the FFN residual."""
+    h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    paths = []
+    if cfg.has_attention:
+        out, _ = layers.attention_apply(
+            lp["attn"], h, cfg, positions=positions,
+            window=cfg.layer_window(i), kv_cache=_layer_cache(cache, i),
+            cache_index=cache_index, attend_local=attend_local)
+        paths.append(out)
+    if cfg.has_ssm:
+        out, (s, conv) = ssm.mamba_apply(
+            lp["mamba"], h, cfg, (cache["ssm"][i], cache["conv"][i]))
+        new["ssm"][i], new["conv"][i] = s, conv
+        paths.append(out)
+    mix = paths[0] if len(paths) == 1 else (paths[0] + paths[1]) / 2
+    return _ffn_residual(lp, x + mix, cfg)
+
+
+def _with_new_state(cache: Params) -> Params:
+    """A new dict over ``cache``'s buffers, with fresh ``ssm``/``conv``
+    buffers for the step to write (the caller's state stays as it was)."""
+    new = dict(cache)
+    for name in SSM_KEYS:
+        if name in cache:
+            new[name] = torch.empty_like(cache[name])
+    return new
+
+
 def prefill(params: Params, tokens: torch.Tensor, cfg,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Run the prompt (B, S) through the model, filling a fresh
     ``max_len`` cache.  Attention runs over the local K/V
-    (``attend_local``).  Returns (last-token logits (B, V), cache)."""
+    (``attend_local``); the SSM runs its chunked form from the zero
+    state.  Returns (last-token logits (B, V), cache)."""
     b, s = tokens.shape
     dev = tokens.device
     cache = init_cache(cfg, b, max_len or s, cfg.act_dtype, dev)
@@ -288,12 +356,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg,
         getattr(torch, cfg.act_dtype))
     positions = torch.arange(s, device=dev)[None, :]
     for i, lp in enumerate(_layer_params(params)):
-        h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        attn_out, _ = layers.attention_apply(
-            lp["attn"], h, cfg, positions=positions, window=_window(cfg),
-            kv_cache=_layer_cache(cache, i), cache_index=0,
-            attend_local=True)
-        x = _ffn_residual(lp, x + attn_out, cfg)
+        x = _mix_residual(lp, x, cfg, i, cache, cache, positions, 0,
+                          attend_local=True)
     cache["index"] = s
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return layers.unembed(_head(params), x[:, -1]), cache
@@ -304,8 +368,11 @@ def prefill_chunk(params: Params, cache: Params, tokens: torch.Tensor, cfg,
                   ) -> Tuple[torch.Tensor, Params]:
     """Prefill the chunk ``tokens`` (B, S) into ``cache`` at ``start``
     (one offset, or one per row), attending over the filled cache, so
-    the chunk sees everything before it.  The cache is updated in place.
-    Returns (last-token logits (B, V), cache)."""
+    the chunk sees everything before it, and running the SSM on from the
+    cache's state.  K/V are written into the cache's buffers in place;
+    the returned cache is a new dict, with new ``ssm``/``conv`` tensors,
+    so the caller's state is as it was if the step is retried.  Returns
+    (last-token logits (B, V), cache)."""
     b, s = tokens.shape
     dev = tokens.device
     x = layers.embed(params["embed"]["table"], tokens).to(
@@ -315,15 +382,12 @@ def prefill_chunk(params: Params, cache: Params, tokens: torch.Tensor, cfg,
         positions = start.to(dev).long()[:, None] + steps[None, :]
     else:
         positions = (int(start) + steps)[None, :]
+    new = _with_new_state(cache)
     for i, lp in enumerate(_layer_params(params)):
-        h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        attn_out, _ = layers.attention_apply(
-            lp["attn"], h, cfg, positions=positions, window=_window(cfg),
-            kv_cache=_layer_cache(cache, i), cache_index=start)
-        x = _ffn_residual(lp, x + attn_out, cfg)
-    cache["index"] = start + s
+        x = _mix_residual(lp, x, cfg, i, cache, new, positions, start)
+    new["index"] = start + s
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return layers.unembed(_head(params), x[:, -1]), cache
+    return layers.unembed(_head(params), x[:, -1]), new
 
 
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg
@@ -335,8 +399,9 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg
     attention bands (``kv_len = index + 1``, B2 at Sq = 1) follow it.
     Each layer writes its fresh K/V into the buffers in place at
     ``index``; the returned cache is a new dict whose ``index`` has
-    advanced, so a caller that keeps the old dict after a failed step
-    retries at the same positions.  Returns (logits (B, V), cache),
+    advanced and whose SSM state (``ssm``/``conv``) is in new tensors, so
+    a caller that keeps the old dict after a failed step retries at the
+    same positions from the same state.  Returns (logits (B, V), cache),
     padded-vocab logits at -inf.
     """
     b = tokens.shape[0]
@@ -348,13 +413,9 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg
         positions = idx.to(dev).long()[:, None]
     else:
         positions = torch.full((b, 1), int(idx), device=dev)
+    new = _with_new_state(cache)
     for i, lp in enumerate(_layer_params(params)):
-        h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        attn_out, _ = layers.attention_apply(
-            lp["attn"], h, cfg, positions=positions, window=_window(cfg),
-            kv_cache=_layer_cache(cache, i), cache_index=idx)
-        x = _ffn_residual(lp, x + attn_out, cfg)
-    new = dict(cache)
+        x = _mix_residual(lp, x, cfg, i, cache, new, positions, idx)
     new["index"] = idx + 1
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = layers.unembed(_head(params), x[:, -1])
@@ -406,8 +467,8 @@ def paged_decode_step(
     for i, lp in enumerate(_layer_params(params)):
         h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         attn_out, _ = layers.paged_attention_apply(
-            lp["attn"], h, cfg, positions=positions, window=_window(cfg),
-            k_pages=k_pages[i], v_pages=v_pages[i],
+            lp["attn"], h, cfg, positions=positions,
+            window=cfg.layer_window(i), k_pages=k_pages[i], v_pages=v_pages[i],
             block_tables=block_tables, kv_lens=kv_lens,
             write_pids=write_pids, write_offs=write_offs)
         x = _ffn_residual(lp, x + attn_out, cfg)

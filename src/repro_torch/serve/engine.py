@@ -211,9 +211,12 @@ class Engine:
 
     # -- admission ------------------------------------------------------
     def _kernels_refuse(self) -> Optional[str]:
-        """Why the port's kernels cannot serve this config, or None."""
+        """Why the port's kernels cannot serve this config, or None.  An
+        attention-free config (an SSM's) reaches no attention kernel."""
         cfg = self.cfg
         sc = self.scheduler_config or SchedulerConfig()
+        if not cfg.has_attention:
+            return None
         if cfg.d_head not in attention_df.HEAD_DIMS:
             return (f"d_head {cfg.d_head} not in the attention kernels' "
                     f"{attention_df.HEAD_DIMS}")
@@ -272,11 +275,13 @@ class Engine:
         else:
             prefill = (lm.hot_gemm_problems(cfg, batch, seq)
                        + lm.hot_binary_problems(cfg, batch, seq)
-                       + lm.hot_attention_problems(cfg, batch, seq)[:1])
+                       + [p for p in lm.hot_attention_problems(
+                           cfg, batch, seq) if p.sq == seq])
         return (prefill + lm.hot_gemm_problems(cfg, db, 1)
                 + lm.hot_binary_problems(cfg, db, 1)
-                + lm.hot_attention_problems(cfg, db, 1, self.max_len,
-                                            rows=db if per_row else 1)[1:])
+                + [p for p in lm.hot_attention_problems(
+                    cfg, db, 1, self.max_len, rows=db if per_row else 1)
+                   if p.sq == 1 and p.skv == self.max_len])
 
     def _reject(self, reason: str, exc_type=ValueError) -> None:
         self._counters["rejected"] += 1

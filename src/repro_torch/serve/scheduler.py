@@ -19,7 +19,13 @@ function of the live requests, and a page pool (when ``page_size`` is
 set) only mirrors prompts for prefix sharing.  An int8 KV cache
 (``kv_cache_dtype="int8"``) always decodes off the slot cache, its
 codes and per-position scales side by side, with no pool at all: the
-pool holds float K/V, so there is no mirror and no prefix reuse.
+pool holds float K/V, so there is no mirror and no prefix reuse.  A
+config with SSM state (``ssm``/``conv``) decodes off the slot cache too,
+each row's state beside its K/V; an attention-free one (mamba2) has no
+pool, and a hybrid (hymba) keeps the mirror but never reuses a prefix:
+the pages hold K/V but not the state the SSM reached over the prefix,
+so a hit would prefill the tail from a state that never saw it (the JAX
+scheduler does, ROADMAP C).
 
 Memory pressure on the paged path runs a ladder, coarse to fine:
 
@@ -152,9 +158,9 @@ class ContinuousScheduler:
         self._pf: Optional[Tuple] = None       # chunked prefill in flight
         self.paged: Optional[PagedKVCache] = None
         # the pool holds float K/V: an int8 cache (codes and per-position
-        # scales) gets none, so no mirror and no prefix reuse, as in the
-        # JAX package
-        if self.cc.page_size and not lm.int8_kv(cfg):
+        # scales) or a config without attention gets none, so no mirror
+        # and no prefix reuse, as in the JAX package
+        if self.cc.page_size and cfg.has_attention and not lm.int8_kv(cfg):
             self.paged = PagedKVCache(
                 cfg, pool_capacity(self.cc, engine.max_len),
                 self.cc.page_size, dtype=cfg.act_dtype,
@@ -162,6 +168,9 @@ class ContinuousScheduler:
                 high_watermark=self.cc.high_watermark,
                 low_watermark=self.cc.low_watermark)
         self.use_paged = paged_decode_enabled(cfg, self.cc, engine.max_len)
+        # a prefix's pages carry no SSM state: a config with one never
+        # reuses them
+        self.prefix_reuse = self.cc.prefix_reuse and not cfg.has_ssm
         self.max_pages = (engine.max_len // self.cc.page_size
                           if self.use_paged else 0)
 
@@ -268,7 +277,7 @@ class ContinuousScheduler:
                                      f"{self.paged.occupancy():.2f} >= "
                                      f"{self.paged.high_watermark:.2f})")
                     return did
-                if not chunked and self.cc.prefix_reuse:
+                if not chunked and self.prefix_reuse:
                     reuse, covered = self.paged.lookup_prefix(req.prompt)
                 need = pages_for(plen, self.cc.page_size) - len(reuse)
                 new = self.paged.alloc(need)
@@ -369,7 +378,7 @@ class ContinuousScheduler:
         prompt = np.asarray(req.prompt, np.int64)
         if pages is None:
             reuse, covered = [], 0
-            if self.paged is not None and self.cc.prefix_reuse:
+            if self.paged is not None and self.prefix_reuse:
                 reuse, covered = self.paged.lookup_prefix(prompt)
         req.state = self._E.RequestState.PREFILLING
         try:
@@ -472,8 +481,8 @@ class ContinuousScheduler:
         """Scatter the prefilled row into the page pool.  On the paged
         path ``pages`` were acquired at admission, so this cannot fail;
         the slot path mirrors what the pool can hold, for prefix
-        sharing, and skips the rest."""
-        if self.paged is None:
+        sharing, and skips the rest (and a cache with no K/V)."""
+        if self.paged is None or "k" not in rcache:
             return
         if pages is None:
             new = self.paged.alloc(
@@ -490,11 +499,12 @@ class ContinuousScheduler:
     def _install(self, req, slot: int, rcache, plen: int,
                  first_logits: torch.Tensor) -> None:
         """Make the row live (paged: its committed length; slot cache:
-        copy the prefilled row in) and emit its first token."""
+        copy the prefilled row in, its SSM state too) and emit its first
+        token."""
         if self.use_paged:
             self.kv_lens[slot] = plen
         else:
-            for name in lm.KV_KEYS:
+            for name in lm.CACHE_KEYS:
                 if name in self.cache:
                     self.cache[name][:, slot] = rcache[name][:, 0]
             self.cache["index"][slot] = plen

@@ -12,9 +12,9 @@ against the JAX ``Engine``'s.  Then: the port's plain attention at
 d_head 16 with float32 queries over int8 K/V against the JAX
 ``flash_attention`` and ``kv_stationary_attention`` in interpret mode; a
 padded vocab (minicpm-smoke at ``vocab_size=509``, padded 512) decoded
-and served; chameleon-smoke admitted; the SSM, hybrid and audio smoke
-configs refused naming their ROADMAP entries (the MoE configs are held
-in ``tests/test_torch_moe.py``).
+and served; chameleon-smoke admitted; the audio smoke config refused naming its
+ROADMAP entry (the MoE configs are held in ``tests/test_torch_moe.py``,
+the SSM and hybrid ones in ``tests/test_torch_ssm.py``).
 
 The JAX parameters (``repro.models.lm.init_model``) cross over through
 ``models.bridge.params_from_numpy``; token ids, page layouts and
@@ -48,7 +48,7 @@ from repro_torch.serve.engine import Engine, RequestState
 
 NAMES = ["minicpm-2b", "mistral-nemo-12b", "minitron-8b", "chameleon-34b"]
 # The JAX package's configs the port does not run yet, by ROADMAP entry.
-QUEUED = {"hymba-1.5b": "A12", "mamba2-780m": "A12", "whisper-tiny": "A10"}
+QUEUED = {"whisper-tiny": "A10"}
 MAX_LEN = 48
 ATOL = 1e-4
 ATT_TOL = dict(atol=2e-5, rtol=2e-5)
@@ -295,7 +295,7 @@ def test_chameleon_is_admitted_as_a_dense_backbone():
 @pytest.mark.parametrize("name", sorted(QUEUED))
 def test_moe_ssm_and_audio_configs_still_raise(name):
     """The port's twin of each queued smoke config (the JAX package's
-    values) is refused by the model, naming ROADMAP A10-A12."""
+    values) is refused by the model, naming its ROADMAP entry."""
     cfg = base.ArchConfig(**dataclasses.asdict(jconfigs.get_smoke(name)))
-    with pytest.raises(NotImplementedError, match="A10-A12|A12"):
+    with pytest.raises(NotImplementedError, match=QUEUED[name]):
         lm._check_supported(cfg)

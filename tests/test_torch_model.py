@@ -51,7 +51,7 @@ def test_config_twin_has_the_reference_fields_and_values():
                 dataclasses.asdict(jget(name))
             assert get(name).padded_vocab == jget(name).padded_vocab
     with pytest.raises(KeyError, match="ROADMAP"):
-        configs.get("mamba2-780m")
+        configs.get("whisper-tiny")
 
 
 def test_bridge_gives_the_init_model_layout(params):

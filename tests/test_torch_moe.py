@@ -298,11 +298,11 @@ def test_only_dense_and_moe_decoders_are_admitted():
     lm._check_supported(configs.get("qwen3-moe-235b-a22b"))
     bad = dataclasses.replace(configs.get_smoke("moonshot-v1-16b-a3b"),
                               n_experts=0)
-    with pytest.raises(NotImplementedError, match="A10 and A12"):
+    with pytest.raises(NotImplementedError, match="MoE, SSM and hybrid"):
         lm._check_supported(bad)
     bad = dataclasses.replace(configs.get_smoke("qwen3-1.7b"), n_experts=4,
                               top_k=1)
-    with pytest.raises(NotImplementedError, match="A10 and A12"):
+    with pytest.raises(NotImplementedError, match="MoE, SSM and hybrid"):
         lm._check_supported(bad)
 
 
