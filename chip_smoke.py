@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases card,build,serve_dense,serve_f32
     python3 chip_smoke.py --phases card,build,serve_moe
     python3 chip_smoke.py --phases card,build,serve_ssm
+    python3 chip_smoke.py --phases card,build,serve_audio
 
 Phases, each printing JSON lines:
 
@@ -52,9 +53,13 @@ Phases, each printing JSON lines:
    bit (a gate), and timed at prefill 512 and 2048 beside B2.  B3 (split
    across CTAs) at the served
    decode shape and at a long row (4 x 4096 keys), with and without a
-   window, timed at both; at a GQA group of 16 (Hq 64, Hkv 4: its 16-warp
+   window, timed at both; the same two shapes at pages of 48, 64 and 128
+   keys (a tile is a 32-key slice of a row's key range, so a page spans
+   several); at a GQA group of 16 (Hq 64, Hkv 4: its 16-warp
    kernel, counted under ``paged_attention_g16``) at the served decode
-   shape, timed with its byte bound.  B2 over the int8 KV cache's K/V (int8 codes
+   shape, timed with its byte bound.  B1 and B2 at whisper-tiny's widths
+   (the encoder's MLP at M = 4 x 1 500, the decoder's prefills and decode,
+   6 heads of 64), beside ``torch.matmul`` and SDPA.  B2 over the int8 KV cache's K/V (int8 codes
    with per-position f32 scales, bf16 queries) at a prefill chunk and at
    slot-cache decode, held against the plain version and timed beside it
    and bf16 B2; B7 over int8 K/V at prefill 512, equal to B2's int8
@@ -225,6 +230,22 @@ Phases, each printing JSON lines:
    step traced with the Mamba2 blocks' device time.  The kernels phase
    holds B2 and B1 at hymba's widths (``hymba_checks``); ``serve_f32``
    serves mamba2-smoke and hymba-smoke.
+16. ``serve_audio``: whisper-tiny whole (4 encoder and 4 decoder layers,
+   bf16, random weights from ``--seed``) through its entry points,
+   ``lm.prefill(..., enc_frames=)`` and ``lm.decode_step`` (the engine
+   passes no frames, as the JAX engine passes none): 4 rows of 64 tokens
+   over 1 500 encoder frames a row and 16 greedy steps, then one row of
+   432 tokens and 16 steps to ``max_len`` 448.  Gates: the first decode
+   logits at cosine >= 0.999 of the plain path's at 2 + 2 layers (4 + 4
+   reported); ``lm.forward``'s last-position logits at cosine >= 0.999
+   of ``prefill`` + ``decode_step``'s; the launches equal to the picks'
+   and every B1 launch on its tiles; no decode token past
+   ``vocab_size``.  Reported: the cross cache's bytes, the encoder's ms,
+   prefill ms and decode ms/step, the decode step traced.  ``serve_f32``
+   adds whisper-smoke from a float and an int8 KV cache; ``serve`` adds an
+   engine at pages of 128 keys (4 layers: DONE, mixed == alone, tokens
+   against page 16's counted); ``autotune`` times whisper's two frontend
+   convs.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
@@ -235,7 +256,8 @@ counted over its in-process ``Engine`` runs; serve_int8kv: B1 with its
 bf16 tiles, B2 and its int8 path; serve_dense: B1 with its bf16 tiles,
 B2, B3, over its four configs; serve_f32: B1's f32 walk, B2, K1, B3;
 serve_moe: B1 with its bf16 tiles, B2, B3 and its 16-warp kernel;
-serve_ssm: B1 with its bf16 tiles, B2;
+serve_ssm: B1 with its bf16 tiles, B2; serve_audio: B1 with its bf16
+tiles, B2;
 B7's int8 paths (K2 among them), on no serving path, their launches in
 the kernels phase; dataflows: B1 and its bf16 tiles, B2,
 B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
@@ -274,7 +296,7 @@ ALL_PHASES = ("card", "build", "kernels", "autotune", "dataflows",
               "quantized", "serve",
               "serve_binary", "serve_packed", "serve_recovery",
               "serve_int8kv", "serve_dense", "serve_f32", "serve_moe",
-              "serve_ssm")
+              "serve_ssm", "serve_audio")
 
 
 def emit(obj) -> None:
@@ -656,6 +678,8 @@ def kernel_phase(torch, cfg, timer):
     records["flash_attention"].update(modes)
     records["flash_attention"]["group5"], records["matmul_os"]["hymba"] = \
         hymba_checks(torch, timer, att_tol)
+    records["flash_attention"]["whisper"], records["matmul_os"]["whisper"] = \
+        whisper_checks(torch, timer, att_tol)
     # the int8 KV cache's B2: the slot-cache decode step (its serving
     # path's every decode launch), the chunk beside it
     records["flash_attention_i8kv"] = dict(modes_i8["slot_decode"],
@@ -735,6 +759,8 @@ def kernel_phase(torch, cfg, timer):
         tolerance=att_tol)
     emit({"kernel_timing_detail": "paged_attention", **long_rec})
     records["paged_attention"]["long_row"] = long_rec
+    records["paged_attention"]["pages"] = paged_page_checks(
+        torch, timer, hq, hkv, dh, att_tol, f32_tol)
     records["paged_attention_g16"] = paged_group16_checks(
         torch, timer, att_tol, f32_tol)
     records.update(gemm_dataflow_checks(torch, cfg, timer, gen, b1_tol))
@@ -758,6 +784,86 @@ def kernel_phase(torch, cfg, timer):
     for name, rec in records.items():
         emit({"kernel_timing": name, **rec})
     return records
+
+
+# Pages of more than 32 keys B3 takes since its tiles became 32-key slices
+# of a row's key range (it refused them before).
+PAGED_BIG_PAGES = (48, 64, 128)
+
+
+def paged_page_checks(torch, timer, hq, hkv, dh, tol, f32_tol):
+    """B3 at pages of 48, 64 and 128 keys: the served decode shape (4
+    rows, kv_lens 0/17/200/527, shuffled page ids) and the long row (4 x
+    4 096 keys), each with and without a 100-key window, held against the
+    plain version within B2's tolerance (and the served shape at float32,
+    D 64), timed beside it with its byte bound (no single PyTorch call
+    attends through a block table).  Inputs from their own generator per
+    page, so every other check keeps its inputs.  Returns the records by
+    page."""
+    from repro_torch.bench.common import bound
+    from repro_torch.kernels import attention_df, ref
+
+    dev, bf16, rows = "cuda", torch.bfloat16, 4
+    out = {}
+    for page in PAGED_BIG_PAGES:
+        gen = torch.Generator(device=dev).manual_seed(100 + page)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+        recs = {}
+        for tag, lens in (("served", [0, 17, 200, 527]),
+                          ("long_row", [4096] * rows)):
+            max_pages = -(-max(max(lens), 1024) // page)
+            n_pages = rows * max_pages
+            kp, vp = (randn(hkv, n_pages + 1, page, dh) for _ in range(2))
+            tables = torch.randperm(n_pages, generator=gen,
+                                    device=dev).reshape(
+                rows, max_pages).to(torch.int32).contiguous()
+            kv = torch.tensor(lens, device=dev, dtype=torch.int32)
+            q = randn(rows, hq, 1, dh)
+            errs = []
+            for window in (None, 100):
+                errs.append(check(
+                    "paged_attention",
+                    attention_df.paged_flash_attention(q, kp, vp, tables, kv,
+                                                       window=window),
+                    ref.paged_attention_ref(q, kp, vp, tables, kv,
+                                            window=window),
+                    shape=f"R={rows} page={page} kv_lens={lens} shuffled "
+                          f"window={window}", **tol))
+            if tag == "served":
+                kp32, vp32, q32 = (t[..., :64].float().contiguous()
+                                   for t in (kp, vp, q))
+                check("paged_attention",
+                      attention_df.paged_flash_attention(q32, kp32, vp32,
+                                                         tables, kv),
+                      ref.paged_attention_ref(q32, kp32, vp32, tables, kv),
+                      shape=f"float32 D=64 page={page} kv_lens={lens}",
+                      **f32_tol)
+            keys = int(kv.sum())
+            bnd = bound(2 * keys * hkv * dh * 2 + 2 * rows * hq * dh * 2
+                        + tables.numel() * 4, 4.0 * dh * keys * hq)
+            recs[tag] = dict(
+                shape=f"decode R={rows} Hq={hq} Hkv={hkv} D={dh} "
+                      f"page={page} kv_lens={lens}",
+                max_abs_err=max(errs),
+                ms=timer.ms(lambda: attention_df.paged_flash_attention(
+                    q, kp, vp, tables, kv)),
+                plain_ms=timer.ms(lambda: ref.paged_attention_ref(
+                    q, kp, vp, tables, kv)),
+                library_ms=None,
+                library_why="no single PyTorch call attends through a "
+                            "block table",
+                bound_ms=bnd[0], bound_by=bnd[1],
+                chunks_per_row=[len(attention_df.paged_chunks(
+                    n, page, max_pages)) for n in lens],
+                tolerance=tol)
+            emit({"kernel_timing_detail": "paged_attention", "page": page,
+                  **recs[tag]})
+            del kp, vp
+        out[f"page={page}"] = recs
+    return out
 
 
 def paged_group16_checks(torch, timer, tol, f32_tol):
@@ -1021,6 +1127,110 @@ def hymba_checks(torch, timer, tol):
                         ref.matmul_fused_ref(a, w2, activation=act),
                         shape=shape, **B1_TOL)
             if m == 511:
+                continue
+            bnd = bound((m * k + k * n) * 2 + m * n * 4, 2.0 * m * k * n)
+            mlp[f"M={m} K={k} N={n}"] = dict(
+                shape=shape, tile=tile, max_abs_err=err,
+                ms=timer.ms(lambda: matmul_df.matmul_os(a, w2,
+                                                        activation=act)),
+                plain_ms=timer.ms(lambda: ref.matmul_fused_ref(
+                    a, w2, activation=act)),
+                library_ms=timer.ms(lambda: torch.matmul(a, w2)),
+                library_call="torch.matmul (bf16 out)",
+                bound_ms=bnd[0], bound_by=bnd[1], tolerance=B1_TOL)
+            emit({"kernel_timing_detail": tile, "config": cfg.name,
+                  **mlp[f"M={m} K={k} N={n}"]})
+    return att, mlp
+
+
+def whisper_checks(torch, timer, tol):
+    """The kernels at whisper-tiny's widths, which no config served before
+    it: B2 at 6 q heads over 6 kv heads, D 64, causal, at the decoder's
+    prefills (4 rows of 64 tokens; one row of 432) and its slot-cache
+    decode steps (4 rows of Sq = 1 at one shared kv_len 72 of a 448-key
+    buffer, as ``lm.decode_step`` runs a batch at one index; one row at
+    kv_len 440); and B1's bf16 tiles at its MLP (K 384 -> N 1 536 with
+    the silu, 1 536 -> 384) at the encoder's M = 4 x 1 500 rows, the
+    decoder's prefills (M 256 and 432) and decode (M 4).  Each held
+    against its plain version (B2's tolerance ``tol``, B1's ``B1_TOL``)
+    and timed beside it and the PyTorch call (SDPA, causal or with the
+    equivalent boolean mask; ``torch.matmul``); B2's bound counts the
+    keys each row's band reads.  Inputs from their own generator, so
+    every other check keeps its inputs.  Returns (B2 records by mode, B1
+    records by shape)."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.bench.common import bound
+    from repro_torch.kernels import attention_df, matmul_df, ref
+
+    cfg = configs.get("whisper-tiny")
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dev, buf = "cuda", SERVE_AUDIO_MAX_LEN
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(
+            torch.bfloat16)
+
+    att = {}
+    for b, sq in ((SERVE_BATCH, SERVE_AUDIO_PROMPT), (1, SERVE_AUDIO_LONG)):
+        q, kk, vv = (randn(b, h, sq, dh) for h in (hq, hkv, hkv))
+        shape = f"prefill B={b} Sq=Skv={sq} Hq={hq} Hkv={hkv} D={dh} causal"
+        err = check("flash_attention", attention_df.flash_attention(q, kk, vv),
+                    ref.attention_ref(q, kk, vv), shape=f"whisper {shape}",
+                    **tol)
+        bnd = bound(2 * b * (hq + hkv) * sq * dh * 2,
+                    4.0 * dh * b * hq * sq * (sq + 1) / 2)
+        att[f"prefill B={b} Sq={sq}"] = dict(
+            shape=f"{shape} bf16", max_abs_err=err,
+            ms=timer.ms(lambda: attention_df.flash_attention(q, kk, vv)),
+            plain_ms=timer.ms(lambda: ref.attention_ref(q, kk, vv)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, is_causal=True)),
+            library_call="F.scaled_dot_product_attention(is_causal=True)",
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
+    for b, kv in ((SERVE_BATCH, 72), (1, 440)):
+        qd, kd, vd = randn(b, hq, 1, dh), randn(b, hkv, buf, dh), \
+            randn(b, hkv, buf, dh)
+        shape = (f"slot decode B={b} Sq=1 kv_len={kv} buffer={buf} Hq={hq} "
+                 f"Hkv={hkv} D={dh}")
+        err = check("flash_attention",
+                    attention_df.flash_attention(qd, kd, vd, kv_len=kv),
+                    ref.attention_ref(qd, kd, vd, kv_len=kv),
+                    shape=f"whisper {shape}", **tol)
+        mask = (torch.arange(buf, device=dev) < kv)[None, None, None, :]
+        bnd = bound(2 * b * kv * hkv * dh * 2 + 2 * b * hq * dh * 2,
+                    4.0 * dh * b * kv * hq)
+        att[f"slot_decode B={b} kv_len={kv}"] = dict(
+            shape=f"{shape} bf16", max_abs_err=err,
+            ms=timer.ms(lambda: attention_df.flash_attention(
+                qd, kd, vd, kv_len=kv)),
+            plain_ms=timer.ms(lambda: ref.attention_ref(qd, kd, vd,
+                                                        kv_len=kv)),
+            library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask)),
+            library_call="F.scaled_dot_product_attention(attn_mask)",
+            bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
+    for rec in att.values():
+        emit({"kernel_timing_detail": "flash_attention", "config": cfg.name,
+              **rec})
+
+    mlp = {}
+    d, dff = cfg.d_model, cfg.d_ff
+    enc_m = SERVE_BATCH * SERVE_AUDIO_FRAMES
+    for k, n, act in ((d, dff, "silu"), (dff, d, None)):
+        w2 = randn(k, n, std=(2.0 / (k + n)) ** 0.5)
+        for m in (SERVE_BATCH, SERVE_BATCH * SERVE_AUDIO_PROMPT,
+                  SERVE_AUDIO_LONG, enc_m):
+            a = randn(m, k)
+            tile = ("matmul_os_decode" if m <= matmul_df.DECODE_M
+                    else "matmul_os_prefill")
+            shape = f"whisper M={m} K={k} N={n} act={act}"
+            err = check(tile, matmul_df.matmul_os(a, w2, activation=act),
+                        ref.matmul_fused_ref(a, w2, activation=act),
+                        shape=shape, **B1_TOL)
+            if m not in (SERVE_BATCH, enc_m):
                 continue
             bnd = bound((m * k + k * n) * 2 + m * n * 4, 2.0 * m * k * n)
             mlp[f"M={m} K={k} N={n}"] = dict(
@@ -2274,6 +2484,14 @@ SERVE_LENS, SERVE_MAX_LEN, SERVE_BATCH, SERVE_CHUNK = (17, 64, 200, 511), \
 # The analytical pick's measured time over the fastest candidate's, at
 # most, on every serve hot problem.
 PICK_RATIO = 1.15
+# serve_audio: whisper-tiny whole; encoder frames a row (whisper's 30-second
+# window after its stride-2 conv), the text context (max_len), the batch's
+# prompt length, the long row's prompt length, greedy decode steps.
+SERVE_AUDIO = "whisper-tiny"
+SERVE_AUDIO_FRAMES, SERVE_AUDIO_MAX_LEN = 1500, 448
+SERVE_AUDIO_PROMPT, SERVE_AUDIO_LONG, SERVE_AUDIO_STEPS = 64, 432, 16
+SERVE_AUDIO_PATH = ("matmul_os", "matmul_os_prefill", "matmul_os_decode",
+                    "flash_attention")
 
 
 def serve_hot_problems(cfg):
@@ -2479,8 +2697,9 @@ def measure_problem(torch, group: str, label: str, problem, hw) -> dict:
 
 
 def autotune_phase(torch):
-    """Each serve hot problem, serve_f32's problems and the paper's
-    problems through ``measure_problem``; gates that every candidate
+    """Each serve hot problem (with whisper-tiny's two frontend convs,
+    bf16 at batch 4 over 1 500 encoder frames), serve_f32's problems and
+    the paper's problems through ``measure_problem``; gates that every candidate
     equals basic OS, that the autotuner serves the explorer's fresh pick
     of every serve and f32 problem, and that there the pick's time is
     within ``PICK_RATIO`` of the fastest candidate's.  The paper's
@@ -2489,6 +2708,7 @@ def autotune_phase(torch):
     from repro_torch import configs
     from repro_torch.core import autotune, cost_model
     from repro_torch.kernels import _build
+    from repro_torch.models import lm
 
     cfg = configs.get("qwen3-1.7b")
     hw = cost_model.hardware_for("cuda")
@@ -2501,6 +2721,8 @@ def autotune_phase(torch):
     misses = []
     summary = {"serve": [], "paper": [], "f32": [], "held-out": []}
     rows = [("serve", label, p) for label, p in serve_hot_problems(cfg)] + \
+        [("serve", "whisper frontend conv", p) for p in lm.hot_conv_problems(
+            configs.get(SERVE_AUDIO), SERVE_BATCH, SERVE_AUDIO_FRAMES)] + \
         [("paper", label, p) for label, p in paper_problems()] + \
         [("f32", label, p) for label, p in dict.fromkeys(f32_problems())] + \
         [("held-out", label, p) for label, p in heldout_problems(cfg)]
@@ -2661,7 +2883,9 @@ SERVE_TILES = {"serve": ("b1_tiles", "matmul_os", "matmul_os_prefill",
                "serve_moe": ("b1_tiles", "matmul_os", "matmul_os_prefill",
                              "matmul_os_decode"),
                "serve_ssm": ("b1_tiles", "matmul_os", "matmul_os_prefill",
-                             "matmul_os_decode")}
+                             "matmul_os_decode"),
+               "serve_audio": ("b1_tiles", "matmul_os", "matmul_os_prefill",
+                               "matmul_os_decode")}
 
 
 def _mlp_inputs(cfg, params, toks, max_len):
@@ -2845,6 +3069,8 @@ def serve_path(torch, cfg, args, phase, path):
     emit({"phase": phase, "event": "mixed_vs_sequential",
           "tokens_differing": differ,
           "gated": not cfg.packed_weights, "ok": True})
+    if phase == "serve":
+        serve_page128(torch, cfg, params, prompts, new_tokens, max_len)
 
     # Prefill throughput: the longest prompt, whole, by CUDA events.
     toks = torch.as_tensor(prompts[-1][None], device="cuda")
@@ -2864,6 +3090,56 @@ def serve_path(torch, cfg, args, phase, path):
     trace_prefill(torch, cfg, params, prompts[-1], max_len, phase)
     trace_decode(torch, cfg, params, prompts, max_len, phase)
     return {k: launches[k] for k in path}
+
+
+# The page size and depth of the serve phase's page-size engine: pages over
+# 32 keys, which B3 refused before its tiles became 32-key slices.
+SERVE_BIG_PAGE, SERVE_BIG_PAGE_LAYERS = 128, 4
+
+
+def serve_page128(torch, cfg, params, prompts, new_tokens, max_len):
+    """The serve phase's prompts through ``Engine`` at ``SERVE_BIG_PAGE``
+    keys a page, qwen3-1.7b at full width and ``SERVE_BIG_PAGE_LAYERS``
+    layers: every request DONE with 0 demotions, B3 launched, the mixed
+    batch == each request alone (gates); its tokens against the same
+    depth's page-16 engine counted, not gated (B3 folds each row's keys
+    in tiles cut by the page, so the summation order follows it)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    phase, depth = "serve", SERVE_BIG_PAGE_LAYERS
+    sub = dataclasses.replace(cfg, n_layers=depth)
+    sub_params = dict(params, layers=_map(lambda t: t[:depth],
+                                          params["layers"]))
+
+    def drain(page, batch):
+        eng = Engine(sub, sub_params, max_len=max_len, device="cuda",
+                     scheduler_config=SchedulerConfig(page_size=page))
+        reqs = [eng.submit(p, new_tokens) for p in batch]
+        before = _build.LAUNCHES["paged_attention"]
+        eng.drain()
+        _healthy(phase, f"page {page}", reqs, eng)
+        return ([list(r.out_tokens) for r in reqs], eng,
+                _build.LAUNCHES["paged_attention"] - before)
+
+    big, eng, b3 = drain(SERVE_BIG_PAGE, prompts)
+    pages = eng.scheduler_report()["pages"]
+    alone = [drain(SERVE_BIG_PAGE, [p])[0][0] for p in prompts]
+    small, _, _ = drain(16, prompts)
+    first = next(((i, j) for i, (x, y) in enumerate(zip(big, alone))
+                  for j, (a, b) in enumerate(zip(x, y)) if a != b), None)
+    emit({"phase": phase, "event": "page_size", "page_size": SERVE_BIG_PAGE,
+          "layers": depth, "prompt_lens": [len(p) for p in prompts],
+          "b3_launches": b3, "pages": pages,
+          "decode_ms_per_step_median": _step_ms(eng),
+          "mixed_equals_alone": first is None,
+          "tokens_differing_from_page16": sum(
+              a != b for x, y in zip(big, small) for a, b in zip(x, y)),
+          "tokens": big})
+    if first is not None or not b3:
+        raise AssertionError(f"page {SERVE_BIG_PAGE}: mixed batch differs "
+                             f"from alone at {first}, or B3 launched {b3}")
 
 
 # ---------------------------------------------------------------------------
@@ -3415,17 +3691,20 @@ def _tiles_gate(phase: str, launches) -> None:
                              f"{split}")
 
 
-def _first_decode(torch, cfg, params, prompt, max_len, nxt=None):
-    """The first decode step's logits after ``lm.prefill`` of ``prompt``:
-    off a page pool filled from the prefill's cache (page 16, B3) for a
-    float cache, off the slot cache (B2; K1 under float32 queries) for an
-    int8 one or a config with SSM state; ``nxt`` (the token fed, default
-    the prefill's greedy one over the first ``vocab_size`` logits).
-    Returns (logits, nxt)."""
+def _first_decode(torch, cfg, params, prompt, max_len, nxt=None,
+                  enc_frames=None):
+    """The first decode step's logits after ``lm.prefill`` of ``prompt``
+    (an encoder-decoder's over ``enc_frames``): off a page pool filled
+    from the prefill's cache (page 16, B3) for a float cache, off the slot
+    cache (B2; K1 under float32 queries) for an int8 one or a config with
+    SSM state or a cross cache; ``nxt`` (the token fed, default the
+    prefill's greedy one over the first ``vocab_size`` logits).  Returns
+    (logits, nxt)."""
     from repro_torch.models import lm
 
     toks = torch.as_tensor(prompt[None], device="cuda")
-    first, cache = lm.prefill(params, toks, cfg, max_len=max_len)
+    kw = {} if enc_frames is None else {"enc_frames": enc_frames}
+    first, cache = lm.prefill(params, toks, cfg, max_len=max_len, **kw)
     if nxt is None:
         nxt = first[:, :cfg.vocab_size].argmax(-1, keepdim=True)
     if not lm.supports_paged_decode(cfg):
@@ -3701,6 +3980,7 @@ def serve_f32_phase(torch, args):
                       chunked)
                   for a, b in zip(x, y)),
               "seconds": time.monotonic() - t0})
+    _serve_f32_audio(torch, args, total, implied_total)
     missing = [k for k in total if total[k] <= 0
                and (k == "paged_attention" or implied_total.get(k))]
     if missing:
@@ -3708,6 +3988,83 @@ def serve_f32_phase(torch, args):
     emit({"phase": phase, "event": "done", "card": card_line(),
           "seconds": time.monotonic() - t_phase, "launches_by_path": total})
     return total
+
+
+# Encoder frames a row of serve_f32's whisper-smoke.
+SERVE_F32_FRAMES = 30
+
+
+def _serve_f32_audio(torch, args, total, implied_total):
+    """serve_f32 for whisper-smoke (2 encoder and 2 decoder layers, d_head
+    16), float32, from the float cache and from an int8 KV cache (its
+    cross K/V float either way), through ``lm.prefill(enc_frames=)`` and
+    ``lm.decode_step``, one row a prompt of ``SERVE_F32_LENS`` with 8
+    greedy steps each (the engine passes no frames, as the JAX engine
+    passes none).  Gates per cache: the first decode logits within B2's
+    f32 tolerance of the plain path; B2 f32 = decoder layers x (prompts +
+    decode steps) from the float cache, B2 f32 = layers x prompts and K1 =
+    layers x decode steps from the int8 one; the launches equal to the
+    picks'; no token past ``vocab_size`` from a decode step."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import layers, lm
+
+    phase, steps = "serve_f32", 8
+    t0 = time.monotonic()
+    cfg = configs.get_smoke(SERVE_AUDIO)
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    frames = torch.randn((1, SERVE_F32_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda")
+    prompts = _prompts(cfg, args.seed, SERVE_F32_LENS)
+    L = cfg.n_layers
+    runs = {}
+    for c in (cfg, dataclasses.replace(cfg, kv_cache_dtype="int8")):
+        tag = c.kv_cache_dtype
+        got, nxt = _first_decode(torch, c, params, prompts[2],
+                                 SERVE_F32_MAX_LEN, enc_frames=frames)
+        with layers.forced_backend("torch"):
+            want, _ = _first_decode(torch, c, params, prompts[2],
+                                    SERVE_F32_MAX_LEN, nxt,
+                                    enc_frames=frames)
+        check(f"{phase} {cfg.name} first decode logits",
+              got[..., :cfg.vocab_size], want[..., :cfg.vocab_size],
+              shape=f"{cfg.name} {tag} cache d_head {cfg.d_head}",
+              **F32_TOL)
+        since, rsince = dict(_build.LAUNCHES), dict(ops.RESOLVED)
+        tokens = []
+        for p in prompts:
+            logits, cache = lm.prefill(
+                params, torch.as_tensor(p[None], device="cuda"), c,
+                max_len=SERVE_F32_MAX_LEN, enc_frames=frames)
+            out = []
+            for _ in range(steps):
+                nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+                out.append(int(nxt))
+                logits, cache = lm.decode_step(params, cache, nxt, c)
+            tokens.append(out + [int(logits.argmax())])
+        torch.cuda.synchronize()
+        la = {k: _build.LAUNCHES[k] - since[k] for k in _build.LAUNCHES}
+        implied = _picks_gate(f"{phase} {cfg.name} {tag}", la,
+                              picks_since(rsince))
+        n_steps = steps * len(prompts)
+        want_k1 = L * n_steps if tag == "int8" else 0
+        if _attention(la) != L * (len(prompts) + n_steps) or \
+                _attention(la, f32=True) != want_k1 or la["paged_attention"] \
+                or any(t >= cfg.vocab_size for ts in tokens for t in ts[1:]):
+            raise AssertionError(f"{cfg.name} {tag} cache launches {la} "
+                                 f"(K1 want {want_k1}) or tokens {tokens}")
+        for k in dict.fromkeys((*SERVE_F32_PATH, *implied)):
+            total[k] = total.get(k, 0) + la[k]
+            implied_total[k] = implied_total.get(k, 0) + implied.get(k, 0)
+        runs[tag] = tokens
+    emit({"phase": phase, "config": cfg.name, "d_head": cfg.d_head,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "layers": L,
+          "enc_layers": cfg.n_enc_layers, "enc_frames": SERVE_F32_FRAMES,
+          "int8_tokens_differing_from_float": sum(
+              a != b for x, y in zip(runs["auto"], runs["int8"])
+              for a, b in zip(x, y)),
+          "seconds": time.monotonic() - t0})
 
 
 # ---------------------------------------------------------------------------
@@ -4450,6 +4807,218 @@ def _serve_ssm_config(torch, args, name: str, total, implied_total):
                 seconds=time.monotonic() - t0)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the audio encoder-decoder, whole.
+# ---------------------------------------------------------------------------
+def _audio_sub(params, depth: int):
+    """whisper's parameters cut to ``depth`` encoder and decoder layers."""
+    return dict(params, layers=_map(lambda t: t[:depth], params["layers"]),
+                encoder=dict(params["encoder"], layers=_map(
+                    lambda t: t[:depth], params["encoder"]["layers"])))
+
+
+def _greedy(torch, params, cfg, toks, frames, steps: int):
+    """``lm.prefill`` of ``toks`` over ``frames``, then ``steps`` greedy
+    ``lm.decode_step``s, synchronized after each, on the host clock.
+    Returns (tokens per row, prefill ms, decode ms per step, cache)."""
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, cache = lm.prefill(params, toks, cfg,
+                               max_len=SERVE_AUDIO_MAX_LEN,
+                               enc_frames=frames)
+    nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    out, step_ms = [nxt], []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        logits, cache = lm.decode_step(params, cache, out[-1], cfg)
+        if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+            raise AssertionError(f"{cfg.name}: non-finite decode logits")
+        out.append(logits.argmax(-1, keepdim=True))
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    tokens = torch.cat(out, dim=1).tolist()
+    return tokens, prefill_ms, sorted(step_ms)[len(step_ms) // 2], cache
+
+
+def serve_audio_phase(torch, args):
+    """whisper-tiny whole (4 encoder and 4 decoder layers, d_model 384, 6
+    heads of 64, SwiGLU MLP of 1 536, vocab 51 865 padded to 51 968), bf16,
+    random weights from ``--seed``, through the model's entry points (the
+    engine passes no encoder frames, as the JAX engine passes none):
+    ``lm.prefill(..., enc_frames=)`` of 4 rows of 64 tokens over 1 500
+    encoder frames a row (whisper's 30-second window after its stride-2
+    conv; drawn from the seed), 16 greedy ``lm.decode_step``s off the slot
+    cache and its cross K/V; then one row of 432 tokens and 16 steps, to
+    ``max_len`` 448 (whisper's text context).  The encoder's
+    self-attention and the cross attention are plain PyTorch (the
+    reference's are jnp einsums); its MLPs and the decoder's run on B1,
+    the decoder's self-attention on B2.  Gates: the first decode logits
+    against the plain path at cosine >= 0.999 with 2 encoder and 2
+    decoder layers (4 + 4 reported); ``lm.forward``'s logits at the last
+    prompt position against ``prefill`` + ``decode_step``'s at cosine >=
+    0.999 (port against port, whole); the launches equal to the picks'
+    (``_picks_gate``), every B1 launch on its tiles; B1 and B2 (or B7)
+    launched; no decode token past ``vocab_size``.  Reported: weights'
+    and cross cache's bytes, the encoder's ms for 4 x 1 500 frames,
+    prefill ms and decode ms/step on the host clock, the decode step
+    traced (device busy and idle share).  Returns the path's launches."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import layers, lm
+
+    phase, max_len = "serve_audio", SERVE_AUDIO_MAX_LEN
+    t_phase = time.monotonic()
+    cfg = configs.get(SERVE_AUDIO)
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    frames = torch.randn((SERVE_BATCH, SERVE_AUDIO_FRAMES, cfg.d_model),
+                         generator=gen, device="cuda").to(torch.bfloat16)
+    rows = np.stack(_prompts(cfg, args.seed,
+                             [SERVE_AUDIO_PROMPT] * SERVE_BATCH))
+    toks = torch.as_tensor(rows, device="cuda")
+    long_toks = torch.as_tensor(
+        _prompts(cfg, args.seed + 1, [SERVE_AUDIO_LONG])[0][None],
+        device="cuda")
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    cross_bytes = 2 * cfg.n_layers * SERVE_BATCH * cfg.n_kv_heads \
+        * SERVE_AUDIO_FRAMES * cfg.d_head * 2
+    emit({"phase": phase, "event": "init_model", "family": cfg.family,
+          "enc_layers": cfg.n_enc_layers, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "d_head": cfg.d_head, "d_ff": cfg.d_ff,
+          "vocab": [cfg.vocab_size, cfg.padded_vocab],
+          "params": sum(t.numel() for t in leaves),
+          "weights_bytes": sum(t.numel() * t.element_size() for t in leaves),
+          "enc_frames": SERVE_AUDIO_FRAMES, "max_len": max_len,
+          "cross_cache_bytes_at_batch": cross_bytes,
+          "encoder_logits_bytes": SERVE_BATCH * cfg.n_heads
+          * SERVE_AUDIO_FRAMES ** 2 * 4,
+          "seconds": time.monotonic() - t_phase})
+
+    # The first decode step on the kernels against the plain path, the
+    # same token fed to both, one row over its frames.
+    for depth in (2, cfg.n_layers):
+        sub = dataclasses.replace(cfg, n_layers=depth, n_enc_layers=depth)
+        sub_params = _audio_sub(params, depth)
+        got, nxt = _first_decode(torch, sub, sub_params, rows[0], max_len,
+                                 enc_frames=frames[:1])
+        with layers.forced_backend("torch"):
+            want, _ = _first_decode(torch, sub, sub_params, rows[0], max_len,
+                                    nxt, enc_frames=frames[:1])
+        got, want = (x[..., :cfg.vocab_size] for x in (got, want))
+        cos = _cosine(got, want)
+        finite = bool(torch.isfinite(got).all())
+        emit({"phase": phase, "event": "first_decode_vs_plain",
+              "layers": [depth, depth], "finite": finite, "cosine": cos,
+              "max_abs_err": max_err(got, want), "gated": depth == 2,
+              "argmax_equal": int(got.argmax()) == int(want.argmax())})
+        if not finite or (depth == 2 and cos < 0.999):
+            raise AssertionError(f"{depth}+{depth}-layer first decode "
+                                 f"logits off the plain path (cosine {cos})")
+        del sub_params
+
+    # The teacher-forced forward against prefill + one decode step, whole.
+    fwd, _ = lm.forward(params, toks, cfg, enc_frames=frames)
+    _, cache = lm.prefill(params, toks[:, :-1], cfg, max_len=max_len,
+                          enc_frames=frames)
+    dec, _ = lm.decode_step(params, cache, toks[:, -1:], cfg)
+    a, b = fwd[:, -1, :cfg.vocab_size], dec[:, :cfg.vocab_size]
+    cos = _cosine(a, b)
+    emit({"phase": phase, "event": "forward_vs_decode", "rows": SERVE_BATCH,
+          "prompt_tokens": SERVE_AUDIO_PROMPT, "cosine": cos,
+          "max_abs_err": max_err(a, b),
+          "argmax_equal": bool(torch.equal(a.argmax(-1), b.argmax(-1)))})
+    if cos < 0.999 or not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"forward's last-position logits off prefill "
+                             f"+ decode_step's (cosine {cos})")
+    del fwd, cache, dec
+
+    # The main path: counts zeroed just before, read just after.
+    _build.reset_launches()
+    rsince = dict(ops.RESOLVED)
+    batch, pre_ms, dec_ms, cache = _greedy(torch, params, cfg, toks,
+                                           frames, SERVE_AUDIO_STEPS)
+    long, long_pre_ms, long_dec_ms, lcache = _greedy(
+        torch, params, cfg, long_toks, frames[:1], SERVE_AUDIO_STEPS)
+    launches = dict(_build.LAUNCHES)
+    implied = _picks_gate(phase, launches, picks_since(rsince),
+                          group="held-out")
+    _tiles_gate(phase, launches)
+    path = tuple(dict.fromkeys(SERVE_AUDIO_PATH + tuple(
+        k for k, v in implied.items() if v)))
+    over = [t for ts in batch + long for t in ts[1:] if t >= cfg.vocab_size]
+    emit({"phase": phase, "event": "main_path", "card": card_line(),
+          "batch": [SERVE_BATCH, SERVE_AUDIO_PROMPT],
+          "long_row": [1, SERVE_AUDIO_LONG], "decode_steps":
+          SERVE_AUDIO_STEPS, "prefill_ms_host": pre_ms,
+          "decode_ms_per_step_host_median": dec_ms,
+          "long_prefill_ms_host": long_pre_ms,
+          "long_decode_ms_per_step_host_median": long_dec_ms,
+          "long_row_kv_len": int(lcache["index"]),
+          "cross_cache_bytes": sum(cache[k].numel() * cache[k].element_size()
+                                   for k in lm.CROSS_KEYS),
+          "launches": {k: launches[k] for k in path},
+          "decode_tokens_past_vocab": len(over),
+          "tokens": batch + long})
+    missing = [k for k in path if launches[k] <= 0 and implied.get(k)]
+    if over or missing or not launches["matmul_os"] \
+            or not _attention(launches) or launches["paged_attention"] \
+            or int(lcache["index"]) != max_len:
+        raise AssertionError(f"{phase}: tokens past vocab {over}, kernels "
+                             f"not launched {missing}, or launches "
+                             f"{launches} (long row at "
+                             f"{int(lcache['index'])} of {max_len})")
+    del cache, lcache
+
+    # The encoder alone and the prefill, by CUDA events (median of 3
+    # after one warm-up), and a second host-clock pass, now that every
+    # lookup is a hit.
+    def events_ms(fn):
+        fn()
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[1]
+
+    enc_ms = events_ms(lambda: lm.encode(params, frames, cfg))
+    pre_ev = events_ms(lambda: lm.prefill(params, toks, cfg, max_len=max_len,
+                                          enc_frames=frames))
+    _, pre2, dec2, cache = _greedy(torch, params, cfg, toks, frames,
+                                   SERVE_AUDIO_STEPS)
+    emit({"phase": phase, "event": "throughput", "card": card_line(),
+          "encoder_ms_events": enc_ms,
+          "encoder_frames": [SERVE_BATCH, SERVE_AUDIO_FRAMES],
+          "prefill_ms_events": pre_ev, "prefill_ms_host_warm": pre2,
+          "decode_ms_per_step_host_warm": dec2,
+          "prefill_tokens_per_s": SERVE_BATCH * SERVE_AUDIO_PROMPT
+          / pre_ev * 1e3})
+
+    # Where a decode step's time goes: steps at batch 4 off the cache
+    # (each rewrites the same position, so every call is the same step).
+    tok = toks[:, -1:]
+    rec = _device_trace(torch, lambda: lm.decode_step(params, cache, tok,
+                                                      cfg), 6)
+    emit({"phase": phase, "event": "decode_trace",
+          "decode_batch": SERVE_BATCH, "steps": 6, **rec})
+    emit({"phase": phase, "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t_phase,
+          "launches_by_path": {k: launches[k] for k in path}})
+    return {k: launches[k] for k in path}
+
+
 # Device kernels of the serving paths, by the name of their __global__
 # function (B1's bf16 basic OS is gemm_tc.cuh's two tiles; its int8 and
 # packed basic OS is gemm_tc_i8.cuh's two; every other B1 launch is
@@ -4697,6 +5266,8 @@ def main(argv=None) -> int:
         paths["serve_moe"] = serve_moe_phase(torch, args)
     if "serve_ssm" in phases:
         paths["serve_ssm"] = serve_ssm_phase(torch, args)
+    if "serve_audio" in phases:
+        paths["serve_audio"] = serve_audio_phase(torch, args)
 
     kernels = []
     for name, reg in registered_kernels().items():
@@ -4705,7 +5276,7 @@ def main(argv=None) -> int:
         own = next((p for p in ("serve", "serve_binary", "serve_packed",
                                 "serve_recovery", "serve_int8kv",
                                 "serve_dense", "serve_f32", "serve_moe",
-                                "serve_ssm",
+                                "serve_ssm", "serve_audio",
                                 "dataflows", "quantized")
                     if paths.get(p, {}).get(name)), None)
         if own is None and "kernels_phase_launches" in rec:
@@ -4728,7 +5299,7 @@ def main(argv=None) -> int:
                                    "split", "packed4", "chunk",
                                    "slot_decode", "bf16_ms", "flash_ms",
                                    "f32_ms", "library_why", "d16", "group5",
-                                   "hymba")
+                                   "hymba", "pages", "whisper")
                if k in rec},
         })
     emit({"kernels": kernels})

@@ -21,7 +21,12 @@ library is built): decode off a page pool, 4 rows at kv_len 0/17/200/527,
 page 16, shuffled page ids, D 128, at the served groups (moonshot-v1-16b-a3b
 16/16, qwen3-1.7b 16/8, 32/4, qwen3-moe-235b-a22b 64/4), bf16 and float32,
 each with its median and digest; a group the checkout's kernel does not
-take is reported as such.  Needs a card.
+take is reported as such.  Then B3 at qwen3-1.7b's group (16/8) at pages
+of 5, 8, 32, 48, 64 and 128 keys, with and without a 100-key window, and
+4 rows of 4 096 keys at pages 16 and 128: at pages of 32 keys or fewer
+two checkouts' digests must agree (a key-range tile of 32 keys is the
+parent's tile of whole pages there); a page the checkout's kernel
+refuses is reported as such.  Needs a card.
 """
 from __future__ import annotations
 
@@ -48,39 +53,53 @@ def _digest(t) -> str:
 # (Hq, Hkv) of B3's rows: groups 1, 2, 8 and 16.
 PAGED_HEADS = ((16, 16), (16, 8), (32, 4), (64, 4))
 PAGED_LENS, PAGED_PAGE = [0, 17, 200, 527], 16
+# (page, window, kv lens) of B3's page rows, at Hq 16 / Hkv 8.
+PAGED_PAGES = tuple((page, window, PAGED_LENS)
+                    for page in (5, 8, 32, 48, 64, 128)
+                    for window in (None, 100)) + tuple(
+    (page, None, [4096] * 4) for page in (16, 128))
 
 
-def paged_rows(timer, dev: str = "cuda"):
+def _paged_row(timer, dev, hq, hkv, page, lens, window=None):
     import torch
 
     from repro_torch.kernels import attention_df
 
-    out = []
-    rows, max_pages = len(PAGED_LENS), 64
-    for hq, hkv in PAGED_HEADS:
-        gen = torch.Generator(device=dev).manual_seed(hq + hkv)
-        n_pages = rows * max_pages + 1
-        kp, vp = (torch.randn((hkv, n_pages, PAGED_PAGE, D), generator=gen,
-                              device=dev) for _ in range(2))
-        tables = torch.randperm(rows * max_pages, generator=gen,
-                                device=dev).reshape(rows, max_pages).to(
-                                    torch.int32)
-        q = torch.randn((rows, hq, 1, D), generator=gen, device=dev)
-        lens = torch.tensor(PAGED_LENS, device=dev, dtype=torch.int32)
-        row = {"shape": f"paged decode R={rows} kv_lens={PAGED_LENS} "
-                        f"page={PAGED_PAGE} Hq={hq} Hkv={hkv} D={D}",
-               "group": hq // hkv}
-        if hq // hkv > attention_df.MAX_GROUP:
-            row["paged"] = f"not taken (MAX_GROUP {attention_df.MAX_GROUP})"
-            out.append(row)
-            continue
-        for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-            args = [t.to(dt) for t in (q, kp, vp)] + [tables, lens]
-            paged = lambda: attention_df.paged_flash_attention(*args)
-            row[f"{tag}_paged_ms"] = timer.ms(paged)
-            row[f"{tag}_paged_sha256"] = _digest(paged())
-        out.append(row)
-    return out
+    rows, max_pages = len(lens), -(-max(max(lens), 1024) // page)
+    gen = torch.Generator(device=dev).manual_seed(hq + hkv + page)
+    n_pages = rows * max_pages + 1
+    kp, vp = (torch.randn((hkv, n_pages, page, D), generator=gen,
+                          device=dev) for _ in range(2))
+    tables = torch.randperm(rows * max_pages, generator=gen,
+                            device=dev).reshape(rows, max_pages).to(
+                                torch.int32)
+    q = torch.randn((rows, hq, 1, D), generator=gen, device=dev)
+    kv = torch.tensor(lens, device=dev, dtype=torch.int32)
+    row = {"shape": f"paged decode R={rows} kv_lens={lens} page={page} "
+                    f"window={window} Hq={hq} Hkv={hkv} D={D}",
+           "group": hq // hkv, "page": page, "window": window}
+    if hq // hkv > attention_df.MAX_GROUP:
+        row["paged"] = f"not taken (MAX_GROUP {attention_df.MAX_GROUP})"
+        return row
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        args = [t.to(dt) for t in (q, kp, vp)] + [tables, kv]
+        paged = lambda: attention_df.paged_flash_attention(*args,
+                                                           window=window)
+        try:
+            got = paged()
+        except ValueError as e:      # a page the checkout refuses
+            row["paged"] = f"not taken ({e})"
+            return row
+        row[f"{tag}_paged_sha256"] = _digest(got)
+        row[f"{tag}_paged_ms"] = timer.ms(paged)
+    return row
+
+
+def paged_rows(timer, dev: str = "cuda"):
+    return ([_paged_row(timer, dev, hq, hkv, PAGED_PAGE, PAGED_LENS)
+             for hq, hkv in PAGED_HEADS]
+            + [_paged_row(timer, dev, 16, 8, page, lens, window)
+               for page, window, lens in PAGED_PAGES])
 
 
 def rows(timer, dev: str = "cuda"):

@@ -14,16 +14,19 @@ Ports of ``repro/kernels/attention_df.py``:
   tiles, 32-key tiles): ``FLASH_BLOCKS``.
 * ``paged_flash_attention`` (``csrc/paged_attention.cu``) replaces
   ``_paged_kernel``: decode attention (Sq == 1) off a page pool through
-  an ``(R, max_pages)`` block table.  Each row's visited pages are cut
-  into chunks (``paged_chunks``: ``PAGED_CHUNK_TILES`` tiles of 32 / page
-  pages, counted from the window's first page, a function of the row's
-  own kv_len, window and page size alone), one CTA per (chunk, kv head,
+  an ``(R, max_pages)`` block table, at any page size.  Each row's
+  visited keys are cut into chunks (``paged_chunks``:
+  ``PAGED_CHUNK_TILES`` tiles of ``paged_tile_keys(page)`` keys, counted
+  from the window's first page, a function of the row's own kv_len,
+  window and page size alone; a tile is 32 keys of the row's logical key
+  range, each key mapped to its page and offset, so a page over 32 keys
+  spans several tiles), one CTA per (chunk, kv head,
   row), its tiles streamed through a ``cp.async`` ring; the chunks'
   partial (m, l, acc) meet in a workspace the wrapper sizes from the
   shapes, merged in chunk order by the row's last CTA.  A CTA has a warp
   per q head of its group bound: 8 warps for a group of at most 8, 16
   for a group of 9 to ``MAX_GROUP`` (qwen3-moe-235b-a22b's 16), so each
-  K/V page is read once per (chunk, kv head) at either.
+  K/V key is read once per (chunk, kv head) at either.
 * ``kv_stationary_attention`` (``csrc/kv_stationary.cu``) replaces
   ``_kv_stationary_kernel`` / ``_kv_single_kernel``: the WS anchor, the
   KV blocks walked outer and the q tiles inner, the same band and mask as
@@ -83,7 +86,6 @@ FLASH_BLOCK = FLASH_BLOCKS[torch.bfloat16]
 KV_BLOCKS = {torch.bfloat16: (64, 64), torch.float32: (16, 32)}
 KV_BLOCK = KV_BLOCKS[torch.bfloat16]
 KV_STAGES = 2                      # csrc/kv_stationary.cu: KV blocks held
-MAX_PAGE = 32                      # csrc/paged_attention.cu: keys per page
 MAX_GROUP = 16                     # csrc/paged_attention.cu: q heads per kv head
 PAGED_NARROW_GROUP = 8             # ... at most, on its 8-warp kernel
 PAGED_TILE_KEYS = 32               # csrc/paged_attention.cu: keys a tile, at most
@@ -135,13 +137,13 @@ PAGED = register_kernel(KernelRegistration(
     name="paged_attention",
     source="src/repro_torch/kernels/csrc/paged_attention.cu",
     replaces="src/repro/kernels/attention_df.py:714",
-    spec=DataflowSpec(anchor=OS, block=(1, MAX_PAGE, 1)),
+    spec=DataflowSpec(anchor=OS, block=(1, PAGED_TILE_KEYS, 1)),
 ))
 PAGED_G16 = register_kernel(KernelRegistration(
     name=_build.PAGED_G16,
     source="src/repro_torch/kernels/csrc/paged_attention.cu",
     replaces="src/repro/kernels/attention_df.py:714",
-    spec=DataflowSpec(anchor=OS, block=(1, MAX_PAGE, 1)),
+    spec=DataflowSpec(anchor=OS, block=(1, PAGED_TILE_KEYS, 1)),
 ))
 
 
@@ -368,31 +370,47 @@ def kv_stationary_attention(
     return out
 
 
-def paged_chunk_pages(page: int) -> int:
-    """Pages of one of B3's chunks: ``PAGED_CHUNK_TILES`` tiles of
-    32 // page pages (one page when a page holds 32 keys or more)."""
-    return PAGED_CHUNK_TILES * max(1, PAGED_TILE_KEYS // page)
+def paged_tile_keys(page: int) -> int:
+    """Keys of one of B3's tiles: whole pages where a page holds fewer
+    than 32 keys (as many as fit: 32 at a page of 16, 30 at a page of 5),
+    else a 32-key slice of the row's key range."""
+    if page >= PAGED_TILE_KEYS:
+        return PAGED_TILE_KEYS
+    return PAGED_TILE_KEYS // page * page
+
+
+def paged_chunk_keys(page: int) -> int:
+    """Keys of one of B3's chunks: ``PAGED_CHUNK_TILES`` tiles."""
+    return PAGED_CHUNK_TILES * paged_tile_keys(page)
 
 
 def paged_max_chunks(page: int, max_pages: int) -> int:
     """Chunks of the longest row a (R, max_pages) table can hold: the
     kernel's grid and the workspace's depth."""
-    return -(-max_pages // paged_chunk_pages(page))
+    return -(-max_pages * page // paged_chunk_keys(page))
 
 
 def paged_chunks(kv_len: int, page: int, max_pages: int,
                  window: Optional[int] = None):
-    """The (first, last) logical pages of each of B3's chunks of one row:
-    its visited pages lo..hi (``repro/kernels/attention_df.py:602-608``,
-    hi also capped by the table) cut from lo into runs of
-    ``paged_chunk_pages(page)``.  A function of the row alone; a row of
-    kv_len 0 has none."""
+    """The key ranges [first, end) of each of B3's chunks of one row.
+    The row visits logical pages lo..hi (``repro/kernels/attention_df.py
+    :602-608``, hi also capped by the table); its keys run from the
+    32-key slice of page lo holding the window's first key (page lo's
+    first key, at a page of 32 keys or fewer) to its last valid key the
+    table holds, cut into runs of ``paged_chunk_keys(page)``.  A function
+    of the row alone; a row of kv_len 0 has none.  At a page of 32 keys or
+    fewer each chunk starts on a page boundary and covers whole pages."""
     hi = min(-(-kv_len // page), max_pages) - 1
     if hi < 0:
         return []
     lo = 0 if not window else min(max(0, (kv_len - window) // page), hi)
-    cp = paged_chunk_pages(page)
-    return [(c, min(hi, c + cp - 1)) for c in range(lo, hi + 1, cp)]
+    k_end = min(kv_len, (hi + 1) * page)
+    k_lo = lo * page
+    if window:
+        k_lo += max(0, kv_len - window - k_lo) // PAGED_TILE_KEYS \
+            * PAGED_TILE_KEYS
+    ck = paged_chunk_keys(page)
+    return [(c, min(k_end, c + ck)) for c in range(k_lo, k_end, ck)]
 
 
 # The zeroed arrival counters of B3's chunks, one per (row, kv head), by
@@ -435,9 +453,9 @@ def paged_flash_attention(
     if v_pages.shape != k_pages.shape or k_pages.shape[3] != d or hq % hkv:
         raise ValueError(f"bad paged shapes q {tuple(q.shape)} pools "
                          f"{tuple(k_pages.shape)}")
-    if hq // hkv > MAX_GROUP or page > MAX_PAGE:
+    if hq // hkv > MAX_GROUP:
         raise ValueError(f"paged kernel takes at most {MAX_GROUP} q heads "
-                         f"per kv head and {MAX_PAGE} positions per page")
+                         f"per kv head")
     if block_tables.ndim != 2 or block_tables.shape[0] != b \
             or tuple(kv_lens.shape) != (b,):
         raise ValueError(f"need a (B, max_pages) table and (B,) kv_lens for "

@@ -9,17 +9,23 @@
 // memory. A row with kv_len == 0 visits no page and writes zeros; a page id
 // outside the pool is treated as fully masked.
 //
-// Bound on H100: bytes (every visited K/V page is read once; the arithmetic
+// Bound on H100: bytes (every visited K/V key is read once; the arithmetic
 // is 4*D flops per key), but at decode's few rows the latency of one walk
-// over a row's pages sets the time. So the walk is split:
-//   - A row's pages lo..hi are cut into chunks of CHUNK_TILES tiles, a tile
-//     being 32 / page pages (32 keys at page 16), counted from lo. The cut
-//     depends on nothing but the row's own kv_len, window and page size, so
-//     a row gets the same bits in any batch. One CTA per (chunk, kv head,
-//     row): 4 x 8 x 5 CTAs for the 527-key row at qwen3-1.7b's 8 kv heads.
+// over a row's keys sets the time. So the walk is split:
+//   - A row's keys, from the 32-key slice of page lo that holds the
+//     window's first key to its last valid key, are cut into chunks of
+//     CHUNK_TILES tiles. A tile is 32 keys of the row's logical key range
+//     (tile_keys: whole pages where a page holds fewer, as many as fit), and
+//     each key maps to (logical page, offset) by kpos / page and kpos % page,
+//     so a page over 32 keys spans several tiles and one of 48 keys needs no
+//     special case. The cut depends on nothing but the row's own kv_len,
+//     window and page size, so a row gets the same bits in any batch. One
+//     CTA per (chunk, kv head, row): 5 x 8 CTAs for the 527-key row at
+//     qwen3-1.7b's 8 kv heads.
 //   - A CTA streams its chunk's tiles through a STAGES-deep cp.async ring in
-//     shared memory, the next tiles' K and V in flight while one folds; the
-//     chunk's page ids are read once, up front.
+//     shared memory, the next tiles' K and V in flight while one folds (keys
+//     past the row's end are zero-filled, not read); the page ids of the
+//     pages the chunk's keys lie on are read once, up front.
 //   - All G warps fold: each (q head of the GQA group, part of D) has a warp
 //     whose lanes take the tile's 32 keys, so a score is a few partial dots
 //     summed in shared memory; one warp per q head runs the online softmax
@@ -29,7 +35,7 @@
 //     q rows, probabilities and (m, l) of up to G q heads. A group of at most
 //     8 takes the 8-warp kernel; a group of 9 to 16 (qwen3-moe-235b-a22b's
 //     64 q heads over 4 kv heads) the 16-warp one, so every thread still owns
-//     cdiv(8 * D, 256) outputs and every K/V page is still read once per
+//     cdiv(8 * D, 256) outputs and every K/V key is still read once per
 //     (chunk, kv head).
 //   - Each chunk of a row with more than one writes its partial (m, l, acc)
 //     to a workspace the wrapper sizes from the shapes; the last CTA of the
@@ -47,20 +53,24 @@
 
 namespace {
 
-constexpr int MAX_PAGE = 32;   // keys per page
 constexpr int MAX_GROUP = 16;  // q heads per kv head: the larger G
 constexpr int TILE_KEYS = 32;  // keys a tile holds at most: one per lane
 constexpr int CHUNK_TILES = 4; // tiles a chunk (attention_df.py keeps a copy)
 constexpr int STAGES = 3;      // ring depth, in tiles
-constexpr int MAX_CHUNK_PAGES = CHUNK_TILES * TILE_KEYS;  // page == 1
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-// Pages a tile, and a chunk, at `page` keys a page.
-__host__ __device__ constexpr int tile_pages(int page) {
-  return page >= TILE_KEYS ? 1 : TILE_KEYS / page;
+// Keys of a tile, and of a chunk, at `page` keys a page: whole pages up to
+// 32 keys (32 at a page of 16, 30 at a page of 5), else a 32-key slice.
+__host__ __device__ constexpr int tile_keys(int page) {
+  return page >= TILE_KEYS ? TILE_KEYS : TILE_KEYS / page * page;
 }
-__host__ __device__ constexpr int chunk_pages(int page) {
-  return CHUNK_TILES * tile_pages(page);
+__host__ __device__ constexpr int chunk_keys(int page) {
+  return CHUNK_TILES * tile_keys(page);
+}
+// Pages a chunk's keys can lie on: a chunk starts on a page boundary where a
+// page holds 32 keys or fewer, anywhere on a 32-key slice where it holds more.
+__host__ __device__ constexpr int chunk_page_ids(int page) {
+  return cdiv(chunk_keys(page) - 1, page) + 1;
 }
 
 // Threads of the CTA of group bound G: a warp per q head.
@@ -69,7 +79,8 @@ __host__ __device__ constexpr int threads(int g) { return 32 * g; }
 // Shared memory of one CTA, in bytes: the ring of K and V tiles (rows padded
 // by 16 bytes, an odd number of 16-byte units, so the lanes' vector loads of
 // 32 keys hit distinct banks), q, the score partials (a row a warp), the
-// probabilities, alpha and (m, l) per q head, and the chunk's page ids.
+// probabilities, alpha and (m, l) per q head; then the chunk's page ids,
+// chunk_page_ids(page) of them, sized at launch.
 template <typename T, int D, int G>
 struct Smem {
   static constexpr int V = 16 / sizeof(T);  // elements of a 16-byte vector
@@ -77,7 +88,8 @@ struct Smem {
   static constexpr int TILE = TILE_KEYS * LD;
   static constexpr size_t RING = (size_t)STAGES * 2 * TILE * sizeof(T);
   static constexpr size_t FLOATS = G * D + G * TILE_KEYS + G * TILE_KEYS + 3 * G;
-  static constexpr size_t BYTES = RING + FLOATS * 4 + MAX_CHUNK_PAGES * 4;
+  static constexpr size_t BASE = RING + FLOATS * 4;
+  static size_t bytes(int page) { return BASE + (size_t)chunk_page_ids(page) * 4; }
 };
 
 template <typename T, int D, int G>
@@ -100,7 +112,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   float* ps = sp + G * TILE_KEYS;         // [G][32] probabilities
   float* alpha_s = ps + G * TILE_KEYS;    // [G]
   float* ml_s = alpha_s + G;              // [G][2]: m, l
-  int* ids = reinterpret_cast<int*>(ml_s + 2 * G);
+  int* ids = reinterpret_cast<int*>(smem + S::BASE);
   __shared__ int is_last;
 
   const int chunk = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
@@ -109,22 +121,30 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int hi = min(cdiv(kv, page), max_pages) - 1;
   int lo = 0;
   if (window > 0 && hi >= 0) lo = min(max(0, (kv - window) / page), hi);
-  const int pt = tile_pages(page), tk = pt * page, cp = chunk_pages(page);
-  const int n_chunks = hi < 0 ? 0 : cdiv(hi - lo + 1, cp);
+  // The row's keys k_lo .. k_end - 1: from the 32-key slice of page lo that
+  // holds the window's first key (page lo's first key at a page of 32 or
+  // fewer) to the last valid key the table holds.
+  const int k_end = hi < 0 ? 0 : min(kv, (hi + 1) * page);
+  int k_lo = lo * page;
+  if (window > 0) k_lo += max(0, kv - window - k_lo) / TILE_KEYS * TILE_KEYS;
+  const int tk = tile_keys(page), ck = chunk_keys(page);
+  const int n_chunks = k_end > k_lo ? cdiv(k_end - k_lo, ck) : 0;
   const size_t q_row = (size_t)row * hq + (size_t)kvh * group;
   T* out = o + q_row * D;
   const int outs = group * D;
-  if (n_chunks == 0) {  // kv_len 0: chunk 0 writes zeros
+  if (n_chunks == 0) {  // no key (kv_len 0): chunk 0 writes zeros
     if (chunk == 0)
       for (int i = tid; i < outs; i += THREADS) store_f32(out + i, 0.f);
     return;
   }
   if (chunk >= n_chunks) return;
 
-  const int c_lo = lo + chunk * cp, n_pg = min(hi, c_lo + cp - 1) - c_lo + 1;
-  const int n_tiles = cdiv(n_pg, pt);
-  const int* table = tables + (size_t)row * max_pages + c_lo;
-  for (int i = tid; i < n_pg; i += THREADS) {
+  // This chunk's keys c_lo .. c_end - 1, on pages p0 .. p0 + n_ids - 1.
+  const int c_lo = k_lo + chunk * ck, c_end = min(k_end, c_lo + ck);
+  const int p0 = c_lo / page, n_ids = (c_end - 1) / page - p0 + 1;
+  const int n_tiles = cdiv(c_end - c_lo, tk);
+  const int* table = tables + (size_t)row * max_pages + p0;
+  for (int i = tid; i < n_ids; i += THREADS) {
     const int pid = table[i];
     ids[i] = pid >= 0 && pid < n_pages ? pid : -1;
   }
@@ -138,9 +158,10 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     T* vt = kt + S::TILE;
     constexpr int VPR = D / V;
     for (int i = tid; i < tk * VPR; i += THREADS) {
-      const int j = i / VPR, c = (i % VPR) * V, pi = ti * pt + j / page;
-      const int pid = pi < n_pg ? ids[pi] : -1;
-      const size_t src = pool + ((size_t)max(pid, 0) * page + j % page) * D + c;
+      const int j = i / VPR, c = (i % VPR) * V, kpos = c_lo + ti * tk + j;
+      const int pid = kpos < c_end ? ids[kpos / page - p0] : -1;
+      const size_t src =
+          pool + ((size_t)max(pid, 0) * page + kpos % page) * D + c;
       tc::cp_async16(kt + j * LD + c, k_pages + src, pid >= 0);
       tc::cp_async16(vt + j * LD + c, v_pages + src, pid >= 0);
     }
@@ -183,9 +204,8 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     __syncthreads();
 
     if (warp < group) {  // online softmax of q head `warp`, key `lane`
-      const int pi = ti * pt + lane / page;
-      const int kpos = (c_lo + ti * pt) * page + lane;
-      bool valid = lane < tk && pi < n_pg && ids[pi] >= 0 && kpos < kv;
+      const int kpos = c_lo + ti * tk + lane;
+      bool valid = lane < tk && kpos < c_end && ids[kpos / page - p0] >= 0;
       if (window > 0) valid = valid && kpos > kv - 1 - window;
       float s = REPRO_NEG_INF;
       if (valid) {
@@ -196,7 +216,9 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       }
       const float m_new = fmaxf(m_run, warp_max(s));
       const float p = valid ? expf(s - m_new) : 0.f;
-      const float alpha = expf(m_run - m_new);
+      // no valid key yet (a 32-key slice of a page over 32 keys can lie
+      // wholly before the window): nothing to rescale
+      const float alpha = m_new == REPRO_NEG_INF ? 1.f : expf(m_run - m_new);
       l_run = alpha * l_run + warp_sum(p);
       m_run = m_new;
       ps[warp * TILE_KEYS + lane] = p;
@@ -276,7 +298,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables,
            int* counters, int rows, int hq, int hkv, int n_pages, int page,
            int max_pages, int max_chunks, int window, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = Smem<T, D, G>::BYTES;
+  const size_t smem = Smem<T, D, G>::bytes(page);
   auto kernel = paged_kernel<T, D, G>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -326,8 +348,8 @@ int launch_d(int d, const void* q, const void* kp, const void* vp,
 // (rows, max_pages) int32; kv_lens (rows,) int32; o like q. Workspace:
 // ws_acc (rows * hq, max_chunks, d) and ws_ml (rows * hq, max_chunks, 2)
 // float32, counters (rows * hkv) int32, zero (and left zero).
-// max_chunks must be cdiv(max_pages, chunk pages). window <= 0: no sliding
-// window.
+// max_chunks must be cdiv(max_pages * page, chunk keys). window <= 0: no
+// sliding window.
 extern "C" int paged_attention(const void* q, const void* k_pages,
                                const void* v_pages, const int* tables,
                                const int* kv_lens, void* o, float* ws_acc,
@@ -336,8 +358,9 @@ extern "C" int paged_attention(const void* q, const void* k_pages,
                                int page, int max_pages, int max_chunks,
                                float scale, int window, void* stream) {
   if (rows <= 0 || rows > 65535 || hkv <= 0 || hkv > 65535 || hq % hkv ||
-      hq / hkv > MAX_GROUP || page <= 0 || page > MAX_PAGE || n_pages <= 0 ||
-      max_pages <= 0 || max_chunks != cdiv(max_pages, chunk_pages(page)) ||
+      hq / hkv > MAX_GROUP || page <= 0 || n_pages <= 0 || max_pages <= 0 ||
+      (long long)max_pages * page > (1 << 30) ||
+      max_chunks != cdiv(max_pages * page, chunk_keys(page)) ||
       !ws_acc || !ws_ml || !counters)
     return REPRO_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

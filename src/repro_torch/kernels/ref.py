@@ -157,7 +157,8 @@ def paged_attention_ref(
 
 
 # ---------------------------------------------------------------------------
-# Convolution (twins of repro/kernels/ref.py conv2d_ref, conv2d_fused_ref).
+# Convolution (twins of repro/kernels/ref.py conv2d_ref, conv2d_fused_ref,
+# grouped_conv2d_ref, depthwise_conv2d_ref).
 # ---------------------------------------------------------------------------
 def _conv_out_hw(ih: int, iw: int, fh: int, fw: int, stride: int):
     return (ih - fh) // stride + 1, (iw - fw) // stride + 1
@@ -211,6 +212,53 @@ def conv2d_fused_ref(
     if residual is not None:
         out = out + residual.float()
     return out.to(out_dtype or torch.float32)
+
+
+def grouped_conv2d_ref(
+    x: torch.Tensor,          # (N, H, W, Cin)
+    w: torch.Tensor,          # (fh, fw, Cin // groups, Cout)
+    stride: int = 1,
+    groups: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Grouped conv: ``conv2d_ref`` per group of input and output
+    channels, concatenated (groups == Cin == Cout is a depthwise conv;
+    ``depthwise_conv2d_ref`` takes its (fh, fw, C) filter).  The
+    reference has an oracle and no kernel for it."""
+    cin = x.shape[-1]
+    cg, cout = w.shape[2], w.shape[3]
+    if cin % groups or cout % groups or cg != cin // groups:
+        raise ValueError(f"grouped conv of {cin} -> {cout} channels in "
+                         f"{groups} groups needs a (fh, fw, {cin // groups}, "
+                         f"Cout) filter, got {tuple(w.shape)}")
+    og = cout // groups
+    return torch.cat([conv2d_ref(x[..., g * cg:(g + 1) * cg],
+                                 w[..., g * og:(g + 1) * og], stride,
+                                 out_dtype)
+                      for g in range(groups)], dim=-1)
+
+
+def depthwise_conv2d_ref(
+    x: torch.Tensor,          # (N, H, W, C)
+    w: torch.Tensor,          # (fh, fw, C)
+    stride: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Depthwise conv (one filter per channel), VALID padding: one
+    elementwise product per filter tap, summed over the taps in the
+    reference's order, in int32 for integer inputs (exact) and float32
+    otherwise.  The reference has an oracle and no kernel for it."""
+    n, ih, iw, c = x.shape
+    fh, fw, _ = w.shape
+    oh, ow = _conv_out_hw(ih, iw, fh, fw, stride)
+    acc = torch.float32 if x.is_floating_point() else torch.int32
+    out = torch.zeros((n, oh, ow, c), dtype=acc, device=x.device)
+    for ky in range(fh):
+        for kx in range(fw):
+            xs = x[:, ky:ky + (oh - 1) * stride + 1:stride,
+                   kx:kx + (ow - 1) * stride + 1:stride, :]
+            out = out + xs.to(acc) * w[ky, kx].to(acc)
+    return out.to(out_dtype or acc)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,13 @@ w3, w2}`` and, with shared experts, ``layers.moe.shared.{w1, w3, w2}``;
 with an SSM ``layers.mamba.{z_proj, x_proj, bc_proj, dt_proj, conv_x_w,
 conv_x_b, conv_bc_w, conv_bc_b, a_log, d_skip, dt_bias, norm,
 out_proj}``, and no ``attn`` for an attention-free config, no ``ln2`` or
-``mlp`` for an ``ssm`` one; ``final_norm``; ``lm_head.table`` when the
-embeddings are untied).
+``mlp`` for an ``ssm`` one; for an encoder-decoder ``layers.ln_cross``,
+``layers.cross.{wq, wk, wv, wo}``, and ``encoder.layers.{ln1, ln2}``,
+``encoder.layers.attn.{wq, wk, wv, wo}``, ``encoder.layers.mlp.{w1, w3,
+w2}`` stacked on the encoder's ``n_enc_layers`` and
+``encoder.final_norm``, each attention with ``q_norm``/``k_norm`` under
+qk-norm; ``final_norm``; ``lm_head.table`` when the embeddings are
+untied).
 ``params_from_numpy`` takes that tree with numpy leaves
 (``jax.tree.map(numpy.asarray, params)``) and returns the port's
 parameters, the same layout as ``lm.init_model`` builds.  It
@@ -25,8 +30,8 @@ crosses over leaf by leaf (its planes are int32 already), with its
 
 ``cache_from_numpy`` carries a JAX cache across the same way (int8
 codes, f32 scales, bf16 K/V by their bits, the SSM's ``ssm``/``conv``
-state, and ``index``), so the port's decode step can run on exactly the
-JAX package's cache.
+state, an encoder-decoder's ``cross_k``/``cross_v``, and ``index``), so
+the port's decode step can run on exactly the JAX package's cache.
 
 ``params_from_checkpoint`` loads the port's parameters from one of its
 own checkpoints (the ``params`` tree of an engine snapshot,
@@ -55,20 +60,32 @@ def _mamba_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
             "out_proj": (di, d)}
 
 
+def _attention_shapes(cfg, prefix: Tuple[str, ...],
+                      n: int) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
+    """Leaf path -> shape of ``n`` stacked attentions under ``prefix``
+    (with ``q_norm``/``k_norm`` under qk-norm)."""
+    d, dh = cfg.d_model, cfg.d_head
+    shapes = {prefix + ("wq",): (n, d, cfg.q_dim),
+              prefix + ("wk",): (n, d, cfg.kv_dim),
+              prefix + ("wv",): (n, d, cfg.kv_dim),
+              prefix + ("wo",): (n, cfg.q_dim, d)}
+    if cfg.qk_norm:
+        shapes[prefix + ("q_norm",)] = (n, dh)
+        shapes[prefix + ("k_norm",)] = (n, dh)
+    return shapes
+
+
 def expected_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
-    """Leaf path -> shape of a dense, MoE, SSM or hybrid decoder's
-    parameter tree."""
-    n, d, dh, ff = cfg.n_layers, cfg.d_model, cfg.d_head, cfg.d_ff
+    """Leaf path -> shape of a dense, MoE, SSM or hybrid decoder's, or
+    an encoder-decoder's, parameter tree."""
+    n, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
     shapes = {
         ("embed", "table"): (cfg.padded_vocab, d),
         ("layers", "ln1"): (n, d),
         ("final_norm",): (d,),
     }
     if cfg.has_attention:
-        shapes[("layers", "attn", "wq")] = (n, d, cfg.q_dim)
-        shapes[("layers", "attn", "wk")] = (n, d, cfg.kv_dim)
-        shapes[("layers", "attn", "wv")] = (n, d, cfg.kv_dim)
-        shapes[("layers", "attn", "wo")] = (n, cfg.q_dim, d)
+        shapes.update(_attention_shapes(cfg, ("layers", "attn"), n))
     if cfg.has_ssm:
         for leaf, shape in _mamba_shapes(cfg).items():
             shapes[("layers", "mamba", leaf)] = (n,) + shape
@@ -99,9 +116,18 @@ def expected_shapes(cfg) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
         shapes[("layers", "mlp", "w1")] = (n, d, ff)
         shapes[("layers", "mlp", "w3")] = (n, d, ff)
         shapes[("layers", "mlp", "w2")] = (n, ff, d)
-    if cfg.qk_norm and cfg.has_attention:
-        shapes[("layers", "attn", "q_norm")] = (n, dh)
-        shapes[("layers", "attn", "k_norm")] = (n, dh)
+    if cfg.is_encoder_decoder:
+        ne = cfg.n_enc_layers
+        shapes[("layers", "ln_cross")] = (n, d)
+        shapes.update(_attention_shapes(cfg, ("layers", "cross"), n))
+        enc = ("encoder", "layers")
+        shapes[enc + ("ln1",)] = (ne, d)
+        shapes[enc + ("ln2",)] = (ne, d)
+        shapes.update(_attention_shapes(cfg, enc + ("attn",), ne))
+        shapes[enc + ("mlp", "w1")] = (ne, d, ff)
+        shapes[enc + ("mlp", "w3")] = (ne, d, ff)
+        shapes[enc + ("mlp", "w2")] = (ne, ff, d)
+        shapes[("encoder", "final_norm")] = (d,)
     if not cfg.tie_embeddings:
         shapes[("lm_head", "table")] = (cfg.padded_vocab, d)
     return shapes
@@ -214,9 +240,10 @@ def cache_from_numpy(tree: Dict[str, Any], cfg, device=None
     codes) and an int8 cache's ``k_scale``/``v_scale`` (L, B, Hkv, S, 1)
     f32; with an SSM ``ssm`` (L, B, H, N, P) and ``conv`` (L, B, K-1,
     d_inner + 2N), float32 (a tail the reference left in the activations'
-    type is widened, exactly); and ``index`` as an int (a scalar) or an
-    int32 tensor (one per row).  Raises ``ValueError`` on a missing or
-    unexpected buffer or a shape ``cfg`` does not give."""
+    type is widened, exactly); with an encoder ``cross_k``/``cross_v``
+    (L, B, Hkv, S_enc, D) as they are; and ``index`` as an int (a scalar)
+    or an int32 tensor (one per row).  Raises ``ValueError`` on a missing
+    or unexpected buffer or a shape ``cfg`` does not give."""
     from repro_torch.models import lm
 
     dev = device_lib.resolve(device)
@@ -224,6 +251,7 @@ def cache_from_numpy(tree: Dict[str, Any], cfg, device=None
     want = list(lm.KV_KEYS if int8 else lm.KV_KEYS[:2]) \
         if cfg.has_attention else []
     want += list(lm.SSM_KEYS) if cfg.has_ssm else []
+    want += list(lm.CROSS_KEYS) if cfg.is_encoder_decoder else []
     names = [n for n in lm.CACHE_KEYS if n in tree]
     if names != want or "index" not in tree:
         raise ValueError(f"a {'int8' if int8 else 'float'} cache of "
@@ -246,6 +274,10 @@ def cache_from_numpy(tree: Dict[str, Any], cfg, device=None
                          cfg.ssm_headdim)
         shapes["conv"] = (cfg.n_layers, b, cfg.ssm_conv - 1,
                           cfg.d_inner + 2 * cfg.ssm_state)
+    if cfg.is_encoder_decoder:
+        b, se = np.shape(tree["k"])[1], np.shape(tree["cross_k"])[3]
+        for n in lm.CROSS_KEYS:
+            shapes[n] = (cfg.n_layers, b, cfg.n_kv_heads, se, cfg.d_head)
     for n, sh in shapes.items():
         if tuple(np.shape(tree[n])) != sh:
             raise ValueError(f"cache {n}: shape {np.shape(tree[n])} != {sh}")

@@ -2,6 +2,7 @@
 
 Twins of ``repro/models/layers.py`` for the dense decoder: RMSNorm,
 RoPE, embedding, GQA attention (prefill and cached), paged decode
+attention, the bidirectional attention of an encoder and of cross
 attention, the SwiGLU MLP, the binary MLP and the packed-weight SwiGLU
 MLP, with parameters as dictionaries of tensors in the JAX package's
 layout.
@@ -12,8 +13,9 @@ through ``ops.matmul_packed[_fused]`` (B1 with B6 decoding the planes),
 the binary MLP's two through ``binary_dense`` ->
 ``ops.binary_matmul_fused`` (B9), prefill and cached attention through
 ``ops.attention`` (B2), paged decode through ``ops.paged_attention``
-(B3).  The q/k/v/o projections and the unembedding stay
-``torch.matmul``, as the JAX package leaves them to XLA.  ``forced_backend("torch")`` pins every dispatch site onto its
+(B3).  The q/k/v/o projections, the unembedding and
+``bidir_attention`` stay plain PyTorch, as the JAX package leaves them to
+XLA.  ``forced_backend("torch")`` pins every dispatch site onto its
 plain PyTorch path — the serving engine's degraded step.  The sites
 carry the ``layers.attention`` / ``layers.mlp`` fault-injection points.
 """
@@ -223,6 +225,72 @@ def paged_attention_apply(
                               scale=cfg.d_head ** -0.5, window=window,
                               backend=backend or _BACKEND_OVERRIDE)
     return _finish(p, out, fault), (k_pages, v_pages)
+
+
+# ---------------------------------------------------------------------------
+# Bidirectional attention (the encoder's self-attention, cross attention).
+# Plain PyTorch on any device: the reference computes it with jnp einsums
+# outside any Pallas kernel (``layers.bidir_attention``), so there is no
+# TPU kernel to port, and its twin here is the same einsum.
+# ---------------------------------------------------------------------------
+def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """The reference's ``_plain_attention`` without a mask (all keys
+    visible): q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D); logits and the
+    softmax in float32; the output in q's dtype."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float, q_chunk: int = 512,
+                       kv_chunk: int = 1024) -> torch.Tensor:
+    """The reference's double-chunked online softmax without a mask:
+    q chunks outer, KV chunks inner, a running (m, l, acc) in float32 per
+    q row, so live memory is O(q_chunk x kv_chunk) whatever the length.
+    The reference pads the last chunks and masks the padding; here they
+    are shorter, which adds nothing to a sum."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    kf, vf = k.float(), v.float()
+    outs = []
+    for q0 in range(0, sq, q_chunk):
+        qi = q[:, :, q0:q0 + q_chunk].reshape(b, hkv, g, -1, d).float()
+        m = torch.full(qi.shape[:-1] + (1,), float("-inf"),
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qi)
+        for k0 in range(0, skv, kv_chunk):
+            logits = torch.einsum("bhgqd,bhkd->bhgqk", qi,
+                                  kf[:, :, k0:k0 + kv_chunk]) * scale
+            m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+            p = torch.exp(logits - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vf[:, :, k0:k0 + kv_chunk])
+            m = m_new
+        outs.append((acc / l).reshape(b, hq, -1, d).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def bidir_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, chunked_threshold: int = 2048
+                    ) -> torch.Tensor:
+    """Non-causal GQA attention (the encoder's, and cross attention): the
+    masked einsum up to ``chunked_threshold`` keys, the double-chunked
+    online softmax above, as the reference dispatches.  Plain PyTorch on
+    every device (see the section's head): no kernel of the port runs
+    here."""
+    if k.shape[2] > chunked_threshold:
+        return _chunked_attention(q, k, v, scale)
+    return _plain_attention(q, k, v, scale)
 
 
 # ---------------------------------------------------------------------------

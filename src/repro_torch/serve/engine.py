@@ -23,8 +23,8 @@ kernel wrapper computes its plain version, a failed step demotes to
 ``layers.forced_backend("torch")`` as the JAX engine demotes to XLA,
 re-probing the primary path after a cooldown.  A kernel that does not
 build or launch (``KernelError``) is not a failed step: it propagates at
-once.  Admission asks what the CUDA kernels accept — the head dimension,
-the page size and the GQA group — and then, as the JAX engine does,
+once.  Admission asks what the CUDA kernels accept — the head dimension
+and the GQA group — and then, as the JAX engine does,
 whether the explorer has a feasible attention dataflow for every
 workload the request implies (``_attention_feasible``).  A CUDA engine
 warms the autotuner (``core.autotune``) for each request shape before it
@@ -47,6 +47,15 @@ Greedy decode is a pure function of the params and the journaled
 prompts, so the recovered tokens equal the uninterrupted run's, and
 ``_check_replay`` counts any that do not (``replay_divergence``).
 ``restore(devices=...)`` (a smaller mesh) is not ported (ROADMAP A14).
+
+An encoder-decoder config (whisper, family ``audio``) is admitted as the
+JAX engine admits it, and served as that engine serves it: no step of
+either passes encoder frames (the JAX engine's ``make_prefill_fn`` never
+does), so a whole-prompt prefill raises ``ValueError`` inside
+``_execute`` and its requests end FAILED once the retries are spent; a
+chunked prefill runs ``lm.prefill_chunk`` over the cache's zero cross
+K/V, as the JAX scheduler's does.  The encoder runs through
+``lm.prefill(..., enc_frames=)`` and ``lm.forward``, outside the engine.
 """
 from __future__ import annotations
 
@@ -214,15 +223,11 @@ class Engine:
         """Why the port's kernels cannot serve this config, or None.  An
         attention-free config (an SSM's) reaches no attention kernel."""
         cfg = self.cfg
-        sc = self.scheduler_config or SchedulerConfig()
         if not cfg.has_attention:
             return None
         if cfg.d_head not in attention_df.HEAD_DIMS:
             return (f"d_head {cfg.d_head} not in the attention kernels' "
                     f"{attention_df.HEAD_DIMS}")
-        if sc.page_size > attention_df.MAX_PAGE:
-            return (f"page_size {sc.page_size} > the paged kernel's "
-                    f"{attention_df.MAX_PAGE}")
         if cfg.n_heads // cfg.n_kv_heads > attention_df.MAX_GROUP:
             return (f"GQA group {cfg.n_heads // cfg.n_kv_heads} > the paged "
                     f"kernel's {attention_df.MAX_GROUP}")
@@ -267,7 +272,8 @@ class Engine:
         (or, with ``chunks``, of one row's chunks of those lengths over
         the cache) and of a decode step at ``decode_batch`` rows (default
         ``batch``; ``per_row``: each row at its own cache index, as the
-        scheduler's slot cache decodes)."""
+        scheduler's slot cache decodes); and an audio config's frontend
+        convs (``lm.hot_conv_problems``), as the JAX engine warms them."""
         cfg, db = self.cfg, decode_batch or batch
         if chunks:
             prefill = [p for c in sorted(set(chunks))
@@ -278,6 +284,7 @@ class Engine:
                        + [p for p in lm.hot_attention_problems(
                            cfg, batch, seq) if p.sq == seq])
         return (prefill + lm.hot_gemm_problems(cfg, db, 1)
+                + lm.hot_conv_problems(cfg, batch, seq)
                 + lm.hot_binary_problems(cfg, db, 1)
                 + [p for p in lm.hot_attention_problems(
                     cfg, db, 1, self.max_len, rows=db if per_row else 1)

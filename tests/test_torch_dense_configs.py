@@ -12,8 +12,8 @@ against the JAX ``Engine``'s.  Then: the port's plain attention at
 d_head 16 with float32 queries over int8 K/V against the JAX
 ``flash_attention`` and ``kv_stationary_attention`` in interpret mode; a
 padded vocab (minicpm-smoke at ``vocab_size=509``, padded 512) decoded
-and served; chameleon-smoke admitted; the audio smoke config refused naming its
-ROADMAP entry (the MoE configs are held in ``tests/test_torch_moe.py``,
+and served; chameleon-smoke admitted; the audio smoke config, once queued,
+admitted (the MoE configs are held in ``tests/test_torch_moe.py``,
 the SSM and hybrid ones in ``tests/test_torch_ssm.py``).
 
 The JAX parameters (``repro.models.lm.init_model``) cross over through
@@ -47,8 +47,9 @@ from repro_torch.models import bridge, lm
 from repro_torch.serve.engine import Engine, RequestState
 
 NAMES = ["minicpm-2b", "mistral-nemo-12b", "minitron-8b", "chameleon-34b"]
-# The JAX package's configs the port does not run yet, by ROADMAP entry.
-QUEUED = {"whisper-tiny": "A10"}
+# The JAX package's configs the port once queued, by the ROADMAP entry
+# that ported them: each is now in the registry and admitted.
+PORTED_LAST = {"whisper-tiny": "A10"}
 MAX_LEN = 48
 ATOL = 1e-4
 ATT_TOL = dict(atol=2e-5, rtol=2e-5)
@@ -83,13 +84,17 @@ def test_config_twin_has_the_reference_values(name):
     assert name in configs.ARCH_NAMES
 
 
-@pytest.mark.parametrize("name", sorted(QUEUED))
+@pytest.mark.parametrize("name", sorted(PORTED_LAST))
 def test_registry_refuses_only_the_queued_configs(name):
+    """Nothing is queued now: the config once queued resolves to the
+    reference's values, and only an unknown name is refused."""
+    assert configs.QUEUED == {} and name in configs.ARCH_NAMES
+    assert dataclasses.asdict(configs.get(name)) == \
+        dataclasses.asdict(jconfigs.get(name))
     with pytest.raises(KeyError, match="ROADMAP") as err:
-        configs.get(name)
-    for queued, entry in QUEUED.items():
-        assert f"{queued} ({entry})" in str(err.value)
-    assert not set(NAMES) & set(QUEUED)
+        configs.get(name + "-unknown")
+    assert "queued in ROADMAP.md: none" in str(err.value)
+    assert not set(NAMES) & set(PORTED_LAST)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -292,10 +297,15 @@ def test_chameleon_is_admitted_as_a_dense_backbone():
     lm._check_supported(configs.get("chameleon-34b"))
 
 
-@pytest.mark.parametrize("name", sorted(QUEUED))
+@pytest.mark.parametrize("name", sorted(PORTED_LAST))
 def test_moe_ssm_and_audio_configs_still_raise(name):
-    """The port's twin of each queued smoke config (the JAX package's
-    values) is refused by the model, naming its ROADMAP entry."""
+    """The port's twin of each config once queued (the JAX package's
+    values) is admitted by the model now; the same config with its
+    family's fields broken (an audio config without its encoder) still
+    raises, naming no ROADMAP entry."""
     cfg = base.ArchConfig(**dataclasses.asdict(jconfigs.get_smoke(name)))
-    with pytest.raises(NotImplementedError, match=QUEUED[name]):
-        lm._check_supported(cfg)
+    lm._check_supported(cfg)
+    broken = dataclasses.replace(cfg, is_encoder_decoder=False)
+    with pytest.raises(NotImplementedError) as err:
+        lm._check_supported(broken)
+    assert PORTED_LAST[name] not in str(err.value)

@@ -50,8 +50,13 @@ def test_config_twin_has_the_reference_fields_and_values():
             assert dataclasses.asdict(get(name)) == \
                 dataclasses.asdict(jget(name))
             assert get(name).padded_vocab == jget(name).padded_vocab
+    # the last config once queued (ROADMAP A10) is the reference's too
+    for get, jget in ((configs.get, jconfigs.get),
+                      (configs.get_smoke, jconfigs.get_smoke)):
+        assert dataclasses.asdict(get("whisper-tiny")) == \
+            dataclasses.asdict(jget("whisper-tiny"))
     with pytest.raises(KeyError, match="ROADMAP"):
-        configs.get("whisper-tiny")
+        configs.get("no-such-arch")
 
 
 def test_bridge_gives_the_init_model_layout(params):

@@ -1,18 +1,22 @@
 """B3, paged decode attention, split across CTAs (``csrc/paged_attention.cu``):
 what the CPU can hold, and the card-only checks.
 
-On the CPU: the chunk plan (``attention_df.paged_chunks``) covers each
-row's visited pages lo..hi exactly once, with and without a window, and
-is a function of the row alone; a plain PyTorch model of the kernel's
-split (tiles of 32 / page pages folded online within a chunk, each
-chunk's partial (m, l, acc), merged in chunk order) matches
-``ref.paged_attention_ref`` and the JAX package's ``paged_attention`` in
-interpret mode, float32, atol 1e-5 and rtol 1e-5 (the tolerance of
-``test_torch_kernels.py``'s paged test: the sides differ only in the
-order of float32 sums).
+On the CPU: the chunk plan (``attention_df.paged_chunks``: key ranges of
+``PAGED_CHUNK_TILES`` tiles) covers each row's visited keys exactly once,
+at pages of 32 keys or fewer on whole pages lo..hi, with and without a
+window, and is a function of the row alone; a plain PyTorch model of the
+kernel's split (tiles of ``paged_tile_keys(page)`` keys, each mapped to
+its page and offset, folded online within a chunk, each chunk's partial
+(m, l, acc), merged in chunk order) matches ``ref.paged_attention_ref``
+and the JAX package's ``paged_attention`` in interpret mode, float32,
+atol 1e-5 and rtol 1e-5 (the tolerance of ``test_torch_kernels.py``'s
+paged test: the sides differ only in the order of float32 sums); and
+the plain version against the JAX kernel at pages of 48, 64 and 128 keys
+(the reference's ``bkv == page``), groups 1, 2 and 8, with and without a
+window, at the same tolerance.
 
 On the card (marker ``card``, skipped here): the kernel against its plain
-version at ragged lengths and a long row:
+version at ragged lengths and a long row, pages of 5 to 128 keys:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m card \\
         tests/test_torch_paged_split.py
@@ -30,11 +34,13 @@ NEG_INF = -1e30
 
 
 @pytest.mark.parametrize("window", [None, 1, 7, 100, 600])
-@pytest.mark.parametrize("page", [1, 5, 16, 32])
+@pytest.mark.parametrize("page", [1, 5, 16, 32, 48, 64, 128])
 def test_chunk_plan_covers_the_visited_pages_once(page, window):
     max_pages = -(-4096 // page) + 3
-    cp = attention_df.paged_chunk_pages(page)
-    assert cp == attention_df.PAGED_CHUNK_TILES * max(1, 32 // page)
+    ck = attention_df.paged_chunk_keys(page)
+    tk = (32 // page * page) if page < 32 else 32
+    assert attention_df.paged_tile_keys(page) == tk
+    assert ck == attention_df.PAGED_CHUNK_TILES * tk
     for kv in (0, 1, page - 1, page, page + 1, 527, 4096):
         chunks = attention_df.paged_chunks(kv, page, max_pages, window)
         if kv == 0:
@@ -42,25 +48,38 @@ def test_chunk_plan_covers_the_visited_pages_once(page, window):
             continue
         hi = -(-kv // page) - 1
         lo = 0 if window is None else max(0, (kv - window) // page)
-        pages = [p for c_lo, c_hi in chunks for p in range(c_lo, c_hi + 1)]
-        assert pages == list(range(lo, hi + 1)), (kv, chunks)
-        assert all(c_hi - c_lo + 1 == cp for c_lo, c_hi in chunks[:-1])
-        assert len(chunks) <= attention_df.paged_max_chunks(page, max_pages)
-        # the window's first valid key lies in the first chunk
         first = max(0, kv - window) if window else 0
-        assert chunks[0][0] * page <= first
+        # every key from the window's first one to the last, once, in
+        # runs of ck (the first may start up to 31 keys before the window)
+        keys = [k for c_lo, c_hi in chunks for k in range(c_lo, c_hi)]
+        assert keys == list(range(chunks[0][0], kv)), (kv, chunks)
+        assert lo * page <= chunks[0][0] <= first < chunks[0][0] + 32
+        assert all(c_hi - c_lo == ck for c_lo, c_hi in chunks[:-1])
+        assert len(chunks) <= attention_df.paged_max_chunks(page, max_pages)
+        if page <= 32:
+            # whole pages lo..hi, each in one chunk
+            pages = [p for c_lo, c_hi in chunks
+                     for p in range(c_lo // page, (c_hi - 1) // page + 1)]
+            assert pages == list(range(lo, hi + 1)), (kv, chunks)
+            assert all(c_lo % page == 0 for c_lo, _ in chunks)
 
 
 def test_chunk_plan_depends_only_on_the_row():
     """A row's chunks are the same whatever the other rows, the batch
     size or the table's width (it caps hi only past a full table)."""
-    for kv in (1, 17, 200, 527, 4096):
-        for window in (None, 100):
-            alone = attention_df.paged_chunks(kv, 16, 256, window)
-            assert alone == attention_df.paged_chunks(kv, 16, 1000, window)
-    assert attention_df.paged_chunks(600, 16, 10) == [(0, 7), (8, 9)]
+    for page in (16, 64):
+        for kv in (1, 17, 200, 527, 4096):
+            for window in (None, 100):
+                alone = attention_df.paged_chunks(kv, page, 256, window)
+                assert alone == attention_df.paged_chunks(kv, page, 1000,
+                                                          window)
+    assert attention_df.paged_chunks(600, 16, 10) == [(0, 128), (128, 160)]
+    assert attention_df.paged_chunks(600, 64, 2) == [(0, 128)]
+    assert attention_df.paged_chunks(300, 48, 20, 100) == [(192, 300)]
     assert attention_df.paged_max_chunks(16, 64) == 8
     assert attention_df.paged_max_chunks(16, 256) == 32
+    assert attention_df.paged_max_chunks(128, 32) == 32
+    assert attention_df.paged_max_chunks(48, 3) == 2
 
 
 # ---------------------------------------------------------------------------
@@ -69,15 +88,16 @@ def test_chunk_plan_depends_only_on_the_row():
 def split_model(q, k_pages, v_pages, tables, kv_lens, window=None,
                 scale=None):
     """csrc/paged_attention.cu's arithmetic in plain PyTorch: per (row,
-    q head) and chunk, tiles of 32 // page pages folded into a running
-    (m, l, acc), masked keys exactly 0; the chunks' partials merged in
-    chunk order; l == 0 writes zeros."""
+    q head) and chunk, tiles of ``paged_tile_keys(page)`` keys (each key
+    at page kpos // page, offset kpos % page) folded into a running (m,
+    l, acc), masked keys exactly 0; the chunks' partials merged in chunk
+    order; l == 0 writes zeros."""
     b, hq, _, d = q.shape
     hkv, n_pages, page, _ = k_pages.shape
     max_pages = tables.shape[1]
     group = hq // hkv
     scale = d ** -0.5 if scale is None else scale
-    pt = max(1, 32 // page)
+    tk = attention_df.paged_tile_keys(page)
     out = torch.zeros_like(q)
     for r in range(b):
         kv = int(kv_lens[r])
@@ -85,25 +105,18 @@ def split_model(q, k_pages, v_pages, tables, kv_lens, window=None,
         for h in range(hq):
             qh = q[r, h, 0]
             parts = []
-            for c_lo, c_hi in chunks:
+            for c_lo, c_end in chunks:
                 m, l, acc = torch.tensor(NEG_INF), torch.tensor(0.0), \
                     torch.zeros(d)
-                for t0 in range(c_lo, c_hi + 1, pt):
-                    blks = range(t0, min(c_hi, t0 + pt - 1) + 1)
-                    keys, vals, valid = [], [], []
-                    for blk in blks:
-                        pid = int(tables[r, blk])
-                        ok = 0 <= pid < n_pages
-                        kpos = blk * page + torch.arange(page)
-                        v = kpos < kv
-                        if window:
-                            v &= kpos > kv - 1 - window
-                        keys.append(k_pages[h // group, pid] if ok
-                                    else torch.zeros(page, d))
-                        vals.append(v_pages[h // group, pid] if ok
-                                    else torch.zeros(page, d))
-                        valid.append(v & ok)
-                    kt, vt, ok = (torch.cat(x) for x in (keys, vals, valid))
+                for t0 in range(c_lo, c_end, tk):
+                    kpos = torch.arange(t0, min(c_end, t0 + tk))
+                    pid = tables[r, kpos // page].long()
+                    ok = (pid >= 0) & (pid < n_pages)
+                    if window:
+                        ok &= kpos > kv - 1 - window
+                    at = (h // group, pid.clamp(0, n_pages - 1), kpos % page)
+                    kt = torch.where(ok[:, None], k_pages[at], 0.0)
+                    vt = torch.where(ok[:, None], v_pages[at], 0.0)
                     s = torch.where(ok, (kt @ qh) * scale,
                                     torch.tensor(NEG_INF))
                     m_new = torch.maximum(m, s.max())
@@ -143,7 +156,9 @@ def _paged_inputs(seed, b, hq, hkv, d, page, max_pages, kv_lens):
     (3, 8, 2, 32, 4, 40, [150, 1, 97]),
     (2, 2, 1, 64, 16, 20, [300, 33]),
     (2, 6, 2, 32, 5, 30, [149, 71]),
-], ids=["page8", "page4_long", "page16", "page5"])
+    (3, 4, 4, 16, 48, 8, [300, 47, 130]),
+    (2, 8, 1, 32, 128, 4, [400, 129]),
+], ids=["page8", "page4_long", "page16", "page5", "page48", "page128"])
 def test_split_model_matches_the_plain_version_and_jax(case, window):
     b, hq, hkv, d, page, max_pages, lens = case
     arrays = _paged_inputs(sum(lens) + d, b, hq, hkv, d, page, max_pages,
@@ -166,6 +181,30 @@ def test_split_model_matches_the_plain_version_and_jax(case, window):
     alone = split_model(q[1:2], k, v, tables[1:2], kv_lens[1:2],
                         window=window)
     np.testing.assert_array_equal(alone.numpy(), got[1:2].numpy())
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("page", [48, 64, 128])
+def test_plain_version_matches_jax_at_pages_over_32_keys(page, group,
+                                                         window):
+    """The reference's paged kernel takes any page (``bkv == page``):
+    ``ref.paged_attention_ref`` (what the port's wrapper computes on CPU
+    tensors, and the card's kernel is held to) against it in interpret
+    mode, rows of 0 keys to several pages."""
+    lens = [0, 17, page + 3, 3 * page - 1]
+    max_pages = 4
+    arrays = _paged_inputs(page + group, len(lens), 2 * group, 2, 16, page,
+                           max_pages, lens)
+    q, k, v, tables, kv_lens = (torch.from_numpy(a) for a in arrays)
+    got = ops.paged_attention(q, k, v, tables, kv_lens, window=window)
+    np.testing.assert_array_equal(
+        got.numpy(), ref.paged_attention_ref(q, k, v, tables, kv_lens,
+                                             window=window).numpy())
+    jwant = jops.paged_attention(*(jnp.asarray(a) for a in arrays),
+                                 window=window, backend="interpret")
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), **TOL)
+    assert np.all(got[0].numpy() == 0.0)
 
 
 def test_split_model_masks_a_page_outside_the_pool():
@@ -226,8 +265,13 @@ def card():
     (8, 2, 16, 8, [1, 300, 33, 64]),
     (64, 4, 128, 16, [0, 17, 200, 527]),
     (12, 1, 64, 8, [5, 300, 0, 33]),
+    (16, 8, 128, 48, [0, 17, 200, 527]),
+    (16, 8, 128, 64, [4096, 4096, 4095, 1]),
+    (16, 2, 64, 128, [0, 17, 200, 527]),
+    (16, 16, 16, 128, [129, 1, 600, 255]),
 ], ids=["served", "long", "page8", "group8", "page5", "d16_mha", "d16",
-        "group16", "group12"])
+        "group16", "group12", "page48", "page64_long", "page128_group8",
+        "page128_d16"])
 def test_split_kernel_matches_the_plain_version_on_the_card(
         card, case, window, dtype):
     """Within B2's tolerances (bf16: atol 4e-3, rtol 8e-3; float32: 1e-4;

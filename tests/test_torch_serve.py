@@ -295,10 +295,10 @@ def test_admission_rejects(params):
         eng.submit(np.zeros(0, np.int32), 2)
     with pytest.raises(ValueError, match="no decode room"):
         eng.submit(np.zeros(MAX_LEN, np.int32), 2)
+    # pages over 32 keys are admitted: B3 takes any page size
     big_page = Engine(CFG, tp, max_len=128, device="cpu",
                       scheduler_config=SchedulerConfig(page_size=64))
-    with pytest.raises(AdmissionError, match="page_size 64"):
-        big_page.submit(np.zeros(4, np.int32), 2)
+    assert big_page.submit(np.zeros(4, np.int32), 2).rid == 0
     tiny = Engine(CFG, tp, max_len=MAX_LEN, device="cpu",
                   scheduler_config=SchedulerConfig(n_pages=2, page_size=8))
     with pytest.raises(AdmissionError, match="kv reach 20"):
@@ -307,7 +307,7 @@ def test_admission_rejects(params):
 
 
 def _both_engines(tp, jp, prompts, new_tokens, run, engine_kw=None,
-                  cfgkw=None, **sckw):
+                  cfgkw=None, max_len=MAX_LEN, **sckw):
     """The scenario on the port's engine and on the JAX engine: ``run`` is
     ``"drain"`` or ``"serve"``, ``cfgkw`` replaces config fields in both;
     returns (port tokens, JAX tokens, port engine)."""
@@ -319,7 +319,7 @@ def _both_engines(tp, jp, prompts, new_tokens, run, engine_kw=None,
              {k: v.replace("port", "jax") if k == "journal_dir" else v
               for k, v in (engine_kw or {}).items()})):
         cfg = dataclasses.replace(cfg, **(cfgkw or {}))
-        eng = make(cfg, p, max_len=MAX_LEN,
+        eng = make(cfg, p, max_len=max_len,
                    scheduler_config=sc_cls(**sckw) if sckw else None, **kw)
         reqs = [eng.submit(q, new_tokens) for q in prompts]
         if run == "drain":
@@ -352,6 +352,10 @@ FORMERLY_UNPORTED = {
     # an int8 KV cache: codes and per-position scales, off the slot cache
     "int8_kv": dict(run="drain", lens=[7, 12, 2], new=4,
                     cfgkw=dict(kv_cache_dtype="int8")),
+    # pages of 64 keys (B3 once took at most 32): the 60-token prompt's
+    # decode crosses into its second page
+    "page64": dict(run="drain", lens=[7, 60, 70, 2], new=6, max_len=128,
+                   sckw=dict(page_size=64)),
 }
 
 
@@ -363,7 +367,8 @@ def test_formerly_unported_paths_serve_like_jax(params, what, tmp_path):
                  if what == "journal" else None)
     got, want, eng = _both_engines(
         tp, jp, _prompts(case["lens"], seed=9), case["new"], case["run"],
-        engine_kw, case.get("cfgkw"), **case.get("sckw", {}))
+        engine_kw, case.get("cfgkw"), case.get("max_len", MAX_LEN),
+        **case.get("sckw", {}))
     assert got == want
     stats = eng.stats()
     assert stats["demotions"] == 0 and stats["failed"] == 0
@@ -372,6 +377,10 @@ def test_formerly_unported_paths_serve_like_jax(params, what, tmp_path):
     elif what == "int8_kv":
         rep = eng.scheduler_report()
         assert rep["paged_decode"] is False and "pages" not in rep
+    elif what == "page64":
+        rep = eng.scheduler_report()
+        assert rep["paged_decode"] is True
+        assert eng._scheduler.paged.page_size == 64
     elif what in ("pool_full", "spill"):
         assert stats["spills"] + stats["preemptions"] > 0
         assert stats["replay_divergence"] == 0
