@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases card,build,serve_moe
     python3 chip_smoke.py --phases card,build,serve_ssm
     python3 chip_smoke.py --phases card,build,serve_audio
+    python3 chip_smoke.py --phases card,build,train
 
 Phases, each printing JSON lines:
 
@@ -246,6 +247,15 @@ Phases, each printing JSON lines:
    engine at pages of 128 keys (4 layers: DONE, mixed == alone, tokens
    against page 16's counted); ``autotune`` times whisper's two frontend
    convs.
+17. ``train``: training on the card (``train_phase``): qwen3-1.7b's loss
+   and every gradient on the kernels against the plain path at 2 layers
+   of full width (gated) and 28 (reported); one step of each of the ten
+   smoke configs in float32 against the plain path, B1 and B2 counted in
+   forward and backward; qwen3-1.7b whole (28 layers, bf16, batch 4 x
+   512) trained 8 steps under remat none, dots and full (losses falling,
+   step ms, tokens/s, peak memory, B1's launches split into forward,
+   backward and recompute); a traced step; a crash and resume of the
+   training driver, bit for bit; B1 timed at the backward's shapes.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
@@ -257,7 +267,8 @@ bf16 tiles, B2 and its int8 path; serve_dense: B1 with its bf16 tiles,
 B2, B3, over its four configs; serve_f32: B1's f32 walk, B2, K1, B3;
 serve_moe: B1 with its bf16 tiles, B2, B3 and its 16-warp kernel;
 serve_ssm: B1 with its bf16 tiles, B2; serve_audio: B1 with its bf16
-tiles, B2;
+tiles, B2; train: B1 with its bf16 prefill tile (forward and backward),
+B2 or B7 as picked, over 8 whole-model steps without remat;
 B7's int8 paths (K2 among them), on no serving path, their launches in
 the kernels phase; dataflows: B1 and its bf16 tiles, B2,
 B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
@@ -283,6 +294,7 @@ import atexit
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import sys
@@ -296,7 +308,7 @@ ALL_PHASES = ("card", "build", "kernels", "autotune", "dataflows",
               "quantized", "serve",
               "serve_binary", "serve_packed", "serve_recovery",
               "serve_int8kv", "serve_dense", "serve_f32", "serve_moe",
-              "serve_ssm", "serve_audio")
+              "serve_ssm", "serve_audio", "train")
 
 
 def emit(obj) -> None:
@@ -5019,6 +5031,476 @@ def serve_audio_phase(torch, args):
     return {k: launches[k] for k in path}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: train.
+# ---------------------------------------------------------------------------
+TRAIN = "qwen3-1.7b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 512, 8, 1e-3
+TRAIN_CHECK_LAYERS = 2
+# The loss on the kernels against the plain path at 2 layers of full width,
+# bf16 (B1's and B2's roundings against cuBLAS's and the plain
+# attention's), relative; every gradient tensor at cosine >= TRAIN_COSINE.
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_COSINE = 0.999
+# The libraries B1's launches and the dataflows the autotuner may pick for
+# a forward GEMM count under (B1's basic OS and residencies, B4, B5a, B5b);
+# B2's and B7's.
+GEMM_LIBRARIES = ("matmul_os", "matmul_rmw", "matmul_ws_stripe",
+                  "matmul_is_stripe")
+ATTENTION_LIBRARIES = ("flash_attention", "kv_stationary")
+# B1's basic OS and its prefill tile (every GEMM of a 2 048-token step, the
+# backward's included, has over 16 rows); B2 or B7, as picked.
+TRAIN_PATH = ("matmul_os", "matmul_os_prefill")
+# B1's and B2's autograd ops, their backward nodes and the optimizer's
+# range, whose device time a traced step sums apart.
+_EVALUATE = "autograd::engine::evaluate_function: GeneratedBackwardFor_"
+TRAIN_TRACED_OPS = ("repro_torch::matmul_fused", "repro_torch::attention",
+                    _EVALUATE + "repro_torch_matmul_fused_defaultBackward",
+                    _EVALUATE + "repro_torch_attention_defaultBackward",
+                    "train.adamw")
+TRAIN_DRILL = dict(steps=10, global_batch=4, seq_len=128, lr=3e-3,
+                   ckpt_every=4, remat="dots")
+TRAIN_DRILL_CRASH = 6
+
+
+def _launched(keys) -> int:
+    from repro_torch.kernels import _build
+
+    return sum(_build.LAUNCHES[k] for k in keys)
+
+
+def _train_batch(cfg, batch: int, seq: int, seed: int, step: int = 0):
+    from repro_torch.data.pipeline import SyntheticLMDataset
+
+    return SyntheticLMDataset(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        seed=seed, with_enc_frames=cfg.is_encoder_decoder,
+        d_model=cfg.d_model, enc_seq_ratio=cfg.enc_seq_ratio).batch(
+        step, "cuda")
+
+
+def _grads_vs_plain(torch, cfg, params, batch, remat: str):
+    """The loss and every gradient on the kernels and on the plain path
+    (``forced_backend("torch")``), with the kernels' launches of B1 (every
+    GEMM library) and B2/B7: forward from an eval pass, backward as the
+    rest of the gradient's.  Returns (loss, plain loss, grads, plain
+    grads, launches {"b1"/"b2": (forward, backward)}, every library's
+    launches of the gradient's pass)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers, lm
+    from repro_torch.train import step as tstep
+
+    loss_fn = tstep.make_loss_fn(cfg, remat)
+    _build.reset_launches()
+    with torch.no_grad():
+        lm.loss_fn(params, batch, cfg, remat="none")
+    fwd = (_launched(GEMM_LIBRARIES), _launched(ATTENTION_LIBRARIES))
+    _build.reset_launches()
+    loss, _, grads = tstep.value_and_grad(loss_fn, params, batch)
+    torch.cuda.synchronize()
+    every = dict(_build.LAUNCHES)
+    counts = {"b1": (fwd[0], _launched(GEMM_LIBRARIES) - fwd[0]),
+              "b2": (fwd[1], _launched(ATTENTION_LIBRARIES) - fwd[1])}
+    with layers.forced_backend("torch"):
+        ploss, _, pgrads = tstep.value_and_grad(loss_fn, params, batch)
+    return loss, ploss, grads, pgrads, counts, every
+
+
+def _grad_agreement(torch, grads, pgrads, f32_tol=None) -> dict:
+    """Per tensor: cosine (the lowest, and where), the largest |error|
+    relative to the plain gradient's largest |value|; with ``f32_tol``,
+    whether every element is within atol + rtol |plain|."""
+    from repro_torch.optim.adamw import leaves
+
+    plain = dict(leaves(pgrads))
+    worst_cos, worst_rel, within = (1.0, None), (0.0, None), True
+    for path, g in leaves(grads):
+        p = plain[path]
+        name = ".".join(path)
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient {name}")
+        cos = _cosine(g, p) if float(p.float().norm()) > 0 else 1.0
+        if cos < worst_cos[0]:
+            worst_cos = (cos, name)
+        err = (g.float() - p.float()).abs()
+        rel = float(err.max()) / max(float(p.float().abs().max()), 1e-30)
+        if rel > worst_rel[0]:
+            worst_rel = (rel, name)
+        if f32_tol is not None:
+            within &= bool((err <= f32_tol["atol"] + f32_tol["rtol"]
+                            * p.float().abs()).all())
+    return {"min_cosine": worst_cos[0], "min_cosine_at": worst_cos[1],
+            "max_rel_err": worst_rel[0], "max_rel_err_at": worst_rel[1],
+            "tensors": len(plain),
+            **({"within_f32_tol": within} if f32_tol is not None else {})}
+
+
+def b1_backward_rows(torch, timer, cfg, tokens: int) -> dict:
+    """B1 at the backward's shapes of qwen3-1.7b's MLP over ``tokens``
+    rows, as ``kernels/autograd.py`` launches them (basic OS, bf16 in and
+    out): dX = dU W^T (M tokens, K d_ff -> N d_model for the gate and up
+    projections; K d_model -> N d_ff for the down projection) and dW =
+    X^T dU (M d_model, K tokens, N d_ff; M d_ff, K tokens, N d_model).
+    Each held against its plain version (B1's tolerance plus one bf16 ulp
+    an element, a row within one bf16 ulp of its norm: a bf16 output) and
+    timed beside it and ``torch.matmul``, with its bound; and the bytes
+    the backward's transposed copies write a step."""
+    from repro_torch.bench.common import bound
+    from repro_torch.kernels import matmul_df, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    d, dff, t = cfg.d_model, cfg.d_ff, tokens
+    rows = {}
+    for label, (m, k, n) in (("dX gate/up", (t, dff, d)),
+                             ("dX down", (t, d, dff)),
+                             ("dW gate/up", (d, t, dff)),
+                             ("dW down", (dff, t, d))):
+        a = (torch.randn((m, k), generator=gen, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        b = torch.randn((k, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+        def run():
+            return matmul_df.matmul_df(a, b, matmul_df.BASIC_OS,
+                                       out_dtype=torch.bfloat16)
+
+        # bf16 outputs: each element within B1's bound plus one bf16 ulp;
+        # a row may hold several such roundings, so its error norm is
+        # held to one bf16 ulp (2^-8) of its norm
+        tol = dict(B1_TOL, row_rtol=2.0 ** -8)
+        err = check("matmul_os", run(), ref.matmul_ref(a, b, torch.bfloat16),
+                    shape=f"backward {label} M={m} K={k} N={n}",
+                    plus_bf16_ulp=True, **tol)
+        bnd = bound((m * k + k * n + m * n) * 2, 2.0 * m * k * n)
+        rows[label] = dict(
+            shape=f"M={m} K={k} N={n} bf16 -> bf16", max_abs_err=err,
+            ms=timer.ms(run), plain_ms=timer.ms(
+                lambda: ref.matmul_ref(a, b, torch.bfloat16)),
+            library_ms=timer.ms(lambda: torch.matmul(a, b)),
+            library_call="torch.matmul (bf16 out)", bound_ms=bnd[0],
+            bound_by=bnd[1], tolerance=tol)
+        emit({"kernel_timing_detail": "matmul_os", "backward": label,
+              "card": card_line(), **rows[label]})
+    # per layer: W^T of w1, w3, w2 and X^T of x (twice: gate and up) and of
+    # the hidden h, each written once and read once by its GEMM
+    per_layer = (3 * d * dff + 2 * t * d + t * dff) * 2
+    rows["transposed_copy_bytes_per_step"] = per_layer * cfg.n_layers
+    return rows
+
+
+class _RangedOptimizer:
+    """An optimizer whose ``update`` runs inside a profiler range
+    (``train.adamw``)."""
+
+    def __init__(self, opt):
+        self.opt = opt
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, *args):
+        from torch.profiler import record_function
+
+        with record_function("train.adamw"):
+            return self.opt.update(*args)
+
+
+def _train_whole(torch, cfg, args, remat: str) -> dict:
+    """``TRAIN_STEPS`` steps of ``make_train_step`` + AdamW (cosine
+    schedule) on the whole model from its seed's weights, each on its
+    step's batch of the synthetic dataset: the losses, step ms by CUDA
+    events (median after the first), peak allocated bytes, and B1's and
+    B2's launches of the first step and every kernel's of the run (the
+    counts zeroed just before it)."""
+    import gc
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW, schedules
+    from repro_torch.train import step as tstep
+
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+    opt = AdamW(lr_fn=lambda s: schedules.cosine(s, 1, TRAIN_STEPS,
+                                                 TRAIN_LR))
+    state = opt.init(params)
+    step_fn = tstep.make_train_step(cfg, opt, remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches = [], [], None
+    _build.reset_launches()
+    for step in range(TRAIN_STEPS):
+        batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, args.seed, step)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, metrics = step_fn(params, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        if launches is None:
+            launches = {"b1": _launched(GEMM_LIBRARIES),
+                        "b2": _launched(ATTENTION_LIBRARIES),
+                        "b1_tiles": {k: _build.LAUNCHES[k] for k in (
+                            "matmul_os_prefill", "matmul_os_decode")}}
+        ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    every = {k: v for k, v in _build.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    moments = sum(t.numel() * t.element_size()
+                  for tree in (state.m, state.v) for t in _leaves(tree))
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    del params, state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = sorted(ms[1:])[len(ms[1:]) // 2]
+    return {"remat": remat, "losses": losses, "step_ms": ms,
+            "step_ms_median": step_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+            "peak_allocated_bytes": peak, "weights_bytes": weights,
+            "moments_bytes": moments, "launches_first_step": launches,
+            "launches": every}
+
+
+def train_phase(torch, args):
+    """Training on the card (ROADMAP A13): ``lm.loss_fn`` under autograd,
+    B1 and B2 carrying gradients (``kernels/autograd.py``), AdamW in place,
+    the fault-tolerant driver.  Gates, each raising:
+
+    1. qwen3-1.7b at full width and 2 layers, bf16, batch 4 x 512 from the
+       synthetic dataset: the loss on the kernels within
+       ``TRAIN_LOSS_RTOL`` of ``forced_backend("torch")``'s on the card,
+       every gradient tensor at cosine >= ``TRAIN_COSINE``; the 28-layer
+       figures reported, not gated.
+    2. One step's loss and gradients of each of the ten smoke configs
+       (float32: B1's f32 walk, B2's f32 kernel, hymba's windows) against
+       the plain path within B2's f32 tolerance, under ``remat="dots"``;
+       B1 launched in forward and backward where the config has an MLP
+       (backward exactly 7/3 of forward: dX and dW of each projection and
+       the gate's pre-activation), B2 (or B7) in forward and, recomputed
+       under "dots", as often in backward where it has attention (mamba2
+       has neither).
+    3. qwen3-1.7b whole (28 layers, bf16, tied embeddings): ``TRAIN_STEPS``
+       steps of ``make_train_step`` + AdamW (cosine) at batch 4 x 512 for
+       each of remat "none", "dots" and "full": losses finite, the mean of
+       the last 3 below the first 3's; step ms (CUDA events), tokens/s,
+       peak allocated; B1's launches a step split into forward, backward
+       and recompute against 3, 7 and (full) 3 a layer, and B2's.
+    4. One traced step (remat "none"): busy and idle share, device time
+       by B1 forward, B1 backward, B2 forward, the plain attention
+       backward and AdamW; the loss's forward and backward timed apart.
+    5. The crash drill: ``TrainDriver`` (its steps under deterministic
+       algorithms) on qwen3-1.7b's smoke config in bf16 on the kernels (a
+       checkpoint of a few MB), ``REPRO_FAIL_AT_STEP`` at step 6, resumed:
+       parameters, moments and the last loss equal an uninterrupted run's
+       bit for bit.
+
+    The kernels phase's B1 rows gain the backward's shapes
+    (``b1_backward_rows``).  Returns (the path's launches, the B1
+    backward rows)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.bench.common import Timer
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime import health
+    from repro_torch.runtime.driver import TrainDriver, TrainJobConfig
+    from repro_torch.train import step as tstep
+
+    phase = "train"
+    t_phase = time.monotonic()
+    cfg = configs.get(TRAIN)
+
+    # 1. The gradients against the plain path, 2 layers then all 28.
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, args.seed)
+    for depth in (TRAIN_CHECK_LAYERS, cfg.n_layers):
+        sub = dataclasses.replace(cfg, n_layers=depth)
+        sub_params = dict(params, layers=_map(lambda t: t[:depth],
+                                              params["layers"]))
+        loss, ploss, grads, pgrads, counts, every = _grads_vs_plain(
+            torch, sub, sub_params, batch, "none")
+        rel = abs(float(loss) - float(ploss)) / abs(float(ploss))
+        agree = _grad_agreement(torch, grads, pgrads)
+        gated = depth == TRAIN_CHECK_LAYERS
+        emit({"phase": phase, "event": "grads_vs_plain", "layers": depth,
+              "batch": [TRAIN_BATCH, TRAIN_SEQ], "loss": float(loss),
+              "plain_loss": float(ploss), "loss_rel_err": rel,
+              "gated": gated, "launches": counts, **agree})
+        if gated and (rel > TRAIN_LOSS_RTOL or not math.isfinite(rel)
+                      or agree["min_cosine"] < TRAIN_COSINE):
+            raise AssertionError(
+                f"{depth}-layer loss or gradients off the plain path: "
+                f"loss rel {rel}, {agree}")
+        del sub_params, grads, pgrads
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. Every family trains a step (float32 smoke configs).
+    for arch in configs.ARCH_NAMES:
+        scfg = configs.get_smoke(arch)
+        sp = lm.init_model(scfg, seed=args.seed, device="cuda")
+        sb = _train_batch(scfg, 2, 64, args.seed)
+        loss, ploss, grads, pgrads, counts, every = _grads_vs_plain(
+            torch, scfg, sp, sb, "dots")
+        agree = _grad_agreement(torch, grads, pgrads, F32_TOL)
+        loss_ok = abs(float(loss) - float(ploss)) <= F32_TOL["atol"] \
+            + F32_TOL["rtol"] * abs(float(ploss))
+        has_mlp = bool(scfg.d_ff) and scfg.family != "ssm" and (
+            not scfg.n_experts or scfg.n_shared_experts)
+        (b1f, b1b), (b2f, b2b) = counts["b1"], counts["b2"]
+        launch_ok = ((b1f > 0) == has_mlp and 3 * b1b == 7 * b1f
+                     and (b2f > 0) == scfg.has_attention and b2b == b2f)
+        emit({"phase": phase, "event": "family_step", "config": scfg.name,
+              "family": scfg.family, "dtype": scfg.param_dtype,
+              "loss": float(loss), "plain_loss": float(ploss),
+              "loss_within_f32_tol": loss_ok, "launches": counts,
+              "launches_ok": launch_ok, **agree})
+        if not (loss_ok and agree["within_f32_tol"] and launch_ok):
+            raise AssertionError(f"{scfg.name}: a train step off the plain "
+                                 f"path or launches {counts}: {agree}")
+        del sp, grads, pgrads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. The whole model, every remat mode.
+    timer = Timer("cuda")
+    backward_rows = b1_backward_rows(torch, timer, cfg,
+                                     TRAIN_BATCH * TRAIN_SEQ)
+    del timer
+    runs = {}
+    for remat in lm.REMAT:
+        rec = _train_whole(torch, cfg, args, remat)
+        runs[remat] = rec
+        if remat == "none":      # the main path: its run's launches
+            path = rec["launches"]
+        emit({"phase": phase, "event": "whole", "config": cfg.name,
+              "layers": cfg.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+              "card": card_line(), **rec})
+        losses = rec["losses"]
+        if not all(math.isfinite(x) for x in losses) \
+                or sum(losses[-3:]) >= sum(losses[:3]):
+            raise AssertionError(f"remat {remat}: losses {losses} not "
+                                 f"finite or not falling")
+    n = cfg.n_layers
+    fwd = 3 * n
+    split = {"forward": fwd,
+             "backward": runs["none"]["launches_first_step"]["b1"] - fwd,
+             "recompute": runs["full"]["launches_first_step"]["b1"]
+             - runs["none"]["launches_first_step"]["b1"]}
+    implied = {"forward": 3 * n, "backward": 7 * n, "recompute": 3 * n}
+    b2 = {r: runs[r]["launches_first_step"]["b2"] for r in runs}
+    emit({"phase": phase, "event": "b1_launches_per_step", "split": split,
+          "implied": implied, "b2_by_remat": b2,
+          "b2_implied": {"none": n, "dots": 2 * n, "full": 2 * n},
+          "b1_by_remat": {r: runs[r]["launches_first_step"]["b1"]
+                          for r in runs},
+          "losses_equal_across_remat": runs["none"]["losses"]
+          == runs["dots"]["losses"] == runs["full"]["losses"]})
+    missing = [k for k in TRAIN_PATH if not path.get(k)] + (
+        [] if any(path.get(k) for k in ATTENTION_LIBRARIES)
+        else ["attention"])
+    if split != implied or b2 != {"none": n, "dots": 2 * n, "full": 2 * n} \
+            or runs["dots"]["launches_first_step"]["b1"] \
+            != runs["none"]["launches_first_step"]["b1"] or missing:
+        raise AssertionError(f"B1/B2 launches a step {split}, {b2} against "
+                             f"{implied}; not launched: {missing}")
+
+    # 4. One traced step, and the loss and AdamW timed apart.
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+    opt = _RangedOptimizer(AdamW(lr_fn=lambda s: TRAIN_LR))
+    state = [opt.init(params)]
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, args.seed)
+    step_fn = tstep.make_train_step(cfg, opt, remat="none")
+
+    def one_step():
+        _, state[0], _ = step_fn(params, state[0], batch)
+
+    one_step()
+    rec = _device_trace(torch, one_step, 2, ops=TRAIN_TRACED_OPS)
+    with torch.no_grad():
+        hidden, _ = lm.forward_hidden(params, batch["tokens"], cfg)
+    table = params["embed"]["table"]
+
+    def loss_pass():
+        x = hidden.detach().requires_grad_()
+        w = table.detach().requires_grad_()
+        lm.chunked_cross_entropy(x, w, batch["targets"], cfg).backward()
+
+    times = []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss_pass()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    emit({"phase": phase, "event": "train_trace", "config": cfg.name,
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "remat": "none", "steps": 2,
+          "loss_fwd_bwd_ms_events": sorted(times[1:])[1], **rec})
+    del params, state, hidden, table
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. The crash drill.
+    dcfg = dataclasses.replace(configs.get_smoke(TRAIN),
+                               param_dtype="bfloat16", act_dtype="bfloat16")
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        def job(name):
+            return TrainJobConfig(arch=dcfg, seed=args.seed,
+                                  ckpt_dir=os.path.join(work, name),
+                                  **TRAIN_DRILL)
+
+        _build.reset_launches()
+        clean = TrainDriver(job("clean")).run()
+        drill_launches = {"b1": _launched(GEMM_LIBRARIES),
+                          "b2": _launched(ATTENTION_LIBRARIES)}
+        os.environ["REPRO_FAIL_AT_STEP"] = str(TRAIN_DRILL_CRASH)
+        try:
+            TrainDriver(job("crashed")).run()
+            raise AssertionError("the armed crash did not fire")
+        except health.SimulatedFailure:
+            pass
+        finally:
+            os.environ.pop("REPRO_FAIL_AT_STEP", None)
+        driver = TrainDriver(job("crashed"))
+        resumed_from = driver.ckpt.latest_step()
+        resumed = driver.run(resume=True)
+        same = resumed.step == clean.step and \
+            resumed.last_loss == clean.last_loss and all(
+                torch.equal(a, b) for ta, tb in (
+                    (clean.params, resumed.params),
+                    (clean.opt_state.m, resumed.opt_state.m),
+                    (clean.opt_state.v, resumed.opt_state.v))
+                for (_, a), (_, b) in zip(leaves(ta), leaves(tb)))
+        ckpt_bytes = sum(
+            os.path.getsize(os.path.join(root, f))
+            for root, _, files in os.walk(os.path.join(work, "clean"))
+            for f in files if f == "arrays.npz") // max(
+            len(driver.ckpt.steps()), 1)
+        emit({"phase": phase, "event": "crash_drill", "config": dcfg.name,
+              "dtype": dcfg.param_dtype, **TRAIN_DRILL,
+              "crash_at": TRAIN_DRILL_CRASH, "resumed_from": resumed_from,
+              "final_step": resumed.step, "last_loss": resumed.last_loss,
+              "clean_last_loss": clean.last_loss, "bit_identical": same,
+              "checkpoint_bytes": ckpt_bytes, "launches_clean_run":
+              drill_launches, "health": driver.health_report()})
+        if not same or not drill_launches["b1"] or not drill_launches["b2"]:
+            raise AssertionError("the resumed run's parameters differ from "
+                                 "the uninterrupted run's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": phase, "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t_phase, "launches_by_path": path})
+    return path, backward_rows
+
+
 # Device kernels of the serving paths, by the name of their __global__
 # function (B1's bf16 basic OS is gemm_tc.cuh's two tiles; its int8 and
 # packed basic OS is gemm_tc_i8.cuh's two; every other B1 launch is
@@ -5050,13 +5532,14 @@ KERNEL_FUNCTIONS = {"tc_prefill_kernel": "matmul_os_prefill",
 TRACED_OPS = ("aten::bmm", "ssm.mamba_apply")
 
 
-def _device_trace(torch, run, repeats: int) -> dict:
+def _device_trace(torch, run, repeats: int, ops=TRACED_OPS) -> dict:
     """A ``torch.profiler`` trace of ``repeats`` calls of ``run``: the
     device is busy for the union of its kernel and copy intervals, idle
     for the rest of the calls' host-clock time.  Kernel time per call is
     summed by the port's kernels and by the other kernels' names, and by
-    the ``TRACED_OPS`` that ran.  The trace's own host cost is in the
-    traced ms."""
+    the ``ops`` (op or range names) that ran, each counted where no op of
+    its name encloses it.  The trace's own host cost is in the traced
+    ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5071,7 +5554,7 @@ def _device_trace(torch, run, repeats: int) -> dict:
     for ev in prof.events():
         # a range's own device-side marker is no kernel
         if ev.device_type != torch.autograd.DeviceType.CUDA \
-                or ev.name in TRACED_OPS:
+                or ev.name in ops:
             continue
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
@@ -5081,12 +5564,20 @@ def _device_trace(torch, run, repeats: int) -> dict:
         if end > reach:
             busy_us += end - max(start, reach)
             reach = end
-    # the device time of each of TRACED_OPS (its kernels, by the
-    # profiler's op -> launch links), per call of ``run``
+    def outermost(ev):
+        parent = ev.cpu_parent
+        while parent is not None:
+            if parent.name == ev.name:
+                return False
+            parent = parent.cpu_parent
+        return True
+
+    # the device time of each of ``ops`` (its kernels, by the profiler's
+    # op -> launch links), per call of ``run``
     op_us = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CPU \
-                and ev.name in TRACED_OPS:
+                and ev.name in ops and outermost(ev):
             us = getattr(ev, "device_time_total", None)
             if us is None:
                 us = ev.cuda_time_total
@@ -5268,6 +5759,9 @@ def main(argv=None) -> int:
         paths["serve_ssm"] = serve_ssm_phase(torch, args)
     if "serve_audio" in phases:
         paths["serve_audio"] = serve_audio_phase(torch, args)
+    if "train" in phases:
+        paths["train"], backward = train_phase(torch, args)
+        records.setdefault("matmul_os", {})["backward"] = backward
 
     kernels = []
     for name, reg in registered_kernels().items():
@@ -5277,7 +5771,7 @@ def main(argv=None) -> int:
                                 "serve_recovery", "serve_int8kv",
                                 "serve_dense", "serve_f32", "serve_moe",
                                 "serve_ssm", "serve_audio",
-                                "dataflows", "quantized")
+                                "dataflows", "quantized", "train")
                     if paths.get(p, {}).get(name)), None)
         if own is None and "kernels_phase_launches" in rec:
             # on no serving path (B7's int8 paths, as in the reference):
@@ -5299,7 +5793,7 @@ def main(argv=None) -> int:
                                    "split", "packed4", "chunk",
                                    "slot_decode", "bf16_ms", "flash_ms",
                                    "f32_ms", "library_why", "d16", "group5",
-                                   "hymba", "pages", "whisper")
+                                   "hymba", "pages", "whisper", "backward")
                if k in rec},
         })
     emit({"kernels": kernels})

@@ -299,6 +299,21 @@ def dtype_code(t: torch.Tensor) -> int:
                         f"int32 tensors, got {t.dtype}") from None
 
 
+def refuse_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """A launch writes into a fresh tensor that carries no gradient, so
+    under grad an operand that requires one raises here: B1 and B2 carry
+    theirs through ``kernels/autograd.py`` (whose launches run with grad
+    disabled); no other kernel has a backward (the binary and packed
+    weights are integer planes, B3 serves decode, B8 the stubbed conv
+    frontend), and a gradient is never dropped in silence."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: an operand requires grad, and this kernel has no "
+            f"backward; gradients flow through ops.matmul_fused (float "
+            f"operands) and ops.attention (float K/V) only")
+
+
 def require_cuda(*tensors: Optional[torch.Tensor]) -> None:
     """Every tensor given lies on one CUDA device and is contiguous."""
     devs = {t.device for t in tensors if t is not None}

@@ -229,6 +229,7 @@ def flash_attention(
         q, k, v, window, kv_len, k_scale, v_scale)
     ks, vs = scales or (None, None)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _build.refuse_grad("flash_attention", q, k, v)
     _build.require_cuda(q, k, v, kv_lens, ks, vs)
     _build.require_aligned(q, k, v)
     out = torch.empty_like(q)
@@ -351,6 +352,7 @@ def kv_stationary_attention(
         q, k, v, window, kv_len, k_scale, v_scale)
     ks, vs = scales or (None, None)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _build.refuse_grad("kv_stationary", q, k, v)
     _build.require_cuda(q, k, v, kv_lens, ks, vs)
     _build.require_aligned(q, k, v)
     plan = kv_stationary_plan(b, hq, hkv, sq, skv, q.dtype, d,
@@ -467,6 +469,7 @@ def paged_flash_attention(
     tables = block_tables.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
     q = q.contiguous()
+    _build.refuse_grad("paged_attention", q, k_pages, v_pages)
     _build.require_cuda(q, k_pages, v_pages, tables, lens)
     _build.require_aligned(q, k_pages, v_pages)
     out = torch.empty_like(q)

@@ -207,6 +207,7 @@ def binary_mm_df(
     scale, bias, residual = (None if t is None else t.float().contiguous()
                              for t in (scale, bias, residual))
     a, b = a.contiguous(), b.contiguous()
+    _build.refuse_grad("binary_mm", scale, bias, residual)
     _build.require_cuda(a, b, scale, bias, residual)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     took = _build.launch(

@@ -358,6 +358,7 @@ def conv2d_df(
         outlier_delta = None
     if w_hi is not None:
         w_hi = w_hi.contiguous()
+    _build.refuse_grad("conv2d", x, w, scale, bias, residual)
     _build.require_cuda(x, w, scale, bias, residual, w_hi, offsets,
                         outlier_delta)
     out = torch.empty(out_shape, dtype=out_dtype, device=x.device)

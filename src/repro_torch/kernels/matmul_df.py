@@ -641,6 +641,8 @@ def matmul_df(
         outlier_idx = outlier_delta = None
     if b_hi is not None:
         b_hi = b_hi.contiguous()
+    _build.refuse_grad(p.kernel + (" (packed weights: B6)" if weight_bits
+                                   else ""), a, b, scale, bias, residual)
     _build.require_cuda(a, b, scale, bias, residual, b_hi, outlier_idx,
                         outlier_delta)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)

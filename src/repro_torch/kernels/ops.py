@@ -50,8 +50,8 @@ from repro_torch.core.dataflow import (AttentionProblem, BinaryEpilogue,
                                        BinaryProblem, ConvProblem,
                                        DataflowSpec, Epilogue, GemmProblem,
                                        Residency, SpecOverride, IS, OS, WS)
-from repro_torch.kernels import (attention_df, binary_mm, conv2d_df,
-                                 matmul_df, pack, ref)
+from repro_torch.kernels import (attention_df, autograd, binary_mm,
+                                 conv2d_df, matmul_df, pack, ref)
 from repro_torch.runtime import health
 
 BACKENDS = ("cuda", "torch")
@@ -171,6 +171,8 @@ def matmul(
                               else torch.int32)
     if _backend(backend) == "torch":
         out = ref.matmul_ref(a, b, out_dtype)
+    elif autograd.b1_carries_grad(spec, a, b):
+        out = autograd.matmul_fused(a, b, None, None, None, None, out_dtype)
     else:
         m, k = a.shape
         spec = _resolve_spec(spec, _gemm_problem(m, k, b.shape[1], a.dtype,
@@ -195,45 +197,68 @@ def matmul_fused(
     one kernel launch; float32 epilogue, float32 output by default.
 
     ``scale`` is per-tensor (one element), per-column ((N,) / (1, N)) or
-    per-row ((M, 1)); a 1-D vector is per-column when M == N.
+    per-row ((M, 1)); a 1-D vector is per-column when M == N.  Where grad
+    is enabled and a float operand requires it, the launch runs inside
+    ``autograd.matmul_fused``, whose backward is B1 too (``spec=None``
+    only: the forward is the serving path's pick).
     """
     fault = health.maybe_inject("kernel.matmul")
     matmul_df.check_operands(a, b)
-    m, _ = a.shape
-    n = b.shape[1]
     backend = _backend(backend)
+    n = b.shape[1]
     if bias is not None:
         bias = torch.as_tensor(bias, dtype=torch.float32,
                                device=a.device).reshape(1, n)
-    if scale is not None:
-        scale = torch.as_tensor(scale, dtype=torch.float32, device=a.device)
-        if scale.numel() == 1:
-            scale = scale.reshape(1, 1)
-        elif scale.ndim == 2 and tuple(scale.shape) == (m, 1):
-            pass
-        elif scale.numel() == n and not (scale.ndim == 2
-                                         and scale.shape[1] == 1):
-            scale = scale.reshape(1, n)
-        elif scale.numel() == m and (scale.ndim == 1
-                                     or scale.shape[1] == 1):
-            scale = scale.reshape(m, 1)
-        else:
-            raise ValueError(
-                f"scale must be scalar, per-column (N={n}) or per-row "
-                f"(M={m}, 1), got {tuple(scale.shape)}")
+    scale = _scale_operand(scale, a, n)
     out_dtype = out_dtype or torch.float32
-    if backend == "torch":
-        out = ref.matmul_fused_ref(a, b, bias=bias, scale=scale,
-                                   residual=residual, activation=activation,
-                                   out_dtype=out_dtype)
+    if backend == "cuda" and autograd.b1_carries_grad(
+            spec, a, b, bias, residual, scale):
+        out = autograd.matmul_fused(a, b, bias, scale, residual, activation,
+                                    out_dtype)
     else:
-        spec = _resolve_spec(spec, _gemm_problem(m, a.shape[1], n, a.dtype,
-                                                 out_dtype),
-                             a.device, matmul_df.BLOCK)
-        out = matmul_df.matmul_df(a, b, spec, scale=scale, bias=bias,
-                                  residual=residual, activation=activation,
-                                  out_dtype=out_dtype)
+        out = _matmul_fused(a, b, bias, scale, residual, activation, spec,
+                            out_dtype, backend)
     return _poison(out, fault)
+
+
+def _scale_operand(scale, a: torch.Tensor, n: int
+                   ) -> Optional[torch.Tensor]:
+    """``scale`` as the kernel takes it: f32 (1, 1), (1, N) or (M, 1)."""
+    if scale is None:
+        return None
+    m = a.shape[0]
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=a.device)
+    if scale.numel() == 1:
+        return scale.reshape(1, 1)
+    if scale.ndim == 2 and tuple(scale.shape) == (m, 1):
+        return scale
+    if scale.numel() == n and not (scale.ndim == 2 and scale.shape[1] == 1):
+        return scale.reshape(1, n)
+    if scale.numel() == m and (scale.ndim == 1 or scale.shape[1] == 1):
+        return scale.reshape(m, 1)
+    raise ValueError(
+        f"scale must be scalar, per-column (N={n}) or per-row "
+        f"(M={m}, 1), got {tuple(scale.shape)}")
+
+
+def _matmul_fused(a, b, bias, scale, residual, activation, spec: Spec,
+                  out_dtype: torch.dtype, backend: str = "cuda"
+                  ) -> torch.Tensor:
+    """``matmul_fused``'s launch (or its plain version for
+    ``backend="torch"``), with ``bias`` and ``scale`` already as the
+    kernel takes them (``_scale_operand``): no fault site, no gradient."""
+    m, _ = a.shape
+    n = b.shape[1]
+    if backend == "torch":
+        return ref.matmul_fused_ref(a, b, bias=bias, scale=scale,
+                                    residual=residual, activation=activation,
+                                    out_dtype=out_dtype)
+    spec = _resolve_spec(spec, _gemm_problem(m, a.shape[1], n, a.dtype,
+                                             out_dtype),
+                         a.device, matmul_df.BLOCK)
+    return matmul_df.matmul_df(a, b, spec, scale=scale, bias=bias,
+                               residual=residual, activation=activation,
+                               out_dtype=out_dtype)
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -386,7 +411,9 @@ def attention(
     (the int8 KV cache) take per-position f32 ``k_scale``/``v_scale`` of
     shape ``(B, Hkv, Skv, 1)``, dequantized inside the kernel (folded
     into the scores and probabilities); the cache is never copied to
-    float.
+    float.  Where grad is enabled and q, k or v requires it, the launch
+    runs inside ``autograd.attention`` (float K/V, a scalar ``kv_len``),
+    whose backward is plain PyTorch.
     """
     fault = health.maybe_inject("kernel.attention")
     b, hq, _, _ = q.shape
@@ -453,11 +480,25 @@ def attention(
                for got, want in zip((bq, bkv), built)):
             raise ValueError(f"the {reg.name} kernel is compiled for (bq, "
                              f"bkv) = {built}, got ({bq}, {bkv})")
-        fn = attention_df.flash_attention if anchor == "os" \
-            else attention_df.kv_stationary_attention
-        out = fn(q, k, v, causal=causal, window=win, scale=scale,
-                 kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)
+        if autograd.b2_carries_grad(q, k, v, kv_len=kv_len,
+                                    k_scale=k_scale):
+            out = autograd.attention(
+                q, k, v, causal, win,
+                float(scale if scale is not None else q.shape[-1] ** -0.5),
+                None if kv_len is None else int(kv_len), anchor)
+        else:
+            out = _attention(q, k, v, anchor, causal=causal, window=win,
+                             scale=scale, kv_len=kv_len, k_scale=k_scale,
+                             v_scale=v_scale)
     return _poison(out, fault)
+
+
+def _attention(q, k, v, anchor: str, **kw) -> torch.Tensor:
+    """One launch of B2 (``anchor`` "os") or B7 ("ws"): no fault site, no
+    gradient."""
+    fn = attention_df.flash_attention if anchor == "os" \
+        else attention_df.kv_stationary_attention
+    return fn(q, k, v, **kw)
 
 
 def paged_attention(

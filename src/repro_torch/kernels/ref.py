@@ -77,6 +77,34 @@ def matmul_fused_ref(
 KvLen = Union[None, int, torch.Tensor]
 
 
+def visible_keys(sq: int, skv: int, kv_len: KvLen, causal: bool,
+                 window: Optional[int], device) -> torch.Tensor:
+    """The kernels' mask, shaped to broadcast against grouped logits
+    (B, Hkv, G, Sq, Skv): q rows right-align against the valid KV length
+    (``kv_len``, default ``Skv``, or one per batch row), so row i sits at
+    position ``i + kv_len - Sq``; a key is visible when it lies below
+    ``kv_len``, at or before the row (``causal``) and within ``window``
+    positions of it."""
+    kv_valid = skv if kv_len is None else kv_len
+    kpos = torch.arange(skv, device=device)
+    if torch.is_tensor(kv_valid) and kv_valid.ndim == 1:
+        kv_col = kv_valid.to(device).long()[:, None, None]         # (B,1,1)
+        qpos = torch.arange(sq, device=device)[None, :, None] + (kv_col
+                                                                 - sq)
+        mask = kpos[None, None, :] < kv_col                        # (B,Sq,Skv)
+        kpos = kpos[None, None, :]
+    else:
+        kv_valid = int(kv_valid)
+        qpos = torch.arange(sq, device=device)[:, None] + (kv_valid - sq)
+        kpos = kpos[None, :]
+        mask = kpos < kv_valid
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
+
+
 def attention_ref(
     q: torch.Tensor,              # (B, Hq, Sq, D)
     k: torch.Tensor,              # (B, Hkv, Skv, D)
@@ -88,13 +116,9 @@ def attention_ref(
     k_scale: Optional[torch.Tensor] = None,   # (B, Hkv, Skv, 1) f32
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """GQA attention oracle with the kernels' mask.
+    """GQA attention oracle with the kernels' mask (``visible_keys``).
 
-    q rows right-align against the valid KV length (``kv_len``, default
-    ``Skv``): row i sits at position ``i + kv_len - Sq``.  A key is
-    visible when it lies below ``kv_len``, at or before the row
-    (``causal``) and within ``window`` positions of it.  Rows that see no
-    key emit 0.  int8 K/V dequantize through their per-position scales,
+    Rows that see no key emit 0.  int8 K/V dequantize through their per-position scales,
     folded as the JAX oracle folds them: ``k_scale`` multiplies the
     scaled logits, ``v_scale`` the normalized probabilities (equal to
     scaling the K/V rows, since the scales are per position), so no float
@@ -104,29 +128,12 @@ def attention_ref(
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
     scale = scale if scale is not None else d ** -0.5
-    dev = q.device
     logits = torch.einsum("bhgqd,bhkd->bhgqk",
                           q.float().reshape(b, hkv, group, sq, d),
                           k.float()) * scale
     if k_scale is not None:
         logits = logits * k_scale[..., 0].float()[:, :, None, None, :]
-    kv_valid = skv if kv_len is None else kv_len
-    kpos = torch.arange(skv, device=dev)
-    if torch.is_tensor(kv_valid) and kv_valid.ndim == 1:
-        kv_col = kv_valid.to(dev).long()[:, None, None]            # (B,1,1)
-        qpos = torch.arange(sq, device=dev)[None, :, None] + (kv_col - sq)
-        mask = kpos[None, None, :] < kv_col                        # (B,Sq,Skv)
-        kpos = kpos[None, None, :]
-    else:
-        kv_valid = int(kv_valid)
-        qpos = torch.arange(sq, device=dev)[:, None] + (kv_valid - sq)
-        kpos = kpos[None, :]
-        mask = kpos < kv_valid
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window is not None:
-        mask = mask & (kpos > qpos - window)
-    mask = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
+    mask = visible_keys(sq, skv, kv_len, causal, window, q.device)
     logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)                 # fully-masked rows

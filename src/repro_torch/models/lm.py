@@ -21,6 +21,9 @@ first, middle and last layers full), a static int the kernels band
 with.  ``forward`` is the teacher-forced pass over a whole sequence
 (logits at every position, the MoE load-balancing loss summed over the
 layers); the serving steps drop that loss, as the reference's do.
+``loss_fn`` is the training loss over it (``chunked_cross_entropy``
+plus the weighted load-balancing loss), each layer rematerialized under
+autograd as ``remat`` says.
 Parameters
 keep the JAX package's layout — per-layer leaves stacked on a leading
 ``L`` axis (``models/bridge.py`` moves a JAX tree over unchanged) — and
@@ -35,14 +38,17 @@ cross cache.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_lib
 from repro_torch.core.dataflow import (AttentionProblem, BinaryProblem,
                                        ConvProblem, GemmProblem)
-from repro_torch.kernels import pack, ref
+from repro_torch.kernels import autograd, pack, ref
 from repro_torch.models import layers, moe, ssm
 
 Params = Dict[str, Any]
@@ -287,16 +293,24 @@ def hot_chunk_problems(cfg, seq: int, max_len: int) -> list:
 
 def _stack_views(stacked: Params) -> List[Params]:
     """Per-layer views of leaves stacked on a leading layer axis (a
-    stacked ``PackedWeights`` gives its layer's view)."""
+    stacked ``PackedWeights`` gives its layer's view).  Each leaf is
+    unbound once, so under autograd a leaf's layers send their gradients
+    to one node that stacks them (indexing each layer would add a
+    leaf-sized gradient per layer)."""
     n = stacked["ln1"].shape[0]
 
-    def pick(tree, i):
-        return {k: pick(v, i) if isinstance(v, dict)
-                else v.layer(i) if isinstance(v, pack.PackedWeights)
-                else v[i]
+    def unbound(tree):
+        return {k: unbound(v) if isinstance(v, dict)
+                else [v.layer(i) for i in range(n)]
+                if isinstance(v, pack.PackedWeights) else v.unbind(0)
                 for k, v in tree.items()}
 
-    return [pick(stacked, i) for i in range(n)]
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+
+    views = unbound(stacked)
+    return [pick(views, i) for i in range(n)]
 
 
 def _layer_params(params: Params) -> List[Params]:
@@ -524,34 +538,128 @@ def encode(params: Params, frames: torch.Tensor, cfg) -> torch.Tensor:
     return layers.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
+# Activation rematerialization of each decoder layer under autograd,
+# the reference's ``remat``: "none" keeps every activation the backward
+# reads; "full" keeps a layer's input alone and recomputes the layer in
+# the backward; "dots" keeps the outputs of its matrix products (B1's and
+# the projections', ``autograd.KEPT_UNDER_DOTS``) and recomputes the rest,
+# B2 included.  The recomputation repeats the forward's arithmetic, so no
+# mode changes a bit of the loss or of the gradients.
+REMAT = ("none", "dots", "full")
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in autograd.KEPT_UNDER_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _rematerialized(fn, remat: str):
+    """``fn`` run under ``torch.utils.checkpoint`` as ``remat`` says."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if remat == "none":
+        return fn
+    kw = {} if remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _keep_dots)}
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _tracked(params: Params) -> bool:
+    """Is grad enabled with a parameter that requires it?"""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in _tensor_leaves(params))
+
+
+def _tensor_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensor_leaves(v)
+        elif torch.is_tensor(v):
+            yield v
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg,
-                   enc_frames: Optional[torch.Tensor] = None
+                   enc_frames: Optional[torch.Tensor] = None,
+                   remat: str = "dots"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The teacher-forced pass over ``tokens`` (B, S) without the
     unembedding: every layer over the whole sequence, causal attention
     over the sequence's own K/V (no cache), the SSM's chunked SSD from the
     zero state, an encoder-decoder's cross attention to ``encode`` of
-    ``enc_frames`` (required).  Returns (final hidden (B, S, D), the MoE
-    load-balancing loss summed over the layers, 0 without experts)."""
+    ``enc_frames`` (required).  Under autograd each layer is
+    rematerialized as ``remat`` says (``REMAT``; without a parameter
+    that requires grad there is nothing to keep, and ``remat`` is moot).
+    Returns (final hidden (B, S, D), the MoE load-balancing loss summed
+    over the layers, 0 without experts)."""
     x = _embed(params, tokens, cfg)
     enc_out = _encoded(params, cfg, enc_frames)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    remat = remat if _tracked(params) else "none"
     for i, lp in enumerate(_layer_params(params)):
-        x, a = _layer(lp, x, cfg, i, positions, enc_out=enc_out)
+        layer = _rematerialized(functools.partial(
+            _layer, lp, cfg=cfg, i=i, positions=positions, enc_out=enc_out),
+            remat)
+        x, a = layer(x)
         aux = aux + a
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg,
-            enc_frames: Optional[torch.Tensor] = None
+            enc_frames: Optional[torch.Tensor] = None, remat: str = "dots"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The teacher-forced forward (``forward_hidden``, then the
     unembedding).  Returns (logits (B, S, padded_vocab), aux loss); the
     padded vocabulary's logits are left as computed, as the reference
-    leaves them."""
-    x, aux = forward_hidden(params, tokens, cfg, enc_frames)
+    leaves them (the loss masks them: ``chunked_cross_entropy``)."""
+    x, aux = forward_hidden(params, tokens, cfg, enc_frames, remat)
     return layers.unembed(_head(params), x), aux
+
+
+def _chunk_nll(x: torch.Tensor, table: torch.Tensor, targets: torch.Tensor,
+               vocab: int) -> torch.Tensor:
+    """Summed next-token NLL of one sequence chunk: the unembedding in
+    the activations' dtype cast to float32 (the reference's
+    ``einsum(...).astype(float32)``), logits past ``vocab`` at -inf."""
+    logits = (x @ table.T).float()
+    if logits.shape[-1] != vocab:
+        logits = logits.masked_fill(
+            torch.arange(logits.shape[-1], device=x.device) >= vocab,
+            float("-inf"))
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
+                          targets: torch.Tensor, cfg,
+                          chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross entropy of ``x`` (B, S, D) under the
+    unembedding ``table`` (padded_vocab, D) against ``targets`` (B, S),
+    the reference's ``chunked_cross_entropy``: the sequence in chunks of
+    ``chunk``, each under ``torch.utils.checkpoint``, so the float32
+    logits are held for one chunk at a time, never at (B, S, V), and
+    recomputed in the backward (the reference pads the last chunk and
+    masks the padding; here it is shorter).  A float32 0-d tensor."""
+    b, s, _ = x.shape
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, s, chunk):
+        total = total + checkpoint(_chunk_nll, x[:, c:c + chunk], table,
+                                   targets[:, c:c + chunk], cfg.vocab_size,
+                                   use_reentrant=False)
+    return total / (b * s)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg,
+            remat: str = "dots", aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss of ``batch`` (``tokens``, ``targets``, and
+    ``enc_frames`` for an encoder-decoder): the mean next-token NLL plus
+    ``aux_weight`` times the MoE load-balancing loss.  Returns (loss,
+    {"nll", "aux"}), float32 0-d tensors."""
+    x, aux = forward_hidden(params, batch["tokens"], cfg,
+                            batch.get("enc_frames"), remat)
+    nll = chunked_cross_entropy(x, _head(params), batch["targets"], cfg)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg,

@@ -1,8 +1,8 @@
 """Fault injection, the health ledger, and graceful kernel degradation.
 
 The port's copy of ``repro/runtime/health.py``, as far as the serving
-path uses it.  Every place the path can plausibly fail calls
-``maybe_inject(site)``; ``REPRO_FAULT_PLAN`` arms faults::
+path and the training driver use it.  Every place the path can plausibly
+fail calls ``maybe_inject(site)``; ``REPRO_FAULT_PLAN`` arms faults::
 
     REPRO_FAULT_PLAN="<site>:<step>:<kind>[,<site>:<step>:<kind>...]"
 
@@ -45,6 +45,7 @@ INJECTION_SITES: List[str] = [
     "kernel.attention",
     "layers.attention",
     "layers.mlp",
+    "train.step",
     "pool.alloc",
     "pool.spill",
 ]
@@ -108,29 +109,45 @@ def fault_log() -> List[FiredFault]:
     return list(_fired)
 
 
-def maybe_inject(site: str) -> Optional[str]:
+def maybe_inject(site: str, step: Optional[int] = None) -> Optional[str]:
     """Advance ``site``'s hit counter and fire any armed fault.
 
-    Returns ``"nan"`` or ``"hang-timeout"`` for faults the caller
+    ``step`` replaces the hit count in the match (the training driver
+    passes its step, so a drill names the same step across restarts);
+    ``REPRO_FAIL_AT_STEP=<n>`` arms a ``raise`` at ``train.step``'s step
+    ``n``.  Returns ``"nan"`` or ``"hang-timeout"`` for faults the caller
     realizes (the sleep has already happened), None when nothing fired;
     ``raise``-kind faults raise ``SimulatedFailure`` and ``kill``-kind
     faults never return.
     """
     hit = _site_hits.get(site, 0)
     _site_hits[site] = hit + 1
+    idx = hit if step is None else step
+    if site == "train.step":
+        at = os.environ.get("REPRO_FAIL_AT_STEP")
+        if at is not None and idx == int(at):
+            _fired.append(FiredFault(site, idx, "raise", time.time()))
+            raise SimulatedFailure(f"injected failure at step {idx}")
     plan = os.environ.get("REPRO_FAULT_PLAN")
     for spec in parse_fault_plan(plan) if plan else []:
-        if spec.site != site or (spec.step is not None and spec.step != hit):
+        if spec.site != site or (spec.step is not None and spec.step != idx):
             continue
-        _fired.append(FiredFault(site, hit, spec.kind, time.time()))
+        _fired.append(FiredFault(site, idx, spec.kind, time.time()))
         if spec.kind == "raise":
-            raise SimulatedFailure(f"injected failure at {site} (hit {hit})")
+            raise SimulatedFailure(f"injected failure at {site} (hit {idx})")
         if spec.kind == "kill":
             os.kill(os.getpid(), signal.SIGKILL)
         if spec.kind == "hang-timeout":
             time.sleep(float(os.environ.get("REPRO_FAULT_HANG_S", "0.25")))
         return spec.kind
     return None
+
+
+def maybe_inject_failure(step: int) -> None:
+    """The training loop's crash hook (``REPRO_FAIL_AT_STEP``): the
+    ``train.step`` site at ``step``, so a ``REPRO_FAULT_PLAN`` naming
+    ``train.step`` fires here too."""
+    maybe_inject("train.step", step=step)
 
 
 # ---------------------------------------------------------------------------

@@ -124,8 +124,9 @@ def test_nan_decode_step_is_retried_bit_identically(params, monkeypatch):
 
 # Sites no dense model's serving path reaches: the binary GEMM is drilled
 # on the binary-MLP twin of the smoke model; the conv, which no served
-# model runs, must fire nothing and leave the run clean (as the JAX
-# package's drill treats a site that never fires).  The spill site needs a
+# model runs, and the training loop's crash site must fire nothing and
+# leave the run clean (as the JAX package's drill treats a site that never
+# fires).  The spill site needs a
 # pool too small for the batch; the durability sites a journal, snapshots
 # and (engine.restore) a restart.  The autotuner's store sites fire at
 # lookups on the CPU too: its first lookup after a clear reads the store
@@ -133,7 +134,7 @@ def test_nan_decode_step_is_retried_bit_identically(params, monkeypatch):
 # read or write is absorbed by the store, never by the step.
 BINARY_SITES = {"kernel.binary_matmul"}
 AUTOTUNE_SITES = {"autotune.load", "autotune.save"}
-UNSERVED_SITES = {"kernel.conv2d"}
+UNSERVED_SITES = {"kernel.conv2d", "train.step"}
 PRESSURE_SITES = {"pool.spill"}
 DURABLE_SITES = {"journal.append", "snapshot.save", "ckpt.write",
                  "engine.restore"}
