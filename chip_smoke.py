@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases card,build,serve_ssm
     python3 chip_smoke.py --phases card,build,serve_audio
     python3 chip_smoke.py --phases card,build,train
+    python3 chip_smoke.py --phases card,build,codegen,dist
 
 Phases, each printing JSON lines:
 
@@ -256,6 +257,20 @@ Phases, each printing JSON lines:
    step ms, tokens/s, peak memory, B1's launches split into forward,
    backward and recompute); a traced step; a crash and resume of the
    training driver, bit for bit; B1 timed at the backward's shapes.
+18. ``codegen``: ``core.codegen.generate_source`` of each of the nine
+   specs of Fig. 2/7 at qwen3-1.7b's up projection (512 x 2048 x 6144 and
+   decode M = 4, bf16), executed on the card: ``SPEC`` pinned, B1's
+   basic-OS bits, the same launches per kernel and tile as a direct
+   ``matmul_df`` call, or the same refusal; each source's plan line.
+19. ``dist``: the multi-device stack over an NCCL group of one rank on a
+   1x1 ``"cuda"`` mesh (``dist_phase``): qwen3-1.7b whole, its ``dist``
+   forward of a 4 x 64 batch equal to the one-device forward bit for bit
+   with the same launches; moonshot-v1-16b-a3b at 4 layers,
+   ``moe_apply_sharded`` at EP 1 equal to ``moe_apply`` (int8 payload
+   off) or within ``A2A_INT8_RTOL`` (on, differentiated), its ``dist``
+   forward bitwise; ``compressed_psum`` against its closed form; a batch
+   snapshot restored with ``restore(devices=[card])`` resuming to the
+   uninterrupted run's tokens bit for bit.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
@@ -268,7 +283,9 @@ B2, B3, over its four configs; serve_f32: B1's f32 walk, B2, K1, B3;
 serve_moe: B1 with its bf16 tiles, B2, B3 and its 16-warp kernel;
 serve_ssm: B1 with its bf16 tiles, B2; serve_audio: B1 with its bf16
 tiles, B2; train: B1 with its bf16 prefill tile (forward and backward),
-B2 or B7 as picked, over 8 whole-model steps without remat;
+B2 or B7 as picked, over 8 whole-model steps without remat; codegen:
+B1 through the generated modules; dist: B1 with its bf16 tiles and B2,
+the ``dist`` forward's;
 B7's int8 paths (K2 among them), on no serving path, their launches in
 the kernels phase; dataflows: B1 and its bf16 tiles, B2,
 B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
@@ -308,7 +325,7 @@ ALL_PHASES = ("card", "build", "kernels", "autotune", "dataflows",
               "quantized", "serve",
               "serve_binary", "serve_packed", "serve_recovery",
               "serve_int8kv", "serve_dense", "serve_f32", "serve_moe",
-              "serve_ssm", "serve_audio", "train")
+              "serve_ssm", "serve_audio", "train", "codegen", "dist")
 
 
 def emit(obj) -> None:
@@ -5674,6 +5691,262 @@ def _leaves(tree):
             yield v
 
 
+# ---------------------------------------------------------------------------
+# The code generator (ROADMAP A15) and the multi-device stack (A14).
+# ---------------------------------------------------------------------------
+# Fig. 2/7's problem: qwen3-1.7b's up projection at a 512-token prefill and
+# at decode batch 4, bf16.
+CODEGEN_SHAPES = ((512, 2048, 6144), (4, 2048, 6144))
+
+
+def codegen_phase(torch):
+    """``core.codegen.generate_source`` of each of the nine specs of Fig.
+    2/7 at ``CODEGEN_SHAPES``, executed on the card: the module pins
+    ``SPEC == spec`` (a gate); its ``kernel(a, b)`` gives B1's basic-OS
+    bits (a gate) and launches, per kernel and tile name, what a direct
+    ``matmul_df`` call of the spec launches (a gate), or, where the plan
+    does not fit, raises naming the shared memory as that call does.
+    Prints each source's plan line.  Returns the phase's launches (the
+    generated kernels' alone)."""
+    from repro_torch.bench import common
+    from repro_torch.core import codegen
+    from repro_torch.core.dataflow import GemmProblem
+    from repro_torch.kernels import _build, matmul_df
+
+    phase = "codegen"
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    total = {}
+    rows = []
+    for m, k, n in CODEGEN_SHAPES:
+        a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn(k, n, generator=gen, device="cuda").to(torch.bfloat16)
+        base = matmul_df.matmul_df(a, b, common.NINE_SPECS["os_basic"])
+        problem = GemmProblem(m=m, k=k, n=n, in_dtype="bfloat16")
+        for name, spec in common.NINE_SPECS.items():
+            src = codegen.generate_source(problem, spec)
+            ns = {}
+            exec(compile(src, f"<codegen {name}>", "exec"), ns)
+            if ns["SPEC"] != spec:
+                raise AssertionError(f"{name}: the source pins {ns['SPEC']}")
+            plan = next(line for line in src.splitlines()
+                        if line.startswith("plan    :"))
+            label = f"{m}x{k}x{n} {name}"
+            try:
+                matmul_df.plan(spec, m, k, n, torch.bfloat16)
+            except ValueError:
+                _refuses(f"codegen[{name}]", lambda: ns["kernel"](a, b),
+                         label)
+                rows.append({"shape": [m, k, n], "spec": name,
+                             "plan": plan, "ran": False})
+                continue
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            direct = matmul_df.matmul_df(a, b, spec)
+            want = {key: v for key, v in _build.LAUNCHES.items() if v}
+            _build.reset_launches()
+            got = ns["kernel"](a, b)
+            torch.cuda.synchronize()
+            grew = {key: v for key, v in _build.LAUNCHES.items() if v}
+            if grew != want:
+                raise AssertionError(f"{label}: the generated kernel "
+                                     f"launched {grew}, matmul_df {want}")
+            for key, v in grew.items():
+                total[key] = total.get(key, 0) + v
+            _bitwise(f"codegen[{name}]", got, base, label)
+            if not direct.equal(base):
+                raise AssertionError(f"{label}: matmul_df differs from B1")
+            rows.append({"shape": [m, k, n], "spec": name, "plan": plan,
+                         "ran": True, "launches": grew})
+            emit({"phase": phase, "shape": [m, k, n], "spec": name,
+                  "plan": plan, "launches": grew})
+    if not any(r["ran"] for r in rows):
+        raise AssertionError("no generated kernel ran")
+    emit({"phase": phase, "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t0,
+          "ran": sum(r["ran"] for r in rows), "refused": sum(
+              not r["ran"] for r in rows), "launches_by_path": total})
+    return total
+
+
+# Relative error of the routed output under the int8 all-to-all payload:
+# each of the two exchanges rounds a slot to 1/127 of its largest
+# magnitude (an RMS error under 0.5% of the slot's scale each).
+A2A_INT8_RTOL = 0.02
+DIST_LAYERS_MOE = 4
+DIST_RESTORE_LAYERS = 2
+
+
+def dist_phase(torch, args):
+    """The multi-device stack (``lm.Dist``, ``models/parallel.py``) over
+    an NCCL process group of one rank on a 1x1 ``"cuda"`` mesh:
+
+    1. qwen3-1.7b whole (28 layers) at full width, bf16, random weights
+       from ``--seed``: ``lm.forward(..., dist=)`` of a 4 x 64 batch on
+       DTensor parameters equals the ``dist=None`` forward bit for bit,
+       launching the same kernels as often (gates).
+    2. moonshot-v1-16b-a3b at 4 layers: ``moe_apply_sharded`` at EP 1
+       against ``moe_apply`` on layer 0 (4 x 64 tokens): bitwise with
+       ``A2A_INT8`` off; with it on and the block differentiated (where
+       the int8 payload is sent, as the reference's ``custom_vjp``), the
+       routed output within ``A2A_INT8_RTOL`` (relative norm); the
+       4-layer ``dist`` forward equals the ``dist=None`` one bit for bit.
+    3. ``compressed_psum`` of a float32 gradient equals its closed form
+       (one rank: the codes times the scale; the residual the rest).
+    4. qwen3-1.7b at 2 layers served by ``Engine`` (4 x 64-token prompts,
+       6 new tokens, snapshots every 2 steps, journaled); the journal a
+       kill leaves (no terminal records, the last 2 tokens lost); a fresh
+       engine's ``restore(devices=[card])`` loads the snapshot onto the
+       mesh and resumes to the uninterrupted run's greedy tokens, bit for
+       bit.
+    Returns the launches of (1)'s ``dist`` forward."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm, moe, parallel
+    from repro_torch.optim import compress
+    from repro_torch.serve.engine import Engine
+
+    phase = "dist"
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    tdist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                             rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        d = lm.Dist(mesh, ("data",), "model")
+        out = {}
+
+        # 1. the dense decoder, whole
+        cfg = configs.get("qwen3-1.7b")
+        params = lm.init_model(cfg, seed=args.seed, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                             device="cuda")
+        with torch.no_grad():
+            _build.reset_launches()
+            want, _ = lm.forward(params, toks, cfg)
+            torch.cuda.synchronize()
+            one = {k: v for k, v in _build.LAUNCHES.items() if v}
+            sp = parallel.shard_params(params, mesh)
+            _build.reset_launches()
+            got, _ = lm.forward(sp, toks, cfg, dist=d)
+            got = got.full_tensor()
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if launched != one or not launched:
+            raise AssertionError(f"dist forward launched {launched}, the "
+                                 f"one-device forward {one}")
+        _bitwise("dist_forward[qwen3-1.7b]", got, want, "4x64 28 layers")
+        out["forward_launches"] = launched
+        del params, sp, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. expert parallelism at EP 1
+        mcfg = dataclasses.replace(configs.get("moonshot-v1-16b-a3b"),
+                                   n_layers=DIST_LAYERS_MOE)
+        mp = lm.init_model(mcfg, seed=args.seed, device="cuda")
+        msp = parallel.shard_params(mp, mesh)
+        lp0 = parallel.stack_views(msp["layers"])[0]["moe"]
+        x = torch.randn(4, 64, mcfg.d_model, generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        xd = parallel.tokens_on(d, x)
+        p0 = {k: v[0] for k, v in mp["layers"]["moe"].items()
+              if torch.is_tensor(v)}
+        p0["shared"] = {k: v[0] for k, v in
+                        mp["layers"]["moe"]["shared"].items()}
+        with torch.no_grad():
+            ref_y, ref_aux = moe.moe_apply(p0, x, mcfg)
+            prev = moe.A2A_INT8
+            moe.A2A_INT8 = False
+            y, aux = moe.moe_apply_sharded(lp0, xd, mcfg, mesh, ("data",),
+                                           "model")
+            _bitwise("moe_apply_sharded[ep1]", y.full_tensor(), ref_y,
+                     "4x64 moonshot layer 0")
+            _bitwise("moe_aux[ep1]", aux.full_tensor(), ref_aux, "aux")
+        moe.A2A_INT8 = True
+        try:
+            yq, _ = moe.moe_apply_sharded(lp0, xd.detach().requires_grad_(),
+                                          mcfg, mesh, ("data",), "model")
+            yq = yq.full_tensor().detach().float()
+        finally:
+            moe.A2A_INT8 = prev
+        rel = float((yq - ref_y.float()).norm() / ref_y.float().norm())
+        emit({"check": "moe_a2a_int8[ep1]", "rel_err": rel,
+              "rtol": A2A_INT8_RTOL})
+        if not rel <= A2A_INT8_RTOL:
+            raise AssertionError(f"int8 all-to-all: relative error {rel}")
+        with torch.no_grad():
+            mwant, _ = lm.forward(mp, toks, mcfg)
+            mgot, _ = lm.forward(msp, toks, mcfg, dist=d)
+        _bitwise("dist_forward[moonshot]", mgot.full_tensor(), mwant,
+                 f"4x64 {DIST_LAYERS_MOE} layers")
+        out["moe_int8_rel_err"] = rel
+        del mp, msp, lp0, p0, mgot, mwant
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. compressed_psum's closed form at one rank
+        g = torch.randn(4096, generator=gen, device="cuda")
+        red, res = compress.compressed_psum({"g": g}, (mesh, 0))
+        scale = g.abs().max() / 127.0
+        q = torch.clamp(torch.round(g / scale), -127, 127)
+        _bitwise("compressed_psum", red["g"], q * scale, "4096 f32")
+        _bitwise("compressed_psum_residual", res["g"], g - q * scale,
+                 "4096 f32")
+
+        # 4. a snapshot restored onto the card's mesh
+        rcfg = dataclasses.replace(cfg, n_layers=DIST_RESTORE_LAYERS)
+        rp = lm.init_model(rcfg, seed=args.seed, device="cuda")
+        prompts = _prompts(rcfg, args.seed, [64, 64, 64, 64])
+        jdir = os.path.join(tmp, "journal")
+        eng = Engine(rcfg, rp, max_len=1024, device="cuda", journal_dir=jdir,
+                     snapshot_every=2)
+        reqs = [eng.submit(p, 6) for p in prompts]
+        eng.serve(reqs)
+        base = [list(r.out_tokens) for r in reqs]
+        del eng, reqs
+        path = os.path.join(jdir, "journal.jsonl")
+        keep = [line for line in open(path)
+                if json.loads(line)["rec"]["kind"] not in (
+                    "done", "failed", "evicted")]
+        tok = [i for i, line in enumerate(keep)
+               if json.loads(line)["rec"]["kind"] == "token"]
+        drop = set(tok[-2:])
+        open(path, "w").writelines(line for i, line in enumerate(keep)
+                                   if i not in drop)
+        eng = Engine(rcfg, rp, max_len=1024, device="cuda", journal_dir=jdir)
+        rec = eng.restore(devices=[torch.device("cuda")])
+        warm = eng._pending_resume is not None \
+            and eng._pending_resume["cache"] is not None
+        eng.serve(rec)
+        got_tokens = [list(r.out_tokens) for r in rec]
+        emit({"check": "restore_devices", "mesh": list(eng.dist.mesh.shape),
+              "warm": warm, "tokens_equal": got_tokens == base,
+              "stats": {k: v for k, v in eng.stats().items()
+                        if isinstance(v, int)}})
+        if not warm or got_tokens != base:
+            raise AssertionError(f"restore(devices=[card]): warm={warm}, "
+                                 f"tokens {got_tokens} != {base}")
+        del eng, rec, rp
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": phase, "event": "done", "card": card_line(),
+          "seconds": time.monotonic() - t0, **out})
+    return launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -5762,6 +6035,10 @@ def main(argv=None) -> int:
     if "train" in phases:
         paths["train"], backward = train_phase(torch, args)
         records.setdefault("matmul_os", {})["backward"] = backward
+    if "codegen" in phases:
+        paths["codegen"] = codegen_phase(torch)
+    if "dist" in phases:
+        paths["dist"] = dist_phase(torch, args)
 
     kernels = []
     for name, reg in registered_kernels().items():
@@ -5771,7 +6048,8 @@ def main(argv=None) -> int:
                                 "serve_recovery", "serve_int8kv",
                                 "serve_dense", "serve_f32", "serve_moe",
                                 "serve_ssm", "serve_audio",
-                                "dataflows", "quantized", "train")
+                                "dataflows", "quantized", "train",
+                                "codegen", "dist")
                     if paths.get(p, {}).get(name)), None)
         if own is None and "kernels_phase_launches" in rec:
             # on no serving path (B7's int8 paths, as in the reference):

@@ -8,8 +8,11 @@ The port's twin of ``repro/ckpt/checkpoint.py``, with the same layout::
 
 ``save`` copies every tensor to the host at once and writes the files in
 a background thread (or at once with ``blocking=True``); ``wait()`` joins
-before the next save, so at most one write is in flight.  ``restore``
-loads a step onto the device it is given.
+before the next save, so at most one write is in flight; a DTensor leaf
+is gathered whole first.  ``restore`` loads a step onto the device it
+is given, or, with ``shardings=`` (``launch.sharding.Sharding`` trees by
+tree name: ``runtime.elastic.plan_remesh``'s), onto placements: each
+rank moves its own slice of a leaf to the device, as a DTensor.
 
 Durability, as in the JAX package: ``arrays.npz``, ``manifest.json`` and
 the step directory are fsync'd before ``LATEST`` flips; an existing step
@@ -72,6 +75,8 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
 
 def _to_host(leaf) -> Tuple[np.ndarray, Dict[str, Any]]:
     """A leaf as a numpy array and its manifest entry."""
+    if hasattr(leaf, "full_tensor"):          # a DTensor: gathered whole
+        leaf = leaf.full_tensor()
     if isinstance(leaf, bool) or not isinstance(leaf, (int, float,
                                                        torch.Tensor)):
         raise TypeError(f"cannot checkpoint a leaf of type "
@@ -89,7 +94,8 @@ def _to_host(leaf) -> Tuple[np.ndarray, Dict[str, Any]]:
     return arr, {"shape": list(host.shape), "dtype": dtype, "kind": "tensor"}
 
 
-def _from_host(arr: np.ndarray, meta: Dict[str, Any], device):
+def _from_host(arr: np.ndarray, meta: Dict[str, Any], device,
+               sharding=None):
     if meta["kind"] == "int":
         return int(arr)
     if meta["kind"] == "float":
@@ -101,7 +107,12 @@ def _from_host(arr: np.ndarray, meta: Dict[str, Any], device):
     if t.dtype != want or list(t.shape) != list(meta["shape"]):
         raise CheckpointError(f"leaf stored as {t.dtype} {list(t.shape)}, "
                               f"manifest says {want} {meta['shape']}")
-    return t.to(device)
+    if sharding is None:
+        return t.to(device)
+    from repro_torch.models import parallel
+
+    return parallel.from_global(t, sharding.mesh, sharding.placements,
+                                device=device)
 
 
 def _fsync_path(path: str) -> None:
@@ -278,10 +289,13 @@ class Checkpointer:
             return json.load(f)
 
     def restore(self, step: Optional[int] = None, device="cpu",
-                names: Optional[List[str]] = None):
+                names: Optional[List[str]] = None,
+                shardings: Optional[Dict[str, Any]] = None):
         """Load ``step`` (default the latest) onto ``device``: returns
         (step, {tree name: tree}, extras), every tree rebuilt from its
-        paths, ``PackedWeights`` included.  ``names`` picks trees."""
+        paths, ``PackedWeights`` included.  ``names`` picks trees;
+        ``shardings`` (by tree name, a nested dict of ``Sharding``s)
+        loads a tree's leaves as DTensors, this rank's slices alone."""
         manifest = self.manifest(step)
         step = manifest["step"]
         d = os.path.join(self.dir, f"step_{step:08d}")
@@ -296,8 +310,11 @@ class Checkpointer:
                     keys = path.split(SEP)
                     for key in keys[:-1]:
                         node = node.setdefault(key, {})
+                    sh = (shardings or {}).get(name)
+                    for key in keys if sh is not None else ():
+                        sh = sh[key]
                     node[keys[-1]] = _from_host(data[f"{name}::{path}"],
-                                                meta, device)
+                                                meta, device, sh)
                 for path, sizes in manifest.get("packed", {}).get(
                         name, {}).items():
                     keys = path.split(SEP)

@@ -10,17 +10,19 @@ SSM heads in parallel, sliding windows but on three layers) and the
 encoder-decoder whisper-tiny (family ``audio``: its conv frontend
 stubbed, the encoder fed frame embeddings).  Every config of the JAX
 package has its twin; ``QUEUED`` names any that waits for a ROADMAP
-entry (none now).
+entry (none now).  ``cell_skipped`` and ``all_cells`` enumerate the
+(arch x shape) cells of the dry-run, as the reference's registry does.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 from repro_torch.configs import (chameleon_34b, hymba_1_5b, mamba2_780m,
                                  minicpm_2b, minitron_8b, mistral_nemo_12b,
                                  moonshot_v1_16b_a3b, qwen3_1_7b,
                                  qwen3_moe_235b_a22b, whisper_tiny)
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (ArchConfig, ShapeConfig, SHAPES,
+                                      input_specs)
 
 _MODULES = {
     "minicpm-2b": minicpm_2b,
@@ -55,3 +57,22 @@ def get(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return _module(name).SMOKE
+
+
+def cell_skipped(arch: str, shape: str) -> Tuple[bool, str]:
+    """(skipped?, reason) for an (arch x shape) dry-run cell."""
+    cfg = get(arch)
+    if shape == "long_500k" and not cfg.subquadratic:
+        return True, ("full quadratic attention at 512k context "
+                      "(per assignment: run only SSM/hybrid/linear-attn)")
+    return False, ""
+
+
+def all_cells(include_skipped: bool = False):
+    """Every (arch, shape, skipped, reason) of the assignment (40 cells)."""
+    for arch in ARCH_NAMES:
+        for shape in SHAPES:
+            skipped, reason = cell_skipped(arch, shape)
+            if skipped and not include_skipped:
+                continue
+            yield arch, shape, skipped, reason

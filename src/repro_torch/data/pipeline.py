@@ -5,8 +5,8 @@ a batch is a pure function of (seed, step), drawn with numpy exactly as
 the reference draws it (a Zipf-ish unigram stream with copy motifs, and
 for an encoder-decoder normal frame embeddings), so the two packages see
 the same tokens bit for bit and a restart resumes with no iterator
-state.  ``make_global_batch``, which materializes one host's shards of a
-sharded batch, waits for ROADMAP A14.
+state.  ``make_global_batch`` makes a DTensor of a batch leaf from this
+rank's slice alone (``batch(step, sharding=)``).
 """
 from __future__ import annotations
 
@@ -57,15 +57,39 @@ class SyntheticLMDataset:
                 size=(b, es, self.d_model)).astype(np.float32)
         return out
 
-    def batch(self, step: int, device=None) -> Dict[str, torch.Tensor]:
+    def batch(self, step: int, device=None, sharding=None
+              ) -> Dict[str, torch.Tensor]:
         """``batch_np(step)`` as tensors on ``device`` (the card by
-        default)."""
+        default); with ``sharding`` (a ``launch.sharding.Sharding``, or a
+        dict of them by leaf name: ``batch_shardings``), DTensors holding
+        this rank's slice only (``make_global_batch``)."""
         dev = device_lib.resolve(device)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                for k, v in self.batch_np(step).items()}
+        np_batch = self.batch_np(step)
+        if sharding is None:
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for k, v in np_batch.items()}
+        return {k: make_global_batch(
+            v, sharding[k] if isinstance(sharding, dict) else sharding, dev)
+            for k, v in np_batch.items()}
 
 
-def make_global_batch(*args, **kwargs):
-    raise NotImplementedError(
-        "make_global_batch shards a batch over a device mesh: it waits "
-        "for ROADMAP A14 (multi-device on torch.distributed)")
+def make_global_batch(array: np.ndarray, sharding, device=None):
+    """A DTensor of the global ``array`` under ``sharding`` (a
+    ``launch.sharding.Sharding``): this rank's slice, found from the
+    placements, is the only part copied to ``device``; no other rank's
+    shard is materialized there."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import sharding as rules
+
+    dev = device_lib.resolve(device)
+    pls = sharding.placements
+    local = array[rules.shard_slices(array.shape, pls, sharding.mesh)]
+    t = torch.from_numpy(np.ascontiguousarray(local)).to(dev)
+    stride, acc = [], 1
+    for d in reversed(array.shape):
+        stride.append(acc)
+        acc *= d
+    return DTensor.from_local(t, sharding.mesh, pls, run_check=False,
+                              shape=torch.Size(array.shape),
+                              stride=tuple(reversed(stride)))

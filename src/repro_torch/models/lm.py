@@ -34,6 +34,13 @@ paged KV pool (``paged_decode_step``) or off the contiguous slot cache
 scales) decodes off the slot cache only, as in the JAX package, and so
 does a config with SSM state (``ssm``/``conv`` in the slot cache) or a
 cross cache.
+
+``dist=`` (a ``Dist``: a ``DeviceMesh``, its data axes and its model
+axis) runs ``forward``, ``forward_hidden``, ``loss_fn``, ``prefill`` and
+``decode_step`` over the mesh, on parameters placed by
+``launch/sharding.py`` (``parallel.shard_params``): the same loops and
+``_layer``, with each piece run by ``parallel.Mesh`` in place of
+``OneDevice``; with ``dist=None`` they run on one device as above.
 """
 from __future__ import annotations
 
@@ -49,9 +56,18 @@ from repro_torch import device as device_lib
 from repro_torch.core.dataflow import (AttentionProblem, BinaryProblem,
                                        ConvProblem, GemmProblem)
 from repro_torch.kernels import autograd, pack, ref
-from repro_torch.models import layers, moe, ssm
+from repro_torch.models import flags, layers, moe, ssm
 
 Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class Dist:
+    """Distribution context threaded into the model (None = one device)."""
+
+    mesh: Any                  # torch.distributed.device_mesh.DeviceMesh
+    dp_axes: Tuple[str, ...]   # batch axes, e.g. ("pod", "data")
+    tp_axis: str               # tensor/expert-parallel axis
 
 
 # Families served as the dense decoder: ``vlm`` (chameleon) is early
@@ -364,7 +380,9 @@ def init_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
     ``cross_v`` ``(L, B, Hkv, enc_len or max_len, D)`` of ``dtype``, a
     float dtype even over an int8 KV cache, as the reference keeps them."""
     _check_supported(cfg)
-    dev = device_lib.resolve(device)
+    # "meta": the buffers' shapes and dtypes alone (the mesh's cache)
+    dev = torch.device("meta") if device == "meta" \
+        else device_lib.resolve(device)
     cache: Params = {"index": 0}
     if cfg.has_attention:
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
@@ -450,38 +468,119 @@ def _cross_residual(lp: Params, x: torch.Tensor, cfg, i: int,
     return x + out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
 
 
-def _layer(lp: Params, x: torch.Tensor, cfg, i: int,
-           positions: torch.Tensor, cache: Optional[Params] = None,
-           new: Optional[Params] = None, cache_index=None,
-           attend_local: bool = False,
-           enc_out: Optional[torch.Tensor] = None
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decoder layer ``i``: ``x`` plus the mean of its attention (window
-    ``cfg.layer_window(i)``; with a ``cache``, K/V written into it in
-    place) and its Mamba2 block (from the layer's state in ``cache``, the
-    new state written into ``new``'s buffers; from the zero state without
-    a cache), both over the normed ``x``, as the reference's
-    ``layer_apply`` mixes them; then the cross-attention residual
-    (``_cross_residual``), then the FFN residual.  Returns (x, the MoE
-    block's load-balancing loss or 0)."""
-    h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    paths = []
-    if cfg.has_attention:
+class OneDevice:
+    """How the layer loop and ``_layer`` run their pieces: here, each on
+    one device as the functions of this module do (``dist=None``).
+    ``parallel.Mesh`` runs the same pieces over a mesh, so the order of
+    work is written once, in ``_layer`` and the entry points."""
+
+    def tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return tokens
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a per-row tensor (all of them here)."""
+        return t
+
+    def embed(self, params: Params, tokens: torch.Tensor, cfg
+              ) -> torch.Tensor:
+        return _embed(params, tokens, cfg)
+
+    def encode(self, params: Params, frames: torch.Tensor, cfg
+               ) -> torch.Tensor:
+        return encode(params, frames, cfg)
+
+    def init_cache(self, cfg, batch: int, max_len: int, dtype, device,
+                   enc_len: Optional[int]) -> Params:
+        return init_cache(cfg, batch, max_len, dtype, device, enc_len)
+
+    def layer_params(self, params: Params) -> List[Params]:
+        return _layer_params(params)
+
+    def prenorm(self, lp: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+        """The mixers' shared input: ``x`` normed by ``ln1``."""
+        return layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+
+    def attention(self, lp: Params, h: torch.Tensor, cfg, i: int,
+                  positions: torch.Tensor, cache: Optional[Params] = None,
+                  cache_index=None, attend_local: bool = False
+                  ) -> torch.Tensor:
+        """Layer ``i``'s self-attention over the normed ``h`` (window
+        ``cfg.layer_window(i)``; with a ``cache``, K/V written into it in
+        place)."""
         out, _ = layers.attention_apply(
             lp["attn"], h, cfg, positions=positions,
             window=cfg.layer_window(i),
             kv_cache=None if cache is None else _layer_cache(cache, i),
             cache_index=cache_index, attend_local=attend_local)
-        paths.append(out)
-    if cfg.has_ssm:
-        state = None if cache is None else (cache["ssm"][i], cache["conv"][i])
+        return out
+
+    def ssm(self, lp: Params, h: torch.Tensor, cfg, i: int,
+            cache: Optional[Params] = None, new: Optional[Params] = None
+            ) -> torch.Tensor:
+        """Layer ``i``'s Mamba2 block over the normed ``h``: from the
+        layer's state in ``cache``, the new state written into ``new``'s
+        buffers; from the zero state without a cache."""
+        state = None if cache is None else (cache["ssm"][i],
+                                            cache["conv"][i])
         out, new_state = ssm.mamba_apply(lp["mamba"], h, cfg, state)
         if new_state is not None:
             new["ssm"][i], new["conv"][i] = new_state
-        paths.append(out)
+        return out
+
+    def cross(self, lp, x, cfg, i, cache, enc_out):
+        return _cross_residual(lp, x, cfg, i, cache, enc_out)
+
+    def ffn(self, lp, x, cfg):
+        return _ffn_residual(lp, x, cfg)
+
+    def final_norm(self, params: Params, x: torch.Tensor, cfg
+                   ) -> torch.Tensor:
+        return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+    def logits(self, params: Params, x: torch.Tensor, cfg, last: bool,
+               mask_vocab: bool) -> torch.Tensor:
+        """The unembedding of the normed ``x`` (``last``: of its last
+        position), padded-vocab logits at -inf when ``mask_vocab``."""
+        logits = layers.unembed(_head(params), x[:, -1] if last else x)
+        return _mask_vocab(logits, cfg) if mask_vocab else logits
+
+    def nll_sum(self, params: Params, x: torch.Tensor, targets, cfg,
+                chunk: int) -> torch.Tensor:
+        return _nll_sum(x, _head(params), targets, cfg.vocab_size, chunk)
+
+
+ONE_DEVICE = OneDevice()
+
+
+def _runner(dist: Optional[Dist]) -> OneDevice:
+    if dist is None:
+        return ONE_DEVICE
+    from repro_torch.models import parallel
+    return parallel.Mesh(dist)
+
+
+def _layer(lp: Params, x: torch.Tensor, cfg, i: int,
+           positions: torch.Tensor, cache: Optional[Params] = None,
+           new: Optional[Params] = None, cache_index=None,
+           attend_local: bool = False,
+           enc_out: Optional[torch.Tensor] = None,
+           run: OneDevice = ONE_DEVICE
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decoder layer ``i``: ``x`` plus the mean of its attention and its
+    Mamba2 block, both over the normed ``x``, as the reference's
+    ``layer_apply`` mixes them; then the cross-attention residual
+    (``_cross_residual``), then the FFN residual, each piece run by
+    ``run``.  Returns (x, the MoE block's load-balancing loss or 0)."""
+    h = run.prenorm(lp, x, cfg)
+    paths = []
+    if cfg.has_attention:
+        paths.append(run.attention(lp, h, cfg, i, positions, cache,
+                                   cache_index, attend_local))
+    if cfg.has_ssm:
+        paths.append(run.ssm(lp, h, cfg, i, cache, new))
     mix = paths[0] if len(paths) == 1 else (paths[0] + paths[1]) / 2
-    x = _cross_residual(lp, x + mix, cfg, i, cache, enc_out)
-    return _ffn_residual(lp, x, cfg)
+    x = run.cross(lp, x + mix, cfg, i, cache, enc_out)
+    return run.ffn(lp, x, cfg)
 
 
 def _with_new_state(cache: Params) -> Params:
@@ -499,7 +598,8 @@ def _embed(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
         getattr(torch, cfg.act_dtype))
 
 
-def _encoded(params: Params, cfg, enc_frames: Optional[torch.Tensor]
+def _encoded(params: Params, cfg, enc_frames: Optional[torch.Tensor],
+             run: "OneDevice"
              ) -> Optional[torch.Tensor]:
     """The encoder's output for an encoder-decoder config (``ValueError``
     without frames, as the reference raises), None for any other."""
@@ -507,7 +607,7 @@ def _encoded(params: Params, cfg, enc_frames: Optional[torch.Tensor]
         return None
     if enc_frames is None:
         raise ValueError("enc-dec arch requires enc_frames")
-    return encode(params, enc_frames, cfg)
+    return run.encode(params, run.tokens(enc_frames), cfg)
 
 
 def encode(params: Params, frames: torch.Tensor, cfg) -> torch.Tensor:
@@ -580,7 +680,7 @@ def _tensor_leaves(tree):
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg,
                    enc_frames: Optional[torch.Tensor] = None,
-                   remat: str = "dots"
+                   remat: str = "dots", dist: Optional[Dist] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The teacher-forced pass over ``tokens`` (B, S) without the
     unembedding: every layer over the whole sequence, causal attention
@@ -589,45 +689,76 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg,
     ``enc_frames`` (required).  Under autograd each layer is
     rematerialized as ``remat`` says (``REMAT``; without a parameter
     that requires grad there is nothing to keep, and ``remat`` is moot).
-    Returns (final hidden (B, S, D), the MoE load-balancing loss summed
-    over the layers, 0 without experts)."""
-    x = _embed(params, tokens, cfg)
-    enc_out = _encoded(params, cfg, enc_frames)
+    Returns (final hidden (B, S, D), normed, the MoE load-balancing loss
+    summed over the layers, 0 without experts).  With ``dist``: the final
+    hidden a DTensor in the residual layout, the aux loss a plain
+    tensor."""
+    run = _runner(dist)
+    tokens = run.tokens(tokens)
+    x = run.embed(params, tokens, cfg)
+    enc_out = _encoded(params, cfg, enc_frames, run)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = remat if _tracked(params) else "none"
-    for i, lp in enumerate(_layer_params(params)):
+    for i, lp in enumerate(run.layer_params(params)):
         layer = _rematerialized(functools.partial(
-            _layer, lp, cfg=cfg, i=i, positions=positions, enc_out=enc_out),
-            remat)
+            _layer, lp, cfg=cfg, i=i, positions=positions, enc_out=enc_out,
+            run=run), remat)
         x, a = layer(x)
         aux = aux + a
-    return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+    return run.final_norm(params, x, cfg), aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg,
-            enc_frames: Optional[torch.Tensor] = None, remat: str = "dots"
+            enc_frames: Optional[torch.Tensor] = None, remat: str = "dots",
+            dist: Optional[Dist] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The teacher-forced forward (``forward_hidden``, then the
     unembedding).  Returns (logits (B, S, padded_vocab), aux loss); the
     padded vocabulary's logits are left as computed, as the reference
-    leaves them (the loss masks them: ``chunked_cross_entropy``)."""
-    x, aux = forward_hidden(params, tokens, cfg, enc_frames, remat)
-    return layers.unembed(_head(params), x), aux
+    leaves them (the loss masks them: ``chunked_cross_entropy``).  With
+    ``dist`` the logits are a DTensor, vocabulary over the model axis."""
+    x, aux = forward_hidden(params, tokens, cfg, enc_frames, remat, dist)
+    return _runner(dist).logits(params, x, cfg, last=False,
+                                mask_vocab=False), aux
 
 
 def _chunk_nll(x: torch.Tensor, table: torch.Tensor, targets: torch.Tensor,
-               vocab: int) -> torch.Tensor:
+               vocab: int, off: int = 0, group=None) -> torch.Tensor:
     """Summed next-token NLL of one sequence chunk: the unembedding in
     the activations' dtype cast to float32 (the reference's
-    ``einsum(...).astype(float32)``), logits past ``vocab`` at -inf."""
+    ``einsum(...).astype(float32)``), logits past ``vocab`` at -inf.
+    With ``group``, ``table`` is rows ``off``.. of a vocabulary sharded
+    over that group and the NLL vocab-parallel
+    (``parallel.VocabParallelNLL``)."""
     logits = (x @ table.T).float()
-    if logits.shape[-1] != vocab:
-        logits = logits.masked_fill(
-            torch.arange(logits.shape[-1], device=x.device) >= vocab,
-            float("-inf"))
+    cols = logits.shape[-1]
+    if off + cols > vocab:
+        ids = torch.arange(cols, device=x.device)
+        logits = logits.masked_fill((ids + off if off else ids) >= vocab,
+                                    float("-inf"))
+    if group is not None:
+        from repro_torch.models import parallel
+        return parallel.VocabParallelNLL.apply(
+            logits.reshape(-1, cols), targets.reshape(-1), off, group).sum()
     gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def _nll_sum(x: torch.Tensor, table: torch.Tensor, targets: torch.Tensor,
+             vocab: int, chunk: int = 1024, off: int = 0, group=None
+             ) -> torch.Tensor:
+    """The summed NLL of ``x`` (B, S, D) over the sequence in chunks of
+    ``chunk`` (one chunk when ``flags.EXACT_COST_MODE``), each under
+    ``torch.utils.checkpoint`` (``_chunk_nll``)."""
+    if flags.EXACT_COST_MODE:
+        chunk = x.shape[1]
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, x.shape[1], chunk):
+        total = total + checkpoint(_chunk_nll, x[:, c:c + chunk], table,
+                                   targets[:, c:c + chunk], vocab, off, group,
+                                   use_reentrant=False)
+    return total
 
 
 def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
@@ -641,30 +772,32 @@ def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
     recomputed in the backward (the reference pads the last chunk and
     masks the padding; here it is shorter).  A float32 0-d tensor."""
     b, s, _ = x.shape
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c in range(0, s, chunk):
-        total = total + checkpoint(_chunk_nll, x[:, c:c + chunk], table,
-                                   targets[:, c:c + chunk], cfg.vocab_size,
-                                   use_reentrant=False)
-    return total / (b * s)
+    return _nll_sum(x, table, targets, cfg.vocab_size, chunk) / (b * s)
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg,
-            remat: str = "dots", aux_weight: float = 0.01
+            remat: str = "dots", aux_weight: float = 0.01,
+            dist: Optional[Dist] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss of ``batch`` (``tokens``, ``targets``, and
-    ``enc_frames`` for an encoder-decoder): the mean next-token NLL plus
-    ``aux_weight`` times the MoE load-balancing loss.  Returns (loss,
-    {"nll", "aux"}), float32 0-d tensors."""
+    ``enc_frames`` for an encoder-decoder): the mean next-token NLL
+    (``chunked_cross_entropy``) plus ``aux_weight`` times the MoE
+    load-balancing loss.  Returns (loss, {"nll", "aux"}), float32 0-d
+    tensors (with ``dist``, every rank's the same, the cross entropy
+    vocab-parallel)."""
+    run = _runner(dist)
     x, aux = forward_hidden(params, batch["tokens"], cfg,
-                            batch.get("enc_frames"), remat)
-    nll = chunked_cross_entropy(x, _head(params), batch["targets"], cfg)
+                            batch.get("enc_frames"), remat, dist)
+    b, s = x.shape[0], x.shape[1]
+    nll = run.nll_sum(params, x, run.tokens(batch["targets"]), cfg,
+                      1024) / (b * s)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg,
             max_len: Optional[int] = None,
-            enc_frames: Optional[torch.Tensor] = None
+            enc_frames: Optional[torch.Tensor] = None,
+            dist: Optional[Dist] = None
             ) -> Tuple[torch.Tensor, Params]:
     """Run the prompt (B, S) through the model, filling a fresh
     ``max_len`` cache.  Attention runs over the local K/V
@@ -672,20 +805,23 @@ def prefill(params: Params, tokens: torch.Tensor, cfg,
     state; an encoder-decoder encodes ``enc_frames`` (required:
     ``ValueError`` without) and keeps each layer's cross K/V in the cache
     (``enc_len`` = the frames' length).  Returns (last-token logits (B,
-    V), cache)."""
+    V), cache).  With ``dist``: DTensor logits (vocabulary over the model
+    axis) and a cache of DTensors in the cache rules' layout."""
+    run = _runner(dist)
+    tokens = run.tokens(tokens)
     b, s = tokens.shape
     dev = tokens.device
-    enc_out = _encoded(params, cfg, enc_frames)
-    cache = init_cache(cfg, b, max_len or s, cfg.act_dtype, dev,
-                       enc_len=None if enc_out is None else enc_out.shape[1])
-    x = _embed(params, tokens, cfg)
+    enc_out = _encoded(params, cfg, enc_frames, run)
+    cache = run.init_cache(cfg, b, max_len or s, cfg.act_dtype, dev,
+                           None if enc_out is None else enc_out.shape[1])
+    x = run.embed(params, tokens, cfg)
     positions = torch.arange(s, device=dev)[None, :]
-    for i, lp in enumerate(_layer_params(params)):
+    for i, lp in enumerate(run.layer_params(params)):
         x, _ = _layer(lp, x, cfg, i, positions, cache, cache, 0,
-                      attend_local=True, enc_out=enc_out)
+                      attend_local=True, enc_out=enc_out, run=run)
     cache["index"] = s
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return layers.unembed(_head(params), x[:, -1]), cache
+    x = run.final_norm(params, x, cfg)
+    return run.logits(params, x, cfg, last=True, mask_vocab=False), cache
 
 
 def prefill_chunk(params: Params, cache: Params, tokens: torch.Tensor, cfg,
@@ -715,8 +851,8 @@ def prefill_chunk(params: Params, cache: Params, tokens: torch.Tensor, cfg,
     return layers.unembed(_head(params), x[:, -1]), new
 
 
-def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg
-                ) -> Tuple[torch.Tensor, Params]:
+def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg,
+                dist: Optional[Dist] = None) -> Tuple[torch.Tensor, Params]:
     """One decode step (tokens (B, 1)) on the contiguous slot cache.
 
     ``cache["index"]`` is one position for the whole batch (an int) or
@@ -728,23 +864,29 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg
     ``index`` has advanced and whose SSM state (``ssm``/``conv``) is in
     new tensors, so a caller that keeps the old dict after a failed step
     retries at the same positions from the same state.  Returns (logits
-    (B, V), cache), padded-vocab logits at -inf.
+    (B, V), cache), padded-vocab logits at -inf.  With ``dist``, on a
+    cache of DTensors (``prefill``'s, or a snapshot restored onto the
+    mesh): DTensor logits, vocabulary over the model axis.
     """
+    run = _runner(dist)
+    tokens = run.tokens(tokens)
     b = tokens.shape[0]
     dev = tokens.device
-    x = _embed(params, tokens, cfg)
+    x = run.embed(params, tokens, cfg)
     idx = cache["index"]
-    if torch.is_tensor(idx) and idx.ndim == 1:
-        positions = idx.to(dev).long()[:, None]
+    per_row = torch.is_tensor(idx) and idx.ndim == 1
+    if per_row:
+        positions = run.rows(idx.to(dev).long()[:, None])
     else:
-        positions = torch.full((b, 1), int(idx), device=dev)
+        positions = run.rows(torch.full((b, 1), int(idx), device=dev))
+    cache_index = run.rows(idx) if per_row else idx
     new = _with_new_state(cache)
-    for i, lp in enumerate(_layer_params(params)):
-        x, _ = _layer(lp, x, cfg, i, positions, cache, new, idx)
+    for i, lp in enumerate(run.layer_params(params)):
+        x, _ = _layer(lp, x, cfg, i, positions, cache, new, cache_index,
+                      run=run)
     new["index"] = idx + 1
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = layers.unembed(_head(params), x[:, -1])
-    return _mask_vocab(logits, cfg), new
+    x = run.final_norm(params, x, cfg)
+    return run.logits(params, x, cfg, last=True, mask_vocab=True), new
 
 
 def int8_kv(cfg) -> bool:

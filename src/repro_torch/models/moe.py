@@ -22,13 +22,23 @@ leading ``L`` axis as the rest of the port's are: ``router`` (L, d, E)
 float32, ``w1``/``w3`` (L, E, d, f), ``w2`` (L, E, f, d) and, with
 shared experts, ``shared.{w1, w3, w2}`` of width ``f * n_shared``.
 
-The multi-device paths (``moe_apply_sharded``, ``moe_apply_psum_local``,
-the all-to-all ``_a2a`` and its int8 payload ``A2A_INT8``) are queued
-with the rest of the multi-device port (ROADMAP A14).
+Expert parallelism (the reference's ``shard_map`` paths), over the
+``model`` axis of a ``DeviceMesh`` (EP == TP, ``n_experts % tp == 0``):
+``moe_apply(..., ep_axis=(mesh, dim))`` runs inside ``local_map`` on
+this rank's experts and tokens, exchanging the capacity buffers with
+``_a2a`` (an autograd ``Function`` over ``all_to_all_single``: under
+``A2A_INT8`` the forward sends int8 codes with per-slot scales, the
+backward a plain all-to-all with the axes swapped, a straight-through
+estimator; without gradients the plain payload, as the reference's
+``custom_vjp`` primal); ``moe_apply_psum_local`` routes every token on every rank
+and runs the local experts only, its output summed over the axis by the
+caller; ``moe_apply_sharded`` picks the all-to-all where the sequence
+splits over the axis and psum-local otherwise (decode), and averages
+the load-balancing loss over ``model`` and the data axes.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -152,3 +162,207 @@ def moe_apply(p: Params, x: torch.Tensor,
     if "shared" in p:
         y = y + layers.mlp_apply(p["shared"], x_flat, cfg)
     return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism.
+# ---------------------------------------------------------------------------
+# int8-compressed dispatch all-to-all: the forward sends int8 payload and
+# per-slot scales (~2x fewer bytes than bf16); the backward routes the
+# cotangent through a plain all-to-all (straight-through estimator).
+A2A_INT8 = True
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block ``j`` of ``x``'s leading axis to rank ``j``; block ``j`` of
+    the result from rank ``j`` (the reference's untiled ``all_to_all``
+    with split and concat axis 0)."""
+    import torch.distributed._functional_collectives as funcol
+
+    out = funcol.all_to_all_single(x.contiguous(), None, None, group)
+    return funcol.wait_tensor(out)
+
+
+class _A2A(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        if not A2A_INT8:
+            return _all_to_all(x, group)
+        xf = x.float()
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+        q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+        q, scale = _all_to_all(q, group), _all_to_all(scale, group)
+        return (q.float() * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # split and concat are both the leading axis: its own inverse
+        return _all_to_all(g, ctx.group), None
+
+
+def _a2a(x: torch.Tensor, group) -> torch.Tensor:
+    """The dispatch all-to-all.  As the reference's ``custom_vjp``: the
+    int8 forward rule runs where the exchange is differentiated
+    (training); a forward without gradients sends the plain payload."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _A2A.apply(x, group)
+    return _all_to_all(x, group)
+
+
+def _ep(ep_axis) -> Tuple[int, int]:
+    """(size, this rank's coordinate) of ``ep_axis`` = (mesh, dim)."""
+    mesh, dim = ep_axis
+    return mesh.size(dim), mesh.get_local_rank(dim)
+
+
+def _combine(out_buf, se, pos_c, keep, order, top_g, t, k, d, dtype):
+    gathered = out_buf[se, pos_c] * keep[:, None].to(out_buf.dtype)
+    y_flat = torch.zeros((t * k, d), dtype=dtype, device=out_buf.device)
+    y_flat[order] = gathered.to(dtype)
+    return (y_flat.reshape(t, k, d) * top_g[..., None].to(dtype)).sum(dim=1)
+
+
+def moe_apply_ep(p: Params, x: torch.Tensor, cfg, ep_axis
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``moe_apply`` with ``ep_axis`` set, on local
+    tensors inside ``local_map``: ``p``'s experts are this rank's
+    ``E / ep``, ``x`` its tokens; the (E, C, D) capacity buffer goes out
+    as (ep, E_loc, C, D), each rank's local experts run on one C slab
+    from every peer, and the outputs come back the same way."""
+    b, s, d = x.shape
+    x_flat = x.reshape(-1, d)
+    t = x_flat.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    ep, _ = _ep(ep_axis)
+    e_loc = e // ep
+    group = ep_axis
+
+    top_g, top_e, aux = _route(x_flat, p["router"], k)
+    cap = capacity(cfg, t)
+    order, se, st, pos_c, keep = _dispatch_indices(top_e, k, e, cap)
+    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((se, pos_c), x_flat[st] * keep[:, None].to(x.dtype),
+                   accumulate=True)
+    buf = _a2a(buf.reshape(ep, e_loc, cap, d), group)
+    buf = buf.transpose(0, 1).reshape(e_loc, ep * cap, d)
+    out = _expert_ffn(p, buf)
+    out = out.reshape(e_loc, ep, cap, d).transpose(0, 1)
+    out_buf = _a2a(out, group).reshape(e, cap, d)
+    y = _combine(out_buf, se, pos_c, keep, order, top_g, t, k, d, x.dtype)
+    if "shared" in p:
+        y = y + layers.mlp_apply(p["shared"], x_flat, cfg)
+    return y.reshape(b, s, d), aux
+
+
+def moe_apply_psum_local(p: Params, x: torch.Tensor, cfg, ep_axis
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EP without all-to-all: this rank routes all its tokens and runs
+    its local experts only (slice ``[rank * E_loc, (rank + 1) * E_loc)``
+    of the buffer).  Returns (this rank's share of the routed output,
+    to be summed over ``ep_axis``; aux loss); the shared experts are the
+    caller's (the reference adds them after its psum)."""
+    b, s, d = x.shape
+    x_flat = x.reshape(-1, d)
+    t = x_flat.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    ep, rank = _ep(ep_axis)
+    e_loc = e // ep
+
+    top_g, top_e, aux = _route(x_flat, p["router"], k)
+    cap = capacity(cfg, t)
+    order, se, st, pos_c, keep = _dispatch_indices(top_e, k, e, cap)
+    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((se, pos_c), x_flat[st] * keep[:, None].to(x.dtype),
+                   accumulate=True)
+    out_loc = _expert_ffn(p, buf[rank * e_loc:(rank + 1) * e_loc])
+    out_buf = torch.zeros((e, cap, d), dtype=out_loc.dtype, device=x.device)
+    out_buf[rank * e_loc:(rank + 1) * e_loc] = out_loc
+    y = _combine(out_buf, se, pos_c, keep, order, top_g, t, k, d, x.dtype)
+    return y.reshape(b, s, d), aux
+
+
+def moe_apply_sharded(p: Params, x, cfg, mesh, dp_axes: Tuple[str, ...],
+                      tp_axis: str, norm: Optional[torch.Tensor] = None,
+                      ) -> Tuple[object, object]:
+    """EP MoE over ``mesh``, on DTensors ``p`` (experts over ``tp_axis``)
+    and ``x`` (B, S, D), normed by ``norm`` (the layer's ``ln2``) first
+    when given.  Training/prefill (the sequence splits over ``tp_axis``:
+    ``s % tp == 0 and s >= tp``): ``x`` sequence-sharded, capacity
+    buffers exchanged by all-to-all.  Otherwise (decode): psum-local, the
+    routed output ``Partial`` over ``tp_axis`` and reduced, then the
+    shared experts added.  Returns (y DTensor in ``x``'s batch layout,
+    the aux loss averaged over ``tp_axis`` and then ``dp_axes``, a 0-d
+    replicated DTensor)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.models import parallel
+    from repro_torch.models.lm import Dist
+
+    dist = Dist(mesh, tuple(dp_axes), tp_axis)
+    names = mesh.mesh_dim_names
+    tdim = names.index(tp_axis)
+    tp = mesh.size(tdim)
+    if cfg.n_experts % tp:
+        raise ValueError(f"{cfg.n_experts} experts do not split over "
+                         f"{tp} ranks of {tp_axis!r}")
+    b, s, _ = x.shape
+    a2a_mode = s % tp == 0 and s >= tp
+    bs = parallel.batch_split(dist, b)
+    x_pl = parallel.act(dist, bs, Shard(1) if a2a_mode else None)
+    experts = {n: p[n] for n in ("w1", "w3", "w2")}
+    e_pl = {n: tuple(Shard(0) if i == tdim else Replicate()
+                     for i in range(mesh.ndim)) for n in experts}
+    shared = parallel._flat(p["shared"]) if "shared" in p else []
+    norm_in = [] if norm is None else [(norm, parallel.act(dist, False))]
+    n_ranks = mesh.size()
+    all_partial = tuple(Partial() for _ in range(mesh.ndim))
+    group = (mesh, tdim)
+
+    def prelude(x, rest):
+        if norm is not None:
+            x = layers.rmsnorm(rest[0], x, cfg.norm_eps)
+            rest = rest[1:]
+        return x, rest
+
+    def routed(x, router, w1, w3, w2, *rest):
+        x, rest = prelude(x, rest)
+        lp = {"router": router, "w1": w1, "w3": w3, "w2": w2}
+        if a2a_mode:
+            if shared:
+                lp["shared"] = parallel._unflat(
+                    zip([pth for pth, _ in shared], rest))
+            y, aux = moe_apply_ep(lp, x, cfg, group)
+        else:
+            y, aux = moe_apply_psum_local(lp, x, cfg, group)
+        return y, aux / n_ranks
+
+    rep = parallel.act(dist, False)
+    inputs = ([(x, x_pl), (p["router"], rep)]
+              + [(experts[n], e_pl[n]) for n in ("w1", "w3", "w2")]
+              + norm_in)
+    if a2a_mode:
+        inputs += [(v, rep) for _, v in shared]
+    y_pl = x_pl if a2a_mode else parallel.act(dist, bs, Partial())
+    y, aux = parallel.region(dist, routed, inputs, [y_pl, all_partial],
+                             tp_region=True, batch_sharded=bs)
+    aux = aux.redistribute(mesh, rep)
+    if a2a_mode:
+        return y, aux
+    y = y.redistribute(mesh, x_pl)
+    if shared:
+        paths = [pth for pth, _ in shared]
+
+        def shared_fn(x, *rest):
+            x, rest = prelude(x, rest)
+            return (layers.mlp_apply(parallel._unflat(
+                zip(paths, rest)), x.reshape(-1, x.shape[-1]),
+                cfg).reshape(x.shape),)
+
+        (ys,) = parallel.region(
+            dist, shared_fn, [(x, x_pl)] + norm_in + [(v, rep)
+                                                      for _, v in shared],
+            [x_pl], tp_region=False, batch_sharded=bs)
+        y = y + ys
+    return y, aux

@@ -82,7 +82,8 @@ class AdamW:
 
     def init(self, params: Tree) -> AdamWState:
         dt = getattr(torch, self.moment_dtype)
-        zeros = [(path, torch.zeros(p.shape, dtype=dt, device=p.device))
+        # zeros_like keeps a DTensor parameter's placements
+        zeros = [(path, torch.zeros_like(p, dtype=dt))
                  for path, p in leaves(params)]
         return AdamWState(0, unflatten(zeros),
                           unflatten((path, torch.zeros_like(z))

@@ -46,7 +46,14 @@ and arms the resume; the next ``serve()`` finishes the interrupted batch.
 Greedy decode is a pure function of the params and the journaled
 prompts, so the recovered tokens equal the uninterrupted run's, and
 ``_check_replay`` counts any that do not (``replay_divergence``).
-``restore(devices=...)`` (a smaller mesh) is not ported (ROADMAP A14).
+``restore(devices=...)`` resumes on a mesh over the surviving ranks
+instead (``runtime.elastic.plan_remesh``: the largest data x model grid
+they make): the snapshot's params and cache load onto the mesh's
+placements, each rank its own slices, and the engine then runs its batch
+loop over the mesh (``lm.decode_step(..., dist=)``, logits gathered for
+the sampler; a snapshot gathers every tree and rank 0 writes it).  A
+remeshed engine serves the batch-synchronous loop only: the continuous
+scheduler runs on one device.
 
 An encoder-decoder config (whisper, family ``audio``) is admitted as the
 JAX engine admits it, and served as that engine serves it: no step of
@@ -69,6 +76,7 @@ from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
 
 import numpy as np
 import torch
+import torch.distributed as torch_dist
 
 from repro_torch import device as device_lib
 from repro_torch.ckpt.checkpoint import Checkpointer, CheckpointError
@@ -76,7 +84,8 @@ from repro_torch.core import autotune, cost_model, explorer
 from repro_torch.kernels import attention_df
 from repro_torch.kernels._build import KernelError
 from repro_torch.models import bridge, layers, lm
-from repro_torch.runtime import health
+from repro_torch.launch import sharding as shard_rules
+from repro_torch.runtime import elastic, health
 from repro_torch.serve import journal as journal_lib
 from repro_torch.serve.paged_cache import pages_for
 from repro_torch.serve.scheduler import (ContinuousScheduler, SamplingParams,
@@ -85,6 +94,29 @@ from repro_torch.serve.scheduler import (ContinuousScheduler, SamplingParams,
 
 health.register_site("snapshot.save")
 health.register_site("engine.restore")
+
+
+def make_serve_step(cfg, dist: Optional[lm.Dist] = None) -> Callable:
+    """Decode one token for the whole batch:
+    ``serve_step(params, cache, tokens (B, 1)) -> (logits (B, V), cache)``."""
+
+    def serve_step(params, cache, tokens):
+        return lm.decode_step(params, cache, tokens, cfg, dist=dist)
+
+    return serve_step
+
+
+def make_prefill_fn(cfg, dist: Optional[lm.Dist] = None) -> Callable:
+    def prefill_fn(params, tokens, enc_frames=None):
+        return lm.prefill(params, tokens, cfg, max_len=None,
+                          enc_frames=enc_frames, dist=dist)
+
+    return prefill_fn
+
+
+def _whole(x):
+    """A DTensor gathered whole (every rank's the same); else as is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 class RequestState(str, enum.Enum):
@@ -206,6 +238,8 @@ class Engine:
         self._live: Optional[Tuple] = None
         self._pending_resume: Optional[Dict[str, Any]] = None
         self._replay_expected: Dict[int, List[int]] = {}
+        # the mesh after restore(devices=): the batch loop runs over it
+        self.dist: Optional[lm.Dist] = None
         self._counters: Dict[str, int] = {
             "submitted": 0, "admitted": 0, "rejected": 0,
             "completed": 0, "failed": 0, "evicted": 0,
@@ -471,8 +505,9 @@ class Engine:
         try:
             logits, cache, path = self._execute(
                 "serve.prefill", 0,
-                lambda: lm.prefill(self.params, tokens, self.cfg,
-                                   max_len=self.max_len))
+                lambda: self._gathered(lm.prefill(
+                    self.params, tokens, self.cfg, max_len=self.max_len,
+                    dist=self.dist)))
         except StepFailed as e:
             self._fail_batch(reqs, e)
             return list(requests)
@@ -484,6 +519,12 @@ class Engine:
         self._check_replay(requests)
         return list(requests)
 
+    @staticmethod
+    def _gathered(step_out):
+        """(logits gathered whole, the rest) of a step's output."""
+        logits, rest = step_out
+        return _whole(logits), rest
+
     def _serve_ragged(self, requests: Sequence[RequestHandle],
                       reqs: List[RequestHandle], greedy: bool,
                       seed: int) -> List[RequestHandle]:
@@ -491,6 +532,10 @@ class Engine:
         admission order, slots and the ladder are then functions of the
         batch alone, which is what a cold replay of the same rids
         rebuilds."""
+        if self.dist is not None:
+            raise ValueError("a remeshed engine serves equal-length batches "
+                             "(the batch-synchronous loop); the continuous "
+                             "scheduler runs on one device")
         self._live = None        # no snapshot point inside a ragged drain
         if self.journal is not None:
             self.journal.append(
@@ -558,8 +603,9 @@ class Engine:
             try:
                 logits, cache, path = self._execute(
                     "serve.decode_step", step,
-                    lambda: lm.decode_step(self.params, cache, toks,
-                                           self.cfg))
+                    lambda: self._gathered(lm.decode_step(
+                        self.params, cache, toks, self.cfg,
+                        dist=self.dist)))
             except StepFailed as e:
                 self._fail_batch(reqs, e, step)
                 break
@@ -591,6 +637,10 @@ class Engine:
 
     # -- continuous stepping --------------------------------------------
     def _ensure_scheduler(self) -> ContinuousScheduler:
+        if self.dist is not None:
+            raise ValueError("a remeshed engine serves equal-length batches "
+                             "through serve(); the continuous scheduler "
+                             "runs on one device")
         if self._scheduler is None:
             self._scheduler = ContinuousScheduler(self, self.scheduler_config)
         return self._scheduler
@@ -698,9 +748,14 @@ class Engine:
                 "health_events": [[e.kind, e.site, e.step, e.detail]
                                   for e in self.monitor.events],
             }
-            self.snapshots.save(step, {"params": self.params, "cache": cache,
-                                       "logits": {"arr": logits}},
-                                extras=extras, blocking=True)
+            trees = {"params": self.params, "cache": cache,
+                     "logits": {"arr": logits}}
+            if self.dist is not None:
+                # every rank gathers (a collective); rank 0 writes
+                trees = {k: _map_leaves(_whole, v) for k, v in trees.items()}
+            if self.dist is None or torch_dist.get_rank() == 0:
+                self.snapshots.save(step, trees, extras=extras,
+                                    blocking=True)
         except (CheckpointError, OSError, health.SimulatedFailure) as e:
             self._counters["snapshot_errors"] += 1
             self.monitor.note("snapshot-error", site="snapshot.save",
@@ -721,12 +776,13 @@ class Engine:
         ``serve()`` to finish.  Sources, best first: the newest intact
         snapshot (a corrupt or faulted one falls back to older steps,
         counted in ``restore_fallbacks``), then a cold replay from the
-        journal alone.
+        journal alone.  ``devices`` (ranks of the default process group,
+        or one device per rank: every rank of the group calls this) moves
+        the engine onto a mesh over them (``elastic.plan_remesh``), the
+        snapshot loading onto its placements.
         """
         if devices is not None:
-            raise NotImplementedError(
-                "restore onto a set of devices (elastic remesh) is not "
-                "ported yet (ROADMAP A14)")
+            self._remesh(devices)
         if self.journal is None:
             raise ValueError("restore() needs a journal: construct the "
                              "Engine with journal_dir= or set "
@@ -750,7 +806,7 @@ class Engine:
             for snap_step in reversed(self.snapshots.steps()):
                 try:
                     health.maybe_inject("engine.restore")
-                    snap = self._load_snapshot(snap_step)
+                    snap = self._load_snapshot(snap_step, devices)
                     break
                 except Exception as e:
                     # corrupt (torn npz or manifest, foreign params) or an
@@ -774,10 +830,32 @@ class Engine:
                    f"flight, {'warm' if snap is not None else 'cold'} resume")
         return out
 
-    def _load_snapshot(self, step: int):
-        """One snapshot step, on this engine's device; raises on any
-        corruption or on params of another shape."""
-        _, state, extras = self.snapshots.restore(step, device=self.device)
+    def _remesh(self, devices: Sequence) -> None:
+        """Plan the mesh over ``devices`` (``elastic.plan_remesh``) and move
+        the params onto its placements."""
+        plan = elastic.plan_remesh(list(devices), _shapes(self.params))
+        self.dist = lm.Dist(plan.new_mesh, ("data",), "model")
+        self.params = elastic.reshard(self.params, plan.param_shardings)
+
+    def _load_snapshot(self, step: int, devices: Optional[Sequence] = None):
+        """One snapshot step, on this engine's device (after ``_remesh``,
+        on its mesh's placements, each rank loading its slices); raises on
+        any corruption or on params of another shape."""
+        shardings = None
+        if devices is not None:
+            mesh = self.dist.mesh
+            cache_shape = {
+                k: (torch.empty(m["shape"], dtype=getattr(torch, m["dtype"]),
+                                device="meta")
+                    if m["kind"] == "tensor" else 0)
+                for k, m in self.snapshots.manifest(step)["trees"][
+                    "cache"].items()}
+            shardings = {
+                "params": shard_rules.param_shardings(
+                    _shapes(self.params), mesh),
+                "cache": shard_rules.cache_shardings(cache_shape, mesh)}
+        _, state, extras = self.snapshots.restore(step, device=self.device,
+                                                  shardings=shardings)
         bridge.check_tree(state["params"], self.cfg)
         return state, extras
 
@@ -893,3 +971,16 @@ class Engine:
                     "replay-divergence", site="engine.restore",
                     detail=f"rid {r.rid}: journaled {exp[:n]} vs replayed "
                            f"{r.out_tokens[:n]}")
+
+
+def _shapes(tree):
+    """Meta-device stand-ins of a tree's tensors (shapes and dtypes)."""
+    return _map_leaves(lambda v: torch.empty(v.shape, dtype=v.dtype,
+                                             device="meta")
+                       if torch.is_tensor(v) else v, tree)
+
+
+def _map_leaves(fn, tree):
+    """``fn`` on every leaf of a nested dict."""
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}

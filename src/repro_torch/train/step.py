@@ -13,6 +13,13 @@ the parameters, so the caller's tensors never have ``requires_grad``
 set and a serving path over the same tensors runs as before.  Metrics
 are float32 0-d tensors (``loss``, ``nll``, ``aux``, ``grad_norm``) and
 the rate ``lr``; reading one as a number waits for the card.
+
+With ``dist=`` (an ``lm.Dist``) the step runs over the mesh: the
+parameters and moments are DTensors placed by ``launch/sharding.py``
+(``parallel.shard_params``, ``AdamW.init`` of them), the batch is the
+global one (plain tensors, every rank's the same) or
+``data.pipeline.make_global_batch``'s DTensors, and a microbatch takes
+its rows from every data-parallel rank's shard.
 """
 from __future__ import annotations
 
@@ -26,12 +33,27 @@ from repro_torch.optim.adamw import AdamW, AdamWState, leaves, unflatten
 Batch = Dict[str, torch.Tensor]
 
 
-def make_loss_fn(cfg, remat: str = "dots",
-                 aux_weight: float = 0.01) -> Callable:
+def make_loss_fn(cfg, remat: str = "dots", aux_weight: float = 0.01,
+                 dist=None) -> Callable:
     def loss(params, batch: Batch):
         return lm.loss_fn(params, batch, cfg, remat=remat,
-                          aux_weight=aux_weight)
+                          aux_weight=aux_weight, dist=dist)
     return loss
+
+
+def _micro(v, i: int, n: int):
+    """Microbatch ``i`` of ``n`` of a batch leaf: its rows ``i``-th of
+    ``n``; a DTensor's from every rank's own shard."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(v, DTensor):
+        loc = v.to_local()
+        size = loc.shape[0] // n
+        return DTensor.from_local(loc[i * size:(i + 1) * size],
+                                  v.device_mesh, v.placements,
+                                  run_check=False)
+    size = v.shape[0] // n
+    return v[i * size:(i + 1) * size]
 
 
 def value_and_grad(loss_fn: Callable, params: Dict[str, Any], batch: Batch
@@ -57,25 +79,24 @@ def value_and_grad(loss_fn: Callable, params: Dict[str, Any], batch: Batch
 
 def make_train_step(cfg, optimizer: AdamW, remat: str = "dots",
                     microbatches: int = 1,
-                    aux_weight: float = 0.01) -> Callable:
+                    aux_weight: float = 0.01, dist=None) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``."""
-    loss_fn = make_loss_fn(cfg, remat, aux_weight)
+    loss_fn = make_loss_fn(cfg, remat, aux_weight, dist)
 
     def accumulated(params, batch: Batch):
         b = next(iter(batch.values())).shape[0]
         if b % microbatches:
             raise ValueError(f"batch {b} does not split into "
                              f"{microbatches} microbatches")
-        size = b // microbatches
         acc, l_sum, metrics = None, None, None
         for i in range(microbatches):
-            micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            micro = {k: _micro(v, i, microbatches) for k, v in batch.items()}
             loss, metrics, grads = value_and_grad(loss_fn, params, micro)
             pairs = leaves(grads)
             if acc is None:
-                acc = [torch.zeros(g.shape, dtype=torch.float32,
-                                   device=g.device) for _, g in pairs]
+                acc = [torch.zeros_like(g, dtype=torch.float32)
+                       for _, g in pairs]
                 l_sum = torch.zeros((), dtype=torch.float32,
                                     device=loss.device)
             for a, (_, g) in zip(acc, pairs):
@@ -97,8 +118,8 @@ def make_train_step(cfg, optimizer: AdamW, remat: str = "dots",
     return train_step
 
 
-def make_eval_step(cfg) -> Callable:
-    loss_fn = make_loss_fn(cfg, remat="none")
+def make_eval_step(cfg, dist=None) -> Callable:
+    loss_fn = make_loss_fn(cfg, remat="none", dist=dist)
 
     @torch.no_grad()
     def eval_step(params, batch: Batch):

@@ -17,7 +17,8 @@ against the JAX package's, on the CPU.
 * ``quantize_grad`` equal to the reference's codes and scale bit for
   bit, ``dequantize_grad`` equal, and the error bound of
   ``tests/test_optim_data_ckpt.py`` over twenty seeds;
-  ``compressed_psum`` names ROADMAP A14.
+  ``compressed_psum`` and ``make_global_batch`` over a one-rank gloo
+  group: the first equal to the JAX package's bit for bit.
 * ``SyntheticLMDataset`` equal to the reference's batches bit for bit
   (tokens, targets and an encoder-decoder's frames), stateless and
   step-addressed; ``batch`` gives tensors on the device asked for.
@@ -244,10 +245,49 @@ def test_quantize_grad_equals_the_reference(seed):
         <= float(scale) / 2 + 1e-6
 
 
-def test_collectives_name_a14():
-    for fn in (compress.compressed_psum, make_global_batch):
-        with pytest.raises(NotImplementedError, match="A14"):
-            fn()
+# The test keeps the name it had while these collectives were refused.
+def test_collectives_name_a14(tmp_path):
+    """The multi-device collectives over a one-rank gloo group
+    (created and destroyed here): ``compressed_psum`` equals the JAX
+    package's on one device (its ``shard_map`` over a 1-device mesh), bit
+    for bit, residuals included; ``make_global_batch`` on a 1x1 mesh
+    holds the whole batch."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import sharding
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        g = np.random.default_rng(3).normal(size=(2, 32)).astype(np.float32)
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        red, res = compress.compressed_psum({"g": torch.from_numpy(g[0])},
+                                            (mesh, 0))
+        red2, res2 = compress.compressed_psum(
+            {"g": torch.from_numpy(g[1])}, (mesh, 0), res)
+
+        def run(g0, g1):
+            r0, s0 = jcompress.compressed_psum({"g": g0}, "dp")
+            r1, s1 = jcompress.compressed_psum({"g": g1}, "dp", s0)
+            return r0["g"], s0["g"], r1["g"], s1["g"]
+
+        P = jax.sharding.PartitionSpec
+        want = jax.shard_map(run, mesh=jax.make_mesh((1,), ("dp",)),
+                             in_specs=(P(), P()), out_specs=(P(),) * 4)(
+            jnp.asarray(g[0]), jnp.asarray(g[1]))
+        for got, w in zip((red["g"], res["g"], red2["g"], res2["g"]), want):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+        ds = SyntheticLMDataset(vocab_size=100, seq_len=16, global_batch=4,
+                                seed=7)
+        np_batch = ds.batch_np(2)
+        shs = sharding.batch_shardings(np_batch, mesh)
+        got = make_global_batch(np_batch["tokens"], shs["tokens"], "cpu")
+        np.testing.assert_array_equal(got.to_local().numpy(),
+                                      np_batch["tokens"])
+        assert got.shape == np_batch["tokens"].shape
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -352,11 +352,28 @@ def test_snapshot_fault_degrades_serving(served, tmp_path, monkeypatch,
 
 
 def test_restore_without_journal_or_onto_devices_raises(served, tmp_path):
-    params, _, _ = served
+    """Without a journal restore raises; onto devices (a one-rank gloo
+    group's 1x1 mesh, made and destroyed here) it resumes the snapshot
+    over the mesh, bit for bit."""
+    import torch.distributed as dist
+
+    params, prompts, base = served
     with pytest.raises(ValueError, match="journal"):
         Engine(CFG, params["port"], max_len=MAX_LEN, device="cpu").restore()
-    with pytest.raises(NotImplementedError, match="A14"):
-        _engine("port", params, tmp_path).restore(devices=["cpu"])
+    jdir = tmp_path / "port"
+    _run("port", params, prompts, jdir, snapshot_every=2)
+    _crash_journal(jdir, drop_tokens=2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        eng, rec, armed = _recover("port", params, jdir, devices=["cpu"])
+    finally:
+        dist.destroy_process_group()
+    assert armed["cache"] is not None
+    assert tuple(eng.dist.mesh.shape) == (1, 1)
+    assert eng.params["embed"]["table"].placements is not None
+    assert [list(r.out_tokens) for r in rec] == base
+    assert eng.stats()["replay_divergence"] == 0
 
 
 def test_restore_before_any_serve_requeues(served, tmp_path):

@@ -389,22 +389,39 @@ def test_formerly_unported_paths_serve_like_jax(params, what, tmp_path):
             assert stats["spills"] > 0 and stats["unspills"] > 0
 
 
-UNPORTED = {
-    "restore_devices": (lambda tp: Engine(
-        CFG, tp, max_len=MAX_LEN, device="cpu",
-        journal_dir="journal").restore(devices=["cpu"]), "A14"),
-}
-
-
-@pytest.mark.parametrize("what", sorted(UNPORTED))
+# The test keeps the name and the id it had while ``restore(devices=)``
+# was refused; it now checks the path as ported.
+@pytest.mark.parametrize("what", ["restore_devices"])
 def test_unported_paths_raise_naming_their_roadmap_entry(params, what,
                                                          monkeypatch,
                                                          tmp_path):
+    """``restore(devices=)``: a fresh journal's restore onto a one-rank
+    gloo group's 1x1 mesh puts the params on the mesh; the remeshed
+    engine serves a batch over it as the one-device engine does, and
+    refuses the continuous scheduler."""
+    import torch.distributed as dist
+
     _, tp = params
     monkeypatch.chdir(tmp_path)
-    fn, entry = UNPORTED[what]
-    with pytest.raises(NotImplementedError, match=entry):
-        fn(tp)
+    prompts = np.random.default_rng(5).integers(
+        0, CFG.vocab_size, (2, 8)).astype(np.int32)
+    one = Engine(CFG, tp, max_len=MAX_LEN, device="cpu")
+    want = [one.submit(p, 4) for p in prompts]
+    one.serve(want)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        eng = Engine(CFG, tp, max_len=MAX_LEN, device="cpu",
+                     journal_dir="journal")
+        assert eng.restore(devices=["cpu"]) == []
+        assert tuple(eng.dist.mesh.shape) == (1, 1)
+        got = [eng.submit(p, 4) for p in prompts]
+        eng.serve(got)
+        assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+        with pytest.raises(ValueError, match="one device"):
+            eng.step()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cpu_run_launches_no_kernel(params):
