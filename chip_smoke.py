@@ -90,6 +90,13 @@ Phases, each printing JSON lines:
    fused dequant) and on the ResNet-18 conv body under each anchor; B1's
    int8 and packed basic launch runs on its integer tensor-core tiles
    (prefill for M > 16, decode for M <= 16), timed at M = 512 and 4.
+   B2 with its row statistics (``flash_attention_lse``, the cache
+   attention split over a mesh's keys) against its plain version at 4
+   decode rows over a 2 048-key range, groups 2 and 16, bf16 and int8
+   K/V, valid lengths beyond, inside and before the range, and under
+   float32 queries; its output equal bit for bit to the launch without
+   statistics; timed at qwen3-moe-235b-a22b's per-rank decode shape
+   beside SDPA and beside B2 unsplit over the whole 32 768-key cache.
    Every launch of B1's basic OS reports the tile it took, its shared
    memory and CTAs, and raises unless ``matmul_df.plan`` planned the same.
 4. ``autotune``: the explorer (``core.explorer``) against the card.  For
@@ -270,7 +277,13 @@ Phases, each printing JSON lines:
    off) or within ``A2A_INT8_RTOL`` (on, differentiated), its ``dist``
    forward bitwise; ``compressed_psum`` against its closed form; a batch
    snapshot restored with ``restore(devices=[card])`` resuming to the
-   uninterrupted run's tokens bit for bit.
+   uninterrupted run's tokens bit for bit; the cache attention split over
+   the keys of a mesh's ``model`` ranks, emulated on the card
+   (``key_split_emulation``): qwen3-1.7b whole decoding 6 steps off a
+   2 048-position cache with each layer's cache attention over 2 and 4
+   key ranges, B2 with its row statistics merged by
+   ``parallel.merge_key_ranges``, every row's logits at cosine >= 0.999
+   of the unsplit step's, the differing greedy tokens counted.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
@@ -285,7 +298,8 @@ serve_ssm: B1 with its bf16 tiles, B2; serve_audio: B1 with its bf16
 tiles, B2; train: B1 with its bf16 prefill tile (forward and backward),
 B2 or B7 as picked, over 8 whole-model steps without remat; codegen:
 B1 through the generated modules; dist: B1 with its bf16 tiles and B2,
-the ``dist`` forward's;
+the ``dist`` forward's, and B2 with its row statistics
+(``flash_attention_lse``), the split decode's;
 B7's int8 paths (K2 among them), on no serving path, their launches in
 the kernels phase; dataflows: B1 and its bf16 tiles, B2,
 B4, B5a, B5b (B1's residencies, B4, B5a and B5b on their cluster walks),
@@ -792,6 +806,8 @@ def kernel_phase(torch, cfg, timer):
         torch, timer, hq, hkv, dh, att_tol, f32_tol)
     records["paged_attention_g16"] = paged_group16_checks(
         torch, timer, att_tol, f32_tol)
+    records["flash_attention_lse"] = b2_lse_checks(torch, timer, att_tol,
+                                                   f32_tol)
     records.update(gemm_dataflow_checks(torch, cfg, timer, gen, b1_tol))
     # How B1's bf16 k steps round against cuBLAS (reported, not gated).
     from repro_torch.bench import rounding
@@ -951,6 +967,158 @@ def paged_group16_checks(torch, timer, tol, f32_tol):
         library_ms=None, library_call=None,
         library_why="no single PyTorch call attends through a block table",
         bound_ms=bnd[0], bound_by=bnd[1], tolerance=tol)
+
+
+# B2's row statistics (the cache attention split over a mesh's keys): the
+# statistic of a row against the plain version's, both an f32 log-sum-exp
+# of the same logits, the kernel's summed in its tile order.
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+# The key range a rank holds at qwen3-moe-235b-a22b decode_32k on the
+# 2x16x16 mesh (32 768 positions over 16 ranks), and the whole cache.
+LSE_RANGE, LSE_WHOLE = 2048, 32768
+
+
+def b2_lse_checks(torch, timer, tol, f32_tol):
+    """B2 with ``return_lse`` (``flash_attention_lse``) against its plain
+    version: 4 decode rows (Sq = 1) over a ``LSE_RANGE``-key range, D 128,
+    at qwen3-1.7b's group 2 (Hq 16, Hkv 8) and qwen3-moe-235b-a22b's 16
+    (Hq 64, Hkv 4), bf16 and int8 K/V (quantized per position), at valid
+    lengths beyond the range (whole ranges seen), inside it and <= 0 (a
+    range after the rows: seen not at all), scalar and per row, with and
+    without a window; float32 queries (the CUDA-core kernel) over float
+    and int8 K/V at D 64.  Gates: the output within B2's tolerance, each
+    finite statistic within ``LSE_TOL`` and the same rows at -inf as the
+    plain version's, the output equal bit for bit to the same launch
+    without statistics, one ``flash_attention_lse`` launch each.  Timed
+    at qwen3-moe's per-rank decode shape (the whole range seen) beside
+    the plain version and SDPA (the output alone: no public PyTorch call
+    returns the statistics), bf16 and int8, with B2 unsplit (no
+    statistics) over the whole ``LSE_WHOLE``-key cache beside it.
+    Inputs from their own generator.  Returns the kernel's record."""
+    import torch.nn.functional as F
+
+    from repro_torch.bench.common import bound
+    from repro_torch.core import quant
+    from repro_torch.kernels import _build, attention_df, ref
+
+    dev, bf16 = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows, dh, n = 4, 128, LSE_RANGE
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def held(label, q, kk, vv, scales, kv_len, window, tol):
+        kw = dict(kv_len=kv_len, window=window, k_scale=scales[0],
+                  v_scale=scales[1])
+        before = _build.LAUNCHES[_build.FLASH_LSE]
+        out, lse = attention_df.flash_attention(q, kk, vv, return_lse=True,
+                                                **kw)
+        torch.cuda.synchronize()
+        if _build.LAUNCHES[_build.FLASH_LSE] != before + 1:
+            raise AssertionError(f"{label}: not one {_build.FLASH_LSE} "
+                                 f"launch")
+        want, want_lse = ref.attention_ref(q, kk, vv, return_lse=True, **kw)
+        err = check(_build.FLASH_LSE, out, want, shape=label, **tol)
+        if not torch.equal(torch.isneginf(lse), torch.isneginf(want_lse)):
+            raise AssertionError(f"{label}: rows at -inf differ")
+        seen = ~torch.isneginf(want_lse)
+        lse_err = float((lse[seen] - want_lse[seen]).abs().max()) \
+            if bool(seen.any()) else 0.0
+        bound_lse = LSE_TOL["atol"] + LSE_TOL["rtol"] * want_lse[seen].abs()
+        if not bool(((lse[seen] - want_lse[seen]).abs() <= bound_lse).all()):
+            raise AssertionError(f"{label}: statistics off by {lse_err}")
+        same = torch.equal(out, attention_df.flash_attention(q, kk, vv,
+                                                             **kw))
+        emit({"check": "flash_attention_lse_stats", "shape": label,
+              "lse_max_abs_err": lse_err, "rows_at_neg_inf": int(
+                  (~seen).sum()), "equal_to_launch_without": same})
+        if not same:
+            raise AssertionError(f"{label}: the output differs from the "
+                                 f"launch without statistics")
+        return err, lse_err
+
+    errs, lse_errs = [], []
+    lens = {"beyond": n + 1100, "inside": 700, "none": -3,
+            "per_row": torch.tensor([n + 5000, 1300, 0, -500], device=dev,
+                                    dtype=torch.int32)}
+    for hq, hkv in ((16, 8), (64, 4)):
+        q = randn(rows, hq, 1, dh)
+        kk, vv = randn(rows, hkv, n, dh), randn(rows, hkv, n, dh)
+        (kq, ks), (vq, vs) = (quant.symmetric_int8(t, -1) for t in (kk, vv))
+        for kv, (k_, v_, sc) in (("bf16", (kk, vv, (None, None))),
+                                 ("int8", (kq, vq, (ks, vs)))):
+            for name, kv_len in lens.items():
+                for window in (None, 1024):
+                    e, le = held(f"group {hq // hkv} Hq={hq} {kv} K/V "
+                                 f"range={n} kv_len={name} "
+                                 f"window={window}", q, k_, v_, sc, kv_len,
+                                 window, tol)
+                    errs.append(e)
+                    lse_errs.append(le)
+    # float32 queries: the CUDA-core kernel's epilogue
+    q32 = randn(rows, 8, 3, 64, dtype=torch.float32)
+    k32, v32 = (randn(rows, 2, 300, 64, dtype=torch.float32)
+                for _ in range(2))
+    (k8, s8k), (v8, s8v) = (quant.symmetric_int8(t, -1) for t in (k32, v32))
+    for kv, (k_, v_, sc) in (("f32", (k32, v32, (None, None))),
+                             ("int8", (k8, v8, (s8k, s8v)))):
+        held(f"float32 q {kv} K/V range=300 D=64 kv_len=per_row", q32, k_,
+             v_, sc, torch.tensor([420, 150, 0, -20], device=dev,
+                                  dtype=torch.int32), 100, f32_tol)
+
+    # Timed at qwen3-moe's per-rank decode shape: the whole range seen.
+    hq, hkv = 64, 4
+    q = randn(rows, hq, 1, dh)
+    kk, vv = randn(rows, hkv, n, dh), randn(rows, hkv, n, dh)
+    (kq, ks), (vq, vs) = (quant.symmetric_int8(t, -1) for t in (kk, vv))
+    qo_bytes = rows * hq * dh * 2 * 2 + rows * hq * 4   # q, out, lse
+    flops = 4.0 * dh * n * hq * rows
+
+    def timed(k_, v_, kv_bytes, sc, library):
+        kw = dict(kv_len=n, k_scale=sc[0], v_scale=sc[1])
+        bnd = bound(kv_bytes + qo_bytes, flops)
+        return dict(
+            ms=timer.ms(lambda: attention_df.flash_attention(
+                q, k_, v_, return_lse=True, **kw)),
+            plain_ms=timer.ms(lambda: ref.attention_ref(
+                q, k_, v_, return_lse=True, **kw)),
+            library_ms=library, bound_ms=bnd[0], bound_by=bnd[1])
+
+    sdpa = "F.scaled_dot_product_attention(enable_gqa), the output alone"
+    rec = dict(
+        shape=f"decode R={rows} Sq=1 Hq={hq} Hkv={hkv} D={dh} range={n} "
+              f"(kv_len={n}) bf16 + row statistics",
+        max_abs_err=max(errs), lse_max_abs_err=max(lse_errs),
+        **timed(kk, vv, 2 * rows * hkv * n * dh * 2, (None, None),
+                timer.ms(lambda: F.scaled_dot_product_attention(
+                    q, kk, vv, enable_gqa=True))),
+        library_call=sdpa, tolerance=tol, lse_tolerance=LSE_TOL)
+    rec["i8kv"] = dict(
+        shape=rec["shape"].replace("bf16", "bf16 q, int8 K/V + f32 scales"),
+        **timed(kq, vq, 2 * rows * hkv * n * (dh + 4), (ks, vs), None),
+        library_why="no PyTorch call attends over int8 K/V with "
+                    "per-position scales")
+    # B2 unsplit over the whole cache, beside it
+    kw_ = torch.Generator(device=dev).manual_seed(6)
+    kb, vb = (torch.randn((rows, hkv, LSE_WHOLE, dh), generator=kw_,
+                          device=dev).to(bf16) for _ in range(2))
+    bnd = bound(2 * rows * hkv * LSE_WHOLE * dh * 2 + rows * hq * dh * 4,
+                4.0 * dh * LSE_WHOLE * hq * rows)
+    rec["unsplit"] = dict(
+        shape=f"decode R={rows} Sq=1 Hq={hq} Hkv={hkv} D={dh} "
+              f"Skv={LSE_WHOLE} bf16, no statistics",
+        ms=timer.ms(lambda: attention_df.flash_attention(q, kb, vb)),
+        plain_ms=timer.ms(lambda: ref.attention_ref(q, kb, vb)),
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+            q, kb, vb, enable_gqa=True)),
+        library_call=sdpa.replace(", the output alone", ""),
+        bound_ms=bnd[0], bound_by=bnd[1])
+    del kb, vb
+    for sub in ("i8kv", "unsplit"):
+        emit({"kernel_timing_detail": _build.FLASH_LSE, "part": sub,
+              **rec[sub]})
+    return rec
 
 
 def b2_serving_modes(torch, timer, hq, hkv, dh, tol):
@@ -5775,6 +5943,99 @@ def codegen_phase(torch):
 A2A_INT8_RTOL = 0.02
 DIST_LAYERS_MOE = 4
 DIST_RESTORE_LAYERS = 2
+# The cache attention split over the keys, emulated on one card: 4 rows
+# prefilled to 1 536 of a 2 048-position cache, 6 decode steps (the last
+# with rows 0 and 1 back at positions 500 and 1 100, all of whose keys
+# lie in the first of 2 or 4 ranges, or the first two of 4), the split
+# over 2 and 4 key ranges against the unsplit step.  Each step's logits
+# per row at cosine >= SPLIT_COSINE of the unsplit ones: the split rounds
+# every range's attention output to bf16 before the merge, one rounding
+# more than the unsplit step, at every layer.
+SPLIT_RANGES = (2, 4)
+SPLIT_ROWS, SPLIT_CACHE, SPLIT_PROMPT, SPLIT_STEPS = 4, 2048, 1536, 6
+SPLIT_BACK = (500, 1100)
+SPLIT_COSINE = 0.999
+
+
+def key_split_emulation(torch, cfg, params, args):
+    """Full-width ``cfg`` (qwen3-1.7b whole, bf16) decoding off a cache of
+    ``SPLIT_CACHE`` positions with each layer's cache attention split
+    over 2 and over 4 key ranges (``parallel.KeyRanges``: each range
+    through ``layers.attention_key_range``, B2 with its row statistics at
+    ``kv_len - k0``, merged by ``parallel.merge_key_ranges``), what the
+    ``model`` ranks of a mesh compute, against the unsplit one-device
+    ``decode_step``, each split path fed the unsplit path's greedy
+    tokens.  Gates: every row's logits at every step at cosine >=
+    ``SPLIT_COSINE`` of the unsplit ones; ``flash_attention_lse``
+    launched once per layer, range and step, and B7 never.  Counted: the
+    greedy tokens that differ.  Returns (the split runs' launches, the
+    record)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm, parallel
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+    toks = torch.randint(0, cfg.vocab_size, (SPLIT_ROWS, SPLIT_PROMPT),
+                         generator=gen, device="cuda")
+    with torch.no_grad():
+        logits0, cache0 = lm.prefill(params, toks, cfg, max_len=SPLIT_CACHE)
+
+    def index(step):
+        at = SPLIT_PROMPT + step
+        if step < SPLIT_STEPS - 1:
+            return at
+        return torch.tensor([*SPLIT_BACK, at, at - 1], device="cuda",
+                            dtype=torch.int32)
+
+    def run(ranges, feed):
+        cache = {k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in cache0.items()}
+        wrap = (lambda one: one) if ranges is None else (
+            lambda one: lambda dist: parallel.KeyRanges(ranges))
+        out = []
+        with torch.no_grad(), _wrapped(lm, "_runner", wrap):
+            for step in range(SPLIT_STEPS):
+                cache["index"] = index(step)
+                nxt = feed[step] if feed else out[-1].argmax(-1) if out \
+                    else logits0[:, :cfg.vocab_size].argmax(-1)
+                logits, cache = lm.decode_step(params, cache,
+                                               nxt.reshape(-1, 1), cfg)
+                out.append(logits[:, :cfg.vocab_size].float())
+        return out
+
+    want = run(None, None)
+    feed = [logits0[:, :cfg.vocab_size].argmax(-1)] + [
+        w.argmax(-1) for w in want[:-1]]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = {r: run(r, feed) for r in SPLIT_RANGES}
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    lse_want = cfg.n_layers * SPLIT_STEPS * sum(SPLIT_RANGES)
+    if launched.get(_build.FLASH_LSE) != lse_want or \
+            launched.get("kv_stationary"):
+        raise AssertionError(f"the split decode launched {launched}, not "
+                             f"{lse_want} x {_build.FLASH_LSE} and no B7")
+    rec = {}
+    for r, steps in got.items():
+        cos = [[_cosine(g[i], w[i]) for i in range(SPLIT_ROWS)]
+               for g, w in zip(steps, want)]
+        rel = [float((g - w).abs().max() / w.abs().max())
+               for g, w in zip(steps, want)]
+        differ = sum(int((g.argmax(-1) != w.argmax(-1)).sum())
+                     for g, w in zip(steps, want))
+        rec[f"ranges_{r}"] = {"min_cosine": min(min(c) for c in cos),
+                              "cosine_by_step": cos, "rel_max_err": rel,
+                              "greedy_tokens_differing": differ,
+                              "tokens": SPLIT_ROWS * SPLIT_STEPS}
+        emit({"check": "key_split_emulation", "ranges": r,
+              "layers": cfg.n_layers, "cache": SPLIT_CACHE,
+              "prompt": SPLIT_PROMPT, "steps": SPLIT_STEPS,
+              "cosine_bound": SPLIT_COSINE, **rec[f"ranges_{r}"]})
+        if rec[f"ranges_{r}"]["min_cosine"] < SPLIT_COSINE:
+            raise AssertionError(f"split over {r} key ranges: logits at "
+                                 f"cosine {rec[f'ranges_{r}']['min_cosine']}"
+                                 f" of the unsplit step's")
+    return launched, rec
 
 
 def dist_phase(torch, args):
@@ -5799,7 +6060,13 @@ def dist_phase(torch, args):
        engine's ``restore(devices=[card])`` loads the snapshot onto the
        mesh and resumes to the uninterrupted run's greedy tokens, bit for
        bit.
-    Returns the launches of (1)'s ``dist`` forward."""
+    5. After (1), on its weights: the cache attention split over the keys
+       of a mesh's ``model`` ranks, emulated on the card
+       (``key_split_emulation``): each layer's over 2 and over 4 key
+       ranges through B2 with its row statistics, merged, against the
+       unsplit decode step.
+    Returns the launches of (1)'s ``dist`` forward and (5)'s split decode
+    steps, added."""
     import gc
     import shutil
     import tempfile
@@ -5846,6 +6113,11 @@ def dist_phase(torch, args):
                                  f"one-device forward {one}")
         _bitwise("dist_forward[qwen3-1.7b]", got, want, "4x64 28 layers")
         out["forward_launches"] = launched
+        split_launches, out["key_split"] = key_split_emulation(
+            torch, cfg, params, args)
+        out["key_split_launches"] = split_launches
+        launched = {k: launched.get(k, 0) + split_launches.get(k, 0)
+                    for k in {*launched, *split_launches}}
         del params, sp, got, want
         gc.collect()
         torch.cuda.empty_cache()
@@ -6071,7 +6343,9 @@ def main(argv=None) -> int:
                                    "split", "packed4", "chunk",
                                    "slot_decode", "bf16_ms", "flash_ms",
                                    "f32_ms", "library_why", "d16", "group5",
-                                   "hymba", "pages", "whisper", "backward")
+                                   "hymba", "pages", "whisper", "backward",
+                                   "i8kv", "unsplit", "lse_max_abs_err",
+                                   "lse_tolerance")
                if k in rec},
         })
     emit({"kernels": kernels})

@@ -30,7 +30,8 @@ B7 its cluster kernel; the entry point reports the tile it took, which
 also counts one under its name (``TILE_LIBRARIES``).  A launch of B2 or
 B7 over int8 K/V also counts one under its ``I8KV_LAUNCHES`` key, and a
 launch of B3 at a GQA group over 8 (its 16-warp kernel) one under
-``PAGED_G16``.
+``PAGED_G16``, and a launch of B2 that writes its rows' statistics one
+under ``FLASH_LSE``.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple, Union
 
 import torch
 
@@ -77,7 +78,7 @@ SIGNATURES = {
     "matmul_rmw": _GEMM + (_I, _I, _I, _P, _P),
     "matmul_ws_stripe": _GEMM + (_P, _P),
     "matmul_is_stripe": _GEMM + (_I, _P, _P),
-    "flash_attention": (_P,) * 6 + (_I,) * 8 + (_P, _I, _I, _I, _F, _P),
+    "flash_attention": (_P,) * 7 + (_I,) * 8 + (_P, _I, _I, _I, _F, _P),
     "kv_stationary": (_P,) * 8 + (_I,) * 8 + (_P, _I, _I, _I, _F, _P, _P),
     "paged_attention": (_P,) * 9 + (_I,) * 9 + (_F, _I, _P),
     "conv2d": (_P, _P, _P) + (_I,) * 10 + (_P, _I, _P, _I, _P, _I, _P, _P,
@@ -117,6 +118,10 @@ I8KV_LAUNCHES = ("flash_attention_i8kv", "kv_stationary_cluster_i8kv",
 # B3's launches on its 16-warp kernel (a GQA group of 9 to 16), counted
 # beside the library's own count.
 PAGED_G16 = "paged_attention_g16"
+# B2's launches that also write each row's statistic (the cache attention
+# split over a mesh's keys), counted beside the library's own count (and an
+# int8 launch's ``I8KV_LAUNCHES`` key).
+FLASH_LSE = "flash_attention_lse"
 # The libraries whose entry point reports the tile a launch took, with the
 # tiles by code.
 TILE_LIBRARIES = {"matmul_os": TILES, "matmul_rmw": RMW_TILES,
@@ -131,7 +136,7 @@ TILE_LIBRARIES = {"matmul_os": TILES, "matmul_rmw": RMW_TILES,
 _TOOK = (ctypes.c_int * 4)()
 LAUNCHES: Dict[str, int] = {name: 0 for name in
                             (*SIGNATURES, PACKED_DECODE, *I8KV_LAUNCHES,
-                             PAGED_G16,
+                             PAGED_G16, FLASH_LSE,
                              *(t for tiles in TILE_LIBRARIES.values()
                                for t in tiles))}
 # ptxas resource report of each build of this process, by kernel.
@@ -255,10 +260,12 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, *args, packed: bool = False,
-           also: Optional[str] = None) -> Optional[tuple]:
+           also: Union[None, str, Tuple[str, ...]] = None
+           ) -> Optional[tuple]:
     """Call kernel ``name``'s entry point on the current CUDA stream,
     count the launch (and, when it decodes ``packed`` planes, B6's; and
-    under ``also``, one of ``I8KV_LAUNCHES`` or ``PAGED_G16``) and raise
+    under each name of ``also``, of ``I8KV_LAUNCHES``, ``PAGED_G16`` and
+    ``FLASH_LSE``) and raise
     if it was refused.  A launch of a ``TILE_LIBRARIES`` entry that
     took one of its tiles (B1's, B4's, B5a's, B5b's, B7's, B9's) counts
     that tile too and returns (tile, shared memory bytes, CTAs) as the
@@ -278,8 +285,8 @@ def launch(name: str, *args, packed: bool = False,
     LAUNCHES[name] += 1
     if packed:
         LAUNCHES[PACKED_DECODE] += 1
-    if also is not None:
-        LAUNCHES[also] += 1
+    for key in (also,) if isinstance(also, str) else also or ():
+        LAUNCHES[key] += 1
     if not took or not _TOOK[0]:
         return None
     tile = TILE_LIBRARIES[name][_TOOK[0] - 1]

@@ -44,6 +44,17 @@ Ports of ``repro/kernels/attention_df.py``:
   block fetched once per q head, the state through device memory once per
   visible (KV block, 16-row q tile) pair.  ``KV_BLOCKS``.
 
+B2 also writes each q row's softmax statistic on request
+(``flash_attention(..., return_lse=True)``: ``m + log(l)`` from its
+online softmax's final state, f32, ``-inf`` for a row that sees no key),
+on every path (bf16, f32, int8 K/V), in its epilogue alone; such a launch
+also counts under ``FLASH_LSE``.  With it, a rank of a device mesh
+attends over its own range of a cache split over the keys (its valid
+length ``kv_len - k0``, which may lie outside ``[0, Skv]``: the band is
+clipped to the buffer) and the ranks' partial outputs merge through
+their statistics (``models/parallel.merge_key_ranges``).  B7 keeps no
+statistics, so that path pins B2.
+
 B2 and B7 also take int8 K/V with per-position f32 scales (the int8 KV
 cache; the TPU kernels' ``_load_kv`` dequantizes at the block load).
 Under bf16 queries the int8 tiles stream in at half the bytes (B2
@@ -68,7 +79,7 @@ package's do.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -120,6 +131,12 @@ KV_CLUSTER_I8KV = register_kernel(KernelRegistration(
     source="src/repro_torch/kernels/csrc/kv_stationary.cu",
     replaces="src/repro/kernels/attention_df.py:538",
     spec=DataflowSpec(anchor=WS, block=KV_BLOCK + (1,)),
+))
+FLASH_LSE = register_kernel(KernelRegistration(
+    name=_build.FLASH_LSE,
+    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+    replaces="src/repro/kernels/attention_df.py:328",
+    spec=DataflowSpec(anchor=OS, block=FLASH_BLOCK + (1,)),
 ))
 FLASH_F32_I8KV = register_kernel(KernelRegistration(
     name="flash_attention_f32_i8kv",
@@ -188,7 +205,9 @@ def _i8kv_count(q, scales, bf16_path, f32_path) -> Optional[str]:
 def _banded_args(q, k, v, window, kv_len, k_scale=None, v_scale=None):
     """Checks shared by the banded kernels (B2, B7); returns the per-row
     lengths on the device (or None), the shared length, the heads per
-    batch row and the K/V scales (``_kv_scales``)."""
+    batch row and the K/V scales (``_kv_scales``).  A length may be any
+    int, below 0 or above ``Skv`` too (``ref.visible_keys``): the
+    kernels clip the band to the buffer."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _check_head_dim(d)
@@ -217,12 +236,15 @@ def flash_attention(
     kv_len: ref.KvLen = None,        # int, 0-d or (B,) int tensor
     k_scale: Optional[torch.Tensor] = None,   # int8 K/V: (B, Hkv, Skv, 1)
     v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Banded GQA attention in one kernel launch.  Returns (B, Hq, Sq, D)."""
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Banded GQA attention in one kernel launch.  Returns (B, Hq, Sq, D);
+    with ``return_lse``, also each row's statistic, f32 (B, Hq, Sq)
+    (``ref.attention_ref``'s)."""
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale, kv_len=kv_len, k_scale=k_scale,
-                                 v_scale=v_scale)
+                                 v_scale=v_scale, return_lse=return_lse)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     kv_lens, kv_scalar, heads_per_row, scales = _banded_args(
@@ -233,15 +255,19 @@ def flash_attention(
     _build.require_cuda(q, k, v, kv_lens, ks, vs)
     _build.require_aligned(q, k, v)
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
+    also = tuple(n for n in (_i8kv_count(q, scales, FLASH_I8KV,
+                                         FLASH_F32_I8KV),
+                             FLASH_LSE.name if return_lse else None) if n)
     _build.launch(
         "flash_attention", _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(ks), _build.ptr(vs), _build.ptr(out),
+        _build.ptr(ks), _build.ptr(vs), _build.ptr(out), _build.ptr(lse),
         _build.dtype_code(q), _build.dtype_code(k), d, b * hq, sq, skv,
         hq // hkv, heads_per_row, _build.ptr(kv_lens), kv_scalar,
         0 if window is None else int(window), int(causal),
-        float(scale if scale is not None else d ** -0.5),
-        also=_i8kv_count(q, scales, FLASH_I8KV, FLASH_F32_I8KV))
-    return out
+        float(scale if scale is not None else d ** -0.5), also=also)
+    return (out, lse) if return_lse else out
 
 
 class KvPlan(NamedTuple):

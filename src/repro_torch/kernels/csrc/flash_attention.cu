@@ -55,6 +55,21 @@
 // f32 kernel (kv_stationary.cu kv_kernel) folds the same tiles with the same
 // step, so its int8 output equals this one's bit for bit.
 //
+// Row statistics (lse non-null; the cache attention split over the keys of a
+// device mesh): every path also writes, for each q row, the log of its
+// softmax's normaliser, m + log(l) from the online softmax's final state, in
+// f32, or -inf for a row that saw no key (whose output row is 0, as always).
+// A rank's partial output over its key range and this statistic are all the
+// log-sum-exp merge across ranks needs (models/parallel.py). The epilogue
+// writes it; nothing before the epilogue looks at lse, so a launch without
+// it computes and writes what it always did.
+//
+// The valid length may lie outside [0, skv]: a buffer holding keys [k0, k0 +
+// skv) of a longer sequence is banded by kv_len - k0. The band's upper tile
+// is clipped to the buffer (band / the f32 rule: min of the valid tiles and
+// the buffer's), a length <= 0 gives an empty band, and the loads are masked
+// at skv, so no length reads past the buffer.
+//
 // Every path is built for d_head 16, 32, 64 and 128. At D = 16 a bf16 row is
 // two 16-byte chunks and an int8 row one; the tensor-core step's QK^T is one
 // m16n8k16 chunk and its PV two n8 fragments, summed in the same chunk order;
@@ -65,6 +80,10 @@
 #include "flash_tc.cuh"
 
 namespace {
+
+// The statistic of a row that sees no key: a true -inf (REPRO_NEG_INF, the
+// online softmax's starting max, is a finite -1e30).
+#define REPRO_NO_KEY_LSE __int_as_float(0xff800000u)
 
 // The f32 CUDA-core tile.
 constexpr int BQ = 16;   // query rows per CTA
@@ -78,9 +97,10 @@ template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_kernel(const T* __restrict__ q, const KV* __restrict__ k,
              const KV* __restrict__ v, const float* __restrict__ k_scale,
-             const float* __restrict__ v_scale, T* __restrict__ o, int sq, int skv,
-             int group, int heads_per_row, const int* __restrict__ kv_lens,
-             int kv_len, int window, int causal, float scale) {
+             const float* __restrict__ v_scale, T* __restrict__ o,
+             float* __restrict__ lse, int sq, int skv, int group, int heads_per_row,
+             const int* __restrict__ kv_lens, int kv_len, int window, int causal,
+             float scale) {
   constexpr bool I8 = std::is_same<KV, int8_t>::value;
   __shared__ float qs[BQ][D];
   __shared__ float ks[BKV][D + 1];
@@ -144,7 +164,11 @@ flash_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
     const int r = warp * ROWS_PER_WARP + rr;
-    if (q0 + r < sq) write_row<T, D>(o + ((size_t)bh * sq + q0 + r) * D, st[rr]);
+    if (q0 + r >= sq) continue;
+    write_row<T, D>(o + ((size_t)bh * sq + q0 + r) * D, st[rr]);
+    if (lse && lane == 0)
+      lse[(size_t)bh * sq + q0 + r] =
+          st[rr].l > 0.f ? st[rr].m + logf(st[rr].l) : REPRO_NO_KEY_LSE;
   }
 }
 
@@ -197,7 +221,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
                 const KV* __restrict__ v, const float* __restrict__ k_scale,
                 const float* __restrict__ v_scale, __nv_bfloat16* __restrict__ o,
-                int sq, int skv, int group, int heads_per_row,
+                float* __restrict__ lse, int sq, int skv, int group, int heads_per_row,
                 const int* __restrict__ kv_lens, int kv_len, int window, int causal,
                 float scale) {
   constexpr bool I8 = std::is_same<KV, int8_t>::value;
@@ -355,12 +379,15 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
     for (int i = 0; i < D / 8; ++i)
       dst[(i * 8 + 2 * t) / 2] =
           l > 0.f ? tc::pack2_rn(oacc[i][2 * h] / l, oacc[i][2 * h + 1] / l) : 0u;
+    // the row's statistic: the quad's four threads hold the same m and l
+    if (lse && t == 0)
+      lse[(size_t)bh * sq + row] = l > 0.f ? m_run[h] + logf(l) : REPRO_NO_KEY_LSE;
   }
 }
 
 template <int D, typename KV>
 int launch_tc(const void* q, const void* k, const void* v, const float* k_scale,
-              const float* v_scale, void* o, int bh, int sq, int skv, int group,
+              const float* v_scale, void* o, float* lse, int bh, int sq, int skv, int group,
               int heads_per_row, const int* kv_lens, int kv_len, int window, int causal,
               float scale, cudaStream_t stream) {
   constexpr size_t smem = tc_smem<D, KV>();
@@ -372,21 +399,21 @@ int launch_tc(const void* q, const void* k, const void* v, const float* k_scale,
   const dim3 grid((sq + TQ - 1) / TQ, bh);
   flash_tc_kernel<D, KV><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), k_scale, v_scale, static_cast<__nv_bfloat16*>(o), sq,
-      skv, group, heads_per_row, kv_lens, kv_len, window, causal, scale);
+      static_cast<const KV*>(v), k_scale, v_scale, static_cast<__nv_bfloat16*>(o), lse,
+      sq, skv, group, heads_per_row, kv_lens, kv_len, window, causal, scale);
   return launch_status();
 }
 
 template <int D, typename KV>
 int launch_f32(const void* q, const void* k, const void* v, const float* k_scale,
-               const float* v_scale, void* o, int bh, int sq, int skv, int group,
+               const float* v_scale, void* o, float* lse, int bh, int sq, int skv, int group,
                int heads_per_row, const int* kv_lens, int kv_len, int window,
                int causal, float scale, cudaStream_t stream) {
   const dim3 grid((sq + BQ - 1) / BQ, bh);
   flash_kernel<float, KV, D><<<grid, WARPS * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), k_scale, v_scale, static_cast<float*>(o), sq, skv,
-      group, heads_per_row, kv_lens, kv_len, window, causal, scale);
+      static_cast<const KV*>(v), k_scale, v_scale, static_cast<float*>(o), lse, sq,
+      skv, group, heads_per_row, kv_lens, kv_len, window, causal, scale);
   return launch_status();
 }
 
@@ -394,35 +421,38 @@ int launch_f32(const void* q, const void* k, const void* v, const float* k_scale
 // (the same, or REPRO_I8).
 template <int D>
 int launch(int dtype, int kv, const void* q, const void* k, const void* v,
-           const float* k_scale, const float* v_scale, void* o, int bh, int sq,
+           const float* k_scale, const float* v_scale, void* o, float* lse, int bh, int sq,
            int skv, int group, int heads_per_row, const int* kv_lens, int kv_len,
            int window, int causal, float scale, cudaStream_t stream) {
   if (dtype == REPRO_F32 && kv == REPRO_F32)
-    return launch_f32<D, float>(q, k, v, nullptr, nullptr, o, bh, sq, skv, group,
+    return launch_f32<D, float>(q, k, v, nullptr, nullptr, o, lse, bh, sq, skv, group,
                                 heads_per_row, kv_lens, kv_len, window, causal, scale,
                                 stream);
   if (dtype == REPRO_F32)
-    return launch_f32<D, int8_t>(q, k, v, k_scale, v_scale, o, bh, sq, skv, group,
+    return launch_f32<D, int8_t>(q, k, v, k_scale, v_scale, o, lse, bh, sq, skv, group,
                                  heads_per_row, kv_lens, kv_len, window, causal, scale,
                                  stream);
   if (kv == REPRO_BF16)
-    return launch_tc<D, __nv_bfloat16>(q, k, v, nullptr, nullptr, o, bh, sq, skv, group,
+    return launch_tc<D, __nv_bfloat16>(q, k, v, nullptr, nullptr, o, lse, bh, sq, skv, group,
                                        heads_per_row, kv_lens, kv_len, window, causal,
                                        scale, stream);
-  return launch_tc<D, int8_t>(q, k, v, k_scale, v_scale, o, bh, sq, skv, group,
+  return launch_tc<D, int8_t>(q, k, v, k_scale, v_scale, o, lse, bh, sq, skv, group,
                               heads_per_row, kv_lens, kv_len, window, causal, scale,
                               stream);
 }
 
 }  // namespace
 
-// q (bh, sq, d); k, v (bh / group, skv, d); o like q. dtype: q's (and o's)
+// q (bh, sq, d); k, v (bh / group, skv, d); o like q; lse null, or (bh, sq)
+// f32 for the rows' statistics. dtype: q's (and o's)
 // element type, float32 or bf16; kv_dtype: K's and V's, the same, or int8
 // with k_scale and v_scale (bh / group, skv) f32, one per position. kv_lens:
 // null (every head row uses kv_len) or bh / heads_per_row lengths on the
-// device. window <= 0: no sliding window. d: 16, 32, 64 or 128.
+// device, any int (a length outside [0, skv] bands a range of a longer
+// sequence). window <= 0: no sliding window. d: 16, 32, 64 or 128.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const float* k_scale, const float* v_scale, void* o,
+                               float* lse,
                                int dtype, int kv_dtype, int d, int bh, int sq,
                                int skv, int group, int heads_per_row,
                                const int* kv_lens, int kv_len, int window,
@@ -436,16 +466,16 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return launch<16>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv,
+      return launch<16>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, lse, bh, sq, skv,
                         group, heads_per_row, kv_lens, kv_len, window, causal, scale, s);
     case 32:
-      return launch<32>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv,
+      return launch<32>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, lse, bh, sq, skv,
                         group, heads_per_row, kv_lens, kv_len, window, causal, scale, s);
     case 64:
-      return launch<64>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv,
+      return launch<64>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, lse, bh, sq, skv,
                         group, heads_per_row, kv_lens, kv_len, window, causal, scale, s);
     case 128:
-      return launch<128>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, bh, sq, skv,
+      return launch<128>(dtype, kv_dtype, q, k, v, k_scale, v_scale, o, lse, bh, sq, skv,
                          group, heads_per_row, kv_lens, kv_len, window, causal, scale,
                          s);
     default:

@@ -398,10 +398,18 @@ def attention(
     window_dyn: Optional[int] = None,      # run-time sliding window
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """GQA attention under the OS (flash, B2) or WS (kv-stationary, B7)
     anchor: ``anchor``, or the spec's, or (neither given) the autotuned
     pick of the call's ``AttentionProblem``.  Returns (B, Hq, Sq, D).
+
+    ``return_lse``: returns (out, each row's statistic, f32 (B, Hq, Sq);
+    ``ref.attention_ref``'s), for a rank attending over its range of a
+    cache split over the keys (``kv_len`` then below 0 or above ``Skv``
+    where the range lies wholly after or before the rows).  Only B2 keeps
+    statistics, so such a call takes the OS anchor and no autotuned pick
+    (naming "ws" raises); it carries no gradient.
 
     ``kv_len`` is the filled prefix of a padded KV buffer; q rows
     right-align against it and the kernel visits only the KV tiles in
@@ -446,6 +454,12 @@ def attention(
     if torch.is_tensor(win):
         win = int(win)
     backend = _backend(backend)
+    if return_lse:
+        if anchor not in (None, "os") or (spec is not None
+                                          and spec.anchor != OS):
+            raise ValueError("row statistics come from B2 (the OS anchor) "
+                             "alone")
+        anchor = "os"
     if spec is None and anchor is None and backend != "torch":
         ragged = torch.is_tensor(kv_len) and kv_len.ndim == 1
         spec = _picked(_attention_problem(
@@ -469,7 +483,7 @@ def attention(
     if backend == "torch":
         out = ref.attention_ref(q, k, v, causal=causal, window=win,
                                 scale=scale, kv_len=kv_len, k_scale=k_scale,
-                                v_scale=v_scale)
+                                v_scale=v_scale, return_lse=return_lse)
     else:
         reg = attention_df.FLASH if anchor == "os" \
             else attention_df.KV_STATIONARY
@@ -480,8 +494,13 @@ def attention(
                for got, want in zip((bq, bkv), built)):
             raise ValueError(f"the {reg.name} kernel is compiled for (bq, "
                              f"bkv) = {built}, got ({bq}, {bkv})")
-        if autograd.b2_carries_grad(q, k, v, kv_len=kv_len,
-                                    k_scale=k_scale):
+        if return_lse:
+            out = attention_df.flash_attention(
+                q, k, v, causal=causal, window=win, scale=scale,
+                kv_len=kv_len, k_scale=k_scale, v_scale=v_scale,
+                return_lse=True)
+        elif autograd.b2_carries_grad(q, k, v, kv_len=kv_len,
+                                      k_scale=k_scale):
             out = autograd.attention(
                 q, k, v, causal, win,
                 float(scale if scale is not None else q.shape[-1] ** -0.5),
@@ -490,6 +509,9 @@ def attention(
             out = _attention(q, k, v, anchor, causal=causal, window=win,
                              scale=scale, kv_len=kv_len, k_scale=k_scale,
                              v_scale=v_scale)
+    if return_lse:
+        out, lse = out
+        return _poison(out, fault), lse
     return _poison(out, fault)
 
 

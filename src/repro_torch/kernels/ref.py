@@ -9,7 +9,7 @@ result.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -84,7 +84,15 @@ def visible_keys(sq: int, skv: int, kv_len: KvLen, causal: bool,
     (``kv_len``, default ``Skv``, or one per batch row), so row i sits at
     position ``i + kv_len - Sq``; a key is visible when it lies below
     ``kv_len``, at or before the row (``causal``) and within ``window``
-    positions of it."""
+    positions of it.
+
+    ``kv_len`` may lie outside ``[0, Skv]``: a buffer holding the keys
+    ``[k0, k0 + Skv)`` of a longer sequence whose valid length is ``L``
+    is banded by ``L - k0``, which puts every row at its own position
+    less ``k0``, so a range wholly before the rows is seen whole (length
+    over ``Skv``), one wholly after them not at all (length <= 0), and
+    the causal and window cuts fall where they fall on the whole
+    sequence."""
     kv_valid = skv if kv_len is None else kv_len
     kpos = torch.arange(skv, device=device)
     if torch.is_tensor(kv_valid) and kv_valid.ndim == 1:
@@ -115,7 +123,8 @@ def attention_ref(
     kv_len: KvLen = None,         # scalar, or (B,) per-row valid lengths
     k_scale: Optional[torch.Tensor] = None,   # (B, Hkv, Skv, 1) f32
     v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """GQA attention oracle with the kernels' mask (``visible_keys``).
 
     Rows that see no key emit 0.  int8 K/V dequantize through their per-position scales,
@@ -123,6 +132,12 @@ def attention_ref(
     scaled logits, ``v_scale`` the normalized probabilities (equal to
     scaling the K/V rows, since the scales are per position), so no float
     copy of the cache is made.
+
+    ``return_lse``: also each row's statistic, f32 (B, Hq, Sq): the
+    natural log of the sum of the exponentials of its scaled, masked
+    logits (the K scale folded in), ``-inf`` where the row sees no key.
+    Outputs over disjoint key ranges merge through these
+    (``models/parallel.merge_key_ranges``).
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -140,7 +155,10 @@ def attention_ref(
     if v_scale is not None:
         p = p * v_scale[..., 0].float()[:, :, None, None, :]
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    out = out.reshape(b, hq, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(b, hq, sq)
 
 
 def paged_attention_ref(

@@ -119,6 +119,27 @@ def _cache_update(buf: torch.Tensor, val: torch.Tensor, idx: Index) -> None:
         buf[:, :, i:i + s] = val.to(buf.dtype)
 
 
+def _range_update(buf: torch.Tensor, val: torch.Tensor, idx: Index,
+                  k0: int) -> None:
+    """Write into ``buf`` (B, H, n, D), which holds the positions ``[k0,
+    k0 + n)`` of a cache, the part of ``val`` (B, H, S, D) whose
+    positions ``idx + [0, S)`` (one offset, or one per batch row) fall
+    there, in place."""
+    s, n = val.shape[2], buf.shape[2]
+    if torch.is_tensor(idx) and idx.ndim == 1:
+        pos = (idx.to(buf.device).long()[:, None] - k0
+               + torch.arange(s, device=buf.device))
+        hit = (pos >= 0) & (pos < n)
+        rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+        buf[rows.expand_as(pos)[hit], :, pos[hit]] = \
+            val.transpose(1, 2)[hit].to(buf.dtype)
+    else:
+        i = int(idx) - k0
+        lo, hi = max(i, 0), min(i + s, n)
+        if hi > lo:
+            buf[:, :, lo:hi] = val[:, :, lo - i:hi - i].to(buf.dtype)
+
+
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-(batch, head, position) int8 quantization of K/V:
     int8 codes and (B, H, S, 1) f32 scales."""
@@ -190,6 +211,48 @@ def attention_apply(
                         kv_len=kv_len, k_scale=k_sc, v_scale=v_sc,
                         backend=backend or _BACKEND_OVERRIDE)
     return _finish(p, out, fault), new_cache
+
+
+def attention_key_range(
+    p: Params,
+    x: torch.Tensor,                  # (B, S, D_model), normed
+    cfg,
+    positions: torch.Tensor,
+    window: Optional[int],
+    kv_range: Tuple[torch.Tensor, ...],
+    cache_index: Index,
+    k0: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GQA self-attention of ``x`` over one range of a cache's keys: the
+    buffers ``kv_range`` (each (B, Hkv, n, D); an int8 cache's 4-tuple
+    as in ``attention_apply``) hold the positions ``[k0, k0 + n)`` of
+    the whole cache, as a ``model`` rank's shard holds them.
+
+    The fresh K/V (quantized for an int8 cache) is written in place
+    where its positions ``cache_index + [0, S)`` meet the range, and B2
+    attends over the range with the valid length ``cache_index + S -
+    k0`` (below 0 or over ``n`` where the range lies wholly after or
+    before the rows), returning its rows' statistics too.  Returns (out
+    (B, Hq, S, D) before ``wo``, lse (B, Hq, S) f32): the ranges'
+    pairs merge into the whole cache's attention
+    (``parallel.merge_key_ranges``), which ``_finish`` projects.  No
+    fault site: the caller fires ``layers.attention`` once for the
+    merged call."""
+    s = x.shape[1]
+    q, k, v = _qkv(p, x, cfg, positions)
+    if kv_range[0].dtype == torch.int8:
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        fresh = (kq, vq, ks, vs)
+    else:
+        fresh = (k, v)
+    for buf, val in zip(kv_range, fresh):
+        _range_update(buf, val, cache_index, k0)
+    scales = kv_range[2:] if len(kv_range) == 4 else (None, None)
+    return ops.attention(q, kv_range[0], kv_range[1], causal=True,
+                         scale=cfg.d_head ** -0.5, window=window,
+                         kv_len=cache_index + s - k0, k_scale=scales[0],
+                         v_scale=scales[1], return_lse=True,
+                         backend=_BACKEND_OVERRIDE)
 
 
 def paged_attention_apply(

@@ -30,9 +30,17 @@ Blocks:
     head), row-parallel ``wo``, B2 over the local heads; the output is
     ``Partial`` over ``model`` (a reduce-scatter back to the sequence
     layout).  Other head counts run the block replicated over ``model``.
-  * attention with a cache (prefill, decode): replicated over ``model``
-    on the gathered layer cache; the cache keeps the reference's layout
-    (sequence over ``model``), each rank writing its positions' range.
+  * attention with a cache: the cache keeps the reference's layout
+    (sequence over ``model``) and is never redistributed.  A prefill
+    attends over its fresh K/V alone, replicated over ``model``, each
+    rank writing its positions' range.  Decode (more than one ``model``
+    rank) splits over the keys: each rank computes q, k and v (the
+    projections replicated over ``model``), writes the fresh K/V where
+    its positions meet the rank's range, attends over that range with
+    B2 (valid length ``kv_len - k0``) and its rows' statistics, and the
+    ranks' (output, statistic) pairs are all-gathered over ``model`` and
+    merged (``merge_key_ranges``) in rank order, the same on every rank,
+    before ``wo``.  At one ``model`` rank it runs the one-device code.
   * MLP: column-parallel ``w1``/``w3``, row-parallel ``w2`` (B1 on the
     local columns), ``Partial`` out; replicated where ``d_ff`` does not
     divide the axis, and for the binary MLP.
@@ -59,6 +67,7 @@ import torch
 
 from repro_torch.launch import sharding as rules
 from repro_torch.models import layers, lm, moe
+from repro_torch.runtime import health
 
 Params = Dict[str, Any]
 
@@ -536,14 +545,104 @@ def _seq_range(dist, length: int, pls: tuple, seq_dim: int
     return start, stop - start
 
 
+def merge_key_ranges(outs: Sequence[torch.Tensor],
+                     lses: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One attention over a cache's keys from its parts over disjoint key
+    ranges: each range's output (B, Hq, S, D) and rows' statistics
+    (B, Hq, S) f32 (B2's ``return_lse``).  With ``M`` the rows' largest
+    statistic, range r weighs ``w_r = exp(lse_r - M)`` (0 where it sees
+    no key), and the output is ``sum_r w_r out_r / sum_r w_r``, in
+    float32, summed in the ranges' order, in the outputs' dtype; a row no
+    range sees gives 0, as on one device.  One range gives its output's
+    bits."""
+    m = torch.stack(list(lses)).amax(dim=0)
+    shift = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    num = torch.zeros(outs[0].shape, dtype=torch.float32,
+                      device=outs[0].device)
+    den = torch.zeros_like(m)
+    for out, lse in zip(outs, lses):
+        w = torch.exp(lse - shift)
+        num = num + w[..., None] * out.float()
+        den = den + w
+    merged = torch.where(den[..., None] > 0, num / den[..., None],
+                         torch.zeros_like(num))
+    return merged.to(outs[0].dtype)
+
+
+def _key_split_block(dist, lp: Params, x, cfg, i: int, positions,
+                     stored: Sequence[Any], cache_index):
+    """Layer ``i``'s normed self-attention with the cache split over the
+    keys of ``model``'s ranks (module docstring): on the stored shards'
+    own placements, the output replicated over ``model``."""
+    start, _ = _seq_range(dist, stored[0].shape[2], stored[0].placements, 2)
+    tp_group = (dist.mesh, _dims(dist)[1])
+
+    def body(w, x, *own):
+        import torch.distributed._functional_collectives as funcol
+
+        # all_gather_single where this PyTorch has it (it deprecates
+        # all_gather_tensor for it)
+        gather = getattr(funcol, "all_gather_single",
+                         funcol.all_gather_tensor)
+        fault = health.maybe_inject("layers.attention")
+        h = layers.rmsnorm(w["ln1"], x, cfg.norm_eps)
+        out, lse = layers.attention_key_range(
+            w["attn"], h, cfg, positions, cfg.layer_window(i), own,
+            cache_index, start)
+        outs = gather(out[None].contiguous(), 0, tp_group)
+        lses = gather(lse[None].contiguous(), 0, tp_group)
+        return layers._finish(w["attn"], merge_key_ranges(
+            outs.unbind(0), lses.unbind(0)), fault)
+
+    return replicated_block(dist, lp, x, cfg, ("ln1", "attn"), body,
+                            [(s, s.placements) for s in stored])
+
+
+class KeyRanges(lm.OneDevice):
+    """``lm.OneDevice`` with each decode step's cache attention split over
+    ``ranges`` equal key ranges of the layer cache, each range attended
+    by ``layers.attention_key_range`` on views of the cache and the parts
+    merged by ``merge_key_ranges``: what the ``model`` ranks of a mesh
+    compute (without the gathers), on one device.  A prefill (attention
+    over its fresh K/V alone) runs as on one device."""
+
+    def __init__(self, ranges: int):
+        self.ranges = ranges
+
+    def attention(self, lp, h, cfg, i, positions, cache=None,
+                  cache_index=None, attend_local=False):
+        if cache is None or attend_local:
+            return super().attention(lp, h, cfg, i, positions, cache,
+                                     cache_index, attend_local)
+        fault = health.maybe_inject("layers.attention")
+        bufs = lm._layer_cache(cache, i)
+        n = -(-bufs[0].shape[2] // self.ranges)
+        outs, lses = [], []
+        for k0 in range(0, bufs[0].shape[2], n):
+            out, lse = layers.attention_key_range(
+                lp["attn"], h, cfg, positions, cfg.layer_window(i),
+                tuple(b[:, :, k0:k0 + n] for b in bufs), cache_index, k0)
+            outs.append(out)
+            lses.append(lse)
+        return layers._finish(lp["attn"], merge_key_ranges(outs, lses),
+                              fault)
+
+
 def attention_cache_block(dist, lp: Params, x, cfg, i: int, positions,
                           cache: Params, cache_index, attend_local: bool):
-    """Layer ``i``'s normed self-attention with the cache: replicated
-    over ``model``, on the layer's cache gathered whole, the fresh K/V
-    written into this rank's shard of the stored cache (sequence over
-    ``model``, the reference's cache layout) in place."""
+    """Layer ``i``'s normed self-attention with the cache, whose stored
+    buffers keep the reference's layout (sequence over ``model``) and
+    are written in place.  Decode over more than one ``model`` rank:
+    split over the keys (``_key_split_block``).  Otherwise replicated
+    over ``model``: a prefill over its fresh K/V alone, each rank
+    copying its positions' range into its shard; decode where a rank's
+    shard is the whole sequence (one ``model`` rank, or a length the
+    axis does not divide)."""
     names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
     stored = [cache[n][i] for n in names]
+    if not attend_local and tp_size(dist) > 1 and _tp_on(dist, stored[0]):
+        return _key_split_block(dist, lp, x, cfg, i, positions, stored,
+                                cache_index)
     b = x.shape[0]
     bs = batch_split(dist, b)
     max_len = stored[0].shape[2]

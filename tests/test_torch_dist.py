@@ -36,6 +36,20 @@ here hold them against the JAX package:
     loss against the mean of the JAX aux over each rank's tokens;
   * ``compressed_psum``: its closed form at one step, and error feedback
     over 50 steps (the reference's bound, 4 code steps);
+  * decode at 1x2 with the cache attention split over the keys (each
+    rank attending over its half of the ``SERVE_LEN`` positions, the
+    ranks' outputs merged through B2's row statistics), beyond the cases
+    above (``SPLIT_CASES``): a last step whose rows' keys all lie in rank
+    0's range (rank 1 seeing none of them), an int8 cache (decoding from
+    the JAX prefill's codes and scales, copied into the mesh cache's
+    shards: a prefill value quantized to the next code by one package
+    and not the other moves the logits by ~1e-3 on one device as well),
+    and hymba's 4-layer variant, whose layer 1 attends over 8 keys with
+    the window straddling the ranks' boundary at 12; each step's logits
+    against the JAX ``decode_step`` (``FWD_TOL``); the last decode step's
+    all-gathers (``hlo_analysis.CollectiveCounter``) are the merge's
+    alone, none carrying a cache shard's bytes, and each rank's cache
+    buffers hold its own positions alone, equal to the JAX cache's;
   * ``make_global_batch``: each rank holds its slice alone;
   * a batch snapshot restored onto a 1x2 mesh (``Engine.restore(
     devices=)``) resumes to the uninterrupted run's tokens, bit for bit.
@@ -82,6 +96,20 @@ CASES = {
     "whisper": ("whisper-tiny", {}, ("1x2",)),
 }
 CASE_MESHES = [(c, m) for c, (_, _, ms) in CASES.items() for m in ms]
+# Decode with the cache attention split over the keys at 1x2, prefill and
+# decode alone: case -> (arch, config overrides, the last step's index per
+# row, or None for the cases' own).  At SERVE_LEN 24 rank 0 holds
+# positions 0-11 and rank 1 12-23.
+SPLIT_CASES = {
+    # rows at 4 and 11: every key in rank 0's range, rank 1 sees none
+    "edge": ("qwen3-1.7b", {}, [4, 11, 12, 17]),
+    "int8": ("qwen3-1.7b", {"kv_cache_dtype": "int8"}, None),
+    # layer 1 windowed over 8 keys: at 16-18 the window spans 9-18
+    "hymba4": ("hymba-1.5b", {"n_layers": 4}, None),
+}
+# The cases whose last decode step's collectives and cache shards are
+# held (each at 1x2).
+SPLIT_KEYS = ["dense"] + list(SPLIT_CASES)
 
 WORKER = r'''
 import json, os, sys
@@ -96,7 +124,7 @@ import dataclasses
 from repro_torch import configs
 from repro_torch.ckpt.checkpoint import Checkpointer
 from repro_torch.data.pipeline import SyntheticLMDataset
-from repro_torch.launch import mesh as mesh_lib, sharding
+from repro_torch.launch import hlo_analysis, mesh as mesh_lib, sharding
 from repro_torch.models import lm, moe, parallel
 from repro_torch.optim import compress
 from repro_torch.optim.adamw import leaves
@@ -104,6 +132,56 @@ from repro_torch.serve.engine import Engine
 from repro_torch.train.step import make_loss_fn, value_and_grad
 
 out = {}
+
+
+class Gathers(hlo_analysis.CollectiveCounter):
+    """The dtype and shape of each all-gather's result, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.gathers = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        count = self.stats.count_by_kind.get("all-gather", 0)
+        res = super().__torch_dispatch__(func, types, args, kwargs)
+        if self.stats.count_by_kind.get("all-gather", 0) > count:
+            self.gathers.append(f"{res.dtype} "
+                                + "x".join(map(str, res.shape)))
+        return res
+
+
+def serve(sp, ccfg, d, data, toks, frames, key, held):
+    """A cold prefill over the mesh, then the decode steps (the last at
+    one index per row); with ``held``, the last step's all-gathers and
+    the local cache buffers after it."""
+    logits, cache = lm.prefill(sp, toks, ccfg, max_len=job["serve_len"],
+                               enc_frames=frames, dist=d)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if "cache_" + name in data:    # decode from the reference's codes
+            full = torch.from_numpy(data["cache_" + name])
+            cache[name].to_local().copy_(full[sharding.shard_slices(
+                tuple(full.shape), cache[name].placements, d.mesh)])
+    steps = [logits.full_tensor().numpy()]
+    counter = Gathers()
+    for j, nxt in enumerate(data["decode"]):
+        last = j == len(data["decode"]) - 1
+        if last:   # one index per row
+            cache["index"] = torch.from_numpy(data["ragged"])
+            with counter:
+                logits, cache = lm.decode_step(sp, cache,
+                                               torch.from_numpy(nxt), ccfg,
+                                               dist=d)
+        else:
+            logits, cache = lm.decode_step(sp, cache, torch.from_numpy(nxt),
+                                           ccfg, dist=d)
+        steps.append(logits.full_tensor().numpy())
+    out[f"serve_{key}"] = np.stack(steps)
+    if held:
+        out[f"gathers_{key}"] = np.array(counter.gathers)
+        for name in ("k", "v"):
+            out[f"cache_{key}_{name}"] = cache[name].to_local().numpy()
+
+
 for case, (arch, over, meshes) in job["cases"].items():
     ccfg = dataclasses.replace(configs.get_smoke(arch), **over)
     _, st, _ = Checkpointer(job["params"][case]).restore(device="cpu")
@@ -127,16 +205,17 @@ for case, (arch, over, meshes) in job["cases"].items():
         out[f"loss_{key}"] = np.array(float(loss))
         for path, g in leaves(grads):
             out[f"grad_{key}|" + "/".join(path)] = g.full_tensor().numpy()
-        logits, cache = lm.prefill(sp, toks, ccfg, max_len=job["serve_len"],
-                                   enc_frames=frames, dist=d)
-        steps = [logits.full_tensor().numpy()]
-        for j, nxt in enumerate(data["decode"]):
-            if j == len(data["decode"]) - 1:   # one index per row
-                cache["index"] = torch.from_numpy(data["ragged"])
-            logits, cache = lm.decode_step(sp, cache, torch.from_numpy(nxt),
-                                           ccfg, dist=d)
-            steps.append(logits.full_tensor().numpy())
-        out[f"serve_{key}"] = np.stack(steps)
+        serve(sp, ccfg, d, data, toks, frames, key,
+              key in job["split_keys"])
+
+for case, (arch, over, _) in job["split_cases"].items():
+    ccfg = dataclasses.replace(configs.get_smoke(arch), **over)
+    _, st, _ = Checkpointer(job["params"][case]).restore(device="cpu")
+    data = dict(np.load(job["data"][case]))
+    mesh = mesh_lib.make_test_mesh(1, 2, device_type="cpu")
+    d = lm.Dist(mesh, ("data",), "model")
+    serve(parallel.shard_params(st["params"], mesh), ccfg, d, data,
+          torch.from_numpy(data["tokens"]), None, f"{case}_1x2", True)
 
 cfg = configs.get_smoke("qwen3-1.7b")
 _, st, _ = Checkpointer(job["params"]["dense"]).restore(device="cpu")
@@ -213,7 +292,7 @@ dist.destroy_process_group()
 
 
 def _cfgs(case):
-    arch, over, _ = CASES[case]
+    arch, over, _ = CASES[case] if case in CASES else SPLIT_CASES[case]
     return (dataclasses.replace(configs.get_smoke(arch), **over),
             dataclasses.replace(jconfigs.get_smoke(arch), **over))
 
@@ -257,6 +336,19 @@ def run(tmp_path_factory):
                 np.int32)
             datas[case].update(tokens=toks, targets=np.roll(toks, -1, 1))
         np.savez(tmp / f"data_{case}.npz", **datas[case])
+    for i, (case, (_, _, ragged)) in enumerate(SPLIT_CASES.items()):
+        cfg, jcfg = _cfgs(case)
+        jps[case] = jlm.init_model(jcfg, jax.random.PRNGKey(20 + i))
+        _save_port(jps[case], cfg, tmp / f"params_{case}")
+        datas[case] = _case_data(cfg, 30 + i)
+        if ragged is not None:
+            datas[case]["ragged"] = np.array(ragged, dtype=np.int32)
+        if cfg.kv_cache_dtype == "int8":
+            _, jc = jlm.prefill(jps[case], jnp.asarray(datas[case]["tokens"]),
+                                jcfg, max_len=SERVE_LEN)
+            for name in ("k", "v", "k_scale", "v_scale"):
+                datas[case]["cache_" + name] = np.asarray(jc[name])
+        np.savez(tmp / f"data_{case}.npz", **datas[case])
     mcfg = jconfigs.get_smoke(MOE)
     mp = jlm.init_model(mcfg, jax.random.PRNGKey(1))
     _save_port(mp, configs.get_smoke(MOE), tmp / "moe")
@@ -289,8 +381,12 @@ def run(tmp_path_factory):
         shutil.copytree(jdir, f"{jdir}_{r}")
 
     job = {"store": str(tmp / "store"), "cases": CASES,
-           "params": {c: str(tmp / f"params_{c}") for c in CASES},
-           "data": {c: str(tmp / f"data_{c}.npz") for c in CASES},
+           "split_cases": SPLIT_CASES,
+           "split_keys": [f"{c}_1x2" for c in SPLIT_KEYS],
+           "params": {c: str(tmp / f"params_{c}")
+                      for c in (*CASES, *SPLIT_CASES)},
+           "data": {c: str(tmp / f"data_{c}.npz")
+                    for c in (*CASES, *SPLIT_CASES)},
            "serve_len": SERVE_LEN,
            "moe": str(tmp / "moe"), "moe_arch": MOE,
            "grads": str(tmp / "grads.npy"),
@@ -341,6 +437,19 @@ def _jax_ref(run, case):
     (loss, _), grads = jax.jit(jax.value_and_grad(
         lambda p, b: jlm.loss_fn(p, b, jcfg, remat="dots"), has_aux=True))(
         jp, batch)
+    serve = _jax_serve(jp, jcfg, data, toks, frames)
+    port_grads = bridge.params_from_numpy(jax.tree.map(np.asarray, grads),
+                                          cfg, device="cpu")
+    _JAX[case] = {"fwd": np.asarray(fwd), "loss": float(loss),
+                  "grads": {"/".join(p): g.numpy()
+                            for p, g in leaves(port_grads)},
+                  **serve}
+    return _JAX[case]
+
+
+def _jax_serve(jp, jcfg, data, toks, frames=None):
+    """The JAX ``prefill`` and ``decode_step`` logits of a case (the last
+    step at one index per row) and the cache's K/V after the last."""
     logits, cache = jlm.prefill(jp, toks, jcfg, max_len=SERVE_LEN,
                                 enc_frames=frames)
     steps = [np.asarray(logits)]
@@ -350,12 +459,20 @@ def _jax_ref(run, case):
             cache["index"] = jnp.asarray(data["ragged"])
         logits, cache = jlm.decode_step(jp, cache, jnp.asarray(nxt), jcfg)
         steps.append(np.asarray(logits))
-    port_grads = bridge.params_from_numpy(jax.tree.map(np.asarray, grads),
-                                          cfg, device="cpu")
-    _JAX[case] = {"fwd": np.asarray(fwd), "loss": float(loss),
-                  "grads": {"/".join(p): g.numpy()
-                            for p, g in leaves(port_grads)},
-                  "serve": np.stack(steps)}
+    return {"serve": np.stack(steps),
+            **{f"cache_{n}": np.asarray(cache[n]) for n in ("k", "v")
+               if n in cache}}
+
+
+def _jax_split(run, case):
+    """``_jax_serve`` of a ``SPLIT_CASES`` case (or the dense case)."""
+    if case in CASES:
+        return _jax_ref(run, case)
+    if case not in _JAX:
+        _, jcfg = _cfgs(case)
+        data = run["data"][case]
+        _JAX[case] = _jax_serve(run["jps"][case], jcfg, data,
+                                jnp.asarray(data["tokens"]))
     return _JAX[case]
 
 
@@ -403,6 +520,64 @@ def test_cold_prefill_then_decode_match_jax(run, case, mesh):
     for res in run["res"]:
         got = res[f"serve_{case}_{mesh}"][..., :cfg.vocab_size]
         np.testing.assert_allclose(got, want, **FWD_TOL)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_key_split_decode_matches_jax(run, case):
+    """The cache attention split over the keys at 1x2: a row whose keys
+    all lie in rank 0's range, an int8 cache, a window across the ranks'
+    boundary."""
+    cfg, _ = _cfgs(case)
+    want = _jax_split(run, case)["serve"][..., :cfg.vocab_size]
+    for res in run["res"]:
+        got = res[f"serve_{case}_1x2"][..., :cfg.vocab_size]
+        np.testing.assert_allclose(got, want, **FWD_TOL)
+
+
+@pytest.mark.parametrize("case", SPLIT_KEYS)
+def test_decode_gathers_no_cache_shard(run, case):
+    """The last decode step gathers no cache: its all-gathers are, per
+    attention layer, the merge's (every rank's partial output (B, Hq, 1,
+    D) and row statistics (B, Hq, 1), float32), and the layer's weights
+    (the projections run replicated over ``model``), each gathered whole:
+    every other result holds as many elements as a parameter of a layer,
+    and none as many as a layer's cache or a rank's shard of it."""
+    cfg, _ = _cfgs(case)
+    tp, hq = 2, cfg.n_heads
+    merge = [f"torch.float32 {tp}x{BATCH}x{hq}x1x{cfg.d_head}",
+             f"torch.float32 {tp}x{BATCH}x{hq}x1"]
+    leaves = {int(np.prod(np.shape(v)[1:]))
+              for v in jax.tree.leaves(run["jps"][case]["layers"])}
+    cache = BATCH * cfg.n_kv_heads * SERVE_LEN * cfg.d_head
+    for res in run["res"]:
+        got = res[f"gathers_{case}_1x2"].tolist()
+        assert [g for g in got if g in merge] == merge * cfg.n_layers
+        for g in got:
+            if g in merge:
+                continue
+            n = int(np.prod([int(e) for e in g.split()[1].split("x")]))
+            assert n in leaves and n not in (cache, cache // tp), g
+
+
+@pytest.mark.parametrize("case", SPLIT_KEYS)
+def test_each_rank_keeps_its_own_positions(run, case):
+    """After the decode steps each rank's cache buffers hold its own half
+    of the positions, equal to the JAX cache's (int8 codes within one
+    code: a fresh value may round to the neighbouring code in one
+    package)."""
+    cfg, _ = _cfgs(case)
+    ref = _jax_split(run, case)
+    half = SERVE_LEN // 2
+    for r, res in enumerate(run["res"]):
+        for name in ("k", "v"):
+            got = res[f"cache_{case}_1x2_{name}"]
+            want = ref[f"cache_{name}"][:, :, :, r * half:(r + 1) * half]
+            assert got.shape == want.shape == (
+                cfg.n_layers, BATCH, cfg.n_kv_heads, half, cfg.d_head)
+            if got.dtype == np.int8:
+                assert np.abs(got.astype(int) - want).max() <= 1
+            else:
+                np.testing.assert_allclose(got, want, **FWD_TOL)
 
 
 def _jax_moe(run, x, int8_a2a=False):
