@@ -283,7 +283,19 @@ Phases, each printing JSON lines:
    2 048-position cache with each layer's cache attention over 2 and 4
    key ranges, B2 with its row statistics merged by
    ``parallel.merge_key_ranges``, every row's logits at cosine >= 0.999
-   of the unsplit step's, the differing greedy tokens counted.
+   of the unsplit step's, the differing greedy tokens counted; the
+   Mamba2 block, the encoder and cross attention (``block_checks``):
+   mamba2-780m and whisper-tiny whole, each ``dist`` forward at one rank
+   bitwise with the same launches, then split as a mesh's ``model`` ranks
+   split them, emulated on the card (``parallel.Splits``): mamba2's block
+   over 2 and 4 ranges of its head dimension, whisper's encoder and cross
+   attention over 2 and 3 head ranges and its cross decode over as many
+   ranges of the encoder positions, a prefill and 6 decode steps with the
+   same launches as the unsplit run, each row's logits within
+   ``BLOCK_NOISE``'s bound of a float32 run of the same weights (1 -
+   cosine at most 1e-3 or twice the unsplit bf16 run's own), the cosine
+   to the unsplit run, the differing greedy tokens and the state's
+   relative error reported.
 
 The ``kernels`` record gives each kernel's launches on its path (serve:
 B1 with its bf16 prefill and decode tiles, B2, B3; serve_binary: B9 with
@@ -5960,7 +5972,7 @@ SPLIT_COSINE = 0.999
 def key_split_emulation(torch, cfg, params, args):
     """Full-width ``cfg`` (qwen3-1.7b whole, bf16) decoding off a cache of
     ``SPLIT_CACHE`` positions with each layer's cache attention split
-    over 2 and over 4 key ranges (``parallel.KeyRanges``: each range
+    over 2 and over 4 key ranges (``parallel.Splits(keys=)``: each range
     through ``layers.attention_key_range``, B2 with its row statistics at
     ``kv_len - k0``, merged by ``parallel.merge_key_ranges``), what the
     ``model`` ranks of a mesh compute, against the unsplit one-device
@@ -5990,7 +6002,7 @@ def key_split_emulation(torch, cfg, params, args):
         cache = {k: v.clone() if torch.is_tensor(v) else v
                  for k, v in cache0.items()}
         wrap = (lambda one: one) if ranges is None else (
-            lambda one: lambda dist: parallel.KeyRanges(ranges))
+            lambda one: lambda dist: parallel.Splits(keys=ranges))
         out = []
         with torch.no_grad(), _wrapped(lm, "_runner", wrap):
             for step in range(SPLIT_STEPS):
@@ -6038,6 +6050,194 @@ def key_split_emulation(torch, cfg, params, args):
     return launched, rec
 
 
+# The Mamba2 block, the encoder and cross attention split over a mesh's
+# ``model`` ranks: mamba2-780m and whisper-tiny whole, a 4 x 64
+# forward at one NCCL rank against ``dist=None``; then, emulated on the
+# card (``parallel.Splits``), 4 rows prefilled with BLOCK_PROMPT tokens
+# (whisper over BLOCK_ENC frames, its own encoder length) and decoded
+# BLOCK_STEPS steps with the Mamba2 block over each of BLOCK_SSM_PARTS
+# ranges of its head dimension, whisper's encoder and cross attention to
+# it over each of BLOCK_HEAD_PARTS head ranges and its cross decode over
+# as many ranges of the encoder positions, against the unsplit run and a
+# float32 run (the gate below).
+BLOCK_ROWS, BLOCK_PROMPT, BLOCK_STEPS, BLOCK_ENC = 4, 64, 6, 1500
+BLOCK_SSM_PARTS = (2, 4)
+BLOCK_HEAD_PARTS = (2, 3)
+# The splits' gate is held against a float32 evaluation of the same
+# weights fed the same tokens, not against the unsplit bf16 run alone: at
+# 48 bf16 layers the unsplit run itself sits at cosine ~0.998 of it (each
+# layer's bf16 roundings compound), so any other order of the same sums
+# lands ~0.998 from the unsplit run.  Each row's logits at each step: the
+# split's 1 - cosine to the float32 logits at most the larger of
+# 1 - SPLIT_COSINE and BLOCK_NOISE times the unsplit run's own.
+BLOCK_NOISE = 2.0
+
+
+def one_rank_forward(torch, name, mesh, d, args):
+    """``name`` whole at full width, bf16: ``lm.forward(..., dist=)`` of
+    a 4 x 64 batch (whisper over BLOCK_ENC frames) on DTensor parameters
+    over the one-rank mesh against ``dist=None``, bit for bit with the
+    same launches (gates).  Returns (config, params, frames, the dist
+    forward's launches)."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm, parallel
+
+    cfg = configs.get(name)
+    params = lm.init_model(cfg, seed=args.seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 11)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                         device="cuda")
+    frames = (torch.randn(4, BLOCK_ENC, cfg.d_model, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+              if cfg.is_encoder_decoder else None)
+    with torch.no_grad():
+        _build.reset_launches()
+        want, _ = lm.forward(params, toks, cfg, enc_frames=frames)
+        torch.cuda.synchronize()
+        one = {k: v for k, v in _build.LAUNCHES.items() if v}
+        sp = parallel.shard_params(params, mesh)
+        _build.reset_launches()
+        got, _ = lm.forward(sp, toks, cfg, enc_frames=frames, dist=d)
+        got = got.full_tensor()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launched != one:
+        raise AssertionError(f"{name}: dist forward launched {launched}, "
+                             f"the one-device forward {one}")
+    _bitwise(f"dist_forward[{name}]", got, want,
+             f"4x64 {cfg.n_layers} layers")
+    return cfg, params, frames, launched
+
+
+def block_split_emulation(torch, cfg, params, frames, runners, args):
+    """``cfg`` whole, bf16: a prefill of BLOCK_ROWS x BLOCK_PROMPT tokens
+    (over ``frames`` for an encoder-decoder), then BLOCK_STEPS decode
+    steps, unsplit and through each of ``runners`` (label ->
+    ``parallel.Splits``: what the ``model`` ranks of a mesh compute, each
+    part through the function a rank's region calls), and unsplit in
+    float32 (the weights cast), each run after the unsplit one fed its
+    greedy tokens.  Gates: every row's logits at every step within the
+    float32 logits' cosine bound (``BLOCK_NOISE``); the launches of each
+    split run equal the unsplit run's (none of the split blocks reaches a
+    kernel: B1 runs the MLPs and B2 the self-attention on the same
+    shapes).  Reported: the cosines to the unsplit run (the bound
+    ``SPLIT_COSINE``) and to the float32 run, the greedy tokens that
+    differ, and the largest relative error of the state (the SSM state
+    and conv tail assembled from the parts, or the cross cache) after the
+    last step.  Returns (the split runs' launches, the record)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+
+    vocab = cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 13)
+    toks = torch.randint(0, vocab, (BLOCK_ROWS, BLOCK_PROMPT),
+                         generator=gen, device="cuda")
+    names = lm.SSM_KEYS + lm.CROSS_KEYS
+
+    def run(runner, feed, c=cfg, p=params, fr=frames):
+        wrap = (lambda one: one) if runner is None else (
+            lambda one: lambda dist: runner)
+        with torch.no_grad(), _wrapped(lm, "_runner", wrap):
+            logits, cache = lm.prefill(p, toks, c,
+                                       max_len=BLOCK_PROMPT + BLOCK_STEPS,
+                                       enc_frames=fr)
+            out = [logits[:, :vocab].float()]
+            for step in range(BLOCK_STEPS):
+                nxt = feed[step] if feed else out[-1].argmax(-1)
+                logits, cache = lm.decode_step(p, cache,
+                                               nxt.reshape(-1, 1), c)
+                out.append(logits[:, :vocab].float())
+        torch.cuda.synchronize()
+        return out, {n: cache[n] for n in names if n in cache}
+
+    def cosines(a, b):
+        return [[_cosine(x[i], y[i]) for i in range(BLOCK_ROWS)]
+                for x, y in zip(a, b)]
+
+    _build.reset_launches()
+    want, wstate = run(None, None)
+    unsplit = {k: v for k, v in _build.LAUNCHES.items() if v}
+    feed = [w.argmax(-1) for w in want[:-1]]
+    ref, _ = run(None, feed, dataclasses.replace(
+        cfg, param_dtype="float32", act_dtype="float32"),
+        _map(lambda v: v.float(), params),
+        None if frames is None else frames.float())
+    floor = cosines(want, ref)
+    total, rec = {}, {}
+    for label, runner in runners.items():
+        t0 = time.monotonic()
+        _build.reset_launches()
+        got, state = run(runner, feed)
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if launched != unsplit:
+            raise AssertionError(f"{cfg.name} {label}: the split run "
+                                 f"launched {launched}, unsplit {unsplit}")
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        cos, to_ref = cosines(got, want), cosines(got, ref)
+        over = [[(1 - c) / max(1 - SPLIT_COSINE, BLOCK_NOISE * (1 - f))
+                 for c, f in zip(cs, fs)] for cs, fs in zip(to_ref, floor)]
+        r = {"min_cosine": min(min(c) for c in cos), "cosine_by_step": cos,
+             "min_cosine_to_f32": min(min(c) for c in to_ref),
+             "unsplit_min_cosine_to_f32": min(min(f) for f in floor),
+             "cosine_to_f32_by_step": to_ref,
+             "unsplit_cosine_to_f32_by_step": floor,
+             "gate_use": max(max(o) for o in over),
+             "rel_max_err": [float((g - w).abs().max() / w.abs().max())
+                             for g, w in zip(got, want)],
+             "greedy_tokens_differing": sum(
+                 int((g.argmax(-1) != w.argmax(-1)).sum())
+                 for g, w in zip(got, want)),
+             "tokens": BLOCK_ROWS * (BLOCK_STEPS + 1),
+             "state_rel_max_err": {
+                 n: float((state[n].float() - wstate[n].float()).abs().max()
+                          / wstate[n].float().abs().max()) for n in state},
+             "launches": launched, "seconds": time.monotonic() - t0}
+        rec[label] = r
+        emit({"check": "block_split_emulation", "config": cfg.name,
+              "split": label, "layers": cfg.n_layers, "rows": BLOCK_ROWS,
+              "prompt": BLOCK_PROMPT, "steps": BLOCK_STEPS,
+              "cosine_bound": SPLIT_COSINE, "noise_ratio": BLOCK_NOISE,
+              **r})
+        if r["gate_use"] > 1:
+            raise AssertionError(
+                f"{cfg.name} {label}: logits at cosine "
+                f"{r['min_cosine_to_f32']} of the float32 run's, beyond "
+                f"the bound (the unsplit run's {r['unsplit_min_cosine_to_f32']})")
+    return total, rec
+
+
+def block_checks(torch, mesh, d, args):
+    """Item 6 of ``dist_phase``.  Returns (the launches of the dist
+    forwards and the split runs, the record)."""
+    import gc
+
+    from repro_torch.models import parallel
+
+    launched, out = {}, {}
+    for name, runners in (
+            ("mamba2-780m", {f"ssm_{n}": parallel.Splits(ssm=n)
+                             for n in BLOCK_SSM_PARTS}),
+            ("whisper-tiny", {f"heads_{n}_cross_{n}":
+                              parallel.Splits(heads=n, cross=n)
+                              for n in BLOCK_HEAD_PARTS})):
+        t0 = time.monotonic()
+        cfg, params, frames, fwd = one_rank_forward(torch, name, mesh, d,
+                                                    args)
+        split, rec = block_split_emulation(torch, cfg, params, frames,
+                                           runners, args)
+        for part in (fwd, split):
+            for k, v in part.items():
+                launched[k] = launched.get(k, 0) + v
+        out[name] = {"forward_launches": fwd, "splits": rec,
+                     "seconds": time.monotonic() - t0}
+        del params, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launched, out
+
+
 def dist_phase(torch, args):
     """The multi-device stack (``lm.Dist``, ``models/parallel.py``) over
     an NCCL process group of one rank on a 1x1 ``"cuda"`` mesh:
@@ -6065,8 +6265,17 @@ def dist_phase(torch, args):
        (``key_split_emulation``): each layer's over 2 and over 4 key
        ranges through B2 with its row statistics, merged, against the
        unsplit decode step.
-    Returns the launches of (1)'s ``dist`` forward and (5)'s split decode
-    steps, added."""
+    6. The Mamba2 block, the encoder and cross attention (``block_checks``):
+       mamba2-780m whole (48 layers) and whisper-tiny whole, each a 4 x 64
+       ``dist`` forward at one rank equal to ``dist=None`` bit for bit
+       with the same launches; then their splits emulated on the card
+       (``block_split_emulation``): mamba2's block over 2 and 4 ranges of
+       its head dimension, whisper's encoder and cross attention over 2
+       and 3 head ranges with its cross decode over as many ranges of its
+       1 500 encoder positions, prefill and 6 decode steps against the
+       unsplit run and a float32 run of the same weights.
+    Returns the launches of (1)'s ``dist`` forward, (5)'s split decode
+    steps and (6)'s forwards and split runs, added."""
     import gc
     import shutil
     import tempfile
@@ -6121,6 +6330,11 @@ def dist_phase(torch, args):
         del params, sp, got, want
         gc.collect()
         torch.cuda.empty_cache()
+
+        # 6. the Mamba2 block, the encoder and cross attention
+        block_launches, out["blocks"] = block_checks(torch, mesh, d, args)
+        launched = {k: launched.get(k, 0) + block_launches.get(k, 0)
+                    for k in {*launched, *block_launches}}
 
         # 2. expert parallelism at EP 1
         mcfg = dataclasses.replace(configs.get("moonshot-v1-16b-a3b"),

@@ -297,32 +297,38 @@ def paged_attention_apply(
 # TPU kernel to port, and its twin here is the same einsum.
 # ---------------------------------------------------------------------------
 def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float) -> torch.Tensor:
+                     scale: float, return_lse: bool = False):
     """The reference's ``_plain_attention`` without a mask (all keys
     visible): q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D); logits and the
-    softmax in float32; the output in q's dtype."""
+    softmax in float32; the output in q's dtype (and, with
+    ``return_lse``, the rows' log-sum-exp of the scaled logits (B, Hq,
+    Sq) float32)."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    out = out.reshape(b, hq, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(b, hq, sq)
 
 
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: float, q_chunk: int = 512,
-                       kv_chunk: int = 1024) -> torch.Tensor:
+                       kv_chunk: int = 1024, return_lse: bool = False):
     """The reference's double-chunked online softmax without a mask:
     q chunks outer, KV chunks inner, a running (m, l, acc) in float32 per
     q row, so live memory is O(q_chunk x kv_chunk) whatever the length.
     The reference pads the last chunks and masks the padding; here they
-    are shorter, which adds nothing to a sum."""
+    are shorter, which adds nothing to a sum.  ``return_lse`` as in
+    ``_plain_attention`` (``m + log l``)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
     kf, vf = k.float(), v.float()
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, sq, q_chunk):
         qi = q[:, :, q0:q0 + q_chunk].reshape(b, hkv, g, -1, d).float()
         m = torch.full(qi.shape[:-1] + (1,), float("-inf"),
@@ -340,20 +346,24 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "bhgqk,bhkd->bhgqd", p, vf[:, :, k0:k0 + kv_chunk])
             m = m_new
         outs.append((acc / l).reshape(b, hq, -1, d).to(q.dtype))
-    return torch.cat(outs, dim=2)
+        lses.append((m + torch.log(l)).reshape(b, hq, -1))
+    out = torch.cat(outs, dim=2)
+    return (out, torch.cat(lses, dim=2)) if return_lse else out
 
 
 def bidir_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float, chunked_threshold: int = 2048
-                    ) -> torch.Tensor:
+                    scale: float, chunked_threshold: int = 2048,
+                    return_lse: bool = False):
     """Non-causal GQA attention (the encoder's, and cross attention): the
     masked einsum up to ``chunked_threshold`` keys, the double-chunked
     online softmax above, as the reference dispatches.  Plain PyTorch on
     every device (see the section's head): no kernel of the port runs
-    here."""
+    here.  With ``return_lse``, (out, the rows' log-sum-exp (B, Hq, Sq)
+    float32): over a range of the keys, the pair that
+    ``parallel.merge_key_ranges`` merges with the other ranges'."""
     if k.shape[2] > chunked_threshold:
-        return _chunked_attention(q, k, v, scale)
-    return _plain_attention(q, k, v, scale)
+        return _chunked_attention(q, k, v, scale, return_lse=return_lse)
+    return _plain_attention(q, k, v, scale, return_lse)
 
 
 # ---------------------------------------------------------------------------

@@ -437,6 +437,39 @@ def _cross_attention(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
         q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     out = layers.bidir_attention(q.transpose(1, 2), k, v, scale=dh ** -0.5)
+    return _cross_out(p, out)
+
+
+def _cross_prefill(p: Params, hc: torch.Tensor, enc_out: torch.Tensor, cfg
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """(cross attention of the normed ``hc`` to ``enc_out``, its K/V
+    (``_cross_kv``: what the cache keeps)) over ``cfg``'s heads."""
+    kv = _cross_kv(p, enc_out, cfg)
+    return _cross_attention(p, hc, enc_out, cfg, kv=kv), kv
+
+
+def _cross_q(p: Params, hc: torch.Tensor, cfg) -> torch.Tensor:
+    """Decode's cross-attention queries (B, H, S, D), from ``wq`` alone
+    (the reference applies no qk-norm at decode)."""
+    b, s, _ = hc.shape
+    return (hc @ p["wq"]).reshape(b, s, cfg.n_heads,
+                                  cfg.d_head).transpose(1, 2)
+
+
+def _cross_key_range(p: Params, hc: torch.Tensor, cfg, ck: torch.Tensor,
+                     cv: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode's cross attention over one range of the cached encoder
+    positions (``ck``/``cv`` (B, Hkv, n, D)): (out (B, H, S, D) before
+    ``wo``, the rows' log-sum-exp (B, H, S) float32), the pair
+    ``parallel.merge_key_ranges`` merges with the other ranges'."""
+    return layers.bidir_attention(_cross_q(p, hc, cfg), ck, cv,
+                                  scale=cfg.d_head ** -0.5, return_lse=True)
+
+
+def _cross_out(p: Params, out: torch.Tensor) -> torch.Tensor:
+    """Attention ``out`` (B, H, S, D) through ``wo``: (B, S, D_model)."""
+    b, h, s, dh = out.shape
     return out.transpose(1, 2).reshape(b, s, h * dh) @ p["wo"]
 
 
@@ -454,18 +487,33 @@ def _cross_residual(lp: Params, x: torch.Tensor, cfg, i: int,
     hc = layers.rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
     p = lp["cross"]
     if enc_out is not None:
-        ck, cv = _cross_kv(p, enc_out, cfg)
+        y, (ck, cv) = _cross_prefill(p, hc, enc_out, cfg)
         if cache is not None:
             cache["cross_k"][i] = ck.to(cache["cross_k"].dtype)
             cache["cross_v"][i] = cv.to(cache["cross_v"].dtype)
-        return x + _cross_attention(p, hc, enc_out, cfg, kv=(ck, cv))
+        return x + y
     if cache is None or "cross_k" not in cache:
         return x
-    b, s, _ = hc.shape
-    q = (hc @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
-    out = layers.bidir_attention(q, cache["cross_k"][i], cache["cross_v"][i],
+    out = layers.bidir_attention(_cross_q(p, hc, cfg), cache["cross_k"][i],
+                                 cache["cross_v"][i],
                                  scale=cfg.d_head ** -0.5)
-    return x + out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    return x + _cross_out(p, out)
+
+
+def _enc_attention(p: Params, h: torch.Tensor, cfg,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """An encoder layer's bidirectional self-attention of the normed
+    ``h`` (B, S_enc, D) over ``cfg``'s heads: RoPE on q and k at
+    ``positions``, every frame visible (``layers.bidir_attention``),
+    through ``wo``."""
+    b, s, _ = h.shape
+    hh, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = (h @ p["wq"]).reshape(b, s, hh, dh).transpose(1, 2)
+    k = (h @ p["wk"]).reshape(b, s, hkv, dh).transpose(1, 2)
+    v = (h @ p["wv"]).reshape(b, s, hkv, dh).transpose(1, 2)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return _cross_out(p, layers.bidir_attention(q, k, v, scale=dh ** -0.5))
 
 
 class OneDevice:
@@ -487,7 +535,15 @@ class OneDevice:
 
     def encode(self, params: Params, frames: torch.Tensor, cfg
                ) -> torch.Tensor:
-        return encode(params, frames, cfg)
+        return encode(params, frames, cfg, run=self)
+
+    def enc_attention(self, lp: Params, x: torch.Tensor, cfg,
+                      positions: torch.Tensor) -> torch.Tensor:
+        """An encoder layer's self-attention over ``x`` normed by its
+        ``ln1`` (``_enc_attention``)."""
+        return _enc_attention(lp["attn"],
+                              layers.rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                              cfg, positions)
 
     def init_cache(self, cfg, batch: int, max_len: int, dtype, device,
                    enc_len: Optional[int]) -> Params:
@@ -610,32 +666,24 @@ def _encoded(params: Params, cfg, enc_frames: Optional[torch.Tensor],
     return run.encode(params, run.tokens(enc_frames), cfg)
 
 
-def encode(params: Params, frames: torch.Tensor, cfg) -> torch.Tensor:
+def encode(params: Params, frames: torch.Tensor, cfg,
+           run: Optional["OneDevice"] = None) -> torch.Tensor:
     """The bidirectional encoder over precomputed frame embeddings
     ``frames`` (B, S_enc, d_model) (the conv frontend stubbed, as in the
-    reference): per layer, RoPE on q and k at positions 0..S_enc-1,
-    attention over every frame (``layers.bidir_attention``, plain
-    PyTorch), the SwiGLU MLP through ``layers.mlp_apply`` (B1's fused
-    GEMM); then the final norm.  Returns (B, S_enc, d_model) in the
+    reference): per layer, the self-attention residual (``run``'s
+    ``enc_attention``: RoPE on q and k at positions 0..S_enc-1, every
+    frame visible, plain PyTorch), then the SwiGLU MLP residual
+    (``run.ffn``: B1's fused GEMM); then the final norm, each piece run by
+    ``run`` (one device by default).  Returns (B, S_enc, d_model) in the
     activations' dtype."""
+    run = ONE_DEVICE if run is None else run
     enc = params["encoder"]
     x = frames.to(getattr(torch, cfg.act_dtype))
-    b, s, _ = x.shape
-    hh, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    pos = torch.arange(s, device=x.device)[None, None, :]
-    for lp in _stack_views(enc["layers"]):
-        h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        p = lp["attn"]
-        q = (h @ p["wq"]).reshape(b, s, hh, dh).transpose(1, 2)
-        k = (h @ p["wk"]).reshape(b, s, hkv, dh).transpose(1, 2)
-        v = (h @ p["wv"]).reshape(b, s, hkv, dh).transpose(1, 2)
-        q = layers.apply_rope(q, pos, cfg.rope_theta)
-        k = layers.apply_rope(k, pos, cfg.rope_theta)
-        out = layers.bidir_attention(q, k, v, scale=dh ** -0.5)
-        x = x + out.transpose(1, 2).reshape(b, s, hh * dh) @ p["wo"]
-        h2 = layers.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + layers.mlp_apply(lp["mlp"], h2, cfg)
-    return layers.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+    pos = torch.arange(x.shape[1], device=x.device)[None, None, :]
+    for lp in run.layer_params(enc):
+        x = x + run.enc_attention(lp, x, cfg, pos)
+        x, _ = run.ffn(lp, x, cfg)
+    return run.final_norm(enc, x, cfg)
 
 
 # Activation rematerialization of each decoder layer under autograd,

@@ -45,7 +45,33 @@ Blocks:
     local columns), ``Partial`` out; replicated where ``d_ff`` does not
     divide the axis, and for the binary MLP.
   * MoE: ``moe.moe_apply_sharded`` (all-to-all or psum-local).
-  * Mamba2, cross attention, the encoder: replicated over ``model``.
+  * Mamba2 (the reference's headdim-sharded SSD): with d_inner's p-major
+    layout a rank's ``model`` shard of ``x_proj``/``z_proj``/``conv_x_*``
+    (and row shard of ``out_proj``) is its 1/tp of every head's P rows.
+    Each rank computes B, C and dt for every head, runs the SSD (chunked
+    or recurrent) on its P rows, and sums the gated norm's squares over
+    ``model`` (``SumOver``: one (B, L, 1) float32 all-reduce, whose
+    backward all-reduces the gradient); ``out_proj`` row-parallel,
+    ``Partial`` out.  The state keeps the rules' layout (replicated over
+    ``model``): each rank reads its rows of it, and the new state is
+    assembled by one all-gather of the ranks' rows (state and conv tail,
+    float32).  Replicated where P does not divide the axis (``ssm_split``).
+  * cross attention: the cross cache keeps the rules' layout (encoder
+    positions over ``model``).  With the encoder's output (a forward, a
+    prefill): split by heads as attention is, a prefill's K/V moved from
+    the rank's heads to its positions by one all-to-all.  Decode: split
+    over the cached positions as self-attention's cache is (each rank's
+    every head over its range, ``lm._cross_key_range``, q from ``wq``
+    gathered whole; merged by ``merge_key_ranges``, then ``wo``).
+    Replicated where the heads (with the encoder's output) or the encoder
+    length (decode) do not divide the axis.
+  * the encoder: its layer loop is ``lm.encode``'s, each piece run here:
+    self-attention split by heads (``enc_attention_block``), the MLP as
+    above, the residual stream's batch over the data axes and replicated
+    over ``model``; replicated attention where the heads do not divide.
+  At one ``model`` rank each of these runs the one-device code.
+  ``Splits`` runs the same splits on one device (the cache attention's
+  too), each part through the function a rank's region calls.
   * embedding: vocab-parallel lookup, ``Partial`` out; unembedding:
     vocab-parallel logits, sharded over ``model`` on the vocabulary (the
     reference's ``P(dp, None, tp)``); the loss: a vocab-parallel cross
@@ -66,7 +92,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.launch import sharding as rules
-from repro_torch.models import layers, lm, moe
+from repro_torch.models import layers, lm, moe, ssm
 from repro_torch.runtime import health
 
 Params = Dict[str, Any]
@@ -283,7 +309,6 @@ def attention_block(dist, lp: Params, x, cfg, i: int, positions):
     """Layer ``i``'s normed self-attention over the whole sequence (no
     cache).  Returns its output, ``Partial`` or replicated over
     ``model``."""
-    t = _dt()
     p = lp["attn"]
     tp = tp_size(dist)
     split = _heads_split(cfg, tp)
@@ -302,27 +327,15 @@ def attention_block(dist, lp: Params, x, cfg, i: int, positions):
     loc = dataclasses.replace(cfg, n_heads=hq // tp,
                               n_kv_heads=hkv // tp if split == "heads" else 1)
     kvh = (tp_rank(dist) * (hq // tp)) // (hq // hkv)
-    b = x.shape[0]
-    bs = batch_split(dist, b)
-    names = sorted(p)
-    pls = []
-    for n in names:
-        keep = not (split == "query" and n in ("wk", "wv"))
-        pls.append(gathered(dist, p[n], keep_tp=keep))
 
-    def fn(x, ln1, *leaves):
-        w = dict(zip(names, leaves))
+    def body(h, w):
         if split == "query":
             w["wk"] = w["wk"][:, kvh * dh:(kvh + 1) * dh]
             w["wv"] = w["wv"][:, kvh * dh:(kvh + 1) * dh]
-        h = layers.rmsnorm(ln1, x, cfg.norm_eps)
-        return (lm.ONE_DEVICE.attention({"attn": w}, h, loc, i, positions),)
+        return lm.ONE_DEVICE.attention({"attn": w}, h, loc, i, positions)
 
-    inputs = ([(x, act(dist, bs)), (lp["ln1"], gathered(dist, lp["ln1"]))]
-              + [(p[n], pl) for n, pl in zip(names, pls)])
-    (out,) = region(dist, fn, inputs, [act(dist, bs, t.Partial())],
-                    tp_region=True, batch_sharded=bs)
-    return out
+    return _heads_block(dist, x, lp["ln1"], p, cfg, body,
+                        whole=("wk", "wv") if split == "query" else ())
 
 
 def replicated_block(dist, lp: Params, x, cfg, keys: Sequence[str], body,
@@ -378,27 +391,110 @@ def mlp_block(dist, lp: Params, x, cfg):
     return out
 
 
+class SumOver(torch.autograd.Function):
+    """A float sum over ``group``'s ranks (an all-reduce) whose backward
+    all-reduces the gradient too: each rank uses the sum for its own
+    part, so the sum's gradient is the ranks' gradients summed."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+
+        ctx.group = group
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(
+            g.contiguous(), "sum", ctx.group)), None
+
+
+def _gather(x, group):
+    """``x`` from every rank of ``group``, stacked on a new leading dim in
+    rank order (all_gather_single where this PyTorch has it: it
+    deprecates all_gather_tensor for it)."""
+    import torch.distributed._functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+    return gather(x[None].contiguous(), 0, group)
+
+
+def _tp_group(dist):
+    return (dist.mesh, _dims(dist)[1])
+
+
+def ssm_split(dist, cfg, p: Params) -> bool:
+    """Does layer ``p``'s Mamba2 block split over ``model`` (the head
+    dimension divides it, and the rules shard the block's d_inner
+    leaves over it)?"""
+    return ssm.splits(cfg, tp_size(dist)) and all(
+        _tp_on(dist, p[n]) for n in ssm.PART_LEAVES if n != "norm")
+
+
 def ssm_block(dist, lp: Params, x, cfg, i: int, cache=None, new=None):
-    """Layer ``i``'s normed Mamba2 block (``lm.OneDevice.ssm``), replicated
-    over ``model``.  With a ``cache`` (DTensors), the new state is written
-    into ``new``'s (the caller's fresh buffers') local shards in place."""
-    if cache is None:
-        return replicated_block(
-            dist, lp, x, cfg, ("ln1", "mamba"),
-            lambda w, x: lm.ONE_DEVICE.ssm(
-                w, layers.rmsnorm(w["ln1"], x, cfg.norm_eps), cfg, i))
+    """Layer ``i``'s normed Mamba2 block (module docstring): split over
+    the head dimension of ``model``'s ranks (``ssm_split``), ``Partial``
+    out; else replicated over ``model`` (``lm.OneDevice.ssm``).  With a
+    ``cache`` (DTensors), the new state is written into ``new``'s (the
+    caller's fresh buffers') local shards in place."""
     bs = batch_split(dist, x.shape[0])
-    bufs = [cache[n][i] for n in lm.SSM_KEYS] + [new[n][i]
-                                                 for n in lm.SSM_KEYS]
+    bufs = [] if cache is None else (
+        [cache[n][i] for n in lm.SSM_KEYS] + [new[n][i] for n in lm.SSM_KEYS])
+    p = lp["mamba"]
+    if not ssm_split(dist, cfg, p):
+        def body(w, x, *state):
+            h = layers.rmsnorm(w["ln1"], x, cfg.norm_eps)
+            if not state:
+                return lm.ONE_DEVICE.ssm(w, h, cfg, i)
+            ssm_s, conv_s, new_ssm, new_conv = state
+            return lm.ONE_DEVICE.ssm(
+                w, h, cfg, 0, {"ssm": ssm_s[None], "conv": conv_s[None]},
+                {"ssm": new_ssm[None], "conv": new_conv[None]})
 
-    def body(w, x, ssm_s, conv_s, new_ssm, new_conv):
-        h = layers.rmsnorm(w["ln1"], x, cfg.norm_eps)
-        return lm.ONE_DEVICE.ssm(
-            w, h, cfg, 0, {"ssm": ssm_s[None], "conv": conv_s[None]},
-            {"ssm": new_ssm[None], "conv": new_conv[None]})
+        return replicated_block(dist, lp, x, cfg, ("ln1", "mamba"), body,
+                                [(s, act(dist, bs)) for s in bufs])
+    t = _dt()
+    tp, r, group = tp_size(dist), tp_rank(dist), _tp_group(dist)
+    names = sorted(p)
 
-    return replicated_block(dist, lp, x, cfg, ("ln1", "mamba"), body,
-                            [(s, act(dist, bs)) for s in bufs])
+    def fn(x, ln1, *rest):
+        w = ssm.param_part(dict(zip(names, rest)), cfg, r, tp, ("norm",))
+        state = rest[len(names):]
+        h = layers.rmsnorm(ln1, x, cfg.norm_eps)
+        gated, sumsq, new_state = ssm.mamba_part(
+            w, h, cfg, ssm.state_part(state[:2], cfg, r, tp) if state
+            else None)
+        out = ssm.mamba_part_out(w, gated, SumOver.apply(sumsq, group), cfg)
+        if state:
+            _assemble_state(new_state, state[2:], cfg, group)
+        return (out,)
+
+    inputs = ([(x, act(dist, bs)), (lp["ln1"], gathered(dist, lp["ln1"]))]
+              + [(p[n], gathered(dist, p[n])) for n in names]
+              + [(s, act(dist, bs)) for s in bufs])
+    (out,) = region(dist, fn, inputs, [act(dist, bs, t.Partial())],
+                    tp_region=True, batch_sharded=bs)
+    return out
+
+
+def _assemble_state(part, new, cfg, group) -> None:
+    """Write the whole new state into ``new`` (this rank's (state, conv
+    tail) buffers, replicated over ``model``) from every rank's part
+    (``ssm.state_part``'s layout): one all-gather of the parts' state
+    rows and conv-tail x columns, float32."""
+    s, tail = part
+    rows, w = s.shape[0], tail.shape[-1] - 2 * cfg.ssm_state
+    flat = torch.cat([s.reshape(rows, -1),
+                      tail[..., :w].reshape(rows, -1)], dim=1)
+    n = s[0].numel()
+    parts = [(a[:, :n].reshape(s.shape),
+              torch.cat([a[:, n:].reshape(tail.shape[:-1] + (w,)),
+                         tail[..., w:]], dim=-1))
+             for a in _gather(flat, group).unbind(0)]
+    for buf, whole in zip(new, ssm.assemble_state(parts, cfg)):
+        buf.copy_(whole)
 
 
 def to_layout(x, dist, pls: tuple):
@@ -575,57 +671,20 @@ def _key_split_block(dist, lp: Params, x, cfg, i: int, positions,
     keys of ``model``'s ranks (module docstring): on the stored shards'
     own placements, the output replicated over ``model``."""
     start, _ = _seq_range(dist, stored[0].shape[2], stored[0].placements, 2)
-    tp_group = (dist.mesh, _dims(dist)[1])
+    group = _tp_group(dist)
 
     def body(w, x, *own):
-        import torch.distributed._functional_collectives as funcol
-
-        # all_gather_single where this PyTorch has it (it deprecates
-        # all_gather_tensor for it)
-        gather = getattr(funcol, "all_gather_single",
-                         funcol.all_gather_tensor)
         fault = health.maybe_inject("layers.attention")
         h = layers.rmsnorm(w["ln1"], x, cfg.norm_eps)
         out, lse = layers.attention_key_range(
             w["attn"], h, cfg, positions, cfg.layer_window(i), own,
             cache_index, start)
-        outs = gather(out[None].contiguous(), 0, tp_group)
-        lses = gather(lse[None].contiguous(), 0, tp_group)
         return layers._finish(w["attn"], merge_key_ranges(
-            outs.unbind(0), lses.unbind(0)), fault)
+            _gather(out, group).unbind(0), _gather(lse, group).unbind(0)),
+            fault)
 
     return replicated_block(dist, lp, x, cfg, ("ln1", "attn"), body,
                             [(s, s.placements) for s in stored])
-
-
-class KeyRanges(lm.OneDevice):
-    """``lm.OneDevice`` with each decode step's cache attention split over
-    ``ranges`` equal key ranges of the layer cache, each range attended
-    by ``layers.attention_key_range`` on views of the cache and the parts
-    merged by ``merge_key_ranges``: what the ``model`` ranks of a mesh
-    compute (without the gathers), on one device.  A prefill (attention
-    over its fresh K/V alone) runs as on one device."""
-
-    def __init__(self, ranges: int):
-        self.ranges = ranges
-
-    def attention(self, lp, h, cfg, i, positions, cache=None,
-                  cache_index=None, attend_local=False):
-        if cache is None or attend_local:
-            return super().attention(lp, h, cfg, i, positions, cache,
-                                     cache_index, attend_local)
-        fault = health.maybe_inject("layers.attention")
-        bufs = lm._layer_cache(cache, i)
-        n = -(-bufs[0].shape[2] // self.ranges)
-        outs, lses = [], []
-        for k0 in range(0, bufs[0].shape[2], n):
-            out, lse = layers.attention_key_range(
-                lp["attn"], h, cfg, positions, cfg.layer_window(i),
-                tuple(b[:, :, k0:k0 + n] for b in bufs), cache_index, k0)
-            outs.append(out)
-            lses.append(lse)
-        return layers._finish(lp["attn"], merge_key_ranges(outs, lses),
-                              fault)
 
 
 def attention_cache_block(dist, lp: Params, x, cfg, i: int, positions,
@@ -670,22 +729,145 @@ def attention_cache_block(dist, lp: Params, x, cfg, i: int, positions,
     return replicated_block(dist, lp, x, cfg, ("ln1", "attn"), body, extra)
 
 
+def _head_split(dist, cfg, p: Params) -> bool:
+    """Does a bidirectional attention block (the encoder's, or cross
+    attention to the encoder's output) split by heads over ``model``:
+    more than one rank, Q and KV heads both dividing it, and its
+    projections sharded over it by the rules?"""
+    tp = tp_size(dist)
+    return tp > 1 and _heads_split(cfg, tp) == "heads" and all(
+        _tp_on(dist, p[n]) for n in ("wq", "wk", "wv", "wo"))
+
+
+def _local_heads(cfg, parts: int):
+    """``cfg`` with 1/``parts`` of its Q and KV heads: a part's."""
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // parts,
+                               n_kv_heads=cfg.n_kv_heads // parts)
+
+
+def _heads_block(dist, x, norm, p: Params, cfg, body,
+                 extra: Sequence[Tuple[Any, tuple]] = (),
+                 whole: Sequence[str] = ()):
+    """``body(h, w, *extra)`` over the mesh: ``h`` the local ``x``
+    normed by ``norm``, ``w`` each projection of ``p`` on this rank's
+    ``model`` shard (column-parallel ``wq``/``wk``/``wv``, row-parallel
+    ``wo``) but those named in ``whole``, gathered whole; ``extra`` local
+    too.  Its output ``Partial`` over ``model``."""
+    t = _dt()
+    bs = batch_split(dist, x.shape[0])
+    names = sorted(p)
+
+    def fn(x, norm, *rest):
+        w = dict(zip(names, rest))
+        return (body(layers.rmsnorm(norm, x, cfg.norm_eps), w,
+                     *rest[len(names):]),)
+
+    inputs = ([(x, act(dist, bs)), (norm, gathered(dist, norm))]
+              + [(p[n], gathered(dist, p[n], keep_tp=n not in whole))
+                 for n in names] + list(extra))
+    (out,) = region(dist, fn, inputs, [act(dist, bs, t.Partial())],
+                    tp_region=True, batch_sharded=bs)
+    return out
+
+
+def enc_attention_block(dist, lp: Params, x, cfg, positions):
+    """An encoder layer's normed self-attention (``lm._enc_attention``):
+    split by heads over ``model`` (``_head_split``), ``Partial`` out; else
+    replicated over ``model``."""
+    if not _head_split(dist, cfg, lp["attn"]):
+        return replicated_block(
+            dist, lp, x, cfg, ("ln1", "attn"),
+            lambda w, x: lm._enc_attention(
+                w["attn"], layers.rmsnorm(w["ln1"], x, cfg.norm_eps), cfg,
+                positions))
+    loc = _local_heads(cfg, tp_size(dist))
+    return _heads_block(dist, x, lp["ln1"], lp["attn"], cfg,
+                        lambda h, w: lm._enc_attention(w, h, loc, positions))
+
+
+def _heads_to_positions(kv, own, group) -> None:
+    """Write a prefill's cross K/V, this rank's heads over every encoder
+    position (each (B, Hkv/tp, S_enc, D)), into ``own``: this rank's
+    shards of the layer's cross cache, every head over its range of the
+    positions.  One all-to-all over ``group`` (rank j's slice of the
+    positions to rank j), of the cache's dtype."""
+    import torch.distributed._functional_collectives as funcol
+
+    b, hl, se, d = kv[0].shape
+    tp = se // own[0].shape[2]
+    send = torch.stack(kv).to(own[0].dtype).reshape(
+        2, b, hl, tp, se // tp, d).permute(3, 0, 1, 2, 4, 5).contiguous()
+    got = funcol.wait_tensor(funcol.all_to_all_single(send, None, None,
+                                                      group))
+    whole = got.permute(1, 2, 0, 3, 4, 5).reshape(2, b, tp * hl,
+                                                   se // tp, d)
+    for o, w in zip(own, whole.unbind(0)):
+        o.copy_(w)
+
+
+def _cross_key_split(dist, lp: Params, x, cfg, stored):
+    """Decode's cross attention with the layer's cross cache split over
+    the encoder positions of ``model``'s ranks: each rank attends every
+    head over its range (q from ``wq`` gathered whole), the ranks'
+    (output, log-sum-exp) pairs are all-gathered and merged
+    (``merge_key_ranges``) in rank order, then ``wo``: the output
+    replicated over ``model``."""
+    group = _tp_group(dist)
+    sub = {"ln_cross": lp["ln_cross"],
+           "cross": {n: lp["cross"][n] for n in ("wq", "wo")}}
+
+    def body(w, x, ck, cv):
+        hc = layers.rmsnorm(w["ln_cross"], x, cfg.norm_eps)
+        out, lse = lm._cross_key_range(w["cross"], hc, cfg, ck, cv)
+        return lm._cross_out(w["cross"], merge_key_ranges(
+            _gather(out, group).unbind(0), _gather(lse, group).unbind(0)))
+
+    return replicated_block(dist, sub, x, cfg, ("ln_cross", "cross"), body,
+                            [(s, s.placements) for s in stored])
+
+
 def cross_block(dist, lp: Params, x, cfg, i: int, cache: Optional[Params],
                 enc_out):
-    """The cross-attention residual of layer ``i``, replicated over
-    ``model`` (``lm._cross_residual`` on local tensors; with ``enc_out``
-    and a cache, the layer's cross K/V written into its shards)."""
+    """``x`` plus layer ``i``'s cross-attention residual (module
+    docstring), in ``x``'s layout.  The cross cache keeps the rules'
+    layout (encoder positions over ``model``).  With ``enc_out``: split
+    by heads where ``_head_split`` allows and the cache (if any) is
+    sharded over ``model``, a prefill's K/V moved from heads to positions
+    (``_heads_to_positions``).  Decode: split over the cached encoder
+    positions where the cache is sharded over more than one ``model``
+    rank (``_cross_key_split``).  Otherwise replicated over ``model``
+    (``lm._cross_residual`` on local tensors; a prefill writing its
+    positions' range into each rank's shards)."""
     bs = batch_split(dist, x.shape[0])
-    extra, has_cache = [], cache is not None and "cross_k" in cache
+    has_cache = cache is not None and "cross_k" in cache
+    stored = [cache[n][i] for n in lm.CROSS_KEYS] if has_cache else []
+    sharded = tp_size(dist) > 1 and has_cache and _tp_on(dist, stored[0])
+    if enc_out is None and sharded:
+        y = _cross_key_split(dist, lp, x, cfg, stored)
+        return x + to_layout(y, dist, x.placements)
+    if (enc_out is not None and _head_split(dist, cfg, lp["cross"])
+            and (sharded or not has_cache)):
+        group, loc = _tp_group(dist), _local_heads(cfg, tp_size(dist))
+
+        def body(hc, w, enc, *own):
+            y, kv = lm._cross_prefill(w, hc, enc, loc)
+            if own:
+                _heads_to_positions(kv, own, group)
+            return y
+
+        y = _heads_block(dist, x, lp["ln_cross"], lp["cross"], cfg, body,
+                         [(enc_out, act(dist, bs))]
+                         + [(s, s.placements) for s in stored])
+        return x + to_layout(y, dist, x.placements)
+    extra = []
     if enc_out is not None:
         extra.append((enc_out, act(dist, bs)))
     if has_cache:
-        ck, cv = cache["cross_k"][i], cache["cross_v"][i]
-        extra += [(ck, ck.placements), (cv, cv.placements)]
+        extra += [(s, s.placements) for s in stored]
         if enc_out is None:
-            extra += [(ck, act(dist, bs)), (cv, act(dist, bs))]
+            extra += [(s, act(dist, bs)) for s in stored]
 
-    def body(w, x, *rest):
+    def rep(w, x, *rest):
         rest = list(rest)
         enc = rest.pop(0) if enc_out is not None else None
         if not has_cache:
@@ -697,32 +879,143 @@ def cross_block(dist, lp: Params, x, cfg, i: int, cache: Optional[Params],
                                        "cross_v": rest[3][None]}, None)
         full = {n: torch.zeros(o.shape[:2] + (enc.shape[1],) + o.shape[3:],
                                dtype=o.dtype, device=o.device)[None]
-                for n, o in zip(("cross_k", "cross_v"), own)}
+                for n, o in zip(lm.CROSS_KEYS, own)}
         y = lm._cross_residual(w, x, cfg, 0, full, enc)
-        start, n_pos = _seq_range(dist, enc.shape[1],
-                                  cache["cross_k"][i].placements, 2)
-        for o, n in zip(own, ("cross_k", "cross_v")):
+        start, n_pos = _seq_range(dist, enc.shape[1], stored[0].placements,
+                                  2)
+        for o, n in zip(own, lm.CROSS_KEYS):
             o.copy_(full[n][0][:, :, start:start + n_pos])
         return y
 
-    return replicated_block(dist, lp, x, cfg, ("ln_cross", "cross"), body,
-                            extra)
+    return to_layout(replicated_block(dist, lp, x, cfg,
+                                      ("ln_cross", "cross"), rep, extra),
+                     dist, x.placements)
 
 
-def encode(dist, params: Params, frames, cfg):
-    """The encoder, replicated over ``model``, batch over the data axes."""
-    bs = batch_split(dist, frames.shape[0])
-    enc = params["encoder"]
-    leaves = _flat(enc)
-    paths = [p for p, _ in leaves]
-
-    def fn(fr, *rest):
-        return (lm.encode({"encoder": _unflat(zip(paths, rest))}, fr, cfg),)
-
-    (out,) = region(dist, fn, [(frames, act(dist, bs))] + [
-        (v, gathered(dist, v, keep_tp=False)) for _, v in leaves],
-        [act(dist, bs)], tp_region=False, batch_sharded=bs)
+# ---------------------------------------------------------------------------
+# The splits on one device.
+# ---------------------------------------------------------------------------
+def head_part(p: Params, cfg, r: int, parts: int) -> Params:
+    """Part ``r`` of ``parts``' heads of an attention block's projections
+    (views): the column ranges of ``wq``/``wk``/``wv`` and the row range
+    of ``wo`` that a ``model`` rank's shards hold under the rules."""
+    q, kv = cfg.q_dim // parts, cfg.kv_dim // parts
+    out = dict(p)
+    out["wq"] = p["wq"][:, r * q:(r + 1) * q]
+    out["wk"] = p["wk"][:, r * kv:(r + 1) * kv]
+    out["wv"] = p["wv"][:, r * kv:(r + 1) * kv]
+    out["wo"] = p["wo"][r * q:(r + 1) * q]
     return out
+
+
+def _summed(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The parts of a ``Partial`` output summed in part order, in
+    float32, in their dtype."""
+    total = parts[0].float()
+    for y in parts[1:]:
+        total = total + y.float()
+    return total.to(parts[0].dtype)
+
+
+class Splits(lm.OneDevice):
+    """``lm.OneDevice`` with the mesh's splits run on one device, each
+    part through the per-part function a ``model`` rank's region calls,
+    on slices of the whole tensors (without the gathers): decode's cache
+    attention over ``keys`` equal key ranges of the layer cache
+    (``layers.attention_key_range`` on views of the cache, merged by
+    ``merge_key_ranges``); the Mamba2 block over ``ssm``
+    ranges of the head dimension (``ssm.mamba_part``, the norm's sums of
+    squares summed, the parts' outputs summed, the state assembled); the
+    encoder's self-attention, and cross attention to the encoder's
+    output, over ``heads`` ranges of the heads (``lm._enc_attention``,
+    ``lm._cross_prefill``; outputs summed); decode's cross attention over
+    ``cross`` ranges of the cached encoder positions
+    (``lm._cross_key_range``, merged by ``merge_key_ranges``).  A
+    prefill's self-attention (over its fresh K/V alone) runs as on one
+    device, and so does a split over one part, or over a count that does
+    not divide its dimension (``ssm.splits``, ``_heads_split``, the
+    encoder length; the cache's last range may be shorter)."""
+
+    def __init__(self, keys: int = 1, ssm: int = 1, heads: int = 1,
+                 cross: int = 1):
+        self.keys, self.ssm_parts = keys, ssm
+        self.heads, self.cross_parts = heads, cross
+
+    def attention(self, lp, h, cfg, i, positions, cache=None,
+                  cache_index=None, attend_local=False):
+        if cache is None or attend_local or self.keys < 2:
+            return super().attention(lp, h, cfg, i, positions, cache,
+                                     cache_index, attend_local)
+        fault = health.maybe_inject("layers.attention")
+        bufs = lm._layer_cache(cache, i)
+        n = -(-bufs[0].shape[2] // self.keys)
+        outs, lses = [], []
+        for k0 in range(0, bufs[0].shape[2], n):
+            out, lse = layers.attention_key_range(
+                lp["attn"], h, cfg, positions, cfg.layer_window(i),
+                tuple(b[:, :, k0:k0 + n] for b in bufs), cache_index, k0)
+            outs.append(out)
+            lses.append(lse)
+        return layers._finish(lp["attn"], merge_key_ranges(outs, lses),
+                              fault)
+
+    def _heads_divide(self, cfg) -> bool:
+        return self.heads > 1 and _heads_split(cfg, self.heads) == "heads"
+
+    def ssm(self, lp, h, cfg, i, cache=None, new=None):
+        n = self.ssm_parts
+        if not ssm.splits(cfg, n):
+            return super().ssm(lp, h, cfg, i, cache, new)
+        state = None if cache is None else (cache["ssm"][i],
+                                            cache["conv"][i])
+        ws = [ssm.param_part(lp["mamba"], cfg, r, n) for r in range(n)]
+        parts = [ssm.mamba_part(w, h, cfg, None if state is None
+                                else ssm.state_part(state, cfg, r, n))
+                 for r, w in enumerate(ws)]
+        sumsq = parts[0][1]
+        for _, sq, _ in parts[1:]:
+            sumsq = sumsq + sq
+        if state is not None:
+            new["ssm"][i], new["conv"][i] = ssm.assemble_state(
+                [st for _, _, st in parts], cfg)
+        return _summed([ssm.mamba_part_out(w, g, sumsq, cfg)
+                        for w, (g, _, _) in zip(ws, parts)])
+
+    def enc_attention(self, lp, x, cfg, positions):
+        if not self._heads_divide(cfg):
+            return super().enc_attention(lp, x, cfg, positions)
+        n, loc = self.heads, _local_heads(cfg, self.heads)
+        h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        return _summed([lm._enc_attention(head_part(lp["attn"], cfg, r, n),
+                                          h, loc, positions)
+                        for r in range(n)])
+
+    def cross(self, lp, x, cfg, i, cache, enc_out):
+        has_cache = cache is not None and "cross_k" in cache
+        if enc_out is not None and self._heads_divide(cfg):
+            n, loc = self.heads, _local_heads(cfg, self.heads)
+            hc = layers.rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
+            parts = [lm._cross_prefill(head_part(lp["cross"], cfg, r, n),
+                                       hc, enc_out, loc) for r in range(n)]
+            if has_cache:
+                for j, name in enumerate(lm.CROSS_KEYS):
+                    cache[name][i] = torch.cat(
+                        [kv[j] for _, kv in parts], dim=1).to(
+                            cache[name].dtype)
+            return x + _summed([y for y, _ in parts])
+        n = self.cross_parts
+        if (enc_out is not None or not has_cache or n < 2
+                or cache["cross_k"].shape[3] % n):
+            return super().cross(lp, x, cfg, i, cache, enc_out)
+        hc = layers.rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
+        ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+        w = ck.shape[2] // n
+        pairs = [lm._cross_key_range(lp["cross"], hc, cfg,
+                                     ck[:, :, r * w:(r + 1) * w],
+                                     cv[:, :, r * w:(r + 1) * w])
+                 for r in range(n)]
+        return x + lm._cross_out(lp["cross"], merge_key_ranges(
+            [o for o, _ in pairs], [s for _, s in pairs]))
 
 
 # ---------------------------------------------------------------------------
@@ -800,9 +1093,6 @@ class Mesh(lm.OneDevice):
         return embed(self.dist, params, tokens, cfg,
                      residual(self.dist, cfg, b, s))
 
-    def encode(self, params, frames, cfg):
-        return encode(self.dist, params, frames, cfg)
-
     def init_cache(self, cfg, batch, max_len, dtype, device, enc_len):
         return init_cache(self.dist, cfg, batch, max_len, dtype, device,
                           enc_len)
@@ -827,11 +1117,15 @@ class Mesh(lm.OneDevice):
         return to_layout(ssm_block(self.dist, lp, h, cfg, i, cache, new),
                          self.dist, h.placements)
 
+    def enc_attention(self, lp, x, cfg, positions):
+        return to_layout(enc_attention_block(self.dist, lp, x, cfg,
+                                             positions),
+                         self.dist, x.placements)
+
     def cross(self, lp, x, cfg, i, cache, enc_out):
         if not cfg.is_encoder_decoder:
             return x
-        return to_layout(cross_block(self.dist, lp, x, cfg, i, cache,
-                                     enc_out), self.dist, x.placements)
+        return cross_block(self.dist, lp, x, cfg, i, cache, enc_out)
 
     def ffn(self, lp, x, cfg):
         return ffn_residual(self.dist, lp, x, cfg, x.placements)

@@ -186,19 +186,16 @@ def _ssd_recurrent(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return torch.stack(ys, dim=1), s
 
 
-def mamba_apply(p: Params, x: torch.Tensor, cfg,
-                state: Optional[State] = None
-                ) -> Tuple[torch.Tensor, Optional[State]]:
-    """Mamba2 block.  x: (B, L, D).
-
-    ``state`` = (ssm state (B, H, N, P), conv tail (B, K-1, d_inner +
-    2N)), both float32, carries the recurrence across calls; the new
-    state comes back as new tensors (None without a ``state``, as in the
-    reference).  L > 1 runs the chunked SSD from the state, L = 1 the
-    recurrence.  Returns (out (B, L, D) of ``x``'s type, new state)."""
+def _gated(p: Params, x: torch.Tensor, cfg,
+           state: Optional[State] = None
+           ) -> Tuple[torch.Tensor, Optional[State]]:
+    """The block up to its gated norm, over the d_inner columns ``p``
+    holds (``x_proj``'s width: the whole, or a part's ``param_part``):
+    (``y * silu(z)`` (B, L, width) of ``x``'s type, new state), the state
+    and the new state over the same columns (``state_part``)."""
     bsz, length, _ = x.shape
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    pdim = cfg.ssm_headdim
+    di, n, h = p["x_proj"].shape[-1], cfg.ssm_state, cfg.ssm_heads
+    pdim = di // h
 
     z = x @ p["z_proj"]
     xin = x @ p["x_proj"]
@@ -231,5 +228,96 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg,
 
     y = y + p["d_skip"][:, None] * xh.float()
     y = y.transpose(2, 3).reshape(bsz, length, di).to(x.dtype)
-    y = layers.rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    return y * F.silu(z), new_state
+
+
+def mamba_apply(p: Params, x: torch.Tensor, cfg,
+                state: Optional[State] = None
+                ) -> Tuple[torch.Tensor, Optional[State]]:
+    """Mamba2 block.  x: (B, L, D).
+
+    ``state`` = (ssm state (B, H, N, P), conv tail (B, K-1, d_inner +
+    2N)), both float32, carries the recurrence across calls; the new
+    state comes back as new tensors (None without a ``state``, as in the
+    reference).  L > 1 runs the chunked SSD from the state, L = 1 the
+    recurrence.  Returns (out (B, L, D) of ``x``'s type, new state)."""
+    gated, new_state = _gated(p, x, cfg, state)
+    y = layers.rmsnorm(p["norm"], gated, cfg.norm_eps)
     return y @ p["out_proj"], new_state
+
+
+# ---------------------------------------------------------------------------
+# The block over parts of d_inner: the reference's headdim-sharded SSD.
+# With the p-major layout, part r of ``parts`` equal column ranges of
+# d_inner is the head dimension's rows [r P/parts, (r+1) P/parts) of every
+# head.  The SSD is separable in p, so a part's output columns and its
+# slice of the new state are exactly the whole's; only the gated norm
+# needs a sum over all of d_inner (its mean of squares), and the output
+# projection sums the parts' row blocks.  A ``model`` rank of a mesh is a
+# part (``parallel.ssm_block``); ``parallel.Splits`` runs the parts on one
+# device.
+# ---------------------------------------------------------------------------
+# The leaves a part cuts, by the dimension its d_inner lies on: the
+# columns the rules shard over ``model`` (and the gated norm's scale,
+# which they replicate), and ``out_proj``'s rows.
+PART_LEAVES = {"x_proj": -1, "z_proj": -1, "conv_x_w": -1, "conv_x_b": -1,
+               "norm": -1, "out_proj": 0}
+
+
+def splits(cfg, parts: int) -> bool:
+    """Does the block split over ``parts`` (more than one, dividing the
+    head dimension)?"""
+    return parts > 1 and cfg.ssm_headdim % parts == 0
+
+
+def param_part(p: Params, cfg, r: int, parts: int,
+               names=tuple(PART_LEAVES)) -> Params:
+    """``p`` with the leaves ``names`` cut to part ``r`` of ``parts``
+    (views); the other leaves whole."""
+    w = cfg.d_inner // parts
+    out = dict(p)
+    for name in names:
+        out[name] = p[name].narrow(PART_LEAVES[name] % p[name].ndim,
+                                   r * w, w)
+    return out
+
+
+def state_part(state: State, cfg, r: int, parts: int) -> State:
+    """Part ``r``'s state: its P rows of every head, (B, H, N, P/parts),
+    and its conv tail (B, K-1, d_inner/parts + 2N), its x columns then
+    the whole B/C part."""
+    s, tail = state
+    pw, w = cfg.ssm_headdim // parts, cfg.d_inner // parts
+    return (s[..., r * pw:(r + 1) * pw],
+            torch.cat([tail[..., r * w:(r + 1) * w],
+                       tail[..., cfg.d_inner:]], dim=-1))
+
+
+def assemble_state(parts: list, cfg) -> State:
+    """The whole state from the parts' (``state_part``'s layout, in part
+    order; the B/C tail from the first, every part's being the same)."""
+    w = parts[0][1].shape[-1] - 2 * cfg.ssm_state
+    return (torch.cat([s for s, _ in parts], dim=-1),
+            torch.cat([t[..., :w] for _, t in parts]
+                      + [parts[0][1][..., w:]], dim=-1))
+
+
+def mamba_part(p: Params, x: torch.Tensor, cfg,
+               state: Optional[State] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[State]]:
+    """A part's block up to the gated norm: ``p`` the part's leaves
+    (``param_part``), ``state`` its state (``state_part``).  Returns (its
+    columns of ``y * silu(z)``, their sum of squares (B, L, 1) float32,
+    its new state)."""
+    gated, new_state = _gated(p, x, cfg, state)
+    g = gated.float()
+    return gated, (g * g).sum(dim=-1, keepdim=True), new_state
+
+
+def mamba_part_out(p: Params, gated: torch.Tensor, sumsq: torch.Tensor,
+                   cfg) -> torch.Tensor:
+    """A part's share of the block's output: its columns of the gated
+    norm, from ``sumsq`` summed over every part, through its rows of
+    ``out_proj``.  The parts' shares sum to the output."""
+    y = gated.float() * torch.rsqrt(sumsq / cfg.d_inner + cfg.norm_eps)
+    return (y * p["norm"].float()).to(gated.dtype) @ p["out_proj"]

@@ -110,6 +110,10 @@ SPLIT_CASES = {
 # The cases whose last decode step's collectives and cache shards are
 # held (each at 1x2).
 SPLIT_KEYS = ["dense"] + list(SPLIT_CASES)
+# The cases whose Mamba2 block, encoder or cross attention split over
+# ``model`` at 1x2: their forward's and last decode step's all-gathers,
+# and their cache shards after it, are held too.
+BLOCK_KEYS = ["mamba2", "hymba", "whisper"]
 
 WORKER = r'''
 import json, os, sys
@@ -178,8 +182,9 @@ def serve(sp, ccfg, d, data, toks, frames, key, held):
     out[f"serve_{key}"] = np.stack(steps)
     if held:
         out[f"gathers_{key}"] = np.array(counter.gathers)
-        for name in ("k", "v"):
-            out[f"cache_{key}_{name}"] = cache[name].to_local().numpy()
+        for name in ("k", "v", "ssm", "conv", "cross_k", "cross_v"):
+            if name in cache:
+                out[f"cache_{key}_{name}"] = cache[name].to_local().numpy()
 
 
 for case, (arch, over, meshes) in job["cases"].items():
@@ -198,7 +203,10 @@ for case, (arch, over, meshes) in job["cases"].items():
         d = lm.Dist(mesh, ("data",), "model")
         sp = parallel.shard_params(st["params"], mesh)
         key = f"{case}_{tag}"
-        logits, _ = lm.forward(sp, toks, ccfg, enc_frames=frames, dist=d)
+        counter = Gathers()
+        with counter:
+            logits, _ = lm.forward(sp, toks, ccfg, enc_frames=frames, dist=d)
+        out[f"fwd_gathers_{key}"] = np.array(counter.gathers)
         out[f"fwd_{key}"] = logits.full_tensor().numpy()
         loss, _, grads = value_and_grad(make_loss_fn(ccfg, dist=d), sp,
                                         batch)
@@ -382,7 +390,7 @@ def run(tmp_path_factory):
 
     job = {"store": str(tmp / "store"), "cases": CASES,
            "split_cases": SPLIT_CASES,
-           "split_keys": [f"{c}_1x2" for c in SPLIT_KEYS],
+           "split_keys": [f"{c}_1x2" for c in SPLIT_KEYS + BLOCK_KEYS],
            "params": {c: str(tmp / f"params_{c}")
                       for c in (*CASES, *SPLIT_CASES)},
            "data": {c: str(tmp / f"data_{c}.npz")
@@ -460,7 +468,8 @@ def _jax_serve(jp, jcfg, data, toks, frames=None):
         logits, cache = jlm.decode_step(jp, cache, jnp.asarray(nxt), jcfg)
         steps.append(np.asarray(logits))
     return {"serve": np.stack(steps),
-            **{f"cache_{n}": np.asarray(cache[n]) for n in ("k", "v")
+            **{f"cache_{n}": np.asarray(cache[n])
+               for n in ("k", "v", "ssm", "conv", "cross_k", "cross_v")
                if n in cache}}
 
 
@@ -549,11 +558,13 @@ def test_decode_gathers_no_cache_shard(run, case):
     leaves = {int(np.prod(np.shape(v)[1:]))
               for v in jax.tree.leaves(run["jps"][case]["layers"])}
     cache = BATCH * cfg.n_kv_heads * SERVE_LEN * cfg.d_head
+    state = [_assembly(cfg, tp)] if cfg.has_ssm else []
     for res in run["res"]:
         got = res[f"gathers_{case}_1x2"].tolist()
         assert [g for g in got if g in merge] == merge * cfg.n_layers
+        assert [g for g in got if g in state] == state * cfg.n_layers
         for g in got:
-            if g in merge:
+            if g in merge + state:
                 continue
             n = int(np.prod([int(e) for e in g.split()[1].split("x")]))
             assert n in leaves and n not in (cache, cache // tp), g
@@ -578,6 +589,86 @@ def test_each_rank_keeps_its_own_positions(run, case):
                 assert np.abs(got.astype(int) - want).max() <= 1
             else:
                 np.testing.assert_allclose(got, want, **FWD_TOL)
+
+
+def _assembly(cfg, tp):
+    """The Mamba2 state's assembly, one all-gather a layer: every rank's
+    P rows of the state and d_inner columns of the conv tail, float32."""
+    n = (cfg.ssm_heads * cfg.ssm_state * cfg.ssm_headdim
+         + (cfg.ssm_conv - 1) * cfg.d_inner) // tp
+    return f"torch.float32 {tp}x{BATCH}x{n}"
+
+
+# The Mamba2 leaves whose d_inner the rules shard over ``model``.
+MAMBA_SHARDED = ("x_proj", "z_proj", "out_proj", "conv_x_w")
+
+
+@pytest.mark.parametrize("step", ["fwd", "decode"])
+@pytest.mark.parametrize("case", BLOCK_KEYS)
+def test_block_splits_gather_no_sharded_leaf_or_cache(run, case, step):
+    """The forward's and the last decode step's all-gathers at 1x2 with
+    the Mamba2 block, the encoder and cross attention split over
+    ``model``: the forward gathers the decoder's residual stream alone
+    (whisper's, sequence-parallel between blocks); decode gathers, per layer,
+    the merges' pieces (the self-attention's and the cross attention's,
+    each split over its keys), the state's assembly and weights gathered
+    whole (2-D: the self-attention's projections, cross attention's
+    ``wq``/``wo``), and never a whole ``x_proj``/``z_proj``/``out_proj``/
+    ``conv_x_w`` or a cache (a cache's gather would be 4-D or more)."""
+    cfg, _ = _cfgs(case)
+    tp, hq, layers_ = 2, cfg.n_heads, cfg.n_layers
+    merge = [f"torch.float32 {tp}x{BATCH}x{hq}x1x{cfg.d_head}",
+             f"torch.float32 {tp}x{BATCH}x{hq}x1"]
+    n_merge = layers_ * (int(cfg.has_attention)
+                         + int(cfg.is_encoder_decoder))
+    state = [_assembly(cfg, tp)] if cfg.has_ssm else []
+    # the decoder's residual stream, sequence over ``model`` (Megatron-SP)
+    # where the config has no SSM, gathered into each block
+    residual = set() if cfg.has_ssm else {
+        f"torch.float32 {tp * BATCH}x{SEQ // tp}x{cfg.d_model}"}
+    mamba = run["jps"][case]["layers"].get("mamba", {})
+    whole = {int(np.prod(np.shape(mamba[n])[1:])) for n in MAMBA_SHARDED
+             if n in mamba}
+    for res in run["res"]:
+        if step == "fwd":
+            assert set(res[f"fwd_gathers_{case}_1x2"].tolist()) <= residual
+            continue
+        got = res[f"gathers_{case}_1x2"].tolist()
+        assert [g for g in got if g in merge] == merge * n_merge
+        assert [g for g in got if g in state] == state * layers_
+        for g in got:
+            if g in merge + state:
+                continue
+            shape = [int(e) for e in g.split()[1].split("x")]
+            assert len(shape) == 2 and int(np.prod(shape)) not in whole, g
+
+
+@pytest.mark.parametrize("case", ["mamba2", "hymba"])
+def test_assembled_state_matches_jax(run, case):
+    """After the decode steps each rank's state and conv tail (replicated
+    over ``model``, assembled from the ranks' P rows) equal JAX's."""
+    ref = _jax_ref(run, case)
+    for res in run["res"]:
+        for name in ("ssm", "conv"):
+            got = res[f"cache_{case}_1x2_{name}"]
+            assert got.shape == ref[f"cache_{name}"].shape
+            np.testing.assert_allclose(got, ref[f"cache_{name}"], **FWD_TOL)
+
+
+def test_cross_cache_shards_hold_own_positions(run):
+    """Each rank's cross cache holds every head over its half of the
+    encoder positions (filled at prefill by the all-to-all from heads to
+    positions), equal to the JAX cross cache."""
+    cfg, _ = _cfgs("whisper")
+    ref = _jax_ref(run, "whisper")
+    half = ENC_LEN // 2
+    for r, res in enumerate(run["res"]):
+        for name in ("cross_k", "cross_v"):
+            got = res[f"cache_whisper_1x2_{name}"]
+            want = ref[f"cache_{name}"][:, :, :, r * half:(r + 1) * half]
+            assert got.shape == want.shape == (
+                cfg.n_layers, BATCH, cfg.n_kv_heads, half, cfg.d_head)
+            np.testing.assert_allclose(got, want, **FWD_TOL)
 
 
 def _jax_moe(run, x, int8_a2a=False):

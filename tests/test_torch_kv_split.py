@@ -22,7 +22,7 @@ On the CPU, on seeded numpy inputs handed to both packages:
   * ``layers.attention_key_range`` writing the fresh K/V into a range's
     buffers exactly where its positions fall, and the decode step of the
     qwen3 smoke config with its cache attention split over 2 and 4 key
-    ranges on one device (``parallel.KeyRanges``), from a float and an
+    ranges on one device (``parallel.Splits(keys=)``), from a float and an
     int8 cache, scalar and per-row index, against the JAX
     ``decode_step``.
 
@@ -321,7 +321,7 @@ def _jax_decode_logits(cfg_name, over, toks, steps, ragged):
 @pytest.mark.parametrize("kv", ["auto", "int8"])
 def test_key_ranges_decode_matches_jax(kv):
     """The qwen3 smoke decoder's decode steps with the cache attention
-    split over 2 and 4 key ranges of its 24 positions (``KeyRanges``),
+    split over 2 and 4 key ranges of its 24 positions (``Splits``),
     the last step at one index per row (a row whose keys all lie in the
     first range), against the JAX ``decode_step`` on one device.  Both
     decode from the JAX prefill's cache (``bridge.cache_from_numpy``): a
@@ -347,7 +347,7 @@ def test_key_ranges_decode_matches_jax(kv):
         got = []
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(lm, "_runner",
-                       lambda dist: parallel.KeyRanges(n_ranges))
+                       lambda dist: parallel.Splits(keys=n_ranges))
             for j, nxt in enumerate(steps):
                 if j == len(steps) - 1:
                     cache["index"] = torch.from_numpy(ragged)
