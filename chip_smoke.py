@@ -6238,6 +6238,80 @@ def block_checks(torch, mesh, d, args):
     return launched, out
 
 
+# The remeshed engine's continuous scheduler (the dist phase's item 7):
+# the serve phases' prompts, new tokens, prefill chunks of 128 (so the
+# 511-token prompt runs in 4 chunks) over a 1 024-key buffer.
+DIST_SCHED_NEW, DIST_SCHED_CHUNK = 8, 128
+
+
+def remeshed_scheduler(torch, cfg, params, args, jdir, label, kernels):
+    """``cfg`` served by the continuous scheduler twice on the same
+    weights: by a one-device ``Engine``, then by an engine that a fresh
+    journal's ``restore(devices=[card])`` moved onto the 1x1 mesh of the
+    process group of one rank, each ``drain()``-ing ``SERVE_LENS``'s
+    prompts for ``DIST_SCHED_NEW`` tokens in ``DIST_SCHED_CHUNK``-token
+    chunks, the launch counts zeroed just before each drain and read just
+    after.  Gates: every request DONE, no demotion, the same greedy tokens
+    bit for bit, the same launches, each of ``kernels`` launched.  Returns
+    (the report, the mesh drain's launches)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve.engine import Engine, RequestState
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    sc = SchedulerConfig(prefill_chunk=DIST_SCHED_CHUNK)
+    prompts = _prompts(cfg, args.seed, SERVE_LENS)
+    runs = {}
+    for mode in ("one_device", "mesh"):
+        eng = Engine(cfg, params, max_len=SERVE_MAX_LEN, device="cuda",
+                     scheduler_config=sc,
+                     journal_dir=(os.path.join(jdir, label)
+                                  if mode == "mesh" else None))
+        if mode == "mesh" and (eng.restore(devices=[torch.device("cuda")])
+                               or eng.dist is None):
+            raise AssertionError("a fresh journal's restore returned "
+                                 "requests or no mesh")
+        reqs = [eng.submit(p, DIST_SCHED_NEW) for p in prompts]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.monotonic()
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        stats = eng.stats()
+        runs[mode] = {
+            "tokens": [list(r.out_tokens) for r in reqs],
+            "not_done": [(r.rid, r.state.value, r.error) for r in reqs
+                         if r.state != RequestState.DONE],
+            "demotions": stats["demotions"],
+            "launches": {k: v for k, v in _build.LAUNCHES.items() if v},
+            "paged_decode": eng.scheduler_report()["paged_decode"],
+            "decode_ms_per_step": _step_ms(eng), "wall_s": wall}
+        del eng, reqs
+    one, mesh = runs["one_device"], runs["mesh"]
+    report = {"check": f"remeshed_scheduler[{label}]", "card": card_line(),
+              "layers": cfg.n_layers, "prompt_lens": list(SERVE_LENS),
+              "new_tokens": DIST_SCHED_NEW, "prefill_chunk": DIST_SCHED_CHUNK,
+              "kv_cache_dtype": cfg.kv_cache_dtype,
+              "paged_decode": mesh["paged_decode"],
+              "tokens_equal": mesh["tokens"] == one["tokens"],
+              "launches_equal": mesh["launches"] == one["launches"],
+              "decode_ms_per_step": {m: r["decode_ms_per_step"]
+                                     for m, r in runs.items()},
+              "wall_s": {m: r["wall_s"] for m, r in runs.items()},
+              "demotions": {m: r["demotions"] for m, r in runs.items()},
+              "launches": mesh["launches"], "tokens": mesh["tokens"]}
+    emit(report)
+    bad = [m for m, r in runs.items() if r["not_done"] or r["demotions"]]
+    missing = [k for k in kernels if not mesh["launches"].get(k)]
+    if bad or missing or not report["tokens_equal"] \
+            or not report["launches_equal"]:
+        raise AssertionError(
+            f"remeshed scheduler [{label}]: unhealthy {bad}, never launched "
+            f"{missing}, tokens {mesh['tokens']} vs {one['tokens']}, "
+            f"launches {mesh['launches']} vs {one['launches']}")
+    return report, mesh["launches"]
+
+
 def dist_phase(torch, args):
     """The multi-device stack (``lm.Dist``, ``models/parallel.py``) over
     an NCCL process group of one rank on a 1x1 ``"cuda"`` mesh:
@@ -6260,6 +6334,17 @@ def dist_phase(torch, args):
        engine's ``restore(devices=[card])`` loads the snapshot onto the
        mesh and resumes to the uninterrupted run's greedy tokens, bit for
        bit.
+    7. The remeshed engine's continuous scheduler
+       (``remeshed_scheduler``): qwen3-1.7b whole, a fresh journal's
+       ``restore(devices=[card])``, then ``drain()`` of prompts of 17, 64,
+       200 and 511 tokens for 8 tokens in 128-token chunks (the 511-token
+       prompt through ``prefill_chunk(dist=)``, decode through B3 off the
+       page pool), against a one-device ``Engine`` on the same weights:
+       the same greedy tokens bit for bit and the same launches (B3 and
+       ``matmul_os`` among them), no demotion, every request DONE; then
+       the slot path, at ``DIST_RESTORE_LAYERS`` layers over the int8 KV
+       cache (B2 over int8 K/V), gated the same way.  Each engine's
+       decode ms a step (host clock) is reported, not gated.
     5. After (1), on its weights: the cache attention split over the keys
        of a mesh's ``model`` ranks, emulated on the card
        (``key_split_emulation``): each layer's over 2 and over 4 key
@@ -6275,7 +6360,7 @@ def dist_phase(torch, args):
        1 500 encoder positions, prefill and 6 decode steps against the
        unsplit run and a float32 run of the same weights.
     Returns the launches of (1)'s ``dist`` forward, (5)'s split decode
-    steps and (6)'s forwards and split runs, added."""
+    steps, (6)'s forwards and split runs and (7)'s mesh drains, added."""
     import gc
     import shutil
     import tempfile
@@ -6422,7 +6507,23 @@ def dist_phase(torch, args):
         if not warm or got_tokens != base:
             raise AssertionError(f"restore(devices=[card]): warm={warm}, "
                                  f"tokens {got_tokens} != {base}")
-        del eng, rec, rp
+        del eng, rec
+
+        # 7. the remeshed engine's continuous scheduler: paged, then slot
+        params = lm.init_model(cfg, seed=args.seed, device="cuda")
+        out["scheduler"], sched = remeshed_scheduler(
+            torch, cfg, params, args, jdir, "paged",
+            ("paged_attention", "matmul_os", "flash_attention"))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["scheduler_int8"], sched_i8 = remeshed_scheduler(
+            torch, dataclasses.replace(rcfg, kv_cache_dtype="int8"), rp,
+            args, jdir, "slot_int8", ("flash_attention_i8kv", "matmul_os"))
+        for grew in (sched, sched_i8):
+            launched = {k: launched.get(k, 0) + grew.get(k, 0)
+                        for k in {*launched, *grew}}
+        del rp
         gc.collect()
         torch.cuda.empty_cache()
     finally:

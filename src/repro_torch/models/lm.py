@@ -36,11 +36,15 @@ does a config with SSM state (``ssm``/``conv`` in the slot cache) or a
 cross cache.
 
 ``dist=`` (a ``Dist``: a ``DeviceMesh``, its data axes and its model
-axis) runs ``forward``, ``forward_hidden``, ``loss_fn``, ``prefill`` and
-``decode_step`` over the mesh, on parameters placed by
-``launch/sharding.py`` (``parallel.shard_params``): the same loops and
-``_layer``, with each piece run by ``parallel.Mesh`` in place of
-``OneDevice``; with ``dist=None`` they run on one device as above.
+axis) runs ``forward``, ``forward_hidden``, ``loss_fn``, ``prefill``,
+``prefill_chunk``, ``decode_step`` and ``paged_decode_step`` over the
+mesh, on parameters placed by ``launch/sharding.py``
+(``parallel.shard_params``): the same loops and ``_layer``, with each
+piece run by ``parallel.Mesh`` in place of ``OneDevice``; with
+``dist=None`` they run on one device as above.  A paged step's pools
+stay plain tensors, every rank holding the whole pool (the reference's
+pool has no sharding rule), and its attention runs every row on every
+rank, so the ranks' pools stay equal (``parallel.paged_attention_block``).
 """
 from __future__ import annotations
 
@@ -370,7 +374,8 @@ CACHE_KEYS = KV_KEYS + SSM_KEYS + CROSS_KEYS
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
-               device=None, enc_len: Optional[int] = None) -> Params:
+               device=None, enc_len: Optional[int] = None,
+               dist: Optional[Dist] = None) -> Params:
     """``index`` plus, with attention, contiguous KV buffers ``(L, B,
     Hkv, max_len, D)`` of ``dtype`` unless ``cfg.kv_cache_dtype`` names
     another (an int8 cache adds ``k_scale``/``v_scale`` ``(L, B, Hkv,
@@ -378,7 +383,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype="bfloat16",
     float32 ``ssm`` ``(L, B, H, N, P)`` and ``conv`` ``(L, B, K-1,
     d_inner + 2N)``, and for an encoder-decoder zero ``cross_k`` /
     ``cross_v`` ``(L, B, Hkv, enc_len or max_len, D)`` of ``dtype``, a
-    float dtype even over an int8 KV cache, as the reference keeps them."""
+    float dtype even over an int8 KV cache, as the reference keeps them.
+    With ``dist``: the same buffers as DTensors in the cache rules'
+    layout, each rank allocating its shard (``parallel.init_cache``)."""
+    if dist is not None:
+        from repro_torch.models import parallel
+        return parallel.init_cache(dist, cfg, batch, max_len, dtype, device,
+                                   enc_len)
     _check_supported(cfg)
     # "meta": the buffers' shapes and dtypes alone (the mesh's cache)
     dev = torch.device("meta") if device == "meta" \
@@ -516,6 +527,20 @@ def _enc_attention(p: Params, h: torch.Tensor, cfg,
     return _cross_out(p, layers.bidir_attention(q, k, v, scale=dh ** -0.5))
 
 
+@dataclasses.dataclass(frozen=True)
+class Pages:
+    """A paged decode step's pools and rows: the page pools ``(L, Hkv,
+    n_pages, page, Dh)``, and per row its block table ``(B, max_pages)``,
+    committed length ``(B,)`` and this step's write page and offset."""
+
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+    block_tables: torch.Tensor
+    kv_lens: torch.Tensor
+    write_pids: torch.Tensor
+    write_offs: torch.Tensor
+
+
 class OneDevice:
     """How the layer loop and ``_layer`` run their pieces: here, each on
     one device as the functions of this module do (``dist=None``).
@@ -570,6 +595,20 @@ class OneDevice:
             cache_index=cache_index, attend_local=attend_local)
         return out
 
+    def paged_attention(self, lp: Params, h: torch.Tensor, cfg, i: int,
+                        positions: torch.Tensor, pages: Pages
+                        ) -> torch.Tensor:
+        """Layer ``i``'s self-attention over the normed ``h`` off the page
+        pools (B3), its fresh K/V written into layer ``i``'s pools in
+        place."""
+        out, _ = layers.paged_attention_apply(
+            lp["attn"], h, cfg, positions=positions,
+            window=cfg.layer_window(i), k_pages=pages.k_pages[i],
+            v_pages=pages.v_pages[i], block_tables=pages.block_tables,
+            kv_lens=pages.kv_lens, write_pids=pages.write_pids,
+            write_offs=pages.write_offs)
+        return out
+
     def ssm(self, lp: Params, h: torch.Tensor, cfg, i: int,
             cache: Optional[Params] = None, new: Optional[Params] = None
             ) -> torch.Tensor:
@@ -620,16 +659,20 @@ def _layer(lp: Params, x: torch.Tensor, cfg, i: int,
            new: Optional[Params] = None, cache_index=None,
            attend_local: bool = False,
            enc_out: Optional[torch.Tensor] = None,
-           run: OneDevice = ONE_DEVICE
+           run: OneDevice = ONE_DEVICE, pages: Optional[Pages] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decoder layer ``i``: ``x`` plus the mean of its attention and its
     Mamba2 block, both over the normed ``x``, as the reference's
     ``layer_apply`` mixes them; then the cross-attention residual
     (``_cross_residual``), then the FFN residual, each piece run by
-    ``run``.  Returns (x, the MoE block's load-balancing loss or 0)."""
+    ``run``.  With ``pages`` the attention runs off the page pools
+    (``run.paged_attention``) in place of ``cache``.  Returns (x, the MoE
+    block's load-balancing loss or 0)."""
     h = run.prenorm(lp, x, cfg)
     paths = []
-    if cfg.has_attention:
+    if cfg.has_attention and pages is not None:
+        paths.append(run.paged_attention(lp, h, cfg, i, positions, pages))
+    elif cfg.has_attention:
         paths.append(run.attention(lp, h, cfg, i, positions, cache,
                                    cache_index, attend_local))
     if cfg.has_ssm:
@@ -873,7 +916,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg,
 
 
 def prefill_chunk(params: Params, cache: Params, tokens: torch.Tensor, cfg,
-                  start: Union[int, torch.Tensor]
+                  start: Union[int, torch.Tensor],
+                  dist: Optional[Dist] = None
                   ) -> Tuple[torch.Tensor, Params]:
     """Prefill the chunk ``tokens`` (B, S) into ``cache`` at ``start``
     (one offset, or one per row), attending over the filled cache, so
@@ -882,21 +926,30 @@ def prefill_chunk(params: Params, cache: Params, tokens: torch.Tensor, cfg,
     written into the cache's buffers in place;
     the returned cache is a new dict, with new ``ssm``/``conv`` tensors,
     so the caller's state is as it was if the step is retried.  Returns
-    (last-token logits (B, V), cache)."""
+    (last-token logits (B, V), cache).  With ``dist``, on a cache of
+    DTensors (``init_cache(..., dist=)``): DTensor logits, vocabulary over
+    the model axis; over more than one ``model`` rank each layer's
+    attention splits over the cache's keys, as decode's does
+    (``parallel.attention_cache_block``)."""
+    run = _runner(dist)
+    tokens = run.tokens(tokens)
     b, s = tokens.shape
     dev = tokens.device
-    x = _embed(params, tokens, cfg)
+    x = run.embed(params, tokens, cfg)
     steps = torch.arange(s, device=dev)
-    if torch.is_tensor(start) and start.ndim == 1:
-        positions = start.to(dev).long()[:, None] + steps[None, :]
+    per_row = torch.is_tensor(start) and start.ndim == 1
+    if per_row:
+        positions = run.rows(start.to(dev).long()[:, None] + steps[None, :])
     else:
         positions = (int(start) + steps)[None, :]
+    cache_index = run.rows(start) if per_row else start
     new = _with_new_state(cache)
-    for i, lp in enumerate(_layer_params(params)):
-        x, _ = _layer(lp, x, cfg, i, positions, cache, new, start)
+    for i, lp in enumerate(run.layer_params(params)):
+        x, _ = _layer(lp, x, cfg, i, positions, cache, new, cache_index,
+                      run=run)
     new["index"] = start + s
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return layers.unembed(_head(params), x[:, -1]), new
+    x = run.final_norm(params, x, cfg)
+    return run.logits(params, x, cfg, last=True, mask_vocab=False), new
 
 
 def decode_step(params: Params, cache: Params, tokens: torch.Tensor, cfg,
@@ -966,6 +1019,7 @@ def paged_decode_step(
     write_pids: torch.Tensor,     # (B,) destination page per row
     write_offs: torch.Tensor,     # (B,) offset within that page
     cfg,
+    dist: Optional[Dist] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step straight off the paged KV pool.
 
@@ -975,18 +1029,21 @@ def paged_decode_step(
     ``ops.paged_attention``.  The caller commits by advancing
     ``kv_lens`` only once the logits are good, so a failed step leaves
     nothing a later step reads.  Returns (logits (B, V), (k_pages,
-    v_pages)), padded-vocab logits at -inf.
+    v_pages)), padded-vocab logits at -inf.  With ``dist`` the pools,
+    tables and lengths stay plain tensors, every rank's the same, and the
+    logits are a DTensor (vocabulary over the model axis); each layer's
+    attention runs every row on every rank
+    (``parallel.paged_attention_block``), so every rank writes the same
+    K/V into its pools.
     """
-    x = _embed(params, tokens, cfg)
+    run = _runner(dist)
+    tokens = run.tokens(tokens)
+    x = run.embed(params, tokens, cfg)
     positions = kv_lens.long()[:, None]
-    for i, lp in enumerate(_layer_params(params)):
-        h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        attn_out, _ = layers.paged_attention_apply(
-            lp["attn"], h, cfg, positions=positions,
-            window=cfg.layer_window(i), k_pages=k_pages[i], v_pages=v_pages[i],
-            block_tables=block_tables, kv_lens=kv_lens,
-            write_pids=write_pids, write_offs=write_offs)
-        x, _ = _ffn_residual(lp, x + attn_out, cfg)
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = layers.unembed(_head(params), x[:, -1])
-    return _mask_vocab(logits, cfg), (k_pages, v_pages)
+    pages = Pages(k_pages, v_pages, block_tables, kv_lens, write_pids,
+                  write_offs)
+    for i, lp in enumerate(run.layer_params(params)):
+        x, _ = _layer(lp, x, cfg, i, positions, run=run, pages=pages)
+    x = run.final_norm(params, x, cfg)
+    return (run.logits(params, x, cfg, last=True, mask_vocab=True),
+            (k_pages, v_pages))

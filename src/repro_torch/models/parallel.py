@@ -41,6 +41,17 @@ Blocks:
     ranks' (output, statistic) pairs are all-gathered over ``model`` and
     merged (``merge_key_ranges``) in rank order, the same on every rank,
     before ``wo``.  At one ``model`` rank it runs the one-device code.
+    A prefill chunk (``lm.prefill_chunk``) takes the same split with its
+    S queries (valid length ``cache_index + S - k0``).
+  * attention off the page pools (``paged_attention_block``, a paged
+    decode step): the pools are plain tensors, every rank holding the
+    whole pool, as the reference's page pool is an unsharded array (no
+    rule shards it).  The block runs replicated over the whole mesh:
+    every row on every rank (its input gathered over the data axes), the
+    projections gathered whole, so every rank writes the same fresh K/V
+    into its pools and B3 reads the same pages; its output is replicated,
+    each rank keeping its rows.  Every rank's pools are so bit-equal
+    after every step.
   * MLP: column-parallel ``w1``/``w3``, row-parallel ``w2`` (B1 on the
     local columns), ``Partial`` out; replicated where ``d_ff`` does not
     divide the axis, and for the binary MLP.
@@ -340,12 +351,14 @@ def attention_block(dist, lp: Params, x, cfg, i: int, positions):
 
 def replicated_block(dist, lp: Params, x, cfg, keys: Sequence[str], body,
                      extra: Sequence[Tuple[Any, tuple]] = (),
-                     n_out: int = 1):
+                     n_out: int = 1, whole_rows: bool = False):
     """``body(local lp, local x, *local extra)`` with every weight under
     ``keys`` gathered whole and ``x`` replicated over ``model``: every
-    rank of a ``model`` group computes the same output."""
+    rank of a ``model`` group computes the same output.  ``whole_rows``:
+    ``x`` replicated over the data axes too, so every rank of the mesh
+    computes every row."""
     b = x.shape[0]
-    bs = batch_split(dist, b)
+    bs = batch_split(dist, b) and not whole_rows
     sub = {k: lp[k] for k in keys}
     leaves = _flat(sub)
     paths = [pth for pth, _ in leaves]
@@ -727,6 +740,19 @@ def attention_cache_block(dist, lp: Params, x, cfg, i: int, positions,
     extra = ([(s, s.placements) for s in stored]
              + ([] if attend_local else [(s, act(dist, bs)) for s in stored]))
     return replicated_block(dist, lp, x, cfg, ("ln1", "attn"), body, extra)
+
+
+def paged_attention_block(dist, lp: Params, x, cfg, i: int, positions,
+                          pages) -> Any:
+    """Layer ``i``'s normed self-attention off the page pools (``pages``,
+    an ``lm.Pages`` of plain tensors, every rank's the same), replicated
+    over the whole mesh (module docstring): every rank computes every
+    row and writes the same K/V into its pools.  Output replicated."""
+    return replicated_block(
+        dist, lp, x, cfg, ("ln1", "attn"),
+        lambda w, x: lm.ONE_DEVICE.paged_attention(
+            w, layers.rmsnorm(w["ln1"], x, cfg.norm_eps), cfg, i, positions,
+            pages), whole_rows=True)
 
 
 def _head_split(dist, cfg, p: Params) -> bool:
@@ -1112,6 +1138,11 @@ class Mesh(lm.OneDevice):
                                         positions, cache, cache_index,
                                         attend_local)
         return to_layout(out, self.dist, h.placements)
+
+    def paged_attention(self, lp, h, cfg, i, positions, pages):
+        return to_layout(paged_attention_block(self.dist, lp, h, cfg, i,
+                                               positions, pages),
+                         self.dist, h.placements)
 
     def ssm(self, lp, h, cfg, i, cache, new):
         return to_layout(ssm_block(self.dist, lp, h, cfg, i, cache, new),

@@ -49,11 +49,19 @@ prompts, so the recovered tokens equal the uninterrupted run's, and
 ``restore(devices=...)`` resumes on a mesh over the surviving ranks
 instead (``runtime.elastic.plan_remesh``: the largest data x model grid
 they make): the snapshot's params and cache load onto the mesh's
-placements, each rank its own slices, and the engine then runs its batch
-loop over the mesh (``lm.decode_step(..., dist=)``, logits gathered for
-the sampler; a snapshot gathers every tree and rank 0 writes it).  A
-remeshed engine serves the batch-synchronous loop only: the continuous
-scheduler runs on one device.
+placements, each rank its own slices, and the engine then serves over
+the mesh: the batch loop (``lm.decode_step(..., dist=)``, logits gathered
+for the sampler; a snapshot gathers every tree and rank 0 writes it) and
+the continuous scheduler (``step``, ``drain``, the handles and ``serve``
+of mixed prompt lengths, a continuous cold replay included), whose page
+pool stays a plain tensor on every rank, every rank writing the same K/V
+into it (``serve/scheduler.py``).  Every rank of the mesh makes the same
+calls in the same order, each appending to its own journal.  Deadlines
+read one clock (``clock``): on a mesh rank 0's elapsed time reaches every
+rank in one small collective, issued only where a live request has a
+deadline, so every rank evicts the same requests at the same step (each
+rank reading its own clock, two ranks could part ways and their next
+collectives differ).
 
 An encoder-decoder config (whisper, family ``audio``) is admitted as the
 JAX engine admits it, and served as that engine serves it: no step of
@@ -117,6 +125,11 @@ def make_prefill_fn(cfg, dist: Optional[lm.Dist] = None) -> Callable:
 def _whole(x):
     """A DTensor gathered whole (every rank's the same); else as is."""
     return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def local_clock() -> float:
+    """This process's reading of the deadline clock (seconds)."""
+    return time.monotonic()
 
 
 class RequestState(str, enum.Enum):
@@ -238,7 +251,7 @@ class Engine:
         self._live: Optional[Tuple] = None
         self._pending_resume: Optional[Dict[str, Any]] = None
         self._replay_expected: Dict[int, List[int]] = {}
-        # the mesh after restore(devices=): the batch loop runs over it
+        # the mesh after restore(devices=): the engine serves over it
         self.dist: Optional[lm.Dist] = None
         self._counters: Dict[str, int] = {
             "submitted": 0, "admitted": 0, "rejected": 0,
@@ -406,6 +419,28 @@ class Engine:
                               detail=f"rid {req.rid}: {req.queue_reason}")
         return req
 
+    def clock(self, reqs: Sequence[RequestHandle]) -> float:
+        """The deadline clock, as every deadline check reads it: this
+        process's ``local_clock()`` on one device.  On a mesh, where any of
+        ``reqs`` has a deadline, rank 0's reading, which reaches every
+        rank in one float64 all-reduce over the mesh (the others add 0),
+        so every rank decides each eviction alike; every rank holds the
+        same requests, so every rank issues it at the same call.  Without
+        a deadline among ``reqs`` nothing reads the value: no
+        collective."""
+        t = local_clock()
+        if self.dist is None or not any(r.deadline_s is not None
+                                        for r in reqs):
+            return t
+        from torch.distributed.tensor import DTensor, Partial
+
+        mesh = self.dist.mesh
+        first = all(mesh.get_local_rank(d) == 0 for d in range(mesh.ndim))
+        mine = torch.tensor([t if first else 0.0], dtype=torch.float64,
+                            device=self.device)
+        return float(DTensor.from_local(mine, mesh, [Partial()] * mesh.ndim,
+                                        run_check=False).full_tensor()[0])
+
     # -- guarded step execution -----------------------------------------
     def _execute(self, site: str, step: int,
                  fn: Callable[[], Tuple[torch.Tensor, Any]]
@@ -478,7 +513,7 @@ class Engine:
             reqs = pending["reqs"]
             if pending["cache"] is not None:
                 self._decode_loop(reqs, pending["cache"], pending["logits"],
-                                  pending["step"], time.monotonic(), greedy,
+                                  pending["step"], self.clock(reqs), greedy,
                                   seed)
                 self._check_replay(requests)
                 return list(requests)
@@ -492,7 +527,7 @@ class Engine:
             return self._serve_ragged(requests, reqs, greedy, seed)
         prompts = np.stack([r.prompt for r in reqs]).astype(np.int64)
         self._warm_autotune(prompts.shape[0], prompts.shape[1])
-        t_start = time.monotonic()
+        t_start = self.clock(reqs)
         if self.journal is not None:
             # the batch a cold replay must rebuild
             self.journal.append("serve", fsync=True,
@@ -532,10 +567,6 @@ class Engine:
         admission order, slots and the ladder are then functions of the
         batch alone, which is what a cold replay of the same rids
         rebuilds."""
-        if self.dist is not None:
-            raise ValueError("a remeshed engine serves equal-length batches "
-                             "(the batch-synchronous loop); the continuous "
-                             "scheduler runs on one device")
         self._live = None        # no snapshot point inside a ragged drain
         if self.journal is not None:
             self.journal.append(
@@ -558,7 +589,8 @@ class Engine:
         token, ``cache`` holding everything up to ``step``."""
         self._live = (reqs, cache, logits, step, greedy, seed)
         while True:
-            now = time.monotonic()
+            now = self.clock([r for r in reqs
+                              if r.state == RequestState.DECODING])
             for r in reqs:
                 if r.state == RequestState.DECODING \
                         and r.deadline_s is not None \
@@ -637,10 +669,6 @@ class Engine:
 
     # -- continuous stepping --------------------------------------------
     def _ensure_scheduler(self) -> ContinuousScheduler:
-        if self.dist is not None:
-            raise ValueError("a remeshed engine serves equal-length batches "
-                             "through serve(); the continuous scheduler "
-                             "runs on one device")
         if self._scheduler is None:
             self._scheduler = ContinuousScheduler(self, self.scheduler_config)
         return self._scheduler

@@ -59,6 +59,24 @@ the slot cache) in place, at each row's committed length; the committed
 lengths advance only after the engine has checked the step's logits, so
 a failed and retried step rewrites the same positions and leaves
 nothing a later step reads.
+
+Over a mesh (an engine after ``restore(devices=)``, ``eng.dist``) every
+rank runs this scheduler with the same requests and makes the same calls
+in the same order: every step passes ``dist`` to the ``lm`` entry points
+and gathers its logits whole inside the step ``Engine._execute`` runs,
+so the finiteness verdict, the retries and sampling see the same values
+on every rank, and every host decision (admission, the ladder, slots,
+sampling) is a function of the scheduler's state alone.  Deadlines read
+the engine's one clock (``Engine.clock``: rank 0's, on every rank).  The
+page pool stays a plain tensor on every rank, the reference's unsharded
+pool: a paged step runs its attention on every row on every rank
+(``parallel.paged_attention_block``), so every rank writes the same K/V
+and the ranks' pools stay bit-equal; a prefill's cache of DTensors is
+gathered once per admission to be stored into the pages.  The slot cache
+keeps the cache rules' layout (batch over the data axes, sequence over
+``model``): a prefilled row is copied into its slot by the ranks that
+hold that slot, each its own positions, and a prefix read from the pages
+seeds each rank's positions of a fresh row.
 """
 from __future__ import annotations
 
@@ -70,6 +88,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch import sharding
 from repro_torch.models import lm
 from repro_torch.runtime import health
 from repro_torch.serve.paged_cache import PagedKVCache, pages_for
@@ -125,6 +144,37 @@ def pool_capacity(sc: Optional[SchedulerConfig], max_len: int) -> int:
 
 def _sample_seed(seed: int, rid: int, position: int) -> int:
     return ((seed * 1_000_003 + rid) * 1_000_003 + position) % 2 ** 63
+
+
+def _local(buf) -> Tuple[torch.Tensor, Tuple[slice, ...]]:
+    """(this rank's tensor of a cache buffer, the slice of the whole it
+    holds): a DTensor's shard in the cache rules' layout, or a plain
+    tensor whole."""
+    if not hasattr(buf, "to_local"):
+        return buf, tuple(slice(0, n) for n in buf.shape)
+    return buf.to_local(), sharding.shard_slices(
+        tuple(buf.shape), buf.placements, buf.device_mesh)
+
+
+def _copy_row(dst, src, slot: int) -> None:
+    """Row 0 of ``src`` (a prefilled B=1 cache buffer) into row ``slot`` of
+    ``dst`` (the slot cache's), batch at dim 1: on a mesh by the ranks
+    that hold that row, each from its own shard (both buffers lay their
+    other dimensions out alike)."""
+    d, sl = _local(dst)
+    if sl[1].start <= slot < sl[1].stop:
+        d[:, slot - sl[1].start] = _local(src)[0][:, 0]
+
+
+def _seed_prefix(buf, val: torch.Tensor, n: int) -> None:
+    """Positions ``[0, n)`` of row 0 of ``buf`` (L, 1, Hkv, S, D) from
+    ``val`` (L, Hkv, >= n, D), every rank's the same: on a mesh each rank
+    writes the positions its shard holds."""
+    b, sl = _local(buf)
+    lo = sl[3].start
+    hi = min(sl[3].stop, n)
+    if hi > lo:
+        b[:, 0, :, :hi - lo] = val[:, :, lo:hi]
 
 
 class ContinuousScheduler:
@@ -298,7 +348,7 @@ class ContinuousScheduler:
             self.waiting.popleft()
             req.queue_reason = None
             self._ensure_cache()
-            self.t_start.setdefault(req.rid, time.monotonic())
+            self.t_start.setdefault(req.rid, self.eng.clock([req]))
             c = self.cc.prefill_chunk
             self.eng._warm_autotune(
                 1, plen, self.cc.max_batch, per_row=True,
@@ -363,11 +413,17 @@ class ContinuousScheduler:
         if self.use_paged or self.cache is not None:
             return                         # the pool is the datapath
         eng = self.eng
-        self.cache = lm.init_cache(eng.cfg, self.cc.max_batch, eng.max_len,
-                                   eng.cfg.act_dtype, eng.device)
+        self.cache = self._new_cache(self.cc.max_batch)
         self.cache["index"] = torch.zeros(self.cc.max_batch,
                                           dtype=torch.int32,
                                           device=eng.device)
+
+    def _new_cache(self, batch: int) -> Dict[str, Any]:
+        """A fresh ``batch``-row cache of ``max_len`` positions: on a mesh
+        in the cache rules' layout."""
+        eng = self.eng
+        return lm.init_cache(eng.cfg, batch, eng.max_len, eng.cfg.act_dtype,
+                             eng.device, dist=eng.dist)
 
     def _prefill_whole(self, req, slot: int, pages: Optional[List[int]],
                        reuse: List[int], covered: int) -> bool:
@@ -389,8 +445,9 @@ class ContinuousScheduler:
                 tokens = torch.as_tensor(prompt[None], device=self.eng.device)
                 logits, rcache, path = self.eng._execute(
                     "serve.prefill", self.step_count,
-                    lambda: lm.prefill(self.eng.params, tokens, self.eng.cfg,
-                                       max_len=self.eng.max_len))
+                    lambda: self.eng._gathered(lm.prefill(
+                        self.eng.params, tokens, self.eng.cfg,
+                        max_len=self.eng.max_len, dist=self.eng.dist)))
                 self._count_path(path, [])
         except self._E.StepFailed as e:
             self._fail(req, e)
@@ -409,18 +466,18 @@ class ContinuousScheduler:
         prefill only the uncovered tail (``lm.prefill_chunk``)."""
         cfg = self.eng.cfg
         kp, vp = self.paged.gather(reuse)
-        rcache = lm.init_cache(cfg, 1, self.eng.max_len, cfg.act_dtype,
-                               self.eng.device)
-        rcache["k"][:, 0, :, :covered] = kp[:, :, :covered]
-        rcache["v"][:, 0, :, :covered] = vp[:, :, :covered]
+        rcache = self._new_cache(1)
+        _seed_prefix(rcache["k"], kp, covered)
+        _seed_prefix(rcache["v"], vp, covered)
         rcache["index"] = covered
         self.eng._warm_autotune(1, len(prompt), self.cc.max_batch,
                                 per_row=True, chunks=(len(prompt) - covered,))
         tail = torch.as_tensor(prompt[None, covered:], device=self.eng.device)
         logits, rcache, path = self.eng._execute(
             "serve.prefill", self.step_count,
-            lambda: lm.prefill_chunk(self.eng.params, rcache, tail, cfg,
-                                     covered))
+            lambda: self.eng._gathered(lm.prefill_chunk(
+                self.eng.params, rcache, tail, cfg, covered,
+                dist=self.eng.dist)))
         self._count_path(path, [])
         return logits, rcache
 
@@ -434,7 +491,8 @@ class ContinuousScheduler:
         prompt = np.asarray(req.prompt, np.int64)
         plen = len(prompt)
         dl = req.deadline_s
-        if dl is not None and time.monotonic() - self.t_start[req.rid] > dl:
+        if dl is not None \
+                and self.eng.clock([req]) - self.t_start[req.rid] > dl:
             self._pf = None
             if pages:
                 self.paged.release(pages)
@@ -453,12 +511,12 @@ class ContinuousScheduler:
         req.state = RequestState.PREFILLING
         try:
             if rcache is None:
-                rcache = lm.init_cache(cfg, 1, self.eng.max_len,
-                                       cfg.act_dtype, self.eng.device)
+                rcache = self._new_cache(1)
             logits, rcache, path = self.eng._execute(
                 "serve.prefill", self.step_count,
-                lambda: lm.prefill_chunk(self.eng.params, rcache, toks, cfg,
-                                         pos))
+                lambda: self.eng._gathered(lm.prefill_chunk(
+                    self.eng.params, rcache, toks, cfg, pos,
+                    dist=self.eng.dist)))
             self._count_path(path, [])
         except self._E.StepFailed as e:
             self._pf = None
@@ -481,7 +539,8 @@ class ContinuousScheduler:
         """Scatter the prefilled row into the page pool.  On the paged
         path ``pages`` were acquired at admission, so this cannot fail;
         the slot path mirrors what the pool can hold, for prefix
-        sharing, and skips the rest (and a cache with no K/V)."""
+        sharing, and skips the rest (and a cache with no K/V).  A mesh's
+        row (DTensors) is gathered whole here, once per admission."""
         if self.paged is None or "k" not in rcache:
             return
         if pages is None:
@@ -492,21 +551,22 @@ class ContinuousScheduler:
                     self.paged.release(reuse)
                 return
             pages = list(reuse) + new
-        self.paged.store(prompt, pages, covered, rcache["k"][:, 0],
-                         rcache["v"][:, 0])
+        whole = self._E._whole
+        self.paged.store(prompt, pages, covered, whole(rcache["k"])[:, 0],
+                         whole(rcache["v"])[:, 0])
         self.req_pages[req.rid] = pages
 
     def _install(self, req, slot: int, rcache, plen: int,
                  first_logits: torch.Tensor) -> None:
         """Make the row live (paged: its committed length; slot cache:
-        copy the prefilled row in, its SSM state too) and emit its first
-        token."""
+        copy the prefilled row in, its SSM state too, ``_copy_row``) and
+        emit its first token."""
         if self.use_paged:
             self.kv_lens[slot] = plen
         else:
             for name in lm.CACHE_KEYS:
                 if name in self.cache:
-                    self.cache[name][:, slot] = rcache[name][:, 0]
+                    _copy_row(self.cache[name], rcache[name], slot)
             self.cache["index"][slot] = plen
         req.state = self._E.RequestState.DECODING
         self.slots[slot] = req
@@ -626,7 +686,8 @@ class ContinuousScheduler:
     # -- decode ---------------------------------------------------------
     def _sweep_deadlines(self) -> bool:
         """Evict every active or spilled request past its deadline."""
-        now = time.monotonic()
+        now = self.eng.clock([r for r in self.slots if r is not None]
+                             + [self.spilled[rid][0] for rid in self.paused])
         evicted = False
         for i, r in enumerate(self.slots):
             if r is not None and r.deadline_s is not None \
@@ -676,8 +737,9 @@ class ContinuousScheduler:
         try:
             logits, cache, path = self.eng._execute(
                 "serve.decode_step", self.step_count,
-                lambda: lm.decode_step(self.eng.params, cache, toks,
-                                       self.eng.cfg))
+                lambda: self.eng._gathered(lm.decode_step(
+                    self.eng.params, cache, toks, self.eng.cfg,
+                    dist=self.eng.dist)))
         except self._E.StepFailed as e:
             for i in active:
                 self._fail(self.slots[i], e)
@@ -741,9 +803,9 @@ class ContinuousScheduler:
         try:
             logits, _, path = self.eng._execute(
                 "serve.decode_step", self.step_count,
-                lambda: lm.paged_decode_step(
+                lambda: self.eng._gathered(lm.paged_decode_step(
                     self.eng.params, k_pool, v_pool, toks, tables_d, kv_d,
-                    wp_d, wo_d, self.eng.cfg))
+                    wp_d, wo_d, self.eng.cfg, dist=self.eng.dist)))
         except self._E.StepFailed as e:
             for i in active:
                 self._fail(self.slots[i], e)

@@ -24,7 +24,9 @@ On the CPU, on seeded numpy inputs handed to both packages:
     qwen3 smoke config with its cache attention split over 2 and 4 key
     ranges on one device (``parallel.Splits(keys=)``), from a float and an
     int8 cache, scalar and per-row index, against the JAX
-    ``decode_step``.
+    ``decode_step``, and its ``prefill_chunk`` split likewise (chunks
+    across a range boundary and wholly in one range) against the JAX
+    ``prefill_chunk`` and the unsplit chunk.
 
 On the card (marker ``card``, skipped here): B2's statistics against its
 plain version on every path (bf16 and f32 q, float and int8 K/V) at
@@ -357,6 +359,58 @@ def test_key_ranges_decode_matches_jax(kv):
         got = np.stack(got)[..., :cfg.vocab_size]
         np.testing.assert_allclose(got, want[..., :cfg.vocab_size],
                                    atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kv", ["auto", "int8"])
+def test_key_ranges_prefill_chunk_matches_jax(kv):
+    """``lm.prefill_chunk`` with the cache attention split over 2 and 4
+    key ranges of its 24 positions (``Splits``: S queries a range, valid
+    length ``start + S - k0``): a chunk at 9-15 (across the 2 ranges'
+    boundary at 12), then one at 16-21 (wholly in the second, the first
+    seen whole), each chunk's logits against the JAX ``prefill_chunk`` on
+    one device and the unsplit chunk, from the JAX prefill's cache of 9
+    positions (``bridge.cache_from_numpy``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as jconfigs
+    from repro.models import lm as jlm
+
+    from repro_torch.models import bridge
+
+    over = {"kv_cache_dtype": kv}
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-1.7b"), **over)
+    jcfg = dataclasses.replace(jconfigs.get_smoke("qwen3-1.7b"), **over)
+    rng = np.random.default_rng(12)
+    head = rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    chunks = [(9, rng.integers(0, cfg.vocab_size, (2, 7)).astype(np.int32)),
+              (16, rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32))]
+    jp = jlm.init_model(jcfg, jax.random.PRNGKey(4))
+    _, jc = jlm.prefill(jp, jnp.asarray(head), jcfg, max_len=24)
+    prefilled = jax.tree.map(np.asarray, jc)
+    want = []
+    for start, toks in chunks:
+        logits, jc = jlm.prefill_chunk(jp, jc, jnp.asarray(toks), jcfg,
+                                       start)
+        want.append(np.asarray(logits))
+    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                      device="cpu")
+    runs = {}
+    for n_ranges in (1, 2, 4):
+        cache = bridge.cache_from_numpy(prefilled, cfg, device="cpu")
+        got = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(lm, "_runner",
+                       lambda dist: parallel.Splits(keys=n_ranges))
+            for start, toks in chunks:
+                logits, cache = lm.prefill_chunk(
+                    params, cache, torch.from_numpy(toks), cfg, start)
+                got.append(logits.numpy())
+        runs[n_ranges] = np.stack(got)[..., :cfg.vocab_size]
+        np.testing.assert_allclose(
+            runs[n_ranges], np.stack(want)[..., :cfg.vocab_size],
+            atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(runs[n_ranges], runs[1], atol=1e-5,
+                                   rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -398,16 +398,20 @@ def test_unported_paths_raise_naming_their_roadmap_entry(params, what,
     """``restore(devices=)``: a fresh journal's restore onto a one-rank
     gloo group's 1x1 mesh puts the params on the mesh; the remeshed
     engine serves a batch over it as the one-device engine does, and
-    refuses the continuous scheduler."""
+    its continuous scheduler (``step()`` until idle, then ``drain()``)
+    serves a mixed-length batch with the one-device engine's tokens."""
     import torch.distributed as dist
 
     _, tp = params
     monkeypatch.chdir(tmp_path)
     prompts = np.random.default_rng(5).integers(
         0, CFG.vocab_size, (2, 8)).astype(np.int32)
+    mixed = _prompts([7, 12, 2, 23], seed=5)
     one = Engine(CFG, tp, max_len=MAX_LEN, device="cpu")
     want = [one.submit(p, 4) for p in prompts]
     one.serve(want)
+    want_mixed = [one.submit(p, 4) for p in mixed]
+    one.drain()
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             rank=0, world_size=1)
     try:
@@ -418,8 +422,69 @@ def test_unported_paths_raise_naming_their_roadmap_entry(params, what,
         got = [eng.submit(p, 4) for p in prompts]
         eng.serve(got)
         assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
-        with pytest.raises(ValueError, match="one device"):
-            eng.step()
+        stepped = [eng.submit(p, 4) for p in mixed[:2]]
+        while eng.step():
+            pass
+        drained = [eng.submit(p, 4) for p in mixed[2:]]
+        eng.drain()
+        assert [r.out_tokens for r in stepped + drained] == \
+            [r.out_tokens for r in want_mixed]
+        assert all(r.state == RequestState.DONE for r in stepped + drained)
+        assert eng.scheduler_report()["paged_decode"] is True
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("entry", ["prefill_chunk", "paged_decode_step"])
+def test_one_rank_mesh_equals_one_device_bitwise(params, entry, tmp_path):
+    """At one rank (a gloo group in process, a 1x1 mesh) the new ``dist=``
+    entry points compute what ``dist=None`` does, bit for bit: a chunk
+    of 5 tokens at position 7 over a cache a prefill filled (the mesh's
+    cache holding the same values), and a paged decode step of 3 rows
+    (one idle, on the scratch page) over pools that must end equal too."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import parallel
+
+    _, tp = params
+    rng = np.random.default_rng(8)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        d = lm.Dist(mesh, ("data",), "model")
+        sp = parallel.shard_params(tp, mesh)
+        if entry == "prefill_chunk":
+            head = torch.from_numpy(rng.integers(0, CFG.vocab_size, (1, 7)))
+            chunk = torch.from_numpy(rng.integers(0, CFG.vocab_size, (1, 5)))
+            _, cache = lm.prefill(tp, head, CFG, max_len=MAX_LEN)
+            want, wcache = lm.prefill_chunk(tp, cache, chunk, CFG, 7)
+            _, mcache = lm.prefill(sp, head, CFG, max_len=MAX_LEN, dist=d)
+            got, gcache = lm.prefill_chunk(sp, mcache, chunk, CFG, 7, dist=d)
+            got = got.full_tensor()
+            for name in ("k", "v"):
+                assert torch.equal(gcache[name].full_tensor(), wcache[name])
+            assert gcache["index"] == wcache["index"] == 12
+        else:
+            n_pages, page = 6, 8
+            shape = (CFG.n_layers, CFG.n_kv_heads, n_pages, page, CFG.d_head)
+            pools = [torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)) for _ in range(2)]
+            toks = torch.from_numpy(rng.integers(0, CFG.vocab_size, (3, 1)))
+            tables = torch.tensor([[1, 2, 0], [3, 0, 0], [0, 0, 0]],
+                                  dtype=torch.int32)
+            kv = torch.tensor([9, 3, 0], dtype=torch.int32)
+            wp, wo = torch.tensor([2, 3, 5]), torch.tensor([1, 3, 0])
+            mine = [p.clone() for p in pools]
+            want, _ = lm.paged_decode_step(tp, *pools, toks, tables, kv, wp,
+                                           wo, CFG)
+            got, _ = lm.paged_decode_step(sp, *mine, toks, tables, kv, wp,
+                                          wo, CFG, dist=d)
+            got = got.full_tensor()
+            assert all(torch.equal(a, b) for a, b in zip(mine, pools))
+        assert got.shape == want.shape and torch.equal(got, want)
     finally:
         dist.destroy_process_group()
 
